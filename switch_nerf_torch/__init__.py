@@ -1,0 +1,31 @@
+"""PyTorch + CUDA port of switch_nerf_tpu for NVIDIA Hopper (H100).
+
+The port runs beside the JAX package, which stays the reference. This slice
+covers the eval render path of the Mega-NeRF/Switch-NeRF configs
+(`trainer.make_eval_step`): routing, padded capacity dispatch, the MoE
+expert chain (a hand-written CUDA kernel on the card), the dense background
+NeRF and the coarse/fine volume renderer.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
+the CPU every kernel wrapper takes its plain PyTorch version.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` (as ``cuda:<current>``) by default; raise rather than fall
+    back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "switch_nerf_torch runs on a CUDA device by default and none "
+                "is available; pass device='cpu' to run the plain PyTorch "
+                "versions")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

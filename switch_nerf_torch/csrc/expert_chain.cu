@@ -1,0 +1,17 @@
+// Kernel K1: the per-expert MLP chain over the padded dispatch buffer.
+// Replaces switch_nerf_tpu/ops/expert_kernel.py:_fwd_call (Pallas
+// _fwd_kernel). Plain C interface, loaded with ctypes
+// (switch_nerf_torch/ops/expert_kernel.py).
+#include "chain.cuh"
+
+extern "C" int expert_chain_fwd(int device, const void* x, const void* ws,
+                                const void* bs, void* out, int E, int C,
+                                int M, int L, unsigned skip_mask, int is_bf16,
+                                void* stream) {
+  return launch_chain<false>(device, x, nullptr, 0, ws, bs, out, E, C, M, L,
+                             skip_mask, is_bf16, stream);
+}
+
+extern "C" const char* expert_chain_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,83 @@
+"""Shared layers: torch-default init, the dtype-following Linear, the
+appearance embedding, LayerNorm with fp32 output, activations.
+
+Port of ``switch_nerf_tpu/models/common.py``. Every init draws from an
+explicit ``torch.Generator``: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
+and bias (torch's nn.Linear default), normal(0, 1) for the embedding.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["uniform_fan_in", "TorchLinear", "Embedding", "LayerNorm",
+           "apply_act"]
+
+
+def uniform_fan_in(shape, fan_in: int, generator: Optional[torch.Generator],
+                   factor: float = 1.0) -> nn.Parameter:
+    bound = 1.0 / math.sqrt(fan_in)
+    t = torch.empty(shape).uniform_(-bound, bound, generator=generator)
+    return nn.Parameter(t * factor)
+
+
+class TorchLinear(nn.Module):
+    """Linear layer whose weight follows the input dtype and whose bias
+    follows the output dtype, with the product rounded before the bias is
+    added (``switch_nerf_tpu/models/common.py:35-67``).
+
+    weight is [out, in] (nn.Linear's layout; the JAX kernel is [in, out]).
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = uniform_fan_in((out_features, in_features), in_features,
+                                     generator)
+        self.bias = (uniform_fan_in((out_features,), in_features, generator)
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.linear(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
+
+
+class Embedding(nn.Module):
+    """Appearance table (``OneHotEmbed``): a row gather gives the same
+    values as the JAX package's one-hot matmul."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(num_embeddings, features).normal_(generator=generator))
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.weight[idx]
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm (eps 1e-5) that normalizes in fp32 and returns fp32, as
+    flax's LayerNorm does for bf16 input with fp32 parameters."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps)
+
+
+def apply_act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "relu":
+        return torch.relu(x)
+    if name == "none":
+        return x
+    raise NotImplementedError(f"activation {name!r}")

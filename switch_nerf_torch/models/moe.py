@@ -1,0 +1,98 @@
+"""Switch-gated Mixture-of-Experts layer, top-1, capacity-padded, eval.
+
+Port of ``switch_nerf_tpu/models/moe.py:39-239`` for ``deterministic=True``
+in padded dispatch mode: fp32 gate, ``extract_critical`` (with BPR), the
+load-balance ``l_aux``, ``return_gates``, and ``_padded_path`` including the
+fused dispatch+chain branch behind ``SWITCH_NERF_FUSED_DISPATCH=1``.
+The no-drop path, expert parallelism, residual MoE, gate noise (a
+training-only draw) and the load-importance loss wait for later slices.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from switch_nerf_torch.models.common import TorchLinear
+from switch_nerf_torch.models.experts import ExpertMLP
+from switch_nerf_torch.ops.dispatch import (
+    DispatchPlan, build_dispatch_plan, combine, dispatch)
+from switch_nerf_torch.ops.fused_dispatch import (
+    fused_slot_map, fused_supported)
+from switch_nerf_torch.ops.routing import extract_critical
+
+
+class MoELayer(nn.Module):
+    def __init__(self, model_dim: int, num_experts: int, layer_num: int = 1,
+                 skips: Optional[Sequence[int]] = None,
+                 init_factor: float = 1.0, top_k: int = 1,
+                 capacity_factor: float = 1.0,
+                 batch_prioritized_routing: bool = False,
+                 fp32_gate: bool = True, gate_dim: Optional[int] = None,
+                 is_postscore: bool = True, no_score: bool = False,
+                 return_gates: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if top_k != 1:
+            raise NotImplementedError("the port routes top-1 only")
+        self.model_dim = model_dim
+        self.num_experts = num_experts
+        self.layer_num = layer_num
+        self.top_k = top_k
+        self.capacity_factor = capacity_factor
+        self.batch_prioritized_routing = batch_prioritized_routing
+        self.fp32_gate = fp32_gate
+        self.is_postscore = is_postscore
+        self.no_score = no_score
+        self.return_gates = return_gates
+        self.wg = TorchLinear(gate_dim or model_dim, num_experts,
+                              use_bias=False, generator=generator)
+        self.experts = ExpertMLP(model_dim, num_experts, layer_num, skips,
+                                 init_factor, generator=generator)
+
+    def forward(self, x: torch.Tensor, gate_input: Optional[torch.Tensor] = None):
+        """x: [S, M]; gate_input: [S, gate_dim] or None.
+
+        Returns (y [S, M] in x's dtype, l_aux fp32 scalar, extras dict).
+        """
+        gin = gate_input if gate_input is not None else x
+        logits = self.wg(gin.float() if self.fp32_gate else gin)
+        gates = torch.softmax(logits.float(), dim=1)
+        plan, l_aux = extract_critical(gates, self.top_k,
+                                       self.capacity_factor,
+                                       self.batch_prioritized_routing)
+        y = self._padded_path(x, plan).to(x.dtype)
+        extras = {}
+        if self.return_gates:
+            extras["gates"] = plan.indices.t()                     # [S, K]
+        return y, l_aux, extras
+
+    def _padded_path(self, x: torch.Tensor, plan) -> torch.Tensor:
+        dp = build_dispatch_plan(plan, self.num_experts)
+        if self._use_fused_dispatch(x, dp):
+            # fold the dispatch gather into the chain kernel: the [E, C, M]
+            # buffer is never built; empty slots read the appended zero row
+            s, m = x.shape
+            tokens_ext = torch.cat([x, x.new_zeros((1, m))], dim=0)
+            expert_out = self.experts.fused_dispatch(tokens_ext, fused_slot_map(
+                dp.slot_to_token[0], dp.filled[0], s))
+        else:
+            expert_out = self.experts(dispatch(
+                x, dp, is_postscore=self.is_postscore,
+                no_score=self.no_score))                           # [E, C, M]
+        return combine(expert_out, dp, is_postscore=self.is_postscore,
+                       no_score=self.no_score)
+
+    def _use_fused_dispatch(self, x: torch.Tensor, dp: DispatchPlan) -> bool:
+        """Opt-in (SWITCH_NERF_FUSED_DISPATCH=1), read at each call as the
+        JAX package does: top-1, postscore or no_score, at shapes the
+        card's kernel takes (``ops/fused_dispatch.fused_supported``). JAX's
+        other two conditions, ExpertMLP experts and no expert parallelism,
+        always hold in the port."""
+        if os.environ.get("SWITCH_NERF_FUSED_DISPATCH", "0") != "1":
+            return False
+        return (self.top_k == 1 and (self.is_postscore or self.no_score)
+                and fused_supported(x.shape, dp.num_experts, dp.capacity,
+                                    self.layer_num))

@@ -1,0 +1,179 @@
+"""Config-driven NeRF-MoE layer graph (non-mip).
+
+Port of ``switch_nerf_tpu/models/nerf_moe.py:29-268`` with layer types
+mlp / moe / layernorm. The YAML "model" dict names the stem ("xyz"), the
+trunk tags 0..N-1, the heads ("sigma", "color"), and the optional external
+gate MLP and gate-input LayerNorm that feed every MoE gate. The walk taps
+sigma at `sigma_tag` (fp32 unless bf16 sigma is asked for), appends viewdir
+PE + appearance embedding at `dir_tag`, and emits rgb at `color_tag`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from switch_nerf_torch.models.common import Embedding, LayerNorm, apply_act
+from switch_nerf_torch.models.mlp import Mlp
+from switch_nerf_torch.models.moe import MoELayer
+from switch_nerf_torch.ops.encoding import freq_encode, shifted_softplus
+
+
+class NeRFMoE(nn.Module):
+    def __init__(self, layer_cfg: Dict[str, Any], pos_xyz_dim: int = 12,
+                 pos_dir_dim: int = 4, appearance_dim: int = 48,
+                 appearance_count: int = 0, rgb_dim: int = 3,
+                 xyz_dim: int = 3, shifted_softplus_sigma: bool = True,
+                 moe_capacity_factor: float = 1.0,
+                 batch_prioritized_routing: bool = False,
+                 dispatcher_no_score: bool = False, is_postscore: bool = True,
+                 use_moe_external_gate: bool = False,
+                 use_gate_input_norm: bool = False,
+                 moe_return_gates: bool = False, sigma_fp32: bool = True,
+                 compute_dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layer_cfg = layer_cfg
+        self.pos_xyz_dim, self.pos_dir_dim = pos_xyz_dim, pos_dir_dim
+        self.appearance_dim = appearance_dim
+        self.rgb_dim, self.xyz_dim = rgb_dim, xyz_dim
+        self.shifted_softplus_sigma = shifted_softplus_sigma
+        self.use_moe_external_gate = use_moe_external_gate
+        self.use_gate_input_norm = use_gate_input_norm
+        self.moe_return_gates = moe_return_gates
+        self.sigma_fp32, self.compute_dtype = sigma_fp32, compute_dtype
+        moe_kwargs = dict(
+            capacity_factor=moe_capacity_factor,
+            batch_prioritized_routing=batch_prioritized_routing,
+            no_score=dispatcher_no_score, is_postscore=is_postscore,
+            return_gates=moe_return_gates, generator=generator)
+        cfgs = layer_cfg["layers"]
+        has_dir, has_app = pos_dir_dim > 0, appearance_dim > 0
+
+        # widths follow the walk in forward(); the YAML's in_ch is not read
+        def build(tag: str, width: int) -> int:
+            cfg = cfgs[tag]
+            typ = cfg["type"]
+            if typ == "mlp":
+                layer = Mlp(width, cfg["h_ch"], cfg["out_ch"], cfg["num"],
+                            cfg.get("skips"), generator=generator)
+                width = cfg["out_ch"]
+            elif typ == "moe":
+                if cfg["in_ch"] != cfg["out_ch"]:
+                    raise ValueError(f"moe layer {tag}: in_ch != out_ch")
+                layer = MoELayer(
+                    model_dim=width,
+                    num_experts=cfg.get("expert_num",
+                                        layer_cfg.get("expert_num", 8)),
+                    layer_num=cfg["num"], skips=cfg.get("skips"),
+                    init_factor=cfg.get("init_factor", 1.0),
+                    top_k=cfg.get("k", 1),
+                    fp32_gate=cfg.get("fp32_gate", True),
+                    gate_dim=self._gate_width or width, **moe_kwargs)
+            elif typ == "layernorm":
+                layer = LayerNorm(width)
+            else:
+                raise NotImplementedError(
+                    f"layer type {typ!r} waits for a later slice of the port")
+            self.add_module(f"layer_{tag}", layer)
+            return width
+
+        self._gate_width = None
+        width = build("xyz", xyz_dim * (1 + 2 * pos_xyz_dim))
+        if use_moe_external_gate:
+            self._gate_width = build("moe_external_gate", width)
+            if use_gate_input_norm:
+                build("gate_input_norm", self._gate_width)
+        for i in range(layer_cfg["layer_num_main"]):
+            tag = str(i)
+            width = build(tag, width)
+            if tag == str(layer_cfg["sigma_tag"]):
+                self.layer_sigma = Mlp(width, cfgs["sigma"]["h_ch"],
+                                       cfgs["sigma"]["out_ch"],
+                                       cfgs["sigma"]["num"],
+                                       cfgs["sigma"].get("skips"),
+                                       generator=generator)
+            if tag == str(layer_cfg["dir_tag"]) and has_dir:
+                width += 3 * (1 + 2 * pos_dir_dim)
+                if has_app:
+                    self.embedding_a = Embedding(appearance_count,
+                                                 appearance_dim,
+                                                 generator=generator)
+                    width += appearance_dim
+            if tag == str(layer_cfg["color_tag"]) and has_dir:
+                self.layer_color = Mlp(width, cfgs["color"]["h_ch"],
+                                       cfgs["color"]["out_ch"],
+                                       cfgs["color"]["num"],
+                                       cfgs["color"].get("skips"),
+                                       generator=generator)
+                break
+        if not has_dir:
+            raise NotImplementedError(
+                "pos_dir_dim == 0 (rgb from the sigma head) waits for a "
+                "later slice of the port")
+
+    def _sigma_act(self, sigma: torch.Tensor) -> torch.Tensor:
+        return (shifted_softplus(sigma) if self.shifted_softplus_sigma
+                else torch.relu(sigma))
+
+    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
+        cfgs = self.layer_cfg["layers"]
+        sigma_tag = str(self.layer_cfg["sigma_tag"])
+        dir_tag = str(self.layer_cfg["dir_tag"])
+        color_tag = str(self.layer_cfg["color_tag"])
+        xd = self.xyz_dim
+        has_app = self.appearance_dim > 0
+        expected = xd + 3 + (1 if has_app else 0)
+        if x.shape[-1] != expected:
+            raise ValueError(f"Unexpected input shape {tuple(x.shape)}: "
+                             f"expected last dim {expected}")
+
+        h = freq_encode(x[:, :xd].to(self.compute_dtype), self.pos_xyz_dim)
+        h = apply_act(cfgs["xyz"].get("act", "none"), self.layer_xyz(h))
+
+        gate_feat = None
+        if self.use_moe_external_gate:
+            gate_feat = apply_act(cfgs["moe_external_gate"].get("act", "none"),
+                                  self.layer_moe_external_gate(h))
+            if self.use_gate_input_norm:
+                gate_feat = self.layer_gate_input_norm(gate_feat)
+
+        moe_loss, moe_gates = [], []
+        outputs = sigma = None
+        for i in range(self.layer_cfg["layer_num_main"]):
+            tag = str(i)
+            cfg = cfgs[tag]
+            layer = getattr(self, f"layer_{tag}")
+            if cfg["type"] == "moe":
+                h, l_aux, gate_extras = layer(h, gate_input=gate_feat)
+                moe_loss.append(l_aux)
+                if self.moe_return_gates:
+                    moe_gates.append(gate_extras["gates"])
+            else:
+                h = layer(h)
+            h = apply_act(cfg.get("act", "none"), h)
+
+            if tag == sigma_tag:
+                sigma = self.layer_sigma(h.float() if self.sigma_fp32 else h)
+                sigma = self._sigma_act(sigma)
+            if tag == dir_tag:
+                parts = [h, freq_encode(x[:, xd:xd + 3].to(self.compute_dtype),
+                                        self.pos_dir_dim)]
+                if has_app:
+                    parts.append(self.embedding_a(x[:, -1].long())
+                                 .to(self.compute_dtype))
+                h = torch.cat(parts, dim=-1)
+            if tag == color_tag:
+                rgb = self.layer_color(h)
+                if self.rgb_dim == 3:
+                    rgb = torch.sigmoid(rgb)
+                outputs = torch.cat([rgb, sigma.to(rgb.dtype)], dim=-1)
+                break
+
+        extras = {}
+        if self.moe_return_gates:
+            extras["moe_gates"] = moe_gates
+        if moe_loss:
+            extras["moe_loss"] = torch.stack(moe_loss)
+        return {"outputs": outputs, "extras": extras}

@@ -1,0 +1,120 @@
+"""Capacity-padded MoE token dispatch/combine (forward only).
+
+Port of ``switch_nerf_tpu/ops/dispatch.py:50-196, 281-304``: the slot
+indices are scattered into a slot->token map, and token rows are then
+GATHERED into the [E*C, M] buffer. Dropped tokens never reach a slot; empty
+slots stay zero. The einsum oracles are kept for the tests.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from switch_nerf_torch.ops.routing import RoutingPlan
+
+__all__ = [
+    "DispatchPlan", "build_dispatch_plan", "dispatch", "combine",
+    "dispatch_einsum_oracle", "combine_einsum_oracle",
+]
+
+
+class DispatchPlan(NamedTuple):
+    """Index sets for one dispatch/combine pair.
+
+    slot:          [K, S] int64  flat slot e*C+loc per (k, token); ==E*C if dropped
+    kept:          [K, S] bool   location < capacity
+    slot_to_token: [K, E*C] int64  token feeding each slot (0 where empty)
+    filled:        [K, E*C] bool  slot occupancy
+    gates:         [K, S] f32    gate scores (from the routing plan)
+    num_experts:   int
+    capacity:      int
+    """
+    slot: torch.Tensor
+    kept: torch.Tensor
+    slot_to_token: torch.Tensor
+    filled: torch.Tensor
+    gates: torch.Tensor
+    num_experts: int
+    capacity: int
+
+
+def build_dispatch_plan(plan: RoutingPlan, num_experts: int) -> DispatchPlan:
+    k, s = plan.indices.shape
+    cap = int(plan.capacity)
+    ec = num_experts * cap
+    dev = plan.indices.device
+
+    kept = plan.locations < cap                                    # [K, S]
+    slot = torch.where(kept, plan.indices.long() * cap + plan.locations.long(),
+                       torch.full_like(plan.indices, ec, dtype=torch.long))
+    # scatter over ec + 1 entries, then cut the last: every dropped token
+    # writes the spare entry ec (JAX's mode="drop" target), so only kept
+    # slots survive. Kept slots are unique, so the scatter is exact.
+    token_ids = torch.arange(s, device=dev).expand(k, s)
+    slot_to_token = torch.full((k, ec + 1), s, dtype=torch.long, device=dev)
+    slot_to_token.scatter_(1, slot, token_ids)
+    slot_to_token = slot_to_token[:, :ec]
+    filled = slot_to_token < s
+    slot_to_token = torch.where(filled, slot_to_token,
+                                torch.zeros_like(slot_to_token))
+    return DispatchPlan(slot=slot, kept=kept, slot_to_token=slot_to_token,
+                        filled=filled, gates=plan.gates,
+                        num_experts=num_experts, capacity=cap)
+
+
+def dispatch(tokens: torch.Tensor, dp: DispatchPlan, *,
+             is_postscore: bool = True, no_score: bool = False) -> torch.Tensor:
+    """tokens [S, M] -> dispatched [E, C, M] (K summed into slots)."""
+    prescore = not (is_postscore or no_score)
+    out = None
+    for k in range(dp.slot_to_token.shape[0]):
+        src = tokens
+        if prescore:
+            src = tokens * dp.gates[k, :, None].to(tokens.dtype)
+        g = src[dp.slot_to_token[k]] * dp.filled[k][:, None].to(tokens.dtype)
+        out = g if out is None else out + g
+    return out.reshape(dp.num_experts, dp.capacity, tokens.shape[-1])
+
+
+def combine(expert_output: torch.Tensor, dp: DispatchPlan, *,
+            is_postscore: bool = True, no_score: bool = False) -> torch.Tensor:
+    """expert_output [E, C, M] -> combined [S, M] fp32.
+
+    Rows are gathered in the expert dtype; the gate scale is applied with an
+    fp32 sum, as in the JAX package.
+    """
+    postscore = is_postscore and not no_score
+    m = expert_output.shape[-1]
+    flat = expert_output.reshape(dp.num_experts * dp.capacity, m)
+    flat_ext = torch.cat([flat, flat.new_zeros((1, m))], dim=0)
+    rows = flat_ext[dp.slot]                                       # [K, S, M]
+    scale = dp.kept.float()
+    if postscore:
+        scale = scale * dp.gates.float()
+    return torch.sum(rows.float() * scale[..., None], dim=0)
+
+
+def _dispatch_mask(dp: DispatchPlan, dtype) -> torch.Tensor:
+    """[K, S, E, C] one-hot dispatch tensor (dropped rows all zero)."""
+    e, c = dp.num_experts, dp.capacity
+    oh = torch.nn.functional.one_hot(dp.slot, e * c + 1)[..., :e * c]
+    return oh.to(dtype).reshape(*dp.slot.shape, e, c)
+
+
+def dispatch_einsum_oracle(tokens: torch.Tensor, dp: DispatchPlan, *,
+                           is_postscore: bool = True,
+                           no_score: bool = False) -> torch.Tensor:
+    mask = _dispatch_mask(dp, tokens.dtype)
+    if not (is_postscore or no_score):
+        mask = mask * dp.gates.to(tokens.dtype)[..., None, None]
+    return torch.einsum("ksec,sm->ecm", mask, tokens)
+
+
+def combine_einsum_oracle(expert_output: torch.Tensor, dp: DispatchPlan, *,
+                          is_postscore: bool = True,
+                          no_score: bool = False) -> torch.Tensor:
+    mask = _dispatch_mask(dp, expert_output.dtype)
+    if is_postscore and not no_score:
+        mask = mask * dp.gates.to(expert_output.dtype)[..., None, None]
+    return torch.einsum("ksec,ecm->sm", mask, expert_output)

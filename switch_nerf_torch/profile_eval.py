@@ -1,0 +1,132 @@
+"""Where one full-width Building eval request spends its time on the card.
+
+    python -m switch_nerf_torch.profile_eval [--rays 4096] [--trace DIR]
+
+Defines the Building eval workload that this script and chip_smoke.py
+drive (building.yaml + the production flags, bf16, bg NeRF, 256 + 512
+samples, 32768-point chunks, seeded random weights, rays from inside the
+unit sphere). Renders one warm-up request, then one request under
+torch.profiler, and prints the request's wall time, the summed time of the
+device kernels and their share of the wall time, device time by kernel
+family, and the top kernels. With --trace, writes a Chrome trace there.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from switch_nerf_torch.config import get_opts, parse_args
+from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+from switch_nerf_torch.trainer import (
+    SceneInfo, make_eval_step, render_config_from_hparams)
+
+REPO = Path(__file__).resolve().parent.parent
+
+# kernel-name substrings -> family (first match wins)
+FAMILIES = (
+    ("K1/K3 chain kernel", ("chain_bf16_kernel", "chain_f32_kernel")),
+    ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_")),
+    ("sort", ("sort", "radix")),
+    ("gather / scatter / index", ("index", "gather", "scatter")),
+    ("reduction / scan", ("reduce", "scan", "cumsum", "cumprod")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("copy / cat", ("copy", "cat", "fill")),
+)
+
+
+def building_eval_hparams():
+    """building.yaml plus the published production flags, with padded eval
+    dispatch, 256 + 512 samples and 32768-point chunks."""
+    return parse_args(get_opts(), [
+        "--config_file", str(REPO / "configs/switch_nerf/building.yaml"),
+        "--exp_name", "building_eval", "--dataset_path", str(REPO),
+        "--use_moe", "--use_moe_external_gate", "--use_gate_input_norm",
+        "--batch_prioritized_routing", "--moe_capacity_factor", "1.0",
+        "--moe_expert_num", "8", "--appearance_dim", "48",
+        "--moe_test_batch", "--coarse_samples", "256",
+        "--fine_samples", "512", "--model_chunk_size", "32768"])
+
+
+def ray_batch(n: int, seed: int, device) -> dict:
+    """n rays from inside the unit sphere (the graft entry's _make_batch
+    recipe): origins N(0, 0.1), unit directions, near 0.5, far 2.5, and
+    appearance indices in [0, 8)."""
+    g = torch.Generator().manual_seed(seed)
+    o = torch.randn(n, 3, generator=g) * 0.1
+    d = torch.randn(n, 3, generator=g)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    rays = torch.cat([o, d, torch.full((n, 1), 0.5),
+                      torch.full((n, 1), 2.5)], -1)
+    idx = torch.randint(0, 8, (n,), generator=g).float()
+    return {"rays": rays.to(device), "image_indices": idx.to(device)}
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rays", type=int, default=4096)
+    ap.add_argument("--trace", type=str, default=None)
+    args = ap.parse_args(argv)
+
+    h = building_eval_hparams()
+    model = get_nerf(h, 8, seed=0)
+    bg = get_bg_nerf(h, 8, seed=1)
+    step = make_eval_step(model, bg, h, render_config_from_hparams(h),
+                          SceneInfo(np.zeros(3, np.float32),
+                                    np.ones(3, np.float32)))
+    n = args.rays
+    batch = ray_batch(n, 0, "cuda")
+
+    step(batch)                                    # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if args.trace:
+        Path(args.trace).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(args.trace) / "eval_request.json"))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    by_family = {}
+    for e in kernels:
+        f = by_family.setdefault(family(e.key), [0.0, 0])
+        f[0] += e.self_device_time_total / 1e3
+        f[1] += e.count
+    print(f"request: {n} rays, wall {wall * 1e3:.1f} ms, device kernels "
+          f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / (wall * 1e3):.1f}"
+          f"% busy), {launches} kernel launches")
+    for fam, (ms, cnt) in sorted(by_family.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {fam:28s} {ms:9.2f} ms  {cnt:7d} launches")
+    print("top kernels by device time:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
+              f"{e.key[:100]}")
+    print(json.dumps({
+        "rays": n, "wall_ms": wall * 1e3, "device_kernel_ms": device_us / 1e3,
+        "kernel_launches": launches,
+        "device_ms_by_family": {k: v[0] for k, v in by_family.items()},
+        "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,269 @@
+"""Classic (Mega-NeRF-style) ray rendering for evaluation: coarse/fine
+hierarchical sampling with foreground/background (inverted-sphere)
+composition.
+
+Port of ``switch_nerf_tpu/render/rendering.py:55-574`` for ``train=False``:
+no stratified jitter, deterministic fine samples, no noise. The JAX
+``lax.scan`` over model chunks is a Python loop here.
+
+The `model_fn` contract:
+    model_fn(points [P, D]) -> (outputs [P, 4], moe_loss [L] fp32)
+    # L == 0 for dense models
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from switch_nerf_torch.ops.sorting import sort_with_payloads
+from switch_nerf_torch.ops.volume import (
+    depth2pts_outside, intersect_sphere, sample_pdf, volume_render)
+
+ModelFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    coarse_samples: int = 256
+    fine_samples: int = 512
+    model_chunk_size: int = 131072
+    bg_model_chunk_size: Optional[int] = None  # dense bg pass chunk size
+    pos_dir_dim: int = 4
+    white_bkgd: bool = False
+
+
+def run_model_chunked(model_fn: ModelFn, points: torch.Tensor,
+                      chunk_size: int):
+    """Apply the model over full chunks of `chunk_size` points, then ONE
+    exact-size call on the remainder.
+
+    The chunking must match the JAX package's exactly: capacity and
+    batch-prioritized routing are decided per chunk, so any other split
+    drops other tokens. Returns (outputs [P, C], moe_loss [n_chunks, L]).
+    """
+    p = points.shape[0]
+    chunk = min(chunk_size, p)
+    outs, losses = [], []
+    for start in range(0, p, chunk):
+        out, moe_loss = model_fn(points[start:start + chunk])
+        outs.append(out)
+        losses.append(moe_loss)
+    return torch.cat(outs, dim=0), torch.stack(losses)
+
+
+def _sort_merge(z: torch.Tensor, rgbs: torch.Tensor, sigmas: torch.Tensor,
+                depth_real: Optional[torch.Tensor] = None):
+    """Sort samples by z along the last axis, carrying rgb/sigma (and
+    depth_real) along."""
+    ops = (rgbs[..., 0], rgbs[..., 1], rgbs[..., 2], sigmas)
+    if depth_real is not None:
+        ops = ops + (depth_real,)
+    out = sort_with_payloads(z, *ops)
+    z_s, rgb_s, sig_s = out[0], torch.stack(out[1:4], dim=-1), out[4]
+    if depth_real is not None:
+        return z_s, rgb_s, sig_s, out[5]
+    return z_s, rgb_s, sig_s
+
+
+def _build_points(xyz: torch.Tensor, rays_d: torch.Tensor,
+                  image_indices: Optional[torch.Tensor],
+                  pos_dir_dim: int) -> torch.Tensor:
+    """[N, S, xd] (+dirs +image index broadcast over samples) -> [N*S, D]."""
+    n, s, xd = xyz.shape
+    parts = [xyz.reshape(n * s, xd)]
+    if pos_dir_dim > 0:
+        parts.append(rays_d.expand(n, s, 3).reshape(n * s, 3))
+    if image_indices is not None:
+        parts.append(image_indices.to(xyz.dtype)[:, None, None]
+                     .expand(n, s, 1).reshape(n * s, 1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def _inference(model_fn: ModelFn, xyz: torch.Tensor, z_vals: torch.Tensor,
+               rays_d: torch.Tensor, image_indices, cfg: RenderConfig,
+               flip: bool, depth_real: Optional[torch.Tensor]):
+    """Run the model on [N, S] samples; return raw (rgbs, sigmas), the z
+    values and depth_real in model order, and moe_loss.
+
+    When flip (background pass, samples ordered by increasing inverse
+    depth), arrays are reversed so the model sees near->far ordering."""
+    if flip:
+        xyz = torch.flip(xyz, dims=(-2,))
+        z_vals = torch.flip(z_vals, dims=(-1,))
+        if depth_real is not None:
+            depth_real = torch.flip(depth_real, dims=(-1,))
+    n, s, _ = xyz.shape
+    pts = _build_points(xyz, rays_d, image_indices, cfg.pos_dir_dim)
+    out, moe_loss = run_model_chunked(model_fn, pts, cfg.model_chunk_size)
+    out = out.reshape(n, s, -1)
+    return out[..., :3], out[..., 3], z_vals, depth_real, moe_loss
+
+
+def _composite(rgbs, sigmas, z_vals, last_delta, cfg: RenderConfig,
+               flip: bool, depth_real=None, get_depth=False,
+               composite_rgb: bool = True):
+    return volume_render(
+        rgbs, sigmas, z_vals, last_delta, flip=flip,
+        composite_rgb=composite_rgb, depth_real=depth_real,
+        get_depth=get_depth, white_bkgd=cfg.white_bkgd)
+
+
+def _adjust_last_delta(ld: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """For a finite last_delta, subtract the max z so the final interval
+    ends at the sphere boundary."""
+    finite = ld[:, 0] < 1e10
+    diff = torch.where(finite, torch.max(z, dim=-1).values,
+                       torch.zeros_like(ld[:, 0]))
+    return ld - diff[:, None]
+
+
+def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
+                rays: torch.Tensor, image_indices: Optional[torch.Tensor],
+                cfg: RenderConfig, sphere_center: Optional[torch.Tensor],
+                sphere_radius: Optional[torch.Tensor],
+                get_depth: bool = False,
+                get_bg_fg_rgb: bool = False) -> Dict[str, torch.Tensor]:
+    """rays: [N, 8] = [o, d, near, far]. Returns the JAX package's results
+    dict (rgb_fine / depth_fine / gate_loss_* / bg_* / fg_* ...).
+
+    Needs fine samples (cfg.fine_samples > 0): the coarse-only render
+    waits for a later slice."""
+    n_rays = rays.shape[0]
+    rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
+    near, far = rays[:, 6:7], rays[:, 7:8]
+    results: Dict[str, torch.Tensor] = {}
+
+    has_bg = bg_model_fn is not None
+    if has_bg:
+        fg_far = intersect_sphere(rays_o, rays_d, sphere_center, sphere_radius)
+        fg_far = torch.maximum(fg_far, near[:, 0])
+        bg_mask = far[:, 0] > fg_far                               # [N]
+        last_delta = torch.where(bg_mask, fg_far,
+                                 torch.full_like(fg_far, 1e10))[:, None]
+        far = torch.minimum(far[:, 0], fg_far)[:, None]
+    else:
+        bg_mask = None
+        last_delta = torch.full((n_rays, 1), 1e10, dtype=rays.dtype,
+                                device=rays.device)
+
+    rays_o3 = rays_o[:, None, :]
+    rays_d3 = rays_d[:, None, :]
+
+    bg = {}
+    if has_bg:
+        bg = _render_background(bg_model_fn, rays_o3, rays_d3, image_indices,
+                                cfg, sphere_center, sphere_radius, get_depth)
+
+    # ---------------- foreground coarse ------------------------------------
+    z_steps = torch.linspace(0.0, 1.0, cfg.coarse_samples, dtype=rays.dtype,
+                             device=rays.device)
+    z_vals = near * (1 - z_steps) + far * z_steps
+    xyz_coarse = rays_o3 + rays_d3 * z_vals[..., None]
+    rgbs_c, sigmas_c, zv_c, _, moe_loss_c = _inference(
+        model_fn, xyz_coarse, z_vals, rays_d3, image_indices, cfg,
+        flip=False, depth_real=None)
+    results["gate_loss_coarse"] = moe_loss_c.reshape(-1)
+
+    vr_c = _composite(rgbs_c, sigmas_c, zv_c,
+                      _adjust_last_delta(last_delta, zv_c), cfg, flip=False,
+                      composite_rgb=False)
+    z_mid = 0.5 * (zv_c[:, :-1] + zv_c[:, 1:])
+    fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1], cfg.fine_samples)
+    xyz_fine = rays_o3 + rays_d3 * fine_z[..., None]
+    rgbs_f, sigmas_f, zv_f, _, moe_loss_f = _inference(
+        model_fn, xyz_fine, fine_z, rays_d3, image_indices, cfg, flip=False,
+        depth_real=None)
+    results["gate_loss_fine"] = moe_loss_f.reshape(-1)
+
+    # merge coarse + fine raw samples before compositing
+    z_all, rgb_all, sig_all = _sort_merge(
+        torch.cat([zv_f, zv_c], dim=-1),
+        torch.cat([rgbs_f, rgbs_c], dim=-2),
+        torch.cat([sigmas_f, sigmas_c], dim=-1))
+    # reference quirk kept for parity: the fine last-delta adjustment
+    # subtracts max(FINE z) only, though the composite runs on the merged
+    # array whose max is the coarse far bound
+    vr_f = _composite(rgb_all, sig_all, z_all,
+                      _adjust_last_delta(last_delta, fine_z), cfg, flip=False,
+                      get_depth=get_depth or has_bg)
+    results["rgb_fine"] = vr_f.rgb
+    if get_depth:
+        results["depth_fine"] = vr_f.depth
+    if has_bg:
+        results["bg_lambda_fine"] = vr_f.bg_lambda
+
+    # ---------------- fg/bg composition ------------------------------------
+    if has_bg:
+        m = bg_mask.to(rays.dtype)
+        bl = results["bg_lambda_fine"]
+        for key in ("rgb", "depth"):
+            rk = f"{key}_fine"
+            if rk not in results or rk not in bg:
+                continue
+            val = results[rk]
+            if val.dim() == 1:
+                add = bg[rk] * (bl * m)
+            else:
+                add = bg[rk] * bl[:, None] * m[:, None]
+            if get_bg_fg_rgb:
+                results[f"fg_{rk}"] = val
+                results[f"bg_{rk}"] = add
+            results[rk] = val + add
+        for t in ("fine", "coarse"):
+            results[f"bg_gate_loss_{t}"] = bg[f"gate_loss_{t}"]
+    return results
+
+
+def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
+                       cfg: RenderConfig, sphere_center, sphere_radius,
+                       get_depth):
+    """Inverted-sphere background pass over ALL rays (the caller masks the
+    composition), with half the coarse and half the fine samples, ordered
+    far->near."""
+    if cfg.bg_model_chunk_size:
+        cfg = dataclasses.replace(cfg,
+                                  model_chunk_size=cfg.bg_model_chunk_size)
+    n_rays = rays_o3.shape[0]
+    s_bg = cfg.coarse_samples // 2
+    bg_z = torch.linspace(0.0, 1.0, s_bg, dtype=rays_o3.dtype,
+                          device=rays_o3.device).expand(n_rays, s_bg)
+    bg_pts, depth_real = depth2pts_outside(rays_o3, rays_d3, bg_z,
+                                           sphere_center, sphere_radius)
+    last_delta = torch.full((n_rays, 1), 1e10, dtype=rays_o3.dtype,
+                            device=rays_o3.device)
+
+    results: Dict[str, torch.Tensor] = {}
+    rgbs_c, sigmas_c, zv_c, dr_c, moe_loss_c = _inference(
+        bg_model_fn, bg_pts, bg_z, rays_d3, image_indices, cfg, flip=True,
+        depth_real=depth_real)
+    results["gate_loss_coarse"] = moe_loss_c.reshape(-1)
+
+    vr_c = _composite(rgbs_c, sigmas_c, zv_c, last_delta, cfg, flip=True,
+                      composite_rgb=False, depth_real=dr_c)
+    # zv_c comes back flipped (descending inverse depth). As in the JAX
+    # package (and the reference it follows), the ASCENDING mids of the
+    # original bg z pair with the flipped-order weights.
+    z_mid = torch.flip(0.5 * (zv_c[:, :-1] + zv_c[:, 1:]), dims=(-1,))
+    fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1], cfg.fine_samples // 2)
+    fine_z_asc = torch.sort(fine_z, dim=-1).values
+    bg_pts_f, depth_real_f = depth2pts_outside(
+        rays_o3, rays_d3, fine_z_asc, sphere_center, sphere_radius)
+    rgbs_f, sigmas_f, zv_f, dr_f, moe_loss_f = _inference(
+        bg_model_fn, bg_pts_f, fine_z_asc, rays_d3, image_indices, cfg,
+        flip=True, depth_real=depth_real_f)
+    results["gate_loss_fine"] = moe_loss_f.reshape(-1)
+
+    # merge coarse + fine (descending z ordering -> sort on -z)
+    z_neg, rgb_all, sig_all, dr_all = _sort_merge(
+        -torch.cat([zv_f, zv_c], dim=-1),
+        torch.cat([rgbs_f, rgbs_c], dim=-2),
+        torch.cat([sigmas_f, sigmas_c], dim=-1),
+        torch.cat([dr_f, dr_c], dim=-1))
+    vr_f = _composite(rgb_all, sig_all, -z_neg, last_delta, cfg, flip=True,
+                      depth_real=dr_all, get_depth=get_depth)
+    results["rgb_fine"] = vr_f.rgb
+    if get_depth:
+        results["depth_fine"] = vr_f.depth
+    return results

@@ -24,6 +24,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (multi-process spawns)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture(autouse=True, scope="session")
