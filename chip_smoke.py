@@ -5,21 +5,28 @@
 
 Phases, each fatal (an exception ends the run with a non-zero exit):
   0. the card: `nvidia-smi` name and power limit, torch and CUDA versions
-  1. build the Hopper kernels from switch_nerf_torch/csrc (one nvcc per
-     source, started together)
+  1. build the Hopper kernels K1-K4 from switch_nerf_torch/csrc (one nvcc
+     per source, all started together)
   2. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, with CUDA-event timings beside its bound and
-     one library call's time
-  3. the slice: the Building eval render at full published width (8
-     experts x 7 x 256, bg NeRF, 256 + 512 samples, bf16, padded eval
-     dispatch, 32768-point chunks) through make_eval_step: a warm-up and
-     three 4096-ray requests, a CPU fp32 cross-check on 256 rays, and one
-     request with SWITCH_NERF_FUSED_DISPATCH=1
+     one library call's time (K1/K3 forward, K2/K4 backward)
+  3. eval: the Building eval render at full published width (8 experts x
+     7 x 256, bg NeRF, 256 + 512 samples, bf16, padded eval dispatch,
+     32768-point chunks) through make_eval_step: a warm-up and three
+     4096-ray requests, a CPU fp32 cross-check on 256 rays, and one request
+     with SWITCH_NERF_FUSED_DISPATCH=1
+  4. train: the published Building training step at the same width
+     (padded train dispatch, sigma noise, perturb 1.0, l_aux weight 5e-4,
+     Adam) through make_train_step on one fixed 1024-ray batch: a warm-up
+     and 20 timed steps with K1 and K2 launched 24 times per step, a CPU
+     fp32 cross-check of one step's loss and gradients on 64 rays, and one
+     step with SWITCH_NERF_FUSED_DISPATCH=1 (K3/K4)
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -30,9 +37,11 @@ from argparse import Namespace
 import numpy as np
 import torch
 
-N_RAYS = 4096          # rays per request
+N_RAYS = 4096          # rays per eval request
 N_REQUESTS = 3
-CHECK_RAYS = 256       # rays of the CPU fp32 cross-check
+CHECK_RAYS = 256       # rays of the CPU fp32 eval cross-check
+TRAIN_STEPS = 20       # timed train steps on the 1024-ray batch
+TRAIN_CHECK_RAYS = 64  # rays of the CPU fp32 train cross-check
 BF16_REL_TOL = 2e-2    # max |kernel - plain| <= this * max |plain| in bf16
 FP32_TOL = 1e-4        # max |kernel - plain| in fp32
 
@@ -120,10 +129,29 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def kernel_phase(peaks, building):
-    """Each kernel vs its plain version at the main path's shapes."""
-    from switch_nerf_torch.ops import dispatch, expert_kernel, fused_dispatch
+def skewed_slot_map(s, e, m, dtype, gen):
+    """A real slot map: skewed routing through the port's own routing code,
+    so some experts overflow (dropped tokens) and others leave empty slots.
+    Returns (tokens_ext [S + 1, M], stt [E*C] int32, drops, empty slots)."""
+    from switch_nerf_torch.ops import dispatch, fused_dispatch
     from switch_nerf_torch.ops.routing import extract_critical
+    tokens = torch.randn(s, m, generator=gen).to("cuda", dtype)
+    logits = torch.randn(s, e, generator=gen)
+    logits[:, 0] += 1.0
+    plan, _ = extract_critical(torch.softmax(logits, 1).cuda(), 1, 1.0, True)
+    dp = dispatch.build_dispatch_plan(plan, e)
+    n_drop = int((~dp.kept).sum())
+    n_empty = int((~dp.filled).sum())
+    if not (n_drop and n_empty):
+        raise AssertionError("slot map lacks drops or empty slots")
+    tokens_ext = torch.cat([tokens, tokens.new_zeros((1, m))])
+    stt = fused_dispatch.fused_slot_map(dp.slot_to_token[0], dp.filled[0], s)
+    return tokens_ext, stt, n_drop, n_empty
+
+
+def kernel_phase(peaks, building):
+    """Each forward kernel vs its plain version at the main path's shapes."""
+    from switch_nerf_torch.ops import expert_kernel, fused_dispatch
 
     e = building["experts"]
     m, layers, skips = building["width"], building["layers"], building["skips"]
@@ -158,38 +186,25 @@ def kernel_phase(peaks, building):
             rows["K1"] = dict(max_abs_err=err, bound_ms=bound_ms,
                               bound_by=bound_by, **t)
 
-    # a real slot map: skewed routing through the port's own routing code,
-    # so some experts overflow (dropped tokens) and others leave empty slots
     log(f"[kernels] K3 fused dispatch: S{s} E{e} C{c} M{m} L{layers}")
     for dtype in (torch.bfloat16, torch.float32):
-        tokens = torch.randn(s, m, generator=gen).to("cuda", dtype)
-        logits = torch.randn(s, e, generator=gen)
-        logits[:, 0] += 1.0
-        plan, _ = extract_critical(torch.softmax(logits, 1).cuda(), 1, 1.0,
-                                   True)
-        dp = dispatch.build_dispatch_plan(plan, e)
-        n_drop = int((~dp.kept).sum())
-        n_empty = int((~dp.filled).sum())
-        if not (n_drop and n_empty):
-            raise AssertionError("slot map lacks drops or empty slots")
-        tokens_ext = torch.cat([tokens, tokens.new_zeros((1, m))])
-        stt = fused_dispatch.fused_slot_map(dp.slot_to_token[0],
-                                            dp.filled[0], s)
+        tokens_ext, stt, n_drop, n_empty = skewed_slot_map(s, e, m, dtype,
+                                                           gen)
         ws, bs = chain_weights(e, m, layers, dtype, gen)
         err = check_close(
             f"K3 {str(dtype)[6:]} ({n_drop} dropped, {n_empty} empty slots)",
-            fused_dispatch.fused_dispatch_chain(tokens_ext, stt, ws, bs,
-                                                skips),
+            fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws, bs,
+                                                    skips),
             fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws, bs,
                                                       skips))
         if dtype == torch.bfloat16:
             flops = 2 * e * c * m * m * layers
-            out_bytes = e * c * m * tokens.element_size()
+            out_bytes = e * c * m * tokens_ext.element_size()
             bound_ms, bound_by = chain_bound(
                 flops, nbytes(tokens_ext, stt, ws, bs) + out_bytes, dtype,
                 peaks)
             stt_long = stt.long()
-            t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain(
+            t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_fwd(
                      tokens_ext, stt, ws, bs, skips)),
                  "plain_ms": cuda_ms(lambda: fused_dispatch
                                      .fused_dispatch_chain_plain(
@@ -202,6 +217,125 @@ def kernel_phase(peaks, building):
                 f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by})")
             rows["K3"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                              bound_by=bound_by, **t)
+    return rows
+
+
+def check_bwd(name: str, out, ref) -> float:
+    """(dx, dW, db) of a backward kernel vs its plain version: dx with
+    check_close's limits, dW and db relative to their largest entry (they
+    sum C products). Returns the largest absolute error of the three."""
+    torch.cuda.synchronize()
+    errs = []
+    for part, o, r, rel in zip(("dx", "dW", "db"), out, ref,
+                               (False, True, True)):
+        err = (o.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        if out[0].dtype == torch.bfloat16:
+            tol = BF16_REL_TOL * scale
+        else:
+            tol = FP32_TOL * (scale if rel else 1.0)
+        log(f"  {name} {part}: max_abs_err {err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{name} {part}: kernel disagrees with its "
+                                 f"plain version: {err} > {tol}")
+        errs.append(err)
+    return max(errs)
+
+
+def autograd_ms(out, inputs, g) -> float:
+    """The library yardstick of a backward: torch.autograd.grad through
+    the recorded cuBLAS graph (no recompute), retained between calls."""
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, g,
+                                               retain_graph=True))
+
+
+def bwd_kernel_phase(peaks, building):
+    """K2 and K4 vs their plain backwards at the train path's shapes."""
+    from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+
+    e = building["experts"]
+    m, layers, skips = building["width"], building["layers"], building["skips"]
+    s = building["chunk"]
+    c = s // e
+    gen = torch.Generator().manual_seed(1)
+    rows = {}
+
+    def bound(flops, in_bytes, dtype):
+        # the gradient's products only (dx and dW: 4*E*C*M^2*L); the
+        # kernel's recompute is its own choice and not in the bound
+        return chain_bound(flops, in_bytes, dtype, peaks)
+
+    log(f"[kernels] K2 expert chain backward: E{e} C{c} M{m} L{layers} "
+        f"skips{skips}")
+    for dtype, cc in ((torch.bfloat16, c), (torch.float32, c),
+                      (torch.bfloat16, 1000)):
+        ws, bs = chain_weights(e, m, layers, dtype, gen)
+        x = torch.randn(e, cc, m, generator=gen).to("cuda", dtype)
+        g = torch.randn(e, cc, m, generator=gen).to("cuda", dtype)
+        err = check_bwd(f"K2 {str(dtype)[6:]} C{cc}",
+                        expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g,
+                                                           skips),
+                        expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, g,
+                                                                 skips))
+        if dtype == torch.bfloat16 and cc == c:
+            flops = 4 * e * cc * m * m * layers
+            out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
+            bound_ms, bound_by = bound(
+                flops, nbytes(x, g, ws, bs) + out_bytes, dtype)
+            leaves = [t.clone().requires_grad_() for t in (x, ws, bs)]
+            lib_out = bmm_chain(*leaves, skips)
+            t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd(
+                     x, ws, bs, g, skips), iters=20),
+                 "plain_ms": cuda_ms(lambda: expert_kernel
+                                     .expert_mlp_chain_bwd_plain(
+                                         x, ws, bs, g, skips), iters=20),
+                 "library_ms": autograd_ms(lib_out, leaves, g)}
+            del lib_out
+            log(f"  K2 bf16 C{cc}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, autograd of the baddbmm chain "
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {flops / t['ms'] / 1e9:.1f} TFLOP/s of the "
+                f"gradient's products")
+            rows["K2"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                              bound_by=bound_by, **t)
+
+    log(f"[kernels] K4 fused dispatch backward: S{s} E{e} C{c} M{m} "
+        f"L{layers}")
+    for dtype in (torch.bfloat16, torch.float32):
+        tokens_ext, stt, n_drop, n_empty = skewed_slot_map(s, e, m, dtype,
+                                                           gen)
+        ws, bs = chain_weights(e, m, layers, dtype, gen)
+        g = torch.randn(e, c, m, generator=gen).to("cuda", dtype)
+        err = check_bwd(
+            f"K4 {str(dtype)[6:]} ({n_drop} dropped, {n_empty} empty slots)",
+            fused_dispatch.fused_dispatch_chain_bwd(tokens_ext, stt, ws, bs,
+                                                    g, skips),
+            fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt,
+                                                          ws, bs, g, skips))
+        if dtype == torch.bfloat16:
+            flops = 4 * e * c * m * m * layers
+            kept_rows = int((stt < s).sum())        # the token rows read
+            in_bytes = (kept_rows * m * tokens_ext.element_size()
+                        + nbytes(stt, g, ws, bs))
+            out_bytes = nbytes(g) + 4 * (ws.numel() + bs.numel())
+            bound_ms, bound_by = bound(flops, in_bytes + out_bytes, dtype)
+            xg = tokens_ext.index_select(0, stt.long()).view(e, c, m)
+            leaves = [t.clone().requires_grad_() for t in (xg, ws, bs)]
+            lib_out = bmm_chain(*leaves, skips)
+            t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_bwd(
+                     tokens_ext, stt, ws, bs, g, skips), iters=20),
+                 "plain_ms": cuda_ms(lambda: fused_dispatch
+                                     .fused_dispatch_chain_bwd_plain(
+                                         tokens_ext, stt, ws, bs, g, skips),
+                                     iters=20),
+                 "library_ms": autograd_ms(lib_out, leaves, g)}
+            del lib_out
+            log(f"  K4 bf16: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, autograd of index_select + "
+                f"baddbmm chain {t['library_ms']:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by})")
+            rows["K4"] = dict(max_abs_err=err, bound_ms=bound_ms,
                               bound_by=bound_by, **t)
     return rows
 
@@ -295,6 +429,133 @@ def slice_phase(h, counts):
     return rays_per_s
 
 
+def flat(grads) -> torch.Tensor:
+    return torch.cat([g.detach().float().reshape(-1).cpu() for g in grads])
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.dot(a.double(), b.double())
+                 / (a.double().norm() * b.double().norm()))
+
+
+def train_phase(counts):
+    """The published Building train step at full width on the card."""
+    from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+    from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+    from switch_nerf_torch.profile_eval import (
+        SCENE, building_train_hparams, ray_batch)
+    from switch_nerf_torch.trainer import (
+        create_train_state, make_train_step, render_config_from_hparams)
+
+    def setup(hp, device):
+        state = create_train_state(
+            hp, get_nerf(hp, 8, device=device, seed=0),
+            get_bg_nerf(hp, 8, device=device, seed=1), device=device)
+        step = make_train_step(hp, render_config_from_hparams(hp), SCENE,
+                               device=device)
+        return state, step
+
+    h = building_train_hparams()
+    chunks = (-(-h.batch_size * h.coarse_samples // h.model_chunk_size)
+              + -(-h.batch_size * h.fine_samples // h.model_chunk_size))
+    log(f"[train] Building train step, bf16, {h.batch_size} rays, "
+        f"{chunks} fg chunks per step")
+    state, step = setup(h, "cuda")
+    batch = ray_batch(h.batch_size, 0, "cuda", rgbs=True)
+    step(state, batch)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    expert_kernel.launches = expert_kernel.bwd_launches = 0
+    fused_dispatch.launches = fused_dispatch.bwd_launches = 0
+    times, photo = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bad = [k for k, v in met.items() if not bool(torch.isfinite(v))]
+        if bad or float(met["finite"]) != 1.0:
+            raise AssertionError(f"train step {i + 1}: non-finite {bad}")
+        photo.append(float(met["photo_loss"]))
+    counts["K1"] = expert_kernel.launches
+    counts["K2"] = expert_kernel.bwd_launches
+    k3, k4 = fused_dispatch.launches, fused_dispatch.bwd_launches
+    peak = torch.cuda.max_memory_allocated()
+    rays_per_s = h.batch_size * TRAIN_STEPS / sum(times)
+    log(f"  step seconds {[round(t, 4) for t in times]}")
+    log(f"  photo_loss step 1 {photo[0]:.6f}, step {TRAIN_STEPS} "
+        f"{photo[-1]:.6f}; last metrics "
+        f"{ {k: round(float(v), 6) for k, v in met.items()} }")
+    log(f"  launches: K1 {counts['K1']}, K2 {counts['K2']} (expected "
+        f"{chunks * TRAIN_STEPS} each), K3 {k3}, K4 {k4}")
+    if not (counts["K1"] == counts["K2"] == chunks * TRAIN_STEPS
+            and k3 == k4 == 0):
+        raise AssertionError("the train path did not run K1 and K2 once "
+                             "per fg chunk")
+    if not photo[-1] < photo[0]:
+        raise AssertionError("photo_loss did not fall over the steps")
+    log(f"  train rays/s {rays_per_s:.1f}, mean step "
+        f"{sum(times) / len(times):.4f} s, max_memory_allocated "
+        f"{peak} B ({peak / 2 ** 30:.2f} GiB)")
+
+    # CPU fp32 cross-check of one step's loss and gradients: the same
+    # seeded weights on the card (kernels) and on the CPU (plain versions),
+    # no perturbation or noise. A token whose two best gates nearly tie can
+    # take another expert under cuBLAS than under the CPU's GEMM, so the
+    # gradients are held to a cosine, not to equality.
+    h32 = copy.copy(h)
+    h32.amp = False
+    h32.perturb = 0.0
+    h32.use_sigma_noise = False
+    sub = {k: v[:TRAIN_CHECK_RAYS] for k, v in batch.items()}
+    sg, stg = setup(h32, "cuda")
+    sc, stc = setup(h32, "cpu")
+    met_g, grads_g = stg.loss_and_grads(sg, sub)
+    met_c, grads_c = stc.loss_and_grads(sc, {k: v.cpu()
+                                             for k, v in sub.items()})
+    d_loss = abs(float(met_g["all_loss"]) - float(met_c["all_loss"]))
+    cos = cosine(flat(grads_g), flat(grads_c))
+    log(f"  card fp32 vs CPU fp32 train step on {TRAIN_CHECK_RAYS} rays: "
+        f"|d all_loss| {d_loss:.3e} (limit 1e-4 * {float(met_c['all_loss']):.4f})"
+        f", gradient cosine {cos:.6f} (limit 0.999)")
+    if not (d_loss <= 1e-4 * abs(float(met_c["all_loss"])) and cos >= 0.999):
+        raise AssertionError("the card's train step disagrees with the CPU")
+    del sg, stg, sc, stc, grads_g, grads_c
+
+    # the fused dispatch + chain path (opt-in, as in the JAX package): the
+    # same state, batch and generator seed, with and without the switch
+    seed = h.random_seed + 1
+    state.generator.manual_seed(seed)
+    met_u, grads_u = step.loss_and_grads(state, batch)
+    grads_u = flat(grads_u)
+    os.environ["SWITCH_NERF_FUSED_DISPATCH"] = "1"
+    try:
+        expert_kernel.launches = expert_kernel.bwd_launches = 0
+        fused_dispatch.launches = fused_dispatch.bwd_launches = 0
+        state.generator.manual_seed(seed)
+        t0 = time.perf_counter()
+        met_f, grads_f = step.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+        t_fused = time.perf_counter() - t0
+        counts["K3"] = fused_dispatch.launches
+        counts["K4"] = fused_dispatch.bwd_launches
+        k1, k2 = expert_kernel.launches, expert_kernel.bwd_launches
+    finally:
+        del os.environ["SWITCH_NERF_FUSED_DISPATCH"]
+    lu, lf = float(met_u["all_loss"]), float(met_f["all_loss"])
+    cos = cosine(flat(grads_f), grads_u)
+    log(f"  fused train step {t_fused:.4f} s, K3 {counts['K3']} / K4 "
+        f"{counts['K4']} launches (K1 {k1}, K2 {k2}); all_loss {lf:.6f} vs "
+        f"unfused {lu:.6f}, gradient cosine {cos:.6f}")
+    if not (counts["K3"] > 0 and counts["K4"] > 0 and k1 == k2 == 0):
+        raise AssertionError("the fused train step did not run K3 and K4")
+    if not (abs(lf - lu) <= BF16_REL_TOL * abs(lu) and cos >= 0.999):
+        raise AssertionError("fused and unfused train steps disagree")
+    return {"rays_per_s": rays_per_s, "step_s": sum(times) / len(times),
+            "peak_bytes": peak}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -322,14 +583,24 @@ def main() -> int:
                 "layers": moe["num"], "skips": tuple(moe["skips"]),
                 "chunk": h.model_chunk_size}
     rows = kernel_phase(peaks, building)
-    counts = {}
-    rays_per_s = slice_phase(h, counts)
+    rows.update(bwd_kernel_phase(peaks, building))
+    eval_counts = {}
+    rays_per_s = slice_phase(h, eval_counts)
+    log(f"[slice] eval launches per {N_REQUESTS} requests: {eval_counts}")
+    counts = {}                   # the train path's (main path's) launches
+    train = train_phase(counts)
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
                "switch_nerf_tpu/ops/expert_kernel.py:132"),
+        "K2": ("expert_chain_bwd",
+               "switch_nerf_torch/csrc/expert_chain_bwd.cu",
+               "switch_nerf_tpu/ops/expert_kernel.py:155"),
         "K3": ("fused_dispatch", "switch_nerf_torch/csrc/fused_dispatch.cu",
                "switch_nerf_tpu/ops/fused_dispatch.py:179"),
+        "K4": ("fused_dispatch_bwd",
+               "switch_nerf_torch/csrc/fused_dispatch_bwd.cu",
+               "switch_nerf_tpu/ops/fused_dispatch.py:210"),
     }
     kernels = []
     for key, (kname, source, replaces) in meta.items():
@@ -341,11 +612,14 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[slice] eval rays/s {rays_per_s:.1f} on {smi}")
+    log(f"[train] train rays/s {train['rays_per_s']:.1f}, step "
+        f"{train['step_s']:.4f} s, max_memory_allocated "
+        f"{train['peak_bytes']} B on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
+    # the script drives one card
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
     return 0
 
 

@@ -1,10 +1,12 @@
 """PyTorch + CUDA port of switch_nerf_tpu for NVIDIA Hopper (H100).
 
-The port runs beside the JAX package, which stays the reference. This slice
-covers the eval render path of the Mega-NeRF/Switch-NeRF configs
-(`trainer.make_eval_step`): routing, padded capacity dispatch, the MoE
-expert chain (a hand-written CUDA kernel on the card), the dense background
-NeRF and the coarse/fine volume renderer.
+The port runs beside the JAX package, which stays the reference. It covers
+the eval render path of the Mega-NeRF/Switch-NeRF configs
+(`trainer.make_eval_step`) and their training step
+(`trainer.make_train_step`): routing, padded capacity dispatch with its
+gradients, the MoE expert chain (hand-written CUDA kernels on the card,
+forward and backward), the dense background NeRF, the coarse/fine volume
+renderer, and Adam with the exponential learning rate.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.

@@ -1,7 +1,9 @@
 // Per-expert L-layer MLP chain, forward, for Hopper (sm_90a).
 //
 // Shared by expert_chain.cu (rows read in place: x [E, C, M]) and
-// fused_dispatch.cu (rows gathered through a slot->token map). One CTA owns
+// fused_dispatch.cu (rows gathered through a slot->token map), and by the
+// backward (chain_bwd.cuh), which reruns the forward to recompute the
+// activation stack. One CTA owns
 // one (expert, row block). The block's activations and its skip input `xin`
 // stay in shared memory across all L layers, so activations touch device
 // memory once in and once out; W_l is streamed through shared memory in
@@ -64,24 +66,22 @@ __device__ __forceinline__ long long source_row(const int* __restrict__ idx,
   return t;
 }
 
+// The forward of one (expert, row block) in shared memory: loads the block's
+// rows (zeros past the ragged C edge) into h and xin and runs the L layers in
+// place; h ends as the block's output. With `saved` set, each layer's input
+// H_l is also written to saved [L, E, C, M] (rows inside C only) before the
+// layer runs: the backward's recompute (chain_bwd.cuh).
 template <int M, bool GATHER>
-__global__ void __launch_bounds__(kThreads)
-chain_bf16_kernel(const __nv_bfloat16* __restrict__ src,
-                  const int* __restrict__ idx, int n_src,
-                  const __nv_bfloat16* __restrict__ ws,
-                  const __nv_bfloat16* __restrict__ bs,
-                  __nv_bfloat16* __restrict__ out, int E, int C, int L,
-                  unsigned skip_mask) {
-  using Lay = Bf16Layout<M>;
-  constexpr int LD = Lay::LD;
+__device__ __forceinline__ void chain_bf16_forward(
+    const __nv_bfloat16* __restrict__ src, const int* __restrict__ idx,
+    int n_src, const __nv_bfloat16* __restrict__ ws,
+    const __nv_bfloat16* __restrict__ bs, int E, int C, int L,
+    unsigned skip_mask, __nv_bfloat16* h, __nv_bfloat16* xin,
+    __nv_bfloat16* wt, float* scratch, __nv_bfloat16* __restrict__ saved) {
+  constexpr int LD = Bf16Layout<M>::LD;
   constexpr int RV = M / 8;      // 16-byte vectors per row
   constexpr int WN = M / 4;      // columns per warp
   constexpr int FN = WN / 16;    // 16-wide fragments per warp along N
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* xin = h + Lay::h_elems;
-  __nv_bfloat16* wt = xin + Lay::h_elems;
-  float* scratch = reinterpret_cast<float*>(wt + Lay::w_elems);
 
   const int e = blockIdx.y;
   const int r0 = blockIdx.x * kRowsBf16;
@@ -104,6 +104,15 @@ chain_bf16_kernel(const __nv_bfloat16* __restrict__ src,
   }
 
   for (int l = 0; l < L; ++l) {
+    if (saved != nullptr) {
+      __syncthreads();  // h holds layer l's input
+      __nv_bfloat16* dst = saved + (((size_t)l * E + e) * C + r0) * M;
+      for (int i = tid; i < rows * RV; i += kThreads) {
+        const int r = i / RV, v = i % RV;
+        reinterpret_cast<uint4*>(dst + (size_t)r * M)[v] =
+            reinterpret_cast<const uint4*>(h + r * LD)[v];
+      }
+    }
     const __nv_bfloat16* w = ws + ((size_t)l * E + e) * M * M;
     const __nv_bfloat16* b = bs + ((size_t)l * E + e) * M;
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
@@ -169,9 +178,33 @@ chain_bf16_kernel(const __nv_bfloat16* __restrict__ src,
       }
     }
   }
+}
+
+template <int M, bool GATHER>
+__global__ void __launch_bounds__(kThreads)
+chain_bf16_kernel(const __nv_bfloat16* __restrict__ src,
+                  const int* __restrict__ idx, int n_src,
+                  const __nv_bfloat16* __restrict__ ws,
+                  const __nv_bfloat16* __restrict__ bs,
+                  __nv_bfloat16* __restrict__ out, int E, int C, int L,
+                  unsigned skip_mask) {
+  using Lay = Bf16Layout<M>;
+  constexpr int LD = Lay::LD;
+  constexpr int RV = M / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* xin = h + Lay::h_elems;
+  __nv_bfloat16* wt = xin + Lay::h_elems;
+  float* scratch = reinterpret_cast<float*>(wt + Lay::w_elems);
+
+  chain_bf16_forward<M, GATHER>(src, idx, n_src, ws, bs, E, C, L, skip_mask,
+                                h, xin, wt, scratch, nullptr);
   __syncthreads();
 
-  for (int i = tid; i < rows * RV; i += kThreads) {
+  const int e = blockIdx.y;
+  const int r0 = blockIdx.x * kRowsBf16;
+  const int rows = min(kRowsBf16, C - r0);
+  for (int i = threadIdx.x; i < rows * RV; i += kThreads) {
     const int r = i / RV, v = i % RV;
     reinterpret_cast<uint4*>(out + ((size_t)e * C + r0 + r) * M)[v] =
         reinterpret_cast<const uint4*>(h + r * LD)[v];
@@ -190,26 +223,23 @@ struct F32Layout {
   static constexpr size_t bytes = (2 * h_elems + w_elems) * sizeof(float);
 };
 
+// The fp32 counterpart of chain_bf16_forward: thread (ty, tx) owns rows
+// 4ty..4ty+3 and columns tx + 32j.
 template <int M, bool GATHER>
-__global__ void __launch_bounds__(kThreads)
-chain_f32_kernel(const float* __restrict__ src, const int* __restrict__ idx,
-                 int n_src, const float* __restrict__ ws,
-                 const float* __restrict__ bs, float* __restrict__ out, int E,
-                 int C, int L, unsigned skip_mask) {
-  using Lay = F32Layout<M>;
-  constexpr int LD = Lay::LD;
+__device__ __forceinline__ void chain_f32_forward(
+    const float* __restrict__ src, const int* __restrict__ idx, int n_src,
+    const float* __restrict__ ws, const float* __restrict__ bs, int E, int C,
+    int L, unsigned skip_mask, float* h, float* xin, float* wt,
+    float* __restrict__ saved) {
+  constexpr int LD = F32Layout<M>::LD;
   constexpr int RV = M / 4;      // 16-byte vectors per row
   constexpr int CN = M / 32;     // columns per thread (strided by 32)
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* h = reinterpret_cast<float*>(smem_raw);
-  float* xin = h + Lay::h_elems;
-  float* wt = xin + Lay::h_elems;
 
   const int e = blockIdx.y;
   const int r0 = blockIdx.x * kRowsF32;
   const int rows = min(kRowsF32, C - r0);
   const int tid = threadIdx.x;
-  const int ty = tid / 32, tx = tid % 32;  // thread owns rows 4ty..4ty+3
+  const int ty = tid / 32, tx = tid % 32;
 
   for (int i = tid; i < kRowsF32 * RV; i += kThreads) {
     const int r = i / RV, v = i % RV;
@@ -223,6 +253,15 @@ chain_f32_kernel(const float* __restrict__ src, const int* __restrict__ idx,
   }
 
   for (int l = 0; l < L; ++l) {
+    if (saved != nullptr) {
+      __syncthreads();  // h holds layer l's input
+      float* dst = saved + (((size_t)l * E + e) * C + r0) * M;
+      for (int i = tid; i < rows * RV; i += kThreads) {
+        const int r = i / RV, v = i % RV;
+        reinterpret_cast<float4*>(dst + (size_t)r * M)[v] =
+            reinterpret_cast<const float4*>(h + r * LD)[v];
+      }
+    }
     const float* w = ws + ((size_t)l * E + e) * M * M;
     const float* b = bs + ((size_t)l * E + e) * M;
     float acc[4][CN];
@@ -274,9 +313,30 @@ chain_f32_kernel(const float* __restrict__ src, const int* __restrict__ idx,
       }
     }
   }
+}
+
+template <int M, bool GATHER>
+__global__ void __launch_bounds__(kThreads)
+chain_f32_kernel(const float* __restrict__ src, const int* __restrict__ idx,
+                 int n_src, const float* __restrict__ ws,
+                 const float* __restrict__ bs, float* __restrict__ out, int E,
+                 int C, int L, unsigned skip_mask) {
+  using Lay = F32Layout<M>;
+  constexpr int LD = Lay::LD;
+  constexpr int RV = M / 4;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* h = reinterpret_cast<float*>(smem_raw);
+  float* xin = h + Lay::h_elems;
+  float* wt = xin + Lay::h_elems;
+
+  chain_f32_forward<M, GATHER>(src, idx, n_src, ws, bs, E, C, L, skip_mask,
+                               h, xin, wt, nullptr);
   __syncthreads();
 
-  for (int i = tid; i < rows * RV; i += kThreads) {
+  const int e = blockIdx.y;
+  const int r0 = blockIdx.x * kRowsF32;
+  const int rows = min(kRowsF32, C - r0);
+  for (int i = threadIdx.x; i < rows * RV; i += kThreads) {
     const int r = i / RV, v = i % RV;
     reinterpret_cast<float4*>(out + ((size_t)e * C + r0 + r) * M)[v] =
         reinterpret_cast<const float4*>(h + r * LD)[v];

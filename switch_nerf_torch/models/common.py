@@ -51,7 +51,11 @@ class TorchLinear(nn.Module):
 
 class Embedding(nn.Module):
     """Appearance table (``OneHotEmbed``): a row gather gives the same
-    values as the JAX package's one-hot matmul."""
+    values as the JAX package's one-hot matmul. ``F.embedding``, not
+    ``weight[idx]``: a chunk's 32768 indices hit a handful of rows, and the
+    backward of an index op (an index_put accumulate) took 2.7 ms per chunk
+    on the H100, 46 % of a Building train step's device time (PERF.md §6),
+    where the embedding backward's segment sums take a fraction of that."""
 
     def __init__(self, num_embeddings: int, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -60,7 +64,7 @@ class Embedding(nn.Module):
             torch.empty(num_embeddings, features).normal_(generator=generator))
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return self.weight[idx]
+        return F.embedding(idx, self.weight)
 
 
 class LayerNorm(nn.LayerNorm):

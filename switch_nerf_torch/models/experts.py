@@ -2,9 +2,9 @@
 
 Port of ``switch_nerf_tpu/models/experts.py:28-103`` (ExpertMLP, padded and
 fused-dispatch forms). Parameters w{i} [E, M, M] and b{i} [E, 1, M] keep the
-JAX layout. On the card both forms run a hand-written kernel
-(``ops/expert_kernel``, ``ops/fused_dispatch``); on the CPU their plain
-versions.
+JAX layout. On the card both forms run hand-written kernels, forward and
+backward (``ops/expert_kernel`` K1/K2, ``ops/fused_dispatch`` K3/K4); on
+the CPU their plain versions.
 """
 from __future__ import annotations
 
@@ -46,8 +46,10 @@ class ExpertMLP(nn.Module):
         ws, bs = self.stacked(x.dtype)
         return expert_mlp_chain(x, ws, bs, self.skips)
 
-    def fused_dispatch(self, tokens_ext: torch.Tensor,
-                       stt_eff: torch.Tensor) -> torch.Tensor:
-        """``self(dispatch(tokens))`` without the dispatch buffer."""
+    def fused_dispatch(self, tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
+                       slot: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:
+        """``self(dispatch(tokens))`` without the dispatch buffer; slot and
+        kept (token->slot map) drive d(tokens) in the backward."""
         ws, bs = self.stacked(tokens_ext.dtype)
-        return fused_dispatch_chain(tokens_ext, stt_eff, ws, bs, self.skips)
+        return fused_dispatch_chain(tokens_ext, stt_eff, ws, bs, slot, kept,
+                                    self.skips)

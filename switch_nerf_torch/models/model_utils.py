@@ -65,6 +65,8 @@ def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
         raise NotImplementedError(
             "eval in no-drop dispatch waits for a later slice of the port; "
             "pass --moe_test_batch (every published eval command does)")
+    # training in no-drop dispatch (or with gate noise) raises when a train
+    # state is built or a train-mode forward runs (MoELayer.check_supported)
     if not getattr(hparams, "no_expert_parallel", True):
         raise NotImplementedError("expert parallelism waits for a later slice")
     if (hparams.moe_use_residual or hparams.use_load_importance_loss
@@ -87,6 +89,8 @@ def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
         use_moe_external_gate=hparams.use_moe_external_gate,
         use_gate_input_norm=hparams.use_gate_input_norm,
         moe_return_gates=hparams.moe_return_gates,
+        gate_noise=hparams.gate_noise,
+        train_dispatch=_dispatch_mode(hparams, hparams.moe_train_batch),
         sigma_fp32=not getattr(hparams, "amp_use_bfloat16", False),
         compute_dtype=_compute_dtype(hparams),
         generator=generator)
@@ -116,7 +120,8 @@ def _generator(hparams, seed: Optional[int]) -> torch.Generator:
 
 def get_nerf(hparams, appearance_count: int, *, device=None,
              seed: Optional[int] = None) -> nn.Module:
-    """Foreground model in eval mode on ``device`` (default ``cuda``)."""
+    """Foreground model on ``device`` (default ``cuda``). Train or eval
+    behaviour is chosen per call (``model(x, sigma_noise, train)``)."""
     dev = resolve_device(device)
     _check_supported(hparams)
     gen = _generator(hparams, seed)

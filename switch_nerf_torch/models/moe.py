@@ -1,11 +1,14 @@
-"""Switch-gated Mixture-of-Experts layer, top-1, capacity-padded, eval.
+"""Switch-gated Mixture-of-Experts layer, top-1, capacity-padded.
 
-Port of ``switch_nerf_tpu/models/moe.py:39-239`` for ``deterministic=True``
-in padded dispatch mode: fp32 gate, ``extract_critical`` (with BPR), the
+Port of ``switch_nerf_tpu/models/moe.py:39-239`` in padded dispatch mode,
+for eval and training: fp32 gate, ``extract_critical`` (with BPR), the
 load-balance ``l_aux``, ``return_gates``, and ``_padded_path`` including the
-fused dispatch+chain branch behind ``SWITCH_NERF_FUSED_DISPATCH=1``.
-The no-drop path, expert parallelism, residual MoE, gate noise (a
-training-only draw) and the load-importance loss wait for later slices.
+fused dispatch+chain branch behind ``SWITCH_NERF_FUSED_DISPATCH=1``. The
+dispatch mode follows ``train`` as JAX's follows ``deterministic``
+(``moe.py:127``). The no-drop path, expert parallelism, residual MoE, gate
+noise (a training-only draw, off in every published Building command; the
+JAX layer's normal noise has no flag that sets it) and the load-importance
+loss wait for later slices.
 """
 from __future__ import annotations
 
@@ -32,11 +35,14 @@ class MoELayer(nn.Module):
                  batch_prioritized_routing: bool = False,
                  fp32_gate: bool = True, gate_dim: Optional[int] = None,
                  is_postscore: bool = True, no_score: bool = False,
-                 return_gates: bool = False,
+                 return_gates: bool = False, gate_noise: float = -1.0,
+                 train_dispatch: str = "padded",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if top_k != 1:
             raise NotImplementedError("the port routes top-1 only")
+        self.gate_noise = gate_noise
+        self.train_dispatch = train_dispatch
         self.model_dim = model_dim
         self.num_experts = num_experts
         self.layer_num = layer_num
@@ -52,11 +58,28 @@ class MoELayer(nn.Module):
         self.experts = ExpertMLP(model_dim, num_experts, layer_num, skips,
                                  init_factor, generator=generator)
 
-    def forward(self, x: torch.Tensor, gate_input: Optional[torch.Tensor] = None):
+    def check_supported(self, train: bool) -> None:
+        """Raise on what the port does not train yet. (Eval is padded by
+        construction: model_utils refuses no-drop eval dispatch.)"""
+        if not train:
+            return
+        if self.train_dispatch != "padded":
+            raise NotImplementedError(
+                f"training in {self.train_dispatch!r} dispatch waits for a "
+                "later slice of the port; pass --moe_train_batch (every "
+                "published training command does)")
+        if self.gate_noise > 0:
+            raise NotImplementedError(
+                "gate noise waits for a later slice of the port (off in "
+                "every published Building command)")
+
+    def forward(self, x: torch.Tensor, gate_input: Optional[torch.Tensor] = None,
+                train: bool = False):
         """x: [S, M]; gate_input: [S, gate_dim] or None.
 
         Returns (y [S, M] in x's dtype, l_aux fp32 scalar, extras dict).
         """
+        self.check_supported(train)
         gin = gate_input if gate_input is not None else x
         logits = self.wg(gin.float() if self.fp32_gate else gin)
         gates = torch.softmax(logits.float(), dim=1)
@@ -74,10 +97,17 @@ class MoELayer(nn.Module):
         if self._use_fused_dispatch(x, dp):
             # fold the dispatch gather into the chain kernel: the [E, C, M]
             # buffer is never built; empty slots read the appended zero row
+            # The JAX package pads to a multiple of 8 rows for Mosaic's
+            # aligned loads; the card's kernels load any row, so one row.
             s, m = x.shape
             tokens_ext = torch.cat([x, x.new_zeros((1, m))], dim=0)
-            expert_out = self.experts.fused_dispatch(tokens_ext, fused_slot_map(
-                dp.slot_to_token[0], dp.filled[0], s))
+            ec = dp.num_experts * dp.capacity
+            slot_ext = torch.cat([dp.slot[0], dp.slot.new_full((1,), ec)])
+            kept_ext = torch.cat([dp.kept[0], dp.kept.new_zeros((1,))])
+            expert_out = self.experts.fused_dispatch(
+                tokens_ext,
+                fused_slot_map(dp.slot_to_token[0], dp.filled[0], s),
+                slot_ext, kept_ext)
         else:
             expert_out = self.experts(dispatch(
                 x, dp, is_postscore=self.is_postscore,

@@ -59,8 +59,14 @@ class NeRF(nn.Module):
         else:
             self.rgb = TorchLinear(layer_dim, rgb_dim, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [S, xyz_dim (+3 viewdir) (+1 appearance idx)] -> [S, rgb_dim+1]."""
+    def forward(self, x: torch.Tensor,
+                sigma_noise: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        """x: [S, xyz_dim (+3 viewdir) (+1 appearance idx)] -> [S, rgb_dim+1].
+
+        sigma_noise: [S, 1] added to the raw sigma before its activation
+        (training only). `train` is part of the models' common contract;
+        the dense NeRF computes the same either way."""
         xd = self.xyz_dim
         has_dir, has_app = self.pos_dir_dim > 0, self.appearance_dim > 0
         expected = xd + (3 if has_dir else 0) + (1 if has_app else 0)
@@ -77,6 +83,8 @@ class NeRF(nn.Module):
             h = torch.relu(getattr(self, f"xyz_encoding_{i}")(h))
 
         sigma = self.sigma(h.float() if self.sigma_fp32 else h)
+        if sigma_noise is not None:
+            sigma = sigma + sigma_noise.to(sigma.dtype)
         sigma = (shifted_softplus(sigma) if self.shifted_softplus_sigma
                  else torch.relu(sigma))
 

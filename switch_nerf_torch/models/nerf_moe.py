@@ -30,7 +30,8 @@ class NeRFMoE(nn.Module):
                  dispatcher_no_score: bool = False, is_postscore: bool = True,
                  use_moe_external_gate: bool = False,
                  use_gate_input_norm: bool = False,
-                 moe_return_gates: bool = False, sigma_fp32: bool = True,
+                 moe_return_gates: bool = False, gate_noise: float = -1.0,
+                 train_dispatch: str = "padded", sigma_fp32: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -47,7 +48,8 @@ class NeRFMoE(nn.Module):
             capacity_factor=moe_capacity_factor,
             batch_prioritized_routing=batch_prioritized_routing,
             no_score=dispatcher_no_score, is_postscore=is_postscore,
-            return_gates=moe_return_gates, generator=generator)
+            return_gates=moe_return_gates, gate_noise=gate_noise,
+            train_dispatch=train_dispatch, generator=generator)
         cfgs = layer_cfg["layers"]
         has_dir, has_app = pos_dir_dim > 0, appearance_dim > 0
 
@@ -117,7 +119,12 @@ class NeRFMoE(nn.Module):
         return (shifted_softplus(sigma) if self.shifted_softplus_sigma
                 else torch.relu(sigma))
 
-    def forward(self, x: torch.Tensor) -> Dict[str, Any]:
+    def forward(self, x: torch.Tensor,
+                sigma_noise: Optional[torch.Tensor] = None,
+                train: bool = False) -> Dict[str, Any]:
+        """x: [S, 3 + 3 (+1 appearance idx)]; sigma_noise: [S, 1] added to
+        the raw sigma before its activation (training only); `train` picks
+        the MoE layers' train dispatch."""
         cfgs = self.layer_cfg["layers"]
         sigma_tag = str(self.layer_cfg["sigma_tag"])
         dir_tag = str(self.layer_cfg["dir_tag"])
@@ -146,7 +153,8 @@ class NeRFMoE(nn.Module):
             cfg = cfgs[tag]
             layer = getattr(self, f"layer_{tag}")
             if cfg["type"] == "moe":
-                h, l_aux, gate_extras = layer(h, gate_input=gate_feat)
+                h, l_aux, gate_extras = layer(h, gate_input=gate_feat,
+                                              train=train)
                 moe_loss.append(l_aux)
                 if self.moe_return_gates:
                     moe_gates.append(gate_extras["gates"])
@@ -156,6 +164,8 @@ class NeRFMoE(nn.Module):
 
             if tag == sigma_tag:
                 sigma = self.layer_sigma(h.float() if self.sigma_fp32 else h)
+                if sigma_noise is not None:
+                    sigma = sigma + sigma_noise.to(sigma.dtype)
                 sigma = self._sigma_act(sigma)
             if tag == dir_tag:
                 parts = [h, freq_encode(x[:, xd:xd + 3].to(self.compute_dtype),

@@ -1,9 +1,13 @@
-"""Capacity-padded MoE token dispatch/combine (forward only).
+"""Capacity-padded MoE token dispatch/combine.
 
-Port of ``switch_nerf_tpu/ops/dispatch.py:50-196, 281-304``: the slot
-indices are scattered into a slot->token map, and token rows are then
-GATHERED into the [E*C, M] buffer. Dropped tokens never reach a slot; empty
-slots stay zero. The einsum oracles are kept for the tests.
+Port of ``switch_nerf_tpu/ops/dispatch.py:50-304``: the slot indices are
+scattered into a slot->token map, and token rows are then GATHERED into the
+[E*C, M] buffer. Dropped tokens never reach a slot; empty slots stay zero.
+Both directions are ``torch.autograd.Function``s whose backwards mirror the
+JAX custom VJPs (``_dispatch_bwd`` :204-220, ``_combine_bwd`` :247-270),
+casts included: each transpose is a gather over the inverse map, not a
+scatter-add, and the gate gradient is an fp32-accumulated row dot masked by
+``kept``. The einsum oracles are kept for the tests.
 """
 from __future__ import annotations
 
@@ -67,13 +71,8 @@ def dispatch(tokens: torch.Tensor, dp: DispatchPlan, *,
              is_postscore: bool = True, no_score: bool = False) -> torch.Tensor:
     """tokens [S, M] -> dispatched [E, C, M] (K summed into slots)."""
     prescore = not (is_postscore or no_score)
-    out = None
-    for k in range(dp.slot_to_token.shape[0]):
-        src = tokens
-        if prescore:
-            src = tokens * dp.gates[k, :, None].to(tokens.dtype)
-        g = src[dp.slot_to_token[k]] * dp.filled[k][:, None].to(tokens.dtype)
-        out = g if out is None else out + g
+    out = _DispatchFn.apply(tokens, dp.gates, dp.slot, dp.kept,
+                            dp.slot_to_token, dp.filled, prescore)
     return out.reshape(dp.num_experts, dp.capacity, tokens.shape[-1])
 
 
@@ -87,12 +86,82 @@ def combine(expert_output: torch.Tensor, dp: DispatchPlan, *,
     postscore = is_postscore and not no_score
     m = expert_output.shape[-1]
     flat = expert_output.reshape(dp.num_experts * dp.capacity, m)
-    flat_ext = torch.cat([flat, flat.new_zeros((1, m))], dim=0)
-    rows = flat_ext[dp.slot]                                       # [K, S, M]
-    scale = dp.kept.float()
-    if postscore:
-        scale = scale * dp.gates.float()
-    return torch.sum(rows.float() * scale[..., None], dim=0)
+    return _CombineFn.apply(flat, dp.gates, dp.slot, dp.kept,
+                            dp.slot_to_token, dp.filled, postscore)
+
+
+def _gather_rows(flat: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """[K, S, M] rows of flat [E*C, M] by slot, zeros where slot == E*C."""
+    flat_ext = torch.cat([flat, flat.new_zeros((1, flat.shape[-1]))], dim=0)
+    return flat_ext[slot.reshape(-1)].reshape(*slot.shape, flat.shape[-1])
+
+
+def _row_dot(a: torch.Tensor, b: torch.Tensor, kept: torch.Tensor):
+    """einsum("ksm,sm->ks") accumulated in fp32, masked by kept."""
+    return torch.einsum("ksm,sm->ks", a.float(), b.float()) * kept
+
+
+class _DispatchFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tokens, gates, slot, kept, stt, filled, prescore):
+        ctx.prescore = prescore
+        ctx.save_for_backward(tokens, gates, slot, kept)
+        out = None
+        for k in range(stt.shape[0]):
+            src = tokens
+            if prescore:
+                # the gate multiplies on the token side before the gather
+                src = tokens * gates[k, :, None].to(tokens.dtype)
+            g = src[stt[k]] * filled[k][:, None].to(tokens.dtype)
+            out = g if out is None else out + g
+        return out                                               # [E*C, M]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, gates, slot, kept = ctx.saved_tensors
+        rows = _gather_rows(g, slot)                             # [K, S, M]
+        keptf = kept.to(g.dtype)
+        d_gates = None
+        if ctx.prescore:
+            d_tokens = torch.sum(
+                rows * (keptf * gates.to(g.dtype))[..., None], dim=0)
+            d_gates = _row_dot(rows, tokens, kept).to(gates.dtype)
+        else:
+            d_tokens = torch.sum(rows * keptf[..., None], dim=0)
+        return (d_tokens.to(tokens.dtype), d_gates, None, None, None, None,
+                None)
+
+
+class _CombineFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, flat, gates, slot, kept, stt, filled, postscore):
+        ctx.postscore = postscore
+        ctx.save_for_backward(flat, gates, slot, kept, stt, filled)
+        rows = _gather_rows(flat, slot)                          # [K, S, M]
+        scale = kept.float()
+        if postscore:
+            scale = scale * gates.float()
+        return torch.sum(rows.float() * scale[..., None], dim=0)
+
+    @staticmethod
+    def backward(ctx, d_y):
+        flat, gates, slot, kept, stt, filled = ctx.saved_tensors
+        # gather d_y by slot->token in the expert dtype, the gate multiplied
+        # on the token side (no per-slot gate gather)
+        d_y_lo = d_y.to(flat.dtype)
+        d_flat = None
+        for k in range(stt.shape[0]):
+            src = d_y_lo
+            if ctx.postscore:
+                src = src * gates[k, :, None].to(flat.dtype)
+            g = src[stt[k]] * filled[k][:, None].to(flat.dtype)
+            d_flat = g if d_flat is None else d_flat + g
+        d_gates = None
+        if ctx.postscore:
+            d_gates = _row_dot(_gather_rows(flat, slot), d_y_lo,
+                               kept).to(gates.dtype)
+        return (d_flat.to(flat.dtype), d_gates, None, None, None, None,
+                None)
 
 
 def _dispatch_mask(dp: DispatchPlan, dtype) -> torch.Tensor:

@@ -1,37 +1,66 @@
-"""Kernel K1: the fused per-expert MLP chain, forward.
+"""Kernels K1 and K2: the fused per-expert MLP chain, forward and backward.
 
-Replaces ``switch_nerf_tpu/ops/expert_kernel.py:_fwd_call`` (the Pallas
-``_fwd_kernel``). Source: ``csrc/chain.cuh`` + ``csrc/expert_chain.cu``.
-
-What bounds it on the card: at the Building eval shape (E8 C4096 M256 L7,
-bf16) one launch does 2*E*C*M^2*L = 30.1 GFLOP against ~41 MB of x, W and
-out, ~730 FLOP per byte, far above the H100's ~295 FLOP/B ridge: it is
-bound by tensor-core operations. The design keeps each (expert, row block)'s
+K1 replaces ``switch_nerf_tpu/ops/expert_kernel.py:_fwd_call`` (the Pallas
+``_fwd_kernel``); source ``csrc/chain.cuh`` + ``csrc/expert_chain.cu``.
+What bounds it on the card: at the Building shape (E8 C4096 M256 L7, bf16)
+one launch does 2*E*C*M^2*L = 30.1 GFLOP against ~41 MB of x, W and out,
+~730 FLOP per byte, far above the H100's ~295 FLOP/B ridge: it is bound by
+tensor-core operations. The design keeps each (expert, row block)'s
 activations and skip input in shared memory across all L layers, so device
 memory sees x once and out once instead of once per layer, and feeds the
 tensor cores through WMMA (mma.sync) with fp32 accumulators. W_l is staged
 through shared memory tile by tile, unpipelined: wgmma/TMA and a load
 pipeline are later work.
 
-A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the
-kernel or the call raises.
+K2 replaces ``_bwd_call`` (the Pallas ``_bwd_kernel``); source
+``csrc/chain_bwd.cuh`` + ``csrc/expert_chain_bwd.cu``. The gradient needs
+the dx and dW products, 4*E*C*M^2*L = 60.1 GFLOP at the Building shape
+against ~65 MB of x, g, dx and fp32 dW: bound by tensor-core operations
+(the recompute is the kernel's own choice and not in the bound). The TPU
+kernel adds each C block's dW into a revisited output block, which needs
+the TPU's in-order grid; on the card a first pass recomputes the stack and
+runs the reverse sweep per (expert, row block), saving each layer's input
+H_l and post-mask gradient G_l to workspaces, and a second pass forms
+dW = H_l^T G_l and db with fp32 accumulators over all C inside one CTA per
+output tile: deterministic, no atomics.
+
+``expert_mlp_chain`` is differentiable through ``ExpertChainFn`` (forward
+K1, backward K2). A CPU tensor takes the plain PyTorch versions; a CUDA
+tensor takes the kernels or the call raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
 from switch_nerf_torch.ops import _build
 
-__all__ = ["expert_mlp_chain", "expert_mlp_chain_plain", "KERNEL_WIDTHS"]
+__all__ = ["expert_mlp_chain", "expert_mlp_chain_plain",
+           "expert_mlp_chain_bwd", "expert_mlp_chain_bwd_plain",
+           "ExpertChainFn", "KERNEL_WIDTHS"]
 
-KERNEL_WIDTHS = (64, 128, 256)    # model widths the kernel is built for
+KERNEL_WIDTHS = (64, 128, 256)    # model widths the kernels are built for
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches since the caller last set it to 0 (read by chip_smoke.py)
-launches = 0
+# kernel launches since the caller last set them to 0 (read by chip_smoke.py)
+launches = 0          # K1
+bwd_launches = 0      # K2
+
+
+def _relu_skip(h: torch.Tensor, xin: torch.Tensor, l: int, layers: int,
+               skips) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Skip add and ReLU after layer l's bias (ExpertMLP._skip_act)."""
+    last = l == layers - 1
+    if l in skips:
+        h = h + xin
+        if not last:
+            h = torch.relu(h)
+        xin = h
+    elif not last:
+        h = torch.relu(h)
+    return h, xin
 
 
 def expert_mlp_chain_plain(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
@@ -45,16 +74,43 @@ def expert_mlp_chain_plain(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
     layers = ws.shape[0]
     h = xin = x
     for l in range(layers):
-        h = torch.matmul(h, ws[l]) + bs[l]
+        h, xin = _relu_skip(torch.matmul(h, ws[l]) + bs[l], xin, l, layers,
+                            skips)
+    return h
+
+
+def expert_mlp_chain_bwd_plain(x: torch.Tensor, ws: torch.Tensor,
+                               bs: torch.Tensor, g: torch.Tensor,
+                               skips: Sequence[int] = ()):
+    """The plain backward, step by step as the TPU ``_bwd_kernel``:
+    recompute the stack, then the reverse sweep with each layer's product
+    cast to the input dtype and the ReLU masks taken from the
+    post-activation outputs. Returns (dx in x's dtype, dW [L, E, M, M] fp32,
+    db [L, E, 1, M] fp32), dW and db summed over C in fp32."""
+    skips = set(skips)
+    layers = ws.shape[0]
+    hs = []                                   # hs[l]: input of layer l
+    h = xin = x
+    for l in range(layers):
+        hs.append(h)
+        h, xin = _relu_skip(torch.matmul(h, ws[l]) + bs[l], xin, l, layers,
+                            skips)
+    hs.append(h)
+    gh, gxin = g, torch.zeros_like(g)
+    dws, dbs = [None] * layers, [None] * layers
+    for l in range(layers - 1, -1, -1):
+        gl = gh
         last = l == layers - 1
         if l in skips:
-            h = h + xin
-            if not last:
-                h = torch.relu(h)
-            xin = h
-        elif not last:
-            h = torch.relu(h)
-    return h
+            gl = gl + gxin
+        if not last:
+            gl = gl * (hs[l + 1] > 0).to(gl.dtype)
+        if l in skips:
+            gxin = gl
+        dws[l] = torch.matmul(hs[l].float().transpose(1, 2), gl.float())
+        dbs[l] = gl.float().sum(dim=1, keepdim=True)
+        gh = torch.matmul(gl, ws[l].transpose(1, 2))
+    return gh + gxin, torch.stack(dws), torch.stack(dbs)
 
 
 def skip_mask(skips: Sequence[int], layers: int) -> int:
@@ -95,10 +151,30 @@ def check_rows(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def check_like(t: torch.Tensor, ref: torch.Tensor, name: str) -> None:
+    """Raise unless t matches ref's shape, dtype and device (and is laid
+    out as check_rows asks)."""
+    if t.shape != ref.shape or t.dtype != ref.dtype or t.device != ref.device:
+        raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                         f"does not match {tuple(ref.shape)} {ref.dtype} on "
+                         f"{ref.device}")
+    check_rows(t, name)
+
+
 def raise_on_error(rc: int, error_string) -> None:
     if rc != 0:
         raise RuntimeError(
             f"CUDA kernel launch failed: {error_string(rc).decode()} ({rc})")
+
+
+def bwd_buffers(layers: int, e: int, c: int, m: int, dtype, device):
+    """K2/K4's allocations: the H and G workspaces [L, E, C, M] in the
+    input dtype, dW [L, E, M, M] and db [L, E, 1, M] in fp32."""
+    work = (layers, e, c, m)
+    return (torch.empty(work, dtype=dtype, device=device),
+            torch.empty(work, dtype=dtype, device=device),
+            torch.empty((layers, e, m, m), dtype=torch.float32, device=device),
+            torch.empty((layers, e, 1, m), dtype=torch.float32, device=device))
 
 
 _PROTOTYPES = {
@@ -107,23 +183,30 @@ _PROTOTYPES = {
                          + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
     "expert_chain_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+_BWD_PROTOTYPES = {
+    "expert_chain_bwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 9
+                         + [ctypes.c_int] * 4
+                         + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
+    "expert_chain_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
-def expert_mlp_chain(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
-                     skips: Sequence[int] = ()) -> torch.Tensor:
-    """Fused L-layer per-expert MLP chain: x [E, C, M] -> [E, C, M].
+def _check_x(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor) -> None:
+    check_rows(x, "x")
+    check_chain_weights(ws, bs, x.dtype, x.device)
+    if x.dim() != 3 or ws.shape[1] != x.shape[0] or ws.shape[-1] != x.shape[2]:
+        raise ValueError(f"x {tuple(x.shape)} does not match ws "
+                         f"{tuple(ws.shape)}")
 
-    ws [L, E, M, M] and bs [L, E, 1, M] share x's dtype (bf16 under AMP).
-    """
+
+def expert_mlp_chain_fwd(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
+                         skips: Sequence[int] = ()) -> torch.Tensor:
+    """K1 (or, for a CPU tensor, the plain chain), outside autograd."""
     global launches
     if x.device.type == "cpu":
         return expert_mlp_chain_plain(x, ws, bs, skips)
-    check_rows(x, "x")
-    check_chain_weights(ws, bs, x.dtype, x.device)
+    _check_x(x, ws, bs)
     e, c, m = x.shape
-    if ws.shape[1] != e or ws.shape[-1] != m:
-        raise ValueError(f"x {tuple(x.shape)} does not match ws "
-                         f"{tuple(ws.shape)}")
     layers = ws.shape[0]
     out = torch.empty_like(x)
     lib = _build.load("expert_chain", _PROTOTYPES)
@@ -135,3 +218,62 @@ def expert_mlp_chain(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
     raise_on_error(rc, lib.expert_chain_error_string)
     launches += 1
     return out
+
+
+def expert_mlp_chain_bwd(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
+                         g: torch.Tensor, skips: Sequence[int] = ()):
+    """K2 (or, for a CPU tensor, the plain backward): the chain's VJP at
+    cotangent g [E, C, M]. Returns (dx, dW fp32, db fp32)."""
+    global bwd_launches
+    if x.device.type == "cpu":
+        return expert_mlp_chain_bwd_plain(x, ws, bs, g, skips)
+    _check_x(x, ws, bs)
+    check_like(g, x, "g")
+    e, c, m = x.shape
+    if c == 0:
+        raise ValueError("the backward kernel takes C >= 1")
+    layers = ws.shape[0]
+    dx = torch.empty_like(x)
+    hsave, gsave, dw, db = bwd_buffers(layers, e, c, m, x.dtype, x.device)
+    lib = _build.load("expert_chain_bwd", _BWD_PROTOTYPES)
+    rc = lib.expert_chain_bwd(
+        x.device.index, x.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), hsave.data_ptr(), gsave.data_ptr(),
+        dw.data_ptr(), db.data_ptr(), e, c, m, layers,
+        skip_mask(skips, layers), int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(rc, lib.expert_chain_bwd_error_string)
+    bwd_launches += 1
+    return dx, dw, db
+
+
+class ExpertChainFn(torch.autograd.Function):
+    """The chain with a kernel on each side, as the JAX custom VJP
+    (``expert_kernel.py:193-220``): forward K1, backward K2, and dW/db come
+    back cast to the parameter dtype."""
+
+    @staticmethod
+    def forward(ctx, x, ws, bs, skips):
+        ctx.skips = tuple(skips)
+        ctx.save_for_backward(x, ws, bs)
+        return expert_mlp_chain_fwd(x, ws, bs, skips)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ws, bs = ctx.saved_tensors
+        dx, dw, db = expert_mlp_chain_bwd(x, ws, bs, g.contiguous(),
+                                          ctx.skips)
+        return dx, dw.to(ws.dtype), db.to(bs.dtype), None
+
+
+def expert_mlp_chain(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
+                     skips: Sequence[int] = ()) -> torch.Tensor:
+    """Fused L-layer per-expert MLP chain: x [E, C, M] -> [E, C, M].
+
+    ws [L, E, M, M] and bs [L, E, 1, M] share x's dtype (bf16 under AMP).
+    Differentiable (``ExpertChainFn``) when grad is enabled.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, ws, bs)):
+        return ExpertChainFn.apply(x, ws, bs, tuple(skips))
+    return expert_mlp_chain_fwd(x, ws, bs, skips)

@@ -1,20 +1,28 @@
-"""Kernel K3: fused dispatch gather + expert chain (top-1, padded), forward.
+"""Kernels K3 and K4: fused dispatch gather + expert chain (top-1, padded),
+forward and backward.
 
-Replaces ``switch_nerf_tpu/ops/fused_dispatch.py:_fwd_call`` (the Pallas
-``_fwd_kernel``, ``_gather_block`` and ``_chain_fwd_from``). Source:
-``csrc/chain.cuh`` + ``csrc/fused_dispatch.cu``.
+K3 replaces ``switch_nerf_tpu/ops/fused_dispatch.py:_fwd_call`` (the Pallas
+``_fwd_kernel``, ``_gather_block`` and ``_chain_fwd_from``); source
+``csrc/chain.cuh`` + ``csrc/fused_dispatch.cu``. K4 replaces ``_bwd_call``
+(the Pallas ``_bwd_kernel``); source ``csrc/chain_bwd.cuh`` +
+``csrc/fused_dispatch_bwd.cu``.
 
-Computes chain(dispatch(tokens)) without the [E, C, M] dispatch buffer:
+K3 computes chain(dispatch(tokens)) without the [E, C, M] dispatch buffer:
 each CTA loads its own slot->token indices and reads the token rows
 straight from device memory, then runs K1's chain on them. Empty slots
 point at a zero row appended to the tokens, so the chain sees zeros there,
-as over the zero-padded dispatch buffer. What bounds it is K1's: tensor-core
-operations (the gather adds one read of the kept token rows). The TPU
-kernel's 8-row-aligned mask-select gather has no counterpart on the card:
-any row address is a legal load here.
+as over the zero-padded dispatch buffer. K4 gathers the same rows again and
+runs K2's two passes on them (recompute + reverse sweep, then dW/db over
+all C per output tile), returning d(dispatched) [E, C, M]; the VJP turns
+that into d(tokens) with a gather over the token->slot map outside the
+kernel, as the JAX package's ``_fused_bwd`` does. What bounds them is
+K1's and K2's: tensor-core operations (the gather adds one read of the kept
+token rows). The TPU kernel's 8-row-aligned mask-select gather has no
+counterpart on the card: any row address is a legal load here.
 
-A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the
-kernel or the call raises.
+``fused_dispatch_chain`` is differentiable through ``FusedDispatchFn``. A
+CPU tensor takes the plain PyTorch versions; a CUDA tensor takes the
+kernels or the call raises.
 """
 from __future__ import annotations
 
@@ -25,14 +33,17 @@ import torch
 
 from switch_nerf_torch.ops import _build
 from switch_nerf_torch.ops.expert_kernel import (
-    KERNEL_WIDTHS, check_chain_weights, check_rows, expert_mlp_chain_plain,
-    raise_on_error, skip_mask)
+    KERNEL_WIDTHS, bwd_buffers, check_chain_weights, check_like, check_rows,
+    expert_mlp_chain_bwd_plain, expert_mlp_chain_plain, raise_on_error,
+    skip_mask)
 
 __all__ = ["fused_dispatch_chain", "fused_dispatch_chain_plain",
-           "fused_slot_map", "fused_supported"]
+           "fused_dispatch_chain_bwd", "fused_dispatch_chain_bwd_plain",
+           "FusedDispatchFn", "fused_slot_map", "fused_supported"]
 
-# kernel launches since the caller last set it to 0 (read by chip_smoke.py)
-launches = 0
+# kernel launches since the caller last set them to 0 (read by chip_smoke.py)
+launches = 0          # K3
+bwd_launches = 0      # K4
 
 
 def fused_supported(tokens_shape, num_experts: int, capacity: int,
@@ -60,14 +71,29 @@ def fused_slot_map(slot_to_token: torch.Tensor, filled: torch.Tensor,
         .to(torch.int32)
 
 
+def _gather(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
+            num_experts: int) -> torch.Tensor:
+    return tokens_ext[stt_eff.long()].reshape(num_experts, -1,
+                                              tokens_ext.shape[-1])
+
+
 def fused_dispatch_chain_plain(tokens_ext: torch.Tensor,
                                stt_eff: torch.Tensor, ws: torch.Tensor,
                                bs: torch.Tensor,
                                skips: Sequence[int] = ()) -> torch.Tensor:
     """The plain version: an index gather, then the plain chain."""
-    e, m = ws.shape[1], tokens_ext.shape[-1]
-    x = tokens_ext[stt_eff.long()].reshape(e, -1, m)
-    return expert_mlp_chain_plain(x, ws, bs, skips)
+    return expert_mlp_chain_plain(_gather(tokens_ext, stt_eff, ws.shape[1]),
+                                  ws, bs, skips)
+
+
+def fused_dispatch_chain_bwd_plain(tokens_ext: torch.Tensor,
+                                   stt_eff: torch.Tensor, ws: torch.Tensor,
+                                   bs: torch.Tensor, g: torch.Tensor,
+                                   skips: Sequence[int] = ()):
+    """The plain backward: gather again, recompute, reverse sweep. Returns
+    (d(dispatched) [E, C, M], dW fp32, db fp32)."""
+    return expert_mlp_chain_bwd_plain(
+        _gather(tokens_ext, stt_eff, ws.shape[1]), ws, bs, g, skips)
 
 
 _PROTOTYPES = {
@@ -78,12 +104,38 @@ _PROTOTYPES = {
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
     "fused_dispatch_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+_BWD_PROTOTYPES = {
+    "fused_dispatch_bwd": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 4
+        + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
+    "fused_dispatch_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 
 
-def fused_dispatch_chain(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
-                         ws: torch.Tensor, bs: torch.Tensor,
-                         skips: Sequence[int] = ()) -> torch.Tensor:
-    """chain(dispatch(tokens)) -> [E, C, M].
+def _check_inputs(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
+                  ws: torch.Tensor, bs: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; returns the capacity C."""
+    check_rows(tokens_ext, "tokens_ext")
+    check_chain_weights(ws, bs, tokens_ext.dtype, tokens_ext.device)
+    e = ws.shape[1]
+    if tokens_ext.dim() != 2 or ws.shape[-1] != tokens_ext.shape[1]:
+        raise ValueError(f"tokens {tuple(tokens_ext.shape)} do not match ws "
+                         f"{tuple(ws.shape)}")
+    if (stt_eff.dtype != torch.int32 or stt_eff.dim() != 1
+            or stt_eff.device != tokens_ext.device
+            or not stt_eff.is_contiguous() or stt_eff.numel() % e):
+        raise ValueError("stt_eff must be a contiguous int32 [E*C] tensor on "
+                         "the tokens' device")
+    return stt_eff.numel() // e
+
+
+def fused_dispatch_chain_fwd(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
+                             ws: torch.Tensor, bs: torch.Tensor,
+                             skips: Sequence[int] = ()) -> torch.Tensor:
+    """K3 (or, for a CPU tensor, the plain version), outside autograd:
+    chain(dispatch(tokens)) -> [E, C, M].
 
     tokens_ext: [S', M] tokens plus one zero row (the empty-slot target)
     stt_eff:    [E*C] int32 slot->token map into tokens_ext, every entry in
@@ -94,19 +146,9 @@ def fused_dispatch_chain(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
     global launches
     if tokens_ext.device.type == "cpu":
         return fused_dispatch_chain_plain(tokens_ext, stt_eff, ws, bs, skips)
-    check_rows(tokens_ext, "tokens_ext")
-    check_chain_weights(ws, bs, tokens_ext.dtype, tokens_ext.device)
+    c = _check_inputs(tokens_ext, stt_eff, ws, bs)
     s_ext, m = tokens_ext.shape
     layers, e = ws.shape[0], ws.shape[1]
-    if ws.shape[-1] != m:
-        raise ValueError(f"tokens width {m} does not match ws "
-                         f"{tuple(ws.shape)}")
-    if (stt_eff.dtype != torch.int32 or stt_eff.dim() != 1
-            or stt_eff.device != tokens_ext.device
-            or not stt_eff.is_contiguous() or stt_eff.numel() % e):
-        raise ValueError("stt_eff must be a contiguous int32 [E*C] tensor on "
-                         "the tokens' device")
-    c = stt_eff.numel() // e
     out = torch.empty((e, c, m), dtype=tokens_ext.dtype,
                       device=tokens_ext.device)
     lib = _build.load("fused_dispatch", _PROTOTYPES)
@@ -118,3 +160,85 @@ def fused_dispatch_chain(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
     raise_on_error(rc, lib.fused_dispatch_error_string)
     launches += 1
     return out
+
+
+def fused_dispatch_chain_bwd(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
+                             ws: torch.Tensor, bs: torch.Tensor,
+                             g: torch.Tensor, skips: Sequence[int] = ()):
+    """K4 (or, for a CPU tensor, the plain backward) at cotangent g
+    [E, C, M]: returns (d(dispatched) [E, C, M], dW fp32, db fp32)."""
+    global bwd_launches
+    if tokens_ext.device.type == "cpu":
+        return fused_dispatch_chain_bwd_plain(tokens_ext, stt_eff, ws, bs, g,
+                                              skips)
+    c = _check_inputs(tokens_ext, stt_eff, ws, bs)
+    s_ext, m = tokens_ext.shape
+    layers, e = ws.shape[0], ws.shape[1]
+    dxd = torch.empty((e, c, m), dtype=tokens_ext.dtype,
+                      device=tokens_ext.device)
+    check_like(g, dxd, "g")
+    if c == 0:
+        raise ValueError("the backward kernel takes C >= 1")
+    hsave, gsave, dw, db = bwd_buffers(layers, e, c, m, tokens_ext.dtype,
+                                       tokens_ext.device)
+    lib = _build.load("fused_dispatch_bwd", _BWD_PROTOTYPES)
+    rc = lib.fused_dispatch_bwd(
+        tokens_ext.device.index, tokens_ext.data_ptr(), stt_eff.data_ptr(),
+        s_ext, ws.data_ptr(), bs.data_ptr(), g.data_ptr(), dxd.data_ptr(),
+        hsave.data_ptr(), gsave.data_ptr(), dw.data_ptr(), db.data_ptr(), e,
+        c, m, layers, skip_mask(skips, layers),
+        int(tokens_ext.dtype == torch.bfloat16),
+        torch.cuda.current_stream(tokens_ext.device).cuda_stream)
+    raise_on_error(rc, lib.fused_dispatch_bwd_error_string)
+    bwd_launches += 1
+    return dxd, dw, db
+
+
+class FusedDispatchFn(torch.autograd.Function):
+    """chain(dispatch(tokens)) with K3 forward and K4 backward, as the JAX
+    custom VJP (``fused_dispatch.py:254-294``). d(tokens) is d(dispatched)
+    gathered back by the token->slot map (the slot map is a partial
+    permutation for top-1) and masked by ``kept``: plain index ops outside
+    the kernel, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, tokens_ext, stt_eff, ws, bs, slot, kept, skips):
+        ctx.skips = tuple(skips)
+        ctx.save_for_backward(tokens_ext, stt_eff, ws, bs, slot, kept)
+        return fused_dispatch_chain_fwd(tokens_ext, stt_eff, ws, bs, skips)
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens_ext, stt_eff, ws, bs, slot, kept = ctx.saved_tensors
+        dxd, dw, db = fused_dispatch_chain_bwd(tokens_ext, stt_eff, ws, bs,
+                                               g.contiguous(), ctx.skips)
+        flat = dxd.reshape(-1, dxd.shape[-1])
+        flat_ext = torch.cat([flat, flat.new_zeros((1, flat.shape[-1]))])
+        rows = flat_ext[slot.long()]                               # [S', M]
+        d_tokens = rows * kept[:, None].to(rows.dtype)
+        return (d_tokens.to(tokens_ext.dtype), None, dw.to(ws.dtype),
+                db.to(bs.dtype), None, None, None)
+
+
+def fused_dispatch_chain(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
+                         ws: torch.Tensor, bs: torch.Tensor,
+                         slot: torch.Tensor, kept: torch.Tensor,
+                         skips: Sequence[int] = ()) -> torch.Tensor:
+    """chain(dispatch(tokens)) -> [E, C, M], with the JAX signature.
+
+    tokens_ext: [S + 1, M] tokens plus ONE zero row, the empty-slot target.
+                (The JAX package pads to a multiple of 8 rows because Mosaic
+                loads aligned 8-row groups; the card's kernels load any row,
+                so the port keeps the single zero row.)
+    stt_eff:    [E*C] int32 slot->token map; empty slots point at row S
+    ws / bs:    [L, E, M, M] / [L, E, 1, M] in the tokens' dtype
+    slot:       [S + 1] token->slot map (== E*C for dropped tokens and the
+                zero row): drives d(tokens) in the backward
+    kept:       [S + 1] bool
+    Differentiable (``FusedDispatchFn``) when grad is enabled.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (tokens_ext, ws, bs)):
+        return FusedDispatchFn.apply(tokens_ext, stt_eff, ws, bs, slot, kept,
+                                     tuple(skips))
+    return fused_dispatch_chain_fwd(tokens_ext, stt_eff, ws, bs, skips)

@@ -1,8 +1,9 @@
-"""Volume-rendering math: alpha compositing, PDF sampling, and the
-foreground/background (inverted-sphere) geometry helpers.
+"""Volume-rendering math: alpha compositing, stratified and PDF sampling,
+and the foreground/background (inverted-sphere) geometry helpers.
 
-Port of ``switch_nerf_tpu/ops/volume.py:37-254`` for evaluation: no
-stratified jitter, and deterministic (linspace) inverse-CDF samples.
+Port of ``switch_nerf_tpu/ops/volume.py:37-254``. Each random function
+takes either a ``torch.Generator`` or the uniform draw ``u`` itself, so a
+test can feed both frameworks the same numbers (the two generators differ).
 """
 from __future__ import annotations
 
@@ -11,31 +12,43 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 __all__ = [
-    "VolumeResults", "volume_render", "sample_pdf", "sample_cdf",
-    "interval_lookup", "intersect_sphere", "depth2pts_outside",
+    "VolumeResults", "volume_render", "expand_and_perturb_z_vals",
+    "sample_pdf", "sample_cdf", "interval_lookup", "intersect_sphere",
+    "depth2pts_outside",
 ]
 
 
 class VolumeResults(NamedTuple):
     rgb: Optional[torch.Tensor]        # [N, 3] (None unless composite_rgb)
     depth: Optional[torch.Tensor]      # [N]
+    depth_variance: Optional[torch.Tensor]  # [N]
     weights: torch.Tensor              # [N, S]
     alphas: torch.Tensor               # [N, S]
     transmittance: torch.Tensor        # [N, S] T_i (shifted, leading 1)
     bg_lambda: torch.Tensor            # [N] last unshifted T
 
 
+def _uniform(shape, like: torch.Tensor,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """U[0, 1) of `shape` in like's dtype, on like's device."""
+    return torch.rand(shape, generator=generator, dtype=like.dtype,
+                      device=like.device)
+
+
 def volume_render(rgbs: torch.Tensor, sigmas: torch.Tensor,
                   z_vals: torch.Tensor, last_delta: torch.Tensor, *,
                   flip: bool = False, composite_rgb: bool = True,
                   depth_real: Optional[torch.Tensor] = None,
-                  get_depth: bool = False,
-                  white_bkgd: bool = False) -> VolumeResults:
+                  get_depth: bool = False, get_depth_variance: bool = False,
+                  white_bkgd: bool = False,
+                  background_color: Optional[torch.Tensor] = None
+                  ) -> VolumeResults:
     """Classic NeRF compositing.
 
     rgbs: [N, S, 3]; sigmas: [N, S]; z_vals: [N, S]; last_delta: [N, 1].
     flip=True means samples run far->near (background pass), so deltas are
-    z[i] - z[i+1].
+    z[i] - z[i+1]. Depth and its variance carry no gradient (the JAX
+    package's stop_gradients).
     """
     if flip:
         deltas = z_vals[..., :-1] - z_vals[..., 1:]
@@ -55,31 +68,67 @@ def volume_render(rgbs: torch.Tensor, sigmas: torch.Tensor,
         rgb = torch.sum(weights[..., None] * rgbs, dim=-2)         # [N, 3]
         if white_bkgd:
             rgb = rgb + (1.0 - torch.sum(weights, dim=-1)[..., None])
+        elif background_color is not None:
+            rgb = rgb + ((1.0 - torch.sum(weights, dim=-1)[..., None])
+                         * background_color)
 
-    depth = None
-    if get_depth:
-        dr = depth_real if depth_real is not None else z_vals
-        depth = torch.sum(weights * dr, dim=-1)
+    depth = depth_variance = None
+    if get_depth or get_depth_variance:
+        dr = (depth_real if depth_real is not None else z_vals).detach()
+        w = weights.detach()
+        depth_map = torch.sum(w * dr, dim=-1)
+        if get_depth:
+            depth = depth_map
+        if get_depth_variance:
+            depth_variance = torch.sum(
+                w * torch.square(z_vals.detach() - depth_map[..., None]),
+                dim=-1)
 
-    return VolumeResults(rgb=rgb, depth=depth, weights=weights, alphas=alphas,
+    return VolumeResults(rgb=rgb, depth=depth, depth_variance=depth_variance,
+                         weights=weights, alphas=alphas,
                          transmittance=t_shift, bg_lambda=bg_lambda)
 
 
-def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
-               fine_samples: int) -> torch.Tensor:
-    """Deterministic inverse-CDF sampling. bins: [N, B+1], weights: [N, B]."""
+def expand_and_perturb_z_vals(z_vals: torch.Tensor, perturb: float,
+                              generator: Optional[torch.Generator] = None,
+                              u: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Stratified jitter of sample depths. z_vals: [N, S] (expanded).
+
+    No jitter when perturb <= 0 or neither a generator nor a draw `u`
+    (U[0, 1) of z_vals' shape) is given, as in the JAX package."""
+    if perturb <= 0 or (generator is None and u is None):
+        return z_vals
+    mids = 0.5 * (z_vals[..., :-1] + z_vals[..., 1:])
+    upper = torch.cat([mids, z_vals[..., -1:]], dim=-1)
+    lower = torch.cat([z_vals[..., :1], mids], dim=-1)
+    if u is None:
+        u = _uniform(z_vals.shape, z_vals, generator)
+    return lower + (upper - lower) * (perturb * u)
+
+
+def sample_pdf(bins: torch.Tensor, weights: torch.Tensor, fine_samples: int,
+               det: bool = True, generator: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Inverse-CDF sampling. bins: [N, B+1], weights: [N, B]."""
     weights = weights + 1e-8
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
-    return sample_cdf(bins, cdf, fine_samples)
+    return sample_cdf(bins, cdf, fine_samples, det, generator, u)
 
 
-def sample_cdf(bins: torch.Tensor, cdf: torch.Tensor,
-               fine_samples: int) -> torch.Tensor:
+def sample_cdf(bins: torch.Tensor, cdf: torch.Tensor, fine_samples: int,
+               det: bool = True, generator: Optional[torch.Generator] = None,
+               u: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Deterministic (linspace) queries when det or neither a generator nor
+    a draw `u` [N, fine_samples] is given; else random ones."""
     n_rays = cdf.shape[0]
     cdf = torch.cat([cdf.new_zeros((n_rays, 1)), cdf], dim=-1)     # [N, B+1]
-    u = torch.linspace(0.0, 1.0, fine_samples, dtype=cdf.dtype,
-                       device=cdf.device).expand(n_rays, fine_samples)
+    if det or (generator is None and u is None):
+        u = torch.linspace(0.0, 1.0, fine_samples, dtype=cdf.dtype,
+                           device=cdf.device).expand(n_rays, fine_samples)
+    elif u is None:
+        u = _uniform((n_rays, fine_samples), cdf, generator)
     cdf_below, cdf_above, bins_below, bins_above = interval_lookup(
         cdf, bins, u)
     denom = cdf_above - cdf_below

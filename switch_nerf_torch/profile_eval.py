@@ -1,14 +1,20 @@
-"""Where one full-width Building eval request spends its time on the card.
+"""Where one full-width Building eval request, or one Building train step,
+spends its time on the card.
 
     python -m switch_nerf_torch.profile_eval [--rays 4096] [--trace DIR]
+    python -m switch_nerf_torch.profile_eval --train [--rays 1024]
 
-Defines the Building eval workload that this script and chip_smoke.py
-drive (building.yaml + the production flags, bf16, bg NeRF, 256 + 512
-samples, 32768-point chunks, seeded random weights, rays from inside the
-unit sphere). Renders one warm-up request, then one request under
-torch.profiler, and prints the request's wall time, the summed time of the
-device kernels and their share of the wall time, device time by kernel
-family, and the top kernels. With --trace, writes a Chrome trace there.
+Defines the Building workloads that this script and chip_smoke.py drive
+(building.yaml + the production flags, bf16, bg NeRF, 256 + 512 samples,
+32768-point chunks, seeded random weights, rays from inside the unit
+sphere): the eval request (padded eval dispatch) and the train step (the
+published training recipe: padded train dispatch, sigma noise, l_aux
+weight 5e-4, perturb 1.0, Adam). Runs one warm-up, then one request or
+step under torch.profiler, and prints its wall time, the summed time of
+the device kernels and their share of the wall time, device time by
+kernel family, and the top kernels. With --steps N, first times N
+unprofiled runs (host clock around work that ends in a synchronize). With
+--trace, writes a Chrome trace there.
 """
 from __future__ import annotations
 
@@ -24,12 +30,14 @@ from torch.profiler import ProfilerActivity, profile
 from switch_nerf_torch.config import get_opts, parse_args
 from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
 from switch_nerf_torch.trainer import (
-    SceneInfo, make_eval_step, render_config_from_hparams)
+    SceneInfo, create_train_state, make_eval_step, make_train_step,
+    render_config_from_hparams)
 
 REPO = Path(__file__).resolve().parent.parent
 
 # kernel-name substrings -> family (first match wins)
 FAMILIES = (
+    ("K2/K4 chain backward", ("chain_bwd_", "chain_dw_")),
     ("K1/K3 chain kernel", ("chain_bf16_kernel", "chain_f32_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_")),
     ("sort", ("sort", "radix")),
@@ -53,10 +61,22 @@ def building_eval_hparams():
         "--fine_samples", "512", "--model_chunk_size", "32768"])
 
 
-def ray_batch(n: int, seed: int, device) -> dict:
+def building_train_hparams():
+    """The eval workload's hparams plus the published training recipe
+    (bench.py:164-174 and the README's Building command): padded train
+    dispatch, sigma noise, l_aux weight 5e-4, 1024-ray batches."""
+    h = building_eval_hparams()
+    h.moe_train_batch = True
+    h.use_sigma_noise = True
+    h.moe_l_aux_wt = 5e-4
+    h.batch_size = 1024
+    return h
+
+
+def ray_batch(n: int, seed: int, device, rgbs: bool = False) -> dict:
     """n rays from inside the unit sphere (the graft entry's _make_batch
     recipe): origins N(0, 0.1), unit directions, near 0.5, far 2.5, and
-    appearance indices in [0, 8)."""
+    appearance indices in [0, 8); with `rgbs`, target colours in [0, 1)."""
     g = torch.Generator().manual_seed(seed)
     o = torch.randn(n, 3, generator=g) * 0.1
     d = torch.randn(n, 3, generator=g)
@@ -64,7 +84,30 @@ def ray_batch(n: int, seed: int, device) -> dict:
     rays = torch.cat([o, d, torch.full((n, 1), 0.5),
                       torch.full((n, 1), 2.5)], -1)
     idx = torch.randint(0, 8, (n,), generator=g).float()
-    return {"rays": rays.to(device), "image_indices": idx.to(device)}
+    batch = {"rays": rays.to(device), "image_indices": idx.to(device)}
+    if rgbs:
+        batch["rgbs"] = torch.rand(n, 3, generator=g).to(device)
+    return batch
+
+
+SCENE = SceneInfo(np.zeros(3, np.float32), np.ones(3, np.float32))
+
+
+def _eval_run(n: int):
+    h = building_eval_hparams()
+    step = make_eval_step(get_nerf(h, 8, seed=0), get_bg_nerf(h, 8, seed=1),
+                          h, render_config_from_hparams(h), SCENE)
+    batch = ray_batch(n, 0, "cuda")
+    return "request", lambda: step(batch)
+
+
+def _train_run(n: int):
+    h = building_train_hparams()
+    state = create_train_state(h, get_nerf(h, 8, seed=0),
+                               get_bg_nerf(h, 8, seed=1))
+    step = make_train_step(h, render_config_from_hparams(h), SCENE)
+    batch = ray_batch(n, 0, "cuda", rgbs=True)
+    return "train step", lambda: step(state, batch)
 
 
 def family(name: str) -> str:
@@ -77,30 +120,41 @@ def family(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rays", type=int, default=4096)
+    ap.add_argument("--train", action="store_true",
+                    help="profile a train step instead of an eval request")
+    ap.add_argument("--rays", type=int, default=None,
+                    help="rays per request (4096) or train batch (1024)")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="unprofiled runs to time before the profiled one")
     ap.add_argument("--trace", type=str, default=None)
     args = ap.parse_args(argv)
 
-    h = building_eval_hparams()
-    model = get_nerf(h, 8, seed=0)
-    bg = get_bg_nerf(h, 8, seed=1)
-    step = make_eval_step(model, bg, h, render_config_from_hparams(h),
-                          SceneInfo(np.zeros(3, np.float32),
-                                    np.ones(3, np.float32)))
-    n = args.rays
-    batch = ray_batch(n, 0, "cuda")
-
-    step(batch)                                    # warm-up
+    n = args.rays or (1024 if args.train else 4096)
+    what, run = (_train_run if args.train else _eval_run)(n)
+    run()                                          # warm-up
     torch.cuda.synchronize()
+    times = []
+    for _ in range(args.steps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if times:
+        print(f"{what}: {args.steps} unprofiled runs, seconds "
+              f"{[round(t, 4) for t in times]}, mean "
+              f"{sum(times) / len(times):.4f} s, "
+              f"{n * len(times) / sum(times):.1f} rays/s")
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if args.trace:
         Path(args.trace).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(args.trace) / "eval_request.json"))
+        prof.export_chrome_trace(str(
+            Path(args.trace) / f"{what.replace(' ', '_')}.json"))
 
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -111,7 +165,7 @@ def main(argv=None) -> int:
         f = by_family.setdefault(family(e.key), [0.0, 0])
         f[0] += e.self_device_time_total / 1e3
         f[1] += e.count
-    print(f"request: {n} rays, wall {wall * 1e3:.1f} ms, device kernels "
+    print(f"{what}: {n} rays, wall {wall * 1e3:.1f} ms, device kernels "
           f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / (wall * 1e3):.1f}"
           f"% busy), {launches} kernel launches")
     for fam, (ms, cnt) in sorted(by_family.items(), key=lambda kv: -kv[1][0]):
@@ -121,9 +175,11 @@ def main(argv=None) -> int:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  "
               f"{e.key[:100]}")
     print(json.dumps({
-        "rays": n, "wall_ms": wall * 1e3, "device_kernel_ms": device_us / 1e3,
-        "kernel_launches": launches,
+        "what": what, "rays": n, "wall_ms": wall * 1e3,
+        "unprofiled_s": times,
+        "device_kernel_ms": device_us / 1e3, "kernel_launches": launches,
         "device_ms_by_family": {k: v[0] for k, v in by_family.items()},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -1,14 +1,32 @@
-"""Classic (Mega-NeRF-style) ray rendering for evaluation: coarse/fine
-hierarchical sampling with foreground/background (inverted-sphere)
-composition.
+"""Classic (Mega-NeRF-style) ray rendering: coarse/fine hierarchical
+sampling with foreground/background (inverted-sphere) composition.
 
-Port of ``switch_nerf_tpu/render/rendering.py:55-574`` for ``train=False``:
-no stratified jitter, deterministic fine samples, no noise. The JAX
-``lax.scan`` over model chunks is a Python loop here.
+Port of ``switch_nerf_tpu/render/rendering.py:98-574`` (non-cascade). The
+JAX ``lax.scan`` over model chunks is a Python loop here, and there is no
+rematerialisation: at the published batch the saved activations fit the
+card's memory, and remat changes no value.
+
+Training (``train=True``) adds the stratified jitter of the fg and bg
+depths, random fine samples, per-chunk sigma noise and, with
+--use_random_background_color, random background colours. All of it comes
+from ONE ``torch.Generator`` on the rays' device, drawn in program order:
+
+  background pass (when there is a bg model):
+    1. jitter of the bg depths        U[0,1) [N, coarse/2]
+    2. each coarse chunk's sigma noise N(0,1) [chunk, 1], chunk order
+    3. the fine queries               U[0,1) [N, fine/2]
+    4. each fine chunk's sigma noise
+    5. the fine composite's background colour U[0,1) [3]
+  foreground pass: the same five draws at [N, coarse] and [N, fine].
+
+A draw is skipped when its feature is off (perturb 0, no sigma noise, no
+random background). The JAX package splits one key per site instead, so
+the two frameworks draw different numbers: tests inject the same draws or
+switch the noise off.
 
 The `model_fn` contract:
-    model_fn(points [P, D]) -> (outputs [P, 4], moe_loss [L] fp32)
-    # L == 0 for dense models
+    model_fn(points [P, D], sigma_noise [P, 1] | None, train) ->
+        (outputs [P, 4], moe_loss [L] fp32)   # L == 0 for dense models
 """
 from __future__ import annotations
 
@@ -19,35 +37,57 @@ import torch
 
 from switch_nerf_torch.ops.sorting import sort_with_payloads
 from switch_nerf_torch.ops.volume import (
-    depth2pts_outside, intersect_sphere, sample_pdf, volume_render)
+    depth2pts_outside, expand_and_perturb_z_vals, intersect_sphere,
+    sample_pdf, volume_render)
 
-ModelFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], bool],
+                   Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     coarse_samples: int = 256
     fine_samples: int = 512
+    perturb: float = 1.0                       # train only
     model_chunk_size: int = 131072
     bg_model_chunk_size: Optional[int] = None  # dense bg pass chunk size
     pos_dir_dim: int = 4
     white_bkgd: bool = False
+    use_random_background_color: bool = False  # train only
+    use_sigma_noise: bool = False              # train only
+    sigma_noise_std: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class _Pass:
+    """What one render call draws: train mode and its generator."""
+    train: bool = False
+    generator: Optional[torch.Generator] = None
 
 
 def run_model_chunked(model_fn: ModelFn, points: torch.Tensor,
-                      chunk_size: int):
-    """Apply the model over full chunks of `chunk_size` points, then ONE
-    exact-size call on the remainder.
+                      cfg: RenderConfig, mode: _Pass = _Pass()):
+    """Apply the model over full chunks of `model_chunk_size` points, then
+    ONE exact-size call on the remainder.
 
     The chunking must match the JAX package's exactly: capacity and
     batch-prioritized routing are decided per chunk, so any other split
-    drops other tokens. Returns (outputs [P, C], moe_loss [n_chunks, L]).
+    drops other tokens. In training with --use_sigma_noise each chunk gets
+    sigma_noise_std * N(0, 1) [chunk, 1] fp32. Returns (outputs [P, C],
+    moe_loss [n_chunks, L]).
     """
     p = points.shape[0]
-    chunk = min(chunk_size, p)
+    chunk = min(cfg.model_chunk_size, p)
+    noise = mode.train and cfg.use_sigma_noise and cfg.sigma_noise_std > 0.0
     outs, losses = [], []
     for start in range(0, p, chunk):
-        out, moe_loss = model_fn(points[start:start + chunk])
+        pts = points[start:start + chunk]
+        sigma_noise = None
+        if noise:
+            sigma_noise = cfg.sigma_noise_std * torch.randn(
+                (pts.shape[0], 1), generator=mode.generator,
+                dtype=torch.float32, device=pts.device)
+        out, moe_loss = model_fn(pts, sigma_noise, mode.train)
         outs.append(out)
         losses.append(moe_loss)
     return torch.cat(outs, dim=0), torch.stack(losses)
@@ -83,7 +123,7 @@ def _build_points(xyz: torch.Tensor, rays_d: torch.Tensor,
 
 def _inference(model_fn: ModelFn, xyz: torch.Tensor, z_vals: torch.Tensor,
                rays_d: torch.Tensor, image_indices, cfg: RenderConfig,
-               flip: bool, depth_real: Optional[torch.Tensor]):
+               mode: _Pass, flip: bool, depth_real: Optional[torch.Tensor]):
     """Run the model on [N, S] samples; return raw (rgbs, sigmas), the z
     values and depth_real in model order, and moe_loss.
 
@@ -96,18 +136,24 @@ def _inference(model_fn: ModelFn, xyz: torch.Tensor, z_vals: torch.Tensor,
             depth_real = torch.flip(depth_real, dims=(-1,))
     n, s, _ = xyz.shape
     pts = _build_points(xyz, rays_d, image_indices, cfg.pos_dir_dim)
-    out, moe_loss = run_model_chunked(model_fn, pts, cfg.model_chunk_size)
+    out, moe_loss = run_model_chunked(model_fn, pts, cfg, mode)
     out = out.reshape(n, s, -1)
     return out[..., :3], out[..., 3], z_vals, depth_real, moe_loss
 
 
 def _composite(rgbs, sigmas, z_vals, last_delta, cfg: RenderConfig,
-               flip: bool, depth_real=None, get_depth=False,
-               composite_rgb: bool = True):
+               mode: _Pass, flip: bool, depth_real=None, get_depth=False,
+               get_depth_variance=False, composite_rgb: bool = True):
+    background_color = None
+    if (mode.train and cfg.use_random_background_color and composite_rgb
+            and not cfg.white_bkgd):
+        background_color = torch.rand(3, generator=mode.generator,
+                                      device=rgbs.device)
     return volume_render(
         rgbs, sigmas, z_vals, last_delta, flip=flip,
         composite_rgb=composite_rgb, depth_real=depth_real,
-        get_depth=get_depth, white_bkgd=cfg.white_bkgd)
+        get_depth=get_depth, get_depth_variance=get_depth_variance,
+        white_bkgd=cfg.white_bkgd, background_color=background_color)
 
 
 def _adjust_last_delta(ld: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -124,12 +170,17 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
                 cfg: RenderConfig, sphere_center: Optional[torch.Tensor],
                 sphere_radius: Optional[torch.Tensor],
                 get_depth: bool = False,
-                get_bg_fg_rgb: bool = False) -> Dict[str, torch.Tensor]:
+                get_bg_fg_rgb: bool = False, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                get_depth_variance: bool = False) -> Dict[str, torch.Tensor]:
     """rays: [N, 8] = [o, d, near, far]. Returns the JAX package's results
-    dict (rgb_fine / depth_fine / gate_loss_* / bg_* / fg_* ...).
+    dict (rgb_fine / depth_fine / depth_variance_fine / gate_loss_* / bg_*
+    / fg_* ...). `generator` feeds every training draw (module docstring).
 
     Needs fine samples (cfg.fine_samples > 0): the coarse-only render
     waits for a later slice."""
+    mode = _Pass(train, generator)
+    perturb = cfg.perturb if train else 0.0
     n_rays = rays.shape[0]
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]
@@ -154,27 +205,31 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
     bg = {}
     if has_bg:
         bg = _render_background(bg_model_fn, rays_o3, rays_d3, image_indices,
-                                cfg, sphere_center, sphere_radius, get_depth)
+                                cfg, mode, sphere_center, sphere_radius,
+                                get_depth)
 
     # ---------------- foreground coarse ------------------------------------
     z_steps = torch.linspace(0.0, 1.0, cfg.coarse_samples, dtype=rays.dtype,
                              device=rays.device)
     z_vals = near * (1 - z_steps) + far * z_steps
+    z_vals = expand_and_perturb_z_vals(z_vals, perturb, generator)
     xyz_coarse = rays_o3 + rays_d3 * z_vals[..., None]
     rgbs_c, sigmas_c, zv_c, _, moe_loss_c = _inference(
-        model_fn, xyz_coarse, z_vals, rays_d3, image_indices, cfg,
+        model_fn, xyz_coarse, z_vals, rays_d3, image_indices, cfg, mode,
         flip=False, depth_real=None)
     results["gate_loss_coarse"] = moe_loss_c.reshape(-1)
 
     vr_c = _composite(rgbs_c, sigmas_c, zv_c,
-                      _adjust_last_delta(last_delta, zv_c), cfg, flip=False,
-                      composite_rgb=False)
+                      _adjust_last_delta(last_delta, zv_c), cfg, mode,
+                      flip=False, composite_rgb=False)
     z_mid = 0.5 * (zv_c[:, :-1] + zv_c[:, 1:])
-    fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1], cfg.fine_samples)
+    fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1].detach(),
+                        cfg.fine_samples, det=perturb == 0,
+                        generator=generator)
     xyz_fine = rays_o3 + rays_d3 * fine_z[..., None]
     rgbs_f, sigmas_f, zv_f, _, moe_loss_f = _inference(
-        model_fn, xyz_fine, fine_z, rays_d3, image_indices, cfg, flip=False,
-        depth_real=None)
+        model_fn, xyz_fine, fine_z, rays_d3, image_indices, cfg, mode,
+        flip=False, depth_real=None)
     results["gate_loss_fine"] = moe_loss_f.reshape(-1)
 
     # merge coarse + fine raw samples before compositing
@@ -186,11 +241,14 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
     # subtracts max(FINE z) only, though the composite runs on the merged
     # array whose max is the coarse far bound
     vr_f = _composite(rgb_all, sig_all, z_all,
-                      _adjust_last_delta(last_delta, fine_z), cfg, flip=False,
-                      get_depth=get_depth or has_bg)
+                      _adjust_last_delta(last_delta, fine_z), cfg, mode,
+                      flip=False, get_depth=get_depth or has_bg,
+                      get_depth_variance=get_depth_variance)
     results["rgb_fine"] = vr_f.rgb
     if get_depth:
         results["depth_fine"] = vr_f.depth
+    if get_depth_variance:
+        results["depth_variance_fine"] = vr_f.depth_variance
     if has_bg:
         results["bg_lambda_fine"] = vr_f.bg_lambda
 
@@ -217,18 +275,20 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
 
 
 def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
-                       cfg: RenderConfig, sphere_center, sphere_radius,
-                       get_depth):
+                       cfg: RenderConfig, mode: _Pass, sphere_center,
+                       sphere_radius, get_depth):
     """Inverted-sphere background pass over ALL rays (the caller masks the
     composition), with half the coarse and half the fine samples, ordered
     far->near."""
     if cfg.bg_model_chunk_size:
         cfg = dataclasses.replace(cfg,
                                   model_chunk_size=cfg.bg_model_chunk_size)
+    perturb = cfg.perturb if mode.train else 0.0
     n_rays = rays_o3.shape[0]
     s_bg = cfg.coarse_samples // 2
     bg_z = torch.linspace(0.0, 1.0, s_bg, dtype=rays_o3.dtype,
                           device=rays_o3.device).expand(n_rays, s_bg)
+    bg_z = expand_and_perturb_z_vals(bg_z, perturb, mode.generator)
     bg_pts, depth_real = depth2pts_outside(rays_o3, rays_d3, bg_z,
                                            sphere_center, sphere_radius)
     last_delta = torch.full((n_rays, 1), 1e10, dtype=rays_o3.dtype,
@@ -236,22 +296,25 @@ def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
 
     results: Dict[str, torch.Tensor] = {}
     rgbs_c, sigmas_c, zv_c, dr_c, moe_loss_c = _inference(
-        bg_model_fn, bg_pts, bg_z, rays_d3, image_indices, cfg, flip=True,
-        depth_real=depth_real)
+        bg_model_fn, bg_pts, bg_z, rays_d3, image_indices, cfg, mode,
+        flip=True, depth_real=depth_real)
     results["gate_loss_coarse"] = moe_loss_c.reshape(-1)
 
-    vr_c = _composite(rgbs_c, sigmas_c, zv_c, last_delta, cfg, flip=True,
-                      composite_rgb=False, depth_real=dr_c)
+    vr_c = _composite(rgbs_c, sigmas_c, zv_c, last_delta, cfg, mode,
+                      flip=True, composite_rgb=False, depth_real=dr_c)
     # zv_c comes back flipped (descending inverse depth). As in the JAX
     # package (and the reference it follows), the ASCENDING mids of the
     # original bg z pair with the flipped-order weights.
     z_mid = torch.flip(0.5 * (zv_c[:, :-1] + zv_c[:, 1:]), dims=(-1,))
-    fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1], cfg.fine_samples // 2)
+    fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1].detach(),
+                        cfg.fine_samples // 2, det=perturb == 0,
+                        generator=mode.generator)
+    # ascending order for depth2pts_outside (random draws come unsorted)
     fine_z_asc = torch.sort(fine_z, dim=-1).values
     bg_pts_f, depth_real_f = depth2pts_outside(
         rays_o3, rays_d3, fine_z_asc, sphere_center, sphere_radius)
     rgbs_f, sigmas_f, zv_f, dr_f, moe_loss_f = _inference(
-        bg_model_fn, bg_pts_f, fine_z_asc, rays_d3, image_indices, cfg,
+        bg_model_fn, bg_pts_f, fine_z_asc, rays_d3, image_indices, cfg, mode,
         flip=True, depth_real=depth_real_f)
     results["gate_loss_fine"] = moe_loss_f.reshape(-1)
 
@@ -261,8 +324,8 @@ def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
         torch.cat([rgbs_f, rgbs_c], dim=-2),
         torch.cat([sigmas_f, sigmas_c], dim=-1),
         torch.cat([dr_f, dr_c], dim=-1))
-    vr_f = _composite(rgb_all, sig_all, -z_neg, last_delta, cfg, flip=True,
-                      depth_real=dr_all, get_depth=get_depth)
+    vr_f = _composite(rgb_all, sig_all, -z_neg, last_delta, cfg, mode,
+                      flip=True, depth_real=dr_all, get_depth=get_depth)
     results["rgb_fine"] = vr_f.rgb
     if get_depth:
         results["depth_fine"] = vr_f.depth

@@ -1,22 +1,38 @@
-"""Evaluation step of the port (the serving path).
+"""Training and evaluation steps of the port.
 
-Port of the eval part of ``switch_nerf_tpu/trainer.py`` (``SceneInfo``,
-``render_config_from_hparams``, ``make_model_fn``, ``make_eval_step``,
-``:59-148, 290-313``). Training waits for a later slice.
+Port of ``switch_nerf_tpu/trainer.py`` for the non-mip, non-cascade
+configs: ``SceneInfo``, ``render_config_from_hparams``, ``make_model_fn``,
+``make_eval_step`` (the serving path), and the training core:
+``create_optimizer`` (Adam with the per-step exponential LR),
+``compute_losses``, ``TrainState`` / ``create_train_state`` and
+``make_train_step`` with gradient accumulation and the finite check.
+
+The recipe mirrors the JAX one:
+
+    state = create_train_state(hparams, model, bg_model)
+    train_step = make_train_step(hparams, render_cfg, scene)
+    state, metrics = train_step(state, batch)
+
+A torch module holds its own parameters, so the state holds the modules
+(where the JAX state holds the parameter tree) and the step updates them
+in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from switch_nerf_torch import resolve_device
+from switch_nerf_torch.models.moe import MoELayer
 from switch_nerf_torch.render.rendering import RenderConfig, render_rays
 
 __all__ = ["SceneInfo", "render_config_from_hparams", "make_model_fn",
-           "make_eval_step"]
+           "make_eval_step", "lr_schedule", "create_optimizer",
+           "compute_losses", "TrainState", "create_train_state",
+           "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,17 +54,22 @@ def render_config_from_hparams(hparams) -> RenderConfig:
     return RenderConfig(
         coarse_samples=hparams.coarse_samples,
         fine_samples=hparams.fine_samples,
+        perturb=hparams.perturb,
         model_chunk_size=hparams.model_chunk_size,
         bg_model_chunk_size=getattr(hparams, "bg_model_chunk_size", None),
         pos_dir_dim=hparams.pos_dir_dim,
-        white_bkgd=hparams.white_bkgd)
+        white_bkgd=hparams.white_bkgd,
+        use_random_background_color=hparams.use_random_background_color,
+        use_sigma_noise=hparams.use_sigma_noise,
+        sigma_noise_std=hparams.sigma_noise_std)
 
 
 def make_model_fn(model: nn.Module) -> Callable:
     """Adapt a module to the renderer's contract:
-    model_fn(points [P, D]) -> (outputs [P, 4], moe_loss [L])."""
-    def model_fn(pts):
-        out = model(pts)
+    model_fn(points [P, D], sigma_noise [P, 1] | None, train) ->
+    (outputs [P, 4], moe_loss [L])."""
+    def model_fn(pts, sigma_noise=None, train=False):
+        out = model(pts, sigma_noise=sigma_noise, train=train)
         if isinstance(out, dict):
             moe = out["extras"].get("moe_loss")
             if moe is None:
@@ -64,6 +85,12 @@ def _as_tensor(v, device) -> Optional[torch.Tensor]:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
+def _check_on(dev: torch.device, **modules) -> None:
+    for name, m in modules.items():
+        if m is not None and any(p.device != dev for p in m.parameters()):
+            raise ValueError(f"{name} has parameters off {dev}")
+
+
 def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
                    render_cfg: RenderConfig, scene: SceneInfo, *,
                    device=None) -> Callable[[Dict], Dict[str, torch.Tensor]]:
@@ -73,9 +100,7 @@ def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
     numpy arrays or tensors. The models must already live on the device.
     """
     dev = resolve_device(device)
-    for name, m in (("model", model), ("bg_model", bg_model)):
-        if m is not None and any(p.device != dev for p in m.parameters()):
-            raise ValueError(f"{name} has parameters off {dev}")
+    _check_on(dev, model=model, bg_model=bg_model)
     center = _as_tensor(scene.sphere_center, dev)
     radius = _as_tensor(scene.sphere_radius, dev)
     model_fn = make_model_fn(model)
@@ -91,3 +116,243 @@ def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
                            # fg/bg decomposition for the eval viz protocol
                            get_bg_fg_rgb=True)
     return eval_step
+
+
+# ------------------------------------------------------------- training ----
+
+def lr_schedule(hparams) -> Callable[[int], float]:
+    """The learning rate of optimizer step t (0-based), as the JAX package's
+    ``optax.exponential_decay``: lr * gamma^(acc-1) * (gamma^acc)^t with
+    gamma = lr_decay_factor ** (1 / train_iterations) and acc the
+    accumulation steps. The reference steps its ExponentialLR every
+    micro-iteration, so its update c lands after acc*c + acc - 1 decays
+    (``switch_nerf_tpu/trainer.py:65-84``). Constant with
+    --no_optimizer_schedulers."""
+    lr = hparams.lr
+    if getattr(hparams, "no_optimizer_schedulers", False):
+        return lambda t: lr
+    acc = getattr(hparams, "accumulation_steps", 1) or 1
+    gamma = hparams.lr_decay_factor ** (1.0 / hparams.train_iterations)
+    return lambda t: lr * gamma ** (acc - 1) * (gamma ** acc) ** t
+
+
+def create_optimizer(hparams, params: List[nn.Parameter]
+                     ) -> torch.optim.Adam:
+    """Adam(betas (0.9, 0.999), eps 1e-8) over the fg and bg parameters
+    together (Adam is per tensor, so one optimizer equals two). The step
+    sets its learning rate from ``lr_schedule`` before every update."""
+    return torch.optim.Adam(params, lr=lr_schedule(hparams)(0),
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def _mse(pred, target):
+    return torch.mean(torch.square(pred.float() - target.float()))
+
+
+def _psnr(mse):
+    return -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+def compute_losses(results: Dict[str, torch.Tensor], rgbs: torch.Tensor,
+                   hparams) -> Dict[str, torch.Tensor]:
+    """The training metrics and loss (``switch_nerf_tpu/trainer.py:160-203``
+    without the mip/cascade coarse loss): photo MSE, psnr, depth variance,
+    and moe_l_aux_wt * the mean load-balance loss of the coarse and fine
+    passes."""
+    typ = "fine" if "rgb_fine" in results else "coarse"
+    photo_loss = _mse(results[f"rgb_{typ}"], rgbs)
+    metrics = {"psnr": _psnr(photo_loss), "photo_loss": photo_loss,
+               "loss": photo_loss}
+    if f"depth_variance_{typ}" in results:
+        metrics["depth_variance"] = torch.mean(
+            results[f"depth_variance_{typ}"])
+
+    use_moe = hparams.use_moe or getattr(hparams, "bg_use_moe", False)
+    balance = use_moe and hparams.use_balance_loss
+    if balance:
+        gl = results.get(f"gate_loss_{typ}")
+        if gl is not None and gl.numel():
+            gate_loss = torch.mean(gl)
+            glc = results.get("gate_loss_coarse")
+            if typ == "fine" and glc is not None and glc.numel():
+                gate_loss = (gate_loss + torch.mean(glc)) / 2.0
+            metrics["gate_loss"] = gate_loss
+        bgl = results.get(f"bg_gate_loss_{typ}")
+        if (getattr(hparams, "bg_use_moe", False) and bgl is not None
+                and bgl.numel()):
+            bg_gate = torch.mean(bgl)
+            bgc = results.get("bg_gate_loss_coarse")
+            if typ == "fine" and bgc is not None and bgc.numel():
+                bg_gate = (bg_gate + torch.mean(bgc)) / 2.0
+            metrics["bg_gate_loss"] = bg_gate
+
+    all_loss = metrics["loss"]
+    if balance:
+        for key in ("gate_loss", "bg_gate_loss"):
+            if key in metrics:
+                all_loss = all_loss + hparams.moe_l_aux_wt * metrics[key]
+    metrics["all_loss"] = all_loss
+    return metrics
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything one training step reads and updates.
+
+    model / bg_model: the fg and bg modules, updated in place
+    optimizer:        Adam over both (``create_optimizer``)
+    generator:        the device generator every random draw of a step
+                      comes from (``render/rendering.py`` gives the order)
+    step:             finite micro-steps taken (the JAX state's ``step``)
+    opt_step:         optimizer updates applied; indexes ``lr_schedule``
+    mini_step:        micro-steps into the current accumulation window
+    acc_grads:        the window's running mean gradient, as
+                      ``optax.MultiSteps`` keeps it (acc > 1 only)
+    """
+    model: nn.Module
+    bg_model: Optional[nn.Module]
+    optimizer: torch.optim.Adam
+    generator: torch.Generator
+    step: int = 0
+    opt_step: int = 0
+    mini_step: int = 0
+    acc_grads: Optional[List[torch.Tensor]] = None
+
+    def parameters(self) -> List[nn.Parameter]:
+        params = list(self.model.parameters())
+        if self.bg_model is not None:
+            params += list(self.bg_model.parameters())
+        return params
+
+
+def _check_trainable(model: nn.Module) -> None:
+    for m in model.modules():
+        if isinstance(m, MoELayer):
+            m.check_supported(train=True)
+
+
+def create_train_state(hparams, model: nn.Module,
+                       bg_model: Optional[nn.Module], *, device=None,
+                       seed: Optional[int] = None) -> TrainState:
+    """The optimizer over the models' parameters and a generator on
+    ``device`` (default ``cuda``) seeded with ``seed`` (default
+    --random_seed). Raises if the model needs what the port does not train
+    yet (no-drop dispatch, gate noise)."""
+    dev = resolve_device(device)
+    _check_on(dev, model=model, bg_model=bg_model)
+    _check_trainable(model)
+    params = list(model.parameters())
+    if bg_model is not None:
+        params += list(bg_model.parameters())
+    generator = torch.Generator(device=dev).manual_seed(
+        hparams.random_seed if seed is None else seed)
+    return TrainState(model=model, bg_model=bg_model,
+                      optimizer=create_optimizer(hparams, params),
+                      generator=generator)
+
+
+class TrainStep:
+    """train_step(state, batch) -> (state, metrics); see make_train_step."""
+
+    def __init__(self, hparams, render_cfg: RenderConfig, scene: SceneInfo,
+                 device):
+        self.hparams = hparams
+        self.render_cfg = render_cfg
+        self.device = resolve_device(device)
+        self.center = _as_tensor(scene.sphere_center, self.device)
+        self.radius = _as_tensor(scene.sphere_radius, self.device)
+        self.check_finite = not getattr(hparams, "disable_check_finite",
+                                        False)
+        self.acc = getattr(hparams, "accumulation_steps", 1) or 1
+        self.schedule = lr_schedule(hparams)
+
+    def loss_and_grads(self, state: TrainState, batch
+                       ) -> Tuple[Dict[str, torch.Tensor], List[torch.Tensor]]:
+        """Render the batch in train mode and differentiate all_loss with
+        respect to ``state.parameters()``; updates nothing but the
+        generator. Returns (metrics as detached 0-d tensors, grads)."""
+        dev = self.device
+        rays = _as_tensor(batch["rays"], dev)
+        rgbs = _as_tensor(batch["rgbs"], dev)
+        image_indices = (_as_tensor(batch.get("image_indices"), dev)
+                         if self.hparams.appearance_dim > 0 else None)
+        bg_fn = (make_model_fn(state.bg_model)
+                 if state.bg_model is not None else None)
+        with torch.enable_grad():
+            results = render_rays(
+                make_model_fn(state.model), bg_fn, rays, image_indices,
+                self.render_cfg, self.center, self.radius, train=True,
+                generator=state.generator, get_depth_variance=True)
+            metrics = compute_losses(results, rgbs, self.hparams)
+            params = state.parameters()
+            grads = torch.autograd.grad(metrics["all_loss"], params,
+                                        allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        return {k: v.detach() for k, v in metrics.items()}, grads
+
+    def _apply(self, state: TrainState, grads: List[torch.Tensor]) -> None:
+        """Adam on grads, or (acc > 1) on the window's mean gradient at the
+        window's last micro-step, as optax.MultiSteps."""
+        params = state.parameters()
+        if self.acc > 1:
+            if state.acc_grads is None:
+                state.acc_grads = [torch.zeros_like(p) for p in params]
+            n = state.mini_step
+            for a, g in zip(state.acc_grads, grads):
+                a.add_((g - a) / (n + 1))
+            if n < self.acc - 1:
+                state.mini_step += 1
+                state.step += 1
+                return
+            grads = state.acc_grads
+        for p, g in zip(params, grads):
+            p.grad = g
+        for group in state.optimizer.param_groups:
+            group["lr"] = self.schedule(state.opt_step)
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
+        if self.acc > 1:
+            for a in state.acc_grads:
+                a.zero_()
+            state.mini_step = 0
+        state.opt_step += 1
+        state.step += 1
+
+    def __call__(self, state: TrainState, batch
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        metrics, grads = self.loss_and_grads(state, batch)
+        if self.check_finite:
+            # skip the update on a non-finite metric (psnr = inf, a perfect
+            # fit, excluded), leaving parameters, optimizer, schedule and
+            # step alone, and discard the accumulation window, as the JAX
+            # step's lax.cond and _reset_multisteps do
+            finite = bool(torch.stack(
+                [torch.isfinite(v).all() for k, v in metrics.items()
+                 if k != "psnr"]).all())
+            metrics["finite"] = torch.tensor(float(finite),
+                                             device=self.device)
+            if not finite:
+                state.mini_step = 0
+                if state.acc_grads is not None:
+                    for a in state.acc_grads:
+                        a.zero_()
+                return state, metrics
+        self._apply(state, grads)
+        return state, metrics
+
+
+def make_train_step(hparams, render_cfg: RenderConfig, scene: SceneInfo, *,
+                    device=None) -> TrainStep:
+    """Build train_step(state, batch) -> (state, metrics) on ``device``
+    (default ``cuda``), the port of ``switch_nerf_tpu/trainer.py:222-287``.
+
+    batch: {"rays": [B, 8], "rgbs": [B, 3], optional "image_indices": [B]},
+    numpy arrays or tensors. One call renders the batch in train mode
+    (perturbation, sigma noise, random fine samples from the state's
+    generator), differentiates ``all_loss`` through the hand-written
+    kernels' backwards, and applies Adam with the scheduled learning rate.
+    ``train_step.loss_and_grads`` gives the metrics and gradients without
+    the update.
+    """
+    return TrainStep(hparams, render_cfg, scene, device)

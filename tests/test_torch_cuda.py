@@ -1,4 +1,6 @@
-"""The port's Hopper kernels against their plain PyTorch versions, on the card.
+"""The port's Hopper kernels against their plain PyTorch versions, on the card,
+forward (K1, K3) and backward (K2, K4), and the gradients of a training
+forward on the card.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is
 present. This file imports no JAX, so on a machine with a card (and no JAX)
@@ -6,9 +8,10 @@ it runs without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerances: fp32 max |kernel - plain| <= 1e-4 (fp32 sums in another order);
-bf16 max |kernel - plain| <= 2e-2 * max |plain| (bf16 rounding at each
-layer, where a 1-ulp flip moves later layers).
+Tolerances: fp32 max |kernel - plain| <= 1e-4 (fp32 sums in another order;
+dW and db relative to their largest entry, which sums C products); bf16
+max |kernel - plain| <= 2e-2 * max |plain| (bf16 rounding at each layer,
+where a 1-ulp flip moves later layers).
 """
 import pytest
 import torch
@@ -33,12 +36,27 @@ def _chain_weights(e, m, layers, dtype, device, seed):
     return ws.to(device, dtype), bs.to(device, dtype)
 
 
-def _assert_close(out, ref, dtype):
+def _assert_close(out, ref, dtype, rel=False):
     err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
     if dtype == torch.float32:
-        assert err <= 1e-4, err
+        assert err <= 1e-4 * (scale if rel else 1.0), err
     else:
-        assert err <= 2e-2 * ref.float().abs().max().item(), err
+        assert err <= 2e-2 * scale, err
+
+
+def _assert_bwd_close(out, ref, dtype):
+    """(dx, dW, db) of a kernel vs the plain backward."""
+    assert out[1].dtype == out[2].dtype == torch.float32
+    for o, r, rel in zip(out, ref, (False, True, True)):
+        _assert_close(o, r, dtype, rel)
+
+
+def _slot_map(s, e, cap, g, device):
+    """A slot map with empty slots (-> the zero row s) and unused tokens."""
+    stt = torch.randint(0, s, (e * cap,), generator=g)
+    stt[torch.rand(e * cap, generator=g) < 0.3] = s
+    return stt.to(device, torch.int32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -66,12 +84,10 @@ def test_fused_dispatch_kernel_matches_plain(cuda, m, dtype):
     g = torch.Generator().manual_seed(2)
     tokens = torch.randn(s, m, generator=g)
     tokens_ext = torch.cat([tokens, torch.zeros(1, m)]).to(cuda, dtype)
-    # a slot map with empty slots (-> the zero row s) and unused tokens
-    stt = torch.randint(0, s, (e * cap,), generator=g)
-    stt[torch.rand(e * cap, generator=g) < 0.3] = s
-    stt = stt.to(cuda, torch.int32)
+    stt = _slot_map(s, e, cap, g, cuda)
     before = fused_dispatch.launches
-    out = fused_dispatch.fused_dispatch_chain(tokens_ext, stt, ws, bs, skips)
+    out = fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws, bs,
+                                                  skips)
     torch.cuda.synchronize()
     assert fused_dispatch.launches == before + 1
     ref = fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws, bs,
@@ -92,6 +108,93 @@ def test_kernel_wrappers_refuse_what_the_kernel_does_not_take(cuda):
         expert_kernel.expert_mlp_chain(torch.randn(2, 40, 96, device=cuda),
                                        w96, b96)
     with pytest.raises(ValueError):
-        fused_dispatch.fused_dispatch_chain(
+        fused_dispatch.fused_dispatch_chain_fwd(
             torch.randn(41, 128, device=cuda),
             torch.zeros(80, dtype=torch.int64, device=cuda), ws, bs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,skips", [
+    (1, ()), (3, (1,)), (4, (1, 3)), (3, (2,)), (7, (3,))])
+@pytest.mark.parametrize("m", [64, 128, 256])
+def test_expert_chain_bwd_kernel_matches_plain(cuda, m, layers, skips, dtype):
+    """K2 vs expert_mlp_chain_bwd_plain over K1's grid, ragged C."""
+    e, c = 3, 200
+    ws, bs = _chain_weights(e, m, layers, dtype, cuda, seed=m + layers)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(e, c, m, generator=g).to(cuda, dtype)
+    gy = torch.randn(e, c, m, generator=g).to(cuda, dtype)
+    before = expert_kernel.bwd_launches
+    out = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, skips)
+    torch.cuda.synchronize()
+    assert expert_kernel.bwd_launches == before + 1
+    assert out[0].dtype == dtype
+    _assert_bwd_close(out, expert_kernel.expert_mlp_chain_bwd_plain(
+        x, ws, bs, gy, skips), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [128, 256])
+def test_fused_dispatch_bwd_kernel_matches_plain(cuda, m, dtype):
+    e, cap, s, layers, skips = 4, 96, 300, 3, (1,)
+    ws, bs = _chain_weights(e, m, layers, dtype, cuda, seed=m + 1)
+    g = torch.Generator().manual_seed(4)
+    tokens_ext = torch.cat([torch.randn(s, m, generator=g),
+                            torch.zeros(1, m)]).to(cuda, dtype)
+    stt = _slot_map(s, e, cap, g, cuda)
+    gy = torch.randn(e, cap, m, generator=g).to(cuda, dtype)
+    before = fused_dispatch.bwd_launches
+    out = fused_dispatch.fused_dispatch_chain_bwd(tokens_ext, stt, ws, bs, gy,
+                                                  skips)
+    torch.cuda.synchronize()
+    assert fused_dispatch.bwd_launches == before + 1
+    _assert_bwd_close(out, fused_dispatch.fused_dispatch_chain_bwd_plain(
+        tokens_ext, stt, ws, bs, gy, skips), dtype)
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_cuda_training_forward_gives_every_expert_weight_a_gradient(
+        cuda, monkeypatch, fused):
+    """A MoE layer's forward on the card with grad enabled: every expert
+    weight and bias, the gate and the input get a non-zero gradient, through
+    K2 (K4 when fused). (Without the autograd Functions the kernels' outputs
+    carried no gradient at all.)"""
+    from switch_nerf_torch.models.moe import MoELayer
+    monkeypatch.setenv("SWITCH_NERF_FUSED_DISPATCH", fused)
+    torch.manual_seed(0)
+    layer = MoELayer(model_dim=128, num_experts=4, layer_num=3, skips=(1,),
+                     capacity_factor=1.0, batch_prioritized_routing=True,
+                     generator=torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.randn(512, 128, device=cuda, requires_grad=True)
+    counts = (expert_kernel.bwd_launches, fused_dispatch.bwd_launches)
+    y, l_aux, _ = layer(x, train=True)
+    (y.square().sum() + l_aux).backward()
+    torch.cuda.synchronize()
+    ran = (expert_kernel.bwd_launches - counts[0],
+           fused_dispatch.bwd_launches - counts[1])
+    assert ran == ((0, 1) if fused == "1" else (1, 0))
+    assert x.grad is not None and x.grad.abs().max() > 0
+    for name, p in layer.named_parameters():
+        assert p.grad is not None and p.grad.abs().max() > 0, name
+
+
+def test_bwd_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    ws, bs = _chain_weights(2, 128, 2, torch.float32, cuda, seed=0)
+    x = torch.randn(2, 40, 128, device=cuda)
+    with pytest.raises(ValueError):                      # g of another shape
+        expert_kernel.expert_mlp_chain_bwd(x, ws, bs, x[:, :20].contiguous())
+    with pytest.raises(ValueError):                      # g of another dtype
+        expert_kernel.expert_mlp_chain_bwd(x, ws, bs, x.bfloat16())
+    with pytest.raises(ValueError):                      # strided g
+        expert_kernel.expert_mlp_chain_bwd(
+            x, ws, bs, x.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(TypeError):
+        expert_kernel.expert_mlp_chain_bwd(x.half(), ws.half(), bs.half(),
+                                           x.half())
+    with pytest.raises(ValueError):                      # C == 0
+        expert_kernel.expert_mlp_chain_bwd(x[:, :0], ws, bs, x[:, :0])
+    with pytest.raises(ValueError):                      # int64 slot map
+        fused_dispatch.fused_dispatch_chain_bwd(
+            torch.randn(41, 128, device=cuda),
+            torch.zeros(80, dtype=torch.int64, device=cuda), ws, bs,
+            torch.randn(2, 40, 128, device=cuda))

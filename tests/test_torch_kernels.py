@@ -1,12 +1,14 @@
-"""The port's kernel modules vs the JAX package's Pallas kernels, on the CPU.
+"""The port's kernel modules vs the JAX package's Pallas kernels, on the CPU,
+forward and backward.
 
 The JAX kernels run in interpret mode, as the JAX package's own tests run
 them; the port's wrappers take their plain PyTorch versions for CPU
 tensors. (The CUDA kernels themselves are held against those plain versions
 on the card: tests/test_torch_cuda.py and chip_smoke.py.)
 
-Tolerances: fp32 1e-5 (matmuls sum in another order); bf16 2e-2 * max |ref|
-(bf16 rounding at every layer).
+Tolerances: fp32 1e-5 (matmuls sum in another order; dW relative to
+max |dW|, which sums C products); bf16 2e-2 * max |ref| (bf16 rounding at
+every layer).
 """
 import jax
 import jax.numpy as jnp
@@ -15,6 +17,8 @@ import pytest
 import torch
 
 from switch_nerf_tpu.models.moe import MoELayer as JMoELayer
+from switch_nerf_tpu.ops import expert_kernel as jek
+from switch_nerf_tpu.ops import fused_dispatch as jfd
 from switch_nerf_tpu.ops.expert_kernel import expert_mlp_chain as jchain
 from switch_nerf_tpu.ops.fused_dispatch import fused_dispatch_chain as jfused
 from switch_nerf_torch import bridge
@@ -69,7 +73,8 @@ def test_fused_plain_matches_pallas_with_empty_slots():
                  jnp.asarray(bs), jnp.asarray(dummy_slot),
                  jnp.zeros((s_ext,), bool), skips)
     out = fused_dispatch.fused_dispatch_chain(
-        *map(torch.from_numpy, (tokens, stt, ws, bs)), skips)
+        *map(torch.from_numpy, (tokens, stt, ws, bs, dummy_slot)),
+        torch.zeros(s_ext, dtype=torch.bool), skips)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
 
@@ -133,7 +138,177 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     with pytest.raises(ValueError):
         expert_kernel.expert_mlp_chain(torch.zeros(1, 4, 64, device="meta"),
                                        ws, bs)
+    tokens = torch.zeros(5, 64, device="meta")
+    stt = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         fused_dispatch.fused_dispatch_chain(
-            torch.zeros(5, 64, device="meta"),
-            torch.zeros(4, dtype=torch.int32, device="meta"), ws, bs)
+            tokens, stt, ws, bs, torch.zeros(5, dtype=torch.long),
+            torch.zeros(5, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        expert_kernel.expert_mlp_chain_bwd(
+            torch.zeros(1, 4, 64, device="meta"), ws, bs,
+            torch.zeros(1, 4, 64, device="meta"))
+    with pytest.raises(ValueError):
+        fused_dispatch.fused_dispatch_chain_bwd(
+            tokens, stt, ws, bs, torch.zeros(1, 4, 64, device="meta"))
+
+
+def _close(out, ref, tol, rel=False, err_msg=""):
+    """max |out - ref| <= tol (times max |ref| when rel)."""
+    out = np.asarray(out, np.float32)
+    ref = np.asarray(ref, np.float32)
+    scale = np.abs(ref).max() if rel else 1.0
+    err = np.abs(out - ref).max()
+    assert err <= tol * scale, (err_msg, err, tol * scale)
+
+
+CHAIN_CASES = [(1, ()), (3, (1,)), (4, (1, 3)), (3, (2,))]
+
+
+@pytest.mark.parametrize("layers,skips", CHAIN_CASES)
+def test_chain_bwd_plain_matches_pallas_fp32(layers, skips):
+    """expert_mlp_chain_bwd_plain vs the Pallas _bwd_call (interpret), and
+    the port's autograd (ExpertChainFn) vs jax.vjp of the custom-VJP chain:
+    dx and db to 1e-5, dW to 1e-5 of max |dW|."""
+    x, ws, bs = _chain_inputs(2, 64, 128, layers, seed=layers * 10 + 1)
+    g = np.random.default_rng(layers).normal(size=x.shape).astype(np.float32)
+    jdx, jdw, jdb = jek._bwd_call(*map(jnp.asarray, (x, ws, bs, g)), skips,
+                                  interpret=True)
+    tx, tws, tbs, tg = map(torch.from_numpy, (x, ws, bs, g))
+    dx, dw, db = expert_kernel.expert_mlp_chain_bwd_plain(tx, tws, tbs, tg,
+                                                          skips)
+    assert dw.dtype == db.dtype == torch.float32
+    _close(dx, jdx, 1e-5, err_msg="dx")
+    _close(dw, jdw, 1e-5, rel=True, err_msg="dW")
+    _close(db, jdb, 1e-5, rel=True, err_msg="db")
+
+    _, vjp = jax.vjp(lambda a, b, c: jchain(a, b, c, skips, True),
+                     *map(jnp.asarray, (x, ws, bs)))
+    refs = vjp(jnp.asarray(g))
+    leaves = [t.clone().requires_grad_() for t in (tx, tws, tbs)]
+    out = expert_kernel.expert_mlp_chain(*leaves, skips)
+    grads = torch.autograd.grad(out, leaves, tg)
+    for name, a, b in zip(("dx", "dW", "db"), grads, refs):
+        _close(a, b, 1e-5, rel=name != "dx", err_msg=name)
+
+
+def test_chain_bwd_plain_matches_pallas_bf16():
+    x, ws, bs = _chain_inputs(2, 64, 128, 3, seed=8)
+    g = np.random.default_rng(9).normal(size=x.shape).astype(np.float32)
+    jdx, jdw, jdb = jek._bwd_call(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (x, ws, bs, g)), (1,),
+        interpret=True)
+    dx, dw, db = expert_kernel.expert_mlp_chain_bwd_plain(
+        *(torch.from_numpy(a).bfloat16() for a in (x, ws, bs, g)), (1,))
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    for name, a, b in (("dx", dx, jdx), ("dW", dw, jdw), ("db", db, jdb)):
+        _close(a.float(), np.asarray(b, np.float32), 2e-2, rel=True,
+               err_msg=name)
+
+
+def _fused_case(e=4, cap=32, s=100, m=128, layers=3, seed=5):
+    """A top-1 slot map with empty slots and dropped tokens, as
+    build_dispatch_plan makes it: the port's single zero row, and JAX's
+    rows padded to a multiple of 8."""
+    rng = np.random.default_rng(seed)
+    _, ws, bs = _chain_inputs(e, 1, m, layers, seed=seed + 1)
+    tokens = rng.normal(size=(s, m)).astype(np.float32)
+    expert = rng.integers(0, e, s)
+    expert[: s // 3] = 0                      # overflow expert 0: drops
+    slot = np.full(s, e * cap, np.int64)
+    stt = np.full(e * cap, s, np.int32)       # empty -> the zero row
+    fill = np.zeros(e, np.int64)
+    for t in range(s):
+        if fill[expert[t]] < cap:
+            slot[t] = expert[t] * cap + fill[expert[t]]
+            stt[slot[t]] = t
+            fill[expert[t]] += 1
+    kept = slot < e * cap
+    assert (~kept).any() and (stt == s).any()
+    return tokens, stt, ws, bs, slot, kept
+
+
+def test_fused_bwd_matches_jax_vjp():
+    """FusedDispatchFn's d(tokens), dW, db vs jax.vjp of the JAX
+    fused_dispatch_chain (Pallas K3/K4 in interpret mode) at M=128 with
+    empty slots and dropped tokens; the plain backward's d(dispatched) vs
+    the Pallas _bwd_call. Tolerances as the chain's fp32 ones."""
+    tokens, stt, ws, bs, slot, kept = _fused_case()
+    s, m = tokens.shape
+    e, cap = ws.shape[1], stt.size // ws.shape[1]
+    pad = (-(s + 1)) % 8
+    jtok = np.concatenate([tokens, np.zeros((1 + pad, m), np.float32)])
+    jslot = np.concatenate([slot, np.full(1 + pad, e * cap)]).astype(np.int32)
+    jkept = np.concatenate([kept, np.zeros(1 + pad, bool)])
+    g = np.random.default_rng(6).normal(size=(e, cap, m)).astype(np.float32)
+
+    _, vjp = jax.vjp(
+        lambda t, w, b: jfused(t, jnp.asarray(stt), w, b, jnp.asarray(jslot),
+                               jnp.asarray(jkept), (1,)),
+        *map(jnp.asarray, (jtok, ws, bs)))
+    jd_tok, jdw, jdb = vjp(jnp.asarray(g))
+    jdxd, _, _ = jfd._bwd_call(jnp.asarray(jtok), jnp.asarray(stt),
+                               jnp.asarray(ws), jnp.asarray(bs),
+                               jnp.asarray(g), (1,))
+
+    ttok = torch.from_numpy(np.concatenate([tokens, np.zeros((1, m),
+                                                             np.float32)]))
+    tstt = torch.from_numpy(stt)
+    tws, tbs = torch.from_numpy(ws), torch.from_numpy(bs)
+    dxd, _, _ = fused_dispatch.fused_dispatch_chain_bwd_plain(
+        ttok, tstt, tws, tbs, torch.from_numpy(g), (1,))
+    _close(dxd, jdxd, 1e-5, err_msg="d(dispatched)")
+
+    leaves = [t.clone().requires_grad_() for t in (ttok, tws, tbs)]
+    out = fused_dispatch.fused_dispatch_chain(
+        leaves[0], tstt, leaves[1], leaves[2],
+        torch.from_numpy(np.concatenate([slot, [e * cap]])),
+        torch.from_numpy(np.concatenate([kept, [False]])), (1,))
+    d_tok, dw, db = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    _close(d_tok, np.asarray(jd_tok)[: s + 1], 1e-5, err_msg="d(tokens)")
+    assert not d_tok[torch.from_numpy(~np.concatenate([kept, [False]]))].any()
+    _close(dw, jdw, 1e-5, rel=True, err_msg="dW")
+    _close(db, jdb, 1e-5, rel=True, err_msg="db")
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_moe_layer_grads_match_jax(monkeypatch, fused):
+    """Train-mode MoELayer gradients (x, gate input, every parameter) vs
+    JAX's, through dispatch/combine's custom VJPs and the chain's (K2/K4's
+    plain versions here, Pallas in interpret mode on the JAX side when
+    fused). Tolerance 1e-5, relative to the largest entry per leaf."""
+    monkeypatch.setenv("SWITCH_NERF_FUSED_DISPATCH", fused)
+    x, gi = _moe_data()
+    w_out = np.random.default_rng(7).normal(size=x.shape).astype(np.float32)
+    jlayer = JMoELayer(model_dim=128, num_experts=4, layer_num=3, skips=(1,),
+                       top_k=1, capacity_factor=1.0,
+                       batch_prioritized_routing=True,
+                       train_dispatch="padded", eval_dispatch="padded")
+    params = jlayer.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                         jnp.asarray(gi))
+
+    def jloss(p, xx, gg):
+        y, l_aux, _ = jlayer.apply(p, xx, gg, deterministic=False)
+        return jnp.sum(y * w_out) + 3.0 * l_aux
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(
+        params, jnp.asarray(x), jnp.asarray(gi))
+
+    tlayer = TMoELayer(model_dim=128, num_experts=4, layer_num=3, skips=(1,),
+                       capacity_factor=1.0, batch_prioritized_routing=True)
+    bridge.load_jax_params(
+        tlayer, jax.tree_util.tree_map(np.asarray, params["params"]))
+    tx = torch.from_numpy(x).requires_grad_()
+    tg = torch.from_numpy(gi).requires_grad_()
+    y, l_aux, _ = tlayer(tx, tg, train=True)
+    (torch.sum(y * torch.from_numpy(w_out)) + 3.0 * l_aux).backward()
+    _close(tx.grad, jgrads[1], 1e-5, rel=True, err_msg="dx")
+    _close(tg.grad, jgrads[2], 1e-5, rel=True, err_msg="d gate input")
+    tparams = dict(tlayer.named_parameters())
+    for path, ref in jax.tree_util.tree_leaves_with_path(jgrads[0]["params"]):
+        name = ".".join(k.key for k in path)
+        if name == "wg.kernel":               # [in, out] vs torch's [out, in]
+            grad = tparams["wg.weight"].grad.T
+        else:
+            grad = tparams[name].grad
+        _close(grad, ref, 1e-5, rel=True, err_msg=name)

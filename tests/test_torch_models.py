@@ -85,3 +85,47 @@ def test_port_init_follows_torch_defaults():
         torch.testing.assert_close(p, q, rtol=0, atol=0)
         fan_in = 64 if name.startswith("fc0") else 32
         assert p.abs().max() <= fan_in ** -0.5
+
+
+def test_nerf_moe_and_bg_forwards_with_sigma_noise_match_jax(models):
+    """The same injected sigma_noise [S, 1] in train mode: NeRFMoE (padded
+    train dispatch) and the bg NeRF to 1e-5, and the noise moves sigma."""
+    _, jm, jbg, params, tm, tbg = models
+    for jmod, tmod, p, xyz_dim in ((jm, tm, params["nerf"], 3),
+                                   (jbg, tbg, params["bg_nerf"], 4)):
+        pts = _points(300, xyz_dim, seed=5 + xyz_dim)
+        noise = np.random.default_rng(xyz_dim).normal(
+            size=(300, 1)).astype(np.float32)
+        jout = jmod.apply({"params": p}, jnp.asarray(pts),
+                          sigma_noise=jnp.asarray(noise),
+                          deterministic=False)
+        with torch.no_grad():
+            tout = tmod(torch.from_numpy(pts),
+                        sigma_noise=torch.from_numpy(noise), train=True)
+            plain = tmod(torch.from_numpy(pts))
+        if isinstance(jout, dict):
+            jout, tout, plain = (jout["outputs"], tout["outputs"],
+                                 plain["outputs"])
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), rtol=1e-5,
+                                   atol=1e-5)
+        assert not np.allclose(tout[:, 3].numpy(), plain[:, 3].numpy())
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("moe_train_batch", False), ("gate_noise", 1.0)])
+def test_training_what_the_port_lacks_raises(models, flag, value):
+    """No-drop train dispatch and gate noise wait for a later slice: the
+    model builds (eval is unaffected), the train state and a train-mode
+    forward raise."""
+    from switch_nerf_torch import trainer as ttrainer
+    h = models[0]
+    hx = type(h)(**vars(h))
+    setattr(hx, flag, value)
+    tm = tmu.get_nerf(hx, 8, device="cpu")
+    pts = torch.from_numpy(_points(64, 3, seed=9))
+    with torch.no_grad():
+        tm(pts)                                   # eval still runs
+    with pytest.raises(NotImplementedError):
+        ttrainer.create_train_state(hx, tm, None, device="cpu")
+    with pytest.raises(NotImplementedError), torch.no_grad():
+        tm(pts, train=True)
