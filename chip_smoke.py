@@ -8,8 +8,11 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
   1. build the Hopper kernels K1-K4 from switch_nerf_torch/csrc (one nvcc
      per source, all started together)
   2. kernels: each kernel against its plain PyTorch version on the card at
-     the main path's shapes, with CUDA-event timings beside its bound and
-     one library call's time (K1/K3 forward, K2/K4 backward)
+     the main path's shapes, with CUDA-event timings beside its bound,
+     achieved TFLOP/s and share of the bound, and one library call's time
+     (K1/K3 forward, K2/K4 backward); K2 twice on the same inputs
+     (bit-identical), its two passes timed by torch.profiler, and K1/K2
+     (wgmma + TMA design) beside K3/K4 (the WMMA design of chain.cuh)
   3. eval: the Building eval render at full published width (8 experts x
      7 x 256, bg NeRF, 256 + 512 samples, bf16, padded eval dispatch,
      32768-point chunks) through make_eval_step: a warm-up and three
@@ -65,10 +68,18 @@ def card_peaks(name: str) -> dict:
     return PEAKS["SXM"]
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 10) -> float:
-    """Mean device time of fn() in ms, from CUDA events after warm-up."""
-    for _ in range(warmup):
+def cuda_ms(fn, iters: int = 50, warmup: int = 10,
+            warm_s: float = 0.5) -> float:
+    """Mean device time of fn() in ms, from CUDA events after a warm-up of
+    at least `warmup` calls and `warm_s` seconds (an idle card, as after
+    the build, runs its first kernels at lower clocks)."""
+    t0 = time.perf_counter()
+    n = 0
+    while n < warmup or time.perf_counter() - t0 < warm_s:
         fn()
+        n += 1
+        if n % 10 == 0:
+            torch.cuda.synchronize()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -123,6 +134,30 @@ def chain_bound(flops, nbytes, dtype, peaks):
     t_bytes = nbytes / peaks["bytes"]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rate(flops: float, ms: float, bound_ms: float) -> str:
+    """Achieved TFLOP/s and the share of the bound, for a kernel line."""
+    return (f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f} % of "
+            f"the bound")
+
+
+def device_ms_by_kernel(fn, keys: dict, iters: int = 10) -> dict:
+    """Mean device ms per call of fn() in the kernels whose names contain
+    each of keys' values (torch.profiler over `iters` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {label: 0.0 for label in keys}
+    for ev in prof.key_averages():
+        for label, key in keys.items():
+            if key in ev.key:
+                out[label] += ev.self_device_time_total / 1e3 / iters
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -182,7 +217,7 @@ def kernel_phase(peaks, building):
             log(f"  K1 bf16 C{cc}: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, baddbmm chain {t['library_ms']:.4f}"
                 f" ms, bound {bound_ms:.4f} ms ({bound_by}), "
-                f"{flops / t['ms'] / 1e9:.1f} TFLOP/s")
+                f"{rate(flops, t['ms'], bound_ms)}")
             rows["K1"] = dict(max_abs_err=err, bound_ms=bound_ms,
                               bound_by=bound_by, **t)
 
@@ -215,9 +250,13 @@ def kernel_phase(peaks, building):
             log(f"  K3 bf16: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, index_select + baddbmm chain "
                 f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by})")
+                f"({bound_by}), {rate(flops, t['ms'], bound_ms)}")
             rows["K3"] = dict(max_abs_err=err, bound_ms=bound_ms,
                               bound_by=bound_by, **t)
+    k1, k3 = rows["K1"], rows["K3"]
+    log(f"  K1 (wgmma/TMA design) / K3 (WMMA design): "
+        f"{k1['ms'] / k3['ms']:.3f}; K1 / baddbmm chain: "
+        f"{k1['ms'] / k1['library_ms']:.3f}")
     return rows
 
 
@@ -279,6 +318,12 @@ def bwd_kernel_phase(peaks, building):
                         expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, g,
                                                                  skips))
         if dtype == torch.bfloat16 and cc == c:
+            again = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips)
+            first = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError("K2 differs between two launches")
+            log("  K2 bf16: dx, dW, db bit-identical across two launches")
             flops = 4 * e * cc * m * m * layers
             out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
             bound_ms, bound_by = bound(
@@ -292,11 +337,16 @@ def bwd_kernel_phase(peaks, building):
                                          x, ws, bs, g, skips), iters=20),
                  "library_ms": autograd_ms(lib_out, leaves, g)}
             del lib_out
+            passes = device_ms_by_kernel(
+                lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g,
+                                                           skips),
+                {"pass 1": "chain_bwd_sm90", "pass 2": "chain_dw_sm90"})
             log(f"  K2 bf16 C{cc}: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, autograd of the baddbmm chain "
                 f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}), {flops / t['ms'] / 1e9:.1f} TFLOP/s of the "
-                f"gradient's products")
+                f"({bound_by}), {rate(flops, t['ms'], bound_ms)} (the "
+                f"gradient's products); profiled pass 1 "
+                f"{passes['pass 1']:.4f} ms, pass 2 {passes['pass 2']:.4f} ms")
             rows["K2"] = dict(max_abs_err=err, bound_ms=bound_ms,
                               bound_by=bound_by, **t)
 
@@ -334,9 +384,14 @@ def bwd_kernel_phase(peaks, building):
             log(f"  K4 bf16: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, autograd of index_select + "
                 f"baddbmm chain {t['library_ms']:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by})")
+                f"{bound_ms:.4f} ms ({bound_by}), "
+                f"{rate(flops, t['ms'], bound_ms)}")
             rows["K4"] = dict(max_abs_err=err, bound_ms=bound_ms,
                               bound_by=bound_by, **t)
+    k2, k4 = rows["K2"], rows["K4"]
+    log(f"  K2 (wgmma/TMA design) / K4 (WMMA design): "
+        f"{k2['ms'] / k4['ms']:.3f}; K2 / autograd of the baddbmm chain: "
+        f"{k2['ms'] / k2['library_ms']:.3f}")
     return rows
 
 

@@ -1,28 +1,34 @@
 """Kernels K1 and K2: the fused per-expert MLP chain, forward and backward.
 
 K1 replaces ``switch_nerf_tpu/ops/expert_kernel.py:_fwd_call`` (the Pallas
-``_fwd_kernel``); source ``csrc/chain.cuh`` + ``csrc/expert_chain.cu``.
-What bounds it on the card: at the Building shape (E8 C4096 M256 L7, bf16)
-one launch does 2*E*C*M^2*L = 30.1 GFLOP against ~41 MB of x, W and out,
-~730 FLOP per byte, far above the H100's ~295 FLOP/B ridge: it is bound by
-tensor-core operations. The design keeps each (expert, row block)'s
-activations and skip input in shared memory across all L layers, so device
-memory sees x once and out once instead of once per layer, and feeds the
-tensor cores through WMMA (mma.sync) with fp32 accumulators. W_l is staged
-through shared memory tile by tile, unpipelined: wgmma/TMA and a load
-pipeline are later work.
+``_fwd_kernel``); source ``csrc/expert_chain.cu`` on ``csrc/chain_sm90.cuh``
+(bf16) and ``csrc/chain.cuh`` (fp32). What bounds it on the card: at the
+Building shape (E8 C4096 M256 L7, bf16) one launch does 2*E*C*M^2*L = 30.1
+GFLOP against ~41 MB of x, W and out, ~730 FLOP per byte, far above the
+H100's ~295 FLOP/B ridge: it is bound by tensor-core operations. The bf16
+design keeps each 128-row tile of an expert and its skip input in shared
+memory across all L layers (device memory sees x once and out once), feeds
+the tensor cores with wgmma from two consumer warpgroups of 64 rows each,
+and has one producer warp stream W through a ring of TMA loads that runs
+ahead across layers; input and output move by TMA over [E, C, M] tensor
+maps that zero-fill and clip the ragged C edge. fp32 runs on the CUDA
+cores (TF32 would miss the fp32 tolerance).
 
 K2 replaces ``_bwd_call`` (the Pallas ``_bwd_kernel``); source
-``csrc/chain_bwd.cuh`` + ``csrc/expert_chain_bwd.cu``. The gradient needs
-the dx and dW products, 4*E*C*M^2*L = 60.1 GFLOP at the Building shape
-against ~65 MB of x, g, dx and fp32 dW: bound by tensor-core operations
-(the recompute is the kernel's own choice and not in the bound). The TPU
-kernel adds each C block's dW into a revisited output block, which needs
-the TPU's in-order grid; on the card a first pass recomputes the stack and
-runs the reverse sweep per (expert, row block), saving each layer's input
-H_l and post-mask gradient G_l to workspaces, and a second pass forms
-dW = H_l^T G_l and db with fp32 accumulators over all C inside one CTA per
-output tile: deterministic, no atomics.
+``csrc/expert_chain_bwd.cu`` on ``csrc/chain_bwd_sm90.cuh`` (bf16) and
+``csrc/chain_bwd.cuh`` (fp32). The gradient needs the dx and dW products,
+4*E*C*M^2*L = 60.1 GFLOP at the Building shape against ~65 MB of x, g, dx
+and fp32 dW: bound by tensor-core operations (the recompute is the kernel's
+own choice and not in the bound). The TPU kernel adds each C block's dW
+into a revisited output block, which needs the TPU's in-order grid; on the
+card a first pass recomputes the forward and runs the reverse sweep per
+128-row tile (K1's mainloop), sending each layer's input H_l and post-mask
+gradient G_l to workspaces by TMA stores and keeping the ReLU masks as bits
+in shared memory; a second pass forms dW = H_l^T G_l and db with fp32
+accumulators over all C inside one CTA per 128 x M output tile:
+deterministic, no atomics. The bf16 pass 1 holds L - 1 layers of masks in
+shared memory, so at M = 256 on an H100 it takes up to 8 layers
+(``bwd_max_layers``); more raise.
 
 ``expert_mlp_chain`` is differentiable through ``ExpertChainFn`` (forward
 K1, backward K2). A CPU tensor takes the plain PyTorch versions; a CUDA
@@ -187,6 +193,7 @@ _BWD_PROTOTYPES = {
     "expert_chain_bwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 9
                          + [ctypes.c_int] * 4
                          + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
+    "expert_chain_bwd_max_layers": (ctypes.c_int, [ctypes.c_int] * 3),
     "expert_chain_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -220,6 +227,16 @@ def expert_mlp_chain_fwd(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
     return out
 
 
+def bwd_max_layers(device: torch.device, m: int, dtype) -> int:
+    """The most layers K2 takes at width m on this CUDA device (bf16: the
+    ReLU masks of L - 1 layers share pass 1's shared memory)."""
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    lib = _build.load("expert_chain_bwd", _BWD_PROTOTYPES)
+    return lib.expert_chain_bwd_max_layers(index, m,
+                                           int(dtype == torch.bfloat16))
+
+
 def expert_mlp_chain_bwd(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
                          g: torch.Tensor, skips: Sequence[int] = ()):
     """K2 (or, for a CPU tensor, the plain backward): the chain's VJP at
@@ -233,6 +250,10 @@ def expert_mlp_chain_bwd(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
     if c == 0:
         raise ValueError("the backward kernel takes C >= 1")
     layers = ws.shape[0]
+    limit = bwd_max_layers(x.device, m, x.dtype)
+    if layers > limit:
+        raise ValueError(f"the {x.dtype} backward kernel at M={m} takes up "
+                         f"to {limit} layers, got {layers}")
     dx = torch.empty_like(x)
     hsave, gsave, dw, db = bwd_buffers(layers, e, c, m, x.dtype, x.device)
     lib = _build.load("expert_chain_bwd", _BWD_PROTOTYPES)

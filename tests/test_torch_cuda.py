@@ -198,3 +198,84 @@ def test_bwd_wrappers_refuse_what_the_kernel_does_not_take(cuda):
             torch.randn(41, 128, device=cuda),
             torch.zeros(80, dtype=torch.int64, device=cuda), ws, bs,
             torch.randn(2, 40, 128, device=cuda))
+
+
+def _chain_case(e, c, m, layers, dtype, device, seed):
+    ws, bs = _chain_weights(e, m, layers, dtype, device, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(e, c, m, generator=g).to(device, dtype)
+    gy = torch.randn(e, c, m, generator=g).to(device, dtype)
+    return x, ws, bs, gy
+
+
+def _check_fwd_bwd(x, ws, bs, gy, skips, dtype):
+    _assert_close(expert_kernel.expert_mlp_chain(x, ws, bs, skips),
+                  expert_kernel.expert_mlp_chain_plain(x, ws, bs, skips),
+                  dtype)
+    _assert_bwd_close(
+        expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, skips),
+        expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, gy, skips), dtype)
+
+
+@pytest.mark.parametrize("m", [64, 256])
+@pytest.mark.parametrize("c", [1, 63, 64, 127, 128, 129, 4096])
+def test_chain_kernels_across_the_tile_edge(cuda, c, m):
+    """K1 and K2 in bf16 where C ends inside, at and just past a 64-row TMA
+    box and the 128-row tile: rows past C are zero-filled on load and
+    clipped on store."""
+    x, ws, bs, gy = _chain_case(2, c, m, 3, torch.bfloat16, cuda, seed=c)
+    _check_fwd_bwd(x, ws, bs, gy, (1,), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_kernels_single_expert(cuda, dtype):
+    x, ws, bs, gy = _chain_case(1, 300, 128, 4, dtype, cuda, seed=5)
+    _check_fwd_bwd(x, ws, bs, gy, (2,), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [64, 128, 256])
+def test_chain_kernels_skip_at_first_and_last_layer(cuda, m, dtype):
+    x, ws, bs, gy = _chain_case(3, 200, m, 4, dtype, cuda, seed=m + 7)
+    _check_fwd_bwd(x, ws, bs, gy, (0, 3), dtype)
+
+
+def test_chain_bwd_kernel_at_its_layer_limit(cuda):
+    """bf16 M=256 holds 8 layers of ReLU masks in shared memory; a ninth
+    layer is refused."""
+    limit = expert_kernel.bwd_max_layers(cuda, 256, torch.bfloat16)
+    assert limit == 8
+    x, ws, bs, gy = _chain_case(2, 150, 256, limit, torch.bfloat16, cuda,
+                                seed=11)
+    _check_fwd_bwd(x, ws, bs, gy, (3,), torch.bfloat16)
+    w9, b9 = _chain_weights(2, 256, limit + 1, torch.bfloat16, cuda, seed=0)
+    with pytest.raises(ValueError):
+        expert_kernel.expert_mlp_chain_bwd(x, w9, b9, gy)
+
+
+def test_chain_bwd_kernel_is_deterministic(cuda):
+    """K2's dx, dW and db are bit-identical across launches (fixed-order
+    sums, no atomics)."""
+    x, ws, bs, gy = _chain_case(4, 1000, 256, 7, torch.bfloat16, cuda,
+                                seed=13)
+    first = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,))
+    second = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_kernels_on_views_at_an_offset(cuda, dtype):
+    """Inputs that are views 16 bytes into a larger buffer: the tensor maps'
+    base is not the start of an allocation."""
+    e, c, m, layers = 2, 130, 128, 3
+    _, ws, bs, _ = _chain_case(e, c, m, layers, dtype, cuda, seed=17)
+    g = torch.Generator().manual_seed(18)
+    shift = 16 // torch.empty((), dtype=dtype).element_size()
+    n = e * c * m
+    bufs = [torch.randn(n + 2 * shift, generator=g).to(cuda, dtype)
+            for _ in range(2)]
+    x, gy = (b[shift:shift + n].view(e, c, m) for b in bufs)
+    assert x.data_ptr() % 16 == 0 and x.data_ptr() % 256 != 0
+    _check_fwd_bwd(x, ws, bs, gy, (1,), dtype)

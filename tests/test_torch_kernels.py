@@ -206,6 +206,41 @@ def test_chain_bwd_plain_matches_pallas_bf16():
                err_msg=name)
 
 
+def _main_path_chain(dtype, seed=21):
+    """The main path's chain structure (M=256, L=7, skip at 3) at a ragged
+    C=40, weights at the init scale M^-0.5 so seven layers keep values of
+    order one. Returns the numpy inputs and the port's tensors in dtype."""
+    e, c, m, layers = 2, 40, 256, 7
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(0, 1, (e, c, m)).astype(np.float32),
+              rng.normal(0, m ** -0.5, (layers, e, m, m)).astype(np.float32),
+              rng.normal(0, m ** -0.5, (layers, e, 1, m)).astype(np.float32),
+              rng.normal(0, 1, (e, c, m)).astype(np.float32))
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    return ([jnp.asarray(a, jdtype) for a in arrays],
+            [torch.from_numpy(a).to(dtype) for a in arrays])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_plain_matches_pallas_at_main_path_structure(dtype):
+    """The oracle the card kernels are held to, at M=256, L=7, skips (3,):
+    the plain chain and plain backward vs the Pallas _fwd_call/_bwd_call
+    (interpret). fp32 to 1e-5 of max |ref|, bf16 to 2e-2 of max |ref|."""
+    skips = (3,)
+    (jx, jws, jbs, jg), (tx, tws, tbs, tg) = _main_path_chain(dtype)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    ref = jek._fwd_call(jx, jws, jbs, skips, interpret=True)
+    out = expert_kernel.expert_mlp_chain_plain(tx, tws, tbs, skips)
+    assert out.dtype == dtype
+    _close(out.float(), np.asarray(ref, np.float32), tol, rel=True,
+           err_msg="y")
+    refs = jek._bwd_call(jx, jws, jbs, jg, skips, interpret=True)
+    outs = expert_kernel.expert_mlp_chain_bwd_plain(tx, tws, tbs, tg, skips)
+    for name, a, b in zip(("dx", "dW", "db"), outs, refs):
+        _close(a.float(), np.asarray(b, np.float32), tol, rel=True,
+               err_msg=name)
+
+
 def _fused_case(e=4, cap=32, s=100, m=128, layers=3, seed=5):
     """A top-1 slot map with empty slots and dropped tokens, as
     build_dispatch_plan makes it: the port's single zero row, and JAX's
