@@ -6,13 +6,16 @@
 Phases, each fatal (an exception ends the run with a non-zero exit):
   0. the card: `nvidia-smi` name and power limit, torch and CUDA versions
   1. build the Hopper kernels K1-K4 from switch_nerf_torch/csrc (one nvcc
-     per source, all started together)
+     per source, all started together), and report each library's HGMMA
+     (wgmma) instructions (cuobjdump, where the toolkit has it; none is a
+     failure) and ptxas's spill bytes
   2. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, with CUDA-event timings beside its bound,
      achieved TFLOP/s and share of the bound, and one library call's time
-     (K1/K3 forward, K2/K4 backward); K2 twice on the same inputs
-     (bit-identical), its two passes timed by torch.profiler, and K1/K2
-     (wgmma + TMA design) beside K3/K4 (the WMMA design of chain.cuh)
+     (K1/K3 forward, K2/K4 backward); K2 and K4 twice on the same inputs
+     (bit-identical), K2's two passes timed by torch.profiler, and the
+     K3 / K1 and K4 / K2 time ratios (what the row gather costs on the
+     same mainloop)
   3. eval: the Building eval render at full published width (8 experts x
      7 x 256, bg NeRF, 256 + 512 samples, bf16, padded eval dispatch,
      32768-point chunks) through make_eval_step: a warm-up and three
@@ -254,8 +257,7 @@ def kernel_phase(peaks, building):
             rows["K3"] = dict(max_abs_err=err, bound_ms=bound_ms,
                               bound_by=bound_by, **t)
     k1, k3 = rows["K1"], rows["K3"]
-    log(f"  K1 (wgmma/TMA design) / K3 (WMMA design): "
-        f"{k1['ms'] / k3['ms']:.3f}; K1 / baddbmm chain: "
+    log(f"  K3 / K1: {k3['ms'] / k1['ms']:.3f}; K1 / baddbmm chain: "
         f"{k1['ms'] / k1['library_ms']:.3f}")
     return rows
 
@@ -280,6 +282,15 @@ def check_bwd(name: str, out, ref) -> float:
                                  f"plain version: {err} > {tol}")
         errs.append(err)
     return max(errs)
+
+
+def check_deterministic(name: str, fn) -> None:
+    """fn() (a backward kernel's launch) twice: outputs bit-identical."""
+    first, again = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"{name} differs between two launches")
+    log(f"  {name} bf16: dx, dW, db bit-identical across two launches")
 
 
 def autograd_ms(out, inputs, g) -> float:
@@ -318,12 +329,8 @@ def bwd_kernel_phase(peaks, building):
                         expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, g,
                                                                  skips))
         if dtype == torch.bfloat16 and cc == c:
-            again = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips)
-            first = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(first, again)):
-                raise AssertionError("K2 differs between two launches")
-            log("  K2 bf16: dx, dW, db bit-identical across two launches")
+            check_deterministic("K2", lambda: expert_kernel
+                                .expert_mlp_chain_bwd(x, ws, bs, g, skips))
             flops = 4 * e * cc * m * m * layers
             out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
             bound_ms, bound_by = bound(
@@ -364,6 +371,9 @@ def bwd_kernel_phase(peaks, building):
             fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt,
                                                           ws, bs, g, skips))
         if dtype == torch.bfloat16:
+            check_deterministic("K4", lambda: fused_dispatch
+                                .fused_dispatch_chain_bwd(tokens_ext, stt, ws,
+                                                          bs, g, skips))
             flops = 4 * e * c * m * m * layers
             kept_rows = int((stt < s).sum())        # the token rows read
             in_bytes = (kept_rows * m * tokens_ext.element_size()
@@ -389,10 +399,40 @@ def bwd_kernel_phase(peaks, building):
             rows["K4"] = dict(max_abs_err=err, bound_ms=bound_ms,
                               bound_by=bound_by, **t)
     k2, k4 = rows["K2"], rows["K4"]
-    log(f"  K2 (wgmma/TMA design) / K4 (WMMA design): "
-        f"{k2['ms'] / k4['ms']:.3f}; K2 / autograd of the baddbmm chain: "
-        f"{k2['ms'] / k2['library_ms']:.3f}")
+    log(f"  K4 / K2: {k4['ms'] / k2['ms']:.3f}; K2 / autograd of the "
+        f"baddbmm chain: {k2['ms'] / k2['library_ms']:.3f}")
     return rows
+
+
+def build_report() -> None:
+    """Each library's HGMMA (wgmma) instruction count from `cuobjdump
+    -sass` and its spill bytes from ptxas's -v report beside it. Every
+    library holds a bf16 wgmma kernel, so a count of 0 fails the run."""
+    import re
+    from pathlib import Path
+    from switch_nerf_torch.ops import _build
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")  # nvcc's toolkit
+    if not cuobjdump.exists():
+        cuobjdump = None
+    for name in _build.SOURCES:
+        lib = _build.library_path(name)
+        report = lib.with_suffix(".log")
+        text = report.read_text(errors="replace") if report.exists() else ""
+        spills = sum(int(n) for n in re.findall(
+            r"(\d+) bytes spill (?:stores|loads)", text))
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        if cuobjdump is None:
+            hgmma = "not measured (no cuobjdump)"
+        else:
+            sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                                  capture_output=True, text=True,
+                                  timeout=120, check=True).stdout
+            hgmma = sass.count("HGMMA")
+            if hgmma == 0:
+                raise AssertionError(f"lib{name}: no HGMMA instruction")
+        log(f"  lib{name}: HGMMA {hgmma}; ptxas spill bytes "
+            f"{spills if text else 'not measured (no report)'}, registers "
+            f"per kernel {sorted(set(regs))}")
 
 
 def check_finite(res: dict, n: int) -> None:
@@ -630,6 +670,7 @@ def main() -> int:
     built = _build.build()
     log(f"[build] {time.perf_counter() - t0:.1f} s wall; per source "
         f"{ {k: round(v, 1) for k, v in built.items()} }")
+    build_report()
 
     from switch_nerf_torch.profile_eval import building_eval_hparams
     h = building_eval_hparams()

@@ -1,8 +1,12 @@
 // Per-expert L-layer MLP chain, bf16 backward, for Hopper (sm_90a): K2
-// (expert_chain_bwd.cu).
+// (expert_chain_bwd.cu) and, with GATHER set, K4 (fused_dispatch_bwd.cu).
 //
 // Replaces the bf16 case of switch_nerf_tpu/ops/expert_kernel.py:_bwd_call
-// (Pallas _bwd_kernel). The gradient needs the dx and dW products,
+// (Pallas _bwd_kernel) and of switch_nerf_tpu/ops/fused_dispatch.py:
+// _bwd_call, whose kernel gathers its rows again through the slot->token
+// map: here pass 1 takes chain_sm90.cuh's cp.async row gather in place of
+// the TMA load of x, and everything after the input tile is K2's (H_0, the
+// gathered rows, goes to hsave like every H_l; dx is d(dispatched)). The gradient needs the dx and dW products,
 // 4*E*C*M^2*L = 60.1 GFLOP at the Building shape against ~65 MB of x, g,
 // dx and fp32 dW: bound by tensor-core operations. The TPU kernel adds each
 // C block's dW into an output block its in-order grid revisits; the card
@@ -131,7 +135,8 @@ __device__ __forceinline__ void dx_epilogue(float (&acc)[M / 2], uint8_t* h,
 }
 
 // ------------------------------------------------------------ pass 1 ----
-template <int M>
+// x_map is read without GATHER, g with it.
+template <int M, bool GATHER>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
                const __grid_constant__ CUtensorMap w_map,
@@ -140,8 +145,8 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
                const __grid_constant__ CUtensorMap dx_map,
                const __grid_constant__ CUtensorMap hsave_map,
                const __grid_constant__ CUtensorMap gsave_map,
-               const __nv_bfloat16* __restrict__ bs, int E, int L,
-               unsigned skip_mask) {
+               const __nv_bfloat16* __restrict__ bs, const Gather g, int E,
+               int L, unsigned skip_mask) {
   using C = Cfg<M>;
   constexpr int kMaskLayer = 2 * kWgThreads * C::kMaskWords;  // words
   extern __shared__ uint8_t smem_raw[];
@@ -164,7 +169,7 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * kWgThreads);
     }
-    mbar_init(x_full, 1);
+    mbar_init(x_full, GATHER ? kWgThreads : 1);
     mbar_init(&g_full[0], 1);
     mbar_init(&g_full[1], 1);
     fence_barrier_init();
@@ -173,20 +178,28 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
   __syncthreads();
 
   if (threadIdx.x < kWgThreads) {  // producer
+    // W_0 .. W_{L-2} for the recompute, then W_{L-1} .. W_0 for the sweep
+    constexpr int K = C::kKChunks;
+    const int n_fwd = (L - 1) * K;
+    int stage = 0;
+    uint32_t phase = 0;
+    auto load_w = [&](int j) {
+      if (j < n_fwd) {
+        produce_stage<M, true>(&w_map, ring, full, empty, (j / K) * E + e,
+                               j % K, stage, phase);
+      } else {
+        const int r = j - n_fwd;
+        produce_stage<M, false>(&wt_map, ring, full, empty,
+                                (L - 1 - r / K) * E + e, r % K, stage,
+                                phase);
+      }
+    };
+    const int n_w = n_fwd + L * K;
+    int j = produce_input<M, GATHER>(&x_map, g, h, xin, x_full, e, row0,
+                                     threadIdx.x, n_w, load_w);
     regs_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(x_full, 2 * C::kTileBytes);
-      load_rows<M>(h, &x_map, x_full, row0, kTileRows, 0, kTileRows, e);
-      load_rows<M>(xin, &x_map, x_full, row0, kTileRows, 0, kTileRows, e);
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int l = 0; l < L - 1; ++l)
-        produce_layer<M, true>(&w_map, ring, full, empty, l * E + e, stage,
-                               phase);
-      for (int l = L - 1; l >= 0; --l)
-        produce_layer<M, false>(&wt_map, ring, full, empty, l * E + e,
-                                stage, phase);
-    }
+    if (threadIdx.x == 0)
+      for (; j < n_w; ++j) load_w(j);
   } else {  // consumers
     regs_inc<kConsumerRegs>();
     const int cw = threadIdx.x / kWgThreads - 1;
@@ -380,16 +393,19 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
 }
 
 // ------------------------------------------------------------- host ----
-template <int M>
-int launch_bwd_width(const void* x, const void* ws, const void* bs,
-                     const void* g, void* dx, void* hsave, void* gsave,
-                     float* dw, float* db, int E, int C, int L,
-                     unsigned skip_mask, cudaStream_t stream) {
+template <int M, bool GATHER>
+int launch_bwd_width(const void* src, const int* idx, int n_src,
+                     const void* ws, const void* bs, const void* g, void* dx,
+                     void* hsave, void* gsave, float* dw, float* db, int E,
+                     int C, int L, unsigned skip_mask, cudaStream_t stream) {
   CUtensorMap x_map, w_map, wt_map, g_map, dx_map, h_map, gs_map;
+  Gather gather;
   const long long LE = (long long)L * E;
   constexpr int K = Cfg<M>::kStageK;
   int rc;
-  if ((rc = make_map(&x_map, x, M, C, E)) != 0) return rc;
+  if ((rc = input_map<GATHER>(&x_map, &gather, src, idx, n_src, M, E, C)) !=
+      0)
+    return rc;
   if ((rc = make_map(&w_map, ws, M, M, LE, kBox, K)) != 0) return rc;
   if ((rc = make_map(&wt_map, ws, M, M, LE, K, kBox,
                      CU_TENSOR_MAP_SWIZZLE_64B)) != 0)
@@ -400,14 +416,14 @@ int launch_bwd_width(const void* x, const void* ws, const void* bs,
   if ((rc = make_map(&gs_map, gsave, M, C, LE)) != 0) return rc;
 
   const int smem = Smem<M>(L, true).bytes;
-  auto kern = chain_bwd_sm90<M>;
+  auto kern = chain_bwd_sm90<M, GATHER>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((C + kTileRows - 1) / kTileRows, E);
   kern<<<grid, kThreads, smem, stream>>>(
       x_map, w_map, wt_map, g_map, dx_map, h_map, gs_map,
-      static_cast<const __nv_bfloat16*>(bs), E, L, skip_mask);
+      static_cast<const __nv_bfloat16*>(bs), gather, E, L, skip_mask);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -422,13 +438,15 @@ int launch_bwd_width(const void* x, const void* ws, const void* bs,
   return (int)cudaGetLastError();
 }
 
-// Returns a cudaError_t code (0 = launched). hsave and gsave are [L, E, C, M]
-// bf16 workspaces; dw [L, E, M, M] and db [L, E, 1, M] fp32.
-inline int launch_chain_bwd(int device, const void* x, const void* ws,
-                            const void* bs, const void* g, void* dx,
-                            void* hsave, void* gsave, float* dw, float* db,
-                            int E, int C, int M, int L, unsigned skip_mask,
-                            void* stream) {
+// Returns a cudaError_t code (0 = launched). src is x [E, C, M] or, with
+// GATHER, the token rows [n_src, M] that idx [E * C] names (dx is then
+// d(dispatched) [E, C, M]). hsave and gsave are [L, E, C, M] bf16
+// workspaces; dw [L, E, M, M] and db [L, E, 1, M] fp32.
+template <bool GATHER>
+int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
+                     const void* ws, const void* bs, const void* g, void* dx,
+                     void* hsave, void* gsave, float* dw, float* db, int E,
+                     int C, int M, int L, unsigned skip_mask, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (E <= 0 || C <= 0 || L > bwd_max_layers(device, M))
@@ -436,14 +454,17 @@ inline int launch_chain_bwd(int device, const void* x, const void* ws,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (M) {
     case 64:
-      return launch_bwd_width<64>(x, ws, bs, g, dx, hsave, gsave, dw, db, E,
-                                  C, L, skip_mask, s);
+      return launch_bwd_width<64, GATHER>(src, idx, n_src, ws, bs, g, dx,
+                                          hsave, gsave, dw, db, E, C, L,
+                                          skip_mask, s);
     case 128:
-      return launch_bwd_width<128>(x, ws, bs, g, dx, hsave, gsave, dw, db, E,
-                                   C, L, skip_mask, s);
+      return launch_bwd_width<128, GATHER>(src, idx, n_src, ws, bs, g, dx,
+                                           hsave, gsave, dw, db, E, C, L,
+                                           skip_mask, s);
     case 256:
-      return launch_bwd_width<256>(x, ws, bs, g, dx, hsave, gsave, dw, db, E,
-                                   C, L, skip_mask, s);
+      return launch_bwd_width<256, GATHER>(src, idx, n_src, ws, bs, g, dx,
+                                           hsave, gsave, dw, db, E, C, L,
+                                           skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

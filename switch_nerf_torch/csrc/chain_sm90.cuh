@@ -1,12 +1,14 @@
 // Per-expert L-layer MLP chain, bf16 forward, for Hopper (sm_90a): the
-// mainloop of K1 (expert_chain.cu) and of K2's first pass
-// (chain_bwd_sm90.cuh).
+// mainloop of K1 (expert_chain.cu), of K3 (fused_dispatch.cu) and of the
+// first passes of K2 and K4 (chain_bwd_sm90.cuh).
 //
 // Replaces the bf16 case of switch_nerf_tpu/ops/expert_kernel.py:_fwd_call
-// (Pallas _fwd_kernel). One launch at the Building shape (E8 C4096 M256
-// L7) does 2*E*C*M^2*L = 30.1 GFLOP against ~41 MB of x, W and out: far
-// above the H100's ~295 FLOP/B ridge, so it is bound by tensor-core
-// operations, and the only way to the full rate is wgmma.
+// (Pallas _fwd_kernel) and, with GATHER set, of
+// switch_nerf_tpu/ops/fused_dispatch.py:_fwd_call (_gather_block +
+// _chain_fwd_from). One launch at the Building shape (E8 C4096 M256 L7)
+// does 2*E*C*M^2*L = 30.1 GFLOP against ~41 MB of x, W and out: far above
+// the H100's ~295 FLOP/B ridge, so it is bound by tensor-core operations,
+// and the only way to the full rate is wgmma.
 //
 // Design:
 //  - One CTA owns 128 rows of one expert: two consumer warpgroups of 64
@@ -35,6 +37,15 @@
 //    C within an expert are zero-filled on load and clipped on store.
 //    Tensor maps are encoded on the host for each call, through
 //    cudaGetDriverEntryPoint, so the library needs no -lcuda.
+//  - GATHER (K3, K4): TMA cannot gather rows, so the input tile comes from
+//    tokens[idx[e * C + row]] by cp.async instead, copied by the whole
+//    producer warpgroup (one 16-byte chunk a lane, one coalesced row per
+//    warp request at M = 256) into the same swizzled layout, zero-filled
+//    past C. Each producer thread waits for its copies, fences them to the
+//    async proxy and arrives on the input barrier (count 128). Thread 0
+//    starts the ring's first W stages before that wait, so the gather
+//    overlaps them, and only then enters the blocking part of the W
+//    stream. Everything after the input tile is K1's.
 // wgmma sums k in another order than cuBLAS: the result is no longer
 // bit-equal to the plain chain, and stays within bf16 rounding of it.
 #pragma once
@@ -124,6 +135,19 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map,
       " [%0, {%2, %3, %4}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 16 bytes global -> shared through L2 only; src_bytes 0 zero-fills (src
+// must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {
@@ -329,35 +353,34 @@ __device__ __forceinline__ void load_bias(__nv_bfloat16* bias,
 }
 
 // ----------------------------------------------------------- producer ----
-// Stream W_l through the ring for one layer, 32 k per stage. FWD: 32-row
-// slices of W_l (the MN-major B of h @ W_l), one 64 x 32 box per 64-column
-// panel (map: 128-byte swizzle). Otherwise: 32-column slices of W_l (the
-// K-major B of g @ W_l^T), one 32 x 64 box per 64 rows (map: 64-byte
-// swizzle, rows of 64 B).
+// Stream k chunk kc of W_l (z = l * E + e) into the next ring stage, 32 k
+// per stage. FWD: 32-row slices of W_l (the MN-major B of h @ W_l), one
+// 64 x 32 box per 64-column panel (map: 128-byte swizzle). Otherwise:
+// 32-column slices of W_l (the K-major B of g @ W_l^T), one 32 x 64 box per
+// 64 rows (map: 64-byte swizzle, rows of 64 B). Waits for the stage to be
+// free, which a fresh ring's first kStages stages are.
 template <int M, bool FWD>
-__device__ __forceinline__ void produce_layer(const CUtensorMap* w_map,
+__device__ __forceinline__ void produce_stage(const CUtensorMap* w_map,
                                               uint8_t* ring, uint64_t* full,
-                                              uint64_t* empty, int z,
+                                              uint64_t* empty, int z, int kc,
                                               int& stage, uint32_t& phase) {
   using C = Cfg<M>;
   constexpr int kPart = C::kStageBytes / (M / kBox);  // bytes per box
-  for (int kc = 0; kc < C::kKChunks; ++kc) {
-    mbar_wait(&empty[stage], phase ^ 1);
-    mbar_expect_tx(&full[stage], C::kStageBytes);
-    uint8_t* dst = ring + stage * C::kStageBytes;
+  mbar_wait(&empty[stage], phase ^ 1);
+  mbar_expect_tx(&full[stage], C::kStageBytes);
+  uint8_t* dst = ring + stage * C::kStageBytes;
 #pragma unroll
-    for (int p = 0; p < M / kBox; ++p) {
-      if (FWD)
-        tma_load(dst + p * kPart, w_map, &full[stage], p * kBox,
-                 kc * C::kStageK, z);
-      else
-        tma_load(dst + p * kPart, w_map, &full[stage], kc * C::kStageK,
-                 p * kBox, z);
-    }
-    if (++stage == C::kStages) {
-      stage = 0;
-      phase ^= 1;
-    }
+  for (int p = 0; p < M / kBox; ++p) {
+    if (FWD)
+      tma_load(dst + p * kPart, w_map, &full[stage], p * kBox,
+               kc * C::kStageK, z);
+    else
+      tma_load(dst + p * kPart, w_map, &full[stage], kc * C::kStageK,
+               p * kBox, z);
+  }
+  if (++stage == C::kStages) {
+    stage = 0;
+    phase ^= 1;
   }
 }
 
@@ -372,6 +395,83 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
     for (int p = 0; p < M / kBox; ++p)
       tma_load(dst + p * tile_rows * 128 + (at + r) * 128, map, bar, p * kBox,
                row + r, z);
+}
+
+// The rows a GATHER kernel reads: tile row r of expert e is
+// tokens[idx[e * C + r]], every index in [0, n_src).
+struct Gather {
+  const __nv_bfloat16* tokens;
+  const int* idx;
+  int n_src;
+  int C;
+};
+
+// Start the cp.async copies of the 128-row tile at row0 of expert e into h
+// and xin, by producer thread t (0..127). Warp w owns tile rows
+// 32w .. 32w + 31: lane j reads and checks the index of row 32w + j, and
+// each step copies 32 chunks of 16 bytes (one row at M = 256, two at 128,
+// four at 64) with the row's index taken from its lane by a shuffle. Rows
+// at or past C are zero-filled from a valid address. An index out of range
+// stops the kernel (device-side assert).
+template <int M>
+__device__ __forceinline__ void gather_rows(uint8_t* h, uint8_t* xin,
+                                            const Gather& g, int e, int row0,
+                                            int t) {
+  constexpr int kChunks = M / 8;             // 16-byte chunks per row
+  constexpr int kRowsPerStep = 32 / kChunks;
+  const int warp = t >> 5, lane = t & 31;
+  const int my_row = row0 + 32 * warp + lane;
+  int tok = -1;                              // -1: past C
+  if (my_row < g.C) {
+    tok = g.idx[(size_t)e * g.C + my_row];
+    if (tok < 0 || tok >= g.n_src) __trap();
+  }
+  const uint32_t h_s = smem_u32(h), x_s = smem_u32(xin);
+#pragma unroll 4
+  for (int k = 0; k < kChunks; ++k) {
+    const int rw = k * kRowsPerStep + lane / kChunks;  // row in the warp's 32
+    const int ch = lane % kChunks;
+    const int src_row = __shfl_sync(0xffffffffu, tok, rw);
+    const int r = 32 * warp + rw;
+    const __nv_bfloat16* src =
+        src_row >= 0 ? g.tokens + (size_t)src_row * M + ch * 8 : g.tokens;
+    const uint32_t bytes = src_row >= 0 ? 16u : 0u;
+    const uint32_t off = swz<kTileRows>(r, ch * 8);
+    cp_async16(h_s + off, src, bytes);
+    cp_async16(x_s + off, src, bytes);
+  }
+}
+
+// The producer warpgroup's start, by producer thread t: with GATHER, start
+// the tile's row gather, let thread 0 fill the fresh ring's first stages
+// (load_w(j) loads W stage j), wait for the copies, fence them to the
+// async proxy (wgmma reads through it) and arrive on x_full (count 128).
+// Without, thread 0 loads the tile into h and xin by TMA. Returns the
+// number of W stages thread 0 has started. Thread 0 arrives before it
+// blocks on a ring stage: those clear only once the consumers, who wait
+// for x_full, run.
+template <int M, bool GATHER, typename LoadW>
+__device__ __forceinline__ int produce_input(const CUtensorMap* x_map,
+                                             const Gather& g, uint8_t* h,
+                                             uint8_t* xin, uint64_t* x_full,
+                                             int e, int row0, int t, int n_w,
+                                             LoadW load_w) {
+  using C = Cfg<M>;
+  int j = 0;
+  if constexpr (GATHER) {
+    gather_rows<M>(h, xin, g, e, row0, t);
+    if (t == 0)
+      for (; j < n_w && j < C::kStages; ++j) load_w(j);
+    cp_async_wait_all();
+    fence_async_smem();
+    mbar_arrive(x_full);
+    __syncwarp();
+  } else if (t == 0) {
+    mbar_expect_tx(x_full, 2 * C::kTileBytes);
+    load_rows<M>(h, x_map, x_full, row0, kTileRows, 0, kTileRows, e);
+    load_rows<M>(xin, x_map, x_full, row0, kTileRows, 0, kTileRows, e);
+  }
+  return j;
 }
 
 // Store the 64 rows of warpgroup `cw` of a 128-row tile to rows
@@ -484,14 +584,15 @@ __device__ __forceinline__ void fwd_epilogue(float (&acc)[M / 2], uint8_t* h,
   }
 }
 
-// ---------------------------------------------------------------- K1 ----
-template <int M>
+// ----------------------------------------------------------- K1, K3 ----
+// x_map is read without GATHER, g with it.
+template <int M, bool GATHER>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
                const __grid_constant__ CUtensorMap w_map,
                const __grid_constant__ CUtensorMap out_map,
-               const __nv_bfloat16* __restrict__ bs, int E, int L,
-               unsigned skip_mask) {
+               const __nv_bfloat16* __restrict__ bs, const Gather g, int E,
+               int L, unsigned skip_mask) {
   using C = Cfg<M>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -511,24 +612,26 @@ chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * kWgThreads);
     }
-    mbar_init(x_full, 1);
+    mbar_init(x_full, GATHER ? kWgThreads : 1);
     fence_barrier_init();
   }
   load_bias<M>(bias, bs, E, e, L);
   __syncthreads();
 
   if (threadIdx.x < kWgThreads) {  // producer
+    int stage = 0;
+    uint32_t phase = 0;
+    auto load_w = [&](int j) {  // W stage j: layer j / kKChunks
+      produce_stage<M, true>(&w_map, ring, full, empty,
+                             (j / C::kKChunks) * E + e, j % C::kKChunks,
+                             stage, phase);
+    };
+    const int n_w = L * C::kKChunks;
+    int j = produce_input<M, GATHER>(&x_map, g, h, xin, x_full, e, row0,
+                                     threadIdx.x, n_w, load_w);
     regs_dec<kProducerRegs>();
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(x_full, 2 * C::kTileBytes);
-      load_rows<M>(h, &x_map, x_full, row0, kTileRows, 0, kTileRows, e);
-      load_rows<M>(xin, &x_map, x_full, row0, kTileRows, 0, kTileRows, e);
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int l = 0; l < L; ++l)
-        produce_layer<M, true>(&w_map, ring, full, empty, l * E + e, stage,
-                               phase);
-    }
+    if (threadIdx.x == 0)
+      for (; j < n_w; ++j) load_w(j);
   } else {  // consumers
     regs_inc<kConsumerRegs>();
     const int cw = threadIdx.x / kWgThreads - 1;
@@ -590,45 +693,66 @@ inline int make_map(CUtensorMap* map, const void* ptr, int m, long long rows,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int M>
-int launch_fwd_width(const void* x, const void* ws, const void* bs, void* out,
-                     int E, int C, int L, unsigned skip_mask,
-                     cudaStream_t stream) {
+// The input of a chain launch: x [E, C, M] read in place (a tensor map), or
+// with GATHER the rows g names.
+template <bool GATHER>
+inline int input_map(CUtensorMap* x_map, Gather* g, const void* src,
+                     const int* idx, int n_src, int M, int E, int C) {
+  *g = Gather{static_cast<const __nv_bfloat16*>(src), idx, n_src, C};
+  if (GATHER) {
+    *x_map = CUtensorMap{};  // not read
+    return 0;
+  }
+  return make_map(x_map, src, M, C, E);
+}
+
+template <int M, bool GATHER>
+int launch_fwd_width(const void* src, const int* idx, int n_src,
+                     const void* ws, const void* bs, void* out, int E, int C,
+                     int L, unsigned skip_mask, cudaStream_t stream) {
   CUtensorMap x_map, w_map, out_map;
+  Gather g;
   int rc;
-  if ((rc = make_map(&x_map, x, M, C, E)) != 0) return rc;
+  if ((rc = input_map<GATHER>(&x_map, &g, src, idx, n_src, M, E, C)) != 0)
+    return rc;
   if ((rc = make_map(&w_map, ws, M, M, (long long)L * E, kBox,
                      Cfg<M>::kStageK)) != 0)
     return rc;
   if ((rc = make_map(&out_map, out, M, C, E)) != 0) return rc;
   const int smem = Smem<M>(L, false).bytes;
-  auto kern = chain_fwd_sm90<M>;
+  auto kern = chain_fwd_sm90<M, GATHER>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((C + kTileRows - 1) / kTileRows, E);
   kern<<<grid, kThreads, smem, stream>>>(
-      x_map, w_map, out_map, static_cast<const __nv_bfloat16*>(bs), E, L,
+      x_map, w_map, out_map, static_cast<const __nv_bfloat16*>(bs), g, E, L,
       skip_mask);
   return (int)cudaGetLastError();
 }
 
-// Returns a cudaError_t code (0 = launched). Widths other than 64/128/256
-// are refused with cudaErrorInvalidValue; the Python wrapper checks first.
-inline int launch_chain_fwd(int device, const void* x, const void* ws,
-                            const void* bs, void* out, int E, int C, int M,
-                            int L, unsigned skip_mask, void* stream) {
+// Returns a cudaError_t code (0 = launched). src is x [E, C, M] or, with
+// GATHER, the token rows [n_src, M] that idx [E * C] names. Widths other
+// than 64/128/256 are refused with cudaErrorInvalidValue; the Python
+// wrappers check first.
+template <bool GATHER>
+int launch_chain_fwd(int device, const void* src, const int* idx, int n_src,
+                     const void* ws, const void* bs, void* out, int E, int C,
+                     int M, int L, unsigned skip_mask, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (E <= 0 || C <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (M) {
     case 64:
-      return launch_fwd_width<64>(x, ws, bs, out, E, C, L, skip_mask, s);
+      return launch_fwd_width<64, GATHER>(src, idx, n_src, ws, bs, out, E, C,
+                                          L, skip_mask, s);
     case 128:
-      return launch_fwd_width<128>(x, ws, bs, out, E, C, L, skip_mask, s);
+      return launch_fwd_width<128, GATHER>(src, idx, n_src, ws, bs, out, E,
+                                           C, L, skip_mask, s);
     case 256:
-      return launch_fwd_width<256>(x, ws, bs, out, E, C, L, skip_mask, s);
+      return launch_fwd_width<256, GATHER>(src, idx, n_src, ws, bs, out, E,
+                                           C, L, skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

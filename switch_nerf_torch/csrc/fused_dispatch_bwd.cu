@@ -1,10 +1,12 @@
 // Kernel K4: dispatch gather + per-expert MLP chain, backward. Replaces
 // switch_nerf_tpu/ops/fused_dispatch.py:_bwd_call (Pallas _bwd_kernel):
 // each CTA gathers its token rows again through the slot->token map, then
-// K2's two passes (chain_bwd.cuh) give d(dispatched) [E, C, M] and fp32
-// dW/db. Plain C interface, loaded with ctypes
-// (switch_nerf_torch/ops/fused_dispatch.py).
+// K2's two passes give d(dispatched) [E, C, M] and fp32 dW/db: bf16 on the
+// wgmma + TMA design of chain_bwd_sm90.cuh behind a cp.async row gather,
+// fp32 on the CUDA-core path of chain_bwd.cuh. Plain C interface, loaded
+// with ctypes (switch_nerf_torch/ops/fused_dispatch.py).
 #include "chain_bwd.cuh"
+#include "chain_bwd_sm90.cuh"
 
 extern "C" int fused_dispatch_bwd(int device, const void* tokens,
                                   const int* stt, int n_tokens,
@@ -13,9 +15,19 @@ extern "C" int fused_dispatch_bwd(int device, const void* tokens,
                                   void* gsave, float* dw, float* db, int E,
                                   int C, int M, int L, unsigned skip_mask,
                                   int is_bf16, void* stream) {
+  if (is_bf16)
+    return sm90::launch_chain_bwd<true>(device, tokens, stt, n_tokens, ws, bs,
+                                        g, dxd, hsave, gsave, dw, db, E, C, M,
+                                        L, skip_mask, stream);
   return launch_chain_bwd<true>(device, tokens, stt, n_tokens, ws, bs, g, dxd,
                                 hsave, gsave, dw, db, E, C, M, L, skip_mask,
-                                is_bf16, stream);
+                                stream);
+}
+
+// The most layers the kernel takes at width M (fp32: 32, the wrapper's
+// limit; bf16: what pass 1's shared memory holds on this device, as K2).
+extern "C" int fused_dispatch_bwd_max_layers(int device, int M, int is_bf16) {
+  return is_bf16 ? sm90::bwd_max_layers(device, M) : 32;
 }
 
 extern "C" const char* fused_dispatch_bwd_error_string(int code) {

@@ -3,9 +3,10 @@ forward and backward.
 
 K3 replaces ``switch_nerf_tpu/ops/fused_dispatch.py:_fwd_call`` (the Pallas
 ``_fwd_kernel``, ``_gather_block`` and ``_chain_fwd_from``); source
-``csrc/chain.cuh`` + ``csrc/fused_dispatch.cu``. K4 replaces ``_bwd_call``
-(the Pallas ``_bwd_kernel``); source ``csrc/chain_bwd.cuh`` +
-``csrc/fused_dispatch_bwd.cu``.
+``csrc/fused_dispatch.cu`` on ``csrc/chain_sm90.cuh`` (bf16) and
+``csrc/chain.cuh`` (fp32). K4 replaces ``_bwd_call`` (the Pallas
+``_bwd_kernel``); source ``csrc/fused_dispatch_bwd.cu`` on
+``csrc/chain_bwd_sm90.cuh`` (bf16) and ``csrc/chain_bwd.cuh`` (fp32).
 
 K3 computes chain(dispatch(tokens)) without the [E, C, M] dispatch buffer:
 each CTA loads its own slot->token indices and reads the token rows
@@ -17,7 +18,12 @@ all C per output tile), returning d(dispatched) [E, C, M]; the VJP turns
 that into d(tokens) with a gather over the token->slot map outside the
 kernel, as the JAX package's ``_fused_bwd`` does. What bounds them is
 K1's and K2's: tensor-core operations (the gather adds one read of the kept
-token rows). The TPU kernel's 8-row-aligned mask-select gather has no
+token rows). In bf16 they are K1 and K2 with another producer: TMA cannot
+gather rows, so the producer warpgroup copies each 128-row tile's token
+rows with ``cp.async`` (one 16-byte chunk a lane) into the swizzled layout
+that wgmma reads, zero-filling rows past C, and everything after the input
+tile is K1's and K2's. K4 inherits K2's layer limit (bf16 at M = 256 on an
+H100: 8). The TPU kernel's 8-row-aligned mask-select gather has no
 counterpart on the card: any row address is a legal load here.
 
 ``fused_dispatch_chain`` is differentiable through ``FusedDispatchFn``. A
@@ -110,6 +116,7 @@ _BWD_PROTOTYPES = {
         + [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 4
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
+    "fused_dispatch_bwd_max_layers": (ctypes.c_int, [ctypes.c_int] * 3),
     "fused_dispatch_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -179,15 +186,20 @@ def fused_dispatch_chain_bwd(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
     check_like(g, dxd, "g")
     if c == 0:
         raise ValueError("the backward kernel takes C >= 1")
+    is_bf16 = int(tokens_ext.dtype == torch.bfloat16)
+    lib = _build.load("fused_dispatch_bwd", _BWD_PROTOTYPES)
+    limit = lib.fused_dispatch_bwd_max_layers(tokens_ext.device.index, m,
+                                              is_bf16)
+    if layers > limit:
+        raise ValueError(f"the {tokens_ext.dtype} backward kernel at M={m} "
+                         f"takes up to {limit} layers, got {layers}")
     hsave, gsave, dw, db = bwd_buffers(layers, e, c, m, tokens_ext.dtype,
                                        tokens_ext.device)
-    lib = _build.load("fused_dispatch_bwd", _BWD_PROTOTYPES)
     rc = lib.fused_dispatch_bwd(
         tokens_ext.device.index, tokens_ext.data_ptr(), stt_eff.data_ptr(),
         s_ext, ws.data_ptr(), bs.data_ptr(), g.data_ptr(), dxd.data_ptr(),
         hsave.data_ptr(), gsave.data_ptr(), dw.data_ptr(), db.data_ptr(), e,
-        c, m, layers, skip_mask(skips, layers),
-        int(tokens_ext.dtype == torch.bfloat16),
+        c, m, layers, skip_mask(skips, layers), is_bf16,
         torch.cuda.current_stream(tokens_ext.device).cuda_stream)
     raise_on_error(rc, lib.fused_dispatch_bwd_error_string)
     bwd_launches += 1

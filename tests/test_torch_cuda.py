@@ -1,6 +1,9 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card,
 forward (K1, K3) and backward (K2, K4), and the gradients of a training
-forward on the card.
+forward on the card. The edge cases (C across the tile edge, one expert,
+views at an offset, the layer limit, determinism) run for K1/K2 ("chain")
+and for K3/K4 ("fused", over a slot map with empty slots), which share one
+mainloop and differ in how the input tile arrives.
 
 Every test here is marked ``cuda`` and skips where no CUDA device is
 present. This file imports no JAX, so on a machine with a card (and no JAX)
@@ -217,20 +220,71 @@ def _check_fwd_bwd(x, ws, bs, gy, skips, dtype):
         expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, gy, skips), dtype)
 
 
+def _check_fused_fwd_bwd(tokens_ext, stt, ws, bs, gy, skips, dtype):
+    fwd = (fused_dispatch.launches, fused_dispatch.bwd_launches)
+    _assert_close(
+        fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws, bs,
+                                                skips),
+        fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws, bs,
+                                                  skips), dtype)
+    _assert_bwd_close(
+        fused_dispatch.fused_dispatch_chain_bwd(tokens_ext, stt, ws, bs, gy,
+                                                skips),
+        fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt, ws, bs,
+                                                      gy, skips), dtype)
+    assert (fused_dispatch.launches, fused_dispatch.bwd_launches) == (
+        fwd[0] + 1, fwd[1] + 1)
+
+
+def _fused_case(x, seed):
+    """K3/K4's inputs from a chain case's x [E, C, M]: its E*C rows as the
+    tokens plus the zero row, and a slot map with empty slots."""
+    e, c, m = x.shape
+    tokens_ext = torch.cat([x.reshape(-1, m), x.new_zeros((1, m))])
+    stt = _slot_map(e * c, e, c, torch.Generator().manual_seed(seed),
+                    x.device)
+    return tokens_ext, stt
+
+
+def _check_case(kernels, e, c, m, layers, dtype, device, seed, skips):
+    """K1 and K2 ("chain") or K3 and K4 ("fused") against their plain
+    versions on one seeded case."""
+    x, ws, bs, gy = _chain_case(e, c, m, layers, dtype, device, seed=seed)
+    if kernels == "chain":
+        _check_fwd_bwd(x, ws, bs, gy, skips, dtype)
+    else:
+        tokens_ext, stt = _fused_case(x, seed + 2)
+        _check_fused_fwd_bwd(tokens_ext, stt, ws, bs, gy, skips, dtype)
+
+
+KERNELS = ["chain", "fused"]
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
 @pytest.mark.parametrize("m", [64, 256])
 @pytest.mark.parametrize("c", [1, 63, 64, 127, 128, 129, 4096])
-def test_chain_kernels_across_the_tile_edge(cuda, c, m):
-    """K1 and K2 in bf16 where C ends inside, at and just past a 64-row TMA
-    box and the 128-row tile: rows past C are zero-filled on load and
-    clipped on store."""
-    x, ws, bs, gy = _chain_case(2, c, m, 3, torch.bfloat16, cuda, seed=c)
-    _check_fwd_bwd(x, ws, bs, gy, (1,), torch.bfloat16)
+def test_chain_kernels_across_the_tile_edge(cuda, c, m, kernels):
+    """K1/K2 and K3/K4 in bf16 where C ends inside, at and just past a
+    64-row TMA box and the 128-row tile: rows past C are zero-filled on load
+    (K3/K4: by cp.async) and clipped on store."""
+    _check_case(kernels, 2, c, m, 3, torch.bfloat16, cuda, seed=c, skips=(1,))
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_kernels_single_expert(cuda, dtype, kernels):
+    _check_case(kernels, 1, 300, 128, 4, dtype, cuda, seed=5, skips=(2,))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_chain_kernels_single_expert(cuda, dtype):
-    x, ws, bs, gy = _chain_case(1, 300, 128, 4, dtype, cuda, seed=5)
-    _check_fwd_bwd(x, ws, bs, gy, (2,), dtype)
+@pytest.mark.parametrize("m", [64, 256])
+def test_fused_kernels_with_every_slot_empty(cuda, m, dtype):
+    """K3/K4 when every slot points at the zero row: the chain runs on
+    zeros, as over an empty dispatch buffer."""
+    x, ws, bs, gy = _chain_case(3, 200, m, 4, dtype, cuda, seed=m + 19)
+    tokens_ext = torch.cat([x[0], x.new_zeros((1, m))])
+    stt = torch.full((3 * 200,), 200, dtype=torch.int32, device=cuda)
+    _check_fused_fwd_bwd(tokens_ext, stt, ws, bs, gy, (1,), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -240,42 +294,68 @@ def test_chain_kernels_skip_at_first_and_last_layer(cuda, m, dtype):
     _check_fwd_bwd(x, ws, bs, gy, (0, 3), dtype)
 
 
-def test_chain_bwd_kernel_at_its_layer_limit(cuda):
+@pytest.mark.parametrize("kernels", KERNELS)
+def test_chain_bwd_kernel_at_its_layer_limit(cuda, kernels):
     """bf16 M=256 holds 8 layers of ReLU masks in shared memory; a ninth
-    layer is refused."""
+    layer is refused (K2, and K4, which inherits K2's pass 1)."""
     limit = expert_kernel.bwd_max_layers(cuda, 256, torch.bfloat16)
     assert limit == 8
     x, ws, bs, gy = _chain_case(2, 150, 256, limit, torch.bfloat16, cuda,
                                 seed=11)
-    _check_fwd_bwd(x, ws, bs, gy, (3,), torch.bfloat16)
     w9, b9 = _chain_weights(2, 256, limit + 1, torch.bfloat16, cuda, seed=0)
-    with pytest.raises(ValueError):
-        expert_kernel.expert_mlp_chain_bwd(x, w9, b9, gy)
+    if kernels == "chain":
+        _check_fwd_bwd(x, ws, bs, gy, (3,), torch.bfloat16)
+        with pytest.raises(ValueError):
+            expert_kernel.expert_mlp_chain_bwd(x, w9, b9, gy)
+    else:
+        tokens_ext, stt = _fused_case(x, 12)
+        _check_fused_fwd_bwd(tokens_ext, stt, ws, bs, gy, (3,),
+                             torch.bfloat16)
+        with pytest.raises(ValueError):
+            fused_dispatch.fused_dispatch_chain_bwd(tokens_ext, stt, w9, b9,
+                                                    gy)
 
 
-def test_chain_bwd_kernel_is_deterministic(cuda):
-    """K2's dx, dW and db are bit-identical across launches (fixed-order
-    sums, no atomics)."""
+@pytest.mark.parametrize("kernels", KERNELS)
+def test_chain_bwd_kernel_is_deterministic(cuda, kernels):
+    """K2's (K4's) dx, dW and db are bit-identical across launches
+    (fixed-order sums, no atomics)."""
     x, ws, bs, gy = _chain_case(4, 1000, 256, 7, torch.bfloat16, cuda,
                                 seed=13)
-    first = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,))
-    second = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,))
+    if kernels == "chain":
+        def run():
+            return expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,))
+    else:
+        tokens_ext, stt = _fused_case(x, 14)
+
+        def run():
+            return fused_dispatch.fused_dispatch_chain_bwd(
+                tokens_ext, stt, ws, bs, gy, (3,))
+    first, second = run(), run()
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernels", KERNELS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_chain_kernels_on_views_at_an_offset(cuda, dtype):
+def test_chain_kernels_on_views_at_an_offset(cuda, dtype, kernels):
     """Inputs that are views 16 bytes into a larger buffer: the tensor maps'
-    base is not the start of an allocation."""
+    base (K3/K4: the gather's token rows) is not the start of an
+    allocation."""
     e, c, m, layers = 2, 130, 128, 3
     _, ws, bs, _ = _chain_case(e, c, m, layers, dtype, cuda, seed=17)
     g = torch.Generator().manual_seed(18)
     shift = 16 // torch.empty((), dtype=dtype).element_size()
     n = e * c * m
-    bufs = [torch.randn(n + 2 * shift, generator=g).to(cuda, dtype)
+    bufs = [torch.randn(n + m + 2 * shift, generator=g).to(cuda, dtype)
             for _ in range(2)]
     x, gy = (b[shift:shift + n].view(e, c, m) for b in bufs)
     assert x.data_ptr() % 16 == 0 and x.data_ptr() % 256 != 0
-    _check_fwd_bwd(x, ws, bs, gy, (1,), dtype)
+    if kernels == "chain":
+        _check_fwd_bwd(x, ws, bs, gy, (1,), dtype)
+    else:
+        tokens_ext = bufs[0][shift:shift + n + m].view(e * c + 1, m)
+        tokens_ext[-1] = 0
+        stt = _slot_map(e * c, e, c, g, cuda)
+        _check_fused_fwd_bwd(tokens_ext, stt, ws, bs, gy, (1,), dtype)

@@ -263,6 +263,44 @@ def _fused_case(e=4, cap=32, s=100, m=128, layers=3, seed=5):
     return tokens, stt, ws, bs, slot, kept
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_plain_matches_pallas_at_main_path_structure(dtype):
+    """The oracle K3/K4 are held to on the card, at M=256, L=7, skips (3,):
+    the plain fused forward and backward vs the Pallas _fwd_call/_bwd_call
+    (interpret) on a slot map with dropped tokens and empty slots, weights
+    at the init scale M^-0.5. JAX's tokens are padded to a multiple of 8
+    rows. fp32 to 1e-5 of max |ref|, bf16 to 2e-2 of max |ref|."""
+    skips = (3,)
+    tokens, stt, _, _, _, _ = _fused_case(m=256, layers=7, seed=23)
+    s, m = tokens.shape
+    e, layers = 4, 7
+    cap = stt.size // e
+    rng = np.random.default_rng(24)
+    ws = rng.normal(0, m ** -0.5, (layers, e, m, m)).astype(np.float32)
+    bs = rng.normal(0, m ** -0.5, (layers, e, 1, m)).astype(np.float32)
+    g = rng.normal(0, 1, (e, cap, m)).astype(np.float32)
+    jtok = np.concatenate([tokens, np.zeros((1 + (-(s + 1)) % 8, m),
+                                            np.float32)])
+    ttok = np.concatenate([tokens, np.zeros((1, m), np.float32)])
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jx = [jnp.asarray(a, jdtype) for a in (jtok, ws, bs, g)]
+    tx = [torch.from_numpy(a).to(dtype) for a in (ttok, ws, bs, g)]
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+
+    ref = jfd._fwd_call(jx[0], jnp.asarray(stt), jx[1], jx[2], skips)
+    out = fused_dispatch.fused_dispatch_chain_plain(
+        tx[0], torch.from_numpy(stt), tx[1], tx[2], skips)
+    assert out.dtype == dtype
+    _close(out.float(), np.asarray(ref, np.float32), tol, rel=True,
+           err_msg="y")
+    refs = jfd._bwd_call(jx[0], jnp.asarray(stt), jx[1], jx[2], jx[3], skips)
+    outs = fused_dispatch.fused_dispatch_chain_bwd_plain(
+        tx[0], torch.from_numpy(stt), tx[1], tx[2], tx[3], skips)
+    for name, a, b in zip(("d(dispatched)", "dW", "db"), outs, refs):
+        _close(a.float(), np.asarray(b, np.float32), tol, rel=True,
+               err_msg=name)
+
+
 def test_fused_bwd_matches_jax_vjp():
     """FusedDispatchFn's d(tokens), dW, db vs jax.vjp of the JAX
     fused_dispatch_chain (Pallas K3/K4 in interpret mode) at M=128 with
