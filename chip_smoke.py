@@ -27,6 +27,15 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      and 20 timed steps with K1 and K2 launched 24 times per step, a CPU
      fp32 cross-check of one step's loss and gradients on 64 rays, and one
      step with SWITCH_NERF_FUSED_DISPATCH=1 (K3/K4)
+  5. runner: serve a trained scene end to end. A synthetic Mega-NeRF scene
+     (6 train + 2 val 1024x768 JPEGs from a seed) in a temp directory; a
+     port train state from seeds after one train step, written with
+     checkpoints.save_checkpoint and loaded into fresh models (every
+     parameter and Adam moment bit-equal, fingerprint equal); then
+     Runner(h).eval_image() with the eval phase's flags: each 256x192 val
+     image (--val_scale_factor 4) in one 65,536-ray request, K1 launched
+     for every image, finite metrics, the reference file set, and the
+     first 4,096 rays of val image 0 equal to a direct make_eval_step call
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -48,6 +57,9 @@ N_REQUESTS = 3
 CHECK_RAYS = 256       # rays of the CPU fp32 eval cross-check
 TRAIN_STEPS = 20       # timed train steps on the 1024-ray batch
 TRAIN_CHECK_RAYS = 64  # rays of the CPU fp32 train cross-check
+SCENE_W, SCENE_H = 1024, 768   # the runner scene's full-size images
+SCENE_TRAIN, SCENE_VAL = 6, 2  # its images (8 appearance rows)
+RUNNER_CHECK_RAYS = 4096       # rays of val image 0 checked against the step
 BF16_REL_TOL = 2e-2    # max |kernel - plain| <= this * max |plain| in bf16
 FP32_TOL = 1e-4        # max |kernel - plain| in fp32
 
@@ -651,6 +663,213 @@ def train_phase(counts):
             "peak_bytes": peak}
 
 
+def make_scene(root, seed: int) -> None:
+    """A synthetic Mega-NeRF scene in `root`: coordinates.pt, and
+    SCENE_TRAIN + SCENE_VAL cameras 0.8 above the origin in the
+    pose-normalised frame (drb: +x is down), looking straight down, each
+    with metadata/<name>.pt (c2w, W, H, 4-entry intrinsics) and a smooth
+    random rgbs/<name>.jpg at SCENE_W x SCENE_H."""
+    from pathlib import Path
+
+    from PIL import Image
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    # origin and scale put building.yaml's altitude range [8, 50] at
+    # x in [-0.44, 0.4] of the normalised frame
+    torch.save({"origin_drb": torch.tensor([30.0, 0.0, 0.0]),
+                "pose_scale_factor": 50.0}, root / "coordinates.pt")
+    look_down = np.array([[0, 0, -1], [1, 0, 0], [0, -1, 0]], np.float32)
+    val = {1, 4}
+    for i in range(SCENE_TRAIN + SCENE_VAL):
+        split = root / ("val" if i in val else "train")
+        (split / "metadata").mkdir(parents=True, exist_ok=True)
+        (split / "rgbs").mkdir(parents=True, exist_ok=True)
+        c2w = np.concatenate([look_down, np.array(
+            [[-0.8], rng.uniform(-0.4, 0.4, [1]),
+             rng.uniform(-0.4, 0.4, [1])], np.float32)], 1)
+        torch.save({"c2w": torch.from_numpy(c2w), "W": SCENE_W,
+                    "H": SCENE_H, "intrinsics": torch.tensor(
+                        [900.0, 900.0, SCENE_W / 2, SCENE_H / 2])},
+                   split / "metadata" / f"{i:06d}.pt")
+        coarse = rng.uniform(0, 255, (SCENE_H // 16, SCENE_W // 16, 3))
+        Image.fromarray(coarse.astype(np.uint8)).resize(
+            (SCENE_W, SCENE_H), Image.BICUBIC).save(
+                split / "rgbs" / f"{i:06d}.jpg")
+
+
+def checkpoint_round_trip(h, ckpt_dir) -> dict:
+    """Save a port train state made from seeds (after one train step, so
+    its Adam moments are not zero) and load it into fresh models: every
+    parameter and moment bit-equal, fingerprints equal."""
+    from switch_nerf_torch import checkpoints
+    from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+    from switch_nerf_torch.profile_eval import SCENE, ray_batch
+    from switch_nerf_torch.trainer import (
+        create_train_state, make_train_step, render_config_from_hparams)
+
+    ht = copy.copy(h)
+    ht.moe_train_batch = True           # the same parameters, trainable
+    n_images = SCENE_TRAIN + SCENE_VAL
+    state = create_train_state(ht, get_nerf(ht, n_images, seed=10),
+                               get_bg_nerf(ht, n_images, seed=11))
+    make_train_step(ht, render_config_from_hparams(ht), SCENE)(
+        state, ray_batch(1024, 3, "cuda", rgbs=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = checkpoints.save_checkpoint(ckpt_dir, state)
+    save_s = time.perf_counter() - t0
+
+    fresh = create_train_state(h, get_nerf(h, n_images, seed=20),
+                               get_bg_nerf(h, n_images, seed=21),
+                               for_training=False)
+    t0 = time.perf_counter()
+    _, extra = checkpoints.load_checkpoint(ckpt_dir, fresh,
+                                           restore_rng_states=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params = list(zip(state.parameters(), fresh.parameters()))
+    for a, b in params:
+        sa, sb = state.optimizer.state[a], fresh.optimizer.state[b]
+        if not (torch.equal(a, b) and all(
+                torch.equal(sa[k], sb[k])
+                for k in ("step", "exp_avg", "exp_avg_sq"))):
+            raise AssertionError("checkpoint round trip is not bit-equal")
+    if not any(bool(state.optimizer.state[a]["exp_avg"].any())
+               for a, _ in params):
+        raise AssertionError("the saved Adam moments are all zero")
+    if extra["param_fingerprint"] != checkpoints._state_fingerprint(fresh):
+        raise AssertionError("checkpoint fingerprint mismatch")
+    size = (path / "state.msgpack").stat().st_size
+    log(f"  checkpoint {path.name}: state.msgpack {size} B, save "
+        f"{save_s:.4f} s, load {load_s:.4f} s; {len(params)} parameters "
+        "and their Adam moments bit-equal, fingerprint equal")
+    return {"ckpt_bytes": size, "save_s": save_s, "load_s": load_s}
+
+
+def read_metrics(path) -> dict:
+    return {k: float(v) for k, v in (
+        line.split(": ") for line in path.read_text().splitlines())}
+
+
+def runner_phase() -> str:
+    """Serve a trained scene: checkpoint round trip, Runner.eval_image on
+    the card, and the checks of the module docstring's phase 5."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch.datasets.ray_utils import (get_ray_directions,
+                                                      get_rays)
+    from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+    from switch_nerf_torch.profile_eval import building_eval_hparams
+    from switch_nerf_torch.runner import Runner
+    from switch_nerf_torch.trainer import (SceneInfo, make_eval_step,
+                                           render_config_from_hparams)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as tmp:
+        tmp = Path(tmp)
+        make_scene(tmp / "scene", seed=0)
+        h = building_eval_hparams()
+        h.dataset_path = str(tmp / "scene")
+        h.exp_name = str(tmp / "exp")
+        h.ckpt_path = str(tmp / "ckpt")
+        log(f"[runner] Building eval_image on a synthetic {SCENE_W}x"
+            f"{SCENE_H} scene, --val_scale_factor {h.val_scale_factor}, "
+            f"{h.image_pixel_batch_size}-ray requests")
+        ckpt = checkpoint_round_trip(h, tmp / "ckpt")
+
+        runner = Runner(h)
+        per_image, renders = [], []
+        real = runner.render_image
+
+        def counted(metadata, render_chunks):
+            expert_kernel.launches = fused_dispatch.launches = 0
+            res = real(metadata, render_chunks)
+            per_image.append((expert_kernel.launches,
+                              fused_dispatch.launches))
+            renders.append(res)
+            return res
+        runner.render_image = counted
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        means = runner.eval_image()
+        eval_s = time.perf_counter() - t0
+        exp = runner.experiment_path
+
+        md = runner.val_items[0]
+        n_rays = md.W * md.H
+        bs = h.image_pixel_batch_size         # rays per (padded) request
+        chunks = -(-n_rays // bs) * (-(-bs * h.coarse_samples
+                                       // h.model_chunk_size)
+                                     + -(-bs * h.fine_samples
+                                         // h.model_chunk_size))
+        log(f"  K1/K3 launches per image {per_image} (expected K1 {chunks})")
+        if any(k1 != chunks or k3 for k1, k3 in per_image) \
+                or len(per_image) != SCENE_VAL:
+            raise AssertionError("the runner did not run K1 on every image")
+
+        metrics = [read_metrics(exp / "images" / f"metrics_{i}.txt")
+                   for i in range(SCENE_VAL)]
+        for m in metrics:
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"non-finite metrics {m}")
+            lp = [v for k, v in m.items() if k.startswith("lpips-")]
+            if not (-1.0 <= m["ssim"] <= 1.0 and len(lp) == 3
+                    and min(lp) >= 0.0):
+                raise AssertionError(f"metrics out of range {m}")
+        want = ["metrics.txt"]
+        for i in range(SCENE_VAL):
+            want += [f"images/metrics_{i}.txt", f"val_images/{i}.jpg"]
+            for sub in ("", "_bg", "_fg"):
+                want += [f"images/{i}_{p}{sub}.jpg"
+                         for p in ("gt", "pred", "depth")]
+            want += [f"val_images/{i}_bg.jpg", f"val_images/{i}_fg.jpg"]
+        missing = [f for f in want if not (exp / f).is_file()]
+        if missing:
+            raise AssertionError(f"eval files missing: {missing}")
+        if "Average val/psnr" not in (exp / "metrics.txt").read_text():
+            raise AssertionError("metrics.txt lacks the psnr average")
+
+        # the first rays of val image 0 through a direct eval step call:
+        # 4,096 rays fill whole model chunks in both calls (4096 x 256 and
+        # 4096 x 512 points are multiples of 32,768), so every chunk routes
+        # the same tokens and the GEMMs see the same shapes
+        rays = get_rays(get_ray_directions(
+            md.W, md.H, *md.intrinsics, h.center_pixels), md.c2w,
+            runner.near, runner.far, runner.ray_altitude_range
+        ).reshape(-1, 8)[:RUNNER_CHECK_RAYS]
+        step = make_eval_step(runner.nerf, runner.bg_nerf, h,
+                              render_config_from_hparams(h),
+                              SceneInfo(runner.sphere_center,
+                                        runner.sphere_radius))
+        direct = step({"rays": torch.from_numpy(rays).cuda(),
+                       "image_indices": torch.full(
+                           (rays.shape[0],), float(md.image_index),
+                           device="cuda")})
+        ran = renders[0]["rgb_fine"].reshape(-1, 3)[:rays.shape[0]]
+        err = float(np.abs(direct["rgb_fine"].float().cpu().numpy()
+                           - ran).max())
+        log(f"  first {RUNNER_CHECK_RAYS} rays of val image 0 vs a direct "
+            f"make_eval_step call: max |d rgb_fine| {err:.3e} (limit 1e-6)")
+        if not err <= 1e-6:
+            raise AssertionError("the runner's render differs from the step")
+
+    secs = [m["time"] for m in metrics]
+    m0 = metrics[0]
+    line = (f"{n_rays} rays ({md.W}x{md.H}) per image, render seconds per "
+            f"image {[round(t, 4) for t in secs]}, rays/s per image "
+            f"{[round(n_rays / t, 1) for t in secs]}, eval_image "
+            f"{eval_s:.4f} s for {SCENE_VAL} images; max_memory_allocated "
+            f"{max(m['memory'] for m in metrics):.1f} MiB; image 0 psnr "
+            f"{m0['psnr']:.4f} ssim {m0['ssim']:.4f} "
+            + " ".join(f"{k} {v:.4f}" for k, v in m0.items()
+                       if k.startswith("lpips-"))
+            + f"; checkpoint {ckpt['ckpt_bytes']} B, save "
+            f"{ckpt['save_s']:.4f} s, load {ckpt['load_s']:.4f} s; means "
+            f"psnr {means['psnr']:.4f}")
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -685,6 +904,7 @@ def main() -> int:
     log(f"[slice] eval launches per {N_REQUESTS} requests: {eval_counts}")
     counts = {}                   # the train path's (main path's) launches
     train = train_phase(counts)
+    runner = runner_phase()
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -711,6 +931,7 @@ def main() -> int:
     log(f"[train] train rays/s {train['rays_per_s']:.1f}, step "
         f"{train['step_s']:.4f} s, max_memory_allocated "
         f"{train['peak_bytes']} B on {smi}")
+    log(f"[runner] {runner} on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     # the script drives one card

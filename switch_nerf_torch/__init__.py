@@ -6,7 +6,11 @@ the eval render path of the Mega-NeRF/Switch-NeRF configs
 (`trainer.make_train_step`): routing, padded capacity dispatch with its
 gradients, the MoE expert chain (hand-written CUDA kernels on the card,
 forward and backward), the dense background NeRF, the coarse/fine volume
-renderer, and Adam with the exponential learning rate.
+renderer, and Adam with the exponential learning rate. Above them it
+serves a trained scene: ``runner.Runner`` (``eval_image.py``,
+``eval.py``) loads a checkpoint in the JAX package's format
+(``checkpoints.py``), renders every val image and scores it
+(``metrics.py``, ``lpips_torch.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.

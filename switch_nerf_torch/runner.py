@@ -1,0 +1,656 @@
+"""The eval runner of the port: serve a trained Mega-NeRF scene.
+
+Port of the Mega-NeRF eval side of ``switch_nerf_tpu/runner.py``. A
+``Runner``:
+
+  * resolves scene geometry (coordinates.pt origin/scale, near/far scaling,
+    the ray-altitude transform, the ellipse foreground bounds),
+  * discovers image metadata (train/val split, masks),
+  * builds the models on its device, loads a checkpoint into them
+    (``checkpoints.py``), and renders every val image in fixed
+    --image_pixel_batch_size requests through ``trainer.make_eval_step``
+    (the MoE expert chain runs the K1 kernel on a card; K3 with
+    SWITCH_NERF_FUSED_DISPATCH=1),
+  * scores the right half of each image (PSNR/SSIM/LPIPS, ``metrics.py``)
+    and writes the JAX package's file set: experiment_path/metrics.txt,
+    images/metrics_{i}.txt with the gt/pred/depth panel crops (+ _bg/_fg
+    sets with the background NeRF) and val_images/{i}.jpg triptychs.
+
+One process on one device (``cuda`` unless the caller passes
+``device="cpu"``). Training (``train``), the Block-NeRF and classic-NeRF
+workloads, point export and the container/ckpt-only evals raise
+``NotImplementedError`` naming the ROADMAP Queue A item they wait for.
+"""
+from __future__ import annotations
+
+import random
+import shutil
+import subprocess
+import sys
+import time
+from argparse import Namespace
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from switch_nerf_torch import metrics as M
+from switch_nerf_torch import resolve_device
+from switch_nerf_torch.checkpoints import load_checkpoint
+from switch_nerf_torch.datasets.image_metadata import ImageMetadata
+from switch_nerf_torch.datasets.ray_utils import get_ray_directions, get_rays
+from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+from switch_nerf_torch.trainer import (SceneInfo, TrainState,
+                                       create_train_state, make_eval_step,
+                                       render_config_from_hparams)
+from switch_nerf_torch.utils.logger import main_log, setup_logger
+from switch_nerf_torch.utils.meters import DictAverageMeter
+from switch_nerf_torch.utils.visualize import visualize_scalars
+
+
+def _waits(what: str, item: int, topic: str):
+    return NotImplementedError(
+        f"{what} waits for the port's {topic} (ROADMAP Queue A item {item})")
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class Runner:
+    def __init__(self, hparams: Namespace, set_experiment_path: bool = True,
+                 *, device=None):
+        self.hparams = hparams
+        self.device = resolve_device(device)
+        self.data_type = getattr(hparams, "data_type", "mega_nerf")
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise _waits("a multi-process Runner", 8,
+                         "multi-process support")
+
+        np.random.seed(hparams.random_seed)
+        random.seed(hparams.random_seed)
+
+        # fail fast on LPIPS misconfiguration (set-but-missing env path or
+        # malformed weights npz), not at the first val image
+        M.validate_lpips_setup()
+        self._audit_flag_semantics()
+
+        self._eval_step = None
+        if self.data_type == "nerf":
+            self._init_nerf(set_experiment_path)
+        elif self.data_type == "block_nerf":
+            self._init_block(set_experiment_path)
+        else:
+            self._init_mega(set_experiment_path)
+
+    # ------------------------------------------------------------ init ---
+    def _audit_flag_semantics(self) -> None:
+        """No reference flag may silently change nothing: a name flag that
+        disagrees with the structural selection is a configuration error,
+        and a MoE eval without --moe_test_batch (no-drop dispatch, which the
+        port lacks) raises here rather than at the first image."""
+        h = self.hparams
+
+        if self.data_type == "nerf":
+            structural_step = ("_training_step_nerf_mip" if h.use_mip
+                               else "_training_step_nerf")
+        else:
+            structural_step = ("_training_step_mip" if h.use_mip
+                               else "_training_step")
+        flag = getattr(h, "training_step_fn", None)
+        if flag is not None and flag != structural_step:
+            raise ValueError(
+                f"--training_step_fn {flag!r} conflicts with the "
+                f"structural selection {structural_step!r} (from "
+                f"data_type={self.data_type!r}, use_mip={bool(h.use_mip)})."
+                " This framework derives the training step from those "
+                "flags; pass --use_mip / the matching data_type instead.")
+
+        if self.data_type == "block_nerf":
+            structural_render = "render_image_blocknerf"
+        elif self.data_type == "nerf":
+            structural_render = ("render_image_nerf_mip" if h.use_mip
+                                 else "render_image_nerf")
+        else:
+            structural_render = "render_image"
+        flag = getattr(h, "render_image_fn_name", None)
+        if flag is not None and flag != structural_render:
+            raise ValueError(
+                f"--render_image_fn_name {flag!r} conflicts with the "
+                f"structural selection {structural_render!r} (from "
+                f"data_type={self.data_type!r}, use_mip={bool(h.use_mip)}).")
+
+        # flags whose reference job is unnecessary by design (stacked
+        # expert parameters need no checkpoint reshape; no DDP/DataLoader)
+        if getattr(h, "expertmlp2seqexperts", False):
+            main_log("NOTE: --expertmlp2seqexperts is unnecessary by "
+                     "design (stacked expert params serve train and eval);"
+                     " ignored, checkpoints load directly.")
+        elif (getattr(h, "moe_layer_num", 1) != 1
+                or getattr(h, "moe_layer_ids", None) is not None):
+            main_log("NOTE: --moe_layer_num/--moe_layer_ids only steer the "
+                     "reference's expertmlp2seqexperts checkpoint reshape, "
+                     "which is unnecessary by design here; ignored.")
+        if getattr(h, "find_unused_parameters", False):
+            main_log("NOTE: --find_unused_parameters configures torch DDP "
+                     "only; one process here, ignored.")
+        if getattr(h, "data_loader_num_workers", 1) != 1:
+            main_log("NOTE: --data_loader_num_workers sizes the torch "
+                     "DataLoader pool of training; ignored by eval.")
+        if getattr(h, "set_timeout", False):
+            main_log("NOTE: --set_timeout stretches the reference's NCCL "
+                     "timeout; one process here, ignored.")
+
+        if h.use_moe and not getattr(h, "moe_test_batch", False):
+            raise _waits("MoE eval in no-drop dispatch (no --moe_test_batch; "
+                         "every published eval command passes it)", 6,
+                         "no-drop dispatch")
+
+    def _setup_dirs(self, set_experiment_path: bool):
+        self.writer = None
+        if set_experiment_path:
+            self.experiment_path = self._get_experiment_path()
+            self.model_path = self.experiment_path / "models"
+            self.model_path.mkdir(parents=True, exist_ok=True)
+            self.logger = setup_logger(None, self.experiment_path)
+            from switch_nerf_torch.utils.tb import SummaryWriter
+            self.writer = SummaryWriter(self.experiment_path / "tb")
+            (self.experiment_path / "hparams.txt").write_text(
+                str(vars(self.hparams)))
+            (self.experiment_path / "command.txt").write_text(
+                " ".join(sys.argv))
+            if self.hparams.config_file is not None and \
+                    Path(self.hparams.config_file).exists():
+                shutil.copy(self.hparams.config_file, self.experiment_path)
+            self._write_git_info()
+        else:
+            self.experiment_path = None
+            self.model_path = None
+            self.logger = setup_logger(None, None)
+
+    def _write_git_info(self) -> None:
+        """git provenance, best-effort: the install may not be a checkout."""
+        cwd = Path(__file__).resolve().parent
+        try:
+            commit, branch = (subprocess.run(
+                ["git", *args], capture_output=True, text=True, timeout=10,
+                cwd=cwd).stdout.strip()
+                for args in (["rev-parse", "HEAD"],
+                             ["rev-parse", "--abbrev-ref", "HEAD"]))
+        except (OSError, subprocess.SubprocessError):
+            return
+        if commit:
+            (self.experiment_path / "git_info.txt").write_text(
+                f"commit: {commit}\nbranch: {branch}\n")
+
+    def _get_experiment_path(self) -> Path:
+        """The next versioned experiment dir (one process picks it)."""
+        return self._next_version_dir()
+
+    def _next_version_dir(self) -> Path:
+        exp_dir = Path(self.hparams.exp_name)
+        exp_dir.mkdir(parents=True, exist_ok=True)
+        existing = [int(p.name) for p in exp_dir.iterdir()
+                    if p.is_dir() and p.name.isdigit()]
+        version = max(existing) + 1 if existing else 0
+        path = exp_dir / str(version)
+        path.mkdir(parents=True, exist_ok=True)
+        return path
+
+    def _init_mega(self, set_experiment_path: bool):
+        h = self.hparams
+        self._setup_dirs(set_experiment_path)
+
+        coord = torch.load(Path(h.dataset_path) / "coordinates.pt",
+                           map_location="cpu", weights_only=False)
+        self.origin_drb = np.asarray(coord["origin_drb"], np.float32)
+        self.pose_scale_factor = float(coord["pose_scale_factor"])
+        main_log(f"Origin: {self.origin_drb}, scale factor: "
+                 f"{self.pose_scale_factor}")
+
+        self.near = h.near / self.pose_scale_factor
+        if h.far is not None:
+            self.far = h.far / self.pose_scale_factor
+        elif h.bg_nerf:
+            self.far = 1e5
+        else:
+            self.far = 2.0
+
+        self.ray_altitude_range = (
+            [(x - self.origin_drb[0]) / self.pose_scale_factor
+             for x in h.ray_altitude_range]
+            if h.ray_altitude_range is not None else None)
+        alt = self.ray_altitude_range
+        if alt is not None and not alt[0] < alt[1]:
+            raise ValueError(f"--ray_altitude_range {h.ray_altitude_range} "
+                             "must be increasing")
+
+        self.train_items, self.val_items = self._get_image_metadata()
+        main_log(f"Using {len(self.train_items)} train images and "
+                 f"{len(self.val_items)} val images")
+
+        cams = np.stack([x.c2w[:3, 3] for x in
+                         self.train_items + self.val_items])
+        min_pos, max_pos = cams.min(0), cams.max(0)
+
+        self.nerf = get_nerf(h, len(self.train_items), device=self.device)
+        self.bg_nerf = (get_bg_nerf(h, len(self.train_items),
+                                    device=self.device)
+                        if h.bg_nerf else None)
+
+        # ellipse foreground bounds
+        if self.bg_nerf is not None and h.ellipse_bounds:
+            if h.ray_altitude_range is None:
+                raise ValueError("--ellipse_bounds needs --ray_altitude_range")
+            ground = cams.copy()
+            ground[:, 0] = self.ray_altitude_range[1]
+            air = cams.copy()
+            air[:, 0] = self.ray_altitude_range[0]
+            used = np.concatenate([cams, air, ground])
+            max_pos = max_pos.copy()
+            max_pos[0] = self.ray_altitude_range[1]
+            center = (max_pos + min_pos) * 0.5
+            radius = (max_pos - min_pos) * 0.5
+            scale = np.linalg.norm((used - center) / radius, axis=-1).max()
+            radius = radius * scale * h.ellipse_scale_factor
+            self.sphere_center = np.asarray(center, np.float32)
+            self.sphere_radius = np.asarray(radius, np.float32)
+        else:
+            self.sphere_center = None
+            self.sphere_radius = None
+
+        self.mip = bool(h.use_mip)
+        self.appearance_count = len(self.train_items)
+
+    def _init_block(self, set_experiment_path: bool):
+        raise _waits("The Block-NeRF workload", 7, "other workloads")
+
+    def _init_nerf(self, set_experiment_path: bool):
+        raise _waits("The classic-NeRF workload", 7, "other workloads")
+
+    def _get_image_metadata(self) -> Tuple[List[ImageMetadata],
+                                           List[ImageMetadata]]:
+        """Mega-NeRF dataset layout discovery."""
+        h = self.hparams
+        dataset_path = Path(h.dataset_path)
+        train_candidates = sorted(
+            (dataset_path / "train" / "metadata").iterdir())
+        train_paths = [train_candidates[i] for i in
+                       range(0, len(train_candidates), h.train_every)]
+        val_paths = sorted((dataset_path / "val" / "metadata").iterdir())
+        train_paths += val_paths
+        train_paths.sort(key=lambda x: x.name)
+        val_set = set(val_paths)
+        image_indices = {p.name: i for i, p in enumerate(train_paths)}
+        train_items = [self._get_metadata_item(
+            x, image_indices[x.name], h.train_scale_factor, x in val_set)
+            for x in train_paths]
+        if self.experiment_path is not None:
+            # the reference's '{index},{rgb filename}' record
+            (self.experiment_path / "image_indices.txt").write_text(
+                "".join(f"{it.image_index},{it.image_path.name}\n"
+                        for it in train_items))
+        val_items = [self._get_metadata_item(
+            x, image_indices[x.name], h.val_scale_factor, True)
+            for x in val_paths]
+        return train_items, val_items
+
+    def _get_metadata_item(self, metadata_path: Path, image_index: int,
+                           scale_factor: int, is_val: bool) -> ImageMetadata:
+        h = self.hparams
+        image_path = None
+        for ext in (".jpg", ".JPG", ".png", ".PNG"):
+            candidate = (metadata_path.parent.parent / "rgbs"
+                         / f"{metadata_path.stem}{ext}")
+            if candidate.exists():
+                image_path = candidate
+                break
+        if image_path is None:
+            raise FileNotFoundError(f"no rgbs/{metadata_path.stem}.(jpg|png) "
+                                    f"beside {metadata_path}")
+        md = torch.load(metadata_path, map_location="cpu", weights_only=False)
+        intrinsics = np.asarray(md["intrinsics"], np.float32) / scale_factor
+        if md["W"] % scale_factor or md["H"] % scale_factor:
+            raise ValueError(f"{metadata_path}: {md['W']}x{md['H']} is not "
+                             f"divisible by the scale factor {scale_factor}")
+
+        dataset_mask = (metadata_path.parent.parent.parent / "masks"
+                        / metadata_path.name)
+        if h.cluster_mask_path is not None:
+            mask_path = Path(h.cluster_mask_path) / metadata_path.name
+        elif dataset_mask.exists():
+            mask_path = dataset_mask
+        else:
+            mask_path = None
+        return ImageMetadata(
+            image_path, np.asarray(md["c2w"], np.float32),
+            md["W"] // scale_factor, md["H"] // scale_factor, intrinsics,
+            image_index, None if (is_val and h.all_val) else mask_path,
+            is_val)
+
+    # ------------------------------------------------------------- eval ---
+    def _load_eval_state(self) -> TrainState:
+        h = self.hparams
+        if h.ckpt_path is None:
+            if getattr(h, "container_path", None):
+                raise _waits("--container_path eval", 9, "containers")
+            raise ValueError("--ckpt_path (or --container_path) required "
+                             "for eval")
+        state = create_train_state(h, self.nerf, self.bg_nerf,
+                                   device=self.device, for_training=False)
+        state, _ = load_checkpoint(h.ckpt_path, state,
+                                   restore_rng_states=False)
+        return state
+
+    def _make_render_fn(self, state: TrainState) -> Callable:
+        # one eval step per Runner: the state's modules are updated in
+        # place, so periodic validation reuses it
+        if self._eval_step is None:
+            self._eval_step = make_eval_step(
+                state.model, state.bg_model, self.hparams,
+                render_config_from_hparams(self.hparams),
+                SceneInfo(self.sphere_center, self.sphere_radius),
+                device=self.device)
+        return self._batched_collective_fn(self._eval_step)
+
+    def _batched_collective_fn(self, program: Callable) -> Callable:
+        h = self.hparams
+        dev = self.device
+
+        def render_chunks(rays: np.ndarray, image_index: float
+                          ) -> Dict[str, np.ndarray]:
+            """Render any ray count in requests of image_pixel_batch_size
+            rays (the last padded with copies of its last ray, so every
+            request has one shape); outputs trimmed to the real rays."""
+            n = rays.shape[0]
+            bs = h.image_pixel_batch_size
+            out: Dict[str, List[np.ndarray]] = {}
+            for lo in range(0, n, bs):
+                r = rays[lo:min(lo + bs, n)]
+                pad = bs - r.shape[0]
+                if pad:
+                    r = np.concatenate([r, np.repeat(r[-1:], pad, 0)], 0)
+                batch = {"rays": torch.from_numpy(
+                             np.ascontiguousarray(r, np.float32)).to(dev),
+                         "image_indices": torch.full(
+                             (bs,), image_index, dtype=torch.float32,
+                             device=dev)}
+                res = program(batch)
+                keep = bs - pad
+                for k, v in res.items():
+                    if v.dim() >= 1 and v.shape[0] == bs:
+                        out.setdefault(k, []).append(_to_host(v[:keep]))
+            return {k: np.concatenate(v) for k, v in out.items()}
+        return render_chunks
+
+    def render_image(self, metadata: ImageMetadata, render_chunks
+                     ) -> Dict[str, np.ndarray]:
+        """Whole-image render: results reshaped to [H, W, ...]."""
+        directions = get_ray_directions(
+            metadata.W, metadata.H, metadata.intrinsics[0],
+            metadata.intrinsics[1], metadata.intrinsics[2],
+            metadata.intrinsics[3], self.hparams.center_pixels)
+        rays = get_rays(directions, metadata.c2w, self.near, self.far,
+                        self.ray_altitude_range).reshape(-1, 8)
+        res = render_chunks(rays, float(metadata.image_index))
+        h, w = metadata.H, metadata.W
+        return {k: v.reshape(h, w, *v.shape[1:]) for k, v in res.items()}
+
+    def _peak_memory_mib(self) -> float:
+        """torch.cuda.max_memory_allocated of the device, MiB (the
+        reference's own call); 0.0 on the CPU."""
+        if self.device.type != "cuda":
+            return 0.0
+        return torch.cuda.max_memory_allocated(self.device) / 2 ** 20
+
+    def _image_metrics_half(self, pred: np.ndarray, gt: np.ndarray,
+                            valid_mask: Optional[np.ndarray] = None
+                            ) -> Dict[str, float]:
+        """Right-half PSNR/SSIM/LPIPS on the runner's device, in the
+        reference's field order: psnr, ssim[, psnr_mask, ssim_mask],
+        lpips-*."""
+        half = gt.shape[1] // 2
+        pred_r = torch.from_numpy(np.ascontiguousarray(pred[:, half:])).to(
+            self.device)
+        gt_r = torch.from_numpy(np.ascontiguousarray(gt[:, half:])).to(
+            self.device)
+        out = {"psnr": M.psnr(pred_r, gt_r),
+               "ssim": M.ssim(pred_r, gt_r, 1.0)}
+        if valid_mask is not None:
+            mask_r = valid_mask[:, half:]
+            out["psnr_mask"] = M.psnr_mask(pred_r, gt_r, mask_r)
+            out["ssim_mask"] = M.ssim_mask(pred_r, gt_r, 1.0, mask_r)
+        for k, v in M.lpips(pred_r, gt_r).items():
+            if v is not None:
+                out[f"lpips-{k}"] = v
+        return out
+
+    @staticmethod
+    def _agg_key(k: str) -> str:
+        """Per-image metric name -> the reference's aggregate metric key
+        ('psnr' -> 'val/psnr', 'lpips-vgg' -> 'val/lpips/vgg')."""
+        if k.startswith("val/"):
+            return k
+        if k.startswith("lpips-"):
+            return "val/lpips/" + k[len("lpips-"):]
+        return f"val/{k}"
+
+    def _write_final_metrics(self, means: Dict[str, float]) -> None:
+        """experiment_path/metrics.txt: 'Average val/<metric>: <value>'."""
+        if self.experiment_path is None:
+            return
+        with (self.experiment_path / "metrics.txt").open("w") as f:
+            for k, v in means.items():
+                msg = f"Average {self._agg_key(k)}: {v}"
+                main_log(msg)
+                f.write(msg + "\n")
+
+    @staticmethod
+    def _pred_gt(metadata: ImageMetadata, results):
+        """(typ, the clipped prediction, the ground truth in [0, 1])."""
+        typ = "fine" if "rgb_fine" in results else "coarse"
+        pred = np.clip(results[f"rgb_{typ}"], 0.0, 1.0)
+        gt = metadata.load_image().astype(np.float32) / 255.0
+        return typ, pred, gt
+
+    def _log_per_image(self, per_image: Dict[int, Dict[str, float]],
+                       step: int) -> None:
+        if self.writer is None:
+            return
+        for i, im in sorted(per_image.items()):
+            for k, v in im.items():
+                self.writer.add_scalar(f"{self._agg_key(k)}/{i}", v, step)
+
+    def _run_validation(self, state: TrainState,
+                        train_index: Optional[int] = None
+                        ) -> Dict[str, float]:
+        """Validation-protocol eval: right-half PSNR/SSIM/LPIPS per val
+        image, logged per image as val/<metric>/<i>; returns the means
+        under their val/ keys."""
+        if train_index is None:
+            train_index = int(state.step)
+        render_chunks = self._make_render_fn(state)
+        meter = DictAverageMeter()
+        per_image: Dict[int, Dict[str, float]] = {}
+        for i, metadata in enumerate(self.val_items):
+            results = self.render_image(metadata, render_chunks)
+            _, pred, gt = self._pred_gt(metadata, results)
+            img_metrics = self._image_metrics_half(pred, gt)
+            meter.update(img_metrics)
+            per_image[i] = img_metrics
+            main_log(f"val image {i}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in img_metrics.items()))
+        self._log_per_image(per_image, train_index)
+        means = {self._agg_key(k): v
+                 for k, v in meter.mean_across_processes().items()}
+        if self.writer is not None:
+            for k, v in means.items():
+                self.writer.add_scalar(f"{k}/avg", v, train_index)
+            self.writer.flush()
+        main_log("val means: " + " ".join(f"{k}={v:.4f}"
+                                          for k, v in means.items()))
+        return means
+
+    def _run_validation_image(self, state: TrainState) -> Dict[str, float]:
+        """Right-half val-image protocol with per-image time/memory and the
+        reference file set: images/metrics_{i}.txt + {i}_gt/_pred/_depth
+        panel crops (+ _bg/_fg sets), val_images/{i}.jpg triptychs,
+        per-image scalars and the 'Average val/...' metrics.txt."""
+        render_chunks = self._make_render_fn(state)
+        meter = DictAverageMeter()
+        per_image: Dict[int, Dict[str, float]] = {}
+        images_dir = val_images_dir = None
+        if self.experiment_path is not None:
+            images_dir = self.experiment_path / "images"
+            val_images_dir = self.experiment_path / "val_images"
+
+        for i, metadata in enumerate(self.val_items):
+            t0 = time.time()
+            results = self.render_image(metadata, render_chunks)
+            render_time = time.time() - t0
+            typ, pred, gt = self._pred_gt(metadata, results)
+
+            img_metrics = self._image_metrics_half(pred, gt)
+            # the reference's metrics_{i}.txt fields: psnr, ssim, lpips-*,
+            # time, memory
+            img_metrics["time"] = render_time
+            img_metrics["memory"] = self._peak_memory_mib()
+            meter.update(img_metrics)
+            per_image[i] = img_metrics
+            main_log(f"val image {i}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in img_metrics.items()))
+
+            if images_dir is not None:
+                self._write_reference_val_files(
+                    images_dir, val_images_dir, i, gt, pred, results, typ,
+                    img_metrics)
+
+        self._log_per_image(per_image, int(state.step))
+        if self.writer is not None:
+            self.writer.flush()
+        means = meter.mean_across_processes()
+        main_log("val means: " + " ".join(f"{k}={v:.4f}"
+                                          for k, v in means.items()))
+        self._write_final_metrics(means)
+        return means
+
+    @staticmethod
+    def _depth_for_viz(results, typ) -> Optional[np.ndarray]:
+        """Depth panel input, clamped at the 0.95 quantile of the
+        foreground depth when the render carries one (subsampled by 2
+        while > 2^24 values), so background distances don't wash out the
+        foreground range."""
+        depth = results.get(f"depth_{typ}")
+        if depth is None:
+            return None
+        depth = np.asarray(depth, np.float32)
+        fg = results.get(f"fg_depth_{typ}")
+        if fg is not None:
+            to_use = np.asarray(fg, np.float32).reshape(-1)
+            while to_use.shape[0] > 2 ** 24:
+                to_use = to_use[::2]
+            depth = np.minimum(depth, np.quantile(to_use, 0.95))
+        return depth
+
+    @staticmethod
+    def _result_image(gt, pred, depth=None, colormap=None) -> np.ndarray:
+        """gt | pred | colormapped-depth uint8 triptych."""
+        trip = [np.asarray(gt)[..., :3],
+                np.clip(np.asarray(pred), 0.0, 1.0)[..., :3]]
+        if depth is not None:
+            trip.append(visualize_scalars(
+                np.asarray(depth),
+                colormap=colormap).astype(np.float32) / 255.0)
+        img = np.concatenate(trip, axis=1)
+        return (img * 255).astype(np.uint8)
+
+    @staticmethod
+    def _save_triptych(path: Path, gt, pred, depth=None):
+        from PIL import Image
+        Image.fromarray(Runner._result_image(gt, pred, depth)).save(path)
+
+    @staticmethod
+    def _save_panel_crops(arr: np.ndarray, images_dir: Path, key,
+                          suffix: str = ""):
+        """{i}_gt/_pred/_depth{suffix}.jpg third-crops of the triptych."""
+        from PIL import Image
+        img = Image.fromarray(arr)
+        w, hgt = img.size
+        for ci, suf in enumerate(("gt", "pred", "depth")):
+            box = (w // 3 * ci, 0, w // 3 * (ci + 1), hgt)
+            img.crop(box).save(images_dir / f"{key}_{suf}{suffix}.jpg")
+
+    def _write_reference_val_files(self, images_dir: Path,
+                                   val_images_dir: Path, key,
+                                   gt, pred, results, typ,
+                                   metrics_txt: Dict[str, float]) -> None:
+        """Per-image eval files: metrics_{i}.txt, the triptych, its
+        gt/pred/depth third-crops, and the bg/fg decomposition sets when the
+        render carries the split."""
+        from PIL import Image
+        images_dir.mkdir(parents=True, exist_ok=True)
+        val_images_dir.mkdir(parents=True, exist_ok=True)
+        with (images_dir / f"metrics_{key}.txt").open("w") as f:
+            for k, v in metrics_txt.items():
+                f.write(f"{k}: {v}\n")
+        gt = np.asarray(gt, np.float32)
+        arr = self._result_image(gt, pred, self._depth_for_viz(results, typ))
+        Image.fromarray(arr).save(val_images_dir / f"{key}.jpg")
+        if arr.shape[1] == 3 * gt.shape[1]:     # depth panel present
+            self._save_panel_crops(arr, images_dir, key)
+        if not getattr(self.hparams, "bg_nerf", False):
+            return
+        # bg/fg decomposition: a fine render may carry only coarse bg
+        # outputs -> fall back to coarse
+        bg_typ = typ if f"bg_rgb_{typ}" in results else "coarse"
+        if f"bg_rgb_{bg_typ}" not in results:
+            return
+        for sub, sub_typ in (("bg", bg_typ), ("fg", typ)):
+            if f"{sub}_rgb_{sub_typ}" not in results:
+                continue
+            rgb = np.asarray(
+                results[f"{sub}_rgb_{sub_typ}"]).reshape(gt.shape)
+            depth = results.get(f"{sub}_depth_{sub_typ}")
+            arr = self._result_image(gt, rgb, depth)
+            Image.fromarray(arr).save(val_images_dir / f"{key}_{sub}.jpg")
+            if depth is not None:
+                self._save_panel_crops(arr, images_dir, key, f"_{sub}")
+
+    # ------------------------------------------- public eval entrypoints --
+    def eval(self) -> Dict[str, float]:
+        """Validation-protocol eval (the reference's eval.py)."""
+        state = self._load_eval_state()
+        means = self._run_validation(state, 0)
+        self._write_final_metrics(means)
+        return means
+
+    def eval_image(self) -> Dict[str, float]:
+        """The published eval command (the reference's eval_image.py)."""
+        state = self._load_eval_state()
+        return self._run_validation_image(state)
+
+    def train(self):
+        raise _waits("Runner.train", 5, "training runner")
+
+    def train_nerf(self):
+        raise _waits("Runner.train_nerf", 7, "other workloads")
+
+    def eval_nerf(self):
+        raise _waits("Runner.eval_nerf", 7, "other workloads")
+
+    def eval_image_blocknerf(self):
+        raise _waits("Runner.eval_image_blocknerf", 7, "other workloads")
+
+    def eval_points(self):
+        raise _waits("Runner.eval_points", 9, "point export")
+
+    def eval_points_nerf(self):
+        raise _waits("Runner.eval_points_nerf", 9, "point export")
+
+    def eval_ckpt(self):
+        raise _waits("Runner.eval_ckpt", 9, "checkpoint-only eval")

@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -208,6 +209,12 @@ class TrainState:
     mini_step:        micro-steps into the current accumulation window
     acc_grads:        the window's running mean gradient, as
                       ``optax.MultiSteps`` keeps it (acc > 1 only)
+    scheduled_lr:     whether the learning rate decays (off with
+                      --no_optimizer_schedulers); the JAX optimizer state
+                      then holds the schedule's count
+    rng:              the JAX package's PRNG key (uint32[2]) from a loaded
+                      checkpoint, carried opaquely (the port draws from
+                      ``generator``); None when none was loaded
     """
     model: nn.Module
     bg_model: Optional[nn.Module]
@@ -217,6 +224,8 @@ class TrainState:
     opt_step: int = 0
     mini_step: int = 0
     acc_grads: Optional[List[torch.Tensor]] = None
+    scheduled_lr: bool = True
+    rng: Optional[np.ndarray] = None
 
     def parameters(self) -> List[nn.Parameter]:
         params = list(self.model.parameters())
@@ -233,22 +242,29 @@ def _check_trainable(model: nn.Module) -> None:
 
 def create_train_state(hparams, model: nn.Module,
                        bg_model: Optional[nn.Module], *, device=None,
-                       seed: Optional[int] = None) -> TrainState:
-    """The optimizer over the models' parameters and a generator on
-    ``device`` (default ``cuda``) seeded with ``seed`` (default
-    --random_seed). Raises if the model needs what the port does not train
-    yet (no-drop dispatch, gate noise)."""
+                       seed: Optional[int] = None,
+                       for_training: bool = True) -> TrainState:
+    """The optimizer over the models' parameters (with a zero accumulation
+    window when --accumulation_steps > 1) and a generator on ``device``
+    (default ``cuda``) seeded with ``seed`` (default --random_seed).
+    Raises if the model needs what the port does not train yet (no-drop
+    dispatch, gate noise), unless ``for_training`` is False: the state
+    that eval loads a checkpoint into."""
     dev = resolve_device(device)
     _check_on(dev, model=model, bg_model=bg_model)
-    _check_trainable(model)
+    if for_training:
+        _check_trainable(model)
     params = list(model.parameters())
     if bg_model is not None:
         params += list(bg_model.parameters())
     generator = torch.Generator(device=dev).manual_seed(
         hparams.random_seed if seed is None else seed)
-    return TrainState(model=model, bg_model=bg_model,
-                      optimizer=create_optimizer(hparams, params),
-                      generator=generator)
+    acc = getattr(hparams, "accumulation_steps", 1) or 1
+    return TrainState(
+        model=model, bg_model=bg_model,
+        optimizer=create_optimizer(hparams, params), generator=generator,
+        acc_grads=[torch.zeros_like(p) for p in params] if acc > 1 else None,
+        scheduled_lr=not getattr(hparams, "no_optimizer_schedulers", False))
 
 
 class TrainStep:
@@ -296,8 +312,6 @@ class TrainStep:
         window's last micro-step, as optax.MultiSteps."""
         params = state.parameters()
         if self.acc > 1:
-            if state.acc_grads is None:
-                state.acc_grads = [torch.zeros_like(p) for p in params]
             n = state.mini_step
             for a, g in zip(state.acc_grads, grads):
                 a.add_((g - a) / (n + 1))
