@@ -36,12 +36,27 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      image (--val_scale_factor 4) in one 65,536-ray request, K1 launched
      for every image, finite metrics, the reference file set, and the
      first 4,096 rays of val image 0 equal to a direct make_eval_step call
+  6. train runner: train a scene end to end. The same synthetic scene in a
+     temp directory; train.main with the published Building train flags
+     (the train phase's) on the chunked filesystem dataset: 256x192 train
+     images (--train_scale_factor 4) written into 8 chunks, 60 steps of
+     1,024 rays (across a chunk boundary), a checkpoint every 30 steps, a
+     log line every 20, no validation. K1 and K2 launched 24 times per
+     step, every logged metric finite, step directories 30 and 60, and the
+     cursor, counters and generator state in step 30's extra.json; then a
+     second run resumed from step 30 to 60 feeds the same batches (equal
+     hashes) and its first loss equals the first run's to 1e-3. Prints the
+     chunk write and load seconds, train rays/s through Runner.train beside
+     the train phase's fixed-batch figure, the mean data_sample_time, the
+     checkpoint save seconds and max_memory_allocated
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import hashlib
 import json
 import os
 import subprocess
@@ -60,6 +75,8 @@ TRAIN_CHECK_RAYS = 64  # rays of the CPU fp32 train cross-check
 SCENE_W, SCENE_H = 1024, 768   # the runner scene's full-size images
 SCENE_TRAIN, SCENE_VAL = 6, 2  # its images (8 appearance rows)
 RUNNER_CHECK_RAYS = 4096       # rays of val image 0 checked against the step
+RUN_STEPS, RUN_CKPT, RUN_PRINT = 60, 30, 20   # the train runner's schedule
+RUN_CHUNKS = 8                 # chunks of the train runner's scene
 BF16_REL_TOL = 2e-2    # max |kernel - plain| <= this * max |plain| in bf16
 FP32_TOL = 1e-4        # max |kernel - plain| in fp32
 
@@ -870,6 +887,193 @@ def runner_phase() -> str:
     return line
 
 
+@contextlib.contextmanager
+def wrapped(owner, name: str, make):
+    """owner.name replaced by make(the original) for the block."""
+    real = getattr(owner, name)
+    setattr(owner, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def batch_digest(batch: dict) -> str:
+    h = hashlib.sha1()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def run_training(h) -> dict:
+    """train.main(h) on the card with the runner's data path, steps and
+    saves instrumented: per-step batch hashes, losses and host-clock end
+    times (each step ends in a sync: the finite check), chunk write / read
+    / blocked seconds, checkpoint save seconds, and the K1-K4 launches of
+    the run."""
+    from switch_nerf_torch import runner as runner_mod
+    from switch_nerf_torch import train
+    from switch_nerf_torch.datasets.filesystem_dataset import \
+        FilesystemDataset
+    from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+
+    rec = {"digests": [], "loss": [], "t_end": [], "write_s": [],
+           "read_s": [], "blocked_s": [], "save_s": []}
+
+    def timed(key):
+        def make(real):
+            def run(*a, **k):
+                t0 = time.perf_counter()
+                out = real(*a, **k)
+                rec[key].append(time.perf_counter() - t0)
+                return out
+            return run
+        return make
+
+    def put(real):
+        def run(self, batch):
+            rec["digests"].append(batch_digest(batch))
+            return real(self, batch)
+        return run
+
+    def make_step(real):
+        def make(*a, **k):
+            step = real(*a, **k)
+
+            def run(state, batch):
+                state, m = step(state, batch)
+                rec["loss"].append(float(m["loss"]))
+                rec["t_end"].append(time.perf_counter())
+                return state, m
+            return run
+        return make
+
+    with contextlib.ExitStack() as stack:
+        for owner, name, make in (
+                (FilesystemDataset, "_write_chunks", timed("write_s")),
+                (FilesystemDataset, "_read_chunk", timed("read_s")),
+                (FilesystemDataset, "load_chunk", timed("blocked_s")),
+                (runner_mod, "save_checkpoint", timed("save_s")),
+                (runner_mod.Runner, "_put_batch", put),
+                (runner_mod, "make_train_step", make_step)):
+            stack.enter_context(wrapped(owner, name, make))
+        expert_kernel.launches = expert_kernel.bwd_launches = 0
+        fused_dispatch.launches = fused_dispatch.bwd_launches = 0
+        t0 = time.perf_counter()
+        state = train.main(h)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = {"K1": expert_kernel.launches,
+                           "K2": expert_kernel.bwd_launches,
+                           "K3": fused_dispatch.launches,
+                           "K4": fused_dispatch.bwd_launches}
+    rec["step"] = state.step
+    return rec
+
+
+def logged_windows(log_path) -> list:
+    """The runner's --i_print lines as {name: value} dicts."""
+    out = []
+    for line in log_path.read_text().splitlines():
+        if line.startswith("iter "):
+            fields = dict(f.split("=") for f in line.split()[2:])
+            out.append({k: float(v) for k, v in fields.items()})
+    return out
+
+
+def train_runner_phase(fixed_rays_per_s: float) -> str:
+    """Train a scene end to end through Runner.train on the card and
+    resume it: the checks of the module docstring's phase 6."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch.profile_eval import building_train_hparams
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tmp = Path(tmp)
+        make_scene(tmp / "scene", seed=0)
+        h = building_train_hparams()
+        h.dataset_path = str(tmp / "scene")
+        h.exp_name = str(tmp / "exp")
+        h.dataset_type = "filesystem"
+        h.chunk_paths = [str(tmp / "chunks")]
+        h.train_scale_factor = 4
+        h.num_chunks = RUN_CHUNKS
+        h.train_iterations = RUN_STEPS
+        h.ckpt_interval = RUN_CKPT
+        h.i_print = RUN_PRINT
+        h.val_interval = RUN_STEPS + 1
+        chunks = (-(-h.batch_size * h.coarse_samples // h.model_chunk_size)
+                  + -(-h.batch_size * h.fine_samples // h.model_chunk_size))
+        log(f"[train_runner] Runner.train on a synthetic {SCENE_W}x{SCENE_H}"
+            f" scene, --train_scale_factor {h.train_scale_factor}, "
+            f"{RUN_CHUNKS} chunks, {RUN_STEPS} steps of {h.batch_size} rays")
+        torch.cuda.reset_peak_memory_stats()
+        first = run_training(h)
+        peak = torch.cuda.max_memory_allocated()
+        exp = Path(h.exp_name) / "0"
+        n = first["launches"]
+        log(f"  launches: {n} (expected K1, K2 {chunks * RUN_STEPS} each)")
+        if not (first["step"] == RUN_STEPS
+                and n["K1"] == n["K2"] == chunks * RUN_STEPS
+                and n["K3"] == n["K4"] == 0):
+            raise AssertionError("Runner.train did not run K1 and K2 once "
+                                 "per fg chunk of every step")
+        windows = logged_windows(exp / "log.txt")
+        if len(windows) != RUN_STEPS // RUN_PRINT or not all(
+                np.isfinite(v) for w in windows for v in w.values()):
+            raise AssertionError(f"logged metrics {windows}")
+        steps = sorted(int(p.name) for p in (exp / "models").iterdir())
+        extra = json.loads((exp / "models" / str(RUN_CKPT)
+                            / "extra.json").read_text())
+        cursor = json.loads(extra["dataset_state"])
+        log(f"  step dirs {steps}; step {RUN_CKPT} extra.json: host_iteration"
+            f" {extra['host_iteration']}, dataset_index "
+            f"{extra['dataset_index']}, chunk {cursor['chunk']}, generator "
+            f"state {len(extra['torch_generator_state'])} base64 chars")
+        if not (steps == [RUN_CKPT, RUN_STEPS]
+                and extra["host_iteration"] == RUN_CKPT
+                and extra["dataset_index"] >= 0 and "batch_rng" in cursor
+                and extra["torch_generator_state"]):
+            raise AssertionError("interval checkpoints incomplete")
+        rows = 0
+        for part in (tmp / "chunks").glob("chunk_*/part_*.npz"):
+            with np.load(part) as z:
+                rows += z["rgbs"].shape[0]
+
+        resumed = copy.copy(h)
+        resumed.exp_name = str(tmp / "resumed")
+        resumed.ckpt_path = str(exp / "models" / str(RUN_CKPT))
+        second = run_training(resumed)
+        same = second["digests"] == first["digests"][RUN_CKPT:]
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(second["loss"], first["loss"][RUN_CKPT:])]
+        log(f"  resumed from step {RUN_CKPT}: {len(second['digests'])} "
+            f"batches, hashes equal to the first run's {same}; loss "
+            f"relative difference first step {rel[0]:.3e} (limit 1e-3), "
+            f"largest over the resumed steps {max(rel):.3e}")
+        if not (same and second["step"] == RUN_STEPS and rel[0] <= 1e-3):
+            raise AssertionError("the resumed run does not replay the run")
+
+    t = first["t_end"]
+    runner_rays_s = (RUN_STEPS - RUN_PRINT) * h.batch_size / (
+        t[-1] - t[RUN_PRINT - 1])
+    data_s = [w["data_sample_time"] for w in windows]
+    return (f"{rows} rays in {RUN_CHUNKS} chunks, chunk write "
+            f"{first['write_s'][0]:.4f} s, chunk load seconds "
+            f"{[round(x, 4) for x in first['read_s']]}, load_chunk blocked "
+            f"seconds {[round(x, 4) for x in first['blocked_s']]}; train "
+            f"rays/s through Runner.train (steps {RUN_PRINT + 1}-{RUN_STEPS})"
+            f" {runner_rays_s:.1f} vs {fixed_rays_per_s:.1f} fixed-batch "
+            f"({runner_rays_s / fixed_rays_per_s:.3f}); mean data_sample_time"
+            f" {sum(data_s) / len(data_s):.6f} s; checkpoint save seconds "
+            f"{[round(x, 4) for x in first['save_s']]}; first run "
+            f"{first['wall_s']:.1f} s wall; max_memory_allocated {peak} B "
+            f"({peak / 2 ** 30:.2f} GiB); resumed loss max rel diff "
+            f"{max(rel):.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -905,6 +1109,7 @@ def main() -> int:
     counts = {}                   # the train path's (main path's) launches
     train = train_phase(counts)
     runner = runner_phase()
+    train_runner = train_runner_phase(train["rays_per_s"])
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -932,6 +1137,7 @@ def main() -> int:
         f"{train['step_s']:.4f} s, max_memory_allocated "
         f"{train['peak_bytes']} B on {smi}")
     log(f"[runner] {runner} on {smi}")
+    log(f"[train_runner] {train_runner} on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     # the script drives one card

@@ -6,11 +6,12 @@ the eval render path of the Mega-NeRF/Switch-NeRF configs
 (`trainer.make_train_step`): routing, padded capacity dispatch with its
 gradients, the MoE expert chain (hand-written CUDA kernels on the card,
 forward and backward), the dense background NeRF, the coarse/fine volume
-renderer, and Adam with the exponential learning rate. Above them it
-serves a trained scene: ``runner.Runner`` (``eval_image.py``,
-``eval.py``) loads a checkpoint in the JAX package's format
-(``checkpoints.py``), renders every val image and scores it
-(``metrics.py``, ``lpips_torch.py``).
+renderer, and Adam with the exponential learning rate. Above them
+``runner.Runner`` trains a scene (``train.py``: rays from the chunked
+filesystem or the in-memory dataset, ``datasets/``; interval and SIGTERM
+checkpoints in the JAX package's format, ``checkpoints.py``, from which a
+run resumes exactly) and serves it (``eval_image.py``, ``eval.py``: renders
+every val image and scores it, ``metrics.py``, ``lpips_torch.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.

@@ -10,13 +10,23 @@ directory:
     <dir>/<step>/extra.json        iteration, host_iteration, dataset_state,
                                    dataset_index, np/python random states,
                                    param_fingerprint (sha1 over param
-                                   paths/shapes/dtypes)
+                                   paths/shapes/dtypes), and the port's
+                                   own torch_generator_state (base64 of
+                                   the train state's device generator)
 
 so a checkpoint the JAX package wrote loads into the port and one the port
 wrote loads into ``switch_nerf_tpu.checkpoints.load_checkpoint``. A save
 publishes atomically (written into ``.tmp_<step>``, then renamed, with
 extra.json, the commit marker, written last) and ``keep`` prunes older
 steps. The msgpack codec is the port's own (``_msgpack.py``).
+
+The device generator's state has no slot in the JAX tree, so it rides in
+extra.json, which the JAX loader reads key by key (a port checkpoint still
+loads there). A load that restores the random states restores it too, so a
+resumed port run draws the same perturbation, sigma noise and fine
+samples; a checkpoint without it (written by the JAX package, or on
+another device type) leaves the generator reseeded with its initial seed,
+and says so in the log.
 
 The sharded (orbax) format of multi-process runs waits for the port's
 multi-process support (ROADMAP Queue A item 8): reading a ``<step>/orbax``
@@ -38,9 +48,11 @@ import numpy as np
 import torch
 
 from switch_nerf_torch import _msgpack, bridge
+from switch_nerf_torch.utils.logger import main_log
 
 _ORBAX = ("sharded (orbax) checkpoints wait for the port's multi-process "
           "support (ROADMAP Queue A item 8)")
+GENERATOR_KEY = "torch_generator_state"
 
 
 def _sorted_leaves(tree: Mapping, prefix=()):
@@ -112,6 +124,8 @@ def save_checkpoint(ckpt_dir, state, dataset_state: Optional[str] = None,
             pickle.dumps(np.random.get_state())).decode(),
         "python_random_state": base64.b64encode(
             pickle.dumps(random.getstate())).decode(),
+        GENERATOR_KEY: base64.b64encode(
+            state.generator.get_state().numpy().tobytes()).decode(),
     }
 
     # atomic publish: write into a temp dir, rename into place; a crash
@@ -155,7 +169,8 @@ def load_checkpoint(path, state, restore_rng_states: bool = True
     or a checkpoint root, whose newest committed step is taken).
 
     Returns (state, extra dict). With restore_rng_states, numpy's and
-    Python's global random states are restored too.
+    Python's global random states and the state's generator are restored
+    too.
     """
     path = Path(path)
     if (path / "state.msgpack").exists() or (path / "orbax").exists():
@@ -189,4 +204,22 @@ def load_checkpoint(path, state, restore_rng_states: bool = True
         if extra.get("python_random_state"):
             random.setstate(pickle.loads(
                 base64.b64decode(extra["python_random_state"])))
+        _restore_generator(state.generator, extra.get(GENERATOR_KEY),
+                           step_dir)
     return state, extra
+
+
+def _restore_generator(generator: torch.Generator, encoded: Optional[str],
+                       step_dir: Path) -> None:
+    """Set the generator to a saved state; reseed it with its initial seed
+    when there is none for this generator's type (the state of a CUDA
+    generator does not fit a CPU one)."""
+    raw = (np.frombuffer(base64.b64decode(encoded), np.uint8)
+           if encoded else None)
+    if raw is not None and raw.size == generator.get_state().numel():
+        generator.set_state(torch.from_numpy(raw.copy()))
+        return
+    seed = generator.initial_seed()
+    generator.manual_seed(seed)
+    main_log(f"{step_dir}: no {generator.device.type} generator state in the "
+             f"checkpoint; the generator is reseeded with {seed}")

@@ -1,1 +1,2 @@
-"""Host-side data: Mega-NeRF ray generation and per-image metadata."""
+"""Host-side data: Mega-NeRF ray generation, per-image metadata, and the
+training datasets (chunked filesystem and in-memory)."""

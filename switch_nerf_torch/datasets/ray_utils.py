@@ -1,8 +1,10 @@
 """Mega-NeRF ray generation (host-side numpy).
 
-Port of ``switch_nerf_tpu/datasets/ray_utils.py``, numpy path only (the
-JAX package's multithreaded C++ ray generator gives the same numbers; its
-port waits for ROADMAP Queue A item 5):
+Port of ``switch_nerf_tpu/datasets/ray_utils.py``, numpy path only. The
+JAX package's multithreaded C++ ray generator (``native/raygen.cc``) is
+not ported: it is host code and no TPU kernel, it speeds up work that runs
+beside the card (the chunk prefetch thread, the val-image rays), and the
+JAX package's own numpy fallback gives the same rays within 1e-5.
   * get_ray_directions: +0.5 center-pixel offset, (i-cx)/fx, -(j-cy)/fy, -1,
     normalized.
   * get_rays / get_rays_batch: rotate to world by c2w, append near/far

@@ -18,7 +18,7 @@ from switch_nerf_torch import resolve_device
 from switch_nerf_torch.models.nerf import NeRF
 from switch_nerf_torch.models.nerf_moe import NeRFMoE
 
-__all__ = ["get_nerf", "get_bg_nerf"]
+__all__ = ["get_nerf", "get_bg_nerf", "eval_dispatch"]
 
 
 def _compute_dtype(hparams) -> torch.dtype:
@@ -41,6 +41,12 @@ def _dispatch_mode(hparams, batch_flag: bool) -> str:
     return "padded" if batch_flag else "nodrop"
 
 
+def eval_dispatch(hparams) -> str:
+    """The MoE layers' eval dispatch mode: 'padded' (--moe_test_batch) or
+    'nodrop'."""
+    return _dispatch_mode(hparams, hparams.moe_test_batch)
+
+
 def _rgb_dim(hparams) -> int:
     if hparams.sh_deg is not None:
         raise NotImplementedError(
@@ -61,12 +67,8 @@ def _check_supported(hparams) -> None:
 def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
     layer_cfg = dict(hparams.model)
     layer_cfg.setdefault("expert_num", hparams.moe_expert_num)
-    if _dispatch_mode(hparams, hparams.moe_test_batch) != "padded":
-        raise NotImplementedError(
-            "eval in no-drop dispatch waits for a later slice of the port; "
-            "pass --moe_test_batch (every published eval command does)")
-    # training in no-drop dispatch (or with gate noise) raises when a train
-    # state is built or a train-mode forward runs (MoELayer.check_supported)
+    # no-drop dispatch (or gate noise) raises when a forward in that mode
+    # runs or a train state is built (MoELayer.check_supported)
     if not getattr(hparams, "no_expert_parallel", True):
         raise NotImplementedError("expert parallelism waits for a later slice")
     if (hparams.moe_use_residual or hparams.use_load_importance_loss
@@ -91,6 +93,7 @@ def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
         moe_return_gates=hparams.moe_return_gates,
         gate_noise=hparams.gate_noise,
         train_dispatch=_dispatch_mode(hparams, hparams.moe_train_batch),
+        eval_dispatch=eval_dispatch(hparams),
         sigma_fp32=not getattr(hparams, "amp_use_bfloat16", False),
         compute_dtype=_compute_dtype(hparams),
         generator=generator)

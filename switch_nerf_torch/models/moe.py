@@ -5,7 +5,9 @@ for eval and training: fp32 gate, ``extract_critical`` (with BPR), the
 load-balance ``l_aux``, ``return_gates``, and ``_padded_path`` including the
 fused dispatch+chain branch behind ``SWITCH_NERF_FUSED_DISPATCH=1``. The
 dispatch mode follows ``train`` as JAX's follows ``deterministic``
-(``moe.py:127``). The no-drop path, expert parallelism, residual MoE, gate
+(``moe.py:127``); a layer whose train or eval dispatch is no-drop builds,
+and raises when a forward in that mode runs. The no-drop path, expert
+parallelism, residual MoE, gate
 noise (a training-only draw, off in every published Building command; the
 JAX layer's normal noise has no flag that sets it) and the load-importance
 loss wait for later slices.
@@ -37,12 +39,14 @@ class MoELayer(nn.Module):
                  is_postscore: bool = True, no_score: bool = False,
                  return_gates: bool = False, gate_noise: float = -1.0,
                  train_dispatch: str = "padded",
+                 eval_dispatch: str = "padded",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if top_k != 1:
             raise NotImplementedError("the port routes top-1 only")
         self.gate_noise = gate_noise
         self.train_dispatch = train_dispatch
+        self.eval_dispatch = eval_dispatch
         self.model_dim = model_dim
         self.num_experts = num_experts
         self.layer_num = layer_num
@@ -59,9 +63,13 @@ class MoELayer(nn.Module):
                                  init_factor, generator=generator)
 
     def check_supported(self, train: bool) -> None:
-        """Raise on what the port does not train yet. (Eval is padded by
-        construction: model_utils refuses no-drop eval dispatch.)"""
+        """Raise on what the port does not run yet in this mode."""
         if not train:
+            if self.eval_dispatch != "padded":
+                raise NotImplementedError(
+                    "eval in no-drop dispatch waits for the port's no-drop "
+                    "dispatch (ROADMAP Queue A item 6); pass --moe_test_batch "
+                    "(every published eval command does)")
             return
         if self.train_dispatch != "padded":
             raise NotImplementedError(

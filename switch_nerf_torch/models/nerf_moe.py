@@ -31,7 +31,8 @@ class NeRFMoE(nn.Module):
                  use_moe_external_gate: bool = False,
                  use_gate_input_norm: bool = False,
                  moe_return_gates: bool = False, gate_noise: float = -1.0,
-                 train_dispatch: str = "padded", sigma_fp32: bool = True,
+                 train_dispatch: str = "padded", eval_dispatch: str = "padded",
+                 sigma_fp32: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -49,7 +50,8 @@ class NeRFMoE(nn.Module):
             batch_prioritized_routing=batch_prioritized_routing,
             no_score=dispatcher_no_score, is_postscore=is_postscore,
             return_gates=moe_return_gates, gate_noise=gate_noise,
-            train_dispatch=train_dispatch, generator=generator)
+            train_dispatch=train_dispatch, eval_dispatch=eval_dispatch,
+            generator=generator)
         cfgs = layer_cfg["layers"]
         has_dir, has_app = pos_dir_dim > 0, appearance_dim > 0
 

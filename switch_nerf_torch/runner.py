@@ -1,30 +1,39 @@
-"""The eval runner of the port: serve a trained Mega-NeRF scene.
+"""The runner of the port: train and serve a Mega-NeRF scene.
 
-Port of the Mega-NeRF eval side of ``switch_nerf_tpu/runner.py``. A
-``Runner``:
+Port of the Mega-NeRF side of ``switch_nerf_tpu/runner.py``. A ``Runner``:
 
   * resolves scene geometry (coordinates.pt origin/scale, near/far scaling,
     the ray-altitude transform, the ellipse foreground bounds),
   * discovers image metadata (train/val split, masks),
-  * builds the models on its device, loads a checkpoint into them
-    (``checkpoints.py``), and renders every val image in fixed
-    --image_pixel_batch_size requests through ``trainer.make_eval_step``
-    (the MoE expert chain runs the K1 kernel on a card; K3 with
-    SWITCH_NERF_FUSED_DISPATCH=1),
-  * scores the right half of each image (PSNR/SSIM/LPIPS, ``metrics.py``)
+  * builds the models on its device,
+  * trains them (``train``): rays from the chunked ``FilesystemDataset`` or
+    the ``MemoryDataset``, ``trainer.make_train_step`` on every batch (the
+    MoE expert chain runs the K1 and K2 kernels on a card; K3 and K4 with
+    SWITCH_NERF_FUSED_DISPATCH=1), logs every --i_print steps, saves a
+    checkpoint every --ckpt_interval steps and at the end, validates every
+    --val_interval steps, and on SIGTERM saves a resumable checkpoint and
+    returns; a run resumed from any of its checkpoints replays the same
+    batches and random draws,
+  * serves them (``eval_image``, ``eval``): loads a checkpoint
+    (``checkpoints.py``), renders every val image in fixed
+    --image_pixel_batch_size requests through ``trainer.make_eval_step``,
+    scores the right half of each image (PSNR/SSIM/LPIPS, ``metrics.py``)
     and writes the JAX package's file set: experiment_path/metrics.txt,
     images/metrics_{i}.txt with the gt/pred/depth panel crops (+ _bg/_fg
     sets with the background NeRF) and val_images/{i}.jpg triptychs.
 
 One process on one device (``cuda`` unless the caller passes
-``device="cpu"``). Training (``train``), the Block-NeRF and classic-NeRF
-workloads, point export and the container/ckpt-only evals raise
-``NotImplementedError`` naming the ROADMAP Queue A item they wait for.
+``device="cpu"``). MoE eval in no-drop dispatch (no --moe_test_batch), the
+Block-NeRF and classic-NeRF workloads, point export and the
+container/ckpt-only evals raise ``NotImplementedError`` naming the ROADMAP
+Queue A item they wait for.
 """
 from __future__ import annotations
 
+import itertools
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -37,14 +46,19 @@ import torch
 
 from switch_nerf_torch import metrics as M
 from switch_nerf_torch import resolve_device
-from switch_nerf_torch.checkpoints import load_checkpoint
+from switch_nerf_torch.checkpoints import load_checkpoint, save_checkpoint
+from switch_nerf_torch.datasets.filesystem_dataset import FilesystemDataset
 from switch_nerf_torch.datasets.image_metadata import ImageMetadata
+from switch_nerf_torch.datasets.memory_dataset import MemoryDataset
 from switch_nerf_torch.datasets.ray_utils import get_ray_directions, get_rays
-from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+from switch_nerf_torch.models.model_utils import (eval_dispatch, get_bg_nerf,
+                                                  get_nerf)
 from switch_nerf_torch.trainer import (SceneInfo, TrainState,
                                        create_train_state, make_eval_step,
+                                       make_train_step,
                                        render_config_from_hparams)
-from switch_nerf_torch.utils.logger import main_log, setup_logger
+from switch_nerf_torch.utils.logger import (count_parameters, main_log,
+                                            setup_logger)
 from switch_nerf_torch.utils.meters import DictAverageMeter
 from switch_nerf_torch.utils.visualize import visualize_scalars
 
@@ -52,6 +66,30 @@ from switch_nerf_torch.utils.visualize import visualize_scalars
 def _waits(what: str, item: int, topic: str):
     return NotImplementedError(
         f"{what} waits for the port's {topic} (ROADMAP Queue A item {item})")
+
+
+def _install_term_latch() -> dict:
+    """Latch SIGTERM so the train loop can finish its step, save a
+    resumable checkpoint and return (a preempted job keeps its progress).
+    Outside the main thread no handler can be installed; the latch then
+    never fires."""
+    latch = {"requested": False, "prev": None, "installed": False}
+
+    def _on_term(signum, frame):
+        latch["requested"] = True
+
+    try:
+        latch["prev"] = signal.signal(signal.SIGTERM, _on_term)
+        latch["installed"] = True
+    except ValueError:          # not the main thread
+        pass
+    return latch
+
+
+def _release_term_latch(latch: dict) -> None:
+    if latch["installed"]:
+        signal.signal(signal.SIGTERM, latch["prev"])
+        latch["installed"] = False
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -92,8 +130,7 @@ class Runner:
     def _audit_flag_semantics(self) -> None:
         """No reference flag may silently change nothing: a name flag that
         disagrees with the structural selection is a configuration error,
-        and a MoE eval without --moe_test_batch (no-drop dispatch, which the
-        port lacks) raises here rather than at the first image."""
+        and flags whose reference job is unnecessary here note so once."""
         h = self.hparams
 
         if self.data_type == "nerf":
@@ -146,10 +183,23 @@ class Runner:
             main_log("NOTE: --set_timeout stretches the reference's NCCL "
                      "timeout; one process here, ignored.")
 
-        if h.use_moe and not getattr(h, "moe_test_batch", False):
-            raise _waits("MoE eval in no-drop dispatch (no --moe_test_batch; "
-                         "every published eval command passes it)", 6,
-                         "no-drop dispatch")
+        if self._nodrop_eval():
+            main_log("NOTE: eval dispatch = nodrop (no --moe_test_batch), "
+                     "the reference default; every published eval command "
+                     "passes --moe_test_batch. The port's no-drop dispatch "
+                     "waits for ROADMAP Queue A item 6: eval, eval_image and "
+                     "in-train validation raise.")
+
+    def _nodrop_eval(self) -> bool:
+        h = self.hparams
+        return bool(h.use_moe) and eval_dispatch(h) != "padded"
+
+    def _check_eval_dispatch(self, what: str) -> None:
+        """Raise before any work where a no-drop MoE eval would run."""
+        if self._nodrop_eval():
+            raise _waits(f"{what} in no-drop MoE dispatch (no "
+                         "--moe_test_batch; every published eval command "
+                         "passes it)", 6, "no-drop dispatch")
 
     def _setup_dirs(self, set_experiment_path: bool):
         self.writer = None
@@ -624,6 +674,7 @@ class Runner:
     # ------------------------------------------- public eval entrypoints --
     def eval(self) -> Dict[str, float]:
         """Validation-protocol eval (the reference's eval.py)."""
+        self._check_eval_dispatch("eval")
         state = self._load_eval_state()
         means = self._run_validation(state, 0)
         self._write_final_metrics(means)
@@ -631,11 +682,214 @@ class Runner:
 
     def eval_image(self) -> Dict[str, float]:
         """The published eval command (the reference's eval_image.py)."""
+        self._check_eval_dispatch("eval_image")
         state = self._load_eval_state()
         return self._run_validation_image(state)
 
-    def train(self):
-        raise _waits("Runner.train", 5, "training runner")
+    # ------------------------------------------------------------ train ---
+    def train(self) -> Optional[TrainState]:
+        """Mega-NeRF chunked training (the JAX package's ``Runner.train``,
+        one process). Returns the final train state (None after
+        --generate_chunk, which stops once the chunks are written)."""
+        h = self.hparams
+        if h.val_interval <= h.train_iterations:
+            # fail now, not at the first validation hours in
+            self._check_eval_dispatch("validation during training "
+                                      "(--val_interval <= --train_iterations)")
+        # latched from the start: a SIGTERM during setup still ends in a
+        # checkpointed return
+        term = _install_term_latch()
+        dataset = None
+        try:
+            state = create_train_state(h, self.nerf, self.bg_nerf,
+                                       device=self.device)
+            main_log(f"Total parameters number is "
+                     f"{count_parameters(state.parameters()) / 1024 / 1024:.4f}"
+                     " M")
+            dataset_state, discard_index, host_iteration = None, -1, None
+            if h.ckpt_path is not None:
+                state, extra = load_checkpoint(h.ckpt_path, state,
+                                               h.resume_ckpt_state)
+                if h.resume_ckpt_state:
+                    # the cursor is part of exact resume only
+                    dataset_state = extra.get("dataset_state")
+                    discard_index = extra.get("dataset_index", -1)
+                    host_iteration = extra.get("host_iteration")
+                main_log(f"Resumed from iteration {state.step}")
+            train_step = make_train_step(
+                h, render_config_from_hparams(h),
+                SceneInfo(self.sphere_center, self.sphere_radius),
+                device=self.device)
+            dataset = self._make_dataset(dataset_state)
+            if h.generate_chunk:
+                main_log("Chunk generated")
+                return None
+            return self._train_loop(state, train_step, dataset, term,
+                                    discard_index, host_iteration)
+        finally:
+            if isinstance(dataset, FilesystemDataset):
+                dataset.close()
+            _release_term_latch(term)
+
+    def _make_dataset(self, dataset_state: Optional[str]):
+        h = self.hparams
+        if h.dataset_type == "filesystem":
+            if not h.chunk_paths:
+                raise ValueError("--dataset_type filesystem needs "
+                                 "--chunk_paths")
+            dataset = FilesystemDataset(
+                self.train_items, self.near, self.far,
+                self.ray_altitude_range, h.center_pixels,
+                [Path(x) for x in sorted(h.chunk_paths)], h.num_chunks,
+                h.train_scale_factor, h.disk_flush_size, h.shuffle_chunk,
+                seed=h.random_seed)
+            if dataset_state is not None:
+                dataset.set_state(dataset_state)
+            return dataset
+        if h.dataset_type == "memory":
+            return MemoryDataset(self.train_items, self.near, self.far,
+                                 self.ray_altitude_range, h.center_pixels,
+                                 seed=h.random_seed)
+        raise ValueError(f"Unrecognized dataset type {h.dataset_type}")
+
+    def _put_batch(self, batch: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        """A numpy batch as float32 tensors on the runner's device."""
+        return {k: torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
+                for k, v in batch.items()}
+
+    def _train_loop(self, state: TrainState, train_step, dataset, term: dict,
+                    discard_index: int, host_iteration: Optional[int]
+                    ) -> TrainState:
+        h = self.hparams
+        filesystem = isinstance(dataset, FilesystemDataset)
+        if not filesystem:
+            # memory batches are keyed by the counter: nothing to skip
+            discard_index = -1
+        # the batch counter resumes from host_iteration, not state.step: a
+        # skipped non-finite step consumes a batch without advancing the
+        # step, and the counter keys the memory batches
+        it = int(host_iteration) if host_iteration is not None else state.step
+        window_start, window_it = time.time(), it
+        data_time = 0.0      # batch gathers and host-to-device copies
+        prof = None
+
+        def save() -> None:
+            save_checkpoint(
+                self.model_path, state,
+                dataset_state=dataset.get_state() if filesystem else None,
+                dataset_index=dataset_index, keep=h.ckpt_keep,
+                host_iteration=it)
+
+        while it < h.train_iterations:
+            if filesystem:
+                t0 = time.time()
+                dataset.load_chunk()
+                main_log(f"Chunk {dataset.get_state()} loaded in "
+                         f"{time.time() - t0:.2f} s")
+                batches = enumerate(dataset.sample_batches(h.batch_size))
+            else:
+                batches = enumerate(dataset.get_batch(b, h.batch_size)
+                                    for b in itertools.count(it))
+            while True:
+                t_data = time.perf_counter()
+                try:
+                    dataset_index, batch = next(batches)
+                except StopIteration:
+                    break
+                if dataset_index <= discard_index:
+                    continue            # trained before the checkpoint
+                discard_index = -1
+                batch = self._put_batch(batch)
+                data_time += time.perf_counter() - t_data
+                if h.profile_trace_step is not None:
+                    # a three-step trace window
+                    if it == h.profile_trace_step:
+                        prof = self._start_trace()
+                    elif prof is not None \
+                            and it == h.profile_trace_step + 3:
+                        prof = self._stop_trace(prof)
+                state, m = train_step(state, batch)
+                it += 1
+
+                if it % h.i_print == 0:
+                    self._log_window(it, it - window_it, m,
+                                     time.time() - window_start, data_time)
+                    data_time = 0.0
+                    window_start, window_it = time.time(), it
+
+                if self.model_path is not None and it % h.ckpt_interval == 0:
+                    save()
+                    main_log(f"Saved checkpoint at {it}")
+
+                if it % h.val_interval == 0:
+                    self._run_validation(state, it)
+
+                if term["requested"]:
+                    # the latch stays installed through the save: a second
+                    # SIGTERM must not kill the process mid-checkpoint
+                    if prof is not None:
+                        prof = self._stop_trace(prof)
+                    if self.model_path is not None:
+                        save()
+                    main_log(f"SIGTERM: checkpoint saved at iteration {it}; "
+                             "exiting")
+                    return state
+
+                if it >= h.train_iterations:
+                    break
+
+        if prof is not None:          # training ended inside the window
+            self._stop_trace(prof)
+        if self.model_path is not None:
+            save_checkpoint(self.model_path, state)
+        main_log("Training complete")
+        return state
+
+    def _log_window(self, it: int, steps: int,
+                    metrics: Dict[str, torch.Tensor], window: float,
+                    data_time: float) -> None:
+        """The --i_print line and TensorBoard scalars: the step's metrics,
+        the mean data and forward/backward seconds per step of the window's
+        `steps` steps, rays/s (from the second window on), and with
+        --compute_memory the peak device memory (MiB). A window cut short
+        by a resume counts its own steps (the JAX package divides by
+        --i_print)."""
+        h = self.hparams
+        m_host = {k: float(v) for k, v in metrics.items()}
+        rate = (steps * h.batch_size / max(window, 1e-9)
+                if it > h.i_print else 0.0)
+        m_host["data_sample_time"] = data_time / steps
+        m_host["fwd_bwd_time"] = max(window - data_time, 0.0) / steps
+        if h.compute_memory:
+            m_host["fwd_bwd_memory"] = self._peak_memory_mib()
+        main_log(f"iter {it} " + " ".join(f"{k}={v:.4f}"
+                                          for k, v in m_host.items())
+                 + (f" rays/s={rate:.0f}" if rate else ""))
+        if self.writer is not None:
+            for k, v in m_host.items():
+                self.writer.add_scalar(f"train/{k}", v, it)
+            if rate:
+                self.writer.add_scalar("train/rays_per_sec", rate, it)
+
+    def _start_trace(self):
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_trace(self, prof) -> None:
+        """End the trace window and write its Chrome trace under
+        experiment_path/profile."""
+        prof.stop()
+        trace_dir = (self.experiment_path or Path(".")) / "profile"
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        path = trace_dir / f"train_steps_{self.hparams.profile_trace_step}.json"
+        prof.export_chrome_trace(str(path))
+        main_log(f"profiler trace written to {path}")
 
     def train_nerf(self):
         raise _waits("Runner.train_nerf", 7, "other workloads")

@@ -28,50 +28,13 @@ from switch_nerf_torch import eval_image as teval_image
 from switch_nerf_torch import runner as trunner
 from switch_nerf_torch.datasets import ray_utils as tray
 from switch_nerf_tpu.datasets import ray_utils as jray
-from tests.torch_port_helpers import tiny_building_hparams
+from tests.torch_port_helpers import make_mega_scene
+from tests.torch_port_helpers import mega_hparams as hparams
 
 
 @pytest.fixture(scope="module")
 def mega_dataset(tmp_path_factory):
-    """Synthetic Mega-NeRF dataset: coordinates.pt + per-image metadata.pt +
-    rgbs pngs, 4 train + 1 val, 24x16 (tests/test_runner_e2e.py's)."""
-    import torch
-    from PIL import Image
-
-    root = tmp_path_factory.mktemp("mega")
-    w, h = 24, 16
-    rng = np.random.default_rng(0)
-    for split, names in (("train", ["000", "001", "002", "003"]),
-                         ("val", ["004"])):
-        (root / split / "metadata").mkdir(parents=True)
-        (root / split / "rgbs").mkdir(parents=True)
-        for name in names:
-            # camera above origin looking down (+x is down in drb)
-            c2w = np.eye(3, 4, dtype=np.float32)
-            c2w[:, 3] = rng.normal(0, 0.1, 3).astype(np.float32)
-            c2w[0, 3] -= 0.5
-            torch.save({"c2w": torch.tensor(c2w), "W": w, "H": h,
-                        "intrinsics": torch.tensor([20.0, 20.0, w / 2,
-                                                    h / 2])},
-                       root / split / "metadata" / f"{name}.pt")
-            img = (rng.uniform(0, 255, (h, w, 3))).astype(np.uint8)
-            Image.fromarray(img).save(root / split / "rgbs" / f"{name}.jpg")
-    torch.save({"origin_drb": torch.zeros(3),
-                "pose_scale_factor": 10.0}, root / "coordinates.pt")
-    return root
-
-
-def hparams(root, exp):
-    """The tiny Building config on the scene: 24x16 val image (scale 1),
-    160-ray requests (384 rays: two full requests and a padded one)."""
-    h = tiny_building_hparams()
-    h.exp_name = str(exp)
-    h.dataset_path = str(root)
-    h.ray_altitude_range = [-30.0, 5.0]
-    h.near = 0.5
-    h.val_scale_factor = 1
-    h.image_pixel_batch_size = 160
-    return h
+    return make_mega_scene(tmp_path_factory.mktemp("mega"))
 
 
 @pytest.fixture(scope="module")
@@ -184,10 +147,27 @@ def test_runner_refusals(mega_dataset, checkpoint, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             trunner.Runner(h)
+    # no --moe_test_batch (no-drop eval dispatch): the runner builds and
+    # trains while no validation can fire; every eval raises before work
     nodrop = copy.copy(h)
     nodrop.moe_test_batch = False
+    nodrop.ckpt_path = str(checkpoint)
+    for method in ("eval_image", "eval"):
+        runner = trunner.Runner(nodrop, device="cpu")
+        with pytest.raises(NotImplementedError, match="item 6"):
+            getattr(runner, method)()
+    nodrop.ckpt_path = None
+    nodrop.moe_train_batch = True
+    nodrop.dataset_type = "memory"
+    nodrop.batch_size = 64
+    nodrop.train_iterations = 1
+    nodrop.val_interval = 1
     with pytest.raises(NotImplementedError, match="item 6"):
-        trunner.Runner(nodrop, device="cpu")
+        trunner.Runner(nodrop, set_experiment_path=False,
+                       device="cpu").train()
+    nodrop.val_interval = 2
+    assert trunner.Runner(nodrop, set_experiment_path=False,
+                          device="cpu").train().step == 1
     block = copy.copy(h)
     block.data_type = "block_nerf"
     with pytest.raises(NotImplementedError, match="item 7"):
@@ -199,10 +179,24 @@ def test_runner_refusals(mega_dataset, checkpoint, tmp_path):
     h.container_path = "somewhere"
     with pytest.raises(NotImplementedError, match="item 9"):
         runner.eval_image()
-    for method, item in (("train", 5), ("eval_points", 9),
-                         ("eval_ckpt", 9), ("eval_nerf", 7)):
+    for method, item in (("eval_points", 9), ("eval_ckpt", 9),
+                         ("eval_nerf", 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(runner, method)()
+
+    # the published Building training command (README's, without
+    # --moe_test_batch) builds a runner at full width
+    from switch_nerf_torch.config import get_opts, parse_args
+    published = parse_args(get_opts(), [
+        "--config_file=configs/switch_nerf/building.yaml", "--use_moe",
+        f"--exp_name={tmp_path / 'b'}", f"--dataset_path={mega_dataset}",
+        f"--chunk_paths={tmp_path / 'chunks'}", "--use_moe_external_gate",
+        "--use_gate_input_norm", "--moe_expert_type=expertmlp",
+        "--batch_prioritized_routing", "--moe_capacity_factor=1.0",
+        "--batch_size=8192", "--moe_l_aux_wt=0.0005", "--moe_train_batch"])
+    assert not published.moe_test_batch
+    runner = trunner.Runner(published, device="cpu")
+    assert tuple(runner.nerf.layer_0.experts.w0.shape) == (8, 256, 256)
 
 
 @pytest.mark.parametrize("center_pixels", [True, False])

@@ -7,6 +7,8 @@ into the port through ``switch_nerf_torch.bridge``.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
+from PIL import Image
 
 from __graft_entry__ import _building_hparams
 
@@ -53,3 +55,63 @@ def ray_batch(n, seed=0, n_images=8):
 
 def to_jax(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def make_mega_scene(root):
+    """A synthetic Mega-NeRF dataset in `root` (tests/test_runner_e2e.py's):
+    coordinates.pt, and 4 train + 1 val 24x16 images, each with
+    metadata/<name>.pt and rgbs/<name>.jpg."""
+    w, h = 24, 16
+    rng = np.random.default_rng(0)
+    for split, names in (("train", ["000", "001", "002", "003"]),
+                         ("val", ["004"])):
+        (root / split / "metadata").mkdir(parents=True)
+        (root / split / "rgbs").mkdir(parents=True)
+        for name in names:
+            # camera above origin looking down (+x is down in drb)
+            c2w = np.eye(3, 4, dtype=np.float32)
+            c2w[:, 3] = rng.normal(0, 0.1, 3).astype(np.float32)
+            c2w[0, 3] -= 0.5
+            torch.save({"c2w": torch.tensor(c2w), "W": w, "H": h,
+                        "intrinsics": torch.tensor([20.0, 20.0, w / 2,
+                                                    h / 2])},
+                       root / split / "metadata" / f"{name}.pt")
+            img = (rng.uniform(0, 255, (h, w, 3))).astype(np.uint8)
+            Image.fromarray(img).save(root / split / "rgbs" / f"{name}.jpg")
+    torch.save({"origin_drb": torch.zeros(3),
+                "pose_scale_factor": 10.0}, root / "coordinates.pt")
+    return root
+
+
+def mega_hparams(root, exp):
+    """The tiny Building config on make_mega_scene's scene: 24x16 val image
+    (scale 1), 160-ray requests (384 rays: two full requests and a padded
+    one)."""
+    h = tiny_building_hparams()
+    h.exp_name = str(exp)
+    h.dataset_path = str(root)
+    h.ray_altitude_range = [-30.0, 5.0]
+    h.near = 0.5
+    h.val_scale_factor = 1
+    h.image_pixel_batch_size = 160
+    return h
+
+
+def mega_train_hparams(root, exp, dataset_type, chunks=None):
+    """mega_hparams for training: padded train dispatch, perturb 0 and no
+    sigma noise, 64-ray batches, 6 steps with a checkpoint every 3, no
+    validation; for the filesystem dataset 4 chunks of 6 batches."""
+    h = mega_hparams(root, exp)
+    h.moe_train_batch = True
+    h.perturb = 0.0
+    h.use_sigma_noise = False
+    h.dataset_type = dataset_type
+    h.chunk_paths = [str(chunks)] if chunks is not None else None
+    h.num_chunks = 4
+    h.disk_flush_size = 1000
+    h.batch_size = 64
+    h.train_iterations = 6
+    h.ckpt_interval = 3
+    h.i_print = 2
+    h.val_interval = 10 ** 9
+    return h
