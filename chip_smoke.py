@@ -5,22 +5,34 @@
 
 Phases, each fatal (an exception ends the run with a non-zero exit):
   0. the card: `nvidia-smi` name and power limit, torch and CUDA versions
-  1. build the Hopper kernels K1-K4 from switch_nerf_torch/csrc (one nvcc
-     per source, all started together), and report each library's HGMMA
-     (wgmma) instructions (cuobjdump, where the toolkit has it; none is a
-     failure) and ptxas's spill bytes
+  1. build the Hopper kernels K1-K4, K1R and K2R from
+     switch_nerf_torch/csrc (one nvcc per source, all started together),
+     and report each library's HGMMA (wgmma) instructions (cuobjdump,
+     where the toolkit has it; none is a failure) and ptxas's spill bytes
   2. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, with CUDA-event timings beside its bound,
      achieved TFLOP/s and share of the bound, and one library call's time
      (K1/K3 forward, K2/K4 backward); K2 and K4 twice on the same inputs
      (bit-identical), K2's two passes timed by torch.profiler, and the
      K3 / K1 and K4 / K2 time ratios (what the row gather costs on the
-     same mainloop)
+     same mainloop); then K1R and K2R, the ragged chain of no-drop
+     dispatch, against their plain versions at one 32,768-point chunk,
+     fp32 at Bungee's shape (E4) and bf16 at Building's (E8), over skewed
+     counts (an empty expert, a count off the row blocks, one expert with
+     most rows): times beside the bound, the plain version and a per-expert
+     addmm chain (and its autograd); K2R twice on the same inputs
+     (bit-identical) and the empty expert's dW and db exactly 0
+  2b. no-drop = padded: an MoE layer (M256 L7) in no-drop dispatch (K1R /
+     K2R) and in padded dispatch (K1 / K2) with the same weights at
+     capacity factor E, where padding drops nothing: outputs and every
+     gradient agree (fp32 E4 within 1e-5, bf16 E8 within the bf16 rule)
   3. eval: the Building eval render at full published width (8 experts x
      7 x 256, bg NeRF, 256 + 512 samples, bf16, padded eval dispatch,
      32768-point chunks) through make_eval_step: a warm-up and three
-     4096-ray requests, a CPU fp32 cross-check on 256 rays, and one request
-     with SWITCH_NERF_FUSED_DISPATCH=1
+     4096-ray requests, the same request without --moe_test_batch (no-drop
+     eval dispatch, K1R once per chunk; its rays/s beside the padded
+     figure), a CPU fp32 cross-check on 256 rays, and one request with
+     SWITCH_NERF_FUSED_DISPATCH=1
   4. train: the published Building training step at the same width
      (padded train dispatch, sigma noise, perturb 1.0, l_aux weight 5e-4,
      Adam) through make_train_step on one fixed 1024-ray batch: a warm-up
@@ -39,16 +51,28 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
   6. train runner: train a scene end to end. The same synthetic scene in a
      temp directory; train.main with the published Building train flags
      (the train phase's) on the chunked filesystem dataset: 256x192 train
-     images (--train_scale_factor 4) written into 8 chunks, 60 steps of
-     1,024 rays (across a chunk boundary), a checkpoint every 30 steps, a
-     log line every 20, no validation. K1 and K2 launched 24 times per
-     step, every logged metric finite, step directories 30 and 60, and the
-     cursor, counters and generator state in step 30's extra.json; then a
-     second run resumed from step 30 to 60 feeds the same batches (equal
+     images (--train_scale_factor 4) written into 10 chunks, 40 steps of
+     1,024 rays (across a chunk boundary), a checkpoint every 20 steps, a
+     log line every 10, no validation. K1 and K2 launched 24 times per
+     step, every logged metric finite, step directories 20 and 40, and the
+     cursor, counters and generator state in step 20's extra.json; then a
+     second run resumed from step 20 to 40 feeds the same batches (equal
      hashes) and its first loss equals the first run's to 1e-3. Prints the
      chunk write and load seconds, train rays/s through Runner.train beside
      the train phase's fixed-batch figure, the mean data_sample_time, the
      checkpoint save seconds and max_memory_allocated
+  7. Bungee: the mip workload end to end through its entry points with the
+     README's flags (bungee.yaml, 4 experts x 7 x 256, 65 + 65 samples,
+     batch 4096, fp32, no --moe_*_batch: no-drop dispatch). A synthetic
+     scene of 17 288x216 PNGs (scale factor 3: 96x72; images 0 and 16 held
+     out) in a temp directory; train_nerf_moe for one epoch (25 steps), a
+     checkpoint at step 20 and at the end, a log line every 5 steps: K1R
+     and K2R launched on every chunk of every step, every logged metric
+     finite, photo_loss falling; then eval_nerf_moe on the final
+     checkpoint (8,192-ray requests): K1R on every chunk, finite metrics,
+     the summary file. Prints train rays/s, step seconds,
+     max_memory_allocated, eval seconds per image and K1R/K2R launches per
+     step
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -75,8 +99,17 @@ TRAIN_CHECK_RAYS = 64  # rays of the CPU fp32 train cross-check
 SCENE_W, SCENE_H = 1024, 768   # the runner scene's full-size images
 SCENE_TRAIN, SCENE_VAL = 6, 2  # its images (8 appearance rows)
 RUNNER_CHECK_RAYS = 4096       # rays of val image 0 checked against the step
-RUN_STEPS, RUN_CKPT, RUN_PRINT = 60, 30, 20   # the train runner's schedule
-RUN_CHUNKS = 8                 # chunks of the train runner's scene
+RUN_STEPS, RUN_CKPT, RUN_PRINT = 40, 20, 10   # the train runner's schedule
+RUN_CHUNKS = 10                # chunks of the train runner's scene
+RAGGED_N = 32768               # rows of one model chunk (K1R / K2R)
+MOE_TOKENS = 8192              # tokens of the no-drop = padded layer check
+BUNGEE_W, BUNGEE_H = 288, 216  # the Bungee scene's full-size images
+BUNGEE_IMAGES = 17             # llffhold 16 holds out images 0 and 16
+BUNGEE_CKPT, BUNGEE_PRINT = 20, 5   # its run's checkpoint and log interval
+BUNGEE_EVAL_BATCH = 8192       # rays per eval request (one per image)
+BUNGEE_FLAGS = ["--config_file", "configs/switch_nerf/bungee.yaml",
+                "--batch_size", "4096", "--moe_expert_num", "4", "--no_amp",
+                "--use_moe_external_gate", "--use_gate_input_norm"]
 BF16_REL_TOL = 2e-2    # max |kernel - plain| <= this * max |plain| in bf16
 FP32_TOL = 1e-4        # max |kernel - plain| in fp32
 
@@ -319,7 +352,7 @@ def check_deterministic(name: str, fn) -> None:
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(first, again)):
         raise AssertionError(f"{name} differs between two launches")
-    log(f"  {name} bf16: dx, dW, db bit-identical across two launches")
+    log(f"  {name}: dx, dW, db bit-identical across two launches")
 
 
 def autograd_ms(out, inputs, g) -> float:
@@ -358,7 +391,7 @@ def bwd_kernel_phase(peaks, building):
                         expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, g,
                                                                  skips))
         if dtype == torch.bfloat16 and cc == c:
-            check_deterministic("K2", lambda: expert_kernel
+            check_deterministic("K2 bf16", lambda: expert_kernel
                                 .expert_mlp_chain_bwd(x, ws, bs, g, skips))
             flops = 4 * e * cc * m * m * layers
             out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
@@ -400,7 +433,7 @@ def bwd_kernel_phase(peaks, building):
             fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt,
                                                           ws, bs, g, skips))
         if dtype == torch.bfloat16:
-            check_deterministic("K4", lambda: fused_dispatch
+            check_deterministic("K4 bf16", lambda: fused_dispatch
                                 .fused_dispatch_chain_bwd(tokens_ext, stt, ws,
                                                           bs, g, skips))
             flops = 4 * e * c * m * m * layers
@@ -450,6 +483,15 @@ def build_report() -> None:
         spills = sum(int(n) for n in re.findall(
             r"(\d+) bytes spill (?:stores|loads)", text))
         regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+        # which kernels spill: "Function properties for <mangled name>"
+        # is followed by its stack frame and spill line
+        spilling = sorted({
+            re.sub(r"^.*?\d(chain_[a-z0-9_]*?(?:kernel|sm90))ILi(\d+)E"
+                   r"(?:Li(\d+)E)?.*$", r"\1<\2,\3>", fn)
+            for fn, st, ld in re.findall(
+                r"Function properties for (\S+)\n[^\n]*?(\d+) bytes spill "
+                r"stores, (\d+) bytes spill loads", text)
+            if int(st) or int(ld)})
         if cuobjdump is None:
             hgmma = "not measured (no cuobjdump)"
         else:
@@ -460,7 +502,8 @@ def build_report() -> None:
             if hgmma == 0:
                 raise AssertionError(f"lib{name}: no HGMMA instruction")
         log(f"  lib{name}: HGMMA {hgmma}; ptxas spill bytes "
-            f"{spills if text else 'not measured (no report)'}, registers "
+            f"{spills if text else 'not measured (no report)'}"
+            f"{f' in {spilling}' if spilling else ''}, registers "
             f"per kernel {sorted(set(regs))}")
 
 
@@ -512,6 +555,29 @@ def slice_phase(h, counts):
         raise AssertionError("the main path did not run K1 once per fg chunk")
     rays_per_s = N_RAYS * N_REQUESTS / sum(times)
     log(f"  eval rays/s: {rays_per_s:.1f}")
+
+    # the same request without --moe_test_batch: no-drop eval dispatch,
+    # the reference's default, on K1R (the same seeded weights)
+    from switch_nerf_torch.ops import ragged_chain
+    hn = Namespace(**vars(h))
+    hn.moe_test_batch = False
+    nodrop_step = eval_step(hn, "cuda")
+    check_finite(nodrop_step(batches[1]), N_RAYS)                 # warm-up
+    torch.cuda.synchronize()
+    expert_kernel.launches = ragged_chain.ragged_launches = 0
+    t0 = time.perf_counter()
+    nodrop = nodrop_step(batches[0])
+    torch.cuda.synchronize()
+    t_nodrop = time.perf_counter() - t0
+    counts["K1R"] = ragged_chain.ragged_launches
+    check_finite(nodrop, N_RAYS)
+    log(f"  no-drop eval (no --moe_test_batch): request {t_nodrop:.4f} s, "
+        f"{N_RAYS / t_nodrop:.1f} rays/s beside padded {rays_per_s:.1f}; K1R "
+        f"launches {counts['K1R']} a request (expected {chunks}), K1 "
+        f"{expert_kernel.launches}")
+    if counts["K1R"] != chunks or expert_kernel.launches:
+        raise AssertionError("the no-drop eval did not run K1R once per fg "
+                             "chunk")
 
     # CPU fp32 cross-check: the same weights (same seeds, fp32 parameters)
     # on the CPU with the plain versions and on the card with the fp32
@@ -1074,6 +1140,327 @@ def train_runner_phase(fixed_rays_per_s: float) -> str:
             f"{max(rel):.3e}")
 
 
+# ------------------------------------------------ no-drop: K1R, K2R ----
+
+def skewed_counts(n: int, e: int) -> list:
+    """Expert row counts summing to n: expert 0 gets none, expert 1 a count
+    off the 32- and 128-row blocks (3,001), expert 2 three quarters of the
+    rest, the others the remainder."""
+    rest = n - 3001
+    big = rest * 3 // 4
+    others = [(rest - big) // (e - 3)] * (e - 3)
+    others[-1] += rest - big - sum(others)
+    return [0, 3001, big] + others
+
+
+def dirty_allocator(nbytes: int = 1 << 30) -> None:
+    """Leave NaN bytes in the caching allocator's free blocks, so a kernel
+    output that is allocated with torch.empty and not written shows."""
+    torch.full((nbytes // 4,), float("nan"), device="cuda")
+    torch.cuda.synchronize()
+
+
+def addmm_ragged(x, counts_host, ws, bs, skips):
+    """The library yardstick of K1R: after the counts reach the host, one
+    torch.addmm (cuBLAS, bias fused) per expert and layer."""
+    outs, lo = [], 0
+    layers = ws.shape[0]
+    for e, c in enumerate(counts_host):
+        if not c:
+            continue
+        h = xin = x[lo:lo + c]
+        for l in range(layers):
+            h = torch.addmm(bs[l, e], h, ws[l, e])
+            last = l == layers - 1
+            if l in skips:
+                h = h + xin
+                if not last:
+                    h = torch.relu(h)
+                xin = h
+            elif not last:
+                h = torch.relu(h)
+        outs.append(h)
+        lo += c
+    return torch.cat(outs)
+
+
+def ragged_kernel_phase(peaks, shapes):
+    """K1R and K2R vs their plain versions at the shapes of the no-drop
+    paths (one 32,768-point model chunk): fp32 at Bungee's (E4, the
+    training path) and bf16 at Building's (E8, an eval without
+    --moe_test_batch), over skewed counts; K2R deterministic and an empty
+    expert's dW and db exactly zero. Returns the rows of both shapes."""
+    from switch_nerf_torch.ops import ragged_chain as rc
+
+    gen = torch.Generator().manual_seed(2)
+    rows = {}
+    for label, dtype, e in (("Bungee", torch.float32, shapes["bungee_e"]),
+                            ("Building", torch.bfloat16, shapes["experts"])):
+        n, m = RAGGED_N, shapes["width"]
+        layers, skips = shapes["layers"], shapes["skips"]
+        dt = str(dtype)[6:]
+        counts_host = skewed_counts(n, e)
+        counts = torch.tensor(counts_host, dtype=torch.int32, device="cuda")
+        ws, bs = chain_weights(e, m, layers, dtype, gen)
+        x = torch.randn(n, m, generator=gen).to("cuda", dtype)
+        g = torch.randn(n, m, generator=gen).to("cuda", dtype)
+        log(f"[kernels] K1R/K2R ragged chain, {label}: E{e} N{n} M{m} "
+            f"L{layers} skips{skips} {dt}, counts {counts_host}")
+        err = check_close(f"K1R {dt}", rc.ragged_chain_fwd(x, counts, ws, bs,
+                                                           skips),
+                          rc.ragged_chain_plain(x, counts, ws, bs, skips))
+        dirty_allocator()
+        got = rc.ragged_chain_bwd(x, counts, ws, bs, g, skips)
+        err_b = check_bwd(f"K2R {dt}", got, rc.ragged_chain_bwd_plain(
+            x, counts, ws, bs, g, skips))
+        empty = [i for i, c in enumerate(counts_host) if c == 0]
+        if any(bool(got[1][:, i].any()) or bool(got[2][:, i].any())
+               for i in empty):
+            raise AssertionError("K2R: an empty expert's dW or db is not 0")
+        log(f"  K2R {dt}: dW and db of the empty experts {empty} exactly 0 "
+            "(outputs allocated over NaN bytes)")
+        check_deterministic(f"K2R {dt}", lambda: rc.ragged_chain_bwd(
+            x, counts, ws, bs, g, skips))
+        del got
+
+        flops = 2 * n * m * m * layers
+        bound_ms, bound_by = chain_bound(
+            flops, nbytes(x, counts, ws, bs) + nbytes(x), dtype, peaks)
+        t = {"ms": cuda_ms(lambda: rc.ragged_chain_fwd(x, counts, ws, bs,
+                                                        skips), iters=20),
+             "plain_ms": cuda_ms(lambda: rc.ragged_chain_plain(
+                 x, counts, ws, bs, skips), iters=10, warmup=3),
+             "library_ms": cuda_ms(lambda: addmm_ragged(
+                 x, counts.tolist(), ws, bs, skips), iters=10, warmup=3)}
+        log(f"  K1R {dt}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, addmm chain per expert {t['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), "
+            f"{rate(flops, t['ms'], bound_ms)}")
+        rows[f"K1R {label}"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                                    bound_by=bound_by, **t)
+
+        flops = 4 * n * m * m * layers
+        out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
+        bound_ms, bound_by = chain_bound(
+            flops, nbytes(x, g, counts, ws, bs) + out_bytes, dtype, peaks)
+        leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
+        lib_out = addmm_ragged(*leaves[:1], counts_host, *leaves[1:], skips)
+        t = {"ms": cuda_ms(lambda: rc.ragged_chain_bwd(x, counts, ws, bs, g,
+                                                        skips), iters=10),
+             "plain_ms": cuda_ms(lambda: rc.ragged_chain_bwd_plain(
+                 x, counts, ws, bs, g, skips), iters=5, warmup=2),
+             "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                 lib_out, leaves, g, retain_graph=True), iters=10, warmup=3)}
+        del lib_out, leaves
+        names = (("chain_bwd_sm90", "chain_dw_sm90")
+                 if dtype == torch.bfloat16
+                 else ("chain_bwd_f32", "chain_dw_f32"))
+        passes = device_ms_by_kernel(
+            lambda: rc.ragged_chain_bwd(x, counts, ws, bs, g, skips),
+            dict(zip(("pass 1", "pass 2"), names)), iters=5)
+        log(f"  K2R {dt}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+            f"ms, autograd of the addmm chain {t['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {rate(flops, t['ms'], bound_ms)}"
+            f" (the gradient's products); profiled pass 1 "
+            f"{passes['pass 1']:.4f} ms, pass 2 {passes['pass 2']:.4f} ms")
+        rows[f"K2R {label}"] = dict(max_abs_err=err_b, bound_ms=bound_ms,
+                                    bound_by=bound_by, **t)
+    return rows
+
+
+def nodrop_padded_phase(shapes) -> None:
+    """A no-drop MoE layer (K1R/K2R) against the padded one (K1/K2) with
+    the same weights at capacity factor E, where padding drops nothing:
+    outputs and every gradient agree (fp32 within 1e-5 of the largest
+    entry: sums in another order; bf16 within the bf16 rule)."""
+    from switch_nerf_torch.models.moe import MoELayer
+    from switch_nerf_torch.ops import expert_kernel, ragged_chain
+
+    m, layers, skips = shapes["width"], shapes["layers"], shapes["skips"]
+    for dtype, e in ((torch.float32, shapes["bungee_e"]),
+                     (torch.bfloat16, shapes["experts"])):
+        dt = str(dtype)[6:]
+        gen = torch.Generator().manual_seed(4)
+        x0 = torch.randn(MOE_TOKENS, m, generator=gen).cuda()
+        gy = torch.randn(MOE_TOKENS, m, generator=gen).to("cuda", dtype)
+        outs, grads, launches = [], [], []
+        for mode in ("padded", "nodrop"):
+            layer = MoELayer(m, e, layer_num=layers, skips=skips,
+                             capacity_factor=e, batch_prioritized_routing=True,
+                             train_dispatch=mode, eval_dispatch=mode,
+                             generator=torch.Generator().manual_seed(5)).cuda()
+            x = x0.to(dtype).requires_grad_(True)
+            expert_kernel.launches = expert_kernel.bwd_launches = 0
+            ragged_chain.ragged_launches = ragged_chain.ragged_bwd_launches = 0
+            y, _, _ = layer(x, train=True)
+            grads.append(torch.autograd.grad(y, [x] + list(layer.parameters()),
+                                             gy))
+            outs.append(y.detach().float())
+            launches.append((expert_kernel.launches,
+                             expert_kernel.bwd_launches,
+                             ragged_chain.ragged_launches,
+                             ragged_chain.ragged_bwd_launches))
+        torch.cuda.synchronize()
+        if launches != [(1, 1, 0, 0), (0, 0, 1, 1)]:
+            raise AssertionError(f"K1/K2, K1R/K2R launches {launches}")
+        tol = 1e-5 if dtype == torch.float32 else BF16_REL_TOL
+        worst = 0.0
+        for a, b in [(outs[0], outs[1])] + list(zip(*grads)):
+            a, b = a.float(), b.float()
+            rel = (b - a).abs().max().item() / max(a.abs().max().item(), 1e-30)
+            worst = max(worst, rel)
+        log(f"[nodrop] MoE layer E{e} M{m} L{layers} {dt}, {MOE_TOKENS} "
+            f"tokens at capacity factor {e}: no-drop (K1R/K2R) vs padded (K1/K2), "
+            f"output and {len(grads[0])} gradients: largest error {worst:.3e} "
+            f"of the largest entry (limit {tol:g})")
+        if not worst <= tol:
+            raise AssertionError("no-drop and padded MoE layers disagree")
+
+
+def make_bungee_scene(root, seed: int) -> None:
+    """A synthetic Bungee-NeRF scene in `root`: poses_enu.json (scene scale
+    1e-4, the earth's centre 6,371,011 m below the ENU origin) and
+    BUNGEE_IMAGES smooth random PNGs of BUNGEE_W x BUNGEE_H under images/;
+    the cameras hover 600-800 m up and look straight down."""
+    from pathlib import Path
+
+    from PIL import Image
+    root = Path(root)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    poses = []
+    for i in range(BUNGEE_IMAGES):
+        c2w = np.eye(3, 4)
+        c2w[:, 3] = [rng.uniform(-0.02, 0.02), rng.uniform(-0.02, 0.02),
+                     rng.uniform(0.06, 0.08)]
+        hwf = np.array([[BUNGEE_H], [BUNGEE_W], [1.2 * BUNGEE_W]])
+        poses.append(np.concatenate([c2w, hwf], 1).reshape(-1).tolist()
+                     + [0.0, 1.0])
+        coarse = rng.uniform(0, 255, (BUNGEE_H // 16, BUNGEE_W // 16, 3))
+        Image.fromarray(coarse.astype(np.uint8)).resize(
+            (BUNGEE_W, BUNGEE_H), Image.BICUBIC).save(
+                root / "images" / f"{i:03d}.png")
+    (root / "poses_enu.json").write_text(json.dumps({
+        "poses": poses, "scene_scale": 1e-4,
+        "scene_origin": [0.0, 0.0, -6371011.0],
+        "scale_split": [BUNGEE_IMAGES]}))
+
+
+def bungee_phase(counts: dict) -> str:
+    """Train and serve the Bungee-NeRF mip workload end to end through its
+    two entry points, with the README's flags at full width, on a
+    synthetic scene: train_nerf_moe for one epoch (K1R/K2R every step, one
+    interval checkpoint, finite metrics, a falling photo_loss), then
+    eval_nerf_moe on its checkpoint (finite metrics, the file set)."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch import eval_nerf_moe, train_nerf_moe
+    from switch_nerf_torch import runner as runner_mod
+    from switch_nerf_torch.config import get_opts_nerf, parse_args
+    from switch_nerf_torch.ops import expert_kernel, ragged_chain
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bungee_") as tmp:
+        tmp = Path(tmp)
+        make_bungee_scene(tmp / "scene", seed=0)
+        h = parse_args(get_opts_nerf(), BUNGEE_FLAGS + [
+            "--dataset_path", str(tmp / "scene"), "--exp_name",
+            str(tmp / "exp"), "--num_epochs", "1", "--ckpt_interval",
+            str(BUNGEE_CKPT), "--i_print", str(BUNGEE_PRINT)])
+        sf = h.scale_factor * h.llff_factor
+        per_image = (BUNGEE_W // sf) * (BUNGEE_H // sf)
+        n_train = per_image * (BUNGEE_IMAGES - 2)
+        steps = n_train // h.batch_size
+        moe = h.model["layers"]["0"]
+
+        def chunks_of(rays):      # model chunks of one request, both passes
+            return (-(-rays * (h.coarse_samples - 1) // h.model_chunk_size)
+                    + -(-rays * (h.fine_samples - 1) // h.model_chunk_size))
+        chunks = chunks_of(h.batch_size)
+        log(f"[bungee] train_nerf_moe on a synthetic scene: {BUNGEE_IMAGES} "
+            f"{BUNGEE_W}x{BUNGEE_H} images / {sf} -> {n_train} train rays, "
+            f"{steps} steps of {h.batch_size} rays, {h.moe_expert_num} experts"
+            f" x {moe['num']} x {moe['out_ch']}, {h.coarse_samples} + "
+            f"{h.fine_samples} samples, fp32, no-drop dispatch")
+        rec = {"t_end": [], "photo": []}
+
+        def make_step(real):
+            def make(*a, **k):
+                step = real(*a, **k)
+
+                def run(state, batch):
+                    state, met = step(state, batch)
+                    rec["photo"].append(float(met["photo_loss"]))
+                    rec["t_end"].append(time.perf_counter())
+                    return state, met
+                return run
+            return make
+
+        torch.cuda.reset_peak_memory_stats()
+        with wrapped(runner_mod, "make_train_step", make_step):
+            expert_kernel.launches = expert_kernel.bwd_launches = 0
+            ragged_chain.ragged_launches = ragged_chain.ragged_bwd_launches = 0
+            t0 = time.perf_counter()
+            state = train_nerf_moe.main(h)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts["K1R"] = ragged_chain.ragged_launches
+            counts["K2R"] = ragged_chain.ragged_bwd_launches
+            k1 = expert_kernel.launches
+        peak = torch.cuda.max_memory_allocated()
+        exp = tmp / "exp" / "0"
+        log(f"  launches: K1R {counts['K1R']}, K2R {counts['K2R']} (expected "
+            f"{chunks * steps} each, {chunks} a step), K1 {k1}")
+        if not (state.step == steps and k1 == 0
+                and counts["K1R"] == counts["K2R"] == chunks * steps):
+            raise AssertionError("train_nerf_moe did not run K1R and K2R "
+                                 "on every chunk of every step")
+        windows = logged_windows(exp / "log.txt")
+        saved = sorted(int(p.name) for p in (exp / "models").iterdir())
+        want = sorted(set(range(BUNGEE_CKPT, steps + 1, BUNGEE_CKPT))
+                      | {steps})
+        # each step draws new rays: compare the first and last five steps
+        first, last = (float(np.mean(rec["photo"][sl]))
+                       for sl in (slice(0, 5), slice(-5, None)))
+        log(f"  photo_loss per step {[round(v, 5) for v in rec['photo']]}: "
+            f"mean of the first 5 {first:.5f}, of the last 5 {last:.5f}; "
+            f"checkpoints {saved}")
+        if not (all(np.isfinite(v) for w in windows for v in w.values())
+                and len(windows) == steps // BUNGEE_PRINT
+                and last < first and saved == want):
+            raise AssertionError(f"Bungee training: {windows} {saved}")
+        t = rec["t_end"]
+        step_s = (t[-1] - t[BUNGEE_PRINT - 1]) / (steps - BUNGEE_PRINT)
+        train_rays_s = h.batch_size / step_s
+
+        he = parse_args(get_opts_nerf(), BUNGEE_FLAGS + [
+            "--dataset_path", str(tmp / "scene"), "--exp_name",
+            str(tmp / "eval"), "--ckpt_path", str(exp / "models" / str(steps)),
+            "--image_pixel_batch_size", str(BUNGEE_EVAL_BATCH)])
+        ragged_chain.ragged_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        means = eval_nerf_moe.main(he)
+        eval_k1r = ragged_chain.ragged_launches
+        out = tmp / "eval" / "0" / "test_images_0"
+        metrics = [read_metrics(out / f"metrics_{i}.txt")
+                   for i in (0, BUNGEE_IMAGES - 1)]
+        bs = he.image_pixel_batch_size
+        eval_chunks = 2 * -(-per_image // bs) * chunks_of(bs)
+        log(f"  eval_nerf_moe: means {means}; K1R {eval_k1r} launches "
+            f"(expected {eval_chunks}, {eval_chunks // 2} an image)")
+        if not (all(np.isfinite(v) for m_ in metrics for v in m_.values())
+                and eval_k1r == eval_chunks
+                and "Average test/psnr" in (out / "metrics.txt").read_text()):
+            raise AssertionError("Bungee eval: metrics or launches")
+    return (f"train rays/s {train_rays_s:.1f} (steps {BUNGEE_PRINT + 1}-"
+            f"{steps}), step {step_s:.4f} s, {steps} steps in {wall:.1f} s "
+            f"wall, max_memory_allocated {peak} B ({peak / 2 ** 30:.2f} GiB);"
+            f" K1R / K2R launches per step {counts['K1R'] // steps} / "
+            f"{counts['K2R'] // steps}; eval seconds per image "
+            f"{[round(m_['time'], 4) for m_ in metrics]} ({per_image} rays an"
+            f" image), psnr {means['psnr']:.4f}, ssim {means['ssim']:.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1103,6 +1490,9 @@ def main() -> int:
                 "chunk": h.model_chunk_size}
     rows = kernel_phase(peaks, building)
     rows.update(bwd_kernel_phase(peaks, building))
+    building["bungee_e"] = 4            # bungee.yaml with --moe_expert_num 4
+    rows.update(ragged_kernel_phase(peaks, building))
+    nodrop_padded_phase(building)
     eval_counts = {}
     rays_per_s = slice_phase(h, eval_counts)
     log(f"[slice] eval launches per {N_REQUESTS} requests: {eval_counts}")
@@ -1110,6 +1500,7 @@ def main() -> int:
     train = train_phase(counts)
     runner = runner_phase()
     train_runner = train_runner_phase(train["rays_per_s"])
+    bungee = bungee_phase(counts)
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -1122,10 +1513,18 @@ def main() -> int:
         "K4": ("fused_dispatch_bwd",
                "switch_nerf_torch/csrc/fused_dispatch_bwd.cu",
                "switch_nerf_tpu/ops/fused_dispatch.py:210"),
+        # no Pallas counterpart: JAX's ExpertMLP.ragged runs
+        # jax.lax.ragged_dot, whose autograd K2R replaces
+        "K1R": ("ragged_chain", "switch_nerf_torch/csrc/ragged_chain.cu",
+                "switch_nerf_tpu/models/experts.py:79"),
+        "K2R": ("ragged_chain_bwd",
+                "switch_nerf_torch/csrc/ragged_chain_bwd.cu",
+                "switch_nerf_tpu/models/experts.py:79"),
     }
     kernels = []
     for key, (kname, source, replaces) in meta.items():
-        r = rows[key]
+        # K1R / K2R: the Bungee training path's shape (fp32, E4)
+        r = rows[key + " Bungee" if key.endswith("R") else key]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[key],
@@ -1138,6 +1537,13 @@ def main() -> int:
         f"{train['peak_bytes']} B on {smi}")
     log(f"[runner] {runner} on {smi}")
     log(f"[train_runner] {train_runner} on {smi}")
+    log(f"[bungee] {bungee} on {smi}")
+    for key in ("K1R Building", "K2R Building"):
+        r = rows[key]
+        log(f"[kernels] {key} (bf16): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3e} on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     # the script drives one card

@@ -1,13 +1,14 @@
 // Per-expert L-layer MLP chain, fp32 forward, for Hopper (sm_90a).
 //
-// Shared by expert_chain.cu (rows read in place: x [E, C, M]) and
-// fused_dispatch.cu (rows gathered through a slot->token map), and by the
-// fp32 backward (chain_bwd.cuh), which reruns the forward to recompute the
-// activation stack. bf16 runs the wgmma design of chain_sm90.cuh instead.
-// One CTA owns one (expert, row block). The block's activations and its
-// skip input `xin` stay in shared memory across all L layers, so
-// activations touch device memory once in and once out; W_l is streamed
-// through shared memory in tiles of kKTile rows.
+// Shared by expert_chain.cu (rows read in place: x [E, C, M]),
+// fused_dispatch.cu (rows gathered through a slot->token map) and
+// ragged_chain.cu (expert-sorted rows x [N, M] with counts on the device;
+// rows.cuh), and by the fp32 backward (chain_bwd.cuh), which reruns the
+// forward to recompute the activation stack. bf16 runs the wgmma design of
+// chain_sm90.cuh instead. One CTA owns one (expert, row block). The
+// block's activations and its skip input `xin` stay in shared memory
+// across all L layers, so activations touch device memory once in and
+// once out; W_l is streamed through shared memory in tiles of kKTile rows.
 //
 // Per layer, in exactly the order of the TPU kernel
 // (switch_nerf_tpu/ops/expert_kernel.py:_fwd_kernel):
@@ -23,18 +24,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kKTile = 32;     // rows of W_l per shared-memory tile
 
-// Row index of tile row r in the source: in place, or through the map.
-template <bool GATHER>
+// Source row of expert row r (< er.count): in place and ragged the row
+// itself, gathered through the map.
+template <int SRC>
 __device__ __forceinline__ long long source_row(const int* __restrict__ idx,
-                                                int e, int C, int r,
+                                                const ExpertRows& er, int r,
                                                 int n_src) {
-  const long long slot = (long long)e * C + r;
-  if (!GATHER) return slot;
+  const long long slot = er.base + r;
+  if (SRC != kGather) return slot;
   const int t = idx[slot];
   if (t < 0 || t >= n_src) __trap();  // device-side assert: map out of range
   return t;
@@ -53,24 +57,25 @@ struct F32Layout {
 };
 
 // The forward of one (expert, row block) in shared memory: loads the block's
-// rows (zeros past the ragged C edge) into h and xin and runs the L layers in
-// place; h ends as the block's output. With `saved` set, each layer's input
-// H_l is also written to saved [L, E, C, M] (rows inside C only) before the
-// layer runs: the backward's recompute (chain_bwd.cuh). Thread (ty, tx)
+// rows (zeros past the expert's last row) into h and xin and runs the L
+// layers in place; h ends as the block's output. With `saved` set, each
+// layer's input H_l is also written to the workspace saved [L, ws_rows, M]
+// (the expert's rows only) before the layer runs: the backward's recompute
+// (chain_bwd.cuh). The caller has checked r0 < er.count. Thread (ty, tx)
 // owns rows 4ty..4ty+3 and columns tx + 32j.
-template <int M, bool GATHER>
+template <int M, int SRC>
 __device__ __forceinline__ void chain_f32_forward(
     const float* __restrict__ src, const int* __restrict__ idx, int n_src,
-    const float* __restrict__ ws, const float* __restrict__ bs, int E, int C,
-    int L, unsigned skip_mask, float* h, float* xin, float* wt,
-    float* __restrict__ saved) {
+    const float* __restrict__ ws, const float* __restrict__ bs, int E,
+    const ExpertRows& er, int L, unsigned skip_mask, float* h, float* xin,
+    float* wt, float* __restrict__ saved, long long ws_rows) {
   constexpr int LD = F32Layout<M>::LD;
   constexpr int RV = M / 4;      // 16-byte vectors per row
   constexpr int CN = M / 32;     // columns per thread (strided by 32)
 
   const int e = blockIdx.y;
   const int r0 = blockIdx.x * kRowsF32;
-  const int rows = min(kRowsF32, C - r0);
+  const int rows = min(kRowsF32, er.count - r0);
   const int tid = threadIdx.x;
   const int ty = tid / 32, tx = tid % 32;
 
@@ -78,7 +83,7 @@ __device__ __forceinline__ void chain_f32_forward(
     const int r = i / RV, v = i % RV;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < rows) {
-      const long long row = source_row<GATHER>(idx, e, C, r0 + r, n_src);
+      const long long row = source_row<SRC>(idx, er, r0 + r, n_src);
       val = reinterpret_cast<const float4*>(src + row * M)[v];
     }
     reinterpret_cast<float4*>(h + r * LD)[v] = val;
@@ -88,7 +93,7 @@ __device__ __forceinline__ void chain_f32_forward(
   for (int l = 0; l < L; ++l) {
     if (saved != nullptr) {
       __syncthreads();  // h holds layer l's input
-      float* dst = saved + (((size_t)l * E + e) * C + r0) * M;
+      float* dst = saved + ((size_t)l * ws_rows + er.ws + r0) * M;
       for (int i = tid; i < rows * RV; i += kThreads) {
         const int r = i / RV, v = i % RV;
         reinterpret_cast<float4*>(dst + (size_t)r * M)[v] =
@@ -148,7 +153,7 @@ __device__ __forceinline__ void chain_f32_forward(
   }
 }
 
-template <int M, bool GATHER>
+template <int M, int SRC>
 __global__ void __launch_bounds__(kThreads)
 chain_f32_kernel(const float* __restrict__ src, const int* __restrict__ idx,
                  int n_src, const float* __restrict__ ws,
@@ -162,26 +167,27 @@ chain_f32_kernel(const float* __restrict__ src, const int* __restrict__ idx,
   float* xin = h + Lay::h_elems;
   float* wt = xin + Lay::h_elems;
 
-  chain_f32_forward<M, GATHER>(src, idx, n_src, ws, bs, E, C, L, skip_mask,
-                               h, xin, wt, nullptr);
+  const ExpertRows er = expert_rows<SRC>(idx, blockIdx.y, C);
+  const int r0 = blockIdx.x * kRowsF32;
+  if (SRC == kRagged && r0 >= er.count) return;  // past its rows
+  chain_f32_forward<M, SRC>(src, idx, n_src, ws, bs, E, er, L, skip_mask, h,
+                            xin, wt, nullptr, 0);
   __syncthreads();
 
-  const int e = blockIdx.y;
-  const int r0 = blockIdx.x * kRowsF32;
-  const int rows = min(kRowsF32, C - r0);
+  const int rows = min(kRowsF32, er.count - r0);
   for (int i = threadIdx.x; i < rows * RV; i += kThreads) {
     const int r = i / RV, v = i % RV;
-    reinterpret_cast<float4*>(out + ((size_t)e * C + r0 + r) * M)[v] =
+    reinterpret_cast<float4*>(out + (er.base + r0 + r) * M)[v] =
         reinterpret_cast<const float4*>(h + r * LD)[v];
   }
 }
 
 // -------------------------------------------------------------- launch ----
-template <int M, bool GATHER>
+template <int M, int SRC>
 int launch_width(const float* src, const int* idx, int n_src, const float* ws,
                  const float* bs, float* out, int E, int C, int L,
                  unsigned skip_mask, cudaStream_t stream) {
-  auto kern = chain_f32_kernel<M, GATHER>;
+  auto kern = chain_f32_kernel<M, SRC>;
   const size_t smem = F32Layout<M>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -192,10 +198,12 @@ int launch_width(const float* src, const int* idx, int n_src, const float* ws,
   return (int)cudaGetLastError();
 }
 
-// fp32 only. Returns a cudaError_t code (0 = launched). Widths other than
-// 64/128/256 are refused with cudaErrorInvalidValue; the Python wrappers
-// check first.
-template <bool GATHER>
+// fp32 only. Returns a cudaError_t code (0 = launched). src is x [E, C, M],
+// with kGather the token rows [n_src, M] that idx [E * C] names, with
+// kRagged x [C, M] sorted by expert and idx the counts [E]. Widths other
+// than 64/128/256 are refused with cudaErrorInvalidValue; the Python
+// wrappers check first.
+template <int SRC>
 int launch_chain(int device, const void* src, const int* idx, int n_src,
                  const void* ws, const void* bs, void* out, int E, int C,
                  int M, int L, unsigned skip_mask, void* stream) {
@@ -209,14 +217,14 @@ int launch_chain(int device, const void* src, const int* idx, int n_src,
   float* y = static_cast<float*>(out);
   switch (M) {
     case 64:
-      return launch_width<64, GATHER>(x, idx, n_src, w, b, y, E, C, L,
-                                      skip_mask, s);
+      return launch_width<64, SRC>(x, idx, n_src, w, b, y, E, C, L,
+                                   skip_mask, s);
     case 128:
-      return launch_width<128, GATHER>(x, idx, n_src, w, b, y, E, C, L,
-                                       skip_mask, s);
+      return launch_width<128, SRC>(x, idx, n_src, w, b, y, E, C, L,
+                                    skip_mask, s);
     case 256:
-      return launch_width<256, GATHER>(x, idx, n_src, w, b, y, E, C, L,
-                                       skip_mask, s);
+      return launch_width<256, SRC>(x, idx, n_src, w, b, y, E, C, L,
+                                    skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,8 +1,9 @@
 // Per-expert L-layer MLP chain, fp32 backward, for Hopper (sm_90a).
 //
-// Shared by expert_chain_bwd.cu (K2, rows read in place) and
-// fused_dispatch_bwd.cu (K4, rows gathered through the slot->token map);
-// bf16 runs the wgmma design of chain_bwd_sm90.cuh instead.
+// Shared by expert_chain_bwd.cu (K2, rows read in place),
+// fused_dispatch_bwd.cu (K4, rows gathered through the slot->token map) and
+// ragged_chain_bwd.cu (K2R, expert-sorted rows; rows.cuh); bf16 runs the
+// wgmma design of chain_bwd_sm90.cuh instead.
 // Replaces the Pallas _bwd_kernel of switch_nerf_tpu/ops/expert_kernel.py
 // and ops/fused_dispatch.py, which recompute the activation stack in VMEM,
 // run the reverse sweep, and add each C block's dW/db into an output block
@@ -13,16 +14,18 @@
 //
 //   pass 1, one CTA per (expert, 32-row block), as K1's fp32 path:
 //     recompute the chain (chain_f32_forward), writing each layer's input
-//     H_l to hsave [L, E, C, M]; then the reverse sweep in shared memory,
+//     H_l to the workspace hsave [L, ws_rows, M] (the expert's segment,
+//     rows.cuh); then the reverse sweep in shared memory,
 //       g   = gh (+ gxin at a skip layer); ReLU mask from H_{l+1} > 0 unless
 //             last; gxin = g at a skip layer
-//       G_l = g  -> gsave [L, E, C, M]
+//       G_l = g  -> gsave [L, ws_rows, M]
 //       gh  = g @ W_l^T
 //     and dx = gh + gxin.
 //   pass 2, one CTA per (layer, expert, output tile):
-//     dW[l, e] = H_l^T G_l with fp32 accumulators over all C inside the
-//     CTA, and db[l, e] = the fp32 column sums of G_l (tiles of the first
-//     tile row only). Sums run over C in ascending order.
+//     dW[l, e] = H_l^T G_l with fp32 accumulators over the expert's rows
+//     inside the CTA, and db[l, e] = the fp32 column sums of G_l (tiles of
+//     the first tile row only). Sums run over the rows in ascending order;
+//     an expert with no rows gets dW = 0 and db = 0.
 //
 // H_l and G_l are the operands the TPU kernel's dot_general contracts. fp32
 // runs on the CUDA cores (TF32 would miss the fp32 tolerance).
@@ -44,7 +47,7 @@ struct F32BwdLayout {
   static constexpr size_t bytes = (2 * h_elems + w_elems) * sizeof(float);
 };
 
-template <int M, bool GATHER>
+template <int M, int SRC>
 __global__ void __launch_bounds__(kThreads)
 chain_bwd_f32_kernel(const float* __restrict__ src,
                      const int* __restrict__ idx, int n_src,
@@ -53,7 +56,8 @@ chain_bwd_f32_kernel(const float* __restrict__ src,
                      const float* __restrict__ g, float* __restrict__ dx,
                      float* hsave,  // written, then read back
                      float* __restrict__ gsave,
-                     int E, int C, int L, unsigned skip_mask) {
+                     int E, int C, long long ws_rows, int L,
+                     unsigned skip_mask) {
   using Lay = F32BwdLayout<M>;
   constexpr int LD = Lay::LD;
   constexpr int RV = M / 4;
@@ -63,13 +67,14 @@ chain_bwd_f32_kernel(const float* __restrict__ src,
   float* xin = h + Lay::h_elems;
   float* wt = xin + Lay::h_elems;
 
-  chain_f32_forward<M, GATHER>(src, idx, n_src, ws, bs, E, C, L, skip_mask,
-                               h, xin, wt, hsave);
+  const ExpertRows er = expert_rows<SRC>(idx, blockIdx.y, C);
+  const int r0 = blockIdx.x * kRowsF32;
+  if (SRC == kRagged && r0 >= er.count) return;  // past its rows
+  chain_f32_forward<M, SRC>(src, idx, n_src, ws, bs, E, er, L, skip_mask, h,
+                            xin, wt, hsave, ws_rows);
   __syncthreads();
 
-  const int e = blockIdx.y;
-  const int r0 = blockIdx.x * kRowsF32;
-  const int rows = min(kRowsF32, C - r0);
+  const int rows = min(kRowsF32, er.count - r0);
   const int tid = threadIdx.x;
   const int ty = tid / 32, tx = tid % 32;
   float* gh = h;
@@ -79,7 +84,7 @@ chain_bwd_f32_kernel(const float* __restrict__ src,
     const int r = i / RV, v = i % RV;
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < rows)
-      val = reinterpret_cast<const float4*>(g + ((size_t)e * C + r0 + r) * M)[v];
+      val = reinterpret_cast<const float4*>(g + (er.base + r0 + r) * M)[v];
     reinterpret_cast<float4*>(gh + r * LD)[v] = val;
     reinterpret_cast<float4*>(gxin + r * LD)[v] =
         make_float4(0.f, 0.f, 0.f, 0.f);
@@ -90,8 +95,8 @@ chain_bwd_f32_kernel(const float* __restrict__ src,
     const bool skip = (skip_mask >> l) & 1u;
     __syncthreads();
     const float* hnext =
-        last ? nullptr : hsave + (((size_t)(l + 1) * E + e) * C + r0) * M;
-    float* gl = gsave + (((size_t)l * E + e) * C + r0) * M;
+        last ? nullptr : hsave + ((size_t)(l + 1) * ws_rows + er.ws + r0) * M;
+    float* gl = gsave + ((size_t)l * ws_rows + er.ws + r0) * M;
     for (int i = tid; i < rows * M; i += kThreads) {
       const int r = i / M, c = i % M;
       float gv = gh[r * LD + c];
@@ -102,7 +107,7 @@ chain_bwd_f32_kernel(const float* __restrict__ src,
       gl[(size_t)r * M + c] = gv;
     }
 
-    const float* w = ws + ((size_t)l * E + e) * M * M;
+    const float* w = ws + ((size_t)l * E + blockIdx.y) * M * M;
     float acc[4][CN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -138,7 +143,7 @@ chain_bwd_f32_kernel(const float* __restrict__ src,
 
   for (int i = tid; i < rows * M; i += kThreads) {
     const int r = i / M, c = i % M;
-    dx[((size_t)e * C + r0 + r) * M + c] = gh[r * LD + c] + gxin[r * LD + c];
+    dx[(er.base + r0 + r) * M + c] = gh[r * LD + c] + gxin[r * LD + c];
   }
 }
 
@@ -147,11 +152,12 @@ constexpr int kCChunk = 32;  // rows of H_l / G_l staged per step
 
 // fp32: an output tile 64 x 64 (M >= 64); thread (ty, tx) owns rows
 // ty + 16i and columns tx + 16j.
-template <int M>
+template <int M, int SRC>
 __global__ void __launch_bounds__(kThreads)
 chain_dw_f32_kernel(const float* __restrict__ hsave,
                     const float* __restrict__ gsave, float* __restrict__ dw,
-                    float* __restrict__ db, int E, int C) {
+                    float* __restrict__ db, const int* __restrict__ counts,
+                    int E, int C, long long ws_rows) {
   constexpr int T = 64;
   constexpr int TILES = M / T;
   constexpr int TV = T / 4;
@@ -163,7 +169,9 @@ chain_dw_f32_kernel(const float* __restrict__ hsave,
   const int m0 = mt * T, n0 = nt * T;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  const size_t base = ((size_t)l * E + e) * C * M;
+  const ExpertRows er = expert_rows<SRC>(counts, e, C);
+  const int rows = er.count;
+  const size_t base = ((size_t)l * ws_rows + er.ws) * M;
   const bool do_db = mt == 0 && tid < T;
   float db_acc = 0.0f;
   float acc[4][4];
@@ -172,12 +180,12 @@ chain_dw_f32_kernel(const float* __restrict__ hsave,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
-  for (int c0 = 0; c0 < C; c0 += kCChunk) {
+  for (int c0 = 0; c0 < rows; c0 += kCChunk) {
     __syncthreads();
     for (int i = tid; i < kCChunk * TV; i += kThreads) {
       const int c = i / TV, v = i % TV;
       float4 hv = make_float4(0.f, 0.f, 0.f, 0.f), gv = hv;
-      if (c0 + c < C) {
+      if (c0 + c < rows) {
         const size_t row = base + (size_t)(c0 + c) * M;
         hv = reinterpret_cast<const float4*>(hsave + row + m0)[v];
         gv = reinterpret_cast<const float4*>(gsave + row + n0)[v];
@@ -214,31 +222,35 @@ chain_dw_f32_kernel(const float* __restrict__ hsave,
 }
 
 // -------------------------------------------------------------- launch ----
-template <int M, bool GATHER>
+template <int M, int SRC>
 int launch_bwd_width(const float* src, const int* idx, int n_src,
                      const float* ws, const float* bs, const float* g,
                      float* dx, float* hsave, float* gsave, float* dw,
                      float* db, int E, int C, int L, unsigned skip_mask,
                      cudaStream_t stream) {
-  auto kern = chain_bwd_f32_kernel<M, GATHER>;
+  const long long ws_rows =
+      SRC == kRagged ? ragged_ws_rows(C, E) : (long long)E * C;
+  auto kern = chain_bwd_f32_kernel<M, SRC>;
   const size_t smem = F32BwdLayout<M>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((C + kRowsF32 - 1) / kRowsF32, E);
   kern<<<grid, kThreads, smem, stream>>>(src, idx, n_src, ws, bs, g, dx,
-                                         hsave, gsave, E, C, L, skip_mask);
+                                         hsave, gsave, E, C, ws_rows, L,
+                                         skip_mask);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid2((M / 64) * (M / 64), E, L);
-  chain_dw_f32_kernel<M><<<grid2, kThreads, 0, stream>>>(hsave, gsave, dw,
-                                                         db, E, C);
+  chain_dw_f32_kernel<M, SRC><<<grid2, kThreads, 0, stream>>>(
+      hsave, gsave, dw, db, idx, E, C, ws_rows);
   return (int)cudaGetLastError();
 }
 
-// fp32 only. Returns a cudaError_t code (0 = launched). hsave and gsave are
-// [L, E, C, M] fp32 workspaces; dw [L, E, M, M] and db [L, E, 1, M].
-template <bool GATHER>
+// fp32 only. Returns a cudaError_t code (0 = launched). src as
+// launch_chain's. hsave and gsave are fp32 workspaces [L, E, C, M] (kRagged:
+// [L, ragged_ws_rows(C, E), M]); dw [L, E, M, M] and db [L, E, 1, M].
+template <int SRC>
 int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, const void* g, void* dx,
                      void* hsave, void* gsave, float* dw, float* db, int E,
@@ -256,14 +268,14 @@ int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
   float* gs = static_cast<float*>(gsave);
   switch (M) {
     case 64:
-      return launch_bwd_width<64, GATHER>(x, idx, n_src, w, b, gy, dxf, hs,
-                                          gs, dw, db, E, C, L, skip_mask, s);
+      return launch_bwd_width<64, SRC>(x, idx, n_src, w, b, gy, dxf, hs, gs,
+                                       dw, db, E, C, L, skip_mask, s);
     case 128:
-      return launch_bwd_width<128, GATHER>(x, idx, n_src, w, b, gy, dxf, hs,
-                                           gs, dw, db, E, C, L, skip_mask, s);
+      return launch_bwd_width<128, SRC>(x, idx, n_src, w, b, gy, dxf, hs, gs,
+                                        dw, db, E, C, L, skip_mask, s);
     case 256:
-      return launch_bwd_width<256, GATHER>(x, idx, n_src, w, b, gy, dxf, hs,
-                                           gs, dw, db, E, C, L, skip_mask, s);
+      return launch_bwd_width<256, SRC>(x, idx, n_src, w, b, gy, dxf, hs, gs,
+                                        dw, db, E, C, L, skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,6 @@
 // Per-expert L-layer MLP chain, bf16 backward, for Hopper (sm_90a): K2
-// (expert_chain_bwd.cu) and, with GATHER set, K4 (fused_dispatch_bwd.cu).
+// (expert_chain_bwd.cu), with kGather K4 (fused_dispatch_bwd.cu) and with
+// kRagged K2R (ragged_chain_bwd.cu; rows.cuh).
 //
 // Replaces the bf16 case of switch_nerf_tpu/ops/expert_kernel.py:_bwd_call
 // (Pallas _bwd_kernel) and of switch_nerf_tpu/ops/fused_dispatch.py:
@@ -35,6 +36,13 @@
 //     G_l read M/64 times, measured slower). db = the fp32
 //     column sums of G_l, taken from each ring stage before it is
 //     released, in ascending C order by the CTAs of the first tile row.
+// kRagged: x, g and dx are [N, M] sorted by expert; pass 1 reads x by
+// kGather's cp.async copy and g, and writes dx, with 16-byte copies that
+// stop at the expert's last row (copy_rows), zero-filling g past it, so
+// G_l is 0 on those tile rows; H_l and G_l go by TMA to the expert's
+// segment of the [L, ragged_ws_rows(N, E), M] workspaces (whole tiles),
+// and pass 2 sums the segment's first ceil(counts[e] / 64) slices. An
+// expert with no rows gets dW = 0 and db = 0.
 // Every sum runs in a fixed order: results are bit-identical from run to
 // run.
 #pragma once
@@ -135,8 +143,9 @@ __device__ __forceinline__ void dx_epilogue(float (&acc)[M / 2], uint8_t* h,
 }
 
 // ------------------------------------------------------------ pass 1 ----
-// x_map is read without GATHER, g with it.
-template <int M, bool GATHER>
+// x_map, g_map and dx_map are used in place and with kGather; kRagged reads
+// x, g and writes dx through gather (its tokens, grad and out).
+template <int M, int SRC>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
                const __grid_constant__ CUtensorMap w_map,
@@ -145,8 +154,8 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
                const __grid_constant__ CUtensorMap dx_map,
                const __grid_constant__ CUtensorMap hsave_map,
                const __grid_constant__ CUtensorMap gsave_map,
-               const __nv_bfloat16* __restrict__ bs, const Gather g, int E,
-               int L, unsigned skip_mask) {
+               const __nv_bfloat16* __restrict__ bs, const Gather gather,
+               int E, int L, unsigned skip_mask) {
   using C = Cfg<M>;
   constexpr int kMaskLayer = 2 * kWgThreads * C::kMaskWords;  // words
   extern __shared__ uint8_t smem_raw[];
@@ -164,12 +173,17 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
 
   const int e = blockIdx.y;
   const int row0 = blockIdx.x * kTileRows;
+  const ExpertRows er = expert_rows<SRC>(gather.idx, e, gather.C);
+  if (SRC == kRagged && row0 >= er.count) return;  // past its rows
+  // workspace coordinates of layer l's rows of this tile
+  const long long ws_row0 = (SRC == kRagged ? er.ws : 0) + row0;
+  auto ws_z = [&](int l) { return SRC == kRagged ? l : l * E + e; };
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * kWgThreads);
     }
-    mbar_init(x_full, GATHER ? kWgThreads : 1);
+    mbar_init(x_full, SRC != kInPlace ? kWgThreads : 1);
     mbar_init(&g_full[0], 1);
     mbar_init(&g_full[1], 1);
     fence_barrier_init();
@@ -195,8 +209,8 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
       }
     };
     const int n_w = n_fwd + L * K;
-    int j = produce_input<M, GATHER>(&x_map, g, h, xin, x_full, e, row0,
-                                     threadIdx.x, n_w, load_w);
+    int j = produce_input<M, SRC>(&x_map, gather, er, h, xin, x_full, e,
+                                  row0, threadIdx.x, n_w, load_w);
     regs_dec<kProducerRegs>();
     if (threadIdx.x == 0)
       for (; j < n_w; ++j) load_w(j);
@@ -206,6 +220,7 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
     const int t = threadIdx.x % kWgThreads;
     const int bar = 1 + cw;
     const int row = row0 + cw * kBox;
+    const int ws_row = (int)(ws_row0 + cw * kBox);
     const uint32_t a = smem_u32(h) + cw * kBoxBytes;
     float acc[C::kAcc];
     int stage = 0;
@@ -214,7 +229,7 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
     // recompute: H_l -> hsave, masks of layers 0..L-2 -> shared memory
     mbar_wait(x_full, 0);
     for (int l = 0;; ++l) {
-      if (t == 0) store_rows<M>(&hsave_map, h, cw, row, l * E + e);
+      if (t == 0) store_rows<M>(&hsave_map, h, cw, ws_row, ws_z(l));
       if (l == L - 1) break;
       layer_product<M, 1>(acc, a, smem_u32(ring), full, empty, stage, phase);
       if (t == 0) bulk_wait_read();  // H_l has left h
@@ -225,15 +240,24 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
       named_sync(bar, kWgThreads);
     }
 
-    // g -> h (zero-filled past C), gxin = 0
-    if (t == 0) {
-      bulk_wait_read();
-      mbar_expect_tx(&g_full[cw], kBox * M * 2);
-      load_rows<M>(h, &g_map, &g_full[cw], row, kBox, cw * kBox, kTileRows,
-                   e);
+    // g -> h (zero-filled past the expert's rows), gxin = 0
+    if constexpr (SRC == kRagged) {
+      if (t == 0) bulk_wait_read();  // H_{L-1} has left h
+      named_sync(bar, kWgThreads);
+      copy_rows<M, true>(const_cast<__nv_bfloat16*>(gather.grad), h, cw, t,
+                         er.base, row, er.count);
+      dx_epilogue<M>(acc, h, xin, true, cw, t);
+      named_sync(bar, kWgThreads);
+    } else {
+      if (t == 0) {
+        bulk_wait_read();
+        mbar_expect_tx(&g_full[cw], kBox * M * 2);
+        load_rows<M>(h, &g_map, &g_full[cw], row, kBox, cw * kBox,
+                     kTileRows, e);
+      }
+      dx_epilogue<M>(acc, h, xin, true, cw, t);
+      mbar_wait(&g_full[cw], 0);
     }
-    dx_epilogue<M>(acc, h, xin, true, cw, t);
-    mbar_wait(&g_full[cw], 0);
 
     // reverse sweep
     for (int l = L - 1; l >= 0; --l) {
@@ -245,7 +269,7 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
                                 masks + l * kMaskLayer, cw, t);
       fence_async_smem();
       named_sync(bar, kWgThreads);
-      if (t == 0) store_rows<M>(&gsave_map, h, cw, row, l * E + e);
+      if (t == 0) store_rows<M>(&gsave_map, h, cw, ws_row, ws_z(l));
       layer_product<M, 0>(acc, a, smem_u32(ring), full, empty, stage, phase);
       if (t == 0) bulk_wait_read();  // G_l has left h
       named_sync(bar, kWgThreads);
@@ -253,7 +277,9 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
     dx_epilogue<M>(acc, h, xin, false, cw, t);
     fence_async_smem();
     named_sync(bar, kWgThreads);
-    if (t == 0) {
+    if constexpr (SRC == kRagged) {
+      copy_rows<M, false>(gather.out, h, cw, t, er.base, row, er.count);
+    } else if (t == 0) {
       store_rows<M>(&dx_map, h, cw, row, e);
       bulk_wait();
     }
@@ -273,11 +299,14 @@ struct DwCfg {
   static constexpr int kBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 };
 
-template <int M>
+// counts is read with kRagged only (the workspace layers are then
+// [L, ragged_ws_rows(C, E), M] and expert e's rows start at its segment).
+template <int M, int SRC>
 __global__ void __launch_bounds__(DwCfg<M>::kThreads, 1)
 chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
               const __grid_constant__ CUtensorMap gsave_map,
-              float* __restrict__ dw, float* __restrict__ db, int E, int C) {
+              float* __restrict__ dw, float* __restrict__ db,
+              const int* __restrict__ counts, int E, int C) {
   using D = DwCfg<M>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
@@ -286,8 +315,11 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
   uint64_t* empty = full + D::kStages;
   const int m0 = blockIdx.x * D::kTM;
   const int e = blockIdx.y, l = blockIdx.z;
-  const int z = l * E + e;
-  const int chunks = (C + kBox - 1) / kBox;
+  const int z = l * E + e;  // dW / db block
+  const ExpertRows er = expert_rows<SRC>(counts, e, C);
+  const int mz = SRC == kRagged ? l : z;                // workspace z
+  const int mrow = SRC == kRagged ? (int)er.ws : 0;     // and first row
+  const int chunks = (er.count + kBox - 1) / kBox;
   if (threadIdx.x == 0) {
     for (int s = 0; s < D::kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -309,10 +341,10 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
         uint8_t* gs = hs + D::kHBytes;
         for (int p = 0; p < D::kTM / kBox; ++p)
           tma_load(hs + p * kBoxBytes, &hsave_map, &full[stage],
-                   m0 + p * kBox, ch * kBox, z);
+                   m0 + p * kBox, mrow + ch * kBox, mz);
         for (int p = 0; p < M / kBox; ++p)
           tma_load(gs + p * kBoxBytes, &gsave_map, &full[stage], p * kBox,
-                   ch * kBox, z);
+                   mrow + ch * kBox, mz);
         if (++stage == D::kStages) {
           stage = 0;
           phase ^= 1;
@@ -332,6 +364,10 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
 #pragma unroll
     for (int k = 0; k < kDbCols; ++k) db_acc[k] = 0.0f;
     float acc[M / 2];
+    if constexpr (SRC == kRagged) {  // an expert with no rows writes dW = 0
+#pragma unroll
+      for (int i = 0; i < M / 2; ++i) acc[i] = 0.0f;
+    }
     int stage = 0, prev = 0;
     uint32_t phase = 0;
     fence_acc(acc);
@@ -369,9 +405,11 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
         phase ^= 1;
       }
     }
-    wg_wait<0>();
-    fence_acc(acc);
-    mbar_arrive(&empty[prev]);
+    if (SRC != kRagged || chunks > 0) {  // else acc stays 0, as db_acc
+      wg_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(&empty[prev]);
+    }
 
     const int lane = t & 31;
     const int r = m0 + cw * 64 + (t >> 5) * 16 + (lane >> 2);
@@ -393,7 +431,7 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
 }
 
 // ------------------------------------------------------------- host ----
-template <int M, bool GATHER>
+template <int M, int SRC>
 int launch_bwd_width(const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, const void* g, void* dx,
                      void* hsave, void* gsave, float* dw, float* db, int E,
@@ -402,21 +440,28 @@ int launch_bwd_width(const void* src, const int* idx, int n_src,
   Gather gather;
   const long long LE = (long long)L * E;
   constexpr int K = Cfg<M>::kStageK;
+  // workspace layers: [L * E, C, M], or kRagged [L, ragged_ws_rows, M]
+  const long long ws_rows = SRC == kRagged ? ragged_ws_rows(C, E) : C;
+  const long long ws_outer = SRC == kRagged ? L : LE;
   int rc;
-  if ((rc = input_map<GATHER>(&x_map, &gather, src, idx, n_src, M, E, C)) !=
-      0)
+  if ((rc = input_map<SRC>(&x_map, &gather, src, idx, n_src, M, E, C)) != 0)
     return rc;
   if ((rc = make_map(&w_map, ws, M, M, LE, kBox, K)) != 0) return rc;
   if ((rc = make_map(&wt_map, ws, M, M, LE, K, kBox,
                      CU_TENSOR_MAP_SWIZZLE_64B)) != 0)
     return rc;
-  if ((rc = make_map(&g_map, g, M, C, E)) != 0) return rc;
-  if ((rc = make_map(&dx_map, dx, M, C, E)) != 0) return rc;
-  if ((rc = make_map(&h_map, hsave, M, C, LE)) != 0) return rc;
-  if ((rc = make_map(&gs_map, gsave, M, C, LE)) != 0) return rc;
+  if (SRC == kRagged) {
+    gather.grad = static_cast<const __nv_bfloat16*>(g);
+    g_map = CUtensorMap{};  // not read
+  } else if ((rc = make_map(&g_map, g, M, C, E)) != 0) {
+    return rc;
+  }
+  if ((rc = output_map<SRC>(&dx_map, &gather, dx, M, E, C)) != 0) return rc;
+  if ((rc = make_map(&h_map, hsave, M, ws_rows, ws_outer)) != 0) return rc;
+  if ((rc = make_map(&gs_map, gsave, M, ws_rows, ws_outer)) != 0) return rc;
 
   const int smem = Smem<M>(L, true).bytes;
-  auto kern = chain_bwd_sm90<M, GATHER>;
+  auto kern = chain_bwd_sm90<M, SRC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -428,21 +473,23 @@ int launch_bwd_width(const void* src, const int* idx, int n_src,
   if (err != cudaSuccess) return (int)err;
 
   using D = DwCfg<M>;
-  auto kern2 = chain_dw_sm90<M>;
+  auto kern2 = chain_dw_sm90<M, SRC>;
   err = cudaFuncSetAttribute(
       kern2, cudaFuncAttributeMaxDynamicSharedMemorySize, D::kBytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid2(M / D::kTM, E, L);
-  kern2<<<grid2, D::kThreads, D::kBytes, stream>>>(h_map, gs_map, dw, db, E,
-                                                    C);
+  kern2<<<grid2, D::kThreads, D::kBytes, stream>>>(h_map, gs_map, dw, db, idx,
+                                                    E, C);
   return (int)cudaGetLastError();
 }
 
-// Returns a cudaError_t code (0 = launched). src is x [E, C, M] or, with
-// GATHER, the token rows [n_src, M] that idx [E * C] names (dx is then
-// d(dispatched) [E, C, M]). hsave and gsave are [L, E, C, M] bf16
-// workspaces; dw [L, E, M, M] and db [L, E, 1, M] fp32.
-template <bool GATHER>
+// Returns a cudaError_t code (0 = launched). src is x [E, C, M], with
+// kGather the token rows [n_src, M] that idx [E * C] names (dx is then
+// d(dispatched) [E, C, M]), with kRagged x [C, M] sorted by expert and idx
+// the counts [E] (g and dx [C, M]). hsave and gsave are bf16 workspaces
+// [L, E, C, M] (kRagged: [L, ragged_ws_rows(C, E), M]); dw [L, E, M, M]
+// and db [L, E, 1, M] fp32.
+template <int SRC>
 int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, const void* g, void* dx,
                      void* hsave, void* gsave, float* dw, float* db, int E,
@@ -454,17 +501,17 @@ int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (M) {
     case 64:
-      return launch_bwd_width<64, GATHER>(src, idx, n_src, ws, bs, g, dx,
-                                          hsave, gsave, dw, db, E, C, L,
-                                          skip_mask, s);
+      return launch_bwd_width<64, SRC>(src, idx, n_src, ws, bs, g, dx,
+                                       hsave, gsave, dw, db, E, C, L,
+                                       skip_mask, s);
     case 128:
-      return launch_bwd_width<128, GATHER>(src, idx, n_src, ws, bs, g, dx,
-                                           hsave, gsave, dw, db, E, C, L,
-                                           skip_mask, s);
+      return launch_bwd_width<128, SRC>(src, idx, n_src, ws, bs, g, dx,
+                                        hsave, gsave, dw, db, E, C, L,
+                                        skip_mask, s);
     case 256:
-      return launch_bwd_width<256, GATHER>(src, idx, n_src, ws, bs, g, dx,
-                                           hsave, gsave, dw, db, E, C, L,
-                                           skip_mask, s);
+      return launch_bwd_width<256, SRC>(src, idx, n_src, ws, bs, g, dx,
+                                        hsave, gsave, dw, db, E, C, L,
+                                        skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,9 +1,10 @@
 // Per-expert L-layer MLP chain, bf16 forward, for Hopper (sm_90a): the
-// mainloop of K1 (expert_chain.cu), of K3 (fused_dispatch.cu) and of the
-// first passes of K2 and K4 (chain_bwd_sm90.cuh).
+// mainloop of K1 (expert_chain.cu), of K3 (fused_dispatch.cu), of K1R
+// (ragged_chain.cu) and of the first passes of K2, K4 and K2R
+// (chain_bwd_sm90.cuh).
 //
 // Replaces the bf16 case of switch_nerf_tpu/ops/expert_kernel.py:_fwd_call
-// (Pallas _fwd_kernel) and, with GATHER set, of
+// (Pallas _fwd_kernel) and, with kGather (rows.cuh), of
 // switch_nerf_tpu/ops/fused_dispatch.py:_fwd_call (_gather_block +
 // _chain_fwd_from). One launch at the Building shape (E8 C4096 M256 L7)
 // does 2*E*C*M^2*L = 30.1 GFLOP against ~41 MB of x, W and out: far above
@@ -37,7 +38,7 @@
 //    C within an expert are zero-filled on load and clipped on store.
 //    Tensor maps are encoded on the host for each call, through
 //    cudaGetDriverEntryPoint, so the library needs no -lcuda.
-//  - GATHER (K3, K4): TMA cannot gather rows, so the input tile comes from
+//  - kGather (K3, K4): TMA cannot gather rows, so the input tile comes from
 //    tokens[idx[e * C + row]] by cp.async instead, copied by the whole
 //    producer warpgroup (one 16-byte chunk a lane, one coalesced row per
 //    warp request at M = 256) into the same swizzled layout, zero-filled
@@ -46,6 +47,12 @@
 //    starts the ring's first W stages before that wait, so the gather
 //    overlaps them, and only then enters the blocking part of the W
 //    stream. Everything after the input tile is K1's.
+//  - kRagged (K1R, K2R; rows.cuh): x [N, M] sorted by expert, counts on
+//    the device. A TMA box cannot stop at an expert's last row, so the
+//    input tile comes in by kGather's cp.async copy (row off[e] + r,
+//    zero-filled past counts[e]), and each consumer warpgroup stores its
+//    rows of the output with 16-byte stores that stop at the expert's last
+//    row. A CTA whose tile starts past counts[e] exits at once.
 // wgmma sums k in another order than cuBLAS: the result is no longer
 // bit-equal to the plain chain, and stays within bf16 rounding of it.
 #pragma once
@@ -55,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "rows.cuh"
 
 namespace sm90 {
 
@@ -397,34 +406,45 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map,
                row + r, z);
 }
 
-// The rows a GATHER kernel reads: tile row r of expert e is
-// tokens[idx[e * C + r]], every index in [0, n_src).
+// The rows a kGather or kRagged kernel reads and writes without tensor
+// maps. kGather: tile row r of expert e is tokens[idx[e * C + r]], every
+// index in [0, n_src). kRagged: tokens is x [N, M] (n_src = C = N), idx
+// the counts [E], out the output [N, M] (the backward's dx) and grad the
+// backward's cotangent [N, M].
 struct Gather {
   const __nv_bfloat16* tokens;
   const int* idx;
   int n_src;
   int C;
+  __nv_bfloat16* out;
+  const __nv_bfloat16* grad;
 };
 
-// Start the cp.async copies of the 128-row tile at row0 of expert e into h
-// and xin, by producer thread t (0..127). Warp w owns tile rows
-// 32w .. 32w + 31: lane j reads and checks the index of row 32w + j, and
-// each step copies 32 chunks of 16 bytes (one row at M = 256, two at 128,
-// four at 64) with the row's index taken from its lane by a shuffle. Rows
-// at or past C are zero-filled from a valid address. An index out of range
-// stops the kernel (device-side assert).
-template <int M>
+// Start the cp.async copies of the 128-row tile at row0 of expert e (rows
+// er) into h and xin, by producer thread t (0..127). Warp w owns tile rows
+// 32w .. 32w + 31: lane j finds the source of row 32w + j (kGather: reads
+// and checks its index), and each step copies 32 chunks of 16 bytes (one
+// row at M = 256, two at 128, four at 64) with the row's source taken from
+// its lane by a shuffle. Rows past the expert's last are zero-filled from
+// a valid address. An index out of range stops the kernel (device-side
+// assert).
+template <int M, int SRC>
 __device__ __forceinline__ void gather_rows(uint8_t* h, uint8_t* xin,
-                                            const Gather& g, int e, int row0,
+                                            const Gather& g,
+                                            const ExpertRows& er, int row0,
                                             int t) {
   constexpr int kChunks = M / 8;             // 16-byte chunks per row
   constexpr int kRowsPerStep = 32 / kChunks;
   const int warp = t >> 5, lane = t & 31;
   const int my_row = row0 + 32 * warp + lane;
-  int tok = -1;                              // -1: past C
-  if (my_row < g.C) {
-    tok = g.idx[(size_t)e * g.C + my_row];
-    if (tok < 0 || tok >= g.n_src) __trap();
+  int tok = -1;                              // -1: past the expert's rows
+  if (my_row < er.count) {
+    if (SRC == kGather) {
+      tok = g.idx[er.base + my_row];
+      if (tok < 0 || tok >= g.n_src) __trap();
+    } else {
+      tok = (int)(er.base + my_row);
+    }
   }
   const uint32_t h_s = smem_u32(h), x_s = smem_u32(xin);
 #pragma unroll 4
@@ -442,24 +462,26 @@ __device__ __forceinline__ void gather_rows(uint8_t* h, uint8_t* xin,
   }
 }
 
-// The producer warpgroup's start, by producer thread t: with GATHER, start
-// the tile's row gather, let thread 0 fill the fresh ring's first stages
-// (load_w(j) loads W stage j), wait for the copies, fence them to the
-// async proxy (wgmma reads through it) and arrive on x_full (count 128).
-// Without, thread 0 loads the tile into h and xin by TMA. Returns the
-// number of W stages thread 0 has started. Thread 0 arrives before it
+// The producer warpgroup's start, by producer thread t: with kGather or
+// kRagged, start the tile's row copies, let thread 0 fill the fresh ring's
+// first stages (load_w(j) loads W stage j), wait for the copies, fence them
+// to the async proxy (wgmma reads through it) and arrive on x_full (count
+// 128). In place, thread 0 loads the tile into h and xin by TMA. Returns
+// the number of W stages thread 0 has started. Thread 0 arrives before it
 // blocks on a ring stage: those clear only once the consumers, who wait
 // for x_full, run.
-template <int M, bool GATHER, typename LoadW>
+template <int M, int SRC, typename LoadW>
 __device__ __forceinline__ int produce_input(const CUtensorMap* x_map,
-                                             const Gather& g, uint8_t* h,
-                                             uint8_t* xin, uint64_t* x_full,
-                                             int e, int row0, int t, int n_w,
+                                             const Gather& g,
+                                             const ExpertRows& er,
+                                             uint8_t* h, uint8_t* xin,
+                                             uint64_t* x_full, int e,
+                                             int row0, int t, int n_w,
                                              LoadW load_w) {
   using C = Cfg<M>;
   int j = 0;
-  if constexpr (GATHER) {
-    gather_rows<M>(h, xin, g, e, row0, t);
+  if constexpr (SRC != kInPlace) {
+    gather_rows<M, SRC>(h, xin, g, er, row0, t);
     if (t == 0)
       for (; j < n_w && j < C::kStages; ++j) load_w(j);
     cp_async_wait_all();
@@ -472,6 +494,30 @@ __device__ __forceinline__ int produce_input(const CUtensorMap* x_map,
     load_rows<M>(xin, x_map, x_full, row0, kTileRows, 0, kTileRows, e);
   }
   return j;
+}
+
+// Copy the 64 rows of warpgroup `cw` of a 128-row tile between the tile
+// and rows base + row .. of a [., M] array, by warpgroup thread t, in
+// 16-byte chunks (consecutive threads, consecutive chunks of a row). Only
+// rows row + r < count move; a load zero-fills the tile's other rows.
+// kRagged's loads and stores: a TMA box would cross into the next expert.
+template <int M, bool LOAD>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* mem, uint8_t* tile,
+                                          int cw, int t, long long base,
+                                          int row, int count) {
+  constexpr int kChunks = M / 8;
+#pragma unroll 4
+  for (int i = t; i < kBox * kChunks; i += kWgThreads) {
+    const int r = i / kChunks, ch = i % kChunks;
+    uint4* s = reinterpret_cast<uint4*>(
+        tile + swz<kTileRows>(cw * kBox + r, ch * 8));
+    const bool in = row + r < count;
+    uint4* gm = reinterpret_cast<uint4*>(mem + (base + row + r) * M + ch * 8);
+    if (LOAD)
+      *s = in ? *gm : make_uint4(0u, 0u, 0u, 0u);
+    else if (in)
+      *gm = *s;
+  }
 }
 
 // Store the 64 rows of warpgroup `cw` of a 128-row tile to rows
@@ -584,9 +630,10 @@ __device__ __forceinline__ void fwd_epilogue(float (&acc)[M / 2], uint8_t* h,
   }
 }
 
-// ----------------------------------------------------------- K1, K3 ----
-// x_map is read without GATHER, g with it.
-template <int M, bool GATHER>
+// ------------------------------------------------------ K1, K3, K1R ----
+// x_map is read in place, g otherwise; out_map is written unless kRagged
+// (g.out then).
+template <int M, int SRC>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
                const __grid_constant__ CUtensorMap w_map,
@@ -607,12 +654,14 @@ chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
 
   const int e = blockIdx.y;
   const int row0 = blockIdx.x * kTileRows;
+  const ExpertRows er = expert_rows<SRC>(g.idx, e, g.C);
+  if (SRC == kRagged && row0 >= er.count) return;  // past its rows
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * kWgThreads);
     }
-    mbar_init(x_full, GATHER ? kWgThreads : 1);
+    mbar_init(x_full, SRC != kInPlace ? kWgThreads : 1);
     fence_barrier_init();
   }
   load_bias<M>(bias, bs, E, e, L);
@@ -627,8 +676,8 @@ chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
                              stage, phase);
     };
     const int n_w = L * C::kKChunks;
-    int j = produce_input<M, GATHER>(&x_map, g, h, xin, x_full, e, row0,
-                                     threadIdx.x, n_w, load_w);
+    int j = produce_input<M, SRC>(&x_map, g, er, h, xin, x_full, e, row0,
+                                  threadIdx.x, n_w, load_w);
     regs_dec<kProducerRegs>();
     if (threadIdx.x == 0)
       for (; j < n_w; ++j) load_w(j);
@@ -648,7 +697,10 @@ chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
       fence_async_smem();
       named_sync(1 + cw, kWgThreads);
     }
-    if (t == 0) {
+    if constexpr (SRC == kRagged) {
+      copy_rows<M, false>(g.out, h, cw, t, er.base, row0 + cw * kBox,
+                          er.count);
+    } else if (t == 0) {
       store_rows<M>(&out_map, h, cw, row0 + cw * kBox, e);
       bulk_wait();
     }
@@ -694,33 +746,48 @@ inline int make_map(CUtensorMap* map, const void* ptr, int m, long long rows,
 }
 
 // The input of a chain launch: x [E, C, M] read in place (a tensor map), or
-// with GATHER the rows g names.
-template <bool GATHER>
+// the rows g names (kGather, kRagged).
+template <int SRC>
 inline int input_map(CUtensorMap* x_map, Gather* g, const void* src,
                      const int* idx, int n_src, int M, int E, int C) {
-  *g = Gather{static_cast<const __nv_bfloat16*>(src), idx, n_src, C};
-  if (GATHER) {
+  *g = Gather{static_cast<const __nv_bfloat16*>(src), idx, n_src, C,
+              nullptr, nullptr};
+  if (SRC != kInPlace) {
     *x_map = CUtensorMap{};  // not read
     return 0;
   }
   return make_map(x_map, src, M, C, E);
 }
 
-template <int M, bool GATHER>
+// A chain launch's [E, C, M] output or dx by tensor map, or (kRagged) the
+// [C, M] array itself through g (store: g->out, else g->grad is set by the
+// caller).
+template <int SRC>
+inline int output_map(CUtensorMap* map, Gather* g, void* out, int M, int E,
+                      int C) {
+  if (SRC == kRagged) {
+    g->out = static_cast<__nv_bfloat16*>(out);
+    *map = CUtensorMap{};  // not written
+    return 0;
+  }
+  return make_map(map, out, M, C, E);
+}
+
+template <int M, int SRC>
 int launch_fwd_width(const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, void* out, int E, int C,
                      int L, unsigned skip_mask, cudaStream_t stream) {
   CUtensorMap x_map, w_map, out_map;
   Gather g;
   int rc;
-  if ((rc = input_map<GATHER>(&x_map, &g, src, idx, n_src, M, E, C)) != 0)
+  if ((rc = input_map<SRC>(&x_map, &g, src, idx, n_src, M, E, C)) != 0)
     return rc;
   if ((rc = make_map(&w_map, ws, M, M, (long long)L * E, kBox,
                      Cfg<M>::kStageK)) != 0)
     return rc;
-  if ((rc = make_map(&out_map, out, M, C, E)) != 0) return rc;
+  if ((rc = output_map<SRC>(&out_map, &g, out, M, E, C)) != 0) return rc;
   const int smem = Smem<M>(L, false).bytes;
-  auto kern = chain_fwd_sm90<M, GATHER>;
+  auto kern = chain_fwd_sm90<M, SRC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -731,11 +798,12 @@ int launch_fwd_width(const void* src, const int* idx, int n_src,
   return (int)cudaGetLastError();
 }
 
-// Returns a cudaError_t code (0 = launched). src is x [E, C, M] or, with
-// GATHER, the token rows [n_src, M] that idx [E * C] names. Widths other
-// than 64/128/256 are refused with cudaErrorInvalidValue; the Python
-// wrappers check first.
-template <bool GATHER>
+// Returns a cudaError_t code (0 = launched). src is x [E, C, M], with
+// kGather the token rows [n_src, M] that idx [E * C] names, with kRagged
+// x [C, M] sorted by expert and idx the counts [E] (out is then [C, M]).
+// Widths other than 64/128/256 are refused with cudaErrorInvalidValue; the
+// Python wrappers check first.
+template <int SRC>
 int launch_chain_fwd(int device, const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, void* out, int E, int C,
                      int M, int L, unsigned skip_mask, void* stream) {
@@ -745,14 +813,14 @@ int launch_chain_fwd(int device, const void* src, const int* idx, int n_src,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (M) {
     case 64:
-      return launch_fwd_width<64, GATHER>(src, idx, n_src, ws, bs, out, E, C,
-                                          L, skip_mask, s);
+      return launch_fwd_width<64, SRC>(src, idx, n_src, ws, bs, out, E, C, L,
+                                       skip_mask, s);
     case 128:
-      return launch_fwd_width<128, GATHER>(src, idx, n_src, ws, bs, out, E,
-                                           C, L, skip_mask, s);
+      return launch_fwd_width<128, SRC>(src, idx, n_src, ws, bs, out, E, C, L,
+                                        skip_mask, s);
     case 256:
-      return launch_fwd_width<256, GATHER>(src, idx, n_src, ws, bs, out, E,
-                                           C, L, skip_mask, s);
+      return launch_fwd_width<256, SRC>(src, idx, n_src, ws, bs, out, E, C, L,
+                                        skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

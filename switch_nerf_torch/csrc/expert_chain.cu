@@ -11,10 +11,11 @@ extern "C" int expert_chain_fwd(int device, const void* x, const void* ws,
                                 int M, int L, unsigned skip_mask, int is_bf16,
                                 void* stream) {
   if (is_bf16)
-    return sm90::launch_chain_fwd<false>(device, x, nullptr, 0, ws, bs, out,
-                                         E, C, M, L, skip_mask, stream);
-  return launch_chain<false>(device, x, nullptr, 0, ws, bs, out, E, C, M, L,
-                             skip_mask, stream);
+    return sm90::launch_chain_fwd<kInPlace>(device, x, nullptr, 0, ws, bs,
+                                            out, E, C, M, L, skip_mask,
+                                            stream);
+  return launch_chain<kInPlace>(device, x, nullptr, 0, ws, bs, out, E, C, M,
+                                L, skip_mask, stream);
 }
 
 extern "C" const char* expert_chain_error_string(int code) {

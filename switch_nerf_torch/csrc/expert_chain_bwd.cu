@@ -14,12 +14,12 @@ extern "C" int expert_chain_bwd(int device, const void* x, const void* ws,
                                 unsigned skip_mask, int is_bf16,
                                 void* stream) {
   if (is_bf16)
-    return sm90::launch_chain_bwd<false>(device, x, nullptr, 0, ws, bs, g,
-                                         dx, hsave, gsave, dw, db, E, C, M,
-                                         L, skip_mask, stream);
-  return launch_chain_bwd<false>(device, x, nullptr, 0, ws, bs, g, dx, hsave,
-                                 gsave, dw, db, E, C, M, L, skip_mask,
-                                 stream);
+    return sm90::launch_chain_bwd<kInPlace>(device, x, nullptr, 0, ws, bs, g,
+                                            dx, hsave, gsave, dw, db, E, C,
+                                            M, L, skip_mask, stream);
+  return launch_chain_bwd<kInPlace>(device, x, nullptr, 0, ws, bs, g, dx,
+                                    hsave, gsave, dw, db, E, C, M, L,
+                                    skip_mask, stream);
 }
 
 // The most layers the kernel takes at width M (fp32: 32, the wrapper's

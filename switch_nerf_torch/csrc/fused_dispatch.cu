@@ -16,10 +16,11 @@ extern "C" int fused_dispatch_fwd(int device, const void* tokens,
                                   unsigned skip_mask, int is_bf16,
                                   void* stream) {
   if (is_bf16)
-    return sm90::launch_chain_fwd<true>(device, tokens, stt, n_tokens, ws, bs,
-                                        out, E, C, M, L, skip_mask, stream);
-  return launch_chain<true>(device, tokens, stt, n_tokens, ws, bs, out, E, C,
-                            M, L, skip_mask, stream);
+    return sm90::launch_chain_fwd<kGather>(device, tokens, stt, n_tokens, ws,
+                                           bs, out, E, C, M, L, skip_mask,
+                                           stream);
+  return launch_chain<kGather>(device, tokens, stt, n_tokens, ws, bs, out, E,
+                               C, M, L, skip_mask, stream);
 }
 
 extern "C" const char* fused_dispatch_error_string(int code) {

@@ -16,12 +16,12 @@ extern "C" int fused_dispatch_bwd(int device, const void* tokens,
                                   int C, int M, int L, unsigned skip_mask,
                                   int is_bf16, void* stream) {
   if (is_bf16)
-    return sm90::launch_chain_bwd<true>(device, tokens, stt, n_tokens, ws, bs,
-                                        g, dxd, hsave, gsave, dw, db, E, C, M,
-                                        L, skip_mask, stream);
-  return launch_chain_bwd<true>(device, tokens, stt, n_tokens, ws, bs, g, dxd,
-                                hsave, gsave, dw, db, E, C, M, L, skip_mask,
-                                stream);
+    return sm90::launch_chain_bwd<kGather>(device, tokens, stt, n_tokens, ws,
+                                           bs, g, dxd, hsave, gsave, dw, db,
+                                           E, C, M, L, skip_mask, stream);
+  return launch_chain_bwd<kGather>(device, tokens, stt, n_tokens, ws, bs, g,
+                                   dxd, hsave, gsave, dw, db, E, C, M, L,
+                                   skip_mask, stream);
 }
 
 // The most layers the kernel takes at width M (fp32: 32, the wrapper's

@@ -1,10 +1,11 @@
 """Stacked expert MLPs: the FLOP core of the MoE layer.
 
-Port of ``switch_nerf_tpu/models/experts.py:28-103`` (ExpertMLP, padded and
-fused-dispatch forms). Parameters w{i} [E, M, M] and b{i} [E, 1, M] keep the
-JAX layout. On the card both forms run hand-written kernels, forward and
-backward (``ops/expert_kernel`` K1/K2, ``ops/fused_dispatch`` K3/K4); on
-the CPU their plain versions.
+Port of ``switch_nerf_tpu/models/experts.py:28-103`` (ExpertMLP, padded,
+ragged and fused-dispatch forms). Parameters w{i} [E, M, M] and b{i}
+[E, 1, M] keep the JAX layout. On the card every form runs hand-written
+kernels, forward and backward (``ops/expert_kernel`` K1/K2,
+``ops/ragged_chain`` K1R/K2R, ``ops/fused_dispatch`` K3/K4); on the CPU
+their plain versions.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 from switch_nerf_torch.models.common import uniform_fan_in
 from switch_nerf_torch.ops.expert_kernel import expert_mlp_chain
 from switch_nerf_torch.ops.fused_dispatch import fused_dispatch_chain
+from switch_nerf_torch.ops.ragged_chain import ragged_chain
 
 
 class ExpertMLP(nn.Module):
@@ -45,6 +47,16 @@ class ExpertMLP(nn.Module):
         """Padded form: x [E, C, M] -> [E, C, M]."""
         ws, bs = self.stacked(x.dtype)
         return expert_mlp_chain(x, ws, bs, self.skips)
+
+    def ragged(self, x: torch.Tensor, counts: torch.Tensor,
+               row_expert: torch.Tensor) -> torch.Tensor:
+        """Ragged form: x [N, M] sorted by expert, counts [E] int32 on x's
+        device -> [N, M]. row_expert [N] (each row's expert) is the JAX
+        signature's; the kernel finds each expert's rows from the counts,
+        so it is not read."""
+        del row_expert
+        ws, bs = self.stacked(x.dtype)
+        return ragged_chain(x, counts, ws, bs, self.skips)
 
     def fused_dispatch(self, tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
                        slot: torch.Tensor, kept: torch.Tensor) -> torch.Tensor:

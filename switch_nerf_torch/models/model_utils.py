@@ -1,8 +1,9 @@
 """Model factories: hparams -> nn.Module on the chosen device.
 
-Port of ``switch_nerf_tpu/models/model_utils.py`` for the non-cascade,
-non-mip configs: ``get_nerf`` builds the NeRFMoE (``--use_moe``) or the
-dense NeRF, ``get_bg_nerf`` the dense background NeRF. Weights are drawn
+Port of ``switch_nerf_tpu/models/model_utils.py`` for the non-cascade
+configs: ``get_nerf`` builds the NeRFMoE or, with --use_mip or
+--nerfmoe_class_name MipNeRFMoE, the MipNeRFMoE (``--use_moe``), or the
+dense NeRF; ``get_bg_nerf`` the dense background NeRF. Weights are drawn
 from a ``torch.Generator`` seeded with ``seed`` (default
 ``--random_seed``) on the CPU, then moved to the device.
 """
@@ -18,7 +19,7 @@ from switch_nerf_torch import resolve_device
 from switch_nerf_torch.models.nerf import NeRF
 from switch_nerf_torch.models.nerf_moe import NeRFMoE
 
-__all__ = ["get_nerf", "get_bg_nerf", "eval_dispatch"]
+__all__ = ["get_nerf", "get_bg_nerf", "eval_dispatch", "use_mip"]
 
 
 def _compute_dtype(hparams) -> torch.dtype:
@@ -54,21 +55,30 @@ def _rgb_dim(hparams) -> int:
     return 3
 
 
-def _check_supported(hparams) -> None:
+def use_mip(hparams) -> bool:
+    """Mip-ness as the JAX package decides it: --use_mip or the MipNeRFMoE
+    class name."""
     class_name = getattr(hparams, "nerfmoe_class_name", "NeRFMoE") or "NeRFMoE"
+    return class_name == "MipNeRFMoE" or bool(getattr(hparams, "use_mip",
+                                                      False))
+
+
+def _check_supported(hparams) -> None:
     for flag, on in (("use_cascade", hparams.use_cascade),
-                     ("use_mip", hparams.use_mip or class_name == "MipNeRFMoE"),
                      ("affine_appearance", hparams.affine_appearance)):
         if on:
             raise NotImplementedError(
                 f"--{flag} waits for a later slice of the port")
+    if use_mip(hparams) and not getattr(hparams, "use_moe", False):
+        raise NotImplementedError(
+            "a dense mip NeRF waits for a later slice of the port")
 
 
 def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
     layer_cfg = dict(hparams.model)
     layer_cfg.setdefault("expert_num", hparams.moe_expert_num)
-    # no-drop dispatch (or gate noise) raises when a forward in that mode
-    # runs or a train state is built (MoELayer.check_supported)
+    # gate noise raises when a train state is built
+    # (MoELayer.check_supported)
     if not getattr(hparams, "no_expert_parallel", True):
         raise NotImplementedError("expert parallelism waits for a later slice")
     if (hparams.moe_use_residual or hparams.use_load_importance_loss
@@ -84,6 +94,7 @@ def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
         appearance_count=appearance_count,
         rgb_dim=_rgb_dim(hparams),
         shifted_softplus_sigma=hparams.shifted_softplus,
+        use_mip=use_mip(hparams),
         moe_capacity_factor=hparams.moe_capacity_factor,
         batch_prioritized_routing=hparams.batch_prioritized_routing,
         dispatcher_no_score=hparams.dispatcher_no_score,

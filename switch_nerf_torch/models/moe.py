@@ -1,16 +1,15 @@
-"""Switch-gated Mixture-of-Experts layer, top-1, capacity-padded.
+"""Switch-gated Mixture-of-Experts layer, top-1.
 
-Port of ``switch_nerf_tpu/models/moe.py:39-239`` in padded dispatch mode,
-for eval and training: fp32 gate, ``extract_critical`` (with BPR), the
-load-balance ``l_aux``, ``return_gates``, and ``_padded_path`` including the
-fused dispatch+chain branch behind ``SWITCH_NERF_FUSED_DISPATCH=1``. The
-dispatch mode follows ``train`` as JAX's follows ``deterministic``
-(``moe.py:127``); a layer whose train or eval dispatch is no-drop builds,
-and raises when a forward in that mode runs. The no-drop path, expert
-parallelism, residual MoE, gate
-noise (a training-only draw, off in every published Building command; the
-JAX layer's normal noise has no flag that sets it) and the load-importance
-loss wait for later slices.
+Port of ``switch_nerf_tpu/models/moe.py:39-284`` for eval and training:
+fp32 gate, ``extract_critical`` (with BPR), the load-balance ``l_aux``,
+``return_gates``, ``_padded_path`` (capacity-padded dispatch, including the
+fused dispatch+chain branch behind ``SWITCH_NERF_FUSED_DISPATCH=1``) and
+``_nodrop_path`` (sort by expert, the ragged chain K1R/K2R, inverse
+permutation; no token dropped). The dispatch mode follows ``train`` as
+JAX's follows ``deterministic`` (``moe.py:127``). Expert parallelism,
+residual MoE, gate noise (a training-only draw, off in every published
+command; the JAX layer's normal noise has no flag that sets it) and the
+load-importance loss wait for later slices.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ from switch_nerf_torch.ops.dispatch import (
 from switch_nerf_torch.ops.fused_dispatch import (
     fused_slot_map, fused_supported)
 from switch_nerf_torch.ops.routing import extract_critical
+from switch_nerf_torch.ops.sorting import sort_with_payloads
 
 
 class MoELayer(nn.Module):
@@ -64,19 +64,7 @@ class MoELayer(nn.Module):
 
     def check_supported(self, train: bool) -> None:
         """Raise on what the port does not run yet in this mode."""
-        if not train:
-            if self.eval_dispatch != "padded":
-                raise NotImplementedError(
-                    "eval in no-drop dispatch waits for the port's no-drop "
-                    "dispatch (ROADMAP Queue A item 6); pass --moe_test_batch "
-                    "(every published eval command does)")
-            return
-        if self.train_dispatch != "padded":
-            raise NotImplementedError(
-                f"training in {self.train_dispatch!r} dispatch waits for a "
-                "later slice of the port; pass --moe_train_batch (every "
-                "published training command does)")
-        if self.gate_noise > 0:
+        if train and self.gate_noise > 0:
             raise NotImplementedError(
                 "gate noise waits for a later slice of the port (off in "
                 "every published Building command)")
@@ -94,7 +82,12 @@ class MoELayer(nn.Module):
         plan, l_aux = extract_critical(gates, self.top_k,
                                        self.capacity_factor,
                                        self.batch_prioritized_routing)
-        y = self._padded_path(x, plan).to(x.dtype)
+        mode = self.train_dispatch if train else self.eval_dispatch
+        if mode == "nodrop":
+            y = self._nodrop_path(x, plan)
+        else:
+            y = self._padded_path(x, plan)
+        y = y.to(x.dtype)
         extras = {}
         if self.return_gates:
             extras["gates"] = plan.indices.t()                     # [S, K]
@@ -122,6 +115,31 @@ class MoELayer(nn.Module):
                 no_score=self.no_score))                           # [E, C, M]
         return combine(expert_out, dp, is_postscore=self.is_postscore,
                        no_score=self.no_score)
+
+    def _nodrop_path(self, x: torch.Tensor, plan) -> torch.Tensor:
+        """Sort by expert + the ragged chain; no token dropped (JAX
+        ``moe.py:241-284``). The stable sort carries each row's token and
+        gate; x[row_token] is scaled by the gate here unless postscore or
+        no_score; the inverse permutation (a second payload sort) gathers
+        the expert outputs back in their own dtype, cast to fp32 for the
+        gate multiply and the sum over k. The counts stay on the device:
+        no host sync. Gradients flow through the gathers."""
+        k, s = plan.indices.shape
+        flat_expert = plan.indices.reshape(-1).to(torch.int32)
+        gates_flat = plan.gates.reshape(-1).float()
+        iota = torch.arange(k * s, dtype=torch.int32, device=x.device)
+        row_expert, order, sorted_gates = sort_with_payloads(
+            flat_expert, iota, gates_flat)
+        row_token = (order % s).long()
+        xs = x[row_token]                                          # [K*S, M]
+        if not (self.is_postscore or self.no_score):
+            xs = xs * sorted_gates[:, None].to(xs.dtype)
+        ys = self.experts.ragged(xs, plan.expert_counts, row_expert)
+        _, inv = sort_with_payloads(order, iota)
+        rows = ys[inv.long()].float().reshape(k, s, -1)
+        if self.no_score or not self.is_postscore:
+            return rows.sum(dim=0)
+        return torch.sum(rows * plan.gates[..., None], dim=0)
 
     def _use_fused_dispatch(self, x: torch.Tensor, dp: DispatchPlan) -> bool:
         """Opt-in (SWITCH_NERF_FUSED_DISPATCH=1), read at each call as the

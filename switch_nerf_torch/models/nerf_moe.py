@@ -1,7 +1,9 @@
-"""Config-driven NeRF-MoE layer graph (non-mip).
+"""Config-driven NeRF-MoE layer graph, and its mip variant.
 
-Port of ``switch_nerf_tpu/models/nerf_moe.py:29-268`` with layer types
-mlp / moe / layernorm. The YAML "model" dict names the stem ("xyz"), the
+Port of ``switch_nerf_tpu/models/nerf_moe.py:29-274`` with layer types
+mlp / moe / layernorm. ``MipNeRFMoE`` (``use_mip``) takes a 6-wide
+(mean, diagonal covariance) xyz input through ``mip_encode`` in place of
+the 3-wide point through ``freq_encode``; the graph is the same. The YAML "model" dict names the stem ("xyz"), the
 trunk tags 0..N-1, the heads ("sigma", "color"), and the optional external
 gate MLP and gate-input LayerNorm that feed every MoE gate. The walk taps
 sigma at `sigma_tag` (fp32 unless bf16 sigma is asked for), appends viewdir
@@ -17,7 +19,8 @@ from torch import nn
 from switch_nerf_torch.models.common import Embedding, LayerNorm, apply_act
 from switch_nerf_torch.models.mlp import Mlp
 from switch_nerf_torch.models.moe import MoELayer
-from switch_nerf_torch.ops.encoding import freq_encode, shifted_softplus
+from switch_nerf_torch.ops.encoding import (freq_encode, mip_encode,
+                                            shifted_softplus)
 
 
 class NeRFMoE(nn.Module):
@@ -25,6 +28,7 @@ class NeRFMoE(nn.Module):
                  pos_dir_dim: int = 4, appearance_dim: int = 48,
                  appearance_count: int = 0, rgb_dim: int = 3,
                  xyz_dim: int = 3, shifted_softplus_sigma: bool = True,
+                 use_mip: bool = False,
                  moe_capacity_factor: float = 1.0,
                  batch_prioritized_routing: bool = False,
                  dispatcher_no_score: bool = False, is_postscore: bool = True,
@@ -40,6 +44,7 @@ class NeRFMoE(nn.Module):
         self.pos_xyz_dim, self.pos_dir_dim = pos_xyz_dim, pos_dir_dim
         self.appearance_dim = appearance_dim
         self.rgb_dim, self.xyz_dim = rgb_dim, xyz_dim
+        self.use_mip = use_mip
         self.shifted_softplus_sigma = shifted_softplus_sigma
         self.use_moe_external_gate = use_moe_external_gate
         self.use_gate_input_norm = use_gate_input_norm
@@ -124,21 +129,25 @@ class NeRFMoE(nn.Module):
     def forward(self, x: torch.Tensor,
                 sigma_noise: Optional[torch.Tensor] = None,
                 train: bool = False) -> Dict[str, Any]:
-        """x: [S, 3 + 3 (+1 appearance idx)]; sigma_noise: [S, 1] added to
-        the raw sigma before its activation (training only); `train` picks
-        the MoE layers' train dispatch."""
+        """x: [S, 3 (mip: 6) + 3 (+1 appearance idx)]; sigma_noise: [S, 1]
+        added to the raw sigma before its activation (training only);
+        `train` picks the MoE layers' train dispatch."""
         cfgs = self.layer_cfg["layers"]
         sigma_tag = str(self.layer_cfg["sigma_tag"])
         dir_tag = str(self.layer_cfg["dir_tag"])
         color_tag = str(self.layer_cfg["color_tag"])
-        xd = self.xyz_dim
+        xd = self.xyz_dim * (2 if self.use_mip else 1)
         has_app = self.appearance_dim > 0
         expected = xd + 3 + (1 if has_app else 0)
         if x.shape[-1] != expected:
             raise ValueError(f"Unexpected input shape {tuple(x.shape)}: "
                              f"expected last dim {expected}")
 
-        h = freq_encode(x[:, :xd].to(self.compute_dtype), self.pos_xyz_dim)
+        xin = x[:, :xd].to(self.compute_dtype)
+        if self.use_mip:
+            h = mip_encode(xin, self.pos_xyz_dim, input_dims=self.xyz_dim)
+        else:
+            h = freq_encode(xin, self.pos_xyz_dim)
         h = apply_act(cfgs["xyz"].get("act", "none"), self.layer_xyz(h))
 
         gate_feat = None
@@ -189,3 +198,9 @@ class NeRFMoE(nn.Module):
         if moe_loss:
             extras["moe_loss"] = torch.stack(moe_loss)
         return {"outputs": outputs, "extras": extras}
+
+
+def MipNeRFMoE(**kwargs) -> NeRFMoE:
+    """The mip variant (JAX ``nerf_moe.py:271``): ``NeRFMoE`` with the
+    integrated positional encoding over (mean, diagonal covariance)."""
+    return NeRFMoE(use_mip=True, **kwargs)

@@ -56,6 +56,9 @@ class RenderConfig:
     use_random_background_color: bool = False  # train only
     use_sigma_noise: bool = False              # train only
     sigma_noise_std: float = 1.0
+    rgb_padding: Optional[float] = None        # mip only
+    weights_resample_padding: float = 0.01     # mip only
+    stop_level_grad: bool = True               # mip only
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,7 @@
-"""The runner of the port: train and serve a Mega-NeRF scene.
+"""The runner of the port: train and serve a Mega-NeRF or a Bungee scene.
 
-Port of the Mega-NeRF side of ``switch_nerf_tpu/runner.py``. A ``Runner``:
+Port of the Mega-NeRF and classic-NeRF sides of
+``switch_nerf_tpu/runner.py``. A ``Runner``:
 
   * resolves scene geometry (coordinates.pt origin/scale, near/far scaling,
     the ray-altitude transform, the ellipse foreground bounds),
@@ -20,13 +21,18 @@ Port of the Mega-NeRF side of ``switch_nerf_tpu/runner.py``. A ``Runner``:
     scores the right half of each image (PSNR/SSIM/LPIPS, ``metrics.py``)
     and writes the JAX package's file set: experiment_path/metrics.txt,
     images/metrics_{i}.txt with the gt/pred/depth panel crops (+ _bg/_fg
-    sets with the background NeRF) and val_images/{i}.jpg triptychs.
+    sets with the background NeRF) and val_images/{i}.jpg triptychs,
+  * trains and serves a classic-NeRF (Bungee) scene with --data_type nerf
+    (``train_nerf``, ``eval_nerf``): rays and mip radii from
+    ``datasets/nerf_data``, the mip renderer, epoch batches from a
+    per-epoch permutation, interval and SIGTERM checkpoints with exact
+    resume, and full-image PSNR/SSIM/LPIPS of the test split.
 
-One process on one device (``cuda`` unless the caller passes
-``device="cpu"``). MoE eval in no-drop dispatch (no --moe_test_batch), the
-Block-NeRF and classic-NeRF workloads, point export and the
-container/ckpt-only evals raise ``NotImplementedError`` naming the ROADMAP
-Queue A item they wait for.
+Without --moe_test_batch (--moe_train_batch) the MoE layers evaluate
+(train) in no-drop dispatch, on the K1R/K2R kernels on a card. One process
+on one device (``cuda`` unless the caller passes ``device="cpu"``). The
+Block-NeRF workload, point export and the container/ckpt-only evals raise
+``NotImplementedError`` naming the ROADMAP Queue A item they wait for.
 """
 from __future__ import annotations
 
@@ -47,12 +53,12 @@ import torch
 from switch_nerf_torch import metrics as M
 from switch_nerf_torch import resolve_device
 from switch_nerf_torch.checkpoints import load_checkpoint, save_checkpoint
+from switch_nerf_torch.config import get_nerf_dataset_args
 from switch_nerf_torch.datasets.filesystem_dataset import FilesystemDataset
 from switch_nerf_torch.datasets.image_metadata import ImageMetadata
 from switch_nerf_torch.datasets.memory_dataset import MemoryDataset
 from switch_nerf_torch.datasets.ray_utils import get_ray_directions, get_rays
-from switch_nerf_torch.models.model_utils import (eval_dispatch, get_bg_nerf,
-                                                  get_nerf)
+from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
 from switch_nerf_torch.trainer import (SceneInfo, TrainState,
                                        create_train_state, make_eval_step,
                                        make_train_step,
@@ -183,23 +189,11 @@ class Runner:
             main_log("NOTE: --set_timeout stretches the reference's NCCL "
                      "timeout; one process here, ignored.")
 
-        if self._nodrop_eval():
+        if h.use_moe and not getattr(h, "moe_test_batch", False):
             main_log("NOTE: eval dispatch = nodrop (no --moe_test_batch), "
                      "the reference default; every published eval command "
-                     "passes --moe_test_batch. The port's no-drop dispatch "
-                     "waits for ROADMAP Queue A item 6: eval, eval_image and "
-                     "in-train validation raise.")
-
-    def _nodrop_eval(self) -> bool:
-        h = self.hparams
-        return bool(h.use_moe) and eval_dispatch(h) != "padded"
-
-    def _check_eval_dispatch(self, what: str) -> None:
-        """Raise before any work where a no-drop MoE eval would run."""
-        if self._nodrop_eval():
-            raise _waits(f"{what} in no-drop MoE dispatch (no "
-                         "--moe_test_batch; every published eval command "
-                         "passes it)", 6, "no-drop dispatch")
+                     "passes --moe_test_batch (padded dispatch, measured "
+                     "~1.5x faster at identical metrics).")
 
     def _setup_dirs(self, set_experiment_path: bool):
         self.writer = None
@@ -321,7 +315,26 @@ class Runner:
         raise _waits("The Block-NeRF workload", 7, "other workloads")
 
     def _init_nerf(self, set_experiment_path: bool):
-        raise _waits("The classic-NeRF workload", 7, "other workloads")
+        """A classic-NeRF scene (the Bungee loader; the others raise): all
+        rays in host memory, no background model, no scene sphere."""
+        from switch_nerf_torch.datasets.nerf_data import (
+            NeRFDataset, NeRFDatasetTest, NeRFDatasetTrain, NeRFDatasetVal)
+        h = self.hparams
+        self._setup_dirs(set_experiment_path)
+        self.nerf_dataset = NeRFDataset(get_nerf_dataset_args(h))
+        self.train_set = NeRFDatasetTrain(self.nerf_dataset,
+                                          seed=h.random_seed)
+        self.val_set = NeRFDatasetVal(self.nerf_dataset)
+        self.test_set = NeRFDatasetTest(self.nerf_dataset)
+        self.near = self.nerf_dataset.near
+        self.far = self.nerf_dataset.far
+        self.ray_altitude_range = None
+        self.appearance_count = max(len(self.nerf_dataset.poses), 1)
+        self.nerf = get_nerf(h, self.appearance_count, device=self.device)
+        self.bg_nerf = None
+        self.sphere_center = None
+        self.sphere_radius = None
+        self.mip = bool(h.use_mip)
 
     def _get_image_metadata(self) -> Tuple[List[ImageMetadata],
                                            List[ImageMetadata]]:
@@ -405,31 +418,40 @@ class Runner:
                 state.model, state.bg_model, self.hparams,
                 render_config_from_hparams(self.hparams),
                 SceneInfo(self.sphere_center, self.sphere_radius),
-                device=self.device)
+                mip=self.mip, device=self.device)
         return self._batched_collective_fn(self._eval_step)
 
     def _batched_collective_fn(self, program: Callable) -> Callable:
         h = self.hparams
         dev = self.device
 
-        def render_chunks(rays: np.ndarray, image_index: float
+        def padded(a: np.ndarray, lo: int, bs: int) -> torch.Tensor:
+            """Rows lo .. lo + bs of `a`, padded with copies of its last."""
+            r = a[lo:lo + bs]
+            if r.shape[0] < bs:
+                r = np.concatenate(
+                    [r, np.repeat(r[-1:], bs - r.shape[0], 0)], 0)
+            return torch.from_numpy(np.ascontiguousarray(r, np.float32)).to(
+                dev)
+
+        def render_chunks(rays: np.ndarray, image_index: float,
+                          radii: Optional[np.ndarray] = None
                           ) -> Dict[str, np.ndarray]:
-            """Render any ray count in requests of image_pixel_batch_size
-            rays (the last padded with copies of its last ray, so every
-            request has one shape); outputs trimmed to the real rays."""
+            """Render any ray count (with the mip renderer, their radii
+            [N, 1]) in requests of image_pixel_batch_size rays (the last
+            padded with copies of its last ray, so every request has one
+            shape); outputs trimmed to the real rays."""
             n = rays.shape[0]
             bs = h.image_pixel_batch_size
             out: Dict[str, List[np.ndarray]] = {}
             for lo in range(0, n, bs):
-                r = rays[lo:min(lo + bs, n)]
-                pad = bs - r.shape[0]
-                if pad:
-                    r = np.concatenate([r, np.repeat(r[-1:], pad, 0)], 0)
-                batch = {"rays": torch.from_numpy(
-                             np.ascontiguousarray(r, np.float32)).to(dev),
+                pad = max(lo + bs - n, 0)
+                batch = {"rays": padded(rays, lo, bs),
                          "image_indices": torch.full(
                              (bs,), image_index, dtype=torch.float32,
                              device=dev)}
+                if radii is not None:
+                    batch["radii"] = padded(radii, lo, bs)
                 res = program(batch)
                 keep = bs - pad
                 for k, v in res.items():
@@ -674,7 +696,6 @@ class Runner:
     # ------------------------------------------- public eval entrypoints --
     def eval(self) -> Dict[str, float]:
         """Validation-protocol eval (the reference's eval.py)."""
-        self._check_eval_dispatch("eval")
         state = self._load_eval_state()
         means = self._run_validation(state, 0)
         self._write_final_metrics(means)
@@ -682,7 +703,6 @@ class Runner:
 
     def eval_image(self) -> Dict[str, float]:
         """The published eval command (the reference's eval_image.py)."""
-        self._check_eval_dispatch("eval_image")
         state = self._load_eval_state()
         return self._run_validation_image(state)
 
@@ -692,10 +712,6 @@ class Runner:
         one process). Returns the final train state (None after
         --generate_chunk, which stops once the chunks are written)."""
         h = self.hparams
-        if h.val_interval <= h.train_iterations:
-            # fail now, not at the first validation hours in
-            self._check_eval_dispatch("validation during training "
-                                      "(--val_interval <= --train_iterations)")
         # latched from the start: a SIGTERM during setup still ends in a
         # checkpointed return
         term = _install_term_latch()
@@ -891,11 +907,147 @@ class Runner:
         prof.export_chrome_trace(str(path))
         main_log(f"profiler trace written to {path}")
 
-    def train_nerf(self):
-        raise _waits("Runner.train_nerf", 7, "other workloads")
+    # ----------------------------------------------------- classic NeRF ---
+    def train_nerf(self) -> TrainState:
+        """Classic-NeRF epoch training (the JAX package's
+        ``Runner.train_nerf``): --num_epochs epochs of len(train rays) //
+        --batch_size batches, each from the epoch's permutation
+        (``NeRFDatasetTrain.get_batch``, keyed by the batch counter); a log
+        line every --i_print steps, a checkpoint every --ckpt_interval
+        steps and at the end, and on SIGTERM a resumable checkpoint and
+        return. A resume (--resume_ckpt_state) restarts at the checkpoint's
+        batch counter. No validation runs during training."""
+        h = self.hparams
+        term = _install_term_latch()
+        try:
+            state = create_train_state(h, self.nerf, None, device=self.device)
+            main_log(f"Total parameters number is "
+                     f"{count_parameters(state.parameters()) / 1024 / 1024:.4f}"
+                     " M")
+            host_iteration = None
+            if h.ckpt_path is not None:
+                state, extra = load_checkpoint(h.ckpt_path, state,
+                                               h.resume_ckpt_state)
+                if h.resume_ckpt_state:
+                    host_iteration = extra.get("host_iteration")
+                main_log(f"Resumed from iteration {state.step}")
+            train_step = make_train_step(
+                h, render_config_from_hparams(h), SceneInfo(None, None),
+                mip=self.mip, device=self.device)
+            total = h.num_epochs * max(len(self.train_set) // h.batch_size, 1)
+            # the batch counter, not state.step, keys the batches: a
+            # skipped non-finite step consumes a batch
+            it = int(host_iteration) if host_iteration is not None \
+                else state.step
+            while it < total:
+                batch = self._put_batch(self.train_set.get_batch(
+                    it, h.batch_size))
+                state, m = train_step(state, batch)
+                it += 1
+                if it % h.i_print == 0:
+                    m_host = {k: float(v) for k, v in m.items()}
+                    if h.compute_memory:
+                        m_host["fwd_bwd_memory"] = self._peak_memory_mib()
+                    main_log(f"iter {it}/{total} " + " ".join(
+                        f"{k}={v:.4f}" for k, v in m_host.items()))
+                    if self.writer is not None:
+                        for k, v in m_host.items():
+                            self.writer.add_scalar(f"train/{k}", v, it)
+                if self.model_path is not None and it % h.ckpt_interval == 0:
+                    save_checkpoint(self.model_path, state, keep=h.ckpt_keep,
+                                    host_iteration=it)
+                if term["requested"]:
+                    # the latch stays installed through the save
+                    if self.model_path is not None:
+                        save_checkpoint(self.model_path, state,
+                                        keep=h.ckpt_keep, host_iteration=it)
+                    main_log(f"SIGTERM: checkpoint saved at iteration {it}; "
+                             "exiting")
+                    return state
+            if self.model_path is not None:
+                save_checkpoint(self.model_path, state)
+            main_log("Training complete")
+            return state
+        finally:
+            _release_term_latch(term)
 
-    def eval_nerf(self):
-        raise _waits("Runner.eval_nerf", 7, "other workloads")
+    def eval_nerf(self) -> Dict[str, float]:
+        """The classic-NeRF eval CLI: the test split's protocol
+        (``_run_validation_nerf`` into test_images_0)."""
+        state = self._load_eval_state()
+        return self._run_validation_nerf(state, mode="test")
+
+    def _run_validation_nerf(self, state: TrainState, mode: str = "val",
+                             train_index: int = 0) -> Dict[str, float]:
+        """Whole-image PSNR/SSIM/LPIPS of each val or test image, with its
+        render seconds and peak memory: {mode}_images_{train_index}/
+        metrics_{img_i}.txt with the gt/pred/depth panel crops,
+        val_images/{img_i}.jpg triptychs, and the protocol dir's
+        metrics.txt ('step {train_index} {mode}', then 'Average
+        {mode}/<metric>: <mean>'). Files are keyed by the image's index in
+        the whole set."""
+        if mode not in ("val", "test"):
+            raise ValueError(f"mode {mode!r} is not 'val' or 'test'")
+        render_chunks = self._make_render_fn(state)
+        meter = DictAverageMeter()
+        out_dir = val_images_dir = None
+        if self.experiment_path is not None:
+            out_dir = self.experiment_path / f"{mode}_images_{train_index}"
+            out_dir.mkdir(parents=True, exist_ok=True)
+            val_images_dir = self.experiment_path / "val_images"
+            val_images_dir.mkdir(parents=True, exist_ok=True)
+        colormap = getattr(self.hparams, "colormap", None)
+        eval_set = self.val_set if mode == "val" else self.test_set
+        for i in range(len(eval_set)):
+            sample = eval_set[i]
+            img_i = int(sample["img_i"])
+            radii = sample.get("radii")
+            t0 = time.time()
+            res = render_chunks(sample["rays"].reshape(-1, 8), float(img_i),
+                                None if radii is None
+                                else radii.reshape(-1, 1))
+            render_time = time.time() - t0
+            typ = "fine" if "rgb_fine" in res else "coarse"
+            gt = sample["rgbs"]
+            h, w = gt.shape[:2]
+            pred = np.clip(res[f"rgb_{typ}"].reshape(h, w, 3), 0.0, 1.0)
+            pred_t = torch.from_numpy(np.ascontiguousarray(pred)).to(
+                self.device)
+            gt_t = torch.from_numpy(np.ascontiguousarray(gt)).to(self.device)
+            img_metrics = {"psnr": M.psnr(pred_t, gt_t),
+                           "ssim": M.ssim(pred_t, gt_t, 1.0)}
+            for k, v in M.lpips(pred_t, gt_t).items():
+                if v is not None:
+                    img_metrics[f"lpips-{k}"] = v
+            img_metrics["time"] = render_time
+            img_metrics["memory"] = self._peak_memory_mib()
+            meter.update(img_metrics)
+            main_log(f"{mode} image {img_i}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in img_metrics.items()))
+            if out_dir is None:
+                continue
+            with (out_dir / f"metrics_{img_i}.txt").open("w") as f:
+                for k, v in img_metrics.items():
+                    f.write(f"{k}: {v}\n")
+            res_img = {f"rgb_{typ}": pred}
+            if f"depth_{typ}" in res:
+                res_img[f"depth_{typ}"] = res[f"depth_{typ}"].reshape(h, w)
+            depth = self._depth_for_viz(res_img, typ)
+            arr = self._result_image(gt, pred, depth, colormap=colormap)
+            from PIL import Image
+            Image.fromarray(arr).save(val_images_dir / f"{img_i}.jpg")
+            if depth is not None:
+                self._save_panel_crops(arr, out_dir, img_i)
+        means = meter.mean_across_processes()
+        main_log(f"{mode} means: " + " ".join(f"{k}={v:.4f}"
+                                              for k, v in means.items()))
+        if out_dir is not None:
+            with (out_dir / "metrics.txt").open("w") as f:
+                f.write(f"step {train_index} {mode}\n")
+                for k, v in means.items():
+                    agg = self._agg_key(k).replace("val/", f"{mode}/", 1)
+                    f.write(f"Average {agg}: {v}\n")
+        return means
 
     def eval_image_blocknerf(self):
         raise _waits("Runner.eval_image_blocknerf", 7, "other workloads")

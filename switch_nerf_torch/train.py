@@ -10,7 +10,8 @@
         --moe_train_batch
 
 Runs on ``cuda``; ``main(hparams, device="cpu")`` runs the plain versions.
-Block-NeRF and classic-NeRF data wait for ROADMAP Queue A item 7.
+Classic-NeRF scenes train through ``train_nerf_moe``; Block-NeRF data waits
+for ROADMAP Queue A item 7.
 """
 import torch
 
@@ -23,10 +24,13 @@ from switch_nerf_torch.utils.crash import cli_entry
 def main(hparams=None, device=None):
     if hparams is None:
         hparams = parse_args(get_opts())
-    if hparams.data_type in ("nerf", "block_nerf"):
+    if hparams.data_type == "nerf":
+        raise ValueError("classic-NeRF scenes train through "
+                         "switch_nerf_torch.train_nerf_moe")
+    if hparams.data_type == "block_nerf":
         raise NotImplementedError(
-            f"training data_type {hparams.data_type!r} waits for the port's "
-            "other workloads (ROADMAP Queue A item 7)")
+            "training data_type 'block_nerf' waits for the port's other "
+            "workloads (ROADMAP Queue A item 7)")
     if hparams.detect_anomalies:
         torch.autograd.set_detect_anomaly(True)
     return Runner(hparams, device=device).train()

@@ -1,7 +1,8 @@
 """Training and evaluation steps of the port.
 
-Port of ``switch_nerf_tpu/trainer.py`` for the non-mip, non-cascade
-configs: ``SceneInfo``, ``render_config_from_hparams``, ``make_model_fn``,
+Port of ``switch_nerf_tpu/trainer.py`` for the non-cascade configs, classic
+and mip (``mip=True``: ``render/rendering_mip.py``, with the coarse loss):
+``SceneInfo``, ``render_config_from_hparams``, ``make_model_fn``,
 ``make_eval_step`` (the serving path), and the training core:
 ``create_optimizer`` (Adam with the per-step exponential LR),
 ``compute_losses``, ``TrainState`` / ``create_train_state`` and
@@ -29,6 +30,7 @@ from torch import nn
 from switch_nerf_torch import resolve_device
 from switch_nerf_torch.models.moe import MoELayer
 from switch_nerf_torch.render.rendering import RenderConfig, render_rays
+from switch_nerf_torch.render.rendering_mip import render_rays_mip
 
 __all__ = ["SceneInfo", "render_config_from_hparams", "make_model_fn",
            "make_eval_step", "lr_schedule", "create_optimizer",
@@ -44,14 +46,16 @@ class SceneInfo:
 
 
 def render_config_from_hparams(hparams) -> RenderConfig:
-    for flag in ("use_cascade", "use_mip", "return_pts", "return_pts_rgb",
+    for flag in ("use_cascade", "return_pts", "return_pts_rgb",
                  "return_pts_alpha", "return_sigma", "return_alpha"):
         if getattr(hparams, flag, False):
             raise NotImplementedError(
                 f"--{flag} waits for a later slice of the port")
-    if hparams.sh_deg is not None or hparams.fine_samples <= 0:
+    if hparams.sh_deg is not None:
+        raise NotImplementedError("--sh_deg waits for a later slice")
+    if hparams.fine_samples <= 0 and not hparams.use_mip:
         raise NotImplementedError(
-            "--sh_deg and coarse-only rendering wait for a later slice")
+            "coarse-only classic rendering waits for a later slice")
     return RenderConfig(
         coarse_samples=hparams.coarse_samples,
         fine_samples=hparams.fine_samples,
@@ -62,7 +66,10 @@ def render_config_from_hparams(hparams) -> RenderConfig:
         white_bkgd=hparams.white_bkgd,
         use_random_background_color=hparams.use_random_background_color,
         use_sigma_noise=hparams.use_sigma_noise,
-        sigma_noise_std=hparams.sigma_noise_std)
+        sigma_noise_std=hparams.sigma_noise_std,
+        rgb_padding=hparams.rgb_padding if hparams.use_mip else None,
+        weights_resample_padding=hparams.weights_resample_padding,
+        stop_level_grad=hparams.stop_level_grad)
 
 
 def make_model_fn(model: nn.Module) -> Callable:
@@ -94,11 +101,14 @@ def _check_on(dev: torch.device, **modules) -> None:
 
 def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
                    render_cfg: RenderConfig, scene: SceneInfo, *,
+                   mip: bool = False,
                    device=None) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """eval_step(batch) -> results dict, on ``device`` (default ``cuda``).
 
-    batch: {"rays": [N, 8] (o, d, near, far), optional "image_indices": [N]},
-    numpy arrays or tensors. The models must already live on the device.
+    batch: {"rays": [N, 8] (o, d, near, far), optional "image_indices": [N],
+    with ``mip`` "radii": [N, 1]}, numpy arrays or tensors. The models must
+    already live on the device. ``mip`` renders with ``render_rays_mip``
+    (no background model), deterministically.
     """
     dev = resolve_device(device)
     _check_on(dev, model=model, bg_model=bg_model)
@@ -112,6 +122,10 @@ def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
         rays = _as_tensor(batch["rays"], dev)
         image_indices = (_as_tensor(batch.get("image_indices"), dev)
                          if hparams.appearance_dim > 0 else None)
+        if mip:
+            return render_rays_mip(model_fn, rays,
+                                   _as_tensor(batch["radii"], dev),
+                                   image_indices, render_cfg, get_depth=True)
         return render_rays(model_fn, bg_fn, rays, image_indices, render_cfg,
                            center, radius, get_depth=True,
                            # fg/bg decomposition for the eval viz protocol
@@ -155,11 +169,12 @@ def _psnr(mse):
 
 
 def compute_losses(results: Dict[str, torch.Tensor], rgbs: torch.Tensor,
-                   hparams) -> Dict[str, torch.Tensor]:
-    """The training metrics and loss (``switch_nerf_tpu/trainer.py:160-203``
-    without the mip/cascade coarse loss): photo MSE, psnr, depth variance,
-    and moe_l_aux_wt * the mean load-balance loss of the coarse and fine
-    passes."""
+                   hparams, mip_or_cascade_coarse: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+    """The training metrics and loss (``switch_nerf_tpu/trainer.py:160-203``):
+    photo MSE, psnr, depth variance, with ``mip_or_cascade_coarse`` the mean
+    of the fine and coarse photo losses, and moe_l_aux_wt * the mean
+    load-balance loss of the coarse and fine passes."""
     typ = "fine" if "rgb_fine" in results else "coarse"
     photo_loss = _mse(results[f"rgb_{typ}"], rgbs)
     metrics = {"psnr": _psnr(photo_loss), "photo_loss": photo_loss,
@@ -167,6 +182,10 @@ def compute_losses(results: Dict[str, torch.Tensor], rgbs: torch.Tensor,
     if f"depth_variance_{typ}" in results:
         metrics["depth_variance"] = torch.mean(
             results[f"depth_variance_{typ}"])
+    if mip_or_cascade_coarse and typ != "coarse":
+        coarse_loss = _mse(results["rgb_coarse"], rgbs)
+        metrics["coarse_loss"] = coarse_loss
+        metrics["loss"] = (metrics["loss"] + coarse_loss) / 2.0
 
     use_moe = hparams.use_moe or getattr(hparams, "bg_use_moe", False)
     balance = use_moe and hparams.use_balance_loss
@@ -271,9 +290,10 @@ class TrainStep:
     """train_step(state, batch) -> (state, metrics); see make_train_step."""
 
     def __init__(self, hparams, render_cfg: RenderConfig, scene: SceneInfo,
-                 device):
+                 device, mip: bool = False):
         self.hparams = hparams
         self.render_cfg = render_cfg
+        self.mip = mip
         self.device = resolve_device(device)
         self.center = _as_tensor(scene.sphere_center, self.device)
         self.radius = _as_tensor(scene.sphere_radius, self.device)
@@ -295,11 +315,19 @@ class TrainStep:
         bg_fn = (make_model_fn(state.bg_model)
                  if state.bg_model is not None else None)
         with torch.enable_grad():
-            results = render_rays(
-                make_model_fn(state.model), bg_fn, rays, image_indices,
-                self.render_cfg, self.center, self.radius, train=True,
-                generator=state.generator, get_depth_variance=True)
-            metrics = compute_losses(results, rgbs, self.hparams)
+            if self.mip:
+                results = render_rays_mip(
+                    make_model_fn(state.model), rays,
+                    _as_tensor(batch["radii"], dev), image_indices,
+                    self.render_cfg, train=True, generator=state.generator,
+                    get_depth_variance=True)
+            else:
+                results = render_rays(
+                    make_model_fn(state.model), bg_fn, rays, image_indices,
+                    self.render_cfg, self.center, self.radius, train=True,
+                    generator=state.generator, get_depth_variance=True)
+            metrics = compute_losses(results, rgbs, self.hparams,
+                                     mip_or_cascade_coarse=self.mip)
             params = state.parameters()
             grads = torch.autograd.grad(metrics["all_loss"], params,
                                         allow_unused=True)
@@ -357,16 +385,16 @@ class TrainStep:
 
 
 def make_train_step(hparams, render_cfg: RenderConfig, scene: SceneInfo, *,
-                    device=None) -> TrainStep:
+                    mip: bool = False, device=None) -> TrainStep:
     """Build train_step(state, batch) -> (state, metrics) on ``device``
     (default ``cuda``), the port of ``switch_nerf_tpu/trainer.py:222-287``.
 
-    batch: {"rays": [B, 8], "rgbs": [B, 3], optional "image_indices": [B]},
-    numpy arrays or tensors. One call renders the batch in train mode
+    batch: {"rays": [B, 8], "rgbs": [B, 3], optional "image_indices": [B],
+    with ``mip`` "radii": [B, 1]}, numpy arrays or tensors. One call renders the batch in train mode
     (perturbation, sigma noise, random fine samples from the state's
     generator), differentiates ``all_loss`` through the hand-written
     kernels' backwards, and applies Adam with the scheduled learning rate.
     ``train_step.loss_and_grads`` gives the metrics and gradients without
     the update.
     """
-    return TrainStep(hparams, render_cfg, scene, device)
+    return TrainStep(hparams, render_cfg, scene, device, mip)

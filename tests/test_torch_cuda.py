@@ -1,6 +1,7 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card,
-forward (K1, K3) and backward (K2, K4), and the gradients of a training
-forward on the card. The edge cases (C across the tile edge, one expert,
+forward (K1, K3, K1R) and backward (K2, K4, K2R), the gradients of a
+training forward on the card, and the no-drop MoE layer (K1R/K2R) against
+the padded one (K1/K2) at a capacity that drops nothing. The edge cases (C across the tile edge, one expert,
 views at an offset, the layer limit, determinism) run for K1/K2 ("chain")
 and for K3/K4 ("fused", over a slot map with empty slots), which share one
 mainloop and differ in how the input tile arrives.
@@ -19,7 +20,8 @@ where a 1-ulp flip moves later layers).
 import pytest
 import torch
 
-from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+from switch_nerf_torch.models.moe import MoELayer
+from switch_nerf_torch.ops import expert_kernel, fused_dispatch, ragged_chain
 
 pytestmark = pytest.mark.cuda
 
@@ -359,3 +361,124 @@ def test_chain_kernels_on_views_at_an_offset(cuda, dtype, kernels):
         tokens_ext[-1] = 0
         stt = _slot_map(e * c, e, c, g, cuda)
         _check_fused_fwd_bwd(tokens_ext, stt, ws, bs, gy, (1,), dtype)
+
+
+# ---------------------------------------------------------- K1R, K2R ----
+
+def _dirty_allocator(device, nbytes=1 << 28):
+    """Leave NaN bytes in the caching allocator's free blocks, so a kernel
+    output that is allocated with torch.empty and not written shows."""
+    torch.full((nbytes // 4,), float("nan"), device=device)
+    torch.cuda.synchronize()
+
+
+def _ragged_case(counts, m, layers, dtype, device, seed):
+    e, n = len(counts), sum(counts)
+    ws, bs = _chain_weights(e, m, layers, dtype, device, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn(n, m, generator=g).to(device, dtype)
+    gy = torch.randn(n, m, generator=g).to(device, dtype)
+    cnt = torch.tensor(counts, dtype=torch.int32, device=device)
+    return x, cnt, ws, bs, gy
+
+
+def _check_ragged(counts, m, layers, skips, dtype, device, seed):
+    """K1R and K2R against their plain versions: each launched once, dW and
+    db of every empty expert exactly zero."""
+    x, cnt, ws, bs, gy = _ragged_case(counts, m, layers, dtype, device, seed)
+    before = (ragged_chain.ragged_launches, ragged_chain.ragged_bwd_launches)
+    _dirty_allocator(device)
+    out = ragged_chain.ragged_chain_fwd(x, cnt, ws, bs, skips)
+    _assert_close(out, ragged_chain.ragged_chain_plain(x, cnt, ws, bs, skips),
+                  dtype)
+    _dirty_allocator(device)
+    got = ragged_chain.ragged_chain_bwd(x, cnt, ws, bs, gy, skips)
+    torch.cuda.synchronize()
+    _assert_bwd_close(got, ragged_chain.ragged_chain_bwd_plain(
+        x, cnt, ws, bs, gy, skips), dtype)
+    assert (ragged_chain.ragged_launches,
+            ragged_chain.ragged_bwd_launches) == (before[0] + 1, before[1] + 1)
+    for e, c in enumerate(counts):
+        if c == 0:
+            assert not got[1][:, e].any() and not got[2][:, e].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,skips", [(1, ()), (4, (1, 3)), (7, (3,))])
+@pytest.mark.parametrize("m", [64, 128, 256])
+def test_ragged_chain_kernels_match_plain(cuda, m, layers, skips, dtype):
+    """Skewed counts: an empty expert, counts off the 32- and 128-row
+    blocks, one expert with most rows."""
+    _check_ragged([0, 200, 37, 1500, 129], m, layers, skips, dtype, cuda,
+                  seed=m + layers)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("counts", [
+    [1], [0, 0, 5], [128, 128], [64, 0, 63, 65], [0, 4096, 0], [3000, 1]])
+def test_ragged_chain_kernels_edge_counts(cuda, counts, dtype):
+    """One row, all rows in one expert, counts at, below and past the tile
+    and box edges, empty experts first and last."""
+    _check_ragged(counts, 256, 3, (1,), dtype, cuda, seed=sum(counts))
+
+
+def test_ragged_bwd_kernel_is_deterministic(cuda):
+    x, cnt, ws, bs, gy = _ragged_case([700, 0, 3000, 397], 256, 7,
+                                      torch.bfloat16, cuda, seed=21)
+    first = ragged_chain.ragged_chain_bwd(x, cnt, ws, bs, gy, (3,))
+    second = ragged_chain.ragged_chain_bwd(x, cnt, ws, bs, gy, (3,))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ragged_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    x, cnt, ws, bs, gy = _ragged_case([10, 20], 128, 2, torch.float32, cuda,
+                                      seed=3)
+    with pytest.raises(ValueError):     # counts not int32
+        ragged_chain.ragged_chain_fwd(x, cnt.long(), ws, bs)
+    with pytest.raises(ValueError):     # counts of another expert count
+        ragged_chain.ragged_chain_fwd(x, cnt[:1], ws, bs)
+    with pytest.raises(ValueError):     # x not [N, M]
+        ragged_chain.ragged_chain_fwd(x[None], cnt, ws, bs)
+    with pytest.raises(TypeError):      # dtype mismatch
+        ragged_chain.ragged_chain_fwd(x.bfloat16(), cnt, ws, bs)
+
+
+def _moe_pair(e, m, dtype, device, seed):
+    """Two MoE layers with the same weights at capacity factor E (padded
+    dispatch then drops nothing): one padded, one no-drop."""
+    layers = []
+    for mode in ("padded", "nodrop"):
+        layer = MoELayer(m, e, layer_num=4, skips=(2,), capacity_factor=e,
+                         batch_prioritized_routing=True, train_dispatch=mode,
+                         eval_dispatch=mode,
+                         generator=torch.Generator().manual_seed(seed))
+        layers.append(layer.to(device))
+    return layers
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nodrop_moe_matches_padded_at_full_capacity(cuda, dtype):
+    """K1R/K2R's no-drop layer equals K1/K2's padded layer where padding
+    drops nothing: outputs and every gradient, fp32 within 1e-5 (sums in
+    another order), bf16 within the bf16 rule."""
+    e, m, s = 4, 128, 3000
+    padded, nodrop = _moe_pair(e, m, dtype, cuda, seed=5)
+    g = torch.Generator().manual_seed(6)
+    x0 = torch.randn(s, m, generator=g).to(cuda)
+    gy = torch.randn(s, m, generator=g).to(cuda, dtype)
+    outs, grads = [], []
+    for layer in (padded, nodrop):
+        x = x0.clone().to(dtype).requires_grad_(True)
+        y, _, _ = layer(x, train=True)
+        params = [x] + list(layer.parameters())
+        grads.append(torch.autograd.grad(y, params, gy))
+        outs.append(y.detach())
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (outs[1].float() - outs[0].float()).abs().max() <= \
+        tol * max(1.0, outs[0].float().abs().max().item())
+    for a, b in zip(*grads):
+        scale = a.float().abs().max().item()
+        assert (b.float() - a.float()).abs().max() <= tol * max(scale, 1e-6)

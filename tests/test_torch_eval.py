@@ -117,7 +117,9 @@ def test_entry_points_raise_without_a_card_unless_cpu(setup):
                             device="cpu")
 
 
-_FORBIDDEN = ("jax", "flax", "optax", "switch_nerf_tpu")
+# cv2: the card's machine has no OpenCV (datasets/nerf_data resamples in
+# numpy)
+_FORBIDDEN = ("jax", "flax", "optax", "orbax", "cv2", "switch_nerf_tpu")
 
 
 def _imports(path: Path):
@@ -133,6 +135,12 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "switch_nerf_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"switch_nerf_torch/ops/ragged_chain.py",
+            "switch_nerf_torch/render/rendering_mip.py",
+            "switch_nerf_torch/datasets/nerf_data/load_bungee.py",
+            "switch_nerf_torch/train_nerf_moe.py",
+            "switch_nerf_torch/eval_nerf_moe.py"} <= names
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in _FORBIDDEN]
     assert not bad, bad

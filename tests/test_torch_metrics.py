@@ -52,17 +52,25 @@ def test_ssim_identical_and_small_images():
                - jm.ssim(small, small[::-1], 1.0)) <= 1e-5
 
 
-@pytest.mark.parametrize("case", ["depth", "zeros", "flat", "rgb_channels"])
+@pytest.mark.parametrize("case", ["depth", "zeros", "flat", "rgb_channels",
+                                  "rainbow"])
 def test_visualize_scalars_matches_jax(case):
+    """The port's colormap tables against the JAX package's OpenCV calls
+    (INFERNO by default; RAINBOW, --colormap 4, the classic-NeRF default):
+    equal bytes."""
     rng = np.random.default_rng(4)
     depth = rng.uniform(0.01, 3.0, (19, 23)).astype(np.float32)
+    kw = {}
     if case == "zeros":
         depth[:5] = 0.0
     elif case == "flat":
         depth[:] = 0.7
     elif case == "rgb_channels":
         depth = np.repeat(depth[..., None], 3, -1)
-    got, want = tvis.visualize_scalars(depth), jvis.visualize_scalars(depth)
+    elif case == "rainbow":
+        kw = {"colormap": 4}
+    got = tvis.visualize_scalars(depth, **kw)
+    want = jvis.visualize_scalars(depth, **kw)
     assert got.dtype == np.uint8 and got.shape == (19, 23, 3)
     np.testing.assert_array_equal(got, want)
 

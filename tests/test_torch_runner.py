@@ -147,24 +147,32 @@ def test_runner_refusals(mega_dataset, checkpoint, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             trunner.Runner(h)
-    # no --moe_test_batch (no-drop eval dispatch): the runner builds and
-    # trains while no validation can fire; every eval raises before work
+    # no --moe_test_batch (no-drop eval dispatch, the reference default):
+    # eval and eval_image run and match the JAX Runner's in that mode
+    # (metrics as test_eval_image_matches_jax holds them, the same keys)
     nodrop = copy.copy(h)
     nodrop.moe_test_batch = False
     nodrop.ckpt_path = str(checkpoint)
     for method in ("eval_image", "eval"):
-        runner = trunner.Runner(nodrop, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            getattr(runner, method)()
+        got, want = ({}, {})
+        for side, runner_cls, kw in (("t", trunner.Runner, {"device": "cpu"}),
+                                     ("j", jrunner.Runner, {})):
+            hs = copy.copy(nodrop)
+            hs.exp_name = str(tmp_path / f"{side}_{method}")
+            (got if side == "t" else want).update(
+                getattr(runner_cls(hs, **kw), method)())
+        assert_metrics_close(
+            {k.replace("val/", ""): v for k, v in got.items()},
+            {k.replace("val/", ""): v for k, v in want.items()})
+    # and in-train validation runs in that mode
     nodrop.ckpt_path = None
     nodrop.moe_train_batch = True
     nodrop.dataset_type = "memory"
     nodrop.batch_size = 64
     nodrop.train_iterations = 1
     nodrop.val_interval = 1
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trunner.Runner(nodrop, set_experiment_path=False,
-                       device="cpu").train()
+    assert trunner.Runner(nodrop, set_experiment_path=False,
+                          device="cpu").train().step == 1
     nodrop.val_interval = 2
     assert trunner.Runner(nodrop, set_experiment_path=False,
                           device="cpu").train().step == 1
@@ -180,7 +188,7 @@ def test_runner_refusals(mega_dataset, checkpoint, tmp_path):
     with pytest.raises(NotImplementedError, match="item 9"):
         runner.eval_image()
     for method, item in (("eval_points", 9), ("eval_ckpt", 9),
-                         ("eval_nerf", 7)):
+                         ("eval_image_blocknerf", 7)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(runner, method)()
 

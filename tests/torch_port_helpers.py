@@ -115,3 +115,57 @@ def mega_train_hparams(root, exp, dataset_type, chunks=None):
     h.i_print = 2
     h.val_interval = 10 ** 9
     return h
+
+
+BUNGEE_FLAGS = ["--config_file", "configs/switch_nerf/bungee.yaml",
+                "--moe_expert_num", "4", "--no_amp",
+                "--use_moe_external_gate", "--use_gate_input_norm"]
+
+
+def make_bungee_scene(root, n=17, w=48, h=36, seed=0):
+    """A synthetic Bungee-NeRF scene in `root`: poses_enu.json (scene_scale
+    1e-4, the earth's centre 6371011 m below the ENU origin) and n smooth
+    random PNGs of w x h under images/. The cameras hover 600-800 m up and
+    look straight down, so every ray meets the building and earth spheres."""
+    import json
+    from pathlib import Path
+    root = Path(root)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    poses = []
+    for i in range(n):
+        c2w = np.eye(3, 4)
+        c2w[:, 3] = [rng.uniform(-0.02, 0.02), rng.uniform(-0.02, 0.02),
+                     rng.uniform(0.06, 0.08)]
+        hwf = np.array([[h], [w], [1.2 * w]])
+        poses.append(np.concatenate([c2w, hwf], 1).reshape(-1).tolist()
+                     + [0.0, 1.0])
+        small = rng.uniform(0, 255, (h // 4 + 1, w // 4 + 1, 3))
+        Image.fromarray(small.astype(np.uint8)).resize(
+            (w, h), Image.BICUBIC).save(root / "images" / f"{i:03d}.png")
+    (root / "poses_enu.json").write_text(json.dumps({
+        "poses": poses, "scene_scale": 1e-4,
+        "scene_origin": [0.0, 0.0, -6371011.0], "scale_split": [n]}))
+    return root
+
+
+def tiny_bungee_hparams(root, exp, width=64):
+    """configs/switch_nerf/bungee.yaml with the README's flags (4 experts,
+    fp32, external gate, gate-input norm; no --moe_*_batch: no-drop
+    dispatch), cut to a 3-layer MoE of `width` with skip [1], 9 + 9
+    samples, 64-ray batches and requests, a 100-point model chunk."""
+    from switch_nerf_tpu.config import get_opts_nerf, parse_args
+    hp = parse_args(get_opts_nerf(), BUNGEE_FLAGS + [
+        "--dataset_path", str(root), "--exp_name", str(exp)])
+    shrink = {256: width, 128: width // 2}
+    for layer in hp.model["layers"].values():
+        for key in ("in_ch", "h_ch", "out_ch", "gate_dim"):
+            if layer.get(key) in shrink:
+                layer[key] = shrink[layer[key]]
+    hp.model["layers"]["0"]["num"] = 3
+    hp.model["layers"]["0"]["skips"] = [1]
+    hp.coarse_samples = hp.fine_samples = 9
+    hp.batch_size = 64
+    hp.image_pixel_batch_size = 64
+    hp.model_chunk_size = 100
+    return hp
