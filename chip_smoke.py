@@ -8,7 +8,9 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
   1. build the Hopper kernels K1-K4, K1R and K2R from
      switch_nerf_torch/csrc (one nvcc per source, all started together),
      and report each library's HGMMA (wgmma) instructions (cuobjdump,
-     where the toolkit has it; none is a failure) and ptxas's spill bytes
+     where the toolkit has it; none is a failure, nor none on TF32 in the
+     ragged libraries) and ptxas's spill bytes (a spill in a 3xTF32
+     kernel is a failure)
   2. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, with CUDA-event timings beside its bound,
      achieved TFLOP/s and share of the bound, and one library call's time
@@ -19,9 +21,13 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      dispatch, against their plain versions at one 32,768-point chunk,
      fp32 at Bungee's shape (E4) and bf16 at Building's (E8), over skewed
      counts (an empty expert, a count off the row blocks, one expert with
-     most rows): times beside the bound, the plain version and a per-expert
-     addmm chain (and its autograd); K2R twice on the same inputs
-     (bit-identical) and the empty expert's dW and db exactly 0
+     most rows) and balanced ones: times beside the bound (fp32: the
+     3xTF32 design's and the CUDA cores'), the plain version and a
+     per-expert addmm chain (and its autograd), each step's device time
+     by kernel name (prep, pass 1, pass 2, reduction); K2R twice on the
+     same inputs (bit-identical) and the empty expert's dW and db exactly
+     0; the fp32 kernels' error against a float64 run of the plain chain
+     at most 4x the plain fp32 chain's
   2b. no-drop = padded: an MoE layer (M256 L7) in no-drop dispatch (K1R /
      K2R) and in padded dispatch (K1 / K2) with the same weights at
      capacity factor E, where padding drops nothing: outputs and every
@@ -68,7 +74,8 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      out) in a temp directory; train_nerf_moe for one epoch (25 steps), a
      checkpoint at step 20 and at the end, a log line every 5 steps: K1R
      and K2R launched on every chunk of every step, every logged metric
-     finite, photo_loss falling; then eval_nerf_moe on the final
+     finite, photo_loss falling, and the largest expert's share of each
+     chunk's rows (min, median, max); then eval_nerf_moe on the final
      checkpoint (8,192-ray requests): K1R on every chunk, finite metrics,
      the summary file. Prints train rays/s, step seconds,
      max_memory_allocated, eval seconds per image and K1R/K2R launches per
@@ -113,12 +120,15 @@ BUNGEE_FLAGS = ["--config_file", "configs/switch_nerf/bungee.yaml",
 BF16_REL_TOL = 2e-2    # max |kernel - plain| <= this * max |plain| in bf16
 FP32_TOL = 1e-4        # max |kernel - plain| in fp32
 
-# Published dense peaks (NVIDIA H100 data sheet): tensor-core bf16, fp32 on
-# the CUDA cores, and device-memory bandwidth, per H100 form factor.
+# Published dense peaks (NVIDIA H100 data sheet): tensor-core bf16 and
+# TF32, fp32 on the CUDA cores, and device-memory bandwidth, per H100 form
+# factor.
 PEAKS = {
-    "PCIe": {"bf16": 756e12, "fp32": 51e12, "bytes": 2.0e12},
-    "NVL": {"bf16": 835e12, "fp32": 60e12, "bytes": 3.9e12},
-    "SXM": {"bf16": 989e12, "fp32": 67e12, "bytes": 3.35e12},
+    "PCIe": {"bf16": 756e12, "tf32": 378e12, "fp32": 51e12, "bytes": 2.0e12},
+    "NVL": {"bf16": 835e12, "tf32": 417.5e12, "fp32": 60e12,
+            "bytes": 3.9e12},
+    "SXM": {"bf16": 989e12, "tf32": 494.7e12, "fp32": 67e12,
+            "bytes": 3.35e12},
 }
 
 
@@ -195,7 +205,11 @@ def chain_weights(e, m, layers, dtype, gen):
 
 
 def chain_bound(flops, nbytes, dtype, peaks):
-    t_ops = flops / peaks["bf16" if dtype == torch.bfloat16 else "fp32"]
+    """(ms, what bounds it): the larger of flops over the peak of dtype's
+    unit (bf16 and "tf32" the tensor cores, fp32 the CUDA cores) and
+    nbytes over the memory rate."""
+    key = {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(dtype, dtype)
+    t_ops = flops / peaks[key]
     t_bytes = nbytes / peaks["bytes"]
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -469,7 +483,9 @@ def bwd_kernel_phase(peaks, building):
 def build_report() -> None:
     """Each library's HGMMA (wgmma) instruction count from `cuobjdump
     -sass` and its spill bytes from ptxas's -v report beside it. Every
-    library holds a bf16 wgmma kernel, so a count of 0 fails the run."""
+    library holds a bf16 wgmma kernel, so a count of 0 fails the run; the
+    ragged libraries' fp32 kernels run wgmma on TF32 operands, so a count
+    of 0 TF32 HGMMAs there fails too, as does a spill in a 3xTF32 kernel."""
     import re
     from pathlib import Path
     from switch_nerf_torch.ops import _build
@@ -486,8 +502,9 @@ def build_report() -> None:
         # which kernels spill: "Function properties for <mangled name>"
         # is followed by its stack frame and spill line
         spilling = sorted({
-            re.sub(r"^.*?\d(chain_[a-z0-9_]*?(?:kernel|sm90))ILi(\d+)E"
+            re.sub(r"^.*?\d(chain_[a-z0-9_]*?(?:kernel|sm90|tf32))ILi(\d+)E"
                    r"(?:Li(\d+)E)?.*$", r"\1<\2,\3>", fn)
+            + f" ({int(st) + int(ld)} B)"
             for fn, st, ld in re.findall(
                 r"Function properties for (\S+)\n[^\n]*?(\d+) bytes spill "
                 r"stores, (\d+) bytes spill loads", text)
@@ -501,6 +518,15 @@ def build_report() -> None:
             hgmma = sass.count("HGMMA")
             if hgmma == 0:
                 raise AssertionError(f"lib{name}: no HGMMA instruction")
+            if name.startswith("ragged"):
+                tf32 = sum("TF32" in ln for ln in sass.splitlines()
+                           if "HGMMA" in ln)
+                if tf32 == 0:
+                    raise AssertionError(f"lib{name}: no TF32 HGMMA")
+                hgmma = f"{hgmma} ({tf32} on TF32)"
+        if any("tf32" in k for k in spilling):
+            raise AssertionError(f"lib{name}: a 3xTF32 kernel spills: "
+                                 f"{spilling}")
         log(f"  lib{name}: HGMMA {hgmma}; ptxas spill bytes "
             f"{spills if text else 'not measured (no report)'}"
             f"{f' in {spilling}' if spilling else ''}, registers "
@@ -1184,12 +1210,36 @@ def addmm_ragged(x, counts_host, ws, bs, skips):
     return torch.cat(outs)
 
 
+def f64_errors(x, counts, ws, bs, g, skips) -> dict:
+    """At one chunk of Bungee's fp32 layer: the largest error of K1R/K2R's
+    outputs (out, dx, dW, db) and of the plain fp32 chain's against a
+    float64 run of the plain chain (autograd for the gradients), each
+    relative to the float64 output's largest entry."""
+    from switch_nerf_torch.ops import ragged_chain as rc
+    wide = [t.double().requires_grad_() for t in (x, ws, bs)]
+    ref = rc.ragged_chain_plain(wide[0], counts, wide[1], wide[2], skips)
+    refs = [ref.detach()] + list(torch.autograd.grad(ref, wide, g.double()))
+    del ref, wide
+    out = {}
+    for who, fwd, bwd in (("kernel", rc.ragged_chain_fwd, rc.ragged_chain_bwd),
+                          ("plain", rc.ragged_chain_plain,
+                           rc.ragged_chain_bwd_plain)):
+        got = [fwd(x, counts, ws, bs, skips)] + list(
+            bwd(x, counts, ws, bs, g, skips))
+        out[who] = [((o.double() - r).abs().max() / r.abs().max()).item()
+                    for o, r in zip(got, refs)]
+    return out
+
+
 def ragged_kernel_phase(peaks, shapes):
     """K1R and K2R vs their plain versions at the shapes of the no-drop
     paths (one 32,768-point model chunk): fp32 at Bungee's (E4, the
     training path) and bf16 at Building's (E8, an eval without
-    --moe_test_batch), over skewed counts; K2R deterministic and an empty
-    expert's dW and db exactly zero. Returns the rows of both shapes."""
+    --moe_test_batch), over skewed counts (checked and timed) and balanced
+    ones (timed); K2R deterministic and an empty expert's dW and db exactly
+    zero; each step's device time by kernel name (torch.profiler); the fp32
+    kernels' error against float64 beside the plain fp32 chain's. Returns
+    the rows of both shapes (skewed counts)."""
     from switch_nerf_torch.ops import ragged_chain as rc
 
     gen = torch.Generator().manual_seed(2)
@@ -1199,72 +1249,116 @@ def ragged_kernel_phase(peaks, shapes):
         n, m = RAGGED_N, shapes["width"]
         layers, skips = shapes["layers"], shapes["skips"]
         dt = str(dtype)[6:]
-        counts_host = skewed_counts(n, e)
-        counts = torch.tensor(counts_host, dtype=torch.int32, device="cuda")
         ws, bs = chain_weights(e, m, layers, dtype, gen)
         x = torch.randn(n, m, generator=gen).to("cuda", dtype)
         g = torch.randn(n, m, generator=gen).to("cuda", dtype)
-        log(f"[kernels] K1R/K2R ragged chain, {label}: E{e} N{n} M{m} "
-            f"L{layers} skips{skips} {dt}, counts {counts_host}")
-        err = check_close(f"K1R {dt}", rc.ragged_chain_fwd(x, counts, ws, bs,
-                                                           skips),
-                          rc.ragged_chain_plain(x, counts, ws, bs, skips))
-        dirty_allocator()
-        got = rc.ragged_chain_bwd(x, counts, ws, bs, g, skips)
-        err_b = check_bwd(f"K2R {dt}", got, rc.ragged_chain_bwd_plain(
-            x, counts, ws, bs, g, skips))
-        empty = [i for i, c in enumerate(counts_host) if c == 0]
-        if any(bool(got[1][:, i].any()) or bool(got[2][:, i].any())
-               for i in empty):
-            raise AssertionError("K2R: an empty expert's dW or db is not 0")
-        log(f"  K2R {dt}: dW and db of the empty experts {empty} exactly 0 "
-            "(outputs allocated over NaN bytes)")
-        check_deterministic(f"K2R {dt}", lambda: rc.ragged_chain_bwd(
-            x, counts, ws, bs, g, skips))
-        del got
-
-        flops = 2 * n * m * m * layers
-        bound_ms, bound_by = chain_bound(
-            flops, nbytes(x, counts, ws, bs) + nbytes(x), dtype, peaks)
-        t = {"ms": cuda_ms(lambda: rc.ragged_chain_fwd(x, counts, ws, bs,
-                                                        skips), iters=20),
-             "plain_ms": cuda_ms(lambda: rc.ragged_chain_plain(
-                 x, counts, ws, bs, skips), iters=10, warmup=3),
-             "library_ms": cuda_ms(lambda: addmm_ragged(
-                 x, counts.tolist(), ws, bs, skips), iters=10, warmup=3)}
-        log(f"  K1R {dt}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-            f"ms, addmm chain per expert {t['library_ms']:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), "
-            f"{rate(flops, t['ms'], bound_ms)}")
-        rows[f"K1R {label}"] = dict(max_abs_err=err, bound_ms=bound_ms,
-                                    bound_by=bound_by, **t)
-
-        flops = 4 * n * m * m * layers
+        if dtype == torch.bfloat16:
+            steps_fwd = {"K1R": "chain_fwd_sm90"}
+            steps_bwd = {"pass 1": "chain_bwd_sm90", "pass 2": "chain_dw_sm90",
+                         "reduction": "reduce_partials"}
+        else:
+            steps_fwd = {"prep": "tf32_split_weights", "K1R": "chain_fwd_tf32"}
+            steps_bwd = {"prep": "tf32_split_weights",
+                         "pass 1": "chain_bwd_tf32", "pass 2": "chain_dw_tf32",
+                         "reduction": "reduce_partials"}
+        flops_f, flops_b = 2 * n * m * m * layers, 4 * n * m * m * layers
         out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
-        bound_ms, bound_by = chain_bound(
-            flops, nbytes(x, g, counts, ws, bs) + out_bytes, dtype, peaks)
-        leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
-        lib_out = addmm_ragged(*leaves[:1], counts_host, *leaves[1:], skips)
-        t = {"ms": cuda_ms(lambda: rc.ragged_chain_bwd(x, counts, ws, bs, g,
-                                                        skips), iters=10),
-             "plain_ms": cuda_ms(lambda: rc.ragged_chain_bwd_plain(
-                 x, counts, ws, bs, g, skips), iters=5, warmup=2),
-             "library_ms": cuda_ms(lambda: torch.autograd.grad(
-                 lib_out, leaves, g, retain_graph=True), iters=10, warmup=3)}
-        del lib_out, leaves
-        names = (("chain_bwd_sm90", "chain_dw_sm90")
-                 if dtype == torch.bfloat16
-                 else ("chain_bwd_f32", "chain_dw_f32"))
-        passes = device_ms_by_kernel(
-            lambda: rc.ragged_chain_bwd(x, counts, ws, bs, g, skips),
-            dict(zip(("pass 1", "pass 2"), names)), iters=5)
-        log(f"  K2R {dt}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-            f"ms, autograd of the addmm chain {t['library_ms']:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {rate(flops, t['ms'], bound_ms)}"
-            f" (the gradient's products); profiled pass 1 "
-            f"{passes['pass 1']:.4f} ms, pass 2 {passes['pass 2']:.4f} ms")
-        rows[f"K2R {label}"] = dict(max_abs_err=err_b, bound_ms=bound_ms,
-                                    bound_by=bound_by, **t)
+        bounds = {}
+        for name, flops, nb in (
+                ("K1R", flops_f, nbytes(x, ws, bs) + 4 * e + nbytes(x)),
+                ("K2R", flops_b, nbytes(x, g, ws, bs) + 4 * e + out_bytes)):
+            bounds[name] = chain_bound(flops, nb, dtype, peaks)
+            if dtype == torch.float32:   # 3 TF32 products per fp32 product
+                bounds[name + " cuda cores"] = bounds[name]
+                bounds[name] = chain_bound(3 * flops, nb, "tf32", peaks)
+        for kind in ("skewed", "balanced"):
+            counts_host = (skewed_counts(n, e) if kind == "skewed"
+                           else [n // e] * e)
+            counts = torch.tensor(counts_host, dtype=torch.int32,
+                                  device="cuda")
+            log(f"[kernels] K1R/K2R ragged chain, {label}: E{e} N{n} M{m} "
+                f"L{layers} skips{skips} {dt}, {kind} counts {counts_host}")
+            err = check_close(f"K1R {dt}", rc.ragged_chain_fwd(
+                x, counts, ws, bs, skips), rc.ragged_chain_plain(
+                    x, counts, ws, bs, skips))
+            dirty_allocator()
+            got = rc.ragged_chain_bwd(x, counts, ws, bs, g, skips)
+            err_b = check_bwd(f"K2R {dt}", got, rc.ragged_chain_bwd_plain(
+                x, counts, ws, bs, g, skips))
+            empty = [i for i, c in enumerate(counts_host) if c == 0]
+            if any(bool(got[1][:, i].any()) or bool(got[2][:, i].any())
+                   for i in empty):
+                raise AssertionError("K2R: an empty expert's dW or db is "
+                                     "not 0")
+            if empty:
+                log(f"  K2R {dt}: dW and db of the empty experts {empty} "
+                    "exactly 0 (outputs allocated over NaN bytes)")
+            check_deterministic(f"K2R {dt}", lambda: rc.ragged_chain_bwd(
+                x, counts, ws, bs, g, skips))
+            del got
+            if dtype == torch.float32 and kind == "skewed":
+                f64 = f64_errors(x, counts, ws, bs, g, skips)
+                log(f"  fp32 error against a float64 run (out, dx, dW, db; "
+                    f"relative to its largest entry): kernels "
+                    f"{['%.3e' % v for v in f64['kernel']]}, plain fp32 "
+                    f"{['%.3e' % v for v in f64['plain']]}")
+                if not all(k <= 4 * p for k, p in zip(f64["kernel"],
+                                                      f64["plain"])):
+                    raise AssertionError("the fp32 kernels' error against "
+                                         "float64 exceeds 4x the plain "
+                                         "chain's")
+
+            bound_ms, bound_by = bounds["K1R"]
+            t = {"ms": cuda_ms(lambda: rc.ragged_chain_fwd(
+                    x, counts, ws, bs, skips), iters=20),
+                 "plain_ms": cuda_ms(lambda: rc.ragged_chain_plain(
+                     x, counts, ws, bs, skips), iters=10, warmup=3),
+                 "library_ms": cuda_ms(lambda: addmm_ragged(
+                     x, counts_host, ws, bs, skips), iters=10, warmup=3)}
+            steps = device_ms_by_kernel(lambda: rc.ragged_chain_fwd(
+                x, counts, ws, bs, skips), steps_fwd, iters=5)
+            core = (f", CUDA-core bound {bounds['K1R cuda cores'][0]:.4f} ms"
+                    if "K1R cuda cores" in bounds else "")
+            log(f"  K1R {dt} {kind}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, addmm chain per expert "
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}){core}, {rate(flops_f, t['ms'], bound_ms)}; "
+                f"profiled {', '.join(f'{k} {v:.4f}' for k, v in steps.items())}"
+                " ms")
+            if kind == "skewed":
+                rows[f"K1R {label}"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                                            bound_by=bound_by, **t)
+
+            bound_ms, bound_by = bounds["K2R"]
+            leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
+            lib_out = addmm_ragged(*leaves[:1], counts_host, *leaves[1:],
+                                   skips)
+            t = {"ms": cuda_ms(lambda: rc.ragged_chain_bwd(
+                    x, counts, ws, bs, g, skips), iters=10),
+                 "plain_ms": cuda_ms(lambda: rc.ragged_chain_bwd_plain(
+                     x, counts, ws, bs, g, skips), iters=5, warmup=2),
+                 "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                     lib_out, leaves, g, retain_graph=True), iters=10,
+                     warmup=3)}
+            del lib_out, leaves
+            steps = device_ms_by_kernel(lambda: rc.ragged_chain_bwd(
+                x, counts, ws, bs, g, skips), steps_bwd, iters=5)
+            core = (f", CUDA-core bound {bounds['K2R cuda cores'][0]:.4f} ms"
+                    if "K2R cuda cores" in bounds else "")
+            log(f"  K2R {dt} {kind}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, autograd of the addmm chain "
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}){core}, {rate(flops_b, t['ms'], bound_ms)} (the "
+                f"gradient's products); profiled "
+                f"{', '.join(f'{k} {v:.4f}' for k, v in steps.items())} ms")
+            rows[f"K2R {label} {kind}"] = t
+            if kind == "skewed":
+                rows[f"K2R {label}"] = dict(max_abs_err=err_b,
+                                            bound_ms=bound_ms,
+                                            bound_by=bound_by, **t)
+        ratio = (rows[f"K2R {label} skewed"]["ms"]
+                 / rows[f"K2R {label} balanced"]["ms"])
+        log(f"  K2R {dt}: skewed / balanced time {ratio:.3f}")
     return rows
 
 
@@ -1396,8 +1490,17 @@ def bungee_phase(counts: dict) -> str:
                 return run
             return make
 
+        routed = []     # each chunk's expert counts, kept on the card
+
+        def keep_counts(real):
+            def run(x, cnt, *a, **k):
+                routed.append(cnt.clone())
+                return real(x, cnt, *a, **k)
+            return run
+
         torch.cuda.reset_peak_memory_stats()
-        with wrapped(runner_mod, "make_train_step", make_step):
+        with wrapped(runner_mod, "make_train_step", make_step), \
+                wrapped(ragged_chain, "ragged_chain_fwd", keep_counts):
             expert_kernel.launches = expert_kernel.bwd_launches = 0
             ragged_chain.ragged_launches = ragged_chain.ragged_bwd_launches = 0
             t0 = time.perf_counter()
@@ -1408,6 +1511,13 @@ def bungee_phase(counts: dict) -> str:
             counts["K2R"] = ragged_chain.ragged_bwd_launches
             k1 = expert_kernel.launches
         peak = torch.cuda.max_memory_allocated()
+        routed = torch.stack(routed).double()
+        share = (routed.max(1).values / routed.sum(1)).cpu()
+        skew = (f"largest expert's share of a chunk's rows over "
+                f"{len(share)} chunks: min {share.min().item():.4f}, median "
+                f"{share.median().item():.4f}, max {share.max().item():.4f}"
+                f" (E{routed.shape[1]}; balanced {1 / routed.shape[1]:.4f})")
+        log(f"  routing: {skew}")
         exp = tmp / "exp" / "0"
         log(f"  launches: K1R {counts['K1R']}, K2R {counts['K2R']} (expected "
             f"{chunks * steps} each, {chunks} a step), K1 {k1}")
@@ -1456,7 +1566,7 @@ def bungee_phase(counts: dict) -> str:
             f"{steps}), step {step_s:.4f} s, {steps} steps in {wall:.1f} s "
             f"wall, max_memory_allocated {peak} B ({peak / 2 ** 30:.2f} GiB);"
             f" K1R / K2R launches per step {counts['K1R'] // steps} / "
-            f"{counts['K2R'] // steps}; eval seconds per image "
+            f"{counts['K2R'] // steps}; {skew}; eval seconds per image "
             f"{[round(m_['time'], 4) for m_ in metrics]} ({per_image} rays an"
             f" image), psnr {means['psnr']:.4f}, ssim {means['ssim']:.4f}")
 

@@ -1,12 +1,11 @@
 // Per-expert L-layer MLP chain, fp32 forward, for Hopper (sm_90a).
 //
-// Shared by expert_chain.cu (rows read in place: x [E, C, M]),
-// fused_dispatch.cu (rows gathered through a slot->token map) and
-// ragged_chain.cu (expert-sorted rows x [N, M] with counts on the device;
-// rows.cuh), and by the fp32 backward (chain_bwd.cuh), which reruns the
-// forward to recompute the activation stack. bf16 runs the wgmma design of
-// chain_sm90.cuh instead. One CTA owns one (expert, row block). The
-// block's activations and its skip input `xin` stay in shared memory
+// Shared by expert_chain.cu (rows read in place: x [E, C, M]) and
+// fused_dispatch.cu (rows gathered through a slot->token map; rows.cuh),
+// and by the fp32 backward (chain_bwd.cuh), which reruns the forward to
+// recompute the activation stack. bf16 runs the wgmma design of
+// chain_sm90.cuh instead; the ragged K1R's fp32 runs chain_tf32.cuh. One
+// CTA owns one (expert, row block). The block's activations and its skip input `xin` stay in shared memory
 // across all L layers, so activations touch device memory once in and
 // once out; W_l is streamed through shared memory in tiles of kKTile rows.
 //
@@ -17,8 +16,10 @@
 //   skip layer:  z += xin; ReLU unless last; xin = z
 //   other layer: ReLU unless last
 //
-// fp32 runs on the CUDA cores with fp32 FMAs: TF32 tensor cores would keep
-// only ~3 decimal digits and miss the fp32 tolerance.
+// fp32 runs on the CUDA cores with fp32 FMAs: a single TF32 product keeps
+// only ~3 decimal digits and misses the fp32 tolerance. The split-precision
+// product of chain_tf32.cuh (3xTF32: hi*hi + hi*lo + lo*hi) keeps error
+// near fp32's; K1R/K2R use it, K1-K4's fp32 stays here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,8 +32,8 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kKTile = 32;     // rows of W_l per shared-memory tile
 
-// Source row of expert row r (< er.count): in place and ragged the row
-// itself, gathered through the map.
+// Source row of expert row r (< er.count): in place the row itself,
+// gathered through the map.
 template <int SRC>
 __device__ __forceinline__ long long source_row(const int* __restrict__ idx,
                                                 const ExpertRows& er, int r,
@@ -169,7 +170,6 @@ chain_f32_kernel(const float* __restrict__ src, const int* __restrict__ idx,
 
   const ExpertRows er = expert_rows<SRC>(idx, blockIdx.y, C);
   const int r0 = blockIdx.x * kRowsF32;
-  if (SRC == kRagged && r0 >= er.count) return;  // past its rows
   chain_f32_forward<M, SRC>(src, idx, n_src, ws, bs, E, er, L, skip_mask, h,
                             xin, wt, nullptr, 0);
   __syncthreads();
@@ -199,9 +199,8 @@ int launch_width(const float* src, const int* idx, int n_src, const float* ws,
 }
 
 // fp32 only. Returns a cudaError_t code (0 = launched). src is x [E, C, M],
-// with kGather the token rows [n_src, M] that idx [E * C] names, with
-// kRagged x [C, M] sorted by expert and idx the counts [E]. Widths other
-// than 64/128/256 are refused with cudaErrorInvalidValue; the Python
+// with kGather the token rows [n_src, M] that idx [E * C] names. Widths
+// other than 64/128/256 are refused with cudaErrorInvalidValue; the Python
 // wrappers check first.
 template <int SRC>
 int launch_chain(int device, const void* src, const int* idx, int n_src,

@@ -1,9 +1,9 @@
 // Per-expert L-layer MLP chain, fp32 backward, for Hopper (sm_90a).
 //
-// Shared by expert_chain_bwd.cu (K2, rows read in place),
-// fused_dispatch_bwd.cu (K4, rows gathered through the slot->token map) and
-// ragged_chain_bwd.cu (K2R, expert-sorted rows; rows.cuh); bf16 runs the
-// wgmma design of chain_bwd_sm90.cuh instead.
+// Shared by expert_chain_bwd.cu (K2, rows read in place) and
+// fused_dispatch_bwd.cu (K4, rows gathered through the slot->token map);
+// bf16 runs the wgmma design of chain_bwd_sm90.cuh instead, and the ragged
+// K2R's fp32 the split-precision tensor-core design of chain_tf32.cuh.
 // Replaces the Pallas _bwd_kernel of switch_nerf_tpu/ops/expert_kernel.py
 // and ops/fused_dispatch.py, which recompute the activation stack in VMEM,
 // run the reverse sweep, and add each C block's dW/db into an output block
@@ -14,21 +14,21 @@
 //
 //   pass 1, one CTA per (expert, 32-row block), as K1's fp32 path:
 //     recompute the chain (chain_f32_forward), writing each layer's input
-//     H_l to the workspace hsave [L, ws_rows, M] (the expert's segment,
-//     rows.cuh); then the reverse sweep in shared memory,
+//     H_l to the workspace hsave [L, E*C, M]; then the reverse sweep in
+//     shared memory,
 //       g   = gh (+ gxin at a skip layer); ReLU mask from H_{l+1} > 0 unless
 //             last; gxin = g at a skip layer
-//       G_l = g  -> gsave [L, ws_rows, M]
+//       G_l = g  -> gsave [L, E*C, M]
 //       gh  = g @ W_l^T
 //     and dx = gh + gxin.
 //   pass 2, one CTA per (layer, expert, output tile):
 //     dW[l, e] = H_l^T G_l with fp32 accumulators over the expert's rows
 //     inside the CTA, and db[l, e] = the fp32 column sums of G_l (tiles of
-//     the first tile row only). Sums run over the rows in ascending order;
-//     an expert with no rows gets dW = 0 and db = 0.
+//     the first tile row only). Sums run over the rows in ascending order.
 //
 // H_l and G_l are the operands the TPU kernel's dot_general contracts. fp32
-// runs on the CUDA cores (TF32 would miss the fp32 tolerance).
+// runs on the CUDA cores: a single TF32 product misses the fp32 tolerance
+// (chain_tf32.cuh's 3xTF32 product, which K1R/K2R use, does not).
 #pragma once
 
 #include "chain.cuh"
@@ -69,7 +69,6 @@ chain_bwd_f32_kernel(const float* __restrict__ src,
 
   const ExpertRows er = expert_rows<SRC>(idx, blockIdx.y, C);
   const int r0 = blockIdx.x * kRowsF32;
-  if (SRC == kRagged && r0 >= er.count) return;  // past its rows
   chain_f32_forward<M, SRC>(src, idx, n_src, ws, bs, E, er, L, skip_mask, h,
                             xin, wt, hsave, ws_rows);
   __syncthreads();
@@ -152,12 +151,11 @@ constexpr int kCChunk = 32;  // rows of H_l / G_l staged per step
 
 // fp32: an output tile 64 x 64 (M >= 64); thread (ty, tx) owns rows
 // ty + 16i and columns tx + 16j.
-template <int M, int SRC>
+template <int M>
 __global__ void __launch_bounds__(kThreads)
 chain_dw_f32_kernel(const float* __restrict__ hsave,
                     const float* __restrict__ gsave, float* __restrict__ dw,
-                    float* __restrict__ db, const int* __restrict__ counts,
-                    int E, int C, long long ws_rows) {
+                    float* __restrict__ db, int E, int C, long long ws_rows) {
   constexpr int T = 64;
   constexpr int TILES = M / T;
   constexpr int TV = T / 4;
@@ -169,9 +167,8 @@ chain_dw_f32_kernel(const float* __restrict__ hsave,
   const int m0 = mt * T, n0 = nt * T;
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
-  const ExpertRows er = expert_rows<SRC>(counts, e, C);
-  const int rows = er.count;
-  const size_t base = ((size_t)l * ws_rows + er.ws) * M;
+  const int rows = C;
+  const size_t base = ((size_t)l * ws_rows + (size_t)e * C) * M;
   const bool do_db = mt == 0 && tid < T;
   float db_acc = 0.0f;
   float acc[4][4];
@@ -228,8 +225,7 @@ int launch_bwd_width(const float* src, const int* idx, int n_src,
                      float* dx, float* hsave, float* gsave, float* dw,
                      float* db, int E, int C, int L, unsigned skip_mask,
                      cudaStream_t stream) {
-  const long long ws_rows =
-      SRC == kRagged ? ragged_ws_rows(C, E) : (long long)E * C;
+  const long long ws_rows = (long long)E * C;
   auto kern = chain_bwd_f32_kernel<M, SRC>;
   const size_t smem = F32BwdLayout<M>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -242,14 +238,14 @@ int launch_bwd_width(const float* src, const int* idx, int n_src,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid2((M / 64) * (M / 64), E, L);
-  chain_dw_f32_kernel<M, SRC><<<grid2, kThreads, 0, stream>>>(
-      hsave, gsave, dw, db, idx, E, C, ws_rows);
+  chain_dw_f32_kernel<M><<<grid2, kThreads, 0, stream>>>(hsave, gsave, dw,
+                                                         db, E, C, ws_rows);
   return (int)cudaGetLastError();
 }
 
 // fp32 only. Returns a cudaError_t code (0 = launched). src as
-// launch_chain's. hsave and gsave are fp32 workspaces [L, E, C, M] (kRagged:
-// [L, ragged_ws_rows(C, E), M]); dw [L, E, M, M] and db [L, E, 1, M].
+// launch_chain's. hsave and gsave are fp32 workspaces [L, E, C, M]; dw
+// [L, E, M, M] and db [L, E, 1, M].
 template <int SRC>
 int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, const void* g, void* dx,

@@ -40,9 +40,16 @@
 // kGather's cp.async copy and g, and writes dx, with 16-byte copies that
 // stop at the expert's last row (copy_rows), zero-filling g past it, so
 // G_l is 0 on those tile rows; H_l and G_l go by TMA to the expert's
-// segment of the [L, ragged_ws_rows(N, E), M] workspaces (whole tiles),
-// and pass 2 sums the segment's first ceil(counts[e] / 64) slices. An
-// expert with no rows gets dW = 0 and db = 0.
+// segment of the [L, ragged_ws_rows(N, E), M] workspaces (whole tiles).
+// Pass 2 then splits each segment into chunks of kChunkRows rows
+// (rows.cuh): one CTA per (128 rows of dW, chunk, layer) sums the chunk's
+// first ceil(rows / 64) slices into a partial dW and db, and
+// reduce_partials adds each expert's partials in ascending chunk order.
+// Skewed counts so spread over the card (one CTA per expert over all of
+// its rows lets the expert with most rows set the pass's time), and the
+// grid (2 x 7 x <= 24 CTAs at E8 M256 L7, N = 32,768) fills the 132 SMs
+// at balanced counts too. An expert with no rows gets dW = 0 and
+// db = 0 from the reduction.
 // Every sum runs in a fixed order: results are bit-identical from run to
 // run.
 #pragma once
@@ -299,8 +306,9 @@ struct DwCfg {
   static constexpr int kBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 };
 
-// counts is read with kRagged only (the workspace layers are then
-// [L, ragged_ws_rows(C, E), M] and expert e's rows start at its segment).
+// counts is read with kRagged only: the workspace layers are then
+// [L, ragged_ws_rows(C, E), M], blockIdx.y is a chunk of rows (rows.cuh),
+// and dw / db are the partials [L, n_chunks, M, M] / [L, n_chunks, M].
 template <int M, int SRC>
 __global__ void __launch_bounds__(DwCfg<M>::kThreads, 1)
 chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
@@ -314,12 +322,22 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
                                                D::kStageBytes);
   uint64_t* empty = full + D::kStages;
   const int m0 = blockIdx.x * D::kTM;
-  const int e = blockIdx.y, l = blockIdx.z;
-  const int z = l * E + e;  // dW / db block
-  const ExpertRows er = expert_rows<SRC>(counts, e, C);
-  const int mz = SRC == kRagged ? l : z;                // workspace z
-  const int mrow = SRC == kRagged ? (int)er.ws : 0;     // and first row
-  const int chunks = (er.count + kBox - 1) / kBox;
+  const int l = blockIdx.z;
+  int z, mz, mrow, rows;  // dW / db block, workspace z, first row, rows
+  if constexpr (SRC == kRagged) {
+    const ChunkRows cr = chunk_rows(counts, E, blockIdx.y);
+    if (cr.e < 0) return;  // past the last chunk
+    z = l * gridDim.y + blockIdx.y;
+    mz = l;
+    mrow = (int)cr.ws;
+    rows = cr.count;
+  } else {
+    z = l * E + blockIdx.y;
+    mz = z;
+    mrow = 0;
+    rows = C;
+  }
+  const int chunks = (rows + kBox - 1) / kBox;
   if (threadIdx.x == 0) {
     for (int s = 0; s < D::kStages; ++s) {
       mbar_init(&full[s], 1);
@@ -364,10 +382,6 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
 #pragma unroll
     for (int k = 0; k < kDbCols; ++k) db_acc[k] = 0.0f;
     float acc[M / 2];
-    if constexpr (SRC == kRagged) {  // an expert with no rows writes dW = 0
-#pragma unroll
-      for (int i = 0; i < M / 2; ++i) acc[i] = 0.0f;
-    }
     int stage = 0, prev = 0;
     uint32_t phase = 0;
     fence_acc(acc);
@@ -405,11 +419,9 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
         phase ^= 1;
       }
     }
-    if (SRC != kRagged || chunks > 0) {  // else acc stays 0, as db_acc
-      wg_wait<0>();
-      fence_acc(acc);
-      mbar_arrive(&empty[prev]);
-    }
+    wg_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(&empty[prev]);
 
     const int lane = t & 31;
     const int r = m0 + cw * 64 + (t >> 5) * 16 + (lane >> 2);
@@ -431,11 +443,14 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
 }
 
 // ------------------------------------------------------------- host ----
+// kRagged: dwp and dbp are the partial sums [L, ragged_chunks(C, E), M, M]
+// and [L, ragged_chunks(C, E), M] (rows.cuh); unused otherwise.
 template <int M, int SRC>
 int launch_bwd_width(const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, const void* g, void* dx,
-                     void* hsave, void* gsave, float* dw, float* db, int E,
-                     int C, int L, unsigned skip_mask, cudaStream_t stream) {
+                     void* hsave, void* gsave, float* dw, float* db,
+                     float* dwp, float* dbp, int E, int C, int L,
+                     unsigned skip_mask, cudaStream_t stream) {
   CUtensorMap x_map, w_map, wt_map, g_map, dx_map, h_map, gs_map;
   Gather gather;
   const long long LE = (long long)L * E;
@@ -477,9 +492,17 @@ int launch_bwd_width(const void* src, const int* idx, int n_src,
   err = cudaFuncSetAttribute(
       kern2, cudaFuncAttributeMaxDynamicSharedMemorySize, D::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid2(M / D::kTM, E, L);
-  kern2<<<grid2, D::kThreads, D::kBytes, stream>>>(h_map, gs_map, dw, db, idx,
-                                                    E, C);
+  if constexpr (SRC == kRagged) {
+    const int chunks = ragged_chunks(C, E);
+    kern2<<<dim3(M / D::kTM, chunks, L), D::kThreads, D::kBytes, stream>>>(
+        h_map, gs_map, dwp, dbp, idx, E, C);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return launch_reduce_partials(dwp, dbp, idx, dw, db, E, M, L, chunks,
+                                  stream);
+  }
+  kern2<<<dim3(M / D::kTM, E, L), D::kThreads, D::kBytes, stream>>>(
+      h_map, gs_map, dw, db, idx, E, C);
   return (int)cudaGetLastError();
 }
 
@@ -488,12 +511,13 @@ int launch_bwd_width(const void* src, const int* idx, int n_src,
 // d(dispatched) [E, C, M]), with kRagged x [C, M] sorted by expert and idx
 // the counts [E] (g and dx [C, M]). hsave and gsave are bf16 workspaces
 // [L, E, C, M] (kRagged: [L, ragged_ws_rows(C, E), M]); dw [L, E, M, M]
-// and db [L, E, 1, M] fp32.
+// and db [L, E, 1, M] fp32; dwp / dbp kRagged's partial sums (else null).
 template <int SRC>
 int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, const void* g, void* dx,
-                     void* hsave, void* gsave, float* dw, float* db, int E,
-                     int C, int M, int L, unsigned skip_mask, void* stream) {
+                     void* hsave, void* gsave, float* dw, float* db,
+                     float* dwp, float* dbp, int E, int C, int M, int L,
+                     unsigned skip_mask, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (E <= 0 || C <= 0 || L > bwd_max_layers(device, M))
@@ -502,16 +526,16 @@ int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
   switch (M) {
     case 64:
       return launch_bwd_width<64, SRC>(src, idx, n_src, ws, bs, g, dx,
-                                       hsave, gsave, dw, db, E, C, L,
-                                       skip_mask, s);
+                                       hsave, gsave, dw, db, dwp, dbp, E,
+                                       C, L, skip_mask, s);
     case 128:
       return launch_bwd_width<128, SRC>(src, idx, n_src, ws, bs, g, dx,
-                                        hsave, gsave, dw, db, E, C, L,
-                                        skip_mask, s);
+                                        hsave, gsave, dw, db, dwp, dbp, E,
+                                        C, L, skip_mask, s);
     case 256:
       return launch_bwd_width<256, SRC>(src, idx, n_src, ws, bs, g, dx,
-                                        hsave, gsave, dw, db, E, C, L,
-                                        skip_mask, s);
+                                        hsave, gsave, dw, db, dwp, dbp, E,
+                                        C, L, skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

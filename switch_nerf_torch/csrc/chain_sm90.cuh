@@ -708,13 +708,15 @@ chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
 }
 
 // ------------------------------------------------------------- host ----
-// A 3-D bf16 tensor map over [outer, rows, M] (M contiguous) with boxes of
-// box_m x box_rows: 64 x 64 with the 128-byte swizzle unless given.
-// cuTensorMapEncodeTiled comes from libcuda through the runtime's
-// entry-point query, so the library needs no -lcuda.
+// A 3-D tensor map over [outer, rows, M] (M contiguous) with boxes of
+// box_m x box_rows: bf16, 64 x 64 with the 128-byte swizzle unless given
+// (fp32: chain_tf32.cuh). cuTensorMapEncodeTiled comes from libcuda
+// through the runtime's entry-point query, so the library needs no -lcuda.
 inline int make_map(CUtensorMap* map, const void* ptr, int m, long long rows,
                     long long outer, int box_m = kBox, int box_rows = kBox,
-                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B,
+                    CUtensorMapDataType dtype =
+                        CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -733,12 +735,13 @@ inline int make_map(CUtensorMap* map, const void* ptr, int m, long long rows,
   }
   const cuuint64_t dims[3] = {(cuuint64_t)m, (cuuint64_t)rows,
                               (cuuint64_t)outer};
-  const cuuint64_t strides[2] = {(cuuint64_t)m * 2,
-                                 (cuuint64_t)m * 2 * (cuuint64_t)rows};
+  const cuuint64_t elem = dtype == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
+  const cuuint64_t strides[2] = {(cuuint64_t)m * elem,
+                                 (cuuint64_t)m * elem * (cuuint64_t)rows};
   const cuuint32_t box[3] = {(cuuint32_t)box_m, (cuuint32_t)box_rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      map, dtype, 3, const_cast<void*>(ptr), dims,
       strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -15,8 +15,9 @@ extern "C" int expert_chain_bwd(int device, const void* x, const void* ws,
                                 void* stream) {
   if (is_bf16)
     return sm90::launch_chain_bwd<kInPlace>(device, x, nullptr, 0, ws, bs, g,
-                                            dx, hsave, gsave, dw, db, E, C,
-                                            M, L, skip_mask, stream);
+                                            dx, hsave, gsave, dw, db, nullptr,
+                                            nullptr, E, C, M, L, skip_mask,
+                                            stream);
   return launch_chain_bwd<kInPlace>(device, x, nullptr, 0, ws, bs, g, dx,
                                     hsave, gsave, dw, db, E, C, M, L,
                                     skip_mask, stream);

@@ -18,7 +18,8 @@ extern "C" int fused_dispatch_bwd(int device, const void* tokens,
   if (is_bf16)
     return sm90::launch_chain_bwd<kGather>(device, tokens, stt, n_tokens, ws,
                                            bs, g, dxd, hsave, gsave, dw, db,
-                                           E, C, M, L, skip_mask, stream);
+                                           nullptr, nullptr, E, C, M, L,
+                                           skip_mask, stream);
   return launch_chain_bwd<kGather>(device, tokens, stt, n_tokens, ws, bs, g,
                                    dxd, hsave, gsave, dw, db, E, C, M, L,
                                    skip_mask, stream);

@@ -1,5 +1,6 @@
 // Where the rows of a chain launch come from, shared by the fp32 (chain.cuh,
-// chain_bwd.cuh) and bf16 (chain_sm90.cuh, chain_bwd_sm90.cuh) templates.
+// chain_bwd.cuh: kInPlace, kGather; chain_tf32.cuh: kRagged) and bf16
+// (chain_sm90.cuh, chain_bwd_sm90.cuh) templates.
 //
 //   kInPlace (K1, K2): x [E, C, M]; expert e owns rows e*C .. e*C + C - 1.
 //   kGather  (K3, K4): the dispatched layout [E, C, M] again, but row
@@ -51,4 +52,93 @@ __device__ __forceinline__ ExpertRows expert_rows(const int* counts, int e,
     ws += (long long)(c + kSegRows - 1) / kSegRows * kSegRows;
   }
   return {base, counts[e], ws};
+}
+
+// K2R's dW pass splits each expert's workspace segment into chunks of
+// kChunkRows rows (whole segment tiles), one CTA per (dW tile, chunk,
+// layer), so an expert with most of the rows no longer sets the pass's
+// time alone. Chunk c of a launch is the c-th chunk in expert order;
+// sum_e ceil(c_e / kChunkRows) <= ceil(N / kChunkRows) + E, a bound that
+// needs no counts, sizes the grid and the partial-sum workspaces. At
+// N = 32,768: <= 20 chunks at E4, <= 24 at E8 (at M = 256, 7 layers and
+// 16-24 chunks: 224-336 CTAs over 132 SMs with bf16's 2 dW tiles a layer,
+// 476 with the fp32 pass's 4).
+constexpr int kChunkRows = 2048;
+static_assert(kChunkRows % kSegRows == 0, "chunks hold whole tiles");
+
+__host__ __device__ inline int ragged_chunks(long long N, int E) {
+  return (int)((N + kChunkRows - 1) / kChunkRows) + E;
+}
+
+// Chunk c: its expert (-1 past the last chunk), its first row in the
+// expert's workspace segment's layer (ws) and its row count (<= kChunkRows).
+struct ChunkRows {
+  int e;
+  long long ws;
+  int count;
+};
+
+__device__ __forceinline__ ChunkRows chunk_rows(const int* counts, int E,
+                                                int c) {
+  long long ws = 0;
+  for (int e = 0; e < E; ++e) {
+    const int n = counts[e];
+    const int k = (n + kChunkRows - 1) / kChunkRows;
+    if (c < k) {
+      const int r0 = c * kChunkRows;
+      return {e, ws + r0, n - r0 < kChunkRows ? n - r0 : kChunkRows};
+    }
+    c -= k;
+    ws += (long long)(n + kSegRows - 1) / kSegRows * kSegRows;
+  }
+  return {-1, 0, 0};
+}
+
+// The partial sums of K2R's dW pass: dwp [L, chunks, M, M] and
+// dbp [L, chunks, M] fp32, chunk c's sums of its expert's rows. Summed here
+// per expert in ascending chunk order into dw [L, E, M, M] and db
+// [L, E, 1, M] (exact zeros for an expert with no rows): no atomics, the
+// same bits on every run. One thread per 4 consecutive dW entries of one
+// (layer, expert); the CTAs of blockIdx.x == 0 also sum db. Reads the
+// partials once (<= 44 MB at E8 M256 L7), ~15-30 us.
+__global__ void reduce_partials(const float* __restrict__ dwp,
+                                const float* __restrict__ dbp,
+                                const int* __restrict__ counts,
+                                float* __restrict__ dw, float* __restrict__ db,
+                                int E, int M, int chunks) {
+  const int e = blockIdx.y, l = blockIdx.z;
+  int first = 0;
+  for (int i = 0; i < e; ++i) first += (counts[i] + kChunkRows - 1) / kChunkRows;
+  const int n = (counts[e] + kChunkRows - 1) / kChunkRows;
+  const long long mm = (long long)M * M;
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v * 4 < mm) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c = first; c < first + n; ++c) {
+      const float4 p = reinterpret_cast<const float4*>(
+          dwp + ((long long)l * chunks + c) * mm)[v];
+      s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+    }
+    reinterpret_cast<float4*>(dw + ((long long)l * E + e) * mm)[v] = s;
+  }
+  if (blockIdx.x == 0) {
+    for (int j = threadIdx.x; j < M; j += blockDim.x) {
+      float s = 0.0f;
+      for (int c = first; c < first + n; ++c)
+        s += dbp[((long long)l * chunks + c) * M + j];
+      db[((long long)l * E + e) * M + j] = s;
+    }
+  }
+}
+
+inline int launch_reduce_partials(const float* dwp, const float* dbp,
+                                  const int* counts, float* dw, float* db,
+                                  int E, int M, int L, int chunks,
+                                  cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  const dim3 grid((unsigned)(((long long)M * M / 4 + kThreads - 1) / kThreads),
+                  E, L);
+  reduce_partials<<<grid, kThreads, 0, stream>>>(dwp, dbp, counts, dw, db, E,
+                                                 M, chunks);
+  return (int)cudaGetLastError();
 }

@@ -8,21 +8,32 @@ Plain PyTorch has no grouped product that needs no host sync (a loop over
 experts reads the counts on the host for every chunk; padding to [E, N, M]
 multiplies the work by E), so the card runs hand-written kernels:
 
-K1R (``csrc/ragged_chain.cu``) is K1's mainloop with a third row source
-(``csrc/rows.cuh``): x [N, M] holds expert e's rows from
-off[e] = sum(counts[:e]), with counts [E] int32 on the device. A CTA
-(expert, row block) finds its rows from the counts and exits when its
-block starts past them; the grid is sized from N, so the forward has no
-host sync and no shape that depends on the data. bf16 on K1's wgmma + TMA
-design (rows come in by the cp.async copy of K3 and leave by 16-byte
-stores that stop at the expert's last row), fp32 on the CUDA cores. Bound:
-2*N*M^2*L operations against x, W and out, tensor-core operations in bf16.
+K1R (``csrc/ragged_chain.cu``) reads x [N, M], which holds expert e's
+rows from off[e] = sum(counts[:e]), with counts [E] int32 on the device
+(``csrc/rows.cuh``). A CTA (expert, row block) finds its rows from the
+counts and exits when its block starts past them; the grid is sized from
+N, so the forward has no host sync and no shape that depends on the data.
+Rows come in by a cp.async copy and leave by stores that stop at the
+expert's last row. bf16 runs K1's wgmma + TMA design; fp32 (Bungee's
+training path) runs on the tensor cores in split precision, 3xTF32
+(``csrc/chain_tf32.cuh``: each operand split into tf32 hi + lo, three
+products hi*hi + hi*lo + lo*hi per step, error near fp32's; one TF32
+product would miss the fp32 limit), after a step that writes the split
+weights into a workspace (``wsplit``). Bound: 2*N*M^2*L operations against
+x, W and out (times 3 TF32 products in fp32).
 
-K2R (``csrc/ragged_chain_bwd.cu``) is K2's two deterministic passes on the
+K2R (``csrc/ragged_chain_bwd.cu``) is three deterministic steps on the
 same row source: pass 1 recomputes and sweeps each tile into per-expert
-workspace segments of whole 128-row tiles ([L, ws_rows, M], ``ws_rows``
-bounded from N and E alone); pass 2 forms dW_e = H_e^T G_e and db_e over
-expert e's rows only, no atomics, exact zeros for an expert with no rows.
+workspace segments of whole 128-row tiles (``ws_rows`` rows a layer,
+bounded from N and E alone); pass 2 cuts every expert's segment into
+chunks of 2,048 rows and forms each chunk's partial dW = H^T G and db, one
+CTA per (dW tile, chunk, layer), so skewed routing spreads over the card;
+a reduction sums each expert's partials in ascending chunk order. No
+atomics, the same bits on every run, exact zeros for an expert with no
+rows. The partials (``ragged_chain_chunks(N, E)`` of them a layer) are
+sized from N and E alone. In fp32 the sweep and pass 2 run in 3xTF32 and
+the recompute on the CUDA cores in the plain chain's order, so its ReLU
+masks are the plain version's bit for bit.
 
 ``ragged_chain`` is differentiable through ``RaggedChainFn`` (forward K1R,
 backward K2R). A CPU tensor takes the plain versions (a loop over experts
@@ -49,16 +60,17 @@ ragged_launches = 0       # K1R
 ragged_bwd_launches = 0   # K2R
 
 _PROTOTYPES = {
-    "ragged_chain_fwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 5
+    "ragged_chain_fwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 6
                          + [ctypes.c_int] * 4
                          + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
     "ragged_chain_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _BWD_PROTOTYPES = {
-    "ragged_chain_bwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 10
+    "ragged_chain_bwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 13
                          + [ctypes.c_int] * 4
                          + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
     "ragged_chain_ws_rows": (ctypes.c_longlong, [ctypes.c_int] * 2),
+    "ragged_chain_chunks": (ctypes.c_int, [ctypes.c_int] * 2),
     "ragged_chain_bwd_max_layers": (ctypes.c_int, [ctypes.c_int] * 3),
     "ragged_chain_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -145,11 +157,16 @@ def ragged_chain_fwd(x: torch.Tensor, counts: torch.Tensor, ws: torch.Tensor,
     out = torch.empty_like(x)
     if n == 0:
         return out
+    bf16 = x.dtype == torch.bfloat16
+    # fp32: the split weights (W_l^T as tf32 hi and lo)
+    wsplit = None if bf16 else torch.empty((2, layers * e, m, m),
+                                           dtype=torch.float32,
+                                           device=x.device)
     lib = _build.load("ragged_chain", _PROTOTYPES)
     rc = lib.ragged_chain_fwd(
         x.device.index, x.data_ptr(), counts.data_ptr(), ws.data_ptr(),
-        bs.data_ptr(), out.data_ptr(), e, n, m, layers,
-        skip_mask(skips, layers), int(x.dtype == torch.bfloat16), _stream(x))
+        bs.data_ptr(), None if bf16 else wsplit.data_ptr(), out.data_ptr(),
+        e, n, m, layers, skip_mask(skips, layers), int(bf16), _stream(x))
     raise_on_error(rc, lib.ragged_chain_error_string)
     ragged_launches += 1
     return out
@@ -171,22 +188,32 @@ def ragged_chain_bwd(x: torch.Tensor, counts: torch.Tensor, ws: torch.Tensor,
     layers, e = ws.shape[0], ws.shape[1]
     lib = _build.load("ragged_chain_bwd", _BWD_PROTOTYPES)
     index = x.device.index
-    limit = lib.ragged_chain_bwd_max_layers(index, m,
-                                            int(x.dtype == torch.bfloat16))
+    bf16 = x.dtype == torch.bfloat16
+    limit = lib.ragged_chain_bwd_max_layers(index, m, int(bf16))
     if layers > limit:
         raise ValueError(f"the {x.dtype} backward kernel at M={m} takes up "
                          f"to {limit} layers, got {layers}")
-    work = (layers, lib.ragged_chain_ws_rows(n, e), m)
-    hsave = torch.empty(work, dtype=x.dtype, device=x.device)
-    gsave = torch.empty(work, dtype=x.dtype, device=x.device)
+    ws_rows = lib.ragged_chain_ws_rows(n, e)
+    chunks = lib.ragged_chain_chunks(n, e)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    hsave = torch.empty((layers, ws_rows, m), dtype=x.dtype, device=x.device)
+    if bf16:
+        gsave = torch.empty_like(hsave)
+        wsplit = None
+    else:   # G_l^T as tf32 hi and lo; W_l split likewise
+        gsave = torch.empty((2, layers, m, ws_rows), **f32)
+        wsplit = torch.empty((2, layers * e, m, m), **f32)
+    dwp = torch.empty((layers, chunks, m, m), **f32)
+    dbp = torch.empty((layers, chunks, m), **f32)
     dx = torch.empty_like(x)
-    dw = torch.empty((layers, e, m, m), dtype=torch.float32, device=x.device)
-    db = torch.empty((layers, e, 1, m), dtype=torch.float32, device=x.device)
+    dw = torch.empty((layers, e, m, m), **f32)
+    db = torch.empty((layers, e, 1, m), **f32)
     rc = lib.ragged_chain_bwd(
         index, x.data_ptr(), counts.data_ptr(), ws.data_ptr(), bs.data_ptr(),
         g.data_ptr(), dx.data_ptr(), hsave.data_ptr(), gsave.data_ptr(),
+        None if bf16 else wsplit.data_ptr(), dwp.data_ptr(), dbp.data_ptr(),
         dw.data_ptr(), db.data_ptr(), e, n, m, layers,
-        skip_mask(skips, layers), int(x.dtype == torch.bfloat16), _stream(x))
+        skip_mask(skips, layers), int(bf16), _stream(x))
     raise_on_error(rc, lib.ragged_chain_bwd_error_string)
     ragged_bwd_launches += 1
     return dx, dw, db

@@ -384,7 +384,7 @@ def _ragged_case(counts, m, layers, dtype, device, seed):
 
 def _check_ragged(counts, m, layers, skips, dtype, device, seed):
     """K1R and K2R against their plain versions: each launched once, dW and
-    db of every empty expert exactly zero."""
+    db of every empty expert exactly zero (over NaN-filled memory)."""
     x, cnt, ws, bs, gy = _ragged_case(counts, m, layers, dtype, device, seed)
     before = (ragged_chain.ragged_launches, ragged_chain.ragged_bwd_launches)
     _dirty_allocator(device)
@@ -422,9 +422,76 @@ def test_ragged_chain_kernels_edge_counts(cuda, counts, dtype):
     _check_ragged(counts, 256, 3, (1,), dtype, cuda, seed=sum(counts))
 
 
-def test_ragged_bwd_kernel_is_deterministic(cuda):
+# K2R's dW pass cuts each expert's rows into chunks of this many rows
+# (csrc/rows.cuh kChunkRows) and reduces the chunks' partial sums.
+_CHUNK_ROWS = 2048
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [64, 128, 256])
+@pytest.mark.parametrize("counts", [
+    [0, _CHUNK_ROWS, 0, _CHUNK_ROWS - 1, _CHUNK_ROWS + 1, 0],
+    [0, 0, 4 * _CHUNK_ROWS + 77, 0],
+    [2 * _CHUNK_ROWS + 1, 0, 3 * _CHUNK_ROWS]])
+def test_ragged_chain_kernels_across_the_row_chunks(cuda, counts, m, dtype):
+    """The dW pass's row split: an expert of exactly one chunk, one row
+    short of it and one past it; all rows in one expert over five chunks
+    (several partials reduce); two experts of several chunks each; empty
+    experts first, in the middle and last."""
+    _check_ragged(counts, m, 3, (1,), dtype, cuda, seed=m + sum(counts))
+
+
+def test_ragged_kernels_need_no_host_sync(cuda):
+    """K1R and K2R launch under sync debug mode "error": the counts stay on
+    the card, and no wrapper or workspace waits for the device."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, cnt, ws, bs, gy = _ragged_case([0, 3001, 4100, 899], 256, 7,
+                                          dtype, cuda, seed=31)
+        ragged_chain.ragged_chain_fwd(x, cnt, ws, bs, (3,))   # built, loaded
+        ragged_chain.ragged_chain_bwd(x, cnt, ws, bs, gy, (3,))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ragged_chain.ragged_chain_fwd(x, cnt, ws, bs, (3,))
+            ragged_chain.ragged_chain_bwd(x, cnt, ws, bs, gy, (3,))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def test_ragged_fp32_kernels_error_against_float64(cuda):
+    """At Bungee's layer (M256 L7 skip 3, E4, skewed counts) the 3xTF32
+    kernels' largest error against a float64 run of the plain chain is at
+    most 4x the plain fp32 chain's own: split precision keeps fp32's
+    accuracy (one TF32 product would not)."""
+    counts, skips = [0, 301, 2900, 895], (3,)
+    x, cnt, ws, bs, gy = _ragged_case(counts, 256, 7, torch.float32, cuda,
+                                      seed=41)
+    wide = [t.double().requires_grad_() for t in (x, ws, bs)]
+    ref = ragged_chain.ragged_chain_plain(wide[0], cnt, wide[1], wide[2],
+                                          skips)
+    ref_b = torch.autograd.grad(ref, wide, gy.double())
+    ref = ref.detach()
+
+    def errs(out, want):
+        return [((o.double() - w).abs().max() / w.abs().max()).item()
+                for o, w in zip(out, want)]
+    kernel = errs([ragged_chain.ragged_chain_fwd(x, cnt, ws, bs, skips)]
+                  + list(ragged_chain.ragged_chain_bwd(x, cnt, ws, bs, gy,
+                                                       skips)),
+                  [ref] + list(ref_b))
+    plain = errs([ragged_chain.ragged_chain_plain(x, cnt, ws, bs, skips)]
+                 + list(ragged_chain.ragged_chain_bwd_plain(x, cnt, ws, bs,
+                                                            gy, skips)),
+                 [ref] + list(ref_b))
+    for name, k, p in zip(("out", "dx", "dW", "db"), kernel, plain):
+        assert k <= 4 * p, (name, k, p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ragged_bwd_kernel_is_deterministic(cuda, dtype):
     x, cnt, ws, bs, gy = _ragged_case([700, 0, 3000, 397], 256, 7,
-                                      torch.bfloat16, cuda, seed=21)
+                                      dtype, cuda, seed=21)
     first = ragged_chain.ragged_chain_bwd(x, cnt, ws, bs, gy, (3,))
     second = ragged_chain.ragged_chain_bwd(x, cnt, ws, bs, gy, (3,))
     torch.cuda.synchronize()

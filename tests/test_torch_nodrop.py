@@ -81,6 +81,52 @@ def test_expert_mlp_ragged_matches_jax(counts):
                 assert not p.grad[e].any(), (name, e)
 
 
+def test_ragged_chain_plain_matches_jax_at_bungee_structure():
+    """``ragged_chain_plain`` and ``ragged_chain_bwd_plain``, the versions
+    K1R/K2R are held against on the card, against JAX's
+    ``ExpertMLP.ragged`` forward and ``jax.grad`` at the structure of
+    Bungee's MoE layer: M = 256, L = 7, skip 3, E = 4, fp32, skewed counts
+    with an empty expert."""
+    m, e, layers, skips = 256, 4, 7, (3,)
+    counts = [0, 37, 301, 90]
+    rng = np.random.default_rng(8)
+    n = sum(counts)
+    x = rng.normal(0, 1, (n, m)).astype(np.float32)
+    g = rng.normal(0, 1, (n, m)).astype(np.float32)
+    cnt = np.asarray(counts, np.int32)
+    row_expert = np.repeat(np.arange(e), counts).astype(np.int32)
+    jm = JExpertMLP(model_dim=m, num_experts=e, layer_num=layers, skips=skips)
+    params = jm.init(jax.random.PRNGKey(2), jnp.asarray(x), jnp.asarray(cnt),
+                     jnp.asarray(row_expert), method=JExpertMLP.ragged)
+
+    def jloss(p, xx):
+        y = jm.apply(p, xx, jnp.asarray(cnt), jnp.asarray(row_expert),
+                     method=JExpertMLP.ragged)
+        return jnp.sum(y * g), y
+
+    (_, jy), (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                             has_aux=True)(
+        params, jnp.asarray(x))
+    p = params["params"]
+    ws = torch.from_numpy(np.stack([np.asarray(p[f"w{i}"])
+                                    for i in range(layers)]))
+    bs = torch.from_numpy(np.stack([np.asarray(p[f"b{i}"])
+                                    for i in range(layers)]))
+    tc = torch.from_numpy(cnt)
+    y = ragged_chain.ragged_chain_plain(torch.from_numpy(x), tc, ws, bs,
+                                        skips)
+    _close(y, jy, 1e-5, err_msg="forward")
+    dx, dw, db = ragged_chain.ragged_chain_bwd_plain(
+        torch.from_numpy(x), tc, ws, bs, torch.from_numpy(g), skips)
+    _close(dx, jgx, 1e-5, rel=True, err_msg="dx")
+    for i in range(layers):
+        _close(dw[i], jgp["params"][f"w{i}"], 1e-5, rel=True,
+               err_msg=f"w{i}")
+        _close(db[i], jgp["params"][f"b{i}"], 1e-5, rel=True,
+               err_msg=f"b{i}")
+    assert not dw[:, 0].any() and not db[:, 0].any()
+
+
 @pytest.mark.parametrize("layers,skips", [(1, ()), (4, (1, 3)), (3, (0,))])
 def test_ragged_chain_bwd_plain_matches_autograd(layers, skips):
     x, cnt, _, g = _ragged_inputs([7, 0, 12, 3], seed=layers)
