@@ -28,6 +28,11 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      same inputs (bit-identical) and the empty expert's dW and db exactly
      0; the fp32 kernels' error against a float64 run of the plain chain
      at most 4x the plain fp32 chain's
+  2a. the chain kernels at Mission Bay's width, M = 512 bf16 (E8 L7
+     skips (3,), one 32,768-point chunk): K1 and K2 (C = 4,096; K2 twice,
+     bit-identical) and K1R (skewed and balanced counts) against their
+     plain versions, timed beside the bound, the plain version and the
+     library call; K3, K4 and K2R at the same width checked
   2b. no-drop = padded: an MoE layer (M256 L7) in no-drop dispatch (K1R /
      K2R) and in padded dispatch (K1 / K2) with the same weights at
      capacity factor E, where padding drops nothing: outputs and every
@@ -80,6 +85,23 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      the summary file. Prints train rays/s, step seconds,
      max_memory_allocated, eval seconds per image and K1R/K2R launches per
      step
+  8. Mission Bay: the Block-NeRF workload end to end through its entry
+     points with the README's flags (mission_bay.yaml, 8 experts x 7 x 512,
+     appearance_dim 48, 513 + 513 samples, 1,664 rays a step, bf16, padded
+     train dispatch). A synthetic scene of 8 96x64 images in 3 GZIP
+     tfrecords written by the port's own writer (make_block_scene; the
+     validation record's 2 images carry moving-object masks and train on
+     their left halves) in a temp directory; train.main on the chunked
+     Block-NeRF dataset (2 chunks) for 15 steps, a checkpoint at step 10
+     and at the end: K1 and K2 launched on every model chunk of every step
+     (52 each a step), no K1R/K2R, every logged metric finite, photo_loss
+     falling; a resume from step 10 replays the batches (equal hashes) and
+     its first loss equals the first run's to 1e-3; then
+     eval_image_blocknerf on the final checkpoint (no --moe_test_batch:
+     no-drop dispatch, K1R on every chunk; one 6,144-ray request an
+     image): finite masked and unmasked metrics, the per-image files and
+     records, the 'Average val/...' summary. Prints train rays/s, step
+     seconds, max_memory_allocated, eval seconds per image
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -117,6 +139,16 @@ BUNGEE_EVAL_BATCH = 8192       # rays per eval request (one per image)
 BUNGEE_FLAGS = ["--config_file", "configs/switch_nerf/bungee.yaml",
                 "--batch_size", "4096", "--moe_expert_num", "4", "--no_amp",
                 "--use_moe_external_gate", "--use_gate_input_norm"]
+MB_FLAGS = ["--config_file", "configs/switch_nerf/mission_bay.yaml",
+            "--batch_size", "1664", "--moe_train_batch",
+            "--use_moe_external_gate", "--use_gate_input_norm",
+            "--batch_prioritized_routing", "--moe_capacity_factor", "1.0",
+            "--moe_l_aux_wt", "0.0005"]   # the README's, 13,312 rays / 8
+MB_W, MB_H = 96, 64            # the Mission Bay scene's images
+MB_RECORDS = (("train_0000.tfrecord", 3), ("train_0001.tfrecord", 3),
+              ("validation_0000.tfrecord", 2))   # (file, images)
+MB_CHUNKS = 2                  # chunks of its 43,008 training rays
+MB_STEPS, MB_CKPT, MB_PRINT = 15, 10, 5   # its run's schedule
 BF16_REL_TOL = 2e-2    # max |kernel - plain| <= this * max |plain| in bf16
 FP32_TOL = 1e-4        # max |kernel - plain| in fp32
 
@@ -998,20 +1030,22 @@ def batch_digest(batch: dict) -> str:
     return h.hexdigest()
 
 
-def run_training(h) -> dict:
+def run_training(h, dataset_cls=None) -> dict:
     """train.main(h) on the card with the runner's data path, steps and
-    saves instrumented: per-step batch hashes, losses and host-clock end
-    times (each step ends in a sync: the finite check), chunk write / read
-    / blocked seconds, checkpoint save seconds, and the K1-K4 launches of
-    the run."""
+    saves instrumented: per-step batch hashes, losses (and photo_loss) and
+    host-clock end times (each step ends in a sync: the finite check),
+    chunk write / read / blocked seconds of the chunked dataset class
+    (FilesystemDataset unless given), checkpoint save seconds, and the
+    K1-K4 launches of the run."""
     from switch_nerf_torch import runner as runner_mod
     from switch_nerf_torch import train
     from switch_nerf_torch.datasets.filesystem_dataset import \
         FilesystemDataset
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
 
-    rec = {"digests": [], "loss": [], "t_end": [], "write_s": [],
-           "read_s": [], "blocked_s": [], "save_s": []}
+    dataset_cls = dataset_cls or FilesystemDataset
+    rec = {"digests": [], "loss": [], "photo": [], "t_end": [],
+           "write_s": [], "read_s": [], "blocked_s": [], "save_s": []}
 
     def timed(key):
         def make(real):
@@ -1036,6 +1070,7 @@ def run_training(h) -> dict:
             def run(state, batch):
                 state, m = step(state, batch)
                 rec["loss"].append(float(m["loss"]))
+                rec["photo"].append(float(m["photo_loss"]))
                 rec["t_end"].append(time.perf_counter())
                 return state, m
             return run
@@ -1043,9 +1078,9 @@ def run_training(h) -> dict:
 
     with contextlib.ExitStack() as stack:
         for owner, name, make in (
-                (FilesystemDataset, "_write_chunks", timed("write_s")),
-                (FilesystemDataset, "_read_chunk", timed("read_s")),
-                (FilesystemDataset, "load_chunk", timed("blocked_s")),
+                (dataset_cls, "_write_chunks", timed("write_s")),
+                (dataset_cls, "_read_chunk", timed("read_s")),
+                (dataset_cls, "load_chunk", timed("blocked_s")),
                 (runner_mod, "save_checkpoint", timed("save_s")),
                 (runner_mod.Runner, "_put_batch", put),
                 (runner_mod, "make_train_step", make_step)):
@@ -1571,6 +1606,333 @@ def bungee_phase(counts: dict) -> str:
             f" image), psnr {means['psnr']:.4f}, ssim {means['ssim']:.4f}")
 
 
+# --------------------------------------------- Block-NeRF Mission Bay ----
+def make_block_scene(root, seed: int, w: int = MB_W, h: int = MB_H,
+                     records=MB_RECORDS):
+    """A synthetic Block-NeRF scene in `root`, written with the port's own
+    tfrecord writer (no TensorFlow): GZIP records of tf.train.Example
+    images (BGR PNGs of w x h: a sky above the horizon, a road below, and
+    smooth random noise; 64-bit hashes, some negative) with per-pixel rays
+    of cameras 1.5 m up looking down a street (+x),
+    intrinsics and exposure, and on the "validation" records a moving-
+    object mask (a patch of 1s in the right half). Also train.txt (every
+    record: the validation images train on their left halves), val.txt
+    and image_hash_id_map.json (a map per record file). Returns {"train":
+    path, "val": path, "id_map": path, "val_images": n}."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    from switch_nerf_torch.datasets.tfrecord import encode_png, write_examples
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    focal = 1.2 * w
+    v, u = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5, indexing="ij")
+    dirs = np.stack([np.ones_like(u), (u - w / 2) / focal,
+                     -(v - h / 2) / focal], -1)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    id_map, next_id, val_images = {}, 0, 0
+    for name, n in records:
+        is_val = "validation" in name
+        examples, ids = [], {}
+        for _ in range(n):
+            image_hash = int(rng.integers(-2 ** 63, 2 ** 63 - 1))
+            ids[str(image_hash)] = next_id
+            next_id += 1
+            coarse = rng.uniform(-40, 40, (h // 8, w // 8, 3)) + 128
+            noise = np.asarray(Image.fromarray(coarse.astype(np.uint8)).resize(
+                (w, h), Image.BICUBIC), np.float32) - 128
+            base = np.where(dirs[..., 2:] > 0, [230.0, 180.0, 150.0],
+                            [90.0, 90.0, 95.0])        # BGR sky / road
+            bgr = np.clip(base + noise, 0, 255).astype(np.uint8)
+            origin = np.array([rng.uniform(0, 20), rng.uniform(-2, 2), 1.5])
+            feats = {
+                "image_hash": ("int64", [image_hash]),
+                "cam_idx": ("int64", [int(rng.integers(0, 12))]),
+                "equivalent_exposure": ("float", [rng.uniform(0.5, 2.0)]),
+                "height": ("int64", [h]),
+                "width": ("int64", [w]),
+                "image": ("bytes", [encode_png(bgr)]),
+                "ray_origins": ("float", np.broadcast_to(
+                    origin, (h, w, 3)).astype(np.float32)),
+                "ray_dirs": ("float", dirs.astype(np.float32)),
+                "intrinsics": ("float", [focal, focal, w / 2, h / 2]),
+            }
+            if is_val:
+                mask = np.zeros((h, w), np.int64)
+                mask[h // 4:h // 2, 3 * w // 4:] = 1
+                feats["mask"] = ("int64", mask)
+                val_images += 1
+            examples.append(feats)
+        write_examples(root / name, examples)
+        id_map[name] = ids
+    (root / "train.txt").write_text("".join(f"{n}\n" for n, _ in records))
+    (root / "val.txt").write_text("".join(
+        f"{n}\n" for n, _ in records if "validation" in n))
+    (root / "image_hash_id_map.json").write_text(json.dumps(id_map))
+    return {"train": root / "train.txt", "val": root / "val.txt",
+            "id_map": root / "image_hash_id_map.json",
+            "val_images": val_images}
+
+
+def wide_kernel_phase(peaks, shapes):
+    """The chain kernels at Mission Bay's width (M = 512, bf16: 64-row
+    tiles, each consumer warpgroup on half the columns) against their plain
+    versions at one 32,768-point model chunk, E8 L7 skips (3,): K1 and K2
+    (padded dispatch, C = 4,096; K2 twice, bit-identical) and K1R (no-drop,
+    skewed and balanced counts), timed beside the bound, the plain version
+    and the library call; K3, K4 and K2R at the same width checked
+    (correctness only: they are not on this path). Returns the rows."""
+    from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+    from switch_nerf_torch.ops import ragged_chain as rc
+
+    e, m = shapes["experts"], shapes["width"]
+    layers, skips, n = shapes["layers"], shapes["skips"], shapes["chunk"]
+    c = n // e
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(9)
+    rows = {}
+    ws, bs = chain_weights(e, m, layers, dtype, gen)
+    x = torch.randn(e, c, m, generator=gen).to("cuda", dtype)
+    g = torch.randn(e, c, m, generator=gen).to("cuda", dtype)
+    flops = 2 * e * c * m * m * layers
+    log(f"[kernels M512] K1/K2 expert chain: E{e} C{c} M{m} L{layers} "
+        f"skips{skips} bf16")
+    err = check_close("K1 bf16 M512", expert_kernel.expert_mlp_chain(
+        x, ws, bs, skips), expert_kernel.expert_mlp_chain_plain(x, ws, bs,
+                                                                skips))
+    bound_ms, bound_by = chain_bound(flops, nbytes(x, ws, bs) + nbytes(x),
+                                     dtype, peaks)
+    t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain(
+             x, ws, bs, skips)),
+         "plain_ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_plain(
+             x, ws, bs, skips), iters=20),
+         "library_ms": cuda_ms(lambda: bmm_chain(x, ws, bs, skips),
+                               iters=20)}
+    log(f"  K1 bf16 M512: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, baddbmm chain {t['library_ms']:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{rate(flops, t['ms'], bound_ms)}")
+    rows["K1"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                      **t)
+
+    err = check_bwd("K2 bf16 M512", expert_kernel.expert_mlp_chain_bwd(
+        x, ws, bs, g, skips), expert_kernel.expert_mlp_chain_bwd_plain(
+            x, ws, bs, g, skips))
+    check_deterministic("K2 bf16 M512", lambda: expert_kernel
+                        .expert_mlp_chain_bwd(x, ws, bs, g, skips))
+    bound_ms, bound_by = chain_bound(
+        2 * flops, nbytes(x, g, ws, bs) + nbytes(x)
+        + 4 * (ws.numel() + bs.numel()), dtype, peaks)
+    leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
+    lib_out = bmm_chain(*leaves, skips)
+    t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd(
+             x, ws, bs, g, skips), iters=20),
+         "plain_ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd_plain(
+             x, ws, bs, g, skips), iters=10, warmup=3),
+         "library_ms": autograd_ms(lib_out, leaves, g)}
+    del lib_out, leaves
+    passes = device_ms_by_kernel(
+        lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips),
+        {"pass 1": "chain_bwd_sm90", "pass 2": "chain_dw_sm90"})
+    log(f"  K2 bf16 M512: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, autograd of the baddbmm chain "
+        f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{rate(2 * flops, t['ms'], bound_ms)} (the gradient's products); "
+        f"profiled pass 1 {passes['pass 1']:.4f} ms, pass 2 "
+        f"{passes['pass 2']:.4f} ms; bwd_max_layers "
+        f"{expert_kernel.bwd_max_layers(x.device, m, dtype)}")
+    rows["K2"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                      **t)
+
+    tokens_ext, stt, n_drop, n_empty = skewed_slot_map(n, e, m, dtype, gen)
+    check_close(f"K3 bf16 M512 ({n_drop} dropped, {n_empty} empty slots)",
+                fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws,
+                                                        bs, skips),
+                fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws,
+                                                          bs, skips))
+    check_bwd("K4 bf16 M512", fused_dispatch.fused_dispatch_chain_bwd(
+        tokens_ext, stt, ws, bs, g, skips),
+        fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt, ws,
+                                                      bs, g, skips))
+    del tokens_ext, stt
+
+    xr = x.reshape(n, m)
+    gr = g.reshape(n, m)
+    for kind in ("skewed", "balanced"):
+        counts_host = skewed_counts(n, e) if kind == "skewed" else [c] * e
+        counts = torch.tensor(counts_host, dtype=torch.int32, device="cuda")
+        log(f"[kernels M512] K1R ragged chain: E{e} N{n} M{m} L{layers} "
+            f"bf16, {kind} counts {counts_host}")
+        err = check_close(f"K1R bf16 M512 {kind}", rc.ragged_chain_fwd(
+            xr, counts, ws, bs, skips), rc.ragged_chain_plain(
+                xr, counts, ws, bs, skips))
+        if kind == "skewed":
+            dirty_allocator()
+            check_bwd("K2R bf16 M512", rc.ragged_chain_bwd(
+                xr, counts, ws, bs, gr, skips), rc.ragged_chain_bwd_plain(
+                    xr, counts, ws, bs, gr, skips))
+        bound_ms, bound_by = chain_bound(
+            flops, nbytes(xr, ws, bs) + 4 * e + nbytes(xr), dtype, peaks)
+        t = {"ms": cuda_ms(lambda: rc.ragged_chain_fwd(
+                 xr, counts, ws, bs, skips), iters=20),
+             "plain_ms": cuda_ms(lambda: rc.ragged_chain_plain(
+                 xr, counts, ws, bs, skips), iters=10, warmup=3),
+             "library_ms": cuda_ms(lambda: addmm_ragged(
+                 xr, counts_host, ws, bs, skips), iters=10, warmup=3)}
+        log(f"  K1R bf16 M512 {kind}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, addmm chain per expert "
+            f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {rate(flops, t['ms'], bound_ms)}")
+        rows[f"K1R {kind}"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                                   bound_by=bound_by, **t)
+    return rows
+
+
+def mission_bay_phase(counts: dict) -> str:
+    """Train and serve Block-NeRF Mission Bay end to end through its two
+    entry points, with the README's flags at full width, on a synthetic
+    scene: train.main for MB_STEPS steps (K1 and K2 on every model chunk
+    of every step, an interval checkpoint, finite metrics, a falling
+    photo_loss), a resume from the interval checkpoint that replays the
+    batches and repeats the step's loss, then eval_image_blocknerf.main on
+    the val records (K1R on every chunk: no --moe_test_batch, so no-drop
+    dispatch; finite metrics, the JAX package's file set)."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch import eval_image_blocknerf
+    from switch_nerf_torch.config import get_opts, parse_args
+    from switch_nerf_torch.datasets.block_filesystem_dataset import \
+        BlockFilesystemDataset
+    from switch_nerf_torch.ops import expert_kernel, ragged_chain
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mission_bay_") as tmp:
+        tmp = Path(tmp)
+        scene = make_block_scene(tmp / "scene", seed=0)
+        lists = ["--dataset_path", str(tmp / "scene"),
+                 "--block_train_list_path", str(scene["train"]),
+                 "--block_val_list_path", str(scene["val"]),
+                 "--block_image_hash_id_map_path", str(scene["id_map"])]
+        h = parse_args(get_opts(), MB_FLAGS + lists + [
+            "--exp_name", str(tmp / "exp"), "--dataset_type", "filesystem",
+            "--chunk_paths", str(tmp / "chunks"), "--num_chunks",
+            str(MB_CHUNKS), "--train_iterations", str(MB_STEPS),
+            "--ckpt_interval", str(MB_CKPT), "--i_print", str(MB_PRINT)])
+        moe = h.model["layers"]["0"]
+
+        def chunks_of(rays):      # model chunks of one request, both passes
+            return (-(-rays * (h.coarse_samples - 1) // h.model_chunk_size)
+                    + -(-rays * (h.fine_samples - 1) // h.model_chunk_size))
+        chunks = chunks_of(h.batch_size)
+        log(f"[mission_bay] train.main on a synthetic scene: "
+            f"{sum(n for _, n in MB_RECORDS)} {MB_W}x{MB_H} images in "
+            f"{len(MB_RECORDS)} GZIP tfrecords, {MB_CHUNKS} chunks, "
+            f"{MB_STEPS} steps of {h.batch_size} rays, {h.moe_expert_num} "
+            f"experts x {moe['num']} x {moe['out_ch']}, {h.coarse_samples} + "
+            f"{h.fine_samples} samples, {'bf16' if h.amp else 'fp32'}, "
+            f"appearance_dim {h.appearance_dim}")
+        torch.cuda.reset_peak_memory_stats()
+        ragged_chain.ragged_launches = ragged_chain.ragged_bwd_launches = 0
+        first = run_training(h, BlockFilesystemDataset)
+        k1r = ragged_chain.ragged_launches + ragged_chain.ragged_bwd_launches
+        peak = torch.cuda.max_memory_allocated()
+        counts["K1 Mission Bay"] = first["launches"]["K1"]
+        counts["K2 Mission Bay"] = first["launches"]["K2"]
+        exp = tmp / "exp" / "0"
+        n = first["launches"]
+        log(f"  launches: {n}, K1R/K2R {k1r} (expected K1, K2 "
+            f"{chunks * MB_STEPS} each, {chunks} a step)")
+        if not (first["step"] == MB_STEPS and k1r == 0
+                and n["K1"] == n["K2"] == chunks * MB_STEPS
+                and n["K3"] == n["K4"] == 0):
+            raise AssertionError("Mission Bay training did not run K1 and K2 "
+                                 "on every chunk of every step")
+        windows = logged_windows(exp / "log.txt")
+        saved = sorted(int(p.name) for p in (exp / "models").iterdir())
+        loss = first["loss"]
+        firsts, lasts = (float(np.mean(first["photo"][sl]))
+                         for sl in (slice(0, 5), slice(-5, None)))
+        log(f"  photo_loss per step {[round(v, 5) for v in first['photo']]}:"
+            f" mean of the first 5 {firsts:.5f}, of the last 5 {lasts:.5f}; "
+            f"checkpoints {saved}; chunk write {first['write_s'][0]:.2f} s")
+        if not (len(windows) == MB_STEPS // MB_PRINT
+                and all(np.isfinite(v) for w in windows for v in w.values())
+                and lasts < firsts and saved == [MB_CKPT, MB_STEPS]):
+            raise AssertionError(f"Mission Bay training: {windows} {saved}")
+
+        resumed = copy.copy(h)
+        resumed.exp_name = str(tmp / "resumed")
+        resumed.ckpt_path = str(exp / "models" / str(MB_CKPT))
+        second = run_training(resumed, BlockFilesystemDataset)
+        same = second["digests"] == first["digests"][MB_CKPT:]
+        rel = [abs(a - b) / abs(b) for a, b in
+               zip(second["loss"], loss[MB_CKPT:])]
+        log(f"  resumed from step {MB_CKPT}: {len(second['digests'])} "
+            f"batches, hashes equal to the first run's {same}; loss relative"
+            f" difference first step {rel[0]:.3e} (limit 1e-3), largest "
+            f"{max(rel):.3e}")
+        if not (same and second["step"] == MB_STEPS and rel[0] <= 1e-3):
+            raise AssertionError("the resumed Mission Bay run does not "
+                                 "replay the run")
+        t = first["t_end"]
+        step_s = (t[-1] - t[MB_PRINT - 1]) / (MB_STEPS - MB_PRINT)
+
+        bs = MB_W * MB_H                  # one request an image
+        he = parse_args(get_opts(), MB_FLAGS + lists + [
+            "--exp_name", str(tmp / "eval"), "--ckpt_path",
+            str(exp / "models" / str(MB_STEPS)),
+            "--image_pixel_batch_size", str(bs)])
+        expert_kernel.launches = ragged_chain.ragged_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        means = eval_image_blocknerf.main(he)
+        eval_s = time.perf_counter() - t0
+        counts["K1R Mission Bay"] = ragged_chain.ragged_launches
+        eval_k1 = expert_kernel.launches
+        eval_peak = torch.cuda.max_memory_allocated()
+        base = tmp / "eval"
+        hashes = sorted(p.name[len("metrics-"):-len(".json")]
+                        for p in (base / "val_metrics").glob("*.json"))
+        per_image = [json.loads((base / "val_metrics"
+                                 / f"metrics-{k}.json").read_text())
+                     for k in hashes]
+        want_k1r = scene["val_images"] * chunks_of(bs)
+        files_ok = all(
+            (base / sub / name.format(k)).exists() for k in hashes
+            for sub, name in (("val_images", "{}.jpg"),
+                              ("images", "{}_gt.jpg"),
+                              ("images", "{}_pred.jpg"),
+                              ("images", "{}_depth.jpg"),
+                              ("images", "metrics_{}.txt")))
+        summary = (base / "0" / "metrics.txt").read_text()
+        log(f"  eval_image_blocknerf: means {means}; K1R "
+            f"{counts['K1R Mission Bay']} launches (expected {want_k1r}), K1 "
+            f"{eval_k1}; images {hashes}")
+        if not (len(hashes) == scene["val_images"] and files_ok
+                and all(np.isfinite(v) for m_ in per_image
+                        for v in m_.values())
+                and {"psnr_mask", "ssim_mask"} <= set(per_image[0])
+                and counts["K1R Mission Bay"] == want_k1r and eval_k1 == 0
+                and "Average val/psnr_mask: " in summary):
+            raise AssertionError("Mission Bay eval: metrics, files or "
+                                 "launches")
+    return (f"train rays/s {h.batch_size / step_s:.1f} (steps "
+            f"{MB_PRINT + 1}-{MB_STEPS}), step {step_s:.4f} s, {MB_STEPS} "
+            f"steps in {first['wall_s']:.1f} s wall (chunk write "
+            f"{first['write_s'][0]:.2f} s), max_memory_allocated {peak} B "
+            f"({peak / 2 ** 30:.2f} GiB); K1 / K2 launches per step "
+            f"{counts['K1 Mission Bay'] // MB_STEPS} / "
+            f"{counts['K2 Mission Bay'] // MB_STEPS}; resumed loss max rel "
+            f"diff {max(rel):.3e}; eval {eval_s:.1f} s for "
+            f"{len(hashes)} {MB_W}x{MB_H} images "
+            f"({[round(m_['time'], 4) for m_ in per_image]} s render), "
+            f"K1R {counts['K1R Mission Bay'] // len(hashes)} an image, "
+            f"max_memory_allocated {eval_peak / 2 ** 30:.2f} GiB, psnr "
+            f"{means['psnr']:.4f}, psnr_mask {means['psnr_mask']:.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1602,6 +1964,7 @@ def main() -> int:
     rows.update(bwd_kernel_phase(peaks, building))
     building["bungee_e"] = 4            # bungee.yaml with --moe_expert_num 4
     rows.update(ragged_kernel_phase(peaks, building))
+    wide = wide_kernel_phase(peaks, {**building, "width": 512})
     nodrop_padded_phase(building)
     eval_counts = {}
     rays_per_s = slice_phase(h, eval_counts)
@@ -1611,6 +1974,7 @@ def main() -> int:
     runner = runner_phase()
     train_runner = train_runner_phase(train["rays_per_s"])
     bungee = bungee_phase(counts)
+    mission_bay = mission_bay_phase(counts)
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -1641,6 +2005,19 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the Mission Bay path's kernels at M = 512 (its run's launches: K1 and
+    # K2 training, K1R serving)
+    for key, row, (kname, source, replaces) in (
+            ("K1", "K1", meta["K1"]), ("K2", "K2", meta["K2"]),
+            ("K1R", "K1R skewed", meta["K1R"])):
+        r = wide[row]
+        kernels.append({
+            "name": f"{kname} (M512, Mission Bay)", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": counts[f"{key} Mission Bay"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[slice] eval rays/s {rays_per_s:.1f} on {smi}")
     log(f"[train] train rays/s {train['rays_per_s']:.1f}, step "
         f"{train['step_s']:.4f} s, max_memory_allocated "
@@ -1648,9 +2025,16 @@ def main() -> int:
     log(f"[runner] {runner} on {smi}")
     log(f"[train_runner] {train_runner} on {smi}")
     log(f"[bungee] {bungee} on {smi}")
+    log(f"[mission_bay] {mission_bay} on {smi}")
     for key in ("K1R Building", "K2R Building"):
         r = rows[key]
         log(f"[kernels] {key} (bf16): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3e} on {smi}")
+    for key, r in wide.items():
+        log(f"[kernels M512] {key} (bf16): {r['ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']:.3e} on {smi}")

@@ -50,6 +50,11 @@
 // grid (2 x 7 x <= 24 CTAs at E8 M256 L7, N = 32,768) fills the 132 SMs
 // at balanced counts too. An expert with no rows gets dW = 0 and
 // db = 0 from the reduction.
+// At M = 512 (Cfg::kSplit) pass 1 runs chain_sm90.cuh's 64-row tiles with
+// each consumer warpgroup on half the columns (the ReLU masks of 6 layers
+// then take 24 KB, and 7 layers fit), and pass 2 cuts dW into 128 x 256
+// tiles (DwCfg::kTN: wgmma's widest product), so G_l is read M/128 times
+// per (layer, expert) as before.
 // Every sum runs in a fixed order: results are bit-identical from run to
 // run.
 #pragma once
@@ -59,7 +64,7 @@
 namespace sm90 {
 
 // The most layers pass 1 takes on this device: its shared memory holds the
-// ReLU masks of L - 1 layers (at M = 256 on an H100, 8 layers).
+// ReLU masks of L - 1 layers (on an H100, 8 layers at M = 256, 7 at 512).
 template <int M>
 inline int max_bwd_layers(int device) {
   int limit = 0;
@@ -79,6 +84,8 @@ inline int bwd_max_layers(int device, int M) {
       return max_bwd_layers<128>(device);
     case 256:
       return max_bwd_layers<256>(device);
+    case 512:
+      return max_bwd_layers<512>(device);
     default:
       return 0;
   }
@@ -88,24 +95,26 @@ inline int bwd_max_layers(int device, int M) {
 // accumulator of the previous product, or the g tile already in h for the
 // last layer) form G_l in h, updating gxin at a skip layer.
 template <int M, bool FROM_ACC>
-__device__ __forceinline__ void sweep_epilogue(float (&acc)[M / 2], uint8_t* h,
-                                               uint8_t* gxin, bool skip,
-                                               bool last, const uint32_t* mask,
-                                               int cw, int t) {
+__device__ __forceinline__ void sweep_epilogue(float (&acc)[Cfg<M>::kAcc],
+                                               uint8_t* h, uint8_t* gxin,
+                                               bool skip, bool last,
+                                               const uint32_t* mask, int cw,
+                                               int t) {
+  using C = Cfg<M>;
   const int lane = t & 31;
-  const int r0 = cw * 64 + (t >> 5) * 16 + (lane >> 2);
+  const int r0 = C::row_of(cw) + (t >> 5) * 16 + (lane >> 2);
   const int q = lane & 3;
-  uint32_t bits[Cfg<M>::kMaskWords];
+  uint32_t bits[C::kMaskWords];
 #pragma unroll
-  for (int w = 0; w < Cfg<M>::kMaskWords; ++w)
+  for (int w = 0; w < C::kMaskWords; ++w)
     bits[w] = last ? ~0u : mask[w * 2 * kWgThreads + cw * kWgThreads + t];
 #pragma unroll
-  for (int j = 0; j < M / 8; ++j) {
-    const int c = 8 * j + 2 * q;
+  for (int j = 0; j < C::kWN / 8; ++j) {
+    const int c = C::col_of(cw) + 8 * j + 2 * q;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = 4 * j + 2 * half;
-      const uint32_t off = swz<kTileRows>(r0 + 8 * half, c);
+      const uint32_t off = swz<C::kRows>(r0 + 8 * half, c);
       __nv_bfloat162* hp = reinterpret_cast<__nv_bfloat162*>(h + off);
       __nv_bfloat162 g2 =
           FROM_ACC ? __float22bfloat162_rn(make_float2(acc[i], acc[i + 1]))
@@ -127,18 +136,20 @@ __device__ __forceinline__ void sweep_epilogue(float (&acc)[M / 2], uint8_t* h,
 // dx = bf16(bf16(acc) + gxin) into h; with `zero` set, instead zero this
 // thread's elements of gxin (before the sweep).
 template <int M>
-__device__ __forceinline__ void dx_epilogue(float (&acc)[M / 2], uint8_t* h,
-                                            uint8_t* gxin, bool zero, int cw,
-                                            int t) {
+__device__ __forceinline__ void dx_epilogue(float (&acc)[Cfg<M>::kAcc],
+                                            uint8_t* h, uint8_t* gxin,
+                                            bool zero, int cw, int t) {
+  using C = Cfg<M>;
   const int lane = t & 31;
-  const int r0 = cw * 64 + (t >> 5) * 16 + (lane >> 2);
+  const int r0 = C::row_of(cw) + (t >> 5) * 16 + (lane >> 2);
   const int q = lane & 3;
 #pragma unroll
-  for (int j = 0; j < M / 8; ++j) {
+  for (int j = 0; j < C::kWN / 8; ++j) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = 4 * j + 2 * half;
-      const uint32_t off = swz<kTileRows>(r0 + 8 * half, 8 * j + 2 * q);
+      const uint32_t off =
+          swz<C::kRows>(r0 + 8 * half, C::col_of(cw) + 8 * j + 2 * q);
       __nv_bfloat162* xp = reinterpret_cast<__nv_bfloat162*>(gxin + off);
       if (zero)
         *xp = __float2bfloat162_rn(0.0f);
@@ -179,7 +190,7 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
   uint64_t* g_full = x_full + 1;
 
   const int e = blockIdx.y;
-  const int row0 = blockIdx.x * kTileRows;
+  const int row0 = blockIdx.x * C::kRows;
   const ExpertRows er = expert_rows<SRC>(gather.idx, e, gather.C);
   if (SRC == kRagged && row0 >= er.count) return;  // past its rows
   // workspace coordinates of layer l's rows of this tile
@@ -225,10 +236,9 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
     regs_inc<kConsumerRegs>();
     const int cw = threadIdx.x / kWgThreads - 1;
     const int t = threadIdx.x % kWgThreads;
-    const int bar = 1 + cw;
-    const int row = row0 + cw * kBox;
-    const int ws_row = (int)(ws_row0 + cw * kBox);
-    const uint32_t a = smem_u32(h) + cw * kBoxBytes;
+    const int row = row0 + C::row_of(cw);
+    const int ws_row = (int)(ws_row0 + C::row_of(cw));
+    const uint32_t a = smem_u32(h) + C::row_of(cw) * 128;
     float acc[C::kAcc];
     int stage = 0;
     uint32_t phase = 0;
@@ -238,29 +248,29 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
     for (int l = 0;; ++l) {
       if (t == 0) store_rows<M>(&hsave_map, h, cw, ws_row, ws_z(l));
       if (l == L - 1) break;
-      layer_product<M, 1>(acc, a, smem_u32(ring), full, empty, stage, phase);
+      layer_product<M, 1>(acc, a, smem_u32(ring), full, empty, stage, phase,
+                          cw);
       if (t == 0) bulk_wait_read();  // H_l has left h
-      named_sync(bar, kWgThreads);
+      part_sync<M>(cw);
       fwd_epilogue<M>(acc, h, xin, bias + l * M, (skip_mask >> l) & 1u, false,
                       masks + l * kMaskLayer, cw, t);
       fence_async_smem();
-      named_sync(bar, kWgThreads);
+      part_sync<M>(cw);
     }
 
     // g -> h (zero-filled past the expert's rows), gxin = 0
     if constexpr (SRC == kRagged) {
       if (t == 0) bulk_wait_read();  // H_{L-1} has left h
-      named_sync(bar, kWgThreads);
+      part_sync<M>(cw);
       copy_rows<M, true>(const_cast<__nv_bfloat16*>(gather.grad), h, cw, t,
                          er.base, row, er.count);
       dx_epilogue<M>(acc, h, xin, true, cw, t);
-      named_sync(bar, kWgThreads);
+      part_sync<M>(cw);
     } else {
       if (t == 0) {
         bulk_wait_read();
-        mbar_expect_tx(&g_full[cw], kBox * M * 2);
-        load_rows<M>(h, &g_map, &g_full[cw], row, kBox, cw * kBox,
-                     kTileRows, e);
+        mbar_expect_tx(&g_full[cw], kBox * C::kWN * 2);
+        load_part<M>(h, &g_map, &g_full[cw], cw, row, e);
       }
       dx_epilogue<M>(acc, h, xin, true, cw, t);
       mbar_wait(&g_full[cw], 0);
@@ -275,15 +285,16 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
         sweep_epilogue<M, true>(acc, h, xin, skip, false,
                                 masks + l * kMaskLayer, cw, t);
       fence_async_smem();
-      named_sync(bar, kWgThreads);
+      part_sync<M>(cw);
       if (t == 0) store_rows<M>(&gsave_map, h, cw, ws_row, ws_z(l));
-      layer_product<M, 0>(acc, a, smem_u32(ring), full, empty, stage, phase);
+      layer_product<M, 0>(acc, a, smem_u32(ring), full, empty, stage, phase,
+                          cw);
       if (t == 0) bulk_wait_read();  // G_l has left h
-      named_sync(bar, kWgThreads);
+      part_sync<M>(cw);
     }
     dx_epilogue<M>(acc, h, xin, false, cw, t);
     fence_async_smem();
-    named_sync(bar, kWgThreads);
+    part_sync<M>(cw);
     if constexpr (SRC == kRagged) {
       copy_rows<M, false>(gather.out, h, cw, t, er.base, row, er.count);
     } else if (t == 0) {
@@ -297,11 +308,13 @@ chain_bwd_sm90(const __grid_constant__ CUtensorMap x_map,
 template <int M>
 struct DwCfg {
   static constexpr int kTM = M < 128 ? M : 128;  // dW rows per CTA
+  static constexpr int kTN = M < 256 ? M : 256;  // dW columns per CTA
+  static constexpr int kNT = M / kTN;            // column tiles
   static constexpr int kConsumers = kTM / 64;
   static constexpr int kThreads = kWgThreads * (1 + kConsumers);
   static constexpr int kStages = 4;
   static constexpr int kHBytes = kBox * kTM * 2;  // 64 C rows of H_l
-  static constexpr int kGBytes = kBox * M * 2;    // 64 C rows of G_l
+  static constexpr int kGBytes = kBox * kTN * 2;  // 64 C rows of G_l
   static constexpr int kStageBytes = kHBytes + kGBytes;
   static constexpr int kBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;
 };
@@ -321,7 +334,9 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + D::kStages *
                                                D::kStageBytes);
   uint64_t* empty = full + D::kStages;
-  const int m0 = blockIdx.x * D::kTM;
+  // blockIdx.x: the dW tile, kTM rows from m0 by kTN columns from n0
+  const int m0 = blockIdx.x / D::kNT * D::kTM;
+  const int n0 = blockIdx.x % D::kNT * D::kTN;
   const int l = blockIdx.z;
   int z, mz, mrow, rows;  // dW / db block, workspace z, first row, rows
   if constexpr (SRC == kRagged) {
@@ -360,9 +375,9 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
         for (int p = 0; p < D::kTM / kBox; ++p)
           tma_load(hs + p * kBoxBytes, &hsave_map, &full[stage],
                    m0 + p * kBox, mrow + ch * kBox, mz);
-        for (int p = 0; p < M / kBox; ++p)
-          tma_load(gs + p * kBoxBytes, &gsave_map, &full[stage], p * kBox,
-                   mrow + ch * kBox, mz);
+        for (int p = 0; p < D::kTN / kBox; ++p)
+          tma_load(gs + p * kBoxBytes, &gsave_map, &full[stage],
+                   n0 + p * kBox, mrow + ch * kBox, mz);
         if (++stage == D::kStages) {
           stage = 0;
           phase ^= 1;
@@ -373,15 +388,15 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
     if constexpr (D::kConsumers == 2) regs_inc<kConsumerRegs>();
     const int cw = threadIdx.x / kWgThreads - 1;
     const int t = threadIdx.x % kWgThreads;
-    // db: the CTAs of the first tile row; columns n0 + k * kDbStride
+    // db: the CTAs of the first tile row; columns n0 + nt + k * kDbStride
     constexpr int kDbStride = D::kConsumers * kWgThreads;
-    constexpr int kDbCols = (M + kDbStride - 1) / kDbStride;
-    const int n0 = cw * kWgThreads + t;
-    const bool do_db = blockIdx.x == 0 && n0 < M;
+    constexpr int kDbCols = (D::kTN + kDbStride - 1) / kDbStride;
+    const int nt = cw * kWgThreads + t;
+    const bool do_db = m0 == 0 && nt < D::kTN;
     float db_acc[kDbCols];
 #pragma unroll
     for (int k = 0; k < kDbCols; ++k) db_acc[k] = 0.0f;
-    float acc[M / 2];
+    float acc[D::kTN / 2];
     int stage = 0, prev = 0;
     uint32_t phase = 0;
     fence_acc(acc);
@@ -395,14 +410,14 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
       const uint32_t ga = smem_u32(gs);
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        Wgmma<M, 1, 1>::mma(acc, desc_mnmajor(ha + ks * 2048, kBoxBytes),
+        Wgmma<D::kTN, 1, 1>::mma(acc, desc_mnmajor(ha + ks * 2048, kBoxBytes),
                             desc_mnmajor(ga + ks * 2048, kBoxBytes),
                             (ch | ks) != 0);
       wg_commit();
       if (do_db) {
 #pragma unroll
         for (int k = 0; k < kDbCols; ++k) {
-          const int n = n0 + k * kDbStride;
+          const int n = nt + k * kDbStride;
 #pragma unroll 8
           for (int r = 0; r < kBox; ++r)
             db_acc[k] += __bfloat162float(
@@ -427,8 +442,8 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
     const int r = m0 + cw * 64 + (t >> 5) * 16 + (lane >> 2);
     float* out = dw + (size_t)z * M * M;
 #pragma unroll
-    for (int j = 0; j < M / 8; ++j) {
-      const int c = 8 * j + 2 * (lane & 3);
+    for (int j = 0; j < D::kTN / 8; ++j) {
+      const int c = n0 + 8 * j + 2 * (lane & 3);
       *reinterpret_cast<float2*>(out + (size_t)r * M + c) =
           make_float2(acc[4 * j], acc[4 * j + 1]);
       *reinterpret_cast<float2*>(out + (size_t)(r + 8) * M + c) =
@@ -437,7 +452,7 @@ chain_dw_sm90(const __grid_constant__ CUtensorMap hsave_map,
     if (do_db) {
 #pragma unroll
       for (int k = 0; k < kDbCols; ++k)
-        db[(size_t)z * M + n0 + k * kDbStride] = db_acc[k];
+        db[(size_t)z * M + n0 + nt + k * kDbStride] = db_acc[k];
     }
   }
 }
@@ -480,7 +495,7 @@ int launch_bwd_width(const void* src, const int* idx, int n_src,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((C + kTileRows - 1) / kTileRows, E);
+  const dim3 grid((C + Cfg<M>::kRows - 1) / Cfg<M>::kRows, E);
   kern<<<grid, kThreads, smem, stream>>>(
       x_map, w_map, wt_map, g_map, dx_map, h_map, gs_map,
       static_cast<const __nv_bfloat16*>(bs), gather, E, L, skip_mask);
@@ -494,14 +509,16 @@ int launch_bwd_width(const void* src, const int* idx, int n_src,
   if (err != cudaSuccess) return (int)err;
   if constexpr (SRC == kRagged) {
     const int chunks = ragged_chunks(C, E);
-    kern2<<<dim3(M / D::kTM, chunks, L), D::kThreads, D::kBytes, stream>>>(
+    kern2<<<dim3(M / D::kTM * D::kNT, chunks, L), D::kThreads, D::kBytes,
+            stream>>>(
         h_map, gs_map, dwp, dbp, idx, E, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return launch_reduce_partials(dwp, dbp, idx, dw, db, E, M, L, chunks,
                                   stream);
   }
-  kern2<<<dim3(M / D::kTM, E, L), D::kThreads, D::kBytes, stream>>>(
+  kern2<<<dim3(M / D::kTM * D::kNT, E, L), D::kThreads, D::kBytes,
+          stream>>>(
       h_map, gs_map, dw, db, idx, E, C);
   return (int)cudaGetLastError();
 }
@@ -534,6 +551,10 @@ int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
                                         C, L, skip_mask, s);
     case 256:
       return launch_bwd_width<256, SRC>(src, idx, n_src, ws, bs, g, dx,
+                                        hsave, gsave, dw, db, dwp, dbp, E,
+                                        C, L, skip_mask, s);
+    case 512:
+      return launch_bwd_width<512, SRC>(src, idx, n_src, ws, bs, g, dx,
                                         hsave, gsave, dw, db, dwp, dbp, E,
                                         C, L, skip_mask, s);
     default:

@@ -16,6 +16,15 @@
 //    rows each run one wgmma m64nMk16 chain apiece (fp32 accumulators in
 //    registers, M/2 a thread), and one producer warp issues every TMA load.
 //    setmaxnreg gives the consumers 232 registers and the producer 40.
+//  - At M = 512 (Cfg::kSplit) m64n256 is wgmma's widest product and M/2
+//    accumulators a thread would not fit in 232 registers, so a CTA owns 64
+//    rows and each consumer warpgroup half of the columns (m64n256k16, 128
+//    accumulators a thread). Both read the whole tile as A, so they meet at
+//    a 256-thread barrier before either rewrites its columns and again
+//    before the next product. The 64 KB tile, the skip input and a 2-stage
+//    64 KB W ring fill ~200 KB. W is reused over 64 rows instead of 128:
+//    each CTA streams its expert's L x 512 x 512 bf16 from L2 (3.7 MB at
+//    L = 7), 1.88 GB a launch at E8 C4096 against 235 MB at M = 256.
 //  - The 128-row activation tile h and the skip input xin stay in shared
 //    memory across all L layers, in the 128-byte-swizzled K-major layout
 //    the wgmma A descriptor reads (64-column panels of 128 rows). A
@@ -318,18 +327,41 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
 }
 
 // ------------------------------------------------- shared layout ----
+// Up to M = 256 a CTA owns kTileRows rows and consumer warpgroup cw rows
+// 64cw .. 64cw + 63 at full width; with kSplit (M = 512) a CTA owns 64 rows
+// and warpgroup cw columns cw * M/2 .. of all of them: its "part".
 template <int M>
 struct Cfg {
+  static constexpr bool kSplit = M > 256;
+  static constexpr int kRows = kSplit ? kBox : kTileRows;  // rows per CTA
+  static constexpr int kWN = kSplit ? M / 2 : M;     // columns of a part
   static constexpr int kStageK = 32;                 // k per W stage
   static constexpr int kStageBytes = kStageK * M * 2;
   static constexpr int kStages =                     // a 64 KB ring, <= 8
       65536 / kStageBytes < 8 ? 65536 / kStageBytes : 8;
-  static constexpr int kTileBytes = kTileRows * M * 2;
-  static constexpr int kPanelBytes = kTileRows * 128;  // 64 cols x 128 rows
+  static constexpr int kTileBytes = kRows * M * 2;
+  static constexpr int kPanelBytes = kRows * 128;    // 64 cols x kRows rows
   static constexpr int kKChunks = M / kStageK;
-  static constexpr int kAcc = M / 2;                 // fp32 per thread
-  static constexpr int kMaskWords = M / 64;          // kAcc bits
+  static constexpr int kAcc = kWN / 2;               // fp32 per thread
+  static constexpr int kMaskWords = kWN / 64;        // kAcc bits
+  // the first tile row and column of warpgroup cw's part
+  static __device__ __forceinline__ int row_of(int cw) {
+    return kSplit ? 0 : cw * kBox;
+  }
+  static __device__ __forceinline__ int col_of(int cw) {
+    return kSplit ? cw * kWN : 0;
+  }
 };
+
+// Sync the consumer threads that read warpgroup cw's part of the tile: its
+// own 128, or with kSplit both warpgroups (each reads all columns as A).
+template <int M>
+__device__ __forceinline__ void part_sync(int cw) {
+  if constexpr (Cfg<M>::kSplit)
+    named_sync(1, 2 * kWgThreads);
+  else
+    named_sync(1 + cw, kWgThreads);
+}
 
 // Offsets inside the (1024-aligned) dynamic shared memory of a chain CTA.
 template <int M>
@@ -420,25 +452,26 @@ struct Gather {
   const __nv_bfloat16* grad;
 };
 
-// Start the cp.async copies of the 128-row tile at row0 of expert e (rows
+// Start the cp.async copies of the kRows-row tile at row0 of expert e (rows
 // er) into h and xin, by producer thread t (0..127). Warp w owns tile rows
-// 32w .. 32w + 31: lane j finds the source of row 32w + j (kGather: reads
-// and checks its index), and each step copies 32 chunks of 16 bytes (one
-// row at M = 256, two at 128, four at 64) with the row's source taken from
-// its lane by a shuffle. Rows past the expert's last are zero-filled from
-// a valid address. An index out of range stops the kernel (device-side
-// assert).
+// kRows/4 * w ..: lane j finds the source of its row j (kGather: reads
+// and checks its index), and each step copies 32 chunks of 16 bytes (half a
+// row at M = 512, one at 256, two at 128, four at 64) with the row's source
+// taken from its lane by a shuffle. Rows past the expert's last are
+// zero-filled from a valid address. An index out of range stops the kernel
+// (device-side assert).
 template <int M, int SRC>
 __device__ __forceinline__ void gather_rows(uint8_t* h, uint8_t* xin,
                                             const Gather& g,
                                             const ExpertRows& er, int row0,
                                             int t) {
+  constexpr int kRows = Cfg<M>::kRows;
+  constexpr int kWarpRows = kRows / 4;       // rows per producer warp
   constexpr int kChunks = M / 8;             // 16-byte chunks per row
-  constexpr int kRowsPerStep = 32 / kChunks;
   const int warp = t >> 5, lane = t & 31;
-  const int my_row = row0 + 32 * warp + lane;
+  const int my_row = row0 + kWarpRows * warp + lane;
   int tok = -1;                              // -1: past the expert's rows
-  if (my_row < er.count) {
+  if (lane < kWarpRows && my_row < er.count) {
     if (SRC == kGather) {
       tok = g.idx[er.base + my_row];
       if (tok < 0 || tok >= g.n_src) __trap();
@@ -448,15 +481,15 @@ __device__ __forceinline__ void gather_rows(uint8_t* h, uint8_t* xin,
   }
   const uint32_t h_s = smem_u32(h), x_s = smem_u32(xin);
 #pragma unroll 4
-  for (int k = 0; k < kChunks; ++k) {
-    const int rw = k * kRowsPerStep + lane / kChunks;  // row in the warp's 32
-    const int ch = lane % kChunks;
+  for (int f = lane; f < kWarpRows * kChunks; f += 32) {
+    const int rw = f / kChunks;              // row in the warp's kWarpRows
+    const int ch = f % kChunks;
     const int src_row = __shfl_sync(0xffffffffu, tok, rw);
-    const int r = 32 * warp + rw;
+    const int r = kWarpRows * warp + rw;
     const __nv_bfloat16* src =
         src_row >= 0 ? g.tokens + (size_t)src_row * M + ch * 8 : g.tokens;
     const uint32_t bytes = src_row >= 0 ? 16u : 0u;
-    const uint32_t off = swz<kTileRows>(r, ch * 8);
+    const uint32_t off = swz<kRows>(r, ch * 8);
     cp_async16(h_s + off, src, bytes);
     cp_async16(x_s + off, src, bytes);
   }
@@ -490,29 +523,32 @@ __device__ __forceinline__ int produce_input(const CUtensorMap* x_map,
     __syncwarp();
   } else if (t == 0) {
     mbar_expect_tx(x_full, 2 * C::kTileBytes);
-    load_rows<M>(h, x_map, x_full, row0, kTileRows, 0, kTileRows, e);
-    load_rows<M>(xin, x_map, x_full, row0, kTileRows, 0, kTileRows, e);
+    load_rows<M>(h, x_map, x_full, row0, C::kRows, 0, C::kRows, e);
+    load_rows<M>(xin, x_map, x_full, row0, C::kRows, 0, C::kRows, e);
   }
   return j;
 }
 
-// Copy the 64 rows of warpgroup `cw` of a 128-row tile between the tile
-// and rows base + row .. of a [., M] array, by warpgroup thread t, in
-// 16-byte chunks (consecutive threads, consecutive chunks of a row). Only
-// rows row + r < count move; a load zero-fills the tile's other rows.
-// kRagged's loads and stores: a TMA box would cross into the next expert.
+// Copy the part of warpgroup `cw` (64 rows) between the tile and rows
+// base + row .. of a [., M] array, by warpgroup thread t, in 16-byte
+// chunks (consecutive threads, consecutive chunks of a row). Only rows
+// row + r < count move; a load zero-fills the part's other rows. kRagged's
+// loads and stores: a TMA box would cross into the next expert.
 template <int M, bool LOAD>
 __device__ __forceinline__ void copy_rows(__nv_bfloat16* mem, uint8_t* tile,
                                           int cw, int t, long long base,
                                           int row, int count) {
-  constexpr int kChunks = M / 8;
+  using C = Cfg<M>;
+  constexpr int kChunks = C::kWN / 8;
+  const int r0 = C::row_of(cw), c0 = C::col_of(cw);
 #pragma unroll 4
   for (int i = t; i < kBox * kChunks; i += kWgThreads) {
     const int r = i / kChunks, ch = i % kChunks;
     uint4* s = reinterpret_cast<uint4*>(
-        tile + swz<kTileRows>(cw * kBox + r, ch * 8));
+        tile + swz<C::kRows>(r0 + r, c0 + ch * 8));
     const bool in = row + r < count;
-    uint4* gm = reinterpret_cast<uint4*>(mem + (base + row + r) * M + ch * 8);
+    uint4* gm = reinterpret_cast<uint4*>(mem + (base + row + r) * M + c0 +
+                                         ch * 8);
     if (LOAD)
       *s = in ? *gm : make_uint4(0u, 0u, 0u, 0u);
     else if (in)
@@ -520,38 +556,60 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* mem, uint8_t* tile,
   }
 }
 
-// Store the 64 rows of warpgroup `cw` of a 128-row tile to rows
-// [row, row + 64) of a [., C, M] tensor map (clipped at C).
+// Store the part of warpgroup `cw` to rows [row, row + 64) of a [., C, M]
+// tensor map (clipped at C).
 template <int M>
 __device__ __forceinline__ void store_rows(const CUtensorMap* map,
                                            const uint8_t* tile, int cw,
                                            int row, int z) {
+  using C = Cfg<M>;
 #pragma unroll
-  for (int p = 0; p < M / kBox; ++p)
-    tma_store(map, tile + p * Cfg<M>::kPanelBytes + cw * kBoxBytes, p * kBox,
-              row, z);
+  for (int p = 0; p < C::kWN / kBox; ++p) {
+    const int pp = C::col_of(cw) / kBox + p;
+    tma_store(map, tile + pp * C::kPanelBytes + C::row_of(cw) * 128,
+              pp * kBox, row, z);
+  }
   bulk_commit();
 }
 
-// ----------------------------------------------------------- consumer ----
-// acc = A @ B for one layer, A = this warpgroup's 64 rows of the tile at
-// `a` (K-major), B streamed through the ring: MN-major slices of W (TB = 1)
-// or K-major slices (TB = 0). Each stage is released once its products are
-// done; the two products of a stage stay in flight while the next stage's
-// are issued.
-template <int M, int TB>
-__device__ __forceinline__ void layer_product(float (&acc)[M / 2], uint32_t a,
-                                              uint32_t ring, uint64_t* full,
-                                              uint64_t* empty, int& stage,
-                                              uint32_t& phase) {
+// Load rows [row, row + 64) of a [., C, M] tensor map into the part of
+// warpgroup `cw` (zero-filled past C): kBox * kWN * 2 bytes on bar.
+template <int M>
+__device__ __forceinline__ void load_part(uint8_t* tile, const CUtensorMap* map,
+                                          uint64_t* bar, int cw, int row,
+                                          int z) {
   using C = Cfg<M>;
+#pragma unroll
+  for (int p = 0; p < C::kWN / kBox; ++p) {
+    const int pp = C::col_of(cw) / kBox + p;
+    tma_load(tile + pp * C::kPanelBytes + C::row_of(cw) * 128, map, bar,
+             pp * kBox, row, z);
+  }
+}
+
+// ----------------------------------------------------------- consumer ----
+// acc = A @ B for one layer, A = the 64 rows of warpgroup cw's part of the
+// tile at `a` (K-major, all M columns), B streamed through the ring:
+// MN-major slices of W (TB = 1) or K-major slices (TB = 0), the part's
+// columns of them. Each stage is released once its products are done; the
+// products of a stage stay in flight while the next stage's are issued.
+template <int M, int TB>
+__device__ __forceinline__ void layer_product(float (&acc)[Cfg<M>::kAcc],
+                                              uint32_t a, uint32_t ring,
+                                              uint64_t* full, uint64_t* empty,
+                                              int& stage, uint32_t& phase,
+                                              int cw) {
+  using C = Cfg<M>;
+  // a stage holds one box of kStageK x 64 (TB = 1) or 64 x kStageK per 64
+  // columns of B
+  const uint32_t b_part = C::col_of(cw) / kBox * (C::kStageBytes / (M / kBox));
   fence_acc(acc);
   wg_fence();
   int prev = 0;
 #pragma unroll 1
   for (int kc = 0; kc < C::kKChunks; ++kc) {
     mbar_wait(&full[stage], phase);
-    const uint32_t b = ring + stage * C::kStageBytes;
+    const uint32_t b = ring + stage * C::kStageBytes + b_part;
 #pragma unroll
     for (int ks = 0; ks < C::kStageK / 16; ++ks) {
       // k = 32 kc + 16 ks: panel k / 64 of the tile, 2 (k % 64) bytes in
@@ -560,7 +618,7 @@ __device__ __forceinline__ void layer_product(float (&acc)[M / 2], uint32_t a,
       const uint64_t db =
           TB ? desc_mnmajor(b + ks * 2048, C::kStageK * 128)
              : desc_kmajor64(b + ks * 32);
-      Wgmma<M, 0, TB>::mma(acc, da, db, (kc | ks) != 0);
+      Wgmma<C::kWN, 0, TB>::mma(acc, da, db, (kc | ks) != 0);
     }
     wg_commit();
     if (kc > 0) {
@@ -580,32 +638,33 @@ __device__ __forceinline__ void layer_product(float (&acc)[M / 2], uint32_t a,
 
 // Accumulator element (4j + 2half + i) of thread t sits at row
 // 16*warp + lane/4 + 8*half and column 8j + 2*(lane%4) + i of the
-// warpgroup's 64 rows.
+// warpgroup's part (64 rows, kWN columns).
 
 // The forward epilogue of layer l for this warpgroup's rows of h (in place).
 // With `mask` set, also records the ReLU mask (output > 0) as bits, one
 // word per 32 accumulator elements, laid out [word][consumer thread].
 template <int M>
-__device__ __forceinline__ void fwd_epilogue(float (&acc)[M / 2], uint8_t* h,
-                                             uint8_t* xin,
+__device__ __forceinline__ void fwd_epilogue(float (&acc)[Cfg<M>::kAcc],
+                                             uint8_t* h, uint8_t* xin,
                                              const __nv_bfloat16* bias,
                                              bool skip, bool last,
                                              uint32_t* mask, int cw, int t) {
+  using C = Cfg<M>;
   const int lane = t & 31;
-  const int r0 = cw * 64 + (t >> 5) * 16 + (lane >> 2);
+  const int r0 = C::row_of(cw) + (t >> 5) * 16 + (lane >> 2);
   const int q = lane & 3;
   const __nv_bfloat162 zero2 = __float2bfloat162_rn(0.0f);
-  uint32_t bits[Cfg<M>::kMaskWords];
+  uint32_t bits[C::kMaskWords];
 #pragma unroll
-  for (int w = 0; w < Cfg<M>::kMaskWords; ++w) bits[w] = 0u;
+  for (int w = 0; w < C::kMaskWords; ++w) bits[w] = 0u;
 #pragma unroll
-  for (int j = 0; j < M / 8; ++j) {
-    const int c = 8 * j + 2 * q;
+  for (int j = 0; j < C::kWN / 8; ++j) {
+    const int c = C::col_of(cw) + 8 * j + 2 * q;
     const __nv_bfloat162 b2 = *reinterpret_cast<const __nv_bfloat162*>(bias + c);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = 4 * j + 2 * half;
-      const uint32_t off = swz<kTileRows>(r0 + 8 * half, c);
+      const uint32_t off = swz<C::kRows>(r0 + 8 * half, c);
       // a bf16x2 add rounds the exact sum once: the plain version's fp32
       // add and bf16 cast give the same value
       __nv_bfloat162 z =
@@ -625,7 +684,7 @@ __device__ __forceinline__ void fwd_epilogue(float (&acc)[M / 2], uint8_t* h,
   }
   if (mask != nullptr) {
 #pragma unroll
-    for (int w = 0; w < Cfg<M>::kMaskWords; ++w)
+    for (int w = 0; w < C::kMaskWords; ++w)
       mask[w * 2 * kWgThreads + cw * kWgThreads + t] = bits[w];
   }
 }
@@ -653,7 +712,7 @@ chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
   uint64_t* x_full = empty + C::kStages;
 
   const int e = blockIdx.y;
-  const int row0 = blockIdx.x * kTileRows;
+  const int row0 = blockIdx.x * C::kRows;
   const ExpertRows er = expert_rows<SRC>(g.idx, e, g.C);
   if (SRC == kRagged && row0 >= er.count) return;  // past its rows
   if (threadIdx.x == 0) {
@@ -685,23 +744,26 @@ chain_fwd_sm90(const __grid_constant__ CUtensorMap x_map,
     regs_inc<kConsumerRegs>();
     const int cw = threadIdx.x / kWgThreads - 1;
     const int t = threadIdx.x % kWgThreads;
-    const uint32_t a = smem_u32(h) + cw * kBoxBytes;
+    const uint32_t a = smem_u32(h) + C::row_of(cw) * 128;
     float acc[C::kAcc];
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(x_full, 0);
     for (int l = 0; l < L; ++l) {
-      layer_product<M, 1>(acc, a, smem_u32(ring), full, empty, stage, phase);
+      layer_product<M, 1>(acc, a, smem_u32(ring), full, empty, stage, phase,
+                          cw);
+      // kSplit: the other warpgroup still reads these columns as A
+      if constexpr (C::kSplit) part_sync<M>(cw);
       fwd_epilogue<M>(acc, h, xin, bias + l * M, (skip_mask >> l) & 1u,
                       l == L - 1, nullptr, cw, t);
       fence_async_smem();
-      named_sync(1 + cw, kWgThreads);
+      part_sync<M>(cw);
     }
     if constexpr (SRC == kRagged) {
-      copy_rows<M, false>(g.out, h, cw, t, er.base, row0 + cw * kBox,
+      copy_rows<M, false>(g.out, h, cw, t, er.base, row0 + C::row_of(cw),
                           er.count);
     } else if (t == 0) {
-      store_rows<M>(&out_map, h, cw, row0 + cw * kBox, e);
+      store_rows<M>(&out_map, h, cw, row0 + C::row_of(cw), e);
       bulk_wait();
     }
   }
@@ -794,7 +856,7 @@ int launch_fwd_width(const void* src, const int* idx, int n_src,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((C + kTileRows - 1) / kTileRows, E);
+  const dim3 grid((C + Cfg<M>::kRows - 1) / Cfg<M>::kRows, E);
   kern<<<grid, kThreads, smem, stream>>>(
       x_map, w_map, out_map, static_cast<const __nv_bfloat16*>(bs), g, E, L,
       skip_mask);
@@ -804,8 +866,8 @@ int launch_fwd_width(const void* src, const int* idx, int n_src,
 // Returns a cudaError_t code (0 = launched). src is x [E, C, M], with
 // kGather the token rows [n_src, M] that idx [E * C] names, with kRagged
 // x [C, M] sorted by expert and idx the counts [E] (out is then [C, M]).
-// Widths other than 64/128/256 are refused with cudaErrorInvalidValue; the
-// Python wrappers check first.
+// Widths other than 64/128/256/512 are refused with cudaErrorInvalidValue;
+// the Python wrappers check first.
 template <int SRC>
 int launch_chain_fwd(int device, const void* src, const int* idx, int n_src,
                      const void* ws, const void* bs, void* out, int E, int C,
@@ -823,6 +885,9 @@ int launch_chain_fwd(int device, const void* src, const int* idx, int n_src,
                                         skip_mask, s);
     case 256:
       return launch_fwd_width<256, SRC>(src, idx, n_src, ws, bs, out, E, C, L,
+                                        skip_mask, s);
+    case 512:
+      return launch_fwd_width<512, SRC>(src, idx, n_src, ws, bs, out, E, C, L,
                                         skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;

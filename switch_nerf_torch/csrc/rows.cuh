@@ -14,9 +14,10 @@
 // The backward's workspaces (each layer's input H_l and post-mask gradient
 // G_l) keep one segment per expert. In place and gathered, segment e is
 // rows e*C .. of a layer of E*C rows. Ragged, segment e starts at
-// sum(ceil(counts[:e] / kSegRows) * kSegRows), so every 128-row tile of an
-// expert has whole rows of its own in the workspace, and a layer holds
-// ragged_ws_rows(N, E) rows, a bound that needs no counts.
+// sum(ceil(counts[:e] / kSegRows) * kSegRows), so every tile of an expert
+// (128 rows; 64 at M = 512) has whole rows of its own in the workspace,
+// and a layer holds ragged_ws_rows(N, E) rows, a bound that needs no
+// counts.
 #pragma once
 
 #include <cuda_runtime.h>

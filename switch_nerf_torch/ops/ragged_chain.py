@@ -24,7 +24,7 @@ x, W and out (times 3 TF32 products in fp32).
 
 K2R (``csrc/ragged_chain_bwd.cu``) is three deterministic steps on the
 same row source: pass 1 recomputes and sweeps each tile into per-expert
-workspace segments of whole 128-row tiles (``ws_rows`` rows a layer,
+workspace segments of whole tiles (``ws_rows`` rows a layer,
 bounded from N and E alone); pass 2 cuts every expert's segment into
 chunks of 2,048 rows and forms each chunk's partial dW = H^T G and db, one
 CTA per (dW tile, chunk, layer), so skewed routing spreads over the card;

@@ -1,15 +1,20 @@
-"""Where one full-width Building eval request, or one Building train step,
-spends its time on the card.
+"""Where one full-width Building eval request, one Building train step or
+one Mission Bay train step spends its time on the card.
 
     python -m switch_nerf_torch.profile_eval [--rays 4096] [--trace DIR]
     python -m switch_nerf_torch.profile_eval --train [--rays 1024]
+    python -m switch_nerf_torch.profile_eval --mission_bay [--rays 1664]
 
 Defines the Building workloads that this script and chip_smoke.py drive
 (building.yaml + the production flags, bf16, bg NeRF, 256 + 512 samples,
 32768-point chunks, seeded random weights, rays from inside the unit
 sphere): the eval request (padded eval dispatch) and the train step (the
 published training recipe: padded train dispatch, sigma noise, l_aux
-weight 5e-4, perturb 1.0, Adam). Runs one warm-up, then one request or
+weight 5e-4, perturb 1.0, Adam). With --mission_bay, the Block-NeRF
+Mission Bay train step (mission_bay.yaml + the README's flags: 8 experts x
+7 x 512, appearance_dim 48, mip, 513 + 513 samples, bf16, padded train
+dispatch, 1,664 rays) on rays from inside the unit sphere with near 1, far
+10 and mip radii 1e-3. Runs one warm-up, then one request or
 step under torch.profiler, and prints its wall time, the summed time of
 the device kernels and their share of the wall time, device time by
 kernel family, and the top kernels. With --steps N, first times N
@@ -90,6 +95,18 @@ def ray_batch(n: int, seed: int, device, rgbs: bool = False) -> dict:
     return batch
 
 
+def mission_bay_train_hparams():
+    """mission_bay.yaml with the README's Block-NeRF training flags and
+    1,664 rays a card (the README's 13,312 over 8 GPUs)."""
+    return parse_args(get_opts(), [
+        "--config_file", str(REPO / "configs/switch_nerf/mission_bay.yaml"),
+        "--exp_name", "mission_bay", "--dataset_path", str(REPO),
+        "--batch_size", "1664", "--moe_train_batch",
+        "--use_moe_external_gate", "--use_gate_input_norm",
+        "--batch_prioritized_routing", "--moe_capacity_factor", "1.0",
+        "--moe_l_aux_wt", "0.0005"])
+
+
 SCENE = SceneInfo(np.zeros(3, np.float32), np.ones(3, np.float32))
 
 
@@ -110,6 +127,17 @@ def _train_run(n: int):
     return "train step", lambda: step(state, batch)
 
 
+def _mission_bay_run(n: int):
+    h = mission_bay_train_hparams()
+    state = create_train_state(h, get_nerf(h, 8, seed=0), None)
+    step = make_train_step(h, render_config_from_hparams(h),
+                           SceneInfo(None, None), mip=True)
+    batch = ray_batch(n, 0, "cuda", rgbs=True)
+    batch["rays"][:, 6:] = torch.tensor([1.0, 10.0], device="cuda")
+    batch["radii"] = torch.full((n, 1), 1e-3, device="cuda")
+    return "Mission Bay train step", lambda: step(state, batch)
+
+
 def family(name: str) -> str:
     low = name.lower()
     for fam, keys in FAMILIES:
@@ -122,15 +150,22 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true",
                     help="profile a train step instead of an eval request")
+    ap.add_argument("--mission_bay", action="store_true",
+                    help="profile a Mission Bay train step")
     ap.add_argument("--rays", type=int, default=None,
-                    help="rays per request (4096) or train batch (1024)")
+                    help="rays per request (4096) or train batch (1024; "
+                    "Mission Bay 1664)")
     ap.add_argument("--steps", type=int, default=0,
                     help="unprofiled runs to time before the profiled one")
     ap.add_argument("--trace", type=str, default=None)
     args = ap.parse_args(argv)
 
-    n = args.rays or (1024 if args.train else 4096)
-    what, run = (_train_run if args.train else _eval_run)(n)
+    if args.mission_bay:
+        n = args.rays or 1664
+        what, run = _mission_bay_run(n)
+    else:
+        n = args.rays or (1024 if args.train else 4096)
+        what, run = (_train_run if args.train else _eval_run)(n)
     run()                                          # warm-up
     torch.cuda.synchronize()
     times = []

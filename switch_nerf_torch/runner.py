@@ -26,17 +26,25 @@ Port of the Mega-NeRF and classic-NeRF sides of
     (``train_nerf``, ``eval_nerf``): rays and mip radii from
     ``datasets/nerf_data``, the mip renderer, epoch batches from a
     per-epoch permutation, interval and SIGTERM checkpoints with exact
-    resume, and full-image PSNR/SSIM/LPIPS of the test split.
+    resume, and full-image PSNR/SSIM/LPIPS of the test split,
+  * trains and serves a Block-NeRF (Waymo Mission Bay) scene with
+    --data_type block_nerf: ``train`` on the chunked
+    ``BlockFilesystemDataset`` (GZIP tfrecords read without TensorFlow)
+    through the mip train step, and ``eval_image_blocknerf``: each val
+    record's images rendered whole, right-half PSNR/SSIM (masked by the
+    moving-object masks too) and LPIPS, per-image records that make a
+    rerun resume, and the 'Average val/...' summary.
 
 Without --moe_test_batch (--moe_train_batch) the MoE layers evaluate
 (train) in no-drop dispatch, on the K1R/K2R kernels on a card. One process
-on one device (``cuda`` unless the caller passes ``device="cpu"``). The
-Block-NeRF workload, point export and the container/ckpt-only evals raise
-``NotImplementedError`` naming the ROADMAP Queue A item they wait for.
+on one device (``cuda`` unless the caller passes ``device="cpu"``). Point
+export and the container/ckpt-only evals raise ``NotImplementedError``
+naming the ROADMAP Queue A item they wait for.
 """
 from __future__ import annotations
 
 import itertools
+import json
 import random
 import shutil
 import signal
@@ -54,6 +62,8 @@ from switch_nerf_torch import metrics as M
 from switch_nerf_torch import resolve_device
 from switch_nerf_torch.checkpoints import load_checkpoint, save_checkpoint
 from switch_nerf_torch.config import get_nerf_dataset_args
+from switch_nerf_torch.datasets.block_filesystem_dataset import (
+    BlockFilesystemDataset, load_tfrecord, record_id_map)
 from switch_nerf_torch.datasets.filesystem_dataset import FilesystemDataset
 from switch_nerf_torch.datasets.image_metadata import ImageMetadata
 from switch_nerf_torch.datasets.memory_dataset import MemoryDataset
@@ -96,6 +106,10 @@ def _release_term_latch(latch: dict) -> None:
     if latch["installed"]:
         signal.signal(signal.SIGTERM, latch["prev"])
         latch["installed"] = False
+
+
+# the chunked datasets: a cursor to save, a prefetch worker to stop
+_CHUNKED = (FilesystemDataset, BlockFilesystemDataset)
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -312,7 +326,30 @@ class Runner:
         self.appearance_count = len(self.train_items)
 
     def _init_block(self, set_experiment_path: bool):
-        raise _waits("The Block-NeRF workload", 7, "other workloads")
+        """A Block-NeRF scene: literal near/far, no background model, no
+        scene sphere, mip rendering, one appearance embedding per id of the
+        hash -> id map."""
+        h = self.hparams
+        self._setup_dirs(set_experiment_path)
+        self.near = h.near
+        self.far = h.far if h.far is not None else 10.0
+        self.ray_altitude_range = None
+        self.origin_drb = None
+        self.pose_scale_factor = 1.0
+        self.train_items, self.val_items = [], []
+        with open(h.block_image_hash_id_map_path) as f:
+            self.image_hash_id_map = json.load(f)
+
+        def _max_id(obj):
+            if isinstance(obj, dict):
+                return max((_max_id(v) for v in obj.values()), default=-1)
+            return int(obj)
+        self.appearance_count = _max_id(self.image_hash_id_map) + 1 or 1
+        self.nerf = get_nerf(h, self.appearance_count, device=self.device)
+        self.bg_nerf = None
+        self.sphere_center = None
+        self.sphere_radius = None
+        self.mip = True
 
     def _init_nerf(self, set_experiment_path: bool):
         """A classic-NeRF scene (the Bungee loader; the others raise): all
@@ -708,9 +745,10 @@ class Runner:
 
     # ------------------------------------------------------------ train ---
     def train(self) -> Optional[TrainState]:
-        """Mega-NeRF chunked training (the JAX package's ``Runner.train``,
-        one process). Returns the final train state (None after
-        --generate_chunk, which stops once the chunks are written)."""
+        """Mega-NeRF and Block-NeRF chunked training (the JAX package's
+        ``Runner.train``, one process); Block-NeRF batches carry the mip
+        radii into the mip train step. Returns the final train state (None
+        after --generate_chunk, which stops once the chunks are written)."""
         h = self.hparams
         # latched from the start: a SIGTERM during setup still ends in a
         # checkpointed return
@@ -735,7 +773,7 @@ class Runner:
             train_step = make_train_step(
                 h, render_config_from_hparams(h),
                 SceneInfo(self.sphere_center, self.sphere_radius),
-                device=self.device)
+                mip=self.mip, device=self.device)
             dataset = self._make_dataset(dataset_state)
             if h.generate_chunk:
                 main_log("Chunk generated")
@@ -743,7 +781,7 @@ class Runner:
             return self._train_loop(state, train_step, dataset, term,
                                     discard_index, host_iteration)
         finally:
-            if isinstance(dataset, FilesystemDataset):
+            if isinstance(dataset, _CHUNKED):
                 dataset.close()
             _release_term_latch(term)
 
@@ -753,16 +791,31 @@ class Runner:
             if not h.chunk_paths:
                 raise ValueError("--dataset_type filesystem needs "
                                  "--chunk_paths")
-            dataset = FilesystemDataset(
-                self.train_items, self.near, self.far,
-                self.ray_altitude_range, h.center_pixels,
-                [Path(x) for x in sorted(h.chunk_paths)], h.num_chunks,
-                h.train_scale_factor, h.disk_flush_size, h.shuffle_chunk,
-                seed=h.random_seed)
+            if self.data_type == "block_nerf":
+                dataset = BlockFilesystemDataset(
+                    data_path=h.dataset_path, near=self.near, far=self.far,
+                    scale_factor=h.train_scale_factor,
+                    list_path=h.block_train_list_path,
+                    id_map_path=h.block_image_hash_id_map_path,
+                    chunk_paths=[Path(x) for x in sorted(h.chunk_paths)],
+                    num_chunks=h.num_chunks,
+                    disk_flush_size=h.disk_flush_size,
+                    shuffle_chunk=h.shuffle_chunk, seed=h.random_seed)
+            else:
+                dataset = FilesystemDataset(
+                    self.train_items, self.near, self.far,
+                    self.ray_altitude_range, h.center_pixels,
+                    [Path(x) for x in sorted(h.chunk_paths)], h.num_chunks,
+                    h.train_scale_factor, h.disk_flush_size,
+                    h.shuffle_chunk, seed=h.random_seed)
             if dataset_state is not None:
                 dataset.set_state(dataset_state)
             return dataset
         if h.dataset_type == "memory":
+            if self.data_type == "block_nerf":
+                raise ValueError("Block-NeRF scenes train from the chunked "
+                                 "filesystem dataset (--dataset_type "
+                                 "filesystem --chunk_paths DIR)")
             return MemoryDataset(self.train_items, self.near, self.far,
                                  self.ray_altitude_range, h.center_pixels,
                                  seed=h.random_seed)
@@ -778,7 +831,7 @@ class Runner:
                     discard_index: int, host_iteration: Optional[int]
                     ) -> TrainState:
         h = self.hparams
-        filesystem = isinstance(dataset, FilesystemDataset)
+        filesystem = isinstance(dataset, _CHUNKED)
         if not filesystem:
             # memory batches are keyed by the counter: nothing to skip
             discard_index = -1
@@ -1049,8 +1102,94 @@ class Runner:
                     f.write(f"Average {agg}: {v}\n")
         return means
 
-    def eval_image_blocknerf(self):
-        raise _waits("Runner.eval_image_blocknerf", 7, "other workloads")
+    def eval_image_blocknerf(self) -> Dict[str, float]:
+        """The Block-NeRF eval protocol over the val tfrecords
+        (--block_val_list_path): each image rendered whole (with its mip
+        radii), scored on its right half (PSNR, SSIM, their masked
+        variants with the moving-object mask, 1 == moving == invalid, and
+        LPIPS), with its render seconds and peak memory. Files keyed by
+        the image hash under --exp_name: images/metrics_{hash}.txt +
+        {hash}_gt/_pred/_depth.jpg crops, val_images/{hash}.jpg
+        triptychs, which mark an image done (a rerun skips it), and
+        val_metrics/metrics-{hash}.json records; experiment_path/
+        metrics.txt 'Average val/...' lines sum every record on disk (this
+        pass's and earlier ones') and divide by the id map's val_image_num
+        (else the record count), as the JAX package does. Returns this
+        pass's means."""
+        h = self.hparams
+        state = self._load_eval_state()
+        render_chunks = self._make_render_fn(state)
+        meter = DictAverageMeter()
+        base = Path(h.exp_name)
+        images_dir = base / "images"
+        val_images_dir = base / "val_images"
+        metric_dir = base / "val_metrics"
+        for d_ in (images_dir, val_images_dir, metric_dir):
+            d_.mkdir(parents=True, exist_ok=True)
+
+        names = [ln.strip() for ln in
+                 Path(h.block_val_list_path).read_text().splitlines()
+                 if ln.strip()]
+        img_counter = 0
+        for rec_name in names:
+            dicts = load_tfrecord(
+                Path(h.dataset_path) / rec_name,
+                record_id_map(self.image_hash_id_map, rec_name), self.near,
+                self.far, load_mask=True)
+            for d in dicts:
+                key = d.get("image_hash", str(img_counter))
+                img_counter += 1
+                # the triptych is an image's last file: it marks it done
+                if (val_images_dir / f"{key}.jpg").exists():
+                    continue
+                t0 = time.time()
+                res = render_chunks(d["rays"].reshape(-1, 8),
+                                    float(d["image_ids"]),
+                                    d["radii"].reshape(-1, 1))
+                render_time = time.time() - t0
+                typ = "fine" if "rgb_fine" in res else "coarse"
+                hh, ww = d["rgbs"].shape[:2]
+                pred = np.clip(res[f"rgb_{typ}"].reshape(hh, ww, 3), 0, 1)
+                gt = d["rgbs"]
+                valid = d["mask"][..., 0] < 0.5
+                img_metrics = self._image_metrics_half(pred, gt, valid)
+                img_metrics["time"] = render_time
+                img_metrics["memory"] = self._peak_memory_mib()
+                meter.update(img_metrics)
+                main_log(f"blocknerf val image {key}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in img_metrics.items()))
+                (metric_dir / f"metrics-{key}.json").write_text(json.dumps(
+                    {k: float(v) for k, v in img_metrics.items()}))
+                res_img = {f"rgb_{typ}": pred}
+                for extra in (f"depth_{typ}", f"fg_depth_{typ}",
+                              f"bg_depth_{typ}"):
+                    if extra in res:
+                        res_img[extra] = res[extra].reshape(hh, ww)
+                for extra in (f"fg_rgb_{typ}", f"bg_rgb_{typ}"):
+                    if extra in res:
+                        res_img[extra] = res[extra].reshape(hh, ww, 3)
+                self._write_reference_val_files(
+                    images_dir, val_images_dir, key, gt, pred, res_img, typ,
+                    img_metrics)
+        means = meter.mean_across_processes()
+        main_log("blocknerf val means: " + " ".join(
+            f"{k}={v:.4f}" for k, v in means.items()))
+        if self.experiment_path is not None:
+            sums: Dict[str, float] = {}
+            count = 0
+            for f_ in sorted(metric_dir.glob("metrics-*.json")):
+                count += 1
+                for k, v in json.loads(f_.read_text()).items():
+                    ak = self._agg_key(k)
+                    sums[ak] = sums.get(ak, 0.0) + float(v)
+            image_num = int(self.image_hash_id_map.get(
+                "val_image_num", count) or count)
+            with (self.experiment_path / "metrics.txt").open("w") as f:
+                for k, v in sums.items():
+                    msg = f"Average {k}: {v / image_num}"
+                    main_log(msg)
+                    f.write(msg + "\n")
+        return means
 
     def eval_points(self):
         raise _waits("Runner.eval_points", 9, "point export")

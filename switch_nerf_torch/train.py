@@ -1,4 +1,4 @@
-"""Training entry point of the port for Mega-NeRF scenes.
+"""Training entry point of the port for Mega-NeRF and Block-NeRF scenes.
 
     python -m switch_nerf_torch.train \
         --config_file=configs/switch_nerf/building.yaml \
@@ -9,9 +9,18 @@
         --moe_capacity_factor=1.0 --batch_size=8192 --moe_l_aux_wt=0.0005 \
         --moe_train_batch
 
+Block-NeRF Mission Bay (GZIP tfrecords, read without TensorFlow):
+
+    python -m switch_nerf_torch.train \
+        --config_file=configs/switch_nerf/mission_bay.yaml \
+        --exp_name=/out/mission_bay --dataset_path=/data/v1.0 \
+        --chunk_paths=/scratch/mission_bay_chunks --batch_size=1664 \
+        --moe_train_batch --use_moe_external_gate --use_gate_input_norm \
+        --batch_prioritized_routing --moe_capacity_factor=1.0 \
+        --moe_l_aux_wt=0.0005
+
 Runs on ``cuda``; ``main(hparams, device="cpu")`` runs the plain versions.
-Classic-NeRF scenes train through ``train_nerf_moe``; Block-NeRF data waits
-for ROADMAP Queue A item 7.
+Classic-NeRF scenes train through ``train_nerf_moe``.
 """
 import torch
 
@@ -27,10 +36,6 @@ def main(hparams=None, device=None):
     if hparams.data_type == "nerf":
         raise ValueError("classic-NeRF scenes train through "
                          "switch_nerf_torch.train_nerf_moe")
-    if hparams.data_type == "block_nerf":
-        raise NotImplementedError(
-            "training data_type 'block_nerf' waits for the port's other "
-            "workloads (ROADMAP Queue A item 7)")
     if hparams.detect_anomalies:
         torch.autograd.set_detect_anomaly(True)
     return Runner(hparams, device=device).train()

@@ -549,3 +549,62 @@ def test_nodrop_moe_matches_padded_at_full_capacity(cuda, dtype):
     for a, b in zip(*grads):
         scale = a.float().abs().max().item()
         assert (b.float() - a.float()).abs().max() <= tol * max(scale, 1e-6)
+
+
+# Mission Bay's trunk is 512 wide: the bf16 kernels run 64-row tiles there,
+# each consumer warpgroup on half the columns, and K2's dW pass 128 x 256
+# tiles (csrc/chain_sm90.cuh Cfg::kSplit, chain_bwd_sm90.cuh DwCfg::kTN).
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("c", [1, 63, 64, 65, 200, 4096])
+def test_wide_chain_kernels_match_plain(cuda, c, kernels):
+    """K1/K2 and K3/K4 in bf16 at M = 512, 7 layers, skip 3 (Mission Bay's
+    expert chain), where C ends inside, at and past the 64-row tile."""
+    _check_case(kernels, 2, c, 512, 7, torch.bfloat16, cuda, seed=c + 512,
+                skips=(3,))
+
+
+@pytest.mark.parametrize("skips", [(0, 3), (1, 2)])
+def test_wide_chain_kernels_skip_layers(cuda, skips):
+    x, ws, bs, gy = _chain_case(3, 300, 512, 4, torch.bfloat16, cuda,
+                                seed=sum(skips) + 31)
+    _check_fwd_bwd(x, ws, bs, gy, skips, torch.bfloat16)
+
+
+def test_wide_bwd_kernel_layer_limit_and_determinism(cuda):
+    """At M = 512 pass 1 holds the ReLU masks of 6 layers: 7 layers run
+    (Mission Bay's chain), bit-identical twice; an eighth is refused."""
+    limit = expert_kernel.bwd_max_layers(cuda, 512, torch.bfloat16)
+    assert limit == 7
+    x, ws, bs, gy = _chain_case(4, 1000, 512, limit, torch.bfloat16, cuda,
+                                seed=41)
+    first = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,))
+    second = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    w8, b8 = _chain_weights(4, 512, limit + 1, torch.bfloat16, cuda, seed=0)
+    with pytest.raises(ValueError):
+        expert_kernel.expert_mlp_chain_bwd(x, w8, b8, gy)
+
+
+@pytest.mark.parametrize("counts", [
+    [0, 200, 37, 1500, 129], [64, 0, 63, 65], [1],
+    [0, _CHUNK_ROWS + 1, 0, 2 * _CHUNK_ROWS - 1]])
+def test_wide_ragged_chain_kernels_match_plain(cuda, counts):
+    """K1R and K2R in bf16 at M = 512, 7 layers: an empty expert, counts off
+    the 64-row tiles and across the dW pass's row chunks."""
+    _check_ragged(counts, 512, 7, (3,), torch.bfloat16, cuda,
+                  seed=512 + sum(counts))
+
+
+def test_wide_float32_kernels_refuse(cuda):
+    """fp32 at M = 512 is not built: every wrapper raises, naming the
+    ROADMAP queue."""
+    x, ws, bs, gy = _chain_case(2, 40, 512, 2, torch.float32, cuda, seed=3)
+    for call in (lambda: expert_kernel.expert_mlp_chain(x, ws, bs),
+                 lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy),
+                 lambda: ragged_chain.ragged_chain_fwd(
+                     x[0], torch.tensor([30, 10], dtype=torch.int32,
+                                        device=cuda), ws, bs)):
+        with pytest.raises(ValueError, match="Queue B"):
+            call()

@@ -118,8 +118,10 @@ def test_entry_points_raise_without_a_card_unless_cpu(setup):
 
 
 # cv2: the card's machine has no OpenCV (datasets/nerf_data resamples in
-# numpy)
-_FORBIDDEN = ("jax", "flax", "optax", "orbax", "cv2", "switch_nerf_tpu")
+# numpy); nor TensorFlow or protobuf (datasets/tfrecord.py reads the
+# Block-NeRF records itself)
+_FORBIDDEN = ("jax", "flax", "optax", "orbax", "cv2", "switch_nerf_tpu",
+              "tensorflow", "google")
 
 
 def _imports(path: Path):
@@ -140,7 +142,10 @@ def test_port_imports_no_jax():
             "switch_nerf_torch/render/rendering_mip.py",
             "switch_nerf_torch/datasets/nerf_data/load_bungee.py",
             "switch_nerf_torch/train_nerf_moe.py",
-            "switch_nerf_torch/eval_nerf_moe.py"} <= names
+            "switch_nerf_torch/eval_nerf_moe.py",
+            "switch_nerf_torch/datasets/tfrecord.py",
+            "switch_nerf_torch/datasets/block_filesystem_dataset.py",
+            "switch_nerf_torch/eval_image_blocknerf.py"} <= names
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in _FORBIDDEN]
     assert not bad, bad

@@ -28,7 +28,8 @@ from switch_nerf_torch import eval_image as teval_image
 from switch_nerf_torch import runner as trunner
 from switch_nerf_torch.datasets import ray_utils as tray
 from switch_nerf_tpu.datasets import ray_utils as jray
-from tests.torch_port_helpers import make_mega_scene
+from tests.torch_port_helpers import (block_runner_hparams, make_block_test_scene,
+                                      make_mega_scene)
 from tests.torch_port_helpers import mega_hparams as hparams
 
 
@@ -176,10 +177,17 @@ def test_runner_refusals(mega_dataset, checkpoint, tmp_path):
     nodrop.val_interval = 2
     assert trunner.Runner(nodrop, set_experiment_path=False,
                           device="cpu").train().step == 1
-    block = copy.copy(h)
-    block.data_type = "block_nerf"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trunner.Runner(block, device="cpu")
+    # a Block-NeRF runner: mip rendering, no background model, one
+    # appearance row per id of the hash -> id map; serving needs a
+    # checkpoint
+    scene = make_block_test_scene(tmp_path / "block")
+    block = trunner.Runner(block_runner_hparams(scene, tmp_path / "be",
+                                                tmp_path / "bc"),
+                           set_experiment_path=False, device="cpu")
+    assert block.mip and block.bg_nerf is None
+    assert block.appearance_count == 4
+    with pytest.raises(ValueError, match="--ckpt_path"):
+        block.eval_image_blocknerf()
 
     runner = trunner.Runner(h, set_experiment_path=False, device="cpu")
     with pytest.raises(ValueError, match="--ckpt_path"):
@@ -187,8 +195,7 @@ def test_runner_refusals(mega_dataset, checkpoint, tmp_path):
     h.container_path = "somewhere"
     with pytest.raises(NotImplementedError, match="item 9"):
         runner.eval_image()
-    for method, item in (("eval_points", 9), ("eval_ckpt", 9),
-                         ("eval_image_blocknerf", 7)):
+    for method, item in (("eval_points", 9), ("eval_ckpt", 9)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             getattr(runner, method)()
 

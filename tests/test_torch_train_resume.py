@@ -9,7 +9,6 @@ generator's state). ``train.main(h, device="cpu")`` writes chunks with
 --generate_chunk, a trace with --profile_trace_step, and refuses Block-NeRF
 data.
 """
-import copy
 import json
 import os
 import signal
@@ -21,7 +20,8 @@ import torch
 from switch_nerf_torch import runner as trunner
 from switch_nerf_torch import train as ttrain
 from switch_nerf_torch.datasets.memory_dataset import MemoryDataset
-from tests.torch_port_helpers import make_mega_scene
+from tests.torch_port_helpers import (block_runner_hparams, make_block_test_scene,
+                                      make_mega_scene)
 from tests.torch_port_helpers import mega_train_hparams as train_hparams
 
 
@@ -165,7 +165,8 @@ def test_exact_resume_after_skipped_step(mega_dataset, tmp_path,
 def test_train_cli(mega_dataset, tmp_path, case):
     """train.main on the CPU: --generate_chunk writes the chunks and
     returns; --profile_trace_step writes a Chrome trace under profile/;
-    Block-NeRF data raises naming its ROADMAP item."""
+    Block-NeRF data trains from its tfrecords (tests/
+    test_torch_block_runner.py holds that run against the JAX package's)."""
     h = train_hparams(mega_dataset, tmp_path / "exp", "filesystem",
                       tmp_path / "chunks")
     exp = tmp_path / "exp" / "0"
@@ -183,7 +184,10 @@ def test_train_cli(mega_dataset, tmp_path, case):
         assert sorted(p.name for p in (exp / "models").iterdir()) == ["4"]
         assert "iter 4 " in (exp / "log.txt").read_text()
     else:
-        hb = copy.copy(h)
-        hb.data_type = "block_nerf"
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ttrain.main(hb, device="cpu")
+        scene = make_block_test_scene(tmp_path / "block")
+        hb = block_runner_hparams(scene, tmp_path / "bexp",
+                                  tmp_path / "bchunks")
+        assert ttrain.main(hb, device="cpu").step == 3
+        assert sorted(p.name for p in
+                      (tmp_path / "bexp" / "0" / "models").iterdir()) == \
+            ["2", "3"]

@@ -169,3 +169,68 @@ def tiny_bungee_hparams(root, exp, width=64):
     hp.image_pixel_batch_size = 64
     hp.model_chunk_size = 100
     return hp
+
+
+MISSION_BAY_FLAGS = ["--config_file", "configs/switch_nerf/mission_bay.yaml",
+                     "--moe_train_batch", "--use_moe_external_gate",
+                     "--use_gate_input_norm", "--batch_prioritized_routing",
+                     "--moe_capacity_factor", "1.0", "--moe_l_aux_wt",
+                     "0.0005"]
+BLOCK_W, BLOCK_H = 16, 12     # the Block-NeRF test scene's images
+BLOCK_RECORDS = (("train_0000.tfrecord", 2), ("validation_0000.tfrecord", 2))
+
+
+def make_block_test_scene(root):
+    """chip_smoke.make_block_scene at 16x12 (2 train + 2 masked validation
+    images, seed 3), with val_image_num in the id map (it divides the eval
+    summary's sums). Returns its paths and "root"."""
+    import json
+    from chip_smoke import make_block_scene
+    paths = make_block_scene(root, seed=3, w=BLOCK_W, h=BLOCK_H,
+                             records=BLOCK_RECORDS)
+    id_map = json.loads(paths["id_map"].read_text())
+    id_map["val_image_num"] = paths["val_images"]
+    paths["id_map"].write_text(json.dumps(id_map))
+    paths["root"] = root
+    return paths
+
+
+def mission_bay_hparams(width=None, experts=2, layers=3, skips=(1,),
+                        extra=()):
+    """mission_bay.yaml with the README's flags, fp32 (--no_amp), cut to a
+    MoE of `experts` x `layers` (skips) at `width` (None: the published
+    512)."""
+    from switch_nerf_tpu.config import get_opts, parse_args
+    h = parse_args(get_opts(), MISSION_BAY_FLAGS + [
+        "--exp_name", "unused", "--dataset_path", "unused", "--no_amp",
+        "--moe_expert_num", str(experts), *extra])
+    if width is not None:
+        shrink = {512: width, 587: width + 75, 128: max(width // 2, 8)}
+        for layer in h.model["layers"].values():
+            for key in ("in_ch", "h_ch", "out_ch", "gate_dim"):
+                if layer.get(key) in shrink:
+                    layer[key] = shrink[layer[key]]
+    h.model["layers"]["0"]["num"] = layers
+    h.model["layers"]["0"]["skips"] = list(skips)
+    return h
+
+
+def block_runner_hparams(scene, exp, chunks, **kw):
+    """The tiny Mission-Bay-shaped runner config: mission_bay_hparams cut
+    to 4 experts x 3 layers of width 32 (skip 1), 9 + 9 samples, 64-ray
+    batches, a 300-point model chunk, perturb 0, 3 steps with a checkpoint
+    at step 2, on `scene` (make_block_test_scene) in 2 chunks."""
+    h = mission_bay_hparams(width=32, experts=4, extra=[
+        "--exp_name", str(exp), "--dataset_path", str(scene["root"]),
+        "--block_train_list_path", str(scene["train"]),
+        "--block_val_list_path", str(scene["val"]),
+        "--block_image_hash_id_map_path", str(scene["id_map"]),
+        "--dataset_type", "filesystem", "--chunk_paths", str(chunks),
+        "--num_chunks", "2", "--batch_size", "64", "--coarse_samples", "9",
+        "--fine_samples", "9", "--model_chunk_size", "300",
+        "--image_pixel_batch_size", str(BLOCK_W * BLOCK_H), "--perturb",
+        "0", "--train_iterations", "3", "--ckpt_interval", "2",
+        "--i_print", "1"])
+    for k, v in kw.items():
+        setattr(h, k, v)
+    return h
