@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (switch_nerf_torch) on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                # one card: every phase below
+    python3 chip_smoke.py --dp-cards 4   # Building data-parallel on 4 cards
+                                         # of the host against one card
 
 Phases, each fatal (an exception ends the run with a non-zero exit):
   0. the card: `nvidia-smi` name and power limit, torch and CUDA versions
@@ -32,7 +34,8 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      skips (3,), one 32,768-point chunk): K1 and K2 (C = 4,096; K2 twice,
      bit-identical) and K1R (skewed and balanced counts) against their
      plain versions, timed beside the bound, the plain version and the
-     library call; K3, K4 and K2R at the same width checked
+     library call; K3, K4 and K2R at the same width checked and timed the
+     same way
   2b. no-drop = padded: an MoE layer (M256 L7) in no-drop dispatch (K1R /
      K2R) and in padded dispatch (K1 / K2) with the same weights at
      capacity factor E, where padding drops nothing: outputs and every
@@ -102,6 +105,27 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      image): finite masked and unmasked metrics, the per-image files and
      records, the 'Average val/...' summary. Prints train rays/s, step
      seconds, max_memory_allocated, eval seconds per image
+  9. data parallel: the port's training and serving in a process group
+     (parallel/), 2 ranks on the one card over gloo (NCCL refuses two
+     ranks on one card; gloo runs the all_reduce and broadcast the port
+     uses on CUDA tensors), each a `chip_smoke.py --dp-worker` process:
+     train.main on the runner phase's scene with the published Building
+     flags at full width, a global batch of 2,048 rays (1,024 a rank, a
+     card's share of the published 8,192 over 8), 10 steps with a save at
+     5, the chunks written by both ranks: K1 and K2 on every chunk of
+     every step on every rank, the ranks' parameter hashes equal at each
+     save, every metric finite, the ranks' batches different; a resume
+     from step 5 replays each rank's batches and its first loss equals the
+     run's to 1e-3; the drop-free first step (capacity factor 8, l_aux 0,
+     no noise, perturb 0) on a fixed 2,048-ray batch, each rank its half,
+     against one process on the whole batch: all_loss within 1e-3
+     relative, the averaged gradient's cosine >= 0.999; eval_image (no
+     --moe_test_batch: K1R) on the final checkpoint in 2 ranks against one
+     process: the same file set, PSNR and SSIM means within 1e-4; then one
+     rank with torchrun's variables, whose group init_distributed starts
+     over NCCL, trains 5 steps. Prints seconds a step per rank, train
+     rays/s through Runner.train, the gradient all-reduce's milliseconds
+     and bytes
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -1030,12 +1054,20 @@ def batch_digest(batch: dict) -> str:
     return h.hexdigest()
 
 
-def run_training(h, dataset_cls=None) -> dict:
-    """train.main(h) on the card with the runner's data path, steps and
-    saves instrumented: per-step batch hashes, losses (and photo_loss) and
-    host-clock end times (each step ends in a sync: the finite check),
-    chunk write / read / blocked seconds of the chunked dataset class
-    (FilesystemDataset unless given), checkpoint save seconds, and the
+def param_hash(state) -> str:
+    h = hashlib.sha1()
+    for p in state.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_training(h, dataset_cls=None, device=None) -> dict:
+    """train.main(h, device) on the card with the runner's data path, steps
+    and saves instrumented: per-step batch hashes, losses (and photo_loss),
+    whether every metric was finite, and host-clock end times (each step
+    ends in a sync: the finite check), chunk write / read / blocked seconds
+    of the chunked dataset class (FilesystemDataset unless given),
+    checkpoint save seconds and the parameters' hash at each save, and the
     K1-K4 launches of the run."""
     from switch_nerf_torch import runner as runner_mod
     from switch_nerf_torch import train
@@ -1044,8 +1076,9 @@ def run_training(h, dataset_cls=None) -> dict:
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
 
     dataset_cls = dataset_cls or FilesystemDataset
-    rec = {"digests": [], "loss": [], "photo": [], "t_end": [],
-           "write_s": [], "read_s": [], "blocked_s": [], "save_s": []}
+    rec = {"digests": [], "loss": [], "photo": [], "finite": [], "t_end": [],
+           "write_s": [], "read_s": [], "blocked_s": [], "save_s": [],
+           "hashes": {}}
 
     def timed(key):
         def make(real):
@@ -1058,9 +1091,15 @@ def run_training(h, dataset_cls=None) -> dict:
         return make
 
     def put(real):
-        def run(self, batch):
+        def run(self, batch, *a):
             rec["digests"].append(batch_digest(batch))
-            return real(self, batch)
+            return real(self, batch, *a)
+        return run
+
+    def saving(real):
+        def run(ckpt_dir, state, *a, **k):
+            rec["hashes"][int(state.step)] = param_hash(state)
+            return timed("save_s")(real)(ckpt_dir, state, *a, **k)
         return run
 
     def make_step(real):
@@ -1071,6 +1110,8 @@ def run_training(h, dataset_cls=None) -> dict:
                 state, m = step(state, batch)
                 rec["loss"].append(float(m["loss"]))
                 rec["photo"].append(float(m["photo_loss"]))
+                rec["finite"].append(all(bool(torch.isfinite(v))
+                                         for v in m.values()))
                 rec["t_end"].append(time.perf_counter())
                 return state, m
             return run
@@ -1081,14 +1122,14 @@ def run_training(h, dataset_cls=None) -> dict:
                 (dataset_cls, "_write_chunks", timed("write_s")),
                 (dataset_cls, "_read_chunk", timed("read_s")),
                 (dataset_cls, "load_chunk", timed("blocked_s")),
-                (runner_mod, "save_checkpoint", timed("save_s")),
+                (runner_mod, "save_checkpoint", saving),
                 (runner_mod.Runner, "_put_batch", put),
                 (runner_mod, "make_train_step", make_step)):
             stack.enter_context(wrapped(owner, name, make))
         expert_kernel.launches = expert_kernel.bwd_launches = 0
         fused_dispatch.launches = fused_dispatch.bwd_launches = 0
         t0 = time.perf_counter()
-        state = train.main(h)
+        state = train.main(h, device=device)
         torch.cuda.synchronize()
         rec["wall_s"] = time.perf_counter() - t0
         rec["launches"] = {"K1": expert_kernel.launches,
@@ -1096,6 +1137,7 @@ def run_training(h, dataset_cls=None) -> dict:
                            "K3": fused_dispatch.launches,
                            "K4": fused_dispatch.bwd_launches}
     rec["step"] = state.step
+    rec["n_params"] = sum(p.numel() for p in state.parameters())
     return rec
 
 
@@ -1682,8 +1724,10 @@ def wide_kernel_phase(peaks, shapes):
     versions at one 32,768-point model chunk, E8 L7 skips (3,): K1 and K2
     (padded dispatch, C = 4,096; K2 twice, bit-identical) and K1R (no-drop,
     skewed and balanced counts), timed beside the bound, the plain version
-    and the library call; K3, K4 and K2R at the same width checked
-    (correctness only: they are not on this path). Returns the rows."""
+    and the library call; K3, K4 and K2R (skewed counts) at the same width
+    checked and timed the same way (no path runs them at this width yet:
+    K3/K4 with SWITCH_NERF_FUSED_DISPATCH=1, K2R in no-drop training).
+    Returns the rows."""
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
     from switch_nerf_torch.ops import ragged_chain as rc
 
@@ -1747,16 +1791,56 @@ def wide_kernel_phase(peaks, shapes):
                       **t)
 
     tokens_ext, stt, n_drop, n_empty = skewed_slot_map(n, e, m, dtype, gen)
-    check_close(f"K3 bf16 M512 ({n_drop} dropped, {n_empty} empty slots)",
-                fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws,
-                                                        bs, skips),
-                fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws,
-                                                          bs, skips))
-    check_bwd("K4 bf16 M512", fused_dispatch.fused_dispatch_chain_bwd(
+    err = check_close(
+        f"K3 bf16 M512 ({n_drop} dropped, {n_empty} empty slots)",
+        fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws, bs,
+                                                skips),
+        fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws, bs,
+                                                  skips))
+    stt_long = stt.long()
+    bound_ms, bound_by = chain_bound(
+        flops, nbytes(tokens_ext, stt, ws, bs)
+        + e * c * m * tokens_ext.element_size(), dtype, peaks)
+    t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_fwd(
+             tokens_ext, stt, ws, bs, skips), iters=20),
+         "plain_ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_plain(
+             tokens_ext, stt, ws, bs, skips), iters=10, warmup=3),
+         "library_ms": cuda_ms(lambda: bmm_chain(
+             tokens_ext.index_select(0, stt_long).view(e, c, m), ws, bs,
+             skips), iters=20)}
+    log(f"  K3 bf16 M512: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, index_select + baddbmm chain "
+        f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{rate(flops, t['ms'], bound_ms)}")
+    rows["K3"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                      **t)
+
+    err = check_bwd("K4 bf16 M512", fused_dispatch.fused_dispatch_chain_bwd(
         tokens_ext, stt, ws, bs, g, skips),
         fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt, ws,
                                                       bs, g, skips))
-    del tokens_ext, stt
+    kept_rows = int((stt < n).sum())            # the token rows read
+    bound_ms, bound_by = chain_bound(
+        2 * flops, kept_rows * m * tokens_ext.element_size()
+        + nbytes(stt, g, ws, bs) + nbytes(g) + 4 * (ws.numel() + bs.numel()),
+        dtype, peaks)
+    leaves = [t_.clone().requires_grad_() for t_ in (
+        tokens_ext.index_select(0, stt_long).view(e, c, m), ws, bs)]
+    lib_out = bmm_chain(*leaves, skips)
+    t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_bwd(
+             tokens_ext, stt, ws, bs, g, skips), iters=20),
+         "plain_ms": cuda_ms(lambda: fused_dispatch
+                             .fused_dispatch_chain_bwd_plain(
+                                 tokens_ext, stt, ws, bs, g, skips),
+                             iters=10, warmup=3),
+         "library_ms": autograd_ms(lib_out, leaves, g)}
+    del lib_out, leaves, tokens_ext, stt, stt_long
+    log(f"  K4 bf16 M512: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, autograd of index_select + baddbmm chain "
+        f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{rate(2 * flops, t['ms'], bound_ms)}")
+    rows["K4"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                      **t)
 
     xr = x.reshape(n, m)
     gr = g.reshape(n, m)
@@ -1770,9 +1854,29 @@ def wide_kernel_phase(peaks, shapes):
                 xr, counts, ws, bs, skips))
         if kind == "skewed":
             dirty_allocator()
-            check_bwd("K2R bf16 M512", rc.ragged_chain_bwd(
+            err_b = check_bwd("K2R bf16 M512", rc.ragged_chain_bwd(
                 xr, counts, ws, bs, gr, skips), rc.ragged_chain_bwd_plain(
                     xr, counts, ws, bs, gr, skips))
+            bound_ms, bound_by = chain_bound(
+                2 * flops, nbytes(xr, gr, ws, bs) + 4 * e + nbytes(xr)
+                + 4 * (ws.numel() + bs.numel()), dtype, peaks)
+            leaves = [t_.clone().requires_grad_() for t_ in (xr, ws, bs)]
+            lib_out = addmm_ragged(leaves[0], counts_host, *leaves[1:],
+                                   skips)
+            t = {"ms": cuda_ms(lambda: rc.ragged_chain_bwd(
+                     xr, counts, ws, bs, gr, skips), iters=10),
+                 "plain_ms": cuda_ms(lambda: rc.ragged_chain_bwd_plain(
+                     xr, counts, ws, bs, gr, skips), iters=5, warmup=2),
+                 "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                     lib_out, leaves, gr, retain_graph=True), iters=10,
+                     warmup=3)}
+            del lib_out, leaves
+            log(f"  K2R bf16 M512 skewed: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, autograd of the addmm chain "
+                f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}), {rate(2 * flops, t['ms'], bound_ms)}")
+            rows["K2R"] = dict(max_abs_err=err_b, bound_ms=bound_ms,
+                               bound_by=bound_by, **t)
         bound_ms, bound_by = chain_bound(
             flops, nbytes(xr, ws, bs) + 4 * e + nbytes(xr), dtype, peaks)
         t = {"ms": cuda_ms(lambda: rc.ragged_chain_fwd(
@@ -1933,10 +2037,381 @@ def mission_bay_phase(counts: dict) -> str:
             f"{means['psnr']:.4f}, psnr_mask {means['psnr_mask']:.4f}")
 
 
+# ------------------------------------------- data parallel: 2 ranks ----
+DP_RANKS = 2
+DP_BATCH = 2048               # global: 1,024 a rank, 8,192's share of a card
+DP_STEPS, DP_SAVE = 10, 5     # the 2-rank run's schedule
+DP_NCCL_STEPS = 5             # the one-rank NCCL run's
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of the data-parallel phase (``chip_smoke.py --dp-worker
+    SPEC``): join the group the spec names (gloo over tcp, several ranks on
+    card 0; or NCCL through parallel.init_distributed from torchrun's
+    variables), then train.main through run_training, a resume, the timed
+    gradient all-reduce, the drop-free first step's averaged gradient and
+    eval_image, as the spec asks; the results go to the spec's JSON file."""
+    import pickle
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from switch_nerf_torch import eval_image, parallel
+    from switch_nerf_torch.ops import expert_kernel, ragged_chain
+
+    spec = pickle.loads(Path(spec_path).read_bytes())
+    rank, world = spec["rank"], spec["world"]
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(spec.get("local_rank", 0)),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(spec["port"]))
+    if spec["backend"] == "gloo":
+        # several ranks on one card: NCCL refuses a card twice; gloo runs
+        # all_reduce and broadcast on CUDA tensors, all the port needs
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{spec['port']}",
+            rank=rank, world_size=world)
+        device = "cuda:0"
+    else:
+        parallel.init_distributed(world_size=world)
+        device = None
+    out = {"rank": rank, "backend": dist.get_backend()}
+    keys = ("loss", "photo", "finite", "t_end", "launches", "step", "wall_s",
+            "hashes", "write_s", "digests")
+    rec = run_training(spec["train"], device=device)
+    out["train"] = {k: rec[k] for k in keys}
+    if "resume" in spec:
+        out["resume"] = {k: v for k, v in run_training(
+            spec["resume"], device=device).items() if k in keys}
+
+    # the gradient all-reduce of the trainer: one flat fp32 buffer of the
+    # parameters' size, timed alone
+    buf = torch.ones(rec["n_params"], device="cuda")
+    for _ in range(3):
+        dist.all_reduce(buf)
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["allreduce"] = {"bytes": buf.numel() * 4,
+                        "ms": 1e3 * float(np.median(times))}
+    del buf
+
+    if "dropfree" in spec:
+        hp = spec["dropfree"]
+        state, step = dp_setup(hp, "cuda:0")
+        share = DP_BATCH // world
+        batch = {k: v[rank * share:(rank + 1) * share]
+                 for k, v in dp_batch("cuda:0").items()}
+        m, g = step.loss_and_grads(state, batch)
+        m, g = step.average_across_ranks(m, g)
+        out["dropfree_loss"] = float(m["all_loss"])
+        if rank == 0:
+            np.save(spec["grad_path"], flat(g).numpy())
+        del state, step, g
+
+    if "eval" in spec:
+        ragged_chain.ragged_launches = expert_kernel.launches = 0
+        t0 = time.perf_counter()
+        means = eval_image.main(spec["eval"], device=device)
+        out["eval"] = {"means": means, "s": time.perf_counter() - t0,
+                       "K1R": ragged_chain.ragged_launches,
+                       "K1": expert_kernel.launches}
+    parallel.barrier("dp worker done")
+    Path(spec["out"]).write_text(json.dumps(out))
+    parallel.destroy()
+    return 0
+
+
+def dp_setup(hp, device):
+    """A Building train state from seeds (as the train phase's) and its
+    train step on `device`."""
+    from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+    from switch_nerf_torch.profile_eval import SCENE
+    from switch_nerf_torch.trainer import (create_train_state,
+                                           make_train_step,
+                                           render_config_from_hparams)
+    state = create_train_state(
+        hp, get_nerf(hp, 8, device=device, seed=0),
+        get_bg_nerf(hp, 8, device=device, seed=1), device=device, seed=0)
+    return state, make_train_step(hp, render_config_from_hparams(hp), SCENE,
+                                  device=device)
+
+
+def dp_batch(device) -> dict:
+    from switch_nerf_torch.profile_eval import ray_batch
+    return ray_batch(DP_BATCH, 0, device, rgbs=True)
+
+
+def run_workers(specs, tmp, timeout: float = 900.0) -> list:
+    """Start one ``--dp-worker`` process per spec, all at once; wait for
+    every one (and kill them all if one hangs); their JSON results."""
+    import pickle
+    paths = []
+    for i, spec in enumerate(specs):
+        paths.append(tmp / f"spec_{spec['backend']}_{i}.pkl")
+        paths[-1].write_bytes(pickle.dumps(spec))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-worker", str(p)]) for p in paths]
+    try:
+        deadline = time.time() + timeout
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"data-parallel workers exited "
+                             f"{[p.returncode for p in procs]}")
+    return [json.loads(open(s["out"]).read()) for s in specs]
+
+
+def dp_train_hparams(tmp, batch: int, steps: int, save: int):
+    """building_train_hparams on the chunked dataset of make_scene's scene
+    in `tmp` (the train runner phase's settings), `batch` global rays."""
+    from switch_nerf_torch.profile_eval import building_train_hparams
+    h = building_train_hparams()
+    h.dataset_path = str(tmp / "scene")
+    h.exp_name = str(tmp / "exp")
+    h.dataset_type = "filesystem"
+    h.chunk_paths = [str(tmp / "chunks")]
+    h.train_scale_factor = 4
+    h.num_chunks = RUN_CHUNKS
+    h.batch_size = batch
+    h.train_iterations = steps
+    h.ckpt_interval = save
+    h.i_print = save
+    h.val_interval = steps + 1
+    return h
+
+
+def scaling(cards: int) -> int:
+    """``chip_smoke.py --dp-cards N``: the published Building training
+    data-parallel over N cards of one host (NCCL, one process a card,
+    1,024 rays a card) against one card, on the runner phase's scene: 20
+    steps each, then eval_image (no-drop) over the N cards. Prints seconds
+    a step per rank, global train rays/s through Runner.train, the NCCL
+    gradient all-reduce over N cards, the eval seconds; checks the ranks'
+    parameter hashes, finite metrics and K1/K2 launches. Not part of the
+    one-card run."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch.ops import _build
+    from switch_nerf_torch.profile_eval import building_eval_hparams
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    log(f"[scaling] {cards} of {torch.cuda.device_count()} cards: {smi}")
+    _build.build()
+    steps, window = 20, 10
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scaling_") as tmp:
+        tmp = Path(tmp)
+        make_scene(tmp / "scene", seed=0)
+        results = {}
+        for n in (1, cards):
+            h = dp_train_hparams(tmp, 1024 * n, steps, window)
+            h.exp_name = str(tmp / f"exp{n}")
+            he = building_eval_hparams()
+            he.dataset_path = str(tmp / "scene")
+            he.ckpt_path = str(tmp / f"exp{n}" / "0" / "models" / str(steps))
+            he.moe_test_batch = False
+            he.exp_name = str(tmp / f"eval{n}")
+            port = free_port()
+            t0 = time.perf_counter()
+            outs = run_workers([{
+                "rank": r, "world": n, "local_rank": r, "port": port,
+                "backend": "nccl", "train": h, "eval": he,
+                "out": str(tmp / f"scale{n}_{r}.json")} for r in range(n)],
+                tmp)
+            wall = time.perf_counter() - t0
+            trains = [o["train"] for o in outs]
+            step_s = [float(np.mean(np.diff(t["t_end"][window:])))
+                      for t in trains]
+            chunks = 24 * steps
+            ok = (len({json.dumps(t["hashes"], sort_keys=True)
+                       for t in trains}) == 1
+                  and all(all(t["finite"]) and t["step"] == steps
+                          and t["launches"]["K1"] == t["launches"]["K2"]
+                          == chunks for t in trains)
+                  and all(o["backend"] == "nccl" for o in outs))
+            results[n] = {"step_s": step_s, "rays_per_s": 1024 * n
+                          / max(step_s), "allreduce": [
+                              o["allreduce"] for o in outs],
+                          "eval_s": [o["eval"]["s"] for o in outs],
+                          "psnr": outs[0]["eval"]["means"]["psnr"],
+                          "wall_s": wall, "ok": ok}
+            log(f"[scaling] {n} card(s): {results[n]} on {smi}")
+            if not ok:
+                raise AssertionError(f"{n}-card run failed its checks")
+    log(f"[scaling] global train rays/s {results[1]['rays_per_s']:.1f} on "
+        f"1 card, {results[cards]['rays_per_s']:.1f} on {cards} "
+        f"({results[cards]['rays_per_s'] / results[1]['rays_per_s']:.3f}x)")
+    print(json.dumps({"scaling": results}))
+    return 0
+
+
+def data_parallel_phase(counts: dict) -> dict:
+    """Train and serve Building data-parallel: the checks of the module
+    docstring's phase 9. Returns its numbers."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch import eval_image
+    from switch_nerf_torch.profile_eval import (building_eval_hparams,
+                                                building_train_hparams)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        tmp = Path(tmp)
+        make_scene(tmp / "scene", seed=0)
+        h = dp_train_hparams(tmp, DP_BATCH, DP_STEPS, DP_SAVE)
+        resumed = copy.copy(h)
+        resumed.exp_name = str(tmp / "resumed")
+        resumed.ckpt_path = str(tmp / "exp" / "0" / "models" / str(DP_SAVE))
+        dropfree = building_train_hparams()
+        dropfree.moe_capacity_factor = float(dropfree.moe_expert_num)
+        dropfree.moe_l_aux_wt = 0.0
+        dropfree.use_sigma_noise = False
+        dropfree.perturb = 0.0
+        he = building_eval_hparams()
+        he.dataset_path = str(tmp / "scene")
+        he.ckpt_path = str(tmp / "exp" / "0" / "models" / str(DP_STEPS))
+        he.moe_test_batch = False          # no-drop eval: K1R
+        he2, he1 = copy.copy(he), copy.copy(he)
+        he2.exp_name, he1.exp_name = str(tmp / "eval2"), str(tmp / "eval1")
+        per_rank = DP_BATCH // DP_RANKS
+        chunks = (-(-per_rank * h.coarse_samples // h.model_chunk_size)
+                  + -(-per_rank * h.fine_samples // h.model_chunk_size))
+        log(f"[data_parallel] {DP_RANKS} ranks on one card over gloo: "
+            f"train.main on the synthetic {SCENE_W}x{SCENE_H} scene, "
+            f"{DP_STEPS} steps of {DP_BATCH} rays ({per_rank} a rank), a "
+            f"save at {DP_SAVE} and a resume from it; the drop-free first "
+            f"step; eval_image (no-drop)")
+        torch.cuda.empty_cache()
+        port = free_port()
+        specs = [{"rank": r, "world": DP_RANKS, "port": port,
+                  "backend": "gloo", "train": h, "resume": resumed,
+                  "dropfree": dropfree, "eval": he2,
+                  "grad_path": str(tmp / "grad.npy"),
+                  "out": str(tmp / f"rank{r}.json")}
+                 for r in range(DP_RANKS)]
+        t0 = time.perf_counter()
+        outs = run_workers(specs, tmp)
+        wall = time.perf_counter() - t0
+
+        trains = [o["train"] for o in outs]
+        n = [t["launches"] for t in trains]
+        log(f"  launches per rank {n} (expected K1, K2 {chunks * DP_STEPS} "
+            f"each: {chunks} a step at {per_rank} rays)")
+        if not all(t["step"] == DP_STEPS and l["K1"] == l["K2"]
+                   == chunks * DP_STEPS and l["K3"] == l["K4"] == 0
+                   for t, l in zip(trains, n)):
+            raise AssertionError("a rank did not run K1 and K2 on every "
+                                 "chunk of every step")
+        hashes = [t["hashes"] for t in trains]
+        log(f"  parameter hashes at the saves, rank 0 {hashes[0]}, rank 1 "
+            f"{hashes[1]}")
+        if not (hashes[0] == hashes[1]
+                and sorted(map(int, hashes[0])) == [DP_SAVE, DP_STEPS]):
+            raise AssertionError("the ranks' parameters differ")
+        if not all(all(t["finite"]) for t in trains):
+            raise AssertionError("a non-finite metric in the 2-rank run")
+        if trains[0]["digests"] == trains[1]["digests"]:
+            raise AssertionError("the ranks trained on the same rays")
+        rel = [[abs(a - b) / abs(b) for a, b in zip(
+            o["resume"]["loss"], o["train"]["loss"][DP_SAVE:])]
+            for o in outs]
+        same = all(o["resume"]["digests"] == o["train"]["digests"][DP_SAVE:]
+                   for o in outs)
+        log(f"  resumed from step {DP_SAVE}: batches equal {same}; loss "
+            f"relative difference per rank {[[f'{x:.2e}' for x in r_] for r_ in rel]}")
+        if not (same and all(r_[0] <= 1e-3 for r_ in rel)
+                and all(o["resume"]["hashes"].get(str(DP_STEPS))
+                        for o in outs)):
+            raise AssertionError("the 2-rank resume does not repeat the run")
+
+        # the drop-free first step against one process on the whole batch
+        state, step = dp_setup(dropfree, "cuda")
+        m1, g1 = step.loss_and_grads(state, dp_batch("cuda"))
+        l1, l2 = float(m1["all_loss"]), outs[0]["dropfree_loss"]
+        cos = cosine(torch.from_numpy(np.load(tmp / "grad.npy")), flat(g1))
+        del state, step, g1
+        log(f"  drop-free first step: all_loss 2 ranks {l2:.6f}, 1 process "
+            f"{l1:.6f} (relative {abs(l2 - l1) / abs(l1):.3e}, limit 1e-3); "
+            f"averaged gradient cosine {cos:.6f} (limit 0.999)")
+        if not (abs(l2 - l1) <= 1e-3 * abs(l1) and cos >= 0.999
+                and outs[1]["dropfree_loss"] == l2):
+            raise AssertionError("the 2-rank step disagrees with one "
+                                 "process")
+
+        # eval: the 2-rank files and means against one process's
+        means1 = eval_image.main(he1)
+        ev = [o["eval"] for o in outs]
+        e2, e1 = tmp / "eval2" / "0", tmp / "eval1" / "0"
+        files = [sorted(str(p.relative_to(d)) for p in d.rglob("*")
+                        if p.is_file() and p.relative_to(d).parts[0] != "tb")
+                 for d in (e2, e1)]
+        d_means = {k: abs(ev[0]["means"][k] - means1[k])
+                   for k in ("psnr", "ssim")}
+        log(f"  eval_image: 2 ranks {ev[0]['means']}, K1R per rank "
+            f"{[e['K1R'] for e in ev]}; 1 process {means1}; |d psnr| "
+            f"{d_means['psnr']:.3e}, |d ssim| {d_means['ssim']:.3e} (limit "
+            f"1e-4); same files {files[0] == files[1]}")
+        if not (files[0] == files[1] and max(d_means.values()) <= 1e-4
+                and all(e["K1R"] > 0 and e["K1"] == 0 for e in ev)
+                and ev[0]["means"] == ev[1]["means"]):
+            raise AssertionError("the 2-rank eval differs from one "
+                                 "process's")
+
+        # one rank with torchrun's variables: init_distributed takes NCCL
+        hn = copy.copy(h)
+        hn.exp_name = str(tmp / "nccl")
+        hn.batch_size = per_rank
+        hn.train_iterations = DP_NCCL_STEPS
+        hn.ckpt_interval = DP_NCCL_STEPS
+        (nccl,) = run_workers([{"rank": 0, "world": 1, "port": free_port(),
+                                "backend": "nccl", "train": hn,
+                                "out": str(tmp / "nccl.json")}], tmp)
+        nt = nccl["train"]
+        log(f"  one rank over {nccl['backend']}: {nt['step']} steps, "
+            f"launches {nt['launches']}, all-reduce {nccl['allreduce']}")
+        if not (nccl["backend"] == "nccl" and nt["step"] == DP_NCCL_STEPS
+                and all(nt["finite"]) and nt["launches"]["K1"]
+                == nt["launches"]["K2"] == chunks * DP_NCCL_STEPS):
+            raise AssertionError("the NCCL run failed its checks")
+
+    counts["K1 data-parallel"] = sum(l["K1"] for l in n)
+    counts["K2 data-parallel"] = sum(l["K2"] for l in n)
+    counts["K1R data-parallel"] = sum(e["K1R"] for e in ev)
+    step_s = [float(np.mean(np.diff(t["t_end"][1:]))) for t in trains]
+    return {"step_s": step_s, "rays_per_s": DP_BATCH / max(step_s),
+            "allreduce": [o["allreduce"] for o in outs],
+            "nccl_allreduce": nccl["allreduce"], "wall_s": wall,
+            "write_s": [t["write_s"] for t in trains],
+            "eval_s": [e["s"] for e in ev], "cosine": cos,
+            "loss_rel": abs(l2 - l1) / abs(l1)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--dp-cards"]:
+        return scaling(int(sys.argv[2]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1975,6 +2450,7 @@ def main() -> int:
     train_runner = train_runner_phase(train["rays_per_s"])
     bungee = bungee_phase(counts)
     mission_bay = mission_bay_phase(counts)
+    dp = data_parallel_phase(counts)
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -2018,6 +2494,19 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the data-parallel path's kernels at Building's shapes (every rank's
+    # launches: K1 and K2 training, K1R serving); the times are the kernel
+    # phase's at the same shapes
+    for key, row in (("K1", "K1"), ("K2", "K2"), ("K1R", "K1R Building")):
+        kname, source, replaces = meta[key]
+        r = rows[row]
+        kernels.append({
+            "name": f"{kname} (data-parallel, {DP_RANKS} ranks)",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[f"{key} data-parallel"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[slice] eval rays/s {rays_per_s:.1f} on {smi}")
     log(f"[train] train rays/s {train['rays_per_s']:.1f}, step "
         f"{train['step_s']:.4f} s, max_memory_allocated "
@@ -2026,6 +2515,18 @@ def main() -> int:
     log(f"[train_runner] {train_runner} on {smi}")
     log(f"[bungee] {bungee} on {smi}")
     log(f"[mission_bay] {mission_bay} on {smi}")
+    ar = dp["allreduce"][0]
+    log(f"[data_parallel] {DP_RANKS} ranks on one card over gloo: seconds a "
+        f"step per rank {[round(x, 4) for x in dp['step_s']]}, train rays/s "
+        f"through Runner.train {dp['rays_per_s']:.1f} (global, {DP_BATCH} a "
+        f"step); gradient all-reduce {ar['ms']:.3f} ms for {ar['bytes']} B "
+        f"(gloo, ranks {[round(a['ms'], 3) for a in dp['allreduce']]}), one "
+        f"rank over NCCL {dp['nccl_allreduce']['ms']:.3f} ms; chunk write "
+        f"seconds {dp['write_s']}; eval seconds per rank "
+        f"{[round(x, 2) for x in dp['eval_s']]}; drop-free first step "
+        f"all_loss relative {dp['loss_rel']:.3e}, gradient cosine "
+        f"{dp['cosine']:.6f}; phase {dp['wall_s']:.1f} s wall for the 2-rank"
+        f" workers, on {smi}")
     for key in ("K1R Building", "K2R Building"):
         r = rows[key]
         log(f"[kernels] {key} (bf16): {r['ms']:.4f} ms, plain "

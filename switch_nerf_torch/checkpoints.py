@@ -22,16 +22,22 @@ steps. The msgpack codec is the port's own (``_msgpack.py``).
 
 The device generator's state has no slot in the JAX tree, so it rides in
 extra.json, which the JAX loader reads key by key (a port checkpoint still
-loads there). A load that restores the random states restores it too, so a
-resumed port run draws the same perturbation, sigma noise and fine
-samples; a checkpoint without it (written by the JAX package, or on
-another device type) leaves the generator reseeded with its initial seed,
-and says so in the log.
+loads there): ``torch_generator_state`` is rank 0's, and
+``torch_generator_states`` every rank's, by rank. A load that restores the
+random states gives each rank its own, so a resumed port run draws the
+same perturbation, sigma noise and fine samples on every rank; a rank with
+none in the checkpoint (written by the JAX package, by fewer processes, or
+on another device type) keeps its generator reseeded with its initial
+seed, and says so in the log.
 
-The sharded (orbax) format of multi-process runs waits for the port's
-multi-process support (ROADMAP Queue A item 8): reading a ``<step>/orbax``
-directory, or saving from a torch.distributed group of more than one
-process, raises ``NotImplementedError``.
+A data-parallel run holds the same parameters on every rank, so its
+checkpoint is the single-host format above, which the JAX package writes
+for one process driving all its chips: every rank calls ``save_checkpoint``
+(it gathers the generator states), rank 0 writes and the others wait at a
+barrier; every rank reads the same files. The sharded (orbax) format of
+the JAX package's multi-host runs waits for the port's expert parallelism
+(ROADMAP Queue A item 8): reading a ``<step>/orbax`` directory raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,11 +54,13 @@ import numpy as np
 import torch
 
 from switch_nerf_torch import _msgpack, bridge
+from switch_nerf_torch.parallel import host
 from switch_nerf_torch.utils.logger import main_log
 
-_ORBAX = ("sharded (orbax) checkpoints wait for the port's multi-process "
-          "support (ROADMAP Queue A item 8)")
+_ORBAX = ("sharded (orbax) checkpoints wait for the port's expert "
+          "parallelism (ROADMAP Queue A item 8)")
 GENERATOR_KEY = "torch_generator_state"
+GENERATOR_STATES_KEY = "torch_generator_states"
 
 
 def _sorted_leaves(tree: Mapping, prefix=()):
@@ -85,13 +93,6 @@ def _state_fingerprint(state) -> str:
                                                       state.bg_model))
 
 
-def _check_one_process() -> None:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(_ORBAX)
-
-
 def _jax_rng(state) -> np.ndarray:
     """The key to write: the one loaded, else jax.random.PRNGKey(seed)'s
     layout [0, seed] for the state's generator seed."""
@@ -108,11 +109,16 @@ def save_checkpoint(ckpt_dir, state, dataset_state: Optional[str] = None,
     Returns the step directory.
 
     host_iteration is the runner's batch counter (every consumed batch,
-    skipped non-finite ones included); it defaults to state.step.
+    skipped non-finite ones included); it defaults to state.step. In a
+    process group every rank calls it: rank 0 writes, the others wait.
     """
-    _check_one_process()
     step = int(state.step)
     path = Path(ckpt_dir) / str(step)
+    generators = host.all_gather_object(base64.b64encode(
+        state.generator.get_state().numpy().tobytes()).decode())
+    if not host.is_main():
+        host.barrier("checkpoint saved")
+        return path
     extra = {
         "iteration": step,
         "host_iteration": (int(host_iteration) if host_iteration is not None
@@ -124,8 +130,8 @@ def save_checkpoint(ckpt_dir, state, dataset_state: Optional[str] = None,
             pickle.dumps(np.random.get_state())).decode(),
         "python_random_state": base64.b64encode(
             pickle.dumps(random.getstate())).decode(),
-        GENERATOR_KEY: base64.b64encode(
-            state.generator.get_state().numpy().tobytes()).decode(),
+        GENERATOR_KEY: generators[0],
+        GENERATOR_STATES_KEY: generators,
     }
 
     # atomic publish: write into a temp dir, rename into place; a crash
@@ -149,6 +155,7 @@ def save_checkpoint(ckpt_dir, state, dataset_state: Optional[str] = None,
                         reverse=True)
         for old in others[keep - 1:]:
             shutil.rmtree(Path(ckpt_dir) / str(old), ignore_errors=True)
+    host.barrier("checkpoint saved")
     return path
 
 
@@ -169,8 +176,8 @@ def load_checkpoint(path, state, restore_rng_states: bool = True
     or a checkpoint root, whose newest committed step is taken).
 
     Returns (state, extra dict). With restore_rng_states, numpy's and
-    Python's global random states and the state's generator are restored
-    too.
+    Python's global random states and the state's generator (this rank's)
+    are restored too.
     """
     path = Path(path)
     if (path / "state.msgpack").exists() or (path / "orbax").exists():
@@ -204,8 +211,11 @@ def load_checkpoint(path, state, restore_rng_states: bool = True
         if extra.get("python_random_state"):
             random.setstate(pickle.loads(
                 base64.b64decode(extra["python_random_state"])))
-        _restore_generator(state.generator, extra.get(GENERATOR_KEY),
-                           step_dir)
+        states = extra.get(GENERATOR_STATES_KEY) or [
+            extra.get(GENERATOR_KEY)]
+        r = host.rank()
+        _restore_generator(state.generator,
+                           states[r] if r < len(states) else None, step_dir)
     return state, extra
 
 

@@ -1,7 +1,7 @@
 """Block-NeRF (Waymo Mission Bay) scenes: GZIP tfrecords -> shuffled chunks.
 
-Port of ``switch_nerf_tpu/datasets/block_filesystem_dataset.py``, one
-process, with the records read by ``tfrecord.py`` instead of TensorFlow.
+Port of ``switch_nerf_tpu/datasets/block_filesystem_dataset.py``, with
+the records read by ``tfrecord.py`` instead of TensorFlow.
 A chunk directory written by either package is reused by the other, and a
 ``get_state()`` string saved by either restores the other's cursor:
 
@@ -25,8 +25,12 @@ A chunk directory written by either package is reused by the other, and a
   * ``load_tfrecord``: the eval side's whole images with rays, radii and
     masks.
 
-Several processes reading one chunk directory (process striding) wait for
-the port's multi-process support (ROADMAP Queue A item 8) and raise.
+In a data-parallel run each process keeps rows ``[index::count]`` of every
+chunk and draws its share of the global batch from them, the batch count
+from the chunk's global row count (``filesystem_dataset.strided_batches``).
+Process 0 writes the chunks alone (the cost is the records' decoding,
+which every writer would repeat to keep the random stream); the others
+wait for its manifest.
 """
 from __future__ import annotations
 
@@ -39,7 +43,9 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from switch_nerf_torch.datasets.filesystem_dataset import _check_one_process
+from switch_nerf_torch.datasets.dataset_utils import poll_until
+from switch_nerf_torch.datasets.filesystem_dataset import (process_share,
+                                                           strided_batches)
 from switch_nerf_torch.datasets.tfrecord import decode_png, read_examples
 
 _MANIFEST = "manifest.json"
@@ -138,8 +144,12 @@ class BlockFilesystemDataset:
     def __init__(self, data_path, near: float, far: float, scale_factor: int,
                  list_path, id_map_path, chunk_paths: Sequence[Path],
                  num_chunks: int, disk_flush_size: int,
-                 shuffle_chunk: bool = False, seed: int = 42):
-        _check_one_process()
+                 shuffle_chunk: bool = False, seed: int = 42,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
+        self._process_index, self._process_count = process_share(
+            process_index, process_count)
+        self._global_rows = 0
         self._near, self._far = float(near), float(far)
         # decoupled streams: chunk contents, chunk order, batch order
         self._rng = np.random.default_rng(seed)
@@ -157,6 +167,8 @@ class BlockFilesystemDataset:
                     "num_chunks": num_chunks, "near": self._near,
                     "far": self._far, "scale_factor": scale_factor}
         mf = root / _MANIFEST
+        if not mf.exists() and self._process_index != 0:
+            poll_until(lambda: mf.exists() or None, interval_s=0.2)
         if mf.exists():
             if json.loads(mf.read_text()) != manifest:
                 raise ValueError(f"chunk dir {root} written with different "
@@ -223,6 +235,7 @@ class BlockFilesystemDataset:
     def load_chunk(self) -> None:
         """Wait for the prefetched chunk, make it current, start the next."""
         self._loaded = self._next.result()
+        self._global_rows = self._loaded.pop("_n_global")
         self._loaded_index = self._chunk_index
         self._chunk_index = (self._chunk_index + 1) % len(self._chunk_paths)
         self._start_prefetch()
@@ -234,6 +247,10 @@ class BlockFilesystemDataset:
                 for k in z.files:
                     arrays.setdefault(k, []).append(z[k])
         out = {k: np.concatenate(v) for k, v in arrays.items()}
+        n_global = out["rgbs"].shape[0]
+        if self._process_count > 1:
+            sl = slice(self._process_index, None, self._process_count)
+            out = {k: v[sl] for k, v in out.items()}
         raydata = out["raydata"].astype(np.float32)     # [N, 7] radii|o|d
         n = raydata.shape[0]
         nf = np.full((n, 1), self._near, np.float32)
@@ -243,6 +260,7 @@ class BlockFilesystemDataset:
             "rays": np.concatenate([raydata[:, 1:7], nf, ff], -1),
             "radii": raydata[:, 0:1],
             "image_indices": out["image_indices"].astype(np.float32),
+            "_n_global": n_global,
         }
 
     # ------------------------------------------------------------ access --
@@ -253,14 +271,14 @@ class BlockFilesystemDataset:
 
     def sample_batches(self, batch_size: int
                        ) -> Iterator[Dict[str, np.ndarray]]:
-        """The loaded chunk's rows in batches of a fresh permutation, the
-        last partial batch dropped."""
-        n = len(self)
+        """The loaded chunk's rows (this process's share of them) in
+        batches of a fresh permutation, the last partial batch dropped;
+        ``strided_batches``."""
+        if self._loaded is None:
+            raise RuntimeError("call load_chunk() first")
         self._batch_rng_pre_draw = self._batch_rng.bit_generator.state
-        order = self._batch_rng.permutation(n)
-        for i in range(0, n - n % batch_size, batch_size):
-            idx = order[i:i + batch_size]
-            yield {k: v[idx] for k, v in self._loaded.items()}
+        return strided_batches(self._loaded, self._batch_rng, batch_size,
+                               self._global_rows, self._process_count)
 
     # ----------------------------------------------------------- writing --
     def _write_chunks(self, chunk_dir: Path, num_chunks: int,

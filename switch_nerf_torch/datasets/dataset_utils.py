@@ -1,8 +1,6 @@
 """Per-image pixel selection and epoch sampling shared by the datasets.
 
-Port of ``switch_nerf_tpu/datasets/dataset_utils.py`` (one process; the
-multi-process manifest wait ``poll_until`` waits for ROADMAP Queue A
-item 8):
+Port of ``switch_nerf_tpu/datasets/dataset_utils.py``:
   * ``get_rgb_index_mask``: flattened rgbs, an int16 image-index vector and
     the keep mask. A val image trains on its LEFT half only; the number of
     kept pixels dropped from the right half is resampled, in the JAX
@@ -11,10 +9,13 @@ item 8):
   * ``EpochPermutationSampler``: one permutation per epoch keyed by (seed,
     epoch), the batch position by the global batch counter, so a resumed
     run replays the same batches.
+  * ``poll_until``: the wait of the chunked datasets' processes for a file
+    another process publishes (the chunk manifest, a writer's marker).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import time
+from typing import Callable, Optional, Tuple, TypeVar
 
 import numpy as np
 
@@ -58,6 +59,25 @@ def get_rgb_index_mask(metadata: ImageMetadata, rng: np.random.Generator
                          "int16 chunk format")
     indices = np.full((rgbs.shape[0],), metadata.image_index, dtype=np.int16)
     return rgbs, indices, keep_mask
+
+
+T = TypeVar("T")
+
+
+def poll_until(check: Callable[[], Optional[T]], timeout_s: float = 3600.0,
+               interval_s: float = 1.0,
+               desc: str = "process 0 never published the chunk manifest"
+               ) -> T:
+    """Call ``check()`` every ``interval_s`` seconds until it returns
+    something other than None, and return that; TimeoutError(desc) after
+    ``timeout_s``."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        out = check()
+        if out is not None:
+            return out
+        time.sleep(interval_s)
+    raise TimeoutError(desc)
 
 
 class EpochPermutationSampler:

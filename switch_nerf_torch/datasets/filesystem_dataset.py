@@ -1,4 +1,4 @@
-"""Chunked disk-shuffle dataset for Mega-NeRF-scale scenes, one process.
+"""Chunked disk-shuffle dataset for Mega-NeRF-scale scenes.
 
 Port of ``switch_nerf_tpu/datasets/filesystem_dataset.py``. A chunk
 directory written by either package is reused by the other, and a
@@ -27,38 +27,67 @@ row gathers. The JAX package's host C++ ray generator
 it speeds up work that runs in the prefetch thread, and the JAX package's
 own numpy fallback gives the same rays within 1e-5.
 
-Process striding and the cooperative multi-writer chunk generation wait
-for the port's multi-process support (ROADMAP Queue A item 8): a
-``torch.distributed`` group of more than one process raises.
+In a data-parallel run (``process_count`` > 1, by default the process
+group's size) each process keeps rows ``[index::count]`` of every chunk and
+draws its batches (the per-process share of the global batch) from them;
+the batch count comes from the chunk's global row count, so every process
+agrees on it. The chunks are written cooperatively: every process runs the
+same image loop on the same random stream and writes the chunk ids it
+owns (``cid % count == index``), so the directory is the one a single
+writer makes; process 0 cleans the directory first and publishes the
+manifest last, once every writer's done marker is there. In a process
+group the writers start behind a barrier; with process ids given by hand
+(no group) they wait for process 0 to acknowledge a fresh nonce each, so
+no marker of a crashed earlier write can start them.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import shutil
+import uuid
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
-import torch
 
-from switch_nerf_torch.datasets.dataset_utils import get_rgb_index_mask
+from switch_nerf_torch.datasets.dataset_utils import (get_rgb_index_mask,
+                                                      poll_until)
 from switch_nerf_torch.datasets.image_metadata import ImageMetadata
 from switch_nerf_torch.datasets.ray_utils import (_get_rays_inner,
                                                   compute_image_rays,
                                                   get_ray_directions)
+from switch_nerf_torch.parallel import host
 
 _MANIFEST = "manifest.json"
 
 
-def _check_one_process() -> None:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "a FilesystemDataset shared by several processes waits for the "
-            "port's multi-process support (ROADMAP Queue A item 8)")
+def process_share(process_index: Optional[int],
+                  process_count: Optional[int]) -> tuple:
+    """(index, count) of this process among the readers of a chunk
+    directory: the process group's rank and size unless given."""
+    return (host.rank() if process_index is None else int(process_index),
+            host.world_size() if process_count is None
+            else int(process_count))
+
+
+def strided_batches(loaded: Dict[str, np.ndarray], rng: np.random.Generator,
+                    batch_size: int, global_rows: int, process_count: int
+                    ) -> Iterator[Dict[str, np.ndarray]]:
+    """The loaded rows in batches of ``batch_size`` from a fresh
+    permutation, the last partial batch dropped. With several processes
+    ``batch_size`` is the per-process share and the batch count comes from
+    the chunk's global row count, the same on every process."""
+    n = loaded["rgbs"].shape[0]
+    order = rng.permutation(n)
+    if process_count > 1:
+        stop = global_rows // (batch_size * process_count) * batch_size
+    else:
+        stop = n - n % batch_size
+    for i in range(0, stop, batch_size):
+        idx = order[i:i + batch_size]
+        yield {k: v[idx] for k, v in loaded.items()}
 
 
 class FilesystemDataset:
@@ -66,8 +95,12 @@ class FilesystemDataset:
                  far: float, ray_altitude_range: Optional[Sequence[float]],
                  center_pixels: bool, chunk_paths: Sequence[Path],
                  num_chunks: int, scale_factor: int, disk_flush_size: int,
-                 shuffle_chunk: bool = False, seed: int = 42):
-        _check_one_process()
+                 shuffle_chunk: bool = False, seed: int = 42,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None):
+        self._process_index, self._process_count = process_share(
+            process_index, process_count)
+        self._global_rows = 0
         self._near = float(near)
         self._far = float(far)
         self._ray_altitude_range = (list(ray_altitude_range)
@@ -91,6 +124,11 @@ class FilesystemDataset:
             chunk_dir.mkdir(parents=True, exist_ok=True)
             self._write_chunks(chunk_dir, num_chunks, scale_factor,
                                disk_flush_size)
+            if self._process_index != 0:
+                # process 0 publishes the manifest once every part is on
+                # disk
+                chunk_dir = poll_until(lambda: self._existing_chunk_dir(
+                    chunk_paths, num_chunks, scale_factor), interval_s=0.2)
 
         self._chunk_paths = sorted(
             p for p in chunk_dir.iterdir()
@@ -145,6 +183,7 @@ class FilesystemDataset:
     def load_chunk(self) -> None:
         """Wait for the prefetched chunk, make it current, start the next."""
         self._loaded = self._next_chunk.result()
+        self._global_rows = self._loaded.pop("_n_global")
         self._loaded_index = self._chunk_index
         self._chunk_index = (self._chunk_index + 1) % len(self._chunk_paths)
         self._start_prefetch()
@@ -156,6 +195,11 @@ class FilesystemDataset:
                 for k in z.files:
                     arrays.setdefault(k, []).append(z[k])
         out = {k: np.concatenate(v) for k, v in arrays.items()}
+        n_global = out["rgbs"].shape[0]
+        if self._process_count > 1:
+            # this process's rows only; rays are rebuilt after the cut
+            sl = slice(self._process_index, None, self._process_count)
+            out = {k: v[sl] for k, v in out.items()}
         if "rays" in out:
             rays = out["rays"].astype(np.float32)
         else:
@@ -163,7 +207,8 @@ class FilesystemDataset:
                                           out["image_indices"])
         return {"rgbs": out["rgbs"].astype(np.float32) / 255.0,
                 "rays": rays,
-                "image_indices": out["image_indices"].astype(np.float32)}
+                "image_indices": out["image_indices"].astype(np.float32),
+                "_n_global": n_global}
 
     def _reconstruct_rays(self, pixel_indices: np.ndarray,
                           image_indices: np.ndarray) -> np.ndarray:
@@ -190,14 +235,14 @@ class FilesystemDataset:
 
     def sample_batches(self, batch_size: int
                        ) -> Iterator[Dict[str, np.ndarray]]:
-        """The loaded chunk's rows in batches of a fresh permutation, the
-        last partial batch dropped."""
-        n = len(self)
+        """The loaded chunk's rows (this process's share of them) in
+        batches of a fresh permutation, the last partial batch dropped;
+        ``strided_batches``."""
+        if self._loaded is None:
+            raise RuntimeError("call load_chunk() first")
         self._batch_rng_pre_draw = self._batch_rng.bit_generator.state
-        order = self._batch_rng.permutation(n)
-        for i in range(0, n - n % batch_size, batch_size):
-            idx = order[i:i + batch_size]
-            yield {k: v[idx] for k, v in self._loaded.items()}
+        return strided_batches(self._loaded, self._batch_rng, batch_size,
+                               self._global_rows, self._process_count)
 
     # ----------------------------------------------------------- writing --
     def _manifest(self, num_chunks: int, scale_factor: int) -> Dict:
@@ -244,12 +289,11 @@ class FilesystemDataset:
 
     def _write_chunks(self, chunk_dir: Path, num_chunks: int,
                       scale_factor: int, disk_flush_size: int) -> None:
-        # without a manifest, chunk dirs are leftovers of an interrupted
-        # write: _read_chunk would concatenate their stale parts
-        for stale in chunk_dir.glob("chunk_*"):
-            shutil.rmtree(stale)
-        for i in range(num_chunks):
-            (chunk_dir / f"chunk_{i:04d}").mkdir()
+        """Write this process's chunk ids (all of them in one process); see
+        the module docstring for the cooperative protocol."""
+        pi, pc = self._process_index, self._process_count
+        owned = [cid for cid in range(num_chunks) if cid % pc == pi]
+        self._start_writing(chunk_dir, num_chunks)
         buffers: List[Dict[str, List[np.ndarray]]] = [
             {} for _ in range(num_chunks)]
         part_ids = [0] * num_chunks
@@ -258,7 +302,6 @@ class FilesystemDataset:
 
         with ThreadPoolExecutor(max_workers=10) as pool:
             def flush(cid: int) -> None:
-                nonlocal buffered
                 if not buffers[cid]:
                     return
                 arrays = {k: np.concatenate(v)
@@ -266,12 +309,15 @@ class FilesystemDataset:
                 path = (chunk_dir / f"chunk_{cid:04d}"
                         / f"part_{part_ids[cid]:04d}.npz")
                 part_ids[cid] += 1
-                buffered -= arrays["rgbs"].shape[0]
                 buffers[cid] = {}
                 pending.append(pool.submit(np.savez, path, **arrays))
 
             next_chunk = 0
             for item in self._metadata_items:
+                if pi == 0 and self._handshake:
+                    # writers that announce themselves late are acked
+                    # while process 0 writes
+                    self._publish_acks(chunk_dir)
                 image_data = get_rgb_index_mask(item, self._rng)
                 if image_data is None:
                     continue
@@ -295,23 +341,107 @@ class FilesystemDataset:
 
                 perm = self._rng.permutation(n)
                 cols = {k: v[perm] for k, v in cols.items()}
-                # the first share rotates so chunks fill evenly
+                # the first share rotates so chunks fill evenly; every
+                # process computes the same split and keeps its own chunks'
                 for j, sl in enumerate(np.array_split(np.arange(n),
                                                       num_chunks)):
-                    if sl.size == 0:
-                        continue
                     cid = (next_chunk + j) % num_chunks
+                    if sl.size == 0 or cid % pc != pi:
+                        continue
                     for k, v in cols.items():
                         buffers[cid].setdefault(k, []).append(v[sl])
-                    buffered += sl.size
                 next_chunk = (next_chunk + 1) % num_chunks
+                # every writer counts every row, so the parts end where a
+                # single writer's end and the directories are the same
+                buffered += n
                 if buffered >= max(disk_flush_size, 1):
-                    for cid in range(num_chunks):
+                    buffered = 0
+                    for cid in owned:
                         flush(cid)
 
-            for cid in range(num_chunks):
+            for cid in owned:
                 flush(cid)
             for f in pending:
                 f.result()
+        (chunk_dir / f".writer_done_{pi}").touch()
+        if pi == 0:
+            self._publish_manifest(chunk_dir, num_chunks, scale_factor)
+
+    def _start_writing(self, chunk_dir: Path, num_chunks: int) -> None:
+        """Process 0 removes what an interrupted write left (without a
+        manifest the chunk dirs are leftovers: their stale parts would be
+        read) and makes the chunk dirs; the other writers start only after
+        that, behind a barrier in a process group, else once process 0
+        has acked the nonce each wrote into ``.writer_intent_<i>``."""
+        pc = self._process_count
+        # the group's barrier when the group is the writers, the
+        # filesystem handshake for process ids given by hand
+        use_barrier = pc > 1 and host.world_size() == pc
+        self._handshake = pc > 1 and not use_barrier
+        ready = chunk_dir / ".chunks_ready"
+        if self._process_index == 0:
+            ready.unlink(missing_ok=True)
+            for stale in chunk_dir.glob("chunk_*"):
+                shutil.rmtree(stale)
+            for stale in chunk_dir.glob(".writer_done_*"):
+                stale.unlink()
+            for i in range(num_chunks):
+                (chunk_dir / f"chunk_{i:04d}").mkdir()
+            if self._handshake:
+                self._publish_acks(chunk_dir)
+        elif self._handshake:
+            nonce = uuid.uuid4().hex
+            _atomic_write(chunk_dir
+                          / f".writer_intent_{self._process_index}", nonce)
+
+            def acked():
+                try:
+                    acks = json.loads(ready.read_text()).get("acks", {})
+                except (OSError, ValueError):
+                    return None          # missing or half written
+                return acks.get(str(self._process_index)) == nonce or None
+
+            poll_until(acked, desc="process 0 never acknowledged this "
+                                   "writer's chunk-write intent")
+        if use_barrier:
+            host.barrier("chunk tree ready")
+
+    def _publish_acks(self, chunk_dir: Path) -> None:
+        """Process 0: ack every writer's intent nonce in .chunks_ready."""
+        acks = {}
+        for f in chunk_dir.glob(".writer_intent_*"):
+            try:
+                acks[f.name[len(".writer_intent_"):]] = f.read_text()
+            except OSError:
+                pass
+        if acks != getattr(self, "_last_acks", None):
+            self._last_acks = acks
+            _atomic_write(chunk_dir / ".chunks_ready",
+                          json.dumps({"acks": acks}))
+
+    def _publish_manifest(self, chunk_dir: Path, num_chunks: int,
+                          scale_factor: int) -> None:
+        """Process 0: once every writer's done marker is there, remove the
+        markers and write the manifest, which readers wait for."""
+        pc = self._process_count
+
+        def all_done():
+            if self._handshake:
+                self._publish_acks(chunk_dir)
+            return all((chunk_dir / f".writer_done_{p}").exists()
+                       for p in range(pc)) or None
+
+        poll_until(all_done, interval_s=0.2,
+                   desc="a cooperative chunk writer never finished")
+        for pattern in (".writer_done_*", ".writer_intent_*"):
+            for marker in chunk_dir.glob(pattern):
+                marker.unlink()
+        (chunk_dir / ".chunks_ready").unlink(missing_ok=True)
         (chunk_dir / _MANIFEST).write_text(json.dumps(
             self._manifest(num_chunks, scale_factor)))
+
+
+def _atomic_write(path: Path, text: str) -> None:
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(text)
+    tmp.replace(path)

@@ -5,17 +5,21 @@ image, score PSNR/SSIM/LPIPS on its right half, write metrics.txt.
         configs/switch_nerf/building.yaml --dataset_path DATA \
         --ckpt_path CKPT --exp_name OUT <published flags>
 
-Runs on ``cuda``; ``main(hparams, device="cpu")`` runs the plain versions.
+Data-parallel, one process per card (val image i is rank i % N's, which
+renders it whole; the metrics are gathered):
+
+    torchrun --nproc_per_node=8 -m switch_nerf_torch.eval_image <the flags above>
+
+Runs on ``cuda`` (``cuda:LOCAL_RANK`` under torchrun);
+``main(hparams, device="cpu")`` runs the plain versions.
 """
-from switch_nerf_torch.config import get_opts, parse_args
+from switch_nerf_torch.config import get_opts
 from switch_nerf_torch.runner import Runner
 from switch_nerf_torch.utils.crash import cli_entry
 
 
-@cli_entry
+@cli_entry(parser=get_opts)
 def main(hparams=None, device=None):
-    if hparams is None:
-        hparams = parse_args(get_opts())
     return Runner(hparams, device=device).eval_image()
 
 

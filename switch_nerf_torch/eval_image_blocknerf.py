@@ -12,17 +12,22 @@ per-image files and the metrics.txt averages.
         --batch_prioritized_routing --moe_capacity_factor=1.0
 
 The tfrecords are read without TensorFlow (``datasets/tfrecord.py``).
-Runs on ``cuda``; ``main(hparams, device="cpu")`` runs the plain versions.
+Data-parallel, one process per card (image i of the val records is rank
+i % N's; rank 0 gathers every rank's records before the summary):
+
+    torchrun --nproc_per_node=8 -m switch_nerf_torch.eval_image_blocknerf \
+        <the flags above>
+
+Runs on ``cuda`` (``cuda:LOCAL_RANK`` under torchrun);
+``main(hparams, device="cpu")`` runs the plain versions.
 """
-from switch_nerf_torch.config import get_opts, parse_args
+from switch_nerf_torch.config import get_opts
 from switch_nerf_torch.runner import Runner
 from switch_nerf_torch.utils.crash import cli_entry
 
 
-@cli_entry
+@cli_entry(parser=get_opts)
 def main(hparams=None, device=None):
-    if hparams is None:
-        hparams = parse_args(get_opts())
     if hparams.data_type != "block_nerf":
         raise ValueError("eval_image_blocknerf requires data_type "
                          f"block_nerf, got {hparams.data_type!r}")

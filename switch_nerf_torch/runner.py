@@ -36,8 +36,18 @@ Port of the Mega-NeRF and classic-NeRF sides of
     rerun resume, and the 'Average val/...' summary.
 
 Without --moe_test_batch (--moe_train_batch) the MoE layers evaluate
-(train) in no-drop dispatch, on the K1R/K2R kernels on a card. One process
-on one device (``cuda`` unless the caller passes ``device="cpu"``). Point
+(train) in no-drop dispatch, on the K1R/K2R kernels on a card. A process
+runs on one device (``cuda`` unless the caller passes ``device="cpu"``).
+
+Under ``torchrun`` the Runner is data-parallel (``parallel/``), one process
+per card: parameters replicated, --batch_size the global batch, each rank
+training on its share (the chunked datasets stride their rows, the other
+loops slice the global batch) and the gradients averaged over the ranks
+(``trainer.TrainStep``); each rank routes its own rays. Rank 0 picks the
+experiment dir and writes the logs, TensorBoard and checkpoints; SIGTERM
+is agreed every 10 steps, so every rank saves at the same step. In eval an
+image belongs to rank ``i % W``, which renders it whole, with the requests
+of one process, and writes its files; the metrics are gathered. Point
 export and the container/ckpt-only evals raise ``NotImplementedError``
 naming the ROADMAP Queue A item they wait for.
 """
@@ -59,7 +69,7 @@ import numpy as np
 import torch
 
 from switch_nerf_torch import metrics as M
-from switch_nerf_torch import resolve_device
+from switch_nerf_torch import parallel, resolve_device
 from switch_nerf_torch.checkpoints import load_checkpoint, save_checkpoint
 from switch_nerf_torch.config import get_nerf_dataset_args
 from switch_nerf_torch.datasets.block_filesystem_dataset import (
@@ -75,7 +85,7 @@ from switch_nerf_torch.trainer import (SceneInfo, TrainState,
                                        render_config_from_hparams)
 from switch_nerf_torch.utils.logger import (count_parameters, main_log,
                                             setup_logger)
-from switch_nerf_torch.utils.meters import DictAverageMeter
+from switch_nerf_torch.utils.meters import DictAverageMeter, allgather_json
 from switch_nerf_torch.utils.visualize import visualize_scalars
 
 
@@ -124,11 +134,8 @@ class Runner:
         self.hparams = hparams
         self.device = resolve_device(device)
         self.data_type = getattr(hparams, "data_type", "mega_nerf")
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise _waits("a multi-process Runner", 8,
-                         "multi-process support")
+        self.rank, self.world = parallel.rank(), parallel.world_size()
+        parallel.check_data_parallel(hparams, self.world)
 
         np.random.seed(hparams.random_seed)
         random.seed(hparams.random_seed)
@@ -183,7 +190,9 @@ class Runner:
                 f"data_type={self.data_type!r}, use_mip={bool(h.use_mip)}).")
 
         # flags whose reference job is unnecessary by design (stacked
-        # expert parameters need no checkpoint reshape; no DDP/DataLoader)
+        # expert parameters need no checkpoint reshape; no DDP/DataLoader;
+        # --set_timeout is read where the process group starts,
+        # utils/crash.cli_entry)
         if getattr(h, "expertmlp2seqexperts", False):
             main_log("NOTE: --expertmlp2seqexperts is unnecessary by "
                      "design (stacked expert params serve train and eval);"
@@ -194,14 +203,12 @@ class Runner:
                      "reference's expertmlp2seqexperts checkpoint reshape, "
                      "which is unnecessary by design here; ignored.")
         if getattr(h, "find_unused_parameters", False):
-            main_log("NOTE: --find_unused_parameters configures torch DDP "
-                     "only; one process here, ignored.")
+            main_log("NOTE: --find_unused_parameters configures torch DDP, "
+                     "which the port does not use (a parameter with no "
+                     "gradient averages zeros); ignored.")
         if getattr(h, "data_loader_num_workers", 1) != 1:
             main_log("NOTE: --data_loader_num_workers sizes the torch "
                      "DataLoader pool of training; ignored by eval.")
-        if getattr(h, "set_timeout", False):
-            main_log("NOTE: --set_timeout stretches the reference's NCCL "
-                     "timeout; one process here, ignored.")
 
         if h.use_moe and not getattr(h, "moe_test_batch", False):
             main_log("NOTE: eval dispatch = nodrop (no --moe_test_batch), "
@@ -210,12 +217,16 @@ class Runner:
                      "~1.5x faster at identical metrics).")
 
     def _setup_dirs(self, set_experiment_path: bool):
+        """The experiment dir, the same on every rank; its files, the log
+        file and TensorBoard are rank 0's."""
         self.writer = None
         if set_experiment_path:
             self.experiment_path = self._get_experiment_path()
             self.model_path = self.experiment_path / "models"
-            self.model_path.mkdir(parents=True, exist_ok=True)
             self.logger = setup_logger(None, self.experiment_path)
+            if not parallel.is_main():
+                return
+            self.model_path.mkdir(parents=True, exist_ok=True)
             from switch_nerf_torch.utils.tb import SummaryWriter
             self.writer = SummaryWriter(self.experiment_path / "tb")
             (self.experiment_path / "hparams.txt").write_text(
@@ -247,8 +258,11 @@ class Runner:
                 f"commit: {commit}\nbranch: {branch}\n")
 
     def _get_experiment_path(self) -> Path:
-        """The next versioned experiment dir (one process picks it)."""
-        return self._next_version_dir()
+        """The next versioned experiment dir: rank 0 picks it and sends it
+        to the others (ranks scanning one filesystem at once could claim
+        different versions)."""
+        chosen = str(self._next_version_dir()) if parallel.is_main() else ""
+        return Path(parallel.broadcast_str(chosen))
 
     def _next_version_dir(self) -> Path:
         exp_dir = Path(self.hparams.exp_name)
@@ -390,7 +404,7 @@ class Runner:
         train_items = [self._get_metadata_item(
             x, image_indices[x.name], h.train_scale_factor, x in val_set)
             for x in train_paths]
-        if self.experiment_path is not None:
+        if self.experiment_path is not None and parallel.is_main():
             # the reference's '{index},{rgb filename}' record
             (self.experiment_path / "image_indices.txt").write_text(
                 "".join(f"{it.image_index},{it.image_path.name}\n"
@@ -550,8 +564,9 @@ class Runner:
         return f"val/{k}"
 
     def _write_final_metrics(self, means: Dict[str, float]) -> None:
-        """experiment_path/metrics.txt: 'Average val/<metric>: <value>'."""
-        if self.experiment_path is None:
+        """experiment_path/metrics.txt: 'Average val/<metric>: <value>'
+        (rank 0)."""
+        if self.experiment_path is None or not parallel.is_main():
             return
         with (self.experiment_path / "metrics.txt").open("w") as f:
             for k, v in means.items():
@@ -566,6 +581,24 @@ class Runner:
         pred = np.clip(results[f"rgb_{typ}"], 0.0, 1.0)
         gt = metadata.load_image().astype(np.float32) / 255.0
         return typ, pred, gt
+
+    def _owns(self, i: int) -> bool:
+        """Image i belongs to rank i % W, which renders it whole and writes
+        its files (the reference's rank striding)."""
+        return i % self.world == self.rank
+
+    def _gather_image_metrics(self, local: Dict[int, Dict[str, float]],
+                              what: str = "val") -> Dict[int, Dict[str, float]]:
+        """Every rank's per-image metrics, by image, on every rank; logged
+        (rank 0) in image order."""
+        merged: Dict[int, Dict[str, float]] = {}
+        for d in allgather_json({str(k): v for k, v in local.items()}):
+            merged.update({int(k): v for k, v in d.items()})
+        merged = dict(sorted(merged.items()))
+        for i, im in merged.items():
+            main_log(f"{what} image {i}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in im.items()))
+        return merged
 
     def _log_per_image(self, per_image: Dict[int, Dict[str, float]],
                        step: int) -> None:
@@ -587,14 +620,15 @@ class Runner:
         meter = DictAverageMeter()
         per_image: Dict[int, Dict[str, float]] = {}
         for i, metadata in enumerate(self.val_items):
+            if not self._owns(i):
+                continue
             results = self.render_image(metadata, render_chunks)
             _, pred, gt = self._pred_gt(metadata, results)
             img_metrics = self._image_metrics_half(pred, gt)
             meter.update(img_metrics)
             per_image[i] = img_metrics
-            main_log(f"val image {i}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in img_metrics.items()))
-        self._log_per_image(per_image, train_index)
+        self._log_per_image(self._gather_image_metrics(per_image),
+                            train_index)
         means = {self._agg_key(k): v
                  for k, v in meter.mean_across_processes().items()}
         if self.writer is not None:
@@ -619,6 +653,8 @@ class Runner:
             val_images_dir = self.experiment_path / "val_images"
 
         for i, metadata in enumerate(self.val_items):
+            if not self._owns(i):
+                continue
             t0 = time.time()
             results = self.render_image(metadata, render_chunks)
             render_time = time.time() - t0
@@ -631,15 +667,14 @@ class Runner:
             img_metrics["memory"] = self._peak_memory_mib()
             meter.update(img_metrics)
             per_image[i] = img_metrics
-            main_log(f"val image {i}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in img_metrics.items()))
 
             if images_dir is not None:
                 self._write_reference_val_files(
                     images_dir, val_images_dir, i, gt, pred, results, typ,
                     img_metrics)
 
-        self._log_per_image(per_image, int(state.step))
+        self._log_per_image(self._gather_image_metrics(per_image),
+                            int(state.step))
         if self.writer is not None:
             self.writer.flush()
         means = meter.mean_across_processes()
@@ -746,9 +781,9 @@ class Runner:
     # ------------------------------------------------------------ train ---
     def train(self) -> Optional[TrainState]:
         """Mega-NeRF and Block-NeRF chunked training (the JAX package's
-        ``Runner.train``, one process); Block-NeRF batches carry the mip
-        radii into the mip train step. Returns the final train state (None
-        after --generate_chunk, which stops once the chunks are written)."""
+        ``Runner.train``); Block-NeRF batches carry the mip radii into the
+        mip train step. Returns the final train state (None after
+        --generate_chunk, which stops once the chunks are written)."""
         h = self.hparams
         # latched from the start: a SIGTERM during setup still ends in a
         # checkpointed return
@@ -770,6 +805,8 @@ class Runner:
                     discard_index = extra.get("dataset_index", -1)
                     host_iteration = extra.get("host_iteration")
                 main_log(f"Resumed from iteration {state.step}")
+            # the replicas start from rank 0's parameters
+            parallel.broadcast_tensors_(state.parameters())
             train_step = make_train_step(
                 h, render_config_from_hparams(h),
                 SceneInfo(self.sphere_center, self.sphere_radius),
@@ -821,9 +858,25 @@ class Runner:
                                  seed=h.random_seed)
         raise ValueError(f"Unrecognized dataset type {h.dataset_type}")
 
-    def _put_batch(self, batch: Dict[str, np.ndarray]
+    def _feed_size(self, local: bool) -> int:
+        """Rows a rank draws a step: the global --batch_size, or its share
+        when the dataset strides its rows over the ranks (``local``)."""
+        bs = self.hparams.batch_size
+        if self.world > 1 and bs % self.world:
+            raise ValueError(f"--batch_size {bs} is not divisible by the "
+                             f"{self.world} processes")
+        return bs // self.world if local else bs
+
+    def _put_batch(self, batch: Dict[str, np.ndarray], local: bool = False
                    ) -> Dict[str, torch.Tensor]:
-        """A numpy batch as float32 tensors on the runner's device."""
+        """A numpy batch as float32 tensors on the runner's device. In a
+        process group a global batch (``local`` False: the same on every
+        rank) is cut to this rank's rows [r B / W, (r + 1) B / W); a
+        ``local`` one is the rank's share already."""
+        if self.world > 1 and not local:
+            n = next(iter(batch.values())).shape[0] // self.world
+            batch = {k: v[self.rank * n:(self.rank + 1) * n]
+                     for k, v in batch.items()}
         return {k: torch.from_numpy(np.asarray(v, np.float32)).to(self.device)
                 for k, v in batch.items()}
 
@@ -835,6 +888,10 @@ class Runner:
         if not filesystem:
             # memory batches are keyed by the counter: nothing to skip
             discard_index = -1
+        # the chunked datasets stride their rows over the ranks and yield a
+        # rank's share; the memory dataset yields the global batch
+        local = filesystem and self.world > 1
+        feed = self._feed_size(local)
         # the batch counter resumes from host_iteration, not state.step: a
         # skipped non-finite step consumes a batch without advancing the
         # step, and the counter keys the memory batches
@@ -856,9 +913,9 @@ class Runner:
                 dataset.load_chunk()
                 main_log(f"Chunk {dataset.get_state()} loaded in "
                          f"{time.time() - t0:.2f} s")
-                batches = enumerate(dataset.sample_batches(h.batch_size))
+                batches = enumerate(dataset.sample_batches(feed))
             else:
-                batches = enumerate(dataset.get_batch(b, h.batch_size)
+                batches = enumerate(dataset.get_batch(b, feed)
                                     for b in itertools.count(it))
             while True:
                 t_data = time.perf_counter()
@@ -869,7 +926,7 @@ class Runner:
                 if dataset_index <= discard_index:
                     continue            # trained before the checkpoint
                 discard_index = -1
-                batch = self._put_batch(batch)
+                batch = self._put_batch(batch, local)
                 data_time += time.perf_counter() - t_data
                 if h.profile_trace_step is not None:
                     # a three-step trace window
@@ -894,7 +951,7 @@ class Runner:
                 if it % h.val_interval == 0:
                     self._run_validation(state, it)
 
-                if term["requested"]:
+                if self._term_agreed(term, it):
                     # the latch stays installed through the save: a second
                     # SIGTERM must not kill the process mid-checkpoint
                     if prof is not None:
@@ -914,6 +971,14 @@ class Runner:
             save_checkpoint(self.model_path, state)
         main_log("Training complete")
         return state
+
+    def _term_agreed(self, term: dict, it: int) -> bool:
+        """Whether to save and return on a SIGTERM. In a process group the
+        ranks agree by a global OR every 10 steps (a signal reaches them at
+        different steps), so every rank saves at the same step."""
+        if self.world == 1:
+            return term["requested"]
+        return it % 10 == 0 and parallel.any_true(term["requested"])
 
     def _log_window(self, it: int, steps: int,
                     metrics: Dict[str, torch.Tensor], window: float,
@@ -952,11 +1017,13 @@ class Runner:
 
     def _stop_trace(self, prof) -> None:
         """End the trace window and write its Chrome trace under
-        experiment_path/profile."""
+        experiment_path/profile (one a rank in a process group)."""
         prof.stop()
         trace_dir = (self.experiment_path or Path(".")) / "profile"
         trace_dir.mkdir(parents=True, exist_ok=True)
-        path = trace_dir / f"train_steps_{self.hparams.profile_trace_step}.json"
+        suffix = f"_rank{self.rank}" if self.world > 1 else ""
+        path = trace_dir / (f"train_steps_{self.hparams.profile_trace_step}"
+                            f"{suffix}.json")
         prof.export_chrome_trace(str(path))
         main_log(f"profiler trace written to {path}")
 
@@ -988,6 +1055,8 @@ class Runner:
                 h, render_config_from_hparams(h), SceneInfo(None, None),
                 mip=self.mip, device=self.device)
             total = h.num_epochs * max(len(self.train_set) // h.batch_size, 1)
+            self._feed_size(False)      # raises unless the ranks share B
+            parallel.broadcast_tensors_(state.parameters())
             # the batch counter, not state.step, keys the batches: a
             # skipped non-finite step consumes a batch
             it = int(host_iteration) if host_iteration is not None \
@@ -1009,7 +1078,7 @@ class Runner:
                 if self.model_path is not None and it % h.ckpt_interval == 0:
                     save_checkpoint(self.model_path, state, keep=h.ckpt_keep,
                                     host_iteration=it)
-                if term["requested"]:
+                if self._term_agreed(term, it):
                     # the latch stays installed through the save
                     if self.model_path is not None:
                         save_checkpoint(self.model_path, state,
@@ -1051,7 +1120,10 @@ class Runner:
             val_images_dir.mkdir(parents=True, exist_ok=True)
         colormap = getattr(self.hparams, "colormap", None)
         eval_set = self.val_set if mode == "val" else self.test_set
+        per_image: Dict[int, Dict[str, float]] = {}
         for i in range(len(eval_set)):
+            if not self._owns(i):
+                continue
             sample = eval_set[i]
             img_i = int(sample["img_i"])
             radii = sample.get("radii")
@@ -1075,8 +1147,7 @@ class Runner:
             img_metrics["time"] = render_time
             img_metrics["memory"] = self._peak_memory_mib()
             meter.update(img_metrics)
-            main_log(f"{mode} image {img_i}: " + " ".join(
-                f"{k}={v:.4f}" for k, v in img_metrics.items()))
+            per_image[img_i] = img_metrics
             if out_dir is None:
                 continue
             with (out_dir / f"metrics_{img_i}.txt").open("w") as f:
@@ -1091,10 +1162,11 @@ class Runner:
             Image.fromarray(arr).save(val_images_dir / f"{img_i}.jpg")
             if depth is not None:
                 self._save_panel_crops(arr, out_dir, img_i)
+        self._gather_image_metrics(per_image, mode)
         means = meter.mean_across_processes()
         main_log(f"{mode} means: " + " ".join(f"{k}={v:.4f}"
                                               for k, v in means.items()))
-        if out_dir is not None:
+        if out_dir is not None and parallel.is_main():
             with (out_dir / "metrics.txt").open("w") as f:
                 f.write(f"step {train_index} {mode}\n")
                 for k, v in means.items():
@@ -1115,7 +1187,9 @@ class Runner:
         metrics.txt 'Average val/...' lines sum every record on disk (this
         pass's and earlier ones') and divide by the id map's val_image_num
         (else the record count), as the JAX package does. Returns this
-        pass's means."""
+        pass's means. In a process group image i (in record order) is rank
+        i % W's; rank 0 gathers every rank's records of this pass before
+        it sums (a rank's files may sit on its own disk)."""
         h = self.hparams
         state = self._load_eval_state()
         render_chunks = self._make_render_fn(state)
@@ -1126,6 +1200,7 @@ class Runner:
         metric_dir = base / "val_metrics"
         for d_ in (images_dir, val_images_dir, metric_dir):
             d_.mkdir(parents=True, exist_ok=True)
+        this_run: Dict[str, Dict[str, float]] = {}
 
         names = [ln.strip() for ln in
                  Path(h.block_val_list_path).read_text().splitlines()
@@ -1138,9 +1213,10 @@ class Runner:
                 self.far, load_mask=True)
             for d in dicts:
                 key = d.get("image_hash", str(img_counter))
+                mine = self._owns(img_counter)
                 img_counter += 1
                 # the triptych is an image's last file: it marks it done
-                if (val_images_dir / f"{key}.jpg").exists():
+                if not mine or (val_images_dir / f"{key}.jpg").exists():
                     continue
                 t0 = time.time()
                 res = render_chunks(d["rays"].reshape(-1, 8),
@@ -1156,10 +1232,10 @@ class Runner:
                 img_metrics["time"] = render_time
                 img_metrics["memory"] = self._peak_memory_mib()
                 meter.update(img_metrics)
-                main_log(f"blocknerf val image {key}: " + " ".join(
-                    f"{k}={v:.4f}" for k, v in img_metrics.items()))
+                this_run[str(key)] = {k: float(v)
+                                      for k, v in img_metrics.items()}
                 (metric_dir / f"metrics-{key}.json").write_text(json.dumps(
-                    {k: float(v) for k, v in img_metrics.items()}))
+                    this_run[str(key)]))
                 res_img = {f"rgb_{typ}": pred}
                 for extra in (f"depth_{typ}", f"fg_depth_{typ}",
                               f"bg_depth_{typ}"):
@@ -1172,9 +1248,22 @@ class Runner:
                     images_dir, val_images_dir, key, gt, pred, res_img, typ,
                     img_metrics)
         means = meter.mean_across_processes()
+        records = {}
+        for d in allgather_json(this_run):
+            records.update(d)
+        for key, rec in records.items():
+            main_log(f"blocknerf val image {key}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in rec.items()))
         main_log("blocknerf val means: " + " ".join(
             f"{k}={v:.4f}" for k, v in means.items()))
-        if self.experiment_path is not None:
+        if parallel.is_main():
+            # the other ranks' records of this pass, where their files are
+            # not on this disk
+            for key, rec in records.items():
+                f_ = metric_dir / f"metrics-{key}.json"
+                if not f_.exists():
+                    f_.write_text(json.dumps(rec))
+        if self.experiment_path is not None and parallel.is_main():
             sums: Dict[str, float] = {}
             count = 0
             for f_ in sorted(metric_dir.glob("metrics-*.json")):

@@ -19,20 +19,31 @@ Block-NeRF Mission Bay (GZIP tfrecords, read without TensorFlow):
         --batch_prioritized_routing --moe_capacity_factor=1.0 \
         --moe_l_aux_wt=0.0005
 
-Runs on ``cuda``; ``main(hparams, device="cpu")`` runs the plain versions.
-Classic-NeRF scenes train through ``train_nerf_moe``.
+Data-parallel over the 8 cards of a host, one process per card, with the
+published global batch (1,024 rays a card for Building, 1,664 for Mission
+Bay; each rank routes its own rays):
+
+    torchrun --nproc_per_node=8 -m switch_nerf_torch.train \
+        --config_file=configs/switch_nerf/building.yaml <the flags above> \
+        --batch_size=8192
+    torchrun --nproc_per_node=8 -m switch_nerf_torch.train \
+        --config_file=configs/switch_nerf/mission_bay.yaml \
+        <the flags above> --batch_size=13312
+
+Runs on ``cuda`` (``cuda:LOCAL_RANK`` under torchrun);
+``main(hparams, device="cpu")`` runs the plain versions (with torchrun's
+variables set, in a gloo group). Classic-NeRF scenes train through
+``train_nerf_moe``.
 """
 import torch
 
-from switch_nerf_torch.config import get_opts, parse_args
+from switch_nerf_torch.config import get_opts
 from switch_nerf_torch.runner import Runner
 from switch_nerf_torch.utils.crash import cli_entry
 
 
-@cli_entry
+@cli_entry(parser=get_opts)
 def main(hparams=None, device=None):
-    if hparams is None:
-        hparams = parse_args(get_opts())
     if hparams.data_type == "nerf":
         raise ValueError("classic-NeRF scenes train through "
                          "switch_nerf_torch.train_nerf_moe")

@@ -25,10 +25,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from switch_nerf_torch import resolve_device
 from switch_nerf_torch.models.moe import MoELayer
+from switch_nerf_torch.parallel import host
 from switch_nerf_torch.render.rendering import RenderConfig, render_rays
 from switch_nerf_torch.render.rendering_mip import render_rays_mip
 
@@ -265,7 +267,8 @@ def create_train_state(hparams, model: nn.Module,
                        for_training: bool = True) -> TrainState:
     """The optimizer over the models' parameters (with a zero accumulation
     window when --accumulation_steps > 1) and a generator on ``device``
-    (default ``cuda``) seeded with ``seed`` (default --random_seed).
+    (default ``cuda``) seeded with ``seed`` (default --random_seed plus the
+    process's rank).
     Raises if the model needs what the port does not train yet (no-drop
     dispatch, gate noise), unless ``for_training`` is False: the state
     that eval loads a checkpoint into."""
@@ -276,8 +279,10 @@ def create_train_state(hparams, model: nn.Module,
     params = list(model.parameters())
     if bg_model is not None:
         params += list(bg_model.parameters())
+    # each rank of a data-parallel run draws its own perturbation and
+    # noise: rank r's generator is seeded with --random_seed + r
     generator = torch.Generator(device=dev).manual_seed(
-        hparams.random_seed if seed is None else seed)
+        hparams.random_seed + host.rank() if seed is None else seed)
     acc = getattr(hparams, "accumulation_steps", 1) or 1
     return TrainState(
         model=model, bg_model=bg_model,
@@ -335,19 +340,51 @@ class TrainStep:
                  for p, g in zip(params, grads)]
         return {k: v.detach() for k, v in metrics.items()}, grads
 
-    def _apply(self, state: TrainState, grads: List[torch.Tensor]) -> None:
-        """Adam on grads, or (acc > 1) on the window's mean gradient at the
-        window's last micro-step, as optax.MultiSteps."""
+    def average_across_ranks(self, metrics: Dict[str, torch.Tensor],
+                             grads: Optional[List[torch.Tensor]]
+                             ) -> Tuple[Dict[str, torch.Tensor],
+                                        Optional[List[torch.Tensor]]]:
+        """The metrics (and, unless None, the gradients) averaged over the
+        ranks of a data-parallel run: one all_reduce(SUM) over a flat fp32
+        buffer, then / world size. Each rank's loss is the mean over an
+        equal share of the global batch, so this is the global mean
+        gradient. psnr is recomputed from the averaged photo_loss (the
+        global batch's MSE), not averaged. Every rank gets the same bits.
+        One process: returned as they are."""
+        world = host.world_size()
+        if world == 1:
+            return metrics, grads
+        keys = [k for k in metrics if k != "psnr"]
+        parts = [torch.stack([metrics[k].float() for k in keys])]
+        if grads is not None:
+            parts += [g.reshape(-1).float() for g in grads]
+        flat = torch.cat(parts)
+        dist.all_reduce(flat)
+        flat /= world
+        out = dict(zip(keys, flat[:len(keys)]))
+        if "photo_loss" in out:
+            out["psnr"] = _psnr(out["photo_loss"])
+        if grads is not None:
+            reduced, lo = [], len(keys)
+            for g in grads:
+                reduced.append(flat[lo:lo + g.numel()].view_as(g).to(g.dtype))
+                lo += g.numel()
+            grads = reduced
+        return {k: out[k] for k in metrics}, grads
+
+    def _apply(self, state: TrainState, grads: List[torch.Tensor],
+               applies: bool) -> None:
+        """Adam on grads (at the micro-step that ``applies``, with acc > 1
+        the window's mean gradient), or (acc > 1, any other micro-step)
+        fold grads into the window's running mean, as optax.MultiSteps."""
         params = state.parameters()
-        if self.acc > 1:
+        if not applies:
             n = state.mini_step
             for a, g in zip(state.acc_grads, grads):
                 a.add_((g - a) / (n + 1))
-            if n < self.acc - 1:
-                state.mini_step += 1
-                state.step += 1
-                return
-            grads = state.acc_grads
+            state.mini_step += 1
+            state.step += 1
+            return
         for p, g in zip(params, grads):
             p.grad = g
         for group in state.optimizer.param_groups:
@@ -364,6 +401,19 @@ class TrainStep:
     def __call__(self, state: TrainState, batch
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         metrics, grads = self.loss_and_grads(state, batch)
+        applies = state.mini_step == self.acc - 1
+        if self.acc > 1 and applies:
+            # the window's mean gradient with this micro-step folded in
+            n = state.mini_step
+            grads = [a + (g - a) / (n + 1)
+                     for a, g in zip(state.acc_grads, grads)]
+        # data parallel: the gradient that updates is averaged over the
+        # ranks, and every rank votes on the same averaged metrics, so a
+        # non-finite value on one rank skips the step on all of them
+        metrics, reduced = self.average_across_ranks(
+            metrics, grads if applies else None)
+        if applies:
+            grads = reduced
         if self.check_finite:
             # skip the update on a non-finite metric (psnr = inf, a perfect
             # fit, excluded), leaving parameters, optimizer, schedule and
@@ -380,7 +430,7 @@ class TrainStep:
                     for a in state.acc_grads:
                         a.zero_()
                 return state, metrics
-        self._apply(state, grads)
+        self._apply(state, grads, applies)
         return state, metrics
 
 

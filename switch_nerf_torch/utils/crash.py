@@ -9,9 +9,11 @@ Port of ``switch_nerf_tpu/utils/crash.py``:
     non-zero.
   * ``install_faulthandler()``: faulthandler.enable() on stderr plus a
     SIGUSR1 all-thread stack dump.
-  * ``cli_entry(fn)``: ``record`` for a CLI main. The JAX package's also
-    bootstraps its multi-host runtime; the port runs one process (its
-    multi-process support is ROADMAP Queue A item 8).
+  * ``cli_entry(fn, parser=...)``: ``record`` for a CLI main, which also
+    parses the command line (``--help`` exits there, before any process
+    group), joins the process group ``torchrun`` describes
+    (``parallel.init_distributed``; a group of one process is none) and
+    destroys it on the way out.
 """
 from __future__ import annotations
 
@@ -80,6 +82,37 @@ def record(fn):
     return wrapper
 
 
-def cli_entry(fn):
-    """The shared CLI-main wrapper (``record``)."""
-    return record(fn)
+def cli_entry(fn=None, *, parser=None):
+    """The shared CLI-main wrapper: ``record``, and the process group
+    around ``fn(hparams, device)``.
+
+    With ``parser`` (a parser factory) a call without hparams parses
+    ``sys.argv`` first. Then ``parallel.init_distributed`` joins the group
+    torchrun describes, over NCCL on a card and gloo with
+    ``device="cpu"``, with a one-day timeout under --set_timeout (the
+    reference's, for long Block-NeRF evals); a group the caller made is
+    used as it is. ``--help`` starts no group."""
+    if fn is None:
+        return lambda f: cli_entry(f, parser=parser)
+
+    @record
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        from switch_nerf_torch import parallel
+        if parser is not None and not args and kwargs.get("hparams") is None:
+            from switch_nerf_torch.config import parse_args
+            kwargs["hparams"] = parse_args(parser())
+        hparams = args[0] if args else kwargs.get("hparams")
+        device = args[1] if len(args) > 1 else kwargs.get("device")
+        created = False
+        if not {"-h", "--help"}.intersection(sys.argv[1:]):
+            created = parallel.init_distributed(
+                device,
+                timeout=(datetime.timedelta(days=1)
+                         if getattr(hparams, "set_timeout", False) else None))
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if created:
+                parallel.destroy()
+    return wrapper

@@ -1,9 +1,8 @@
 """Experiment logging.
 
 Port of ``switch_nerf_tpu/utils/logger.py``: a logger with stdout and
-``log.txt`` handlers, and printing gated to the main process. The main
-process is any process that is not a ``torch.distributed`` worker of rank
-> 0 (one process without ``torch.distributed`` is the main one).
+``log.txt`` handlers, and printing gated to the main process, rank 0 of a
+process group (one process without a group is the main one).
 """
 from __future__ import annotations
 
@@ -15,11 +14,7 @@ from typing import Iterable, Optional, Union
 import torch
 from torch import nn
 
-
-def _is_main() -> bool:
-    dist = torch.distributed
-    return not (dist.is_available() and dist.is_initialized()
-                and dist.get_rank() > 0)
+from switch_nerf_torch.parallel.host import is_main
 
 
 def setup_logger(name: Optional[str], log_dir, timestamp: bool = False
@@ -32,7 +27,7 @@ def setup_logger(name: Optional[str], log_dir, timestamp: bool = False
     sh = logging.StreamHandler(sys.stdout)
     sh.setFormatter(fmt)
     logger.addHandler(sh)
-    if log_dir is not None and _is_main():
+    if log_dir is not None and is_main():
         # the file handler on the main process only: every process would
         # write to the same log.txt
         Path(log_dir).mkdir(parents=True, exist_ok=True)
@@ -43,12 +38,12 @@ def setup_logger(name: Optional[str], log_dir, timestamp: bool = False
 
 
 def main_log(msg: str) -> None:
-    if _is_main():
+    if is_main():
         logging.getLogger(None).info(msg)
 
 
 def main_print(msg: str) -> None:
-    if _is_main():
+    if is_main():
         print(msg, flush=True)
 
 

@@ -1,21 +1,28 @@
-"""Running-mean meters for scalar metric dicts.
+"""Running-mean meters for scalar metric dicts, and the JSON exchange of a
+data-parallel run.
 
-Port of ``DictAverageMeter`` (``switch_nerf_tpu/utils/meters.py:46-80``).
-One process only: the cross-process mean (and the JSON allgather behind
-it) waits for the port's multi-process support (ROADMAP Queue A item 8).
+Port of ``switch_nerf_tpu/utils/meters.py``: ``DictAverageMeter`` and
+``allgather_json``. In a process group the means run over every process,
+merged by key name, so a rank that scored no image (more ranks than val
+images) holds no keys and changes nothing.
 """
 from __future__ import annotations
 
-from typing import Dict
+import json
+from typing import Dict, List
 
-import torch
+from switch_nerf_torch.parallel import host
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+def allgather_json(obj: dict) -> List[dict]:
+    """Every process's JSON-serialisable dict, by rank (one process:
+    ``[obj]``). The dicts travel as JSON text, keys in their order, so
+    every process reads the same values whatever their Python types
+    were."""
+    if host.world_size() == 1:
+        return [obj]
+    texts = host.all_gather_object(json.dumps(obj))
+    return [json.loads(t) for t in texts]
 
 
 class DictAverageMeter:
@@ -37,10 +44,16 @@ class DictAverageMeter:
         self.counts.clear()
 
     def mean_across_processes(self) -> Dict[str, float]:
-        """Per-key means over all processes: the plain mean in one process.
-        A torch.distributed group of more than one process raises."""
-        if _world_size() > 1:
-            raise NotImplementedError(
-                "metric means across processes wait for the port's "
-                "multi-process support (ROADMAP Queue A item 8)")
-        return self.mean()
+        """Per-key means over every process's updates: sums and counts
+        merged by key name, never by position (the plain mean in one
+        process). Every process of a group must call it."""
+        if host.world_size() == 1:
+            return self.mean()
+        sums: Dict[str, float] = {}
+        counts: Dict[str, float] = {}
+        for d in allgather_json({"s": self.sums, "c": self.counts}):
+            for k, v in d["s"].items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+            for k, v in d["c"].items():
+                counts[k] = counts.get(k, 0.0) + float(v)
+        return {k: sums[k] / max(counts.get(k, 0.0), 1.0) for k in sums}

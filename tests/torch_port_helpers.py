@@ -4,13 +4,24 @@ Inputs are made with numpy from a seed and handed to both the JAX package
 and the port as arrays; weights are drawn by the JAX package and loaded
 into the port through ``switch_nerf_torch.bridge``.
 """
+import os
+import pickle
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from PIL import Image
 
 from __graft_entry__ import _building_hparams
+
+_WORKER = Path(__file__).parent / "torch_parallel_worker.py"
+_ROOT = Path(__file__).parent.parent
 
 
 def tiny_building_hparams(width=16):
@@ -234,3 +245,69 @@ def block_runner_hparams(scene, exp, chunks, **kw):
     for k, v in kw.items():
         setattr(h, k, v)
     return h
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class Ranks:
+    """A job of tests/torch_parallel_worker.py in `world` processes (a gloo
+    group on the CPU), started at once; ``get`` waits for it."""
+
+    def __init__(self, job_path: Path, scenarios, world: int = 2, **job):
+        self.job_path = job_path
+        job_path.write_bytes(pickle.dumps(
+            {"port": free_port(), "scenarios": scenarios, **job}))
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(_WORKER), str(r), str(world), str(job_path)],
+            cwd=str(_ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        self._results = None
+
+    def _wait(self):
+        outs = []
+        try:
+            for p in self.procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+        results = []
+        for r, p in enumerate(self.procs):
+            f = self.job_path.with_suffix(f".rank{r}.pkl")
+            res = pickle.loads(f.read_bytes()) if f.exists() else {}
+            results.append((res, p.returncode, outs[r] if r < len(outs)
+                            else ""))
+        return results
+
+    def get(self, name: str):
+        """Every rank's result of scenario `name`."""
+        if self._results is None:
+            self._results = self._wait()
+        got = []
+        for r, (res, rc, out) in enumerate(self._results):
+            if name not in res or "error" in res[name]:
+                pytest.fail(f"rank {r} (rc {rc}) of scenario {name}:\n"
+                            f"{res.get(name, {}).get('error', '')}\n"
+                            f"{out[-4000:]}")
+            got.append(res[name])
+        return got
+
+
+def with_val_image(root):
+    """make_mega_scene plus a second val image, 005: 004 mirrored, from a
+    camera moved 0.05 sideways, so each rank of a 2-rank eval owns one."""
+    make_mega_scene(root)
+    md = torch.load(root / "val" / "metadata" / "004.pt", weights_only=False)
+    md["c2w"] = md["c2w"].clone()
+    md["c2w"][1, 3] += 0.05
+    torch.save(md, root / "val" / "metadata" / "005.pt")
+    img = np.asarray(Image.open(root / "val" / "rgbs" / "004.jpg"))
+    Image.fromarray(np.ascontiguousarray(img[:, ::-1])).save(
+        root / "val" / "rgbs" / "005.jpg")
+    return root
