@@ -4,6 +4,9 @@
     python3 chip_smoke.py                # one card: every phase below
     python3 chip_smoke.py --dp-cards 4   # Building data-parallel on 4 cards
                                          # of the host against one card
+    python3 chip_smoke.py --points-unsplit   # one eval_points request in
+                                         # one model call: its peak memory
+                                         # or the card's out-of-memory error
 
 Phases, each fatal (an exception ends the run with a non-zero exit):
   0. the card: `nvidia-smi` name and power limit, torch and CUDA versions
@@ -36,6 +39,13 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      plain versions, timed beside the bound, the plain version and the
      library call; K3, K4 and K2R at the same width checked and timed the
      same way
+  2c. K1R's 64-bit row offsets: one launch over one published
+     eval_points request's rows, N = 65,536 x 256 = 16,777,216 (M256 bf16
+     E8 L7, balanced counts; 4.3e9 elements an activation), against its
+     plain version on every row (the last 4,096 apart); and K1 at the
+     padded eval_points request's capacity (8,192 rays x 256: C =
+     262,144); each timed beside its bound, the plain version and the
+     library call
   2b. no-drop = padded: an MoE layer (M256 L7) in no-drop dispatch (K1R /
      K2R) and in padded dispatch (K1 / K2) with the same weights at
      capacity factor E, where padding drops nothing: outputs and every
@@ -123,9 +133,35 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      --moe_test_batch: K1R) on the final checkpoint in 2 ranks against one
      process: the same file set, PSNR and SSIM means within 1e-4; then one
      rank with torchrun's variables, whose group init_distributed starts
-     over NCCL, trains 5 steps. Prints seconds a step per rank, train
-     rays/s through Runner.train, the gradient all-reduce's milliseconds
-     and bytes
+     over NCCL, trains 5 steps. The published routing (capacity factor
+     1.0, BPR, l_aux 5e-4; no noise, perturb 0) with 98,304-point chunks,
+     so chunks span the two ranks (parallel/chunks.py): each rank's half of
+     a fixed 2,048-ray batch against one process on the whole batch: the
+     same tokens dropped, gate_loss within 1e-5 relative, all_loss within
+     1e-3 relative, the averaged gradient's cosine >= 0.999, the ranks'
+     parameter hashes equal after two steps (each timed), the shared
+     chunks counted; the same step with each rank's pieces routed alone
+     must drop other tokens (so the drop check tells per-rank routing from
+     global routing); and the published Building and
+     Mission Bay runs' chunk arithmetic at 8 ranks (no chunk spans ranks).
+     Prints seconds a step per rank, train rays/s through Runner.train,
+     the gradient all-reduce's milliseconds and bytes
+  10. serving what users already have, on the runner phase's synthetic
+     scene: a reference-layout .pt (module. prefix, dense bg NeRF) of
+     seeded Building weights converted by `python -m
+     switch_nerf_torch.convert_torch_ckpt` (its leaves bit-equal to the
+     .pt's, the process's seconds), Runner.eval_image on it (K1); then
+     eval_points with the published flags (no --moe_test_batch: K1R,
+     65,536-ray requests, --render_test_points_sample_skip 4, both val
+     images): the PLY file set, the points of an image and their split
+     over the experts, K1R's launches and rows a launch, each request's
+     seconds and each image's with its PLY writes, max_memory_allocated;
+     K1R against its plain version and timed at the first call's rows an
+     expert with the model's weights; its gates on 256 rays against a CPU
+     run (>= 99.5 % equal); eval_points --moe_test_batch (K1, 8,192-ray
+     requests, one image); eval_ckpt (step and parameter count); a
+     container written by convert_to_container_moe served with
+     --container_path (the checkpoint's PSNR and SSIM within 1e-6)
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -173,6 +209,17 @@ MB_RECORDS = (("train_0000.tfrecord", 3), ("train_0001.tfrecord", 3),
               ("validation_0000.tfrecord", 2))   # (file, images)
 MB_CHUNKS = 2                  # chunks of its 43,008 training rays
 MB_STEPS, MB_CKPT, MB_PRINT = 15, 10, 5   # its run's schedule
+BUILDING_EVAL_FLAGS = [   # profile_eval.building_eval_hparams' own
+    "--config_file", "configs/switch_nerf/building.yaml", "--use_moe",
+    "--use_moe_external_gate", "--use_gate_input_norm",
+    "--batch_prioritized_routing", "--moe_capacity_factor", "1.0",
+    "--moe_expert_num", "8", "--appearance_dim", "48", "--moe_test_batch",
+    "--coarse_samples", "256", "--fine_samples", "512",
+    "--model_chunk_size", "32768"]
+POINTS_N = 65536 * 256         # rows of one published eval_points request
+POINTS_PADDED_BATCH = 8192     # rays per request of the padded eval_points
+REF_ITERATION = 1234           # the reference .pt's iteration
+STRADDLE_CHUNK = 3 * 32768     # a model chunk that spans the 2 ranks
 BF16_REL_TOL = 2e-2    # max |kernel - plain| <= this * max |plain| in bf16
 FP32_TOL = 1e-4        # max |kernel - plain| in fp32
 
@@ -1046,6 +1093,23 @@ def wrapped(owner, name: str, make):
         setattr(owner, name, real)
 
 
+@contextlib.contextmanager
+def drop_masks():
+    """Each MoE routing call's dropped tokens (location >= capacity) in
+    the block, a bool array a call in call order, on the host."""
+    from switch_nerf_torch.models import moe as tmoe
+    masks = []
+
+    def make(real):
+        def run(*a, **k):
+            plan, l_aux = real(*a, **k)
+            masks.append((plan.locations[0] >= plan.capacity).cpu().numpy())
+            return plan, l_aux
+        return run
+    with wrapped(tmoe, "extract_critical", make):
+        yield masks
+
+
 def batch_digest(batch: dict) -> str:
     h = hashlib.sha1()
     for k in sorted(batch):
@@ -1486,6 +1550,107 @@ def nodrop_padded_phase(shapes) -> None:
             f"of the largest entry (limit {tol:g})")
         if not worst <= tol:
             raise AssertionError("no-drop and padded MoE layers disagree")
+
+
+def max_err_by_rows(out, ref, rows: int = 1 << 20) -> float:
+    """max |out - ref| over row blocks (the [N, M] fp32 copies of a whole
+    16.8M-row pair would not fit beside them)."""
+    return max(float((out[lo:lo + rows].float() - ref[lo:lo + rows].float())
+                     .abs().max()) for lo in range(0, out.shape[0], rows))
+
+
+def k1r_at_rows(label: str, x, counts_host, ws, bs, skips, peaks) -> dict:
+    """K1R over x's rows (sorted by expert, `counts_host` a expert) against
+    its plain version on every row, the last 4,096 rows reported apart;
+    then timed with CUDA events beside its bound, the plain version and
+    the per-expert addmm chain."""
+    from switch_nerf_torch.ops import ragged_chain as rc
+
+    n, m = x.shape
+    layers = ws.shape[0]
+    counts = torch.tensor(counts_host, dtype=torch.int32, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out = rc.ragged_chain_fwd(x, counts, ws, bs, skips)
+    ref = rc.ragged_chain_plain(x, counts, ws, bs, skips)
+    err = max_err_by_rows(out, ref)
+    tail = max_err_by_rows(out[-4096:], ref[-4096:])
+    tol = BF16_REL_TOL * max(float(ref[lo:lo + (1 << 20)].float().abs()
+                                   .max()) for lo in range(0, n, 1 << 20))
+    log(f"  K1R {label}: max_abs_err {err:.3e}, last 4,096 rows {tail:.3e} "
+        f"(tolerance {tol:.3e}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    if not (err <= tol and tail <= tol):
+        raise AssertionError(f"K1R disagrees with its plain version at "
+                             f"{label}")
+    del out, ref
+    flops = 2 * n * m * m * layers
+    bound_ms, bound_by = chain_bound(flops, nbytes(x, ws, bs, counts)
+                                     + nbytes(x), x.dtype, peaks)
+    t = {"ms": cuda_ms(lambda: rc.ragged_chain_fwd(x, counts, ws, bs, skips),
+                       iters=5, warmup=2),
+         "plain_ms": cuda_ms(lambda: rc.ragged_chain_plain(
+             x, counts, ws, bs, skips), iters=3, warmup=1),
+         "library_ms": cuda_ms(lambda: addmm_ragged(
+             x, counts_host, ws, bs, skips), iters=3, warmup=1)}
+    log(f"  K1R {label}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+        f"ms, per-expert addmm chain {t['library_ms']:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {rate(flops, t['ms'], bound_ms)}")
+    return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, n=n,
+                **t)
+
+
+def points_kernel_phase(peaks, shapes):
+    """K1R's 64-bit row offsets, and K1 at the padded eval_points request's
+    capacity. K1R in one launch over N = 65,536 x 256 = 16,777,216 rows
+    (a published eval_points request's points; M256, so every activation
+    holds 4.3e9 elements, past 2^31: the row offsets must be 64-bit),
+    balanced counts, against its plain version over every row; K1 at C =
+    262,144 (8,192 rays x 256 samples in one MoE call). Each timed beside
+    its bound, the plain version and the library call. (eval_points' own
+    K1R calls are held at their size and routing in phase 10.)"""
+    from switch_nerf_torch.ops import expert_kernel
+
+    e, m = shapes["experts"], shapes["width"]
+    layers, skips = shapes["layers"], shapes["skips"]
+    gen = torch.Generator().manual_seed(5)
+    rows = {}
+    n = POINTS_N
+    ws, bs = chain_weights(e, m, layers, torch.bfloat16, gen)
+    counts_host = [n // e] * e
+    counts_host[-1] += n - sum(counts_host)
+    x = torch.empty(n, m, dtype=torch.bfloat16, device="cuda")
+    cg = torch.Generator(device="cuda").manual_seed(5)
+    for lo in range(0, n, 1 << 22):
+        x[lo:lo + (1 << 22)].normal_(generator=cg)
+    log(f"[kernels 64-bit offsets] K1R bf16: N {n} rows (E{e} M{m} "
+        f"L{layers} skips{skips}, {n * m} elements an activation)")
+    rows["K1R 64-bit offsets"] = k1r_at_rows(f"N{n}", x, counts_host, ws, bs,
+                                             skips, peaks)
+    del x
+
+    c = POINTS_PADDED_BATCH * 256 // e
+    x = torch.randn(e, c, m, generator=gen).to("cuda", torch.bfloat16)
+    log(f"[kernels eval_points] K1 bf16: E{e} C{c} M{m} L{layers}")
+    err = check_close(f"K1 C{c}",
+                      expert_kernel.expert_mlp_chain(x, ws, bs, skips),
+                      expert_kernel.expert_mlp_chain_plain(x, ws, bs, skips))
+    flops = 2 * e * c * m * m * layers
+    bound_ms, bound_by = chain_bound(flops, nbytes(x, ws, bs) + nbytes(x),
+                                     torch.bfloat16, peaks)
+    t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain(
+             x, ws, bs, skips), iters=10, warmup=3),
+         "plain_ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_plain(
+             x, ws, bs, skips), iters=5, warmup=2),
+         "library_ms": cuda_ms(lambda: bmm_chain(x, ws, bs, skips), iters=5,
+                               warmup=2)}
+    log(f"  K1 C{c}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"baddbmm chain {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), {rate(flops, t['ms'], bound_ms)}")
+    rows["K1 eval_points"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                                  bound_by=bound_by, **t)
+    del x
+    torch.cuda.empty_cache()
+    return rows
 
 
 def make_bungee_scene(root, seed: int) -> None:
@@ -2037,6 +2202,380 @@ def mission_bay_phase(counts: dict) -> str:
             f"{means['psnr']:.4f}, psnr_mask {means['psnr_mask']:.4f}")
 
 
+# ------------------------------------------- serving what users have ----
+def reference_state_dict(model, moe: bool, prefix: str = "") -> dict:
+    """A port model's parameters under the reference (MiZhenxing/
+    Switch-NeRF) names: the inverse of switch_nerf_torch.convert_torch_ckpt's
+    map (``module.`` as `prefix` for a DDP save)."""
+    out = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if name == "embedding_a.weight":
+            ref = name
+        elif not moe:
+            head, _, idx = parts[0].rpartition("_")
+            if head == "xyz_encoding" and idx.isdigit():
+                ref = f"xyz_encodings.{idx}.0.{parts[-1]}"
+            elif parts[0] == "dir_a_encoding":
+                ref = f"dir_a_encoding.0.{parts[-1]}"
+            else:
+                ref = name
+        else:
+            tag = parts[0][len("layer_"):]
+            if len(parts) == 2:
+                ref = f"layers.{tag}.{parts[1]}"          # a LayerNorm
+            elif parts[1] == "wg":
+                ref = f"layers.{tag}.gates.0.wg.weight"
+            elif parts[1] == "experts":
+                kind = "weights" if parts[2][0] == "w" else "bias"
+                ref = f"layers.{tag}.experts.0.{kind}.{parts[2][1:]}"
+            elif parts[1].startswith("fc"):
+                ref = f"layers.{tag}.fcs.{parts[1][2:]}.{parts[2]}"
+            elif parts[1].startswith("norm"):
+                ref = f"layers.{tag}.norms.{parts[1][4:]}.{parts[2]}"
+            else:
+                raise KeyError(f"no reference name for {name}")
+        out[prefix + ref] = p.detach().cpu().clone()
+    return out
+
+
+def flat_leaves(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def serving_hparams(tmp, exp: str, **over):
+    """The eval phase's Building flags on make_scene's scene in `tmp`."""
+    from switch_nerf_torch.profile_eval import building_eval_hparams
+    h = building_eval_hparams()
+    h.dataset_path = str(tmp / "scene")
+    h.exp_name = str(tmp / exp)
+    for k, v in over.items():
+        setattr(h, k, v)
+    return h
+
+
+def write_reference_pt(tmp):
+    """make_scene's scene in `tmp` and a reference-layout tmp/ref.pt of
+    seeded Building weights (``module.`` prefix, the dense bg NeRF);
+    returns the port's models it was written from."""
+    from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+    make_scene(tmp / "scene", seed=0)
+    count = SCENE_TRAIN + SCENE_VAL
+    model = get_nerf(serving_hparams(tmp, "e"), count, device="cpu", seed=5)
+    bg = get_bg_nerf(serving_hparams(tmp, "e"), count, device="cpu", seed=6)
+    torch.save({"iteration": REF_ITERATION,
+                "model_state_dict": reference_state_dict(model, True,
+                                                         "module."),
+                "bg_model_state_dict": reference_state_dict(bg, False)},
+               tmp / "ref.pt")
+    return model, bg
+
+
+def points_hparams(tmp, exp: str, ckpt, images: int):
+    """eval_points with the published flags: no-drop, 65,536-ray requests,
+    every fourth sample written."""
+    return serving_hparams(tmp, exp, ckpt_path=str(ckpt),
+                           moe_test_batch=False,
+                           render_test_points_image_num=images,
+                           render_test_points_sample_skip=4,
+                           image_pixel_batch_size=65536)
+
+
+def points_unsplit() -> int:
+    """``chip_smoke.py --points-unsplit``: one published eval_points request
+    (65,536 rays x 256 samples, no-drop) in one model call of 16,777,216
+    points instead of runner.POINTS_CALL_ROWS-point calls, on phase 10's
+    converted checkpoint: its max_memory_allocated, or the out-of-memory
+    error the card raises and the memory allocated then. Prints one JSON
+    line. Not part of the one-card run."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch import convert_torch_ckpt
+    from switch_nerf_torch import runner as trunner
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_unsplit_") as tmp:
+        tmp = Path(tmp)
+        write_reference_pt(tmp)
+        ckpt = convert_torch_ckpt.main(serving_hparams(
+            tmp, "conv", torch_ckpt=str(tmp / "ref.pt"),
+            out_ckpt=str(tmp / "ckpt")))
+        trunner.POINTS_CALL_ROWS = POINTS_N            # one call a request
+        runner = trunner.Runner(points_hparams(tmp, "points", ckpt, 1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = {"points_a_call": POINTS_N, "card": smi,
+               "total_bytes": torch.cuda.get_device_properties(0)
+               .total_memory}
+        try:
+            runner.eval_points()
+            torch.cuda.synchronize()
+            res["fits"] = True
+        except torch.cuda.OutOfMemoryError as exc:
+            res["fits"] = False
+            res["error"] = str(exc).splitlines()[0]
+            res["allocated_at_error"] = torch.cuda.memory_allocated()
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"[points unsplit] {res}")
+    print(json.dumps({"points_unsplit": res}))
+    return 0
+
+
+def serving_phase(counts: dict) -> dict:
+    """Serve what users already have: the checks of the module docstring's
+    phase 10. Returns its numbers, and the routing and weights of
+    eval_points' first K1R call under "k1r_inputs"."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch import _msgpack, bridge, convert_to_container_moe
+    from switch_nerf_torch import runner as trunner
+    from switch_nerf_torch.datasets.ray_utils import (get_ray_directions,
+                                                      get_rays)
+    from switch_nerf_torch.ops import expert_kernel
+    from switch_nerf_torch.ops import ragged_chain as rc
+    from switch_nerf_torch.utils.ply import read_ply_points
+
+    Runner = trunner.Runner
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serving_") as tmp:
+        tmp = Path(tmp)
+
+        def hp(exp, **over):
+            return serving_hparams(tmp, exp, **over)
+
+        # a reference-layout .pt from seeded weights, converted by the CLI
+        model, bg = write_reference_pt(tmp)
+        log(f"[serving] a reference-layout .pt (module. prefix, the dense "
+            f"bg NeRF, iteration {REF_ITERATION}) of the Building model, "
+            f"converted by python -m switch_nerf_torch.convert_torch_ckpt")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m",
+                        "switch_nerf_torch.convert_torch_ckpt",
+                        *BUILDING_EVAL_FLAGS,
+                        "--exp_name", str(tmp / "conv"),
+                        "--dataset_path", str(tmp / "scene"),
+                        "--torch_ckpt", str(tmp / "ref.pt"),
+                        "--out_ckpt", str(tmp / "ckpt")], check=True,
+                       timeout=600,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+        out["convert_s"] = time.perf_counter() - t0
+        ckpt = tmp / "ckpt" / str(REF_ITERATION)
+        got = dict(flat_leaves(_msgpack.unpackb(
+            (ckpt / "state.msgpack").read_bytes())["params"]))
+        want = dict(flat_leaves(bridge.export_jax_state(model, bg)))
+        same = sorted(got) == sorted(want) and all(
+            np.array_equal(got[k], want[k]) for k in want)
+        log(f"  converted in {out['convert_s']:.2f} s (the CLI process, "
+            f"start to end); {len(want)} leaves bit-equal to the .pt's "
+            f"weights: {same}")
+        if not same:
+            raise AssertionError("the converted checkpoint differs from the "
+                                 ".pt's weights")
+
+        # eval_image on it (padded, K1)
+        expert_kernel.launches = rc.ragged_launches = 0
+        means = Runner(hp("eval", ckpt_path=str(ckpt))).eval_image()
+        k1_served = expert_kernel.launches
+        log(f"  eval_image: psnr {means['psnr']:.4f} ssim "
+            f"{means['ssim']:.4f}, K1 {k1_served}")
+        if not (all(np.isfinite(v) for v in means.values()) and k1_served):
+            raise AssertionError("eval_image on the converted checkpoint")
+
+        # eval_points with the published flags, no-drop dispatch (K1R)
+        hpts = points_hparams(tmp, "points", ckpt, SCENE_VAL)
+        calls, req_s, req_t0, first = [], [], [], {}
+
+        def recorded(real):
+            def run(x, counts_, ws, bs, skips):
+                calls.append(x.shape[0])
+                if not first:       # the first call's routing and weights
+                    first.update(counts=counts_.clone(), ws=ws, bs=bs,
+                                 skips=tuple(skips), dtype=x.dtype)
+                return real(x, counts_, ws, bs, skips)
+            return run
+
+        def timed_program(real):
+            def make(self, state):
+                program = real(self, state)
+
+                def run(batch):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    req_t0.append(t)
+                    res = program(batch)
+                    torch.cuda.synchronize()
+                    req_s.append(time.perf_counter() - t)
+                    return res
+                return run
+            return make
+
+        with wrapped(rc, "ragged_chain_fwd", recorded), \
+                wrapped(Runner, "_make_points_program", timed_program):
+            runner = Runner(hpts)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            expert_kernel.launches = rc.ragged_launches = 0
+            t0 = time.perf_counter()
+            written = runner.eval_points()
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            out["points_s"] = t_end - t0
+            # an image: its one request and its PLY writes
+            out["image_s"] = [round(b - a, 4) for a, b in
+                              zip(req_t0, req_t0[1:] + [t_end])]
+            k1r, k1_pts = rc.ragged_launches, expert_kernel.launches
+            out["points_peak_bytes"] = torch.cuda.max_memory_allocated()
+        md = runner.val_items[0]
+        n_rays = md.W * md.H
+        n_pts = n_rays * len(range(0, hpts.coarse_samples, 4))
+        per_call = trunner.POINTS_CALL_ROWS
+        want_calls = SCENE_VAL * -(-POINTS_N // per_call)
+        names = sorted(p.name for p in written)
+        want_names = sorted(
+            f"{i:03d}_coarse_pts_rgba{s}.ply" for i in range(SCENE_VAL)
+            for s in [""] + [f"_top_0_exp_{e}" for e in range(8)])
+        root = tmp / "points" / "0" / "eval_points"
+        sizes = [read_ply_points(root / "0" / f"000_coarse_pts_rgba_top_0_"
+                                 f"exp_{e}.ply")[0].shape[0] for e in range(8)]
+        total = read_ply_points(root / "0" / "000_coarse_pts_rgba.ply")[0]
+        first["counts"] = first["counts"].tolist()
+        out.update(points_per_image=int(total.shape[0]), k1r=k1r,
+                   rows_per_call=sorted(set(calls)), k1r_inputs=first,
+                   request_s=[round(x, 4) for x in req_s],
+                   expert_points=sizes)
+        log(f"  eval_points (no-drop, --image_pixel_batch_size 65536, "
+            f"--render_test_points_sample_skip 4, {SCENE_VAL} images): "
+            f"{len(names)} PLY files, {total.shape[0]} points an image "
+            f"(expected {n_pts}), per expert {sizes}; K1R launches {k1r} "
+            f"(expected {want_calls}), rows a launch {sorted(set(calls))}, "
+            f"the first call's rows an expert {first['counts']}, "
+            f"K1 {k1_pts}; request seconds {out['request_s']}, seconds an "
+            f"image with its PLY writes {out['image_s']}, "
+            f"{out['points_s']:.2f} s in all; max_memory_allocated "
+            f"{out['points_peak_bytes']} B")
+        if not (names == want_names and total.shape[0] == n_pts
+                and sum(sizes) == n_pts and sum(x > 0 for x in sizes) > 1
+                and np.isfinite(total).all() and k1r == want_calls
+                and calls == [per_call] * want_calls and k1_pts == 0):
+            raise AssertionError("eval_points failed its checks")
+
+        # its gates against a CPU run on the first rays of val image 0
+        rays = get_rays(get_ray_directions(
+            md.W, md.H, *md.intrinsics, hpts.center_pixels), md.c2w,
+            runner.near, runner.far, runner.ray_altitude_range
+        ).reshape(-1, 8)[:256]
+        gates = []
+        for dev, r in (("cuda", runner), ("cpu", Runner(
+                hp("cpu", ckpt_path=str(ckpt), moe_test_batch=False),
+                set_experiment_path=False, device="cpu"))):
+            r._with_gate_returns()
+            prog = r._make_points_program(r._load_eval_state())
+            res = prog({"rays": torch.from_numpy(rays).to(dev),
+                        "image_indices": torch.full(
+                            (len(rays),), float(md.image_index), device=dev)})
+            gates.append(res["moe_gates_coarse"].cpu().numpy())
+        agree = float(np.mean(gates[0] == gates[1]))
+        out["gate_agreement"] = agree
+        log(f"  gates of {gates[0].size} points (256 rays of val image 0) "
+            f"on the card against the CPU (bf16 both): {agree:.6f} equal "
+            f"(limit 0.995)")
+        if not agree >= 0.995:
+            raise AssertionError("eval_points' gates differ from the CPU's")
+
+        # eval_points with --moe_test_batch: one padded MoE call a request
+        hpad = hp("points_padded", ckpt_path=str(ckpt), moe_test_batch=True,
+                  render_test_points_image_num=1,
+                  render_test_points_sample_skip=4,
+                  image_pixel_batch_size=POINTS_PADDED_BATCH)
+        runner = Runner(hpad)
+        expert_kernel.launches = rc.ragged_launches = 0
+        t0 = time.perf_counter()
+        written = runner.eval_points()
+        torch.cuda.synchronize()
+        out["padded_s"] = time.perf_counter() - t0
+        k1_pad, k1r_pad = expert_kernel.launches, rc.ragged_launches
+        want_k1 = -(-n_rays // POINTS_PADDED_BATCH)
+        total = read_ply_points(tmp / "points_padded" / "0" / "eval_points"
+                                / "0" / "000_coarse_pts_rgba.ply")[0]
+        log(f"  eval_points --moe_test_batch ({POINTS_PADDED_BATCH}-ray "
+            f"requests, one image): {len(written)} files, "
+            f"{total.shape[0]} points, K1 {k1_pad} (expected {want_k1}), "
+            f"K1R {k1r_pad}, {out['padded_s']:.2f} s")
+        if not (len(written) == 9 and total.shape[0] == n_pts
+                and k1_pad == want_k1 and k1r_pad == 0):
+            raise AssertionError("padded eval_points failed its checks")
+
+        # eval_ckpt, a container round trip and --container_path eval
+        state = Runner(hp("ckpt_eval", ckpt_path=str(ckpt)),
+                       set_experiment_path=False).eval_ckpt()
+        n_params = sum(p.numel() for p in state.parameters())
+        want_n = sum(p.numel() for m in (model, bg) for p in m.parameters())
+        convert_to_container_moe.main(hp("pack", ckpt_path=str(ckpt),
+                                         container_out=str(tmp / "c")))
+        expert_kernel.launches = 0
+        means_c = Runner(hp("eval_c", container_path=str(tmp / "c"))
+                         ).eval_image()
+        k1_served += expert_kernel.launches
+        d = max(abs(means_c[k] - means[k]) for k in ("psnr", "ssim"))
+        log(f"  eval_ckpt: step {state.step}, {n_params} parameters "
+            f"(expected {want_n}); container eval_image psnr "
+            f"{means_c['psnr']:.4f} ssim {means_c['ssim']:.4f}, |d| against "
+            f"the checkpoint's {d:.3e} (limit 1e-6)")
+        if not (state.step == REF_ITERATION and n_params == want_n
+                and d <= 1e-6):
+            raise AssertionError("eval_ckpt or the container failed")
+    counts["K1R eval_points"] = k1r
+    counts["K1 eval_points padded"] = k1_pad
+    counts["K1 serving"] = k1_served
+    return out
+
+
+def points_path_kernel(peaks, inputs) -> dict:
+    """eval_points' K1R at the size and routing its path gave it: the rows
+    an expert of the first no-drop call and the model's expert weights
+    (serving_phase records them), on seeded inputs."""
+    counts_host = inputs["counts"]
+    n, m = sum(counts_host), inputs["ws"].shape[-1]
+    x = torch.empty(n, m, dtype=inputs["dtype"], device="cuda")
+    cg = torch.Generator(device="cuda").manual_seed(7)
+    for lo in range(0, n, 1 << 22):
+        x[lo:lo + (1 << 22)].normal_(generator=cg)
+    log(f"[kernels eval_points] K1R {inputs['dtype']}: N {n} rows, rows an "
+        f"expert {counts_host} (eval_points' first call), the model's "
+        f"expert weights {tuple(inputs['ws'].shape)}")
+    return k1r_at_rows(f"N{n} (eval_points' routing)", x, counts_host,
+                       inputs["ws"], inputs["bs"], inputs["skips"], peaks)
+
+
+def chunk_arithmetic() -> dict:
+    """The published runs' model chunks at 8 ranks (32,768 points, the
+    ranks' passes on JAX's global grid): chunks a rank and a pass, and how
+    many span ranks (parallel/chunks.py)."""
+    from switch_nerf_torch.parallel.chunks import RankGrid, plan
+    passes = {"Building coarse": 1024 * 256, "Building fine": 1024 * 512,
+              "Building bg coarse": 1024 * 128, "Building bg fine": 1024 * 256,
+              "Mission Bay coarse / fine": 1664 * 512}
+    out = {}
+    for name, points in passes.items():
+        cut = [plan(points, 32768, RankGrid(r, 8))[0] for r in range(8)]
+        out[name] = {"points a rank": points, "chunks a rank": len(cut[0]),
+                     "shared": sum(p.share is not None for c in cut
+                                   for p in c)}
+    log(f"[data_parallel] the published runs at 8 ranks, 32,768-point "
+        f"chunks: {out}")
+    if any(v["shared"] for v in out.values()):
+        raise AssertionError("a published run shares a chunk across ranks")
+    return out
+
+
 # ------------------------------------------- data parallel: 2 ranks ----
 DP_RANKS = 2
 DP_BATCH = 2048               # global: 1,024 a rank, 8,192's share of a card
@@ -2117,6 +2656,60 @@ def dp_worker(spec_path: str) -> int:
         out["dropfree_loss"] = float(m["all_loss"])
         if rank == 0:
             np.save(spec["grad_path"], flat(g).numpy())
+        del state, step, g
+
+    if "straddle" in spec:
+        # the published routing with a model chunk that spans the ranks:
+        # this rank's half of the fixed batch, its pieces routed with the
+        # other rank's (parallel/chunks.py); the dropped tokens, the
+        # averaged gradient, then the step's update. First the same step
+        # with each piece routed alone (the per-rank routing JAX's global
+        # routing replaced), to show the checks tell the two apart
+        from switch_nerf_torch.models import moe as tmoe
+        from switch_nerf_torch.parallel import chunks
+        state, step = dp_setup(spec["straddle"], "cuda:0")
+        share = DP_BATCH // world
+        batch = {k: v[rank * share:(rank + 1) * share]
+                 for k, v in dp_batch("cuda:0").items()}
+        shared = []
+
+        def tally(real):
+            def plan(*a, **k):
+                cut = real(*a, **k)
+                shared.append(sum(p.share is not None for p in cut[0]))
+                return cut
+            return plan
+        with drop_masks() as alone, wrapped(tmoe, "current_share",
+                                            lambda real: lambda: None):
+            m0, g0 = step.loss_and_grads(state, batch)
+        m0, g0 = step.average_across_ranks(m0, g0)
+        del g0
+        with wrapped(chunks, "plan", tally):
+            expert_kernel.launches = expert_kernel.bwd_launches = 0
+            with drop_masks() as routed:
+                m, g = step.loss_and_grads(state, batch)
+            m, g = step.average_across_ranks(m, g)
+            step_s = []
+            for _ in range(2):          # the update, then one more step
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m2 = step(state, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+            launches = {"K1": expert_kernel.launches,
+                        "K2": expert_kernel.bwd_launches}
+        if rank == 0:
+            np.save(spec["straddle_grad_path"], flat(g).numpy())
+        for tag, masks in (("routed", routed), ("alone", alone)):
+            np.save(f"{spec['straddle_drops']}_{tag}_{rank}.npy",
+                    np.concatenate(masks))
+        out["straddle"] = {"loss": float(m["all_loss"]),
+                           "gate_loss": float(m["gate_loss"]),
+                           "alone_loss": float(m0["all_loss"]),
+                           "alone_gate_loss": float(m0["gate_loss"]),
+                           "shared": shared, "launches": launches,
+                           "hash": param_hash(state), "step_s": step_s,
+                           "finite": float(m2["finite"])}
         del state, step, g
 
     if "eval" in spec:
@@ -2285,6 +2878,10 @@ def data_parallel_phase(counts: dict) -> dict:
         dropfree.moe_l_aux_wt = 0.0
         dropfree.use_sigma_noise = False
         dropfree.perturb = 0.0
+        straddle = building_train_hparams()     # the published routing
+        straddle.use_sigma_noise = False
+        straddle.perturb = 0.0
+        straddle.model_chunk_size = STRADDLE_CHUNK
         he = building_eval_hparams()
         he.dataset_path = str(tmp / "scene")
         he.ckpt_path = str(tmp / "exp" / "0" / "models" / str(DP_STEPS))
@@ -2305,6 +2902,9 @@ def data_parallel_phase(counts: dict) -> dict:
                   "backend": "gloo", "train": h, "resume": resumed,
                   "dropfree": dropfree, "eval": he2,
                   "grad_path": str(tmp / "grad.npy"),
+                  "straddle": straddle,
+                  "straddle_grad_path": str(tmp / "straddle_grad.npy"),
+                  "straddle_drops": str(tmp / "drops"),
                   "out": str(tmp / f"rank{r}.json")}
                  for r in range(DP_RANKS)]
         t0 = time.perf_counter()
@@ -2356,6 +2956,64 @@ def data_parallel_phase(counts: dict) -> dict:
             raise AssertionError("the 2-rank step disagrees with one "
                                  "process")
 
+        # the published routing with a chunk that spans the ranks against
+        # one process routing the whole batch
+        st = [o["straddle"] for o in outs]
+        state, step = dp_setup(straddle, "cuda")
+        with drop_masks() as one:
+            m1, g1 = step.loss_and_grads(state, dp_batch("cuda"))
+        one = np.concatenate(one)
+        sl1, sl2 = float(m1["all_loss"]), st[0]["loss"]
+        gl1 = float(m1["gate_loss"])
+        s_cos = cosine(torch.from_numpy(np.load(tmp / "straddle_grad.npy")),
+                       flat(g1))
+        del state, step, g1
+
+        def global_drops(tag):
+            # each rank's masks are its coarse pass then its fine pass; the
+            # global batch's are rank 0's coarse, rank 1's, then the fine
+            part = [np.load(f"{tmp / 'drops'}_{tag}_{r}.npy")
+                    for r in range(DP_RANKS)]
+            pc = per_rank * straddle.coarse_samples
+            if any(x.size != per_rank * (straddle.coarse_samples
+                                         + straddle.fine_samples)
+                   for x in part):
+                raise AssertionError("a rank routed another point count")
+            return np.concatenate([x[:pc] for x in part]
+                                  + [x[pc:] for x in part])
+        routed, alone = global_drops("routed"), global_drops("alone")
+        d_routed = int((routed != one).sum())
+        d_alone = int((alone != one).sum())
+        g_rel = abs(st[0]["gate_loss"] - gl1) / abs(gl1)
+        g_alone = abs(st[0]["alone_gate_loss"] - gl1) / abs(gl1)
+        log(f"  published routing, {STRADDLE_CHUNK}-point chunks: shared "
+            f"chunks per pass and rank {[x['shared'] for x in st]}; dropped "
+            f"tokens 1 process {int(one.sum())} of {one.size}, 2 ranks "
+            f"{int(routed.sum())}, tokens whose drop differs {d_routed} "
+            f"(limit 0); all_loss 2 ranks {sl2:.6f}, 1 process {sl1:.6f} "
+            f"(relative {abs(sl2 - sl1) / abs(sl1):.3e}, limit 1e-3), "
+            f"gate_loss 2 ranks {st[0]['gate_loss']:.9f}, 1 process "
+            f"{gl1:.9f} (relative {g_rel:.3e}, limit 1e-5); averaged "
+            f"gradient cosine {s_cos:.6f} (limit 0.999); K1, K2 per rank "
+            f"{[x['launches'] for x in st]}; parameter hashes after two "
+            f"steps {[x['hash'][:12] for x in st]}; seconds a step per rank "
+            f"{[[round(t, 4) for t in x['step_s']] for x in st]}")
+        log(f"  the same step with each rank's pieces routed alone: "
+            f"dropped {int(alone.sum())}, tokens whose drop differs from "
+            f"1 process {d_alone} (must be > 0), all_loss "
+            f"{st[0]['alone_loss']:.6f}, gate_loss relative {g_alone:.3e}")
+        if not (d_alone > 0 and one.sum() > 0):
+            raise AssertionError("the drop check cannot tell per-rank "
+                                 "routing from global routing")
+        if not (abs(sl2 - sl1) <= 1e-3 * abs(sl1) and s_cos >= 0.999
+                and d_routed == 0 and g_rel <= 1e-5
+                and st[0]["hash"] == st[1]["hash"]
+                and all(sum(x["shared"]) > 0 and x["finite"] == 1.0
+                        and x["launches"]["K1"] > 0
+                        and x["launches"]["K2"] > 0 for x in st)):
+            raise AssertionError("the straddling 2-rank step disagrees with "
+                                 "one process")
+
         # eval: the 2-rank files and means against one process's
         means1 = eval_image.main(he1)
         ev = [o["eval"] for o in outs]
@@ -2395,13 +3053,24 @@ def data_parallel_phase(counts: dict) -> dict:
     counts["K1 data-parallel"] = sum(l["K1"] for l in n)
     counts["K2 data-parallel"] = sum(l["K2"] for l in n)
     counts["K1R data-parallel"] = sum(e["K1R"] for e in ev)
+    counts["K1 straddle"] = sum(x["launches"]["K1"] for x in st)
+    counts["K2 straddle"] = sum(x["launches"]["K2"] for x in st)
     step_s = [float(np.mean(np.diff(t["t_end"][1:]))) for t in trains]
     return {"step_s": step_s, "rays_per_s": DP_BATCH / max(step_s),
             "allreduce": [o["allreduce"] for o in outs],
             "nccl_allreduce": nccl["allreduce"], "wall_s": wall,
             "write_s": [t["write_s"] for t in trains],
             "eval_s": [e["s"] for e in ev], "cosine": cos,
-            "loss_rel": abs(l2 - l1) / abs(l1)}
+            "loss_rel": abs(l2 - l1) / abs(l1),
+            "straddle": {"shared": [x["shared"] for x in st],
+                         "loss_rel": abs(sl2 - sl1) / abs(sl1),
+                         "gate_loss_rel": g_rel,
+                         "dropped": int(one.sum()),
+                         "drops_differ": d_routed,
+                         "alone_drops_differ": d_alone,
+                         "cosine": s_cos,
+                         "step_s": [x["step_s"] for x in st]},
+            "arithmetic": chunk_arithmetic()}
 
 
 def main() -> int:
@@ -2412,6 +3081,10 @@ def main() -> int:
         return dp_worker(sys.argv[2])
     if sys.argv[1:2] == ["--dp-cards"]:
         return scaling(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--points-unsplit"]:
+        from switch_nerf_torch.ops import _build
+        _build.build()
+        return points_unsplit()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2440,6 +3113,7 @@ def main() -> int:
     building["bungee_e"] = 4            # bungee.yaml with --moe_expert_num 4
     rows.update(ragged_kernel_phase(peaks, building))
     wide = wide_kernel_phase(peaks, {**building, "width": 512})
+    pts_rows = points_kernel_phase(peaks, building)
     nodrop_padded_phase(building)
     eval_counts = {}
     rays_per_s = slice_phase(h, eval_counts)
@@ -2450,6 +3124,9 @@ def main() -> int:
     train_runner = train_runner_phase(train["rays_per_s"])
     bungee = bungee_phase(counts)
     mission_bay = mission_bay_phase(counts)
+    serving = serving_phase(counts)
+    pts_rows["K1R eval_points"] = points_path_kernel(
+        peaks, serving.pop("k1r_inputs"))
     dp = data_parallel_phase(counts)
 
     meta = {
@@ -2473,11 +3150,14 @@ def main() -> int:
     }
     kernels = []
     for key, (kname, source, replaces) in meta.items():
-        # K1R / K2R: the Bungee training path's shape (fp32, E4)
+        # K1R / K2R: the Bungee training path's shape (fp32, E4); K1 also
+        # serves the converted checkpoint and its container (phase 10) at
+        # the same shape
         r = rows[key + " Bungee" if key.endswith("R") else key]
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[key],
+            "replaces": replaces,
+            "launches": counts[key] + counts.get(f"{key} serving", 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -2495,15 +3175,34 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # the data-parallel path's kernels at Building's shapes (every rank's
-    # launches: K1 and K2 training, K1R serving); the times are the kernel
-    # phase's at the same shapes
-    for key, row in (("K1", "K1"), ("K2", "K2"), ("K1R", "K1R Building")):
+    # launches: K1 and K2 training, with the step whose chunks span the
+    # ranks, and K1R serving); the times are the kernel phase's at the same
+    # shapes
+    for key, row, extra in (("K1", "K1", "K1 straddle"),
+                            ("K2", "K2", "K2 straddle"),
+                            ("K1R", "K1R Building", None)):
         kname, source, replaces = meta[key]
         r = rows[row]
         kernels.append({
             "name": f"{kname} (data-parallel, {DP_RANKS} ranks)",
             "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[f"{key} data-parallel"],
+            "launches": counts[f"{key} data-parallel"]
+            + (counts[extra] if extra else 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # eval_points (phase 10): K1R (no-drop) held and timed at its first
+    # call's rows and routing, K1 (--moe_test_batch) at its capacity
+    for key, row, count_key in (
+            ("K1R", "K1R eval_points", "K1R eval_points"),
+            ("K1", "K1 eval_points", "K1 eval_points padded")):
+        kname, source, replaces = meta[key]
+        r = pts_rows[row]
+        label = (f"eval_points, N={r['n']:,} a call" if key == "K1R"
+                 else "eval_points --moe_test_batch, C=262,144")
+        kernels.append({
+            "name": f"{kname} ({label})", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[count_key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -2527,6 +3226,26 @@ def main() -> int:
         f"all_loss relative {dp['loss_rel']:.3e}, gradient cosine "
         f"{dp['cosine']:.6f}; phase {dp['wall_s']:.1f} s wall for the 2-rank"
         f" workers, on {smi}")
+    log(f"[serving] converter {serving['convert_s']:.2f} s; eval_points "
+        f"{serving['points_per_image']} points an image, request seconds "
+        f"{serving['request_s']} ({POINTS_N} points, 65,536 rays a request; "
+        f"rays/s {[round(65536 / x, 1) for x in serving['request_s']]}), "
+        f"seconds an image with its PLY writes {serving['image_s']}, "
+        f"{serving['points_s']:.2f} s for {SCENE_VAL} images with the "
+        f"checkpoint load, max_memory_allocated "
+        f"{serving['points_peak_bytes']} B, "
+        f"K1R {serving['k1r']} launches of {serving['rows_per_call']} rows; "
+        f"gates equal to the CPU's {serving['gate_agreement']:.6f}; padded "
+        f"eval_points {serving['padded_s']:.2f} s, on {smi}")
+    log(f"[data_parallel] straddling chunk: {dp['straddle']}; published "
+        f"runs at 8 ranks: {dp['arithmetic']}")
+    for key in ("K1R eval_points", "K1R 64-bit offsets", "K1 eval_points"):
+        r = pts_rows[key]
+        log(f"[kernels eval_points] {key} (bf16): {r['ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3e} on {smi}")
     for key in ("K1R Building", "K2R Building"):
         r = rows[key]
         log(f"[kernels] {key} (bf16): {r['ms']:.4f} ms, plain "

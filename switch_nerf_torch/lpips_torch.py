@@ -13,8 +13,8 @@ npz layout (keys):
     <net>/lin<i>/kernel    [1, 1, c, 1]          (learned LPIPS weights)
 with <net> in {vgg, alex, squeeze}. Kernels are turned into OIHW once,
 when a weight set is prepared for a device (``prepare_weights``).
-Writing an npz (``write_weights_npz``) belongs to the converter script and
-waits for ROADMAP Queue A item 9.
+``write_weights_npz`` writes such an npz, layout-checked and with its
+provenance record, for ``python -m switch_nerf_torch.convert_lpips_weights``.
 """
 from __future__ import annotations
 
@@ -321,6 +321,31 @@ def net_checksum(w: Dict[str, np.ndarray]) -> str:
         h.update(str(arr.shape).encode("utf-8"))
         h.update(arr.tobytes())
     return h.hexdigest()
+
+
+def write_weights_npz(path, nets: Dict[str, Dict[str, np.ndarray]],
+                      meta: Dict[str, str]) -> str:
+    """Write a layout-validated weights npz with its provenance record:
+    `meta` (the converter's environment) plus each net's sha256, checked
+    again at every load. Returns the whole file's sha256 (the JAX
+    package's ``lpips_jax.write_weights_npz``)."""
+    out: Dict[str, np.ndarray] = {}
+    checksums = {}
+    for net, w in nets.items():
+        validate_net_weights(net, w, source="write_weights_npz input")
+        for k, v in w.items():
+            out[f"{net}/{k}"] = np.asarray(v, np.float32)
+        checksums[net] = net_checksum(w)
+    record = dict(meta, checksums=checksums, format=1)
+    out[PROVENANCE_KEY] = np.frombuffer(
+        json.dumps(record, sort_keys=True).encode("utf-8"), np.uint8)
+    np.savez(path, **out)
+    # np.savez appends '.npz' to a name without it: hash the file written
+    written = str(path)
+    if not written.endswith(".npz"):
+        written += ".npz"
+    with open(written, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
 
 
 def _provenance_from(data) -> Dict:

@@ -27,6 +27,7 @@ from switch_nerf_torch.ops.fused_dispatch import (
     fused_slot_map, fused_supported)
 from switch_nerf_torch.ops.routing import extract_critical
 from switch_nerf_torch.ops.sorting import sort_with_payloads
+from switch_nerf_torch.parallel.chunks import current_share
 
 
 class MoELayer(nn.Module):
@@ -79,9 +80,12 @@ class MoELayer(nn.Module):
         gin = gate_input if gate_input is not None else x
         logits = self.wg(gin.float() if self.fp32_gate else gin)
         gates = torch.softmax(logits.float(), dim=1)
+        # a data-parallel chunk that spans ranks routes over all of its
+        # tokens (parallel/chunks.py); None: over these
         plan, l_aux = extract_critical(gates, self.top_k,
                                        self.capacity_factor,
-                                       self.batch_prioritized_routing)
+                                       self.batch_prioritized_routing,
+                                       share=current_share())
         mode = self.train_dispatch if train else self.eval_dispatch
         if mode == "nodrop":
             y = self._nodrop_path(x, plan)

@@ -92,11 +92,20 @@ class RoutingPlan(NamedTuple):
 def extract_critical(gates: torch.Tensor, top_k: int,
                      capacity_factor: float = 1.0,
                      batch_prioritized_routing: bool = False,
-                     num_experts: Optional[int] = None):
+                     num_experts: Optional[int] = None, share=None):
     """Top-1 routing decision + load-balance loss.
 
     gates: [S, E] softmax probabilities (fp32). Returns (RoutingPlan, l_aux).
     argmax ties resolve to the first index, as in JAX.
+
+    share (a ``parallel.chunks.ChunkShare``): these S tokens are this
+    rank's part of a chunk of ``share.total`` tokens that spans ranks. The
+    holders exchange every token's expert and gate value, so each routes
+    the whole chunk as JAX does (capacity from its token count, the
+    batch-prioritized order over all of it) and keeps its own tokens'
+    locations. l_aux is this rank's term of the chunk's: its own gates'
+    sums against the chunk's counts over the chunk's S^2, so the holders'
+    terms (and their gradients) add up to the chunk's.
     """
     if top_k != 1:
         raise NotImplementedError("the port routes top-1 only (k > 1 waits)")
@@ -108,17 +117,30 @@ def extract_critical(gates: torch.Tensor, top_k: int,
     mask = torch.nn.functional.one_hot(indices[0].long(), e).to(torch.int32)
     gates_k = topk_vals.t().float()                                # [1, S]
 
-    l_aux = load_balance(gates, mask, num_experts)
+    if share is None:
+        total, lo, mask_all = s, 0, mask
+        importance = -torch.max(gates, dim=1).values
+        l_aux = load_balance(gates, mask, num_experts)
+    else:
+        total, lo = share.total, share.offset
+        both = share.gather(torch.stack([indices[0].float(),
+                                         gates_k[0].detach()]))    # [2, T]
+        mask_all = torch.nn.functional.one_hot(both[0].long(), e).to(
+            torch.int32)
+        importance = -both[1]
+        me = torch.sum(gates.float(), dim=0)
+        ce = torch.sum(mask_all.float(), dim=0)
+        l_aux = torch.sum(me * ce) * (num_experts / float(total * total))
 
     if batch_prioritized_routing:
-        importance = -torch.max(gates, dim=1).values
-        loc = compute_sorted_location(mask, importance)
+        loc = compute_sorted_location(mask_all, importance)
     else:
-        loc = cumsum_sub_one(mask)
-    locations = torch.sum(loc * mask, dim=1).to(torch.int32)[None]
+        loc = cumsum_sub_one(mask_all)
+    locations = torch.sum(loc * mask_all, dim=1).to(torch.int32)
+    locations = locations[lo:lo + s][None]
     counts = torch.sum(mask, dim=0).to(torch.int32)
 
-    capacity = compute_capacity(s, num_experts, top_k, capacity_factor)
+    capacity = compute_capacity(total, num_experts, top_k, capacity_factor)
     plan = RoutingPlan(indices=indices, locations=locations, gates=gates_k,
                        expert_counts=counts, capacity=capacity)
     return plan, l_aux

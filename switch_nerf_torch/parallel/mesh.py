@@ -1,8 +1,8 @@
 """What the port takes of the JAX package's ('data', 'expert') mesh.
 
 The port runs pure data parallelism (the reference's default): every rank
-holds the whole model, routes its own rays, and the gradients are averaged
-over the ranks. So ``--mesh_shape D`` or ``D 1`` with D the number of
+holds the whole model, routes its rays on the global batch's model
+chunks (``chunks.py``), and the gradients are averaged over the ranks. So ``--mesh_shape D`` or ``D 1`` with D the number of
 processes is accepted; expert parallelism (an 'expert' axis longer than 1,
 ``--expert_parallel``), expert-weight parallelism and ZeRO-1 optimizer
 sharding wait for ROADMAP Queue A item 8.

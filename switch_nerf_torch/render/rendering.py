@@ -39,6 +39,7 @@ from switch_nerf_torch.ops.sorting import sort_with_payloads
 from switch_nerf_torch.ops.volume import (
     depth2pts_outside, expand_and_perturb_z_vals, intersect_sphere,
     sample_pdf, volume_render)
+from switch_nerf_torch.parallel import chunks
 
 ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], bool],
                    Tuple[torch.Tensor, torch.Tensor]]
@@ -63,9 +64,11 @@ class RenderConfig:
 
 @dataclasses.dataclass(frozen=True)
 class _Pass:
-    """What one render call draws: train mode and its generator."""
+    """What one render call draws: train mode and its generator; `grid`
+    places this rank's rays in a data-parallel step's global batch."""
     train: bool = False
     generator: Optional[torch.Generator] = None
+    grid: Optional[chunks.RankGrid] = None
 
 
 def run_model_chunked(model_fn: ModelFn, points: torch.Tensor,
@@ -75,25 +78,42 @@ def run_model_chunked(model_fn: ModelFn, points: torch.Tensor,
 
     The chunking must match the JAX package's exactly: capacity and
     batch-prioritized routing are decided per chunk, so any other split
-    drops other tokens. In training with --use_sigma_noise each chunk gets
-    sigma_noise_std * N(0, 1) [chunk, 1] fp32. Returns (outputs [P, C],
-    moe_loss [n_chunks, L]).
+    drops other tokens. With `mode.grid` (a data-parallel train step) the
+    chunks lie on the global batch's grid (``parallel/chunks.py``): this
+    rank runs its piece of each, and a piece of a chunk that spans ranks
+    routes with the other holders. Its moe_loss rows are then scaled by
+    world * pieces / global chunks, so that the trainer's mean over them,
+    averaged over the ranks, is JAX's mean over the global chunks. In
+    training with --use_sigma_noise each call gets sigma_noise_std *
+    N(0, 1) [rows, 1] fp32. Returns (outputs [P, C], moe_loss [n_calls,
+    L]).
     """
     p = points.shape[0]
-    chunk = min(cfg.model_chunk_size, p)
+    if mode.grid is None:
+        chunk = min(cfg.model_chunk_size, p)
+        parts = [chunks.Piece(lo, min(lo + chunk, p), lo // chunk, None)
+                 for lo in range(0, p, chunk)]
+        scale = None
+    else:
+        parts, n_chunks = chunks.plan(p, cfg.model_chunk_size, mode.grid)
+        scale = mode.grid.world * len(parts) / n_chunks
     noise = mode.train and cfg.use_sigma_noise and cfg.sigma_noise_std > 0.0
     outs, losses = [], []
-    for start in range(0, p, chunk):
-        pts = points[start:start + chunk]
+    for piece in parts:
+        pts = points[piece.start:piece.stop]
         sigma_noise = None
         if noise:
             sigma_noise = cfg.sigma_noise_std * torch.randn(
                 (pts.shape[0], 1), generator=mode.generator,
                 dtype=torch.float32, device=pts.device)
-        out, moe_loss = model_fn(pts, sigma_noise, mode.train)
+        with chunks.sharing(piece.share):
+            out, moe_loss = model_fn(pts, sigma_noise, mode.train)
         outs.append(out)
         losses.append(moe_loss)
-    return torch.cat(outs, dim=0), torch.stack(losses)
+    moe_loss = torch.stack(losses)
+    if scale is not None and scale != 1.0:
+        moe_loss = moe_loss * scale
+    return torch.cat(outs, dim=0), moe_loss
 
 
 def _sort_merge(z: torch.Tensor, rgbs: torch.Tensor, sigmas: torch.Tensor,
@@ -175,14 +195,18 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
                 get_depth: bool = False,
                 get_bg_fg_rgb: bool = False, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                get_depth_variance: bool = False) -> Dict[str, torch.Tensor]:
+                get_depth_variance: bool = False,
+                grid: Optional[chunks.RankGrid] = None
+                ) -> Dict[str, torch.Tensor]:
     """rays: [N, 8] = [o, d, near, far]. Returns the JAX package's results
     dict (rgb_fine / depth_fine / depth_variance_fine / gate_loss_* / bg_*
     / fg_* ...). `generator` feeds every training draw (module docstring).
+    `grid`: the rays are this rank's share of a data-parallel step's
+    global batch (``run_model_chunked``).
 
     Needs fine samples (cfg.fine_samples > 0): the coarse-only render
     waits for a later slice."""
-    mode = _Pass(train, generator)
+    mode = _Pass(train, generator, grid)
     perturb = cfg.perturb if train else 0.0
     n_rays = rays.shape[0]
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]

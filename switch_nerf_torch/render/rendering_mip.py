@@ -34,6 +34,7 @@ import torch
 
 from switch_nerf_torch.ops.volume import (expand_and_perturb_z_vals,
                                           volume_render)
+from switch_nerf_torch.parallel import chunks
 from switch_nerf_torch.render.rendering import (ModelFn, RenderConfig, _Pass,
                                                 run_model_chunked)
 
@@ -160,14 +161,16 @@ def render_rays_mip(model_fn: ModelFn, rays: torch.Tensor,
                     generator: Optional[torch.Generator] = None,
                     get_depth: bool = False,
                     get_depth_variance: bool = False,
-                    draws: Optional[Mapping[str, torch.Tensor]] = None
+                    draws: Optional[Mapping[str, torch.Tensor]] = None,
+                    grid: Optional[chunks.RankGrid] = None
                     ) -> Dict[str, torch.Tensor]:
     """rays [N, 8] = (o, d, near, far); radii [N, 1]. Returns rgb_coarse,
     rgb_fine, gate_loss_coarse / _fine and, when asked, depth_* and
     depth_variance_* of the last pass. `generator` feeds every training
-    draw (module docstring); `draws` overrides any uniform draw by name."""
+    draw (module docstring); `draws` overrides any uniform draw by name;
+    `grid` as in ``render_rays``."""
     draws = draws or {}
-    mode = _Pass(train, generator)
+    mode = _Pass(train, generator, grid)
     perturb = cfg.perturb if train else 0.0
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     near, far = rays[:, 6:7], rays[:, 7:8]

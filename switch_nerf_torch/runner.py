@@ -43,13 +43,16 @@ Under ``torchrun`` the Runner is data-parallel (``parallel/``), one process
 per card: parameters replicated, --batch_size the global batch, each rank
 training on its share (the chunked datasets stride their rows, the other
 loops slice the global batch) and the gradients averaged over the ranks
-(``trainer.TrainStep``); each rank routes its own rays. Rank 0 picks the
+(``trainer.TrainStep``); the MoE layers route on the global batch's model
+chunks, as JAX does (``parallel/chunks.py``). Rank 0 picks the
 experiment dir and writes the logs, TensorBoard and checkpoints; SIGTERM
 is agreed every 10 steps, so every rank saves at the same step. In eval an
 image belongs to rank ``i % W``, which renders it whole, with the requests
-of one process, and writes its files; the metrics are gathered. Point
-export and the container/ckpt-only evals raise ``NotImplementedError``
-naming the ROADMAP Queue A item they wait for.
+of one process, and writes its files; the metrics are gathered.
+``eval_points`` / ``eval_points_nerf`` export per-expert point clouds
+(PLY) of the val images, ``eval_ckpt`` loads a checkpoint and counts its
+parameters, and every eval serves a packaged container
+(``container.py``) given --container_path instead of --ckpt_path.
 """
 from __future__ import annotations
 
@@ -89,11 +92,6 @@ from switch_nerf_torch.utils.meters import DictAverageMeter, allgather_json
 from switch_nerf_torch.utils.visualize import visualize_scalars
 
 
-def _waits(what: str, item: int, topic: str):
-    return NotImplementedError(
-        f"{what} waits for the port's {topic} (ROADMAP Queue A item {item})")
-
-
 def _install_term_latch() -> dict:
     """Latch SIGTERM so the train loop can finish its step, save a
     resumable checkpoint and return (a preempted job keeps its progress).
@@ -117,6 +115,10 @@ def _release_term_latch(latch: dict) -> None:
         signal.signal(signal.SIGTERM, latch["prev"])
         latch["installed"] = False
 
+
+# the most points of one no-drop model call of eval_points (its published
+# 65,536-ray requests hold 16.8M points a pass)
+POINTS_CALL_ROWS = 1 << 22
 
 # the chunked datasets: a cursor to save, a prefetch worker to stop
 _CHUNKED = (FilesystemDataset, BlockFilesystemDataset)
@@ -450,9 +452,16 @@ class Runner:
     # ------------------------------------------------------------- eval ---
     def _load_eval_state(self) -> TrainState:
         h = self.hparams
+        if h.ckpt_path is None and getattr(h, "container_path", None):
+            # a packaged container (container.py) carries its own model
+            # config and parameters; the state's step is 0, as JAX's
+            from switch_nerf_torch.container import load_container
+            self.nerf, self.bg_nerf, _ = load_container(
+                h.container_path, device=self.device)
+            self._eval_step = None
+            return create_train_state(h, self.nerf, self.bg_nerf,
+                                      device=self.device, for_training=False)
         if h.ckpt_path is None:
-            if getattr(h, "container_path", None):
-                raise _waits("--container_path eval", 9, "containers")
             raise ValueError("--ckpt_path (or --container_path) required "
                              "for eval")
         state = create_train_state(h, self.nerf, self.bg_nerf,
@@ -1280,11 +1289,251 @@ class Runner:
                     f.write(msg + "\n")
         return means
 
-    def eval_points(self):
-        raise _waits("Runner.eval_points", 9, "point export")
+    # ------------------------------------------------- point export ----
+    def _with_gate_returns(self) -> None:
+        """Rebuild the model with its MoE gate returns on (eval_points)."""
+        if not self.hparams.use_moe:
+            raise ValueError("eval_points needs a MoE model (--use_moe)")
+        self.hparams.moe_return_gates = True
+        self.nerf = get_nerf(self.hparams, self.appearance_count,
+                             device=self.device)
 
-    def eval_points_nerf(self):
-        raise _waits("Runner.eval_points_nerf", 9, "point export")
+    def eval_points(self) -> List[Path]:
+        """Scene decomposition: per-expert coloured point clouds of the
+        first --render_test_points_image_num val images (JAX
+        ``runner.py:1286``; the reference's eval_points.py with
+        --moe_return_gates --return_pts --return_pts_rgb
+        --return_pts_alpha). Returns the PLY files this rank wrote."""
+        self._with_gate_returns()
+        state = self._load_eval_state()
+        h = self.hparams
 
-    def eval_ckpt(self):
-        raise _waits("Runner.eval_ckpt", 9, "checkpoint-only eval")
+        def ray_sources():
+            for i in range(min(len(self.val_items),
+                               h.render_test_points_image_num)):
+                md = self.val_items[i]
+                directions = get_ray_directions(
+                    md.W, md.H, md.intrinsics[0], md.intrinsics[1],
+                    md.intrinsics[2], md.intrinsics[3], h.center_pixels)
+                yield lambda md=md, d=directions: (
+                    get_rays(d, md.c2w, self.near, self.far,
+                             self.ray_altitude_range).reshape(-1, 8),
+                    float(md.image_index))
+
+        return self._export_point_clouds(state, ray_sources())
+
+    def eval_points_nerf(self) -> List[Path]:
+        """eval_points over a classic-NeRF scene's val split (JAX
+        ``runner.py:1650``)."""
+        if self.data_type != "nerf":
+            raise ValueError("eval_points_nerf needs --data_type nerf")
+        self._with_gate_returns()
+        state = self._load_eval_state()
+
+        def ray_sources():
+            for i in range(min(len(self.val_set),
+                               self.hparams.render_test_points_image_num)):
+                yield lambda i=i: (self.val_set[i]["rays"].reshape(-1, 8),
+                                   float(self.val_set[i]["img_i"]))
+
+        return self._export_point_clouds(state, ray_sources())
+
+    def _make_points_program(self, state: TrainState) -> Callable:
+        """program(batch) -> per --render_test_points_typ ('coarse',
+        'fine'): the sample positions pts_{typ} [N, S, 3], their raw
+        colours pts_rgb_{typ}, alphas pts_alpha_{typ}, the composited
+        rgb_{typ} [N, 3] and the MoE gates moe_gates_{typ} [N, S, L, K]
+        (JAX ``runner.py:1320-1410``). The model is evaluated at the eval
+        protocol's coarse positions and, for 'fine', at the deterministic
+        inverse-CDF resample of the coarse weights.
+
+        With --moe_test_batch (padded dispatch) the model takes the whole
+        N x S point set in one call, as JAX's: that grouping sets the
+        capacity and so the drops. In no-drop dispatch (the default) every
+        token is routed alone, so calls of at most POINTS_CALL_ROWS points
+        give the same results; they bound the memory of the published
+        65,536-ray requests."""
+        from switch_nerf_torch.ops.volume import sample_pdf
+
+        h = self.hparams
+        model = state.model
+        typs = tuple(h.render_test_points_typ)
+        for t in typs:
+            if t not in ("coarse", "fine"):
+                raise ValueError(f"--render_test_points_typ {t!r} not in "
+                                 "('coarse', 'fine')")
+        if "fine" in typs and h.fine_samples <= 0:
+            raise ValueError("--render_test_points_typ fine requires "
+                             "fine_samples > 0")
+        rows = None if h.moe_test_batch else POINTS_CALL_ROWS
+
+        def apply(pts_in):
+            step = rows or len(pts_in)
+            outs = [model(pts_in[lo:lo + step], train=False)
+                    for lo in range(0, len(pts_in), step)]
+            out = torch.cat([o["outputs"] for o in outs])
+            gates = [o["extras"].get("moe_gates") for o in outs]
+            if not gates[0]:
+                return out, None
+            return out, torch.cat([torch.stack(g, dim=1) for g in gates])
+
+        def eval_at(z, d, image_indices, o):
+            bs, s = z.shape
+            xyz = o[:, None, :] + d[:, None, :] * z[..., None]
+            parts = [xyz.reshape(-1, 3)]
+            if h.use_mip:
+                # mip models take (mean, cov): a tiny fixed covariance
+                parts.append(torch.full((bs * s, 3), 1e-6,
+                                        dtype=torch.float32, device=z.device))
+            if h.pos_dir_dim > 0:
+                parts.append(torch.repeat_interleave(d, s, dim=0))
+            if h.appearance_dim > 0:
+                parts.append(torch.repeat_interleave(
+                    image_indices.float(), s)[:, None])
+            out, gates = apply(torch.cat(parts, -1).float())
+            res = out.reshape(bs, s, -1)
+            if gates is not None:                          # [bs*s, L, K]
+                gates = gates.reshape(bs, s, *gates.shape[1:])
+            return xyz, res[..., :3], res[..., 3], gates
+
+        def alpha_weights(z, sigma):
+            deltas = torch.cat([z[:, 1:] - z[:, :-1],
+                                torch.full_like(z[:, :1], 1e10)], -1)
+            alpha = 1.0 - torch.exp(-deltas * sigma)
+            t = torch.cumprod(torch.cat(
+                [torch.ones_like(alpha[:, :1]), 1.0 - alpha[:, :-1] + 1e-10],
+                -1), -1)
+            return alpha, alpha * t
+
+        def pack(out, typ, xyz, rgb, alpha, weights, gates):
+            out[f"pts_{typ}"] = xyz
+            out[f"pts_rgb_{typ}"] = rgb
+            out[f"pts_alpha_{typ}"] = alpha
+            out[f"rgb_{typ}"] = torch.sum(weights[..., None] * rgb, dim=1)
+            if gates is not None:
+                out[f"moe_gates_{typ}"] = gates
+
+        # JAX's jnp.linspace(0, 1, S) in float32, as XLA computes it:
+        # iota times the float32 reciprocal of S - 1, the last entry 1
+        steps = torch.ones(h.coarse_samples, dtype=torch.float32,
+                           device=self.device)
+        if h.coarse_samples > 1:
+            d_ = h.coarse_samples - 1
+            steps[:-1] = torch.arange(d_, dtype=torch.float32,
+                                      device=self.device) * float(
+                                          np.float32(1) / np.float32(d_))
+
+        @torch.no_grad()
+        def program(batch):
+            rays, img = batch["rays"], batch["image_indices"]
+            o, d = rays[:, 0:3], rays[:, 3:6]
+            near, far = rays[:, 6:7], rays[:, 7:8]
+            z = near + (far - near) * steps[None, :]
+            out: Dict[str, torch.Tensor] = {}
+            xyz, rgb, sigma, gates = eval_at(z, d, img, o)
+            alpha, weights = alpha_weights(z, sigma)
+            if "coarse" in typs:
+                pack(out, "coarse", xyz, rgb, alpha, weights, gates)
+            if "fine" in typs:
+                z_mid = 0.5 * (z[:, :-1] + z[:, 1:])
+                fine_z = sample_pdf(z_mid, weights[:, 1:-1], h.fine_samples,
+                                    det=True)
+                xyz_f, rgb_f, sigma_f, gates_f = eval_at(fine_z, d, img, o)
+                alpha_f, weights_f = alpha_weights(fine_z, sigma_f)
+                pack(out, "fine", xyz_f, rgb_f, alpha_f, weights_f, gates_f)
+            return out
+        return program
+
+    def _export_point_clouds(self, state: TrainState, ray_sources
+                             ) -> List[Path]:
+        """Per-point expert ids from the MoE gate returns -> the
+        all-points, per-expert and segmentation PLYs of each typ, in the
+        JAX package's file-name protocol (``runner.py:1412-1502``):
+        {i:03d}_{typ}_pts_rgba.ply, its _top_{k}_exp_{e} subsets and, with
+        --return_pts_class_seg, the _top_{k}_alpha[_exp_{e}] and
+        _top_{k}[_exp_{e}] segmentation sets (palette rows 1..; the plain
+        set's last sample painted with the ray's composited colour).
+
+        `ray_sources` yields, per image, a function giving (rays [N, 8],
+        image index). Data parallel: image i belongs to rank i % N, which
+        renders it whole and writes its files (``_owns``, as eval does;
+        JAX renders each image cooperatively over all its chips and its
+        owner writes)."""
+        from switch_nerf_torch.utils.ply import write_ply_points
+        from switch_nerf_torch.utils.visualize import voc_palette
+
+        h = self.hparams
+        skip = h.render_test_points_sample_skip
+        base_dir = (self.experiment_path or Path(".")) / "eval_points"
+        run_chunks = self._batched_collective_fn(
+            self._make_points_program(state))
+
+        written: List[Path] = []
+        for i, source in enumerate(ray_sources):
+            if not self._owns(i):
+                continue
+            rays, image_index = source()
+            out = run_chunks(rays, image_index)
+            out_dir = base_dir / str(i)
+            out_dir.mkdir(parents=True, exist_ok=True)
+
+            def _write(name, xyz, colors, sel=None):
+                if sel is not None:
+                    xyz, colors = xyz[sel], colors[sel]
+                write_ply_points(out_dir / name, xyz, colors)
+                written.append(out_dir / name)
+
+            for typ in h.render_test_points_typ:
+                sl = slice(None, None, skip)
+                pts = out[f"pts_{typ}"][:, sl]                  # [N, S', 3]
+                rgb = np.clip(out[f"pts_rgb_{typ}"][:, sl], 0, 1)
+                alpha = np.clip(out[f"pts_alpha_{typ}"][:, sl], 0, 1)
+                flat_pts = pts.reshape(-1, 3)
+                rgba = (np.concatenate([rgb, alpha[..., None]], -1)
+                        * 255).astype(np.uint8).reshape(-1, 4)
+                _write(f"{i:03d}_{typ}_pts_rgba.ply", flat_pts, rgba)
+                if f"moe_gates_{typ}" not in out:
+                    continue                 # dense model: all-points only
+                # the first MoE layer's gate slots [N, S', K]
+                moe_index = out[f"moe_gates_{typ}"][:, sl, 0, :]
+                for k in range(moe_index.shape[-1]):
+                    idx_k = moe_index[..., k].reshape(-1)
+                    for e in range(h.moe_expert_num):
+                        _write(f"{i:03d}_{typ}_pts_rgba_top_{k}_exp_{e}.ply",
+                               flat_pts, rgba, sel=idx_k == e)
+                if not h.return_pts_class_seg:
+                    continue
+                palette = voc_palette()[1:]
+                render_rgb_u8 = (np.clip(out[f"rgb_{typ}"], 0, 1)
+                                 * 255).astype(np.uint8)
+                for k in range(moe_index.shape[-1]):
+                    idx_k3 = moe_index[..., k]                  # [N, S']
+                    seg = palette[idx_k3.astype(np.int64) % palette.shape[0]]
+                    idx_flat = idx_k3.reshape(-1)
+                    seg_a = np.concatenate(
+                        [seg.reshape(-1, 3),
+                         (alpha.reshape(-1, 1) * 255).astype(np.uint8)], -1)
+                    _write(f"{i:03d}_{typ}_top_{k}_alpha.ply", flat_pts,
+                           seg_a)
+                    for e in range(h.moe_expert_num):
+                        _write(f"{i:03d}_{typ}_top_{k}_alpha_exp_{e}.ply",
+                               flat_pts, seg_a, sel=idx_flat == e)
+                    seg_p = seg.copy()
+                    seg_p[:, -1, :] = render_rgb_u8
+                    seg_p = seg_p.reshape(-1, 3)
+                    _write(f"{i:03d}_{typ}_top_{k}.ply", flat_pts, seg_p)
+                    for e in range(h.moe_expert_num):
+                        _write(f"{i:03d}_{typ}_top_{k}_exp_{e}.ply",
+                               flat_pts, seg_p, sel=idx_flat == e)
+                main_log(f"eval_points image {i} [{typ}]: "
+                         f"{flat_pts.shape[0]} points")
+        return written
+
+    def eval_ckpt(self) -> TrainState:
+        """Checkpoint sanity: load it and log its parameter count (JAX
+        ``runner.py:1670``)."""
+        state = self._load_eval_state()
+        n = count_parameters(state.parameters())
+        main_log(f"Checkpoint at step {int(state.step)}: {n / 1e6:.3f}M "
+                 "params")
+        return state

@@ -21,7 +21,7 @@ Block-NeRF Mission Bay (GZIP tfrecords, read without TensorFlow):
 
 Data-parallel over the 8 cards of a host, one process per card, with the
 published global batch (1,024 rays a card for Building, 1,664 for Mission
-Bay; each rank routes its own rays):
+Bay; the MoE layers route on the global batch's model chunks, as JAX's):
 
     torchrun --nproc_per_node=8 -m switch_nerf_torch.train \
         --config_file=configs/switch_nerf/building.yaml <the flags above> \

@@ -30,7 +30,7 @@ from torch import nn
 
 from switch_nerf_torch import resolve_device
 from switch_nerf_torch.models.moe import MoELayer
-from switch_nerf_torch.parallel import host
+from switch_nerf_torch.parallel import chunks, host
 from switch_nerf_torch.render.rendering import RenderConfig, render_rays
 from switch_nerf_torch.render.rendering_mip import render_rays_mip
 
@@ -319,18 +319,23 @@ class TrainStep:
                          if self.hparams.appearance_dim > 0 else None)
         bg_fn = (make_model_fn(state.bg_model)
                  if state.bg_model is not None else None)
+        # data parallel: the rays are this rank's share of the global
+        # batch, whose model chunks are JAX's (parallel/chunks.py)
+        world = host.world_size()
+        grid = chunks.RankGrid(host.rank(), world) if world > 1 else None
         with torch.enable_grad():
             if self.mip:
                 results = render_rays_mip(
                     make_model_fn(state.model), rays,
                     _as_tensor(batch["radii"], dev), image_indices,
                     self.render_cfg, train=True, generator=state.generator,
-                    get_depth_variance=True)
+                    get_depth_variance=True, grid=grid)
             else:
                 results = render_rays(
                     make_model_fn(state.model), bg_fn, rays, image_indices,
                     self.render_cfg, self.center, self.radius, train=True,
-                    generator=state.generator, get_depth_variance=True)
+                    generator=state.generator, get_depth_variance=True,
+                    grid=grid)
             metrics = compute_losses(results, rgbs, self.hparams,
                                      mip_or_cascade_coarse=self.mip)
             params = state.parameters()

@@ -19,13 +19,15 @@ config, every run starts from one JAX step-0 checkpoint:
     FilesystemDataset reuses it, and the ranks' strided shares of a chunk
     are its rows.
   * published flags (capacity factor 1.0, batch-prioritized routing,
-    l_aux weight 5e-4): each rank routes its own 32 rays, so the drop sets
-    and gate_loss differ from one process routing all 64. Measured over
-    the 3 steps: gate_loss (the mean of the ranks') 1.2551355, 1.2151227,
-    1.1922531 against one process's 1.2551320, 1.2151238, 1.1922535
-    (within 3e-6 relative); 75.00 % of the routed tokens dropped in
-    either (the step-0 gate sends nearly every token to one expert). The
-    ranks stay bit-equal and every metric finite.
+    l_aux weight 5e-4), 3 steps: a pass of 32 rays a rank holds 128
+    points, so the tiny config's 2,048-point model chunk is the global
+    256 points, half on each rank. The ranks route that chunk together,
+    as JAX routes its global chunk (parallel/chunks.py): the step-3
+    checkpoint within 1e-5 of each leaf's largest entry of JAX's
+    ``Runner.train`` and of the one-process port fed the same global
+    batches, and the ranks' dropped tokens those of one process.
+    (tests/test_torch_parallel_routing.py holds chunks inside a rank and
+    a mix of both.)
   * exact resume, perturb and sigma noise on (each rank its own
     generator): SIGTERM on rank 1 alone inside step 6; the ranks agree at
     step 10, save there and return; the resumed run, and one resumed from
@@ -132,7 +134,7 @@ def job(scene, jax_checkpoint, block_scene, tmp_path_factory):
         {"name": "filesystem", "kind": "train", "record": True,
          "h": drop_free(hp("filesystem", "filesystem"))},
         {"name": "published", "kind": "train", "drops": True,
-         "h": published(hp("published"))},
+         "record": True, "h": published(hp("published"))},
         {"name": "full", "kind": "train",
          "h": noisy(hp("full", **noisy_steps))},
         {"name": "killed", "kind": "train", "kill": (1, 6),
@@ -213,11 +215,12 @@ def same(a, b) -> bool:
 
 
 def assert_ranks_equal(outs):
-    a, b = outs
-    assert a["step"] == b["step"]
-    assert all(np.array_equal(x, y) for x, y in zip(a["params"],
-                                                    b["params"]))
-    assert same(a["metrics"], b["metrics"])
+    a = outs[0]
+    for b in outs[1:]:
+        assert a["step"] == b["step"]
+        assert all(np.array_equal(x, y) for x, y in zip(a["params"],
+                                                        b["params"]))
+        assert same(a["metrics"], b["metrics"])
 
 
 @pytest.mark.parametrize("dataset_type", ["memory", "filesystem"])
@@ -283,25 +286,60 @@ def test_drop_free_training_matches_one_process_and_jax(
     assert "iter 2 " in (dp_tmp / dataset_type / "0" / "log.txt").read_text()
 
 
-def test_published_flags_route_per_rank(job, scene, jax_checkpoint, tmp_path,
-                                        monkeypatch):
-    """Per-rank routing (module docstring): the ranks agree bit for bit,
-    every metric is finite, and gate_loss and the drop share differ from
-    one process's by what the docstring records."""
-    ranks, _ = job
-    outs = ranks.get("published")
+def run_references(batches, h1, hj, monkeypatch):
+    """The one-process port (its dropped tokens counted) and JAX's
+    Runner.train, each fed `batches`; returns the port's record."""
+    with monkeypatch.context() as m:
+        fed(m, trunner.MemoryDataset, batches)
+        one = train_on_rank(0, h1, drops=True)
+    with monkeypatch.context() as m:
+        m.setattr(native, "get_lib", lambda: None)
+        fed(m, jrunner.MemoryDataset, batches)
+        jrunner.Runner(hj).train()
+    return one
+
+
+def assert_routes_as_jax(outs, dp_exp, h1, hj, monkeypatch, what):
+    """The ranks' step-STEPS checkpoint against the one-process port's and
+    JAX's on the same global batches (every leaf within 1e-5 of its
+    largest entry), and the ranks' dropped tokens against one process's.
+    Returns (worst relative error vs JAX, drops)."""
     assert_ranks_equal(outs)
     assert all(np.isfinite(v) for m in outs[0]["metrics"] for v in m.values())
+    one = run_references(global_batches(outs), h1, hj, monkeypatch)
+    got, gextra = read_step(Path(dp_exp) / "0" / "models", STEPS)
+    mine, _ = read_step(Path(h1.exp_name) / "0" / "models", STEPS)
+    want, wextra = read_step(Path(hj.exp_name) / "0" / "models", STEPS)
+    w_one = assert_within(got, mine, 1e-5)
+    w_jax = assert_within(got, want, 1e-5)
+    drops = [sum(r["drops"][0] for r in outs), sum(r["drops"][1]
+                                                   for r in outs)]
+    g2 = [m["gate_loss"] for m in outs[0]["metrics"]]
+    g1 = [m["gate_loss"] for m in one["metrics"]]
+    print(f"{what}: {len(outs)} ranks vs 1 process {w_one:.2e}, vs JAX "
+          f"{w_jax:.2e} of the leaf's largest entry; gate_loss ranks {g2}, 1 process "
+          f"{g1}; dropped {drops[0]} of {drops[1]} (1 process "
+          f"{one['drops'][0]} of {one['drops'][1]})")
+    assert drops == list(one["drops"])
+    assert 0 < drops[0] < drops[1]
+    np.testing.assert_allclose(g2, g1, rtol=1e-5)
+    assert gextra["iteration"] == wextra["iteration"] == STEPS
+    return w_jax, drops
+
+
+def test_published_flags_route_per_rank(job, scene, jax_checkpoint, tmp_path,
+                                        monkeypatch):
+    """Named for the per-rank routing it once recorded; now the published
+    flags with a chunk that spans both ranks (module docstring) train what
+    JAX's Runner.train trains."""
+    ranks, dp_tmp = job
+    outs = ranks.get("published")
     h1 = published(mega_train_hparams(scene, tmp_path / "one", "memory"))
-    h1.ckpt_path, h1.train_iterations = str(jax_checkpoint), STEPS
-    one = train_on_rank(0, h1, drops=True)
-    two = [r["drops"] for r in outs]
-    share2 = sum(d[0] for d in two) / sum(d[1] for d in two)
-    share1 = one["drops"][0] / one["drops"][1]
-    g1, g2 = ([m["gate_loss"] for m in r["metrics"]] for r in (one, outs[0]))
-    print(f"gate_loss per step: 2 ranks {g2}, 1 process {g1}; dropped: 2 "
-          f"ranks {share2:.4f}, 1 process {share1:.4f}")
-    assert 0.0 < share1 < 1.0 and 0.0 < share2 < 1.0
+    hj = published(mega_train_hparams(scene, tmp_path / "jax", "memory"))
+    for h in (h1, hj):
+        h.ckpt_path, h.train_iterations = str(jax_checkpoint), STEPS
+    assert_routes_as_jax(outs, dp_tmp / "published", h1, hj, monkeypatch,
+                         "one spanning chunk")
 
 
 def test_exact_resume_with_sigterm_on_one_rank(job):

@@ -192,11 +192,13 @@ def test_runner_refusals(mega_dataset, checkpoint, tmp_path):
     runner = trunner.Runner(h, set_experiment_path=False, device="cpu")
     with pytest.raises(ValueError, match="--ckpt_path"):
         runner.eval_image()
-    h.container_path = "somewhere"
-    with pytest.raises(NotImplementedError, match="item 9"):
-        runner.eval_image()
-    for method, item in (("eval_points", 9), ("eval_ckpt", 9)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for method in ("eval_points", "eval_ckpt"):
+        with pytest.raises(ValueError, match="--ckpt_path"):
+            getattr(runner, method)()
+    # a container path is served (container.py), and must exist
+    h.container_path = str(tmp_path / "somewhere")
+    for method in ("eval_image", "eval_points", "eval_ckpt"):
+        with pytest.raises(FileNotFoundError, match="somewhere"):
             getattr(runner, method)()
 
     # the published Building training command (README's, without

@@ -311,3 +311,80 @@ def with_val_image(root):
     Image.fromarray(np.ascontiguousarray(img[:, ::-1])).save(
         root / "val" / "rgbs" / "005.jpg")
     return root
+
+
+def _reference_names(tree, moe: bool, prefix=()):
+    """(reference torch name, transposed?) for every leaf path of a flax
+    params tree: the inverse of scripts/convert_torch_ckpt.py's maps."""
+    for k, v in tree.items():
+        path = prefix + (k,)
+        if isinstance(v, dict):
+            yield from _reference_names(v, moe, path)
+            continue
+        *mods, leaf = path
+        if mods == ["embedding_a"]:
+            yield path, "embedding_a.weight", False
+        elif not moe:
+            name = mods[0]
+            if name.startswith("xyz_encoding_") and name[-1].isdigit():
+                name = f"xyz_encodings.{name.rsplit('_', 1)[1]}.0"
+            elif name == "dir_a_encoding":
+                name = "dir_a_encoding.0"
+            yield (path, f"{name}.{'weight' if leaf == 'kernel' else leaf}",
+                   leaf == "kernel")
+        else:
+            tag = mods[0][len("layer_"):]
+            if len(mods) == 1:                       # a LayerNorm tag
+                yield (path, f"layers.{tag}."
+                       f"{'weight' if leaf == 'scale' else 'bias'}", False)
+            elif mods[1] == "wg":
+                yield path, f"layers.{tag}.gates.0.wg.weight", True
+            elif mods[1] == "experts":
+                kind = "weights" if leaf[0] == "w" else "bias"
+                yield (path, f"layers.{tag}.experts.0.{kind}.{leaf[1:]}",
+                       False)
+            else:
+                kind, i = ("fcs", mods[1][2:]) if mods[1].startswith("fc") \
+                    else ("norms", mods[1][4:])
+                leaf_name = {"kernel": "weight", "scale": "weight"}.get(
+                    leaf, leaf)
+                yield (path, f"layers.{tag}.{kind}.{i}.{leaf_name}",
+                       leaf == "kernel")
+
+
+def write_reference_pt(h, appearance_count, path, seed=0, iteration=7):
+    """A reference-layout (MiZhenxing/Switch-NeRF) checkpoint of the
+    hparams' models with random weights drawn from `seed`: the DDP
+    ``module.`` prefix on the foreground's names, the dense background
+    NeRF as bg_model_state_dict. Returns the JAX params tree it holds."""
+    from switch_nerf_tpu.trainer import create_train_state
+    from switch_nerf_tpu.models import model_utils as jmu
+    bg = jmu.get_bg_nerf(h, appearance_count) if h.bg_nerf else None
+    state = create_train_state(jax.random.PRNGKey(0), h,
+                               jmu.get_nerf(h, appearance_count), bg)
+    rng = np.random.default_rng(seed)
+    params, ckpt = {}, {"iteration": iteration}
+    for part, key, prefix, moe in (
+            ("nerf", "model_state_dict", "module.", h.use_moe),
+            ("bg_nerf", "bg_model_state_dict", "", False)):
+        if part not in state.params:
+            continue
+        tree = jax.tree_util.tree_map(np.asarray, state.params[part])
+        sd, out = {}, {}
+        for leaf_path, name, transpose in _reference_names(tree, moe):
+            leaf = tree
+            for p in leaf_path:
+                leaf = leaf[p]
+            val = (rng.uniform(-1.0, 1.0, leaf.shape)
+                   / np.sqrt(leaf.shape[-2] if leaf.ndim > 1 else 4.0)
+                   ).astype(np.float32)
+            node = out
+            for p in leaf_path[:-1]:
+                node = node.setdefault(p, {})
+            node[leaf_path[-1]] = val
+            sd[prefix + name] = torch.from_numpy(
+                np.ascontiguousarray(val.T if transpose else val))
+        ckpt[key] = sd
+        params[part] = out
+    torch.save(ckpt, path)
+    return params
