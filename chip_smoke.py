@@ -162,6 +162,26 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      requests, one image); eval_ckpt (step and parameter count); a
      container written by convert_to_container_moe served with
      --container_path (the checkpoint's PSNR and SSIM within 1e-6)
+  11. orbax: the committed fixture tests/data/orbax_ep_fixture (a tiny
+     Building-graph train state, width 64, 2 experts, that JAX wrote on an
+     expert-sharded (4, 2) CPU mesh; tests/make_orbax_fixture.py) read by
+     checkpoints.load_checkpoint from its orbax directory and from its
+     msgpack twin, each served on the card (one 3,072-ray eval request,
+     K1 at the fixture's shape held against its plain version): the two
+     states' leaves and rgb bit-equal, finite. Prints the read seconds
+  12. expert parallelism at the published Building flags' full width:
+     K1 and K2 at a rank's shapes (E_loc 4 and 2 of 8 experts, C = the
+     expert axis x 4,096, bf16) against their plain versions (K2 twice,
+     bit-identical), timed against bound, plain and library; then 2 ranks
+     on the card over gloo with --expert_parallel --mesh_shape 1 2:
+     train.main 10 steps with a save at 5 and a resume from it (K1, K2 on
+     every chunk; the ranks' non-expert parameters hash-equal at each
+     save), the drop-free first step against one process (all_loss 1e-3,
+     the averaged gradient's cosine >= 0.999), and the token exchange:
+     its form (all_reduce of zero-filled buffers for CUDA tensors under
+     gloo) held equal to the other (all_to_all on CPU copies), its
+     milliseconds and bytes. `chip_smoke.py --dp-cards 4` adds NCCL runs
+     with --mesh_shape 1 4 and 2 2 beside the pure data-parallel one
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -1119,9 +1139,12 @@ def batch_digest(batch: dict) -> str:
 
 
 def param_hash(state) -> str:
+    """sha1 of the replicated parameters (under expert parallelism a
+    rank's block of experts is its own)."""
     h = hashlib.sha1()
     for p in state.parameters():
-        h.update(p.detach().float().cpu().numpy().tobytes())
+        if getattr(p, "expert_mesh", None) is None:
+            h.update(p.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -1138,6 +1161,7 @@ def run_training(h, dataset_cls=None, device=None) -> dict:
     from switch_nerf_torch.datasets.filesystem_dataset import \
         FilesystemDataset
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+    from switch_nerf_torch.parallel import experts as ep_ops
 
     dataset_cls = dataset_cls or FilesystemDataset
     rec = {"digests": [], "loss": [], "photo": [], "finite": [], "t_end": [],
@@ -1192,10 +1216,12 @@ def run_training(h, dataset_cls=None, device=None) -> dict:
             stack.enter_context(wrapped(owner, name, make))
         expert_kernel.launches = expert_kernel.bwd_launches = 0
         fused_dispatch.launches = fused_dispatch.bwd_launches = 0
+        ep_ops.STATS.update(exchanges=0, bytes=0, form=None)
         t0 = time.perf_counter()
         state = train.main(h, device=device)
         torch.cuda.synchronize()
         rec["wall_s"] = time.perf_counter() - t0
+        rec["exchange"] = dict(ep_ops.STATS)
         rec["launches"] = {"K1": expert_kernel.launches,
                            "K2": expert_kernel.bwd_launches,
                            "K3": fused_dispatch.launches,
@@ -2622,7 +2648,7 @@ def dp_worker(spec_path: str) -> int:
         device = None
     out = {"rank": rank, "backend": dist.get_backend()}
     keys = ("loss", "photo", "finite", "t_end", "launches", "step", "wall_s",
-            "hashes", "write_s", "digests")
+            "hashes", "write_s", "digests", "exchange")
     rec = run_training(spec["train"], device=device)
     out["train"] = {k: rec[k] for k in keys}
     if "resume" in spec:
@@ -2712,6 +2738,11 @@ def dp_worker(spec_path: str) -> int:
                            "finite": float(m2["finite"])}
         del state, step, g
 
+    if "ep_first" in spec:
+        out["ep_first"] = ep_first_step(spec, rank, world)
+    if "exchange" in spec:
+        out["exchange"] = exchange_check()
+
     if "eval" in spec:
         ragged_chain.ragged_launches = expert_kernel.launches = 0
         t0 = time.perf_counter()
@@ -2793,7 +2824,9 @@ def scaling(cards: int) -> int:
     """``chip_smoke.py --dp-cards N``: the published Building training
     data-parallel over N cards of one host (NCCL, one process a card,
     1,024 rays a card) against one card, on the runner phase's scene: 20
-    steps each, then eval_image (no-drop) over the N cards. Prints seconds
+    steps each, then eval_image (no-drop) over the N cards; then the same
+    N-card training expert-parallel (--mesh_shape 1 N and 2 N/2), with
+    the token exchange's form check, milliseconds and bytes. Prints seconds
     a step per rank, global train rays/s through Runner.train, the NCCL
     gradient all-reduce over N cards, the eval seconds; checks the ranks'
     parameter hashes, finite metrics and K1/K2 launches. Not part of the
@@ -2817,6 +2850,9 @@ def scaling(cards: int) -> int:
         for n in (1, cards):
             h = dp_train_hparams(tmp, 1024 * n, steps, window)
             h.exp_name = str(tmp / f"exp{n}")
+            if n == cards:
+                ep_runs = {f"{d}x{cards // d}": ep_hparams(h, d, cards // d)
+                           for d in (1, 2) if cards % (2 * d) == 0}
             he = building_eval_hparams()
             he.dataset_path = str(tmp / "scene")
             he.ckpt_path = str(tmp / f"exp{n}" / "0" / "models" / str(steps))
@@ -2849,9 +2885,44 @@ def scaling(cards: int) -> int:
             log(f"[scaling] {n} card(s): {results[n]} on {smi}")
             if not ok:
                 raise AssertionError(f"{n}-card run failed its checks")
+        for tag, he_ in ep_runs.items():
+            he_.exp_name = str(tmp / f"ep{tag}")
+            port = free_port()
+            t0 = time.perf_counter()
+            outs = run_workers([{
+                "rank": r, "world": cards, "local_rank": r, "port": port,
+                "backend": "nccl", "train": he_, "exchange": True,
+                "out": str(tmp / f"ep{tag}_{r}.json")}
+                for r in range(cards)], tmp)
+            wall = time.perf_counter() - t0
+            trains = [o["train"] for o in outs]
+            step_s = [float(np.mean(np.diff(t["t_end"][window:])))
+                      for t in trains]
+            chunks = 24 * steps
+            ok = (len({json.dumps(t["hashes"], sort_keys=True)
+                       for t in trains}) == 1
+                  and all(all(t["finite"]) and t["step"] == steps
+                          and t["launches"]["K1"] == t["launches"]["K2"]
+                          == chunks and t["exchange"]["exchanges"] > 0
+                          for t in trains)
+                  and all(o["backend"] == "nccl" and o["exchange"]["equal"]
+                          for o in outs))
+            results[f"ep {tag}"] = {
+                "step_s": step_s, "rays_per_s": 1024 * cards / max(step_s),
+                "exchange": [o["exchange"] for o in outs],
+                "train_exchanges": [t["exchange"] for t in trains],
+                "wall_s": wall, "ok": ok}
+            log(f"[scaling] {cards} cards, --expert_parallel --mesh_shape "
+                f"{tag.replace('x', ' ')}: {results[f'ep {tag}']} on {smi}")
+            if not ok:
+                raise AssertionError(f"the expert-parallel {tag} run failed "
+                                     "its checks")
     log(f"[scaling] global train rays/s {results[1]['rays_per_s']:.1f} on "
         f"1 card, {results[cards]['rays_per_s']:.1f} on {cards} "
-        f"({results[cards]['rays_per_s'] / results[1]['rays_per_s']:.3f}x)")
+        f"({results[cards]['rays_per_s'] / results[1]['rays_per_s']:.3f}x)"
+        + "".join(f"; expert-parallel {k[3:]} "
+                  f"{v['rays_per_s']:.1f}" for k, v in results.items()
+                  if str(k).startswith("ep ")))
     print(json.dumps({"scaling": results}))
     return 0
 
@@ -3073,6 +3144,325 @@ def data_parallel_phase(counts: dict) -> dict:
             "arithmetic": chunk_arithmetic()}
 
 
+EP_E_LOCAL = (4, 2)           # a rank's experts: 8 over an axis of 2 or 4
+
+
+def ep_kernel_phase(peaks, building) -> dict:
+    """K1 and K2 at an expert-parallel rank's shapes: E_loc of the 8
+    experts on [E_loc, E_axis x 4,096, 256] bf16 (the owner's rows of a
+    32,768-point chunk from each member of its expert group), against
+    their plain versions (K2 twice, bit-identical), timed against bound,
+    plain and library as kernel_phase does."""
+    from switch_nerf_torch.ops import expert_kernel
+
+    m, layers, skips = building["width"], building["layers"], building["skips"]
+    dtype = torch.bfloat16
+    gen = torch.Generator().manual_seed(12)
+    rows = {}
+    for e_loc in EP_E_LOCAL:
+        c = building["experts"] // e_loc * (building["chunk"]
+                                            // building["experts"])
+        log(f"[kernels EP] E_loc {e_loc} of {building['experts']}: K1, K2 "
+            f"at E{e_loc} C{c} M{m} L{layers} bf16")
+        ws, bs = chain_weights(e_loc, m, layers, dtype, gen)
+        x = torch.randn(e_loc, c, m, generator=gen).to("cuda", dtype)
+        g = torch.randn(e_loc, c, m, generator=gen).to("cuda", dtype)
+        err1 = check_close(f"K1 E{e_loc} C{c}",
+                           expert_kernel.expert_mlp_chain(x, ws, bs, skips),
+                           expert_kernel.expert_mlp_chain_plain(x, ws, bs,
+                                                                skips))
+        err2 = check_bwd(f"K2 E{e_loc} C{c}",
+                         expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g,
+                                                            skips),
+                         expert_kernel.expert_mlp_chain_bwd_plain(
+                             x, ws, bs, g, skips))
+        check_deterministic(f"K2 E{e_loc}", lambda: expert_kernel
+                            .expert_mlp_chain_bwd(x, ws, bs, g, skips))
+        flops = 2 * e_loc * c * m * m * layers
+        bound_ms, bound_by = chain_bound(flops, nbytes(x, ws, bs) + nbytes(x),
+                                         dtype, peaks)
+        t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain(
+                 x, ws, bs, skips)),
+             "plain_ms": cuda_ms(lambda: expert_kernel
+                                 .expert_mlp_chain_plain(x, ws, bs, skips)),
+             "library_ms": cuda_ms(lambda: bmm_chain(x, ws, bs, skips))}
+        rows[f"K1 E{e_loc}"] = dict(max_abs_err=err1, bound_ms=bound_ms,
+                                    bound_by=bound_by, e=e_loc, c=c, **t)
+        bflops = 2 * flops
+        out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
+        b_ms, b_by = chain_bound(bflops, nbytes(x, g, ws, bs) + out_bytes,
+                                 dtype, peaks)
+        leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
+        lib_out = bmm_chain(*leaves, skips)
+        t2 = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd(
+                  x, ws, bs, g, skips), iters=20),
+              "plain_ms": cuda_ms(lambda: expert_kernel
+                                  .expert_mlp_chain_bwd_plain(
+                                      x, ws, bs, g, skips), iters=20),
+              "library_ms": autograd_ms(lib_out, leaves, g)}
+        del lib_out
+        passes = device_ms_by_kernel(
+            lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips),
+            {"pass 1": "chain_bwd_sm90", "pass 2": "chain_dw_sm90"})
+        rows[f"K2 E{e_loc}"] = dict(max_abs_err=err2, bound_ms=b_ms,
+                                    bound_by=b_by, e=e_loc, c=c, **t2)
+        for key in (f"K1 E{e_loc}", f"K2 E{e_loc}"):
+            r = rows[key]
+            log(f"  {key} C{c}: kernel {r['ms']:.4f} ms "
+                f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), "
+                f"plain {r['plain_ms']:.4f} ms, library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
+        log(f"  K2 E{e_loc} profiled pass 1 {passes['pass 1']:.4f} ms, "
+            f"pass 2 (dW) {passes['pass 2']:.4f} ms")
+    return rows
+
+
+def orbax_phase(counts: dict) -> dict:
+    """Serve the committed orbax fixture on the card: phase 11 of the
+    module docstring. Returns its numbers."""
+    import gzip
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch import bridge
+    from switch_nerf_torch.checkpoints import load_checkpoint
+    from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+    from switch_nerf_torch.ops import expert_kernel
+    from switch_nerf_torch.profile_eval import SCENE, ray_batch
+    from switch_nerf_torch.trainer import (create_train_state,
+                                           make_eval_step,
+                                           render_config_from_hparams)
+
+    fx = Path(__file__).resolve().parent / "tests/data/orbax_ep_fixture"
+    h = Namespace(**json.loads((fx / "hparams.json").read_text()))
+    log(f"[orbax] {fx.name}: E{h.moe_expert_num} M"
+        f"{h.model['layers']['0']['out_ch']}, written by JAX on mesh "
+        f"{h.mesh_shape} (expert-sharded); served from orbax and from its "
+        "msgpack twin")
+    out, rgb, trees = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbax_") as tmp:
+        twin = Path(tmp) / "3"
+        twin.mkdir()
+        (twin / "state.msgpack").write_bytes(gzip.decompress(
+            (fx / "msgpack/3/state.msgpack.gz").read_bytes()))
+        (twin / "extra.json").write_bytes((fx / "msgpack/3/extra.json")
+                                          .read_bytes())
+        batch = ray_batch(3072, 5, "cuda")
+        for name, step_dir in (("orbax", fx / "orbax" / "3"),
+                               ("msgpack", twin)):
+            model = get_nerf(h, 8, device="cuda")
+            bg = get_bg_nerf(h, 8, device="cuda")
+            state = create_train_state(h, model, bg, device="cuda",
+                                       for_training=False)
+            t0 = time.perf_counter()
+            load_checkpoint(step_dir, state, restore_rng_states=False)
+            out[f"{name}_read_s"] = time.perf_counter() - t0
+            trees[name] = bridge.export_jax_train_state(state, state.rng)
+            step = make_eval_step(model, bg, h, render_config_from_hparams(h),
+                                  SCENE, device="cuda")
+            expert_kernel.launches = 0
+            res = step(batch)
+            torch.cuda.synchronize()
+            counts[f"K1 orbax {name}"] = expert_kernel.launches
+            rgb[name] = res["rgb_fine"].float().cpu()
+            if name == "orbax":
+                # K1 at the fixture's shape against its plain version
+                ws, bs = model.layer_0.experts.stacked(torch.float32)
+                gen = torch.Generator().manual_seed(3)
+                x = torch.randn(ws.shape[1], 512, ws.shape[2],
+                                generator=gen).to("cuda")
+                skips = model.layer_0.experts.skips
+                out["k1_err"] = check_close(
+                    "K1 fixture shape",
+                    expert_kernel.expert_mlp_chain(x, ws, bs, skips),
+                    expert_kernel.expert_mlp_chain_plain(x, ws, bs, skips))
+    same_tree = all(np.array_equal(np.asarray(a), np.asarray(b))
+                    for (pa, a), (pb, b) in zip(flat_leaves(trees["orbax"]),
+                                                flat_leaves(trees["msgpack"]))
+                    if pa == pb and pa != ("rng",)) and [
+        p for p, _ in flat_leaves(trees["orbax"])] == [
+        p for p, _ in flat_leaves(trees["msgpack"])]
+    out.update(rgb_equal=bool(torch.equal(rgb["orbax"], rgb["msgpack"])),
+               finite=bool(torch.isfinite(rgb["orbax"]).all()),
+               shape=list(rgb["orbax"].shape), same_tree=bool(same_tree),
+               k1=counts["K1 orbax orbax"])
+    log(f"  read seconds orbax {out['orbax_read_s']:.3f}, msgpack "
+        f"{out['msgpack_read_s']:.3f}; leaves equal {same_tree}; rgb "
+        f"{out['shape']} equal {out['rgb_equal']}, finite {out['finite']}; "
+        f"K1 launches {out['k1']}")
+    if not (out["rgb_equal"] and out["finite"] and same_tree
+            and out["shape"] == [3072, 3] and out["k1"] > 0):
+        raise AssertionError("the orbax fixture does not serve as its "
+                             "msgpack twin")
+    return out
+
+
+def ep_first_step(spec, rank: int, world: int) -> dict:
+    """The drop-free first step under expert parallelism: this rank's
+    half of the fixed batch; the averaged gradient with the experts'
+    gathered whole (rank 0 saves it)."""
+    from switch_nerf_torch import parallel
+    from switch_nerf_torch.ops import expert_kernel
+    from switch_nerf_torch.parallel import experts as ep_ops
+    hp = spec["ep_first"]
+    parallel.setup_mesh(hp, world, rank)
+    state, step = dp_setup(hp, "cuda:0")
+    share = DP_BATCH // world
+    batch = {k: v[rank * share:(rank + 1) * share]
+             for k, v in dp_batch("cuda:0").items()}
+    expert_kernel.launches = expert_kernel.bwd_launches = 0
+    m, g = step.loss_and_grads(state, batch)
+    m, g = step.average_across_ranks(m, g, state)
+    whole = [ep_ops.gather_whole([gi], p.expert_mesh)[0]
+             if getattr(p, "expert_mesh", None) is not None else gi
+             for p, gi in zip(state.parameters(), g)]
+    if rank == 0:
+        np.save(spec["ep_grad_path"], flat(whole).numpy())
+    return {"loss": float(m["all_loss"]),
+            "local_experts": [tuple(p.shape) for p in state.parameters()
+                              if getattr(p, "expert_mesh", None)
+                              is not None][:1],
+            "launches": {"K1": expert_kernel.launches,
+                         "K2": expert_kernel.bwd_launches}}
+
+
+def exchange_check() -> dict:
+    """The token exchange of the current expert-parallel mesh on a
+    [8, 4,096, 256] bf16 dispatch buffer: the form the backend and device
+    pick held bit-equal to the other form (gloo on CUDA tensors: the
+    all_to_all on CPU copies; NCCL: the zero-filled all_reduce), then its
+    milliseconds (median of 10) and the bytes a rank sends."""
+    from switch_nerf_torch.parallel import experts as ep_ops
+    from switch_nerf_torch.parallel import mesh as mesh_mod
+    mesh = mesh_mod.current()
+    gen = torch.Generator().manual_seed(mesh.rank)
+    x = torch.randn(8, 4096, 256, generator=gen).to("cuda", torch.bfloat16)
+    caps = [4096] * mesh.expert
+    form = ep_ops.form(x)
+    y = ep_ops._to_owners(x, mesh, caps)
+    if form == "all_reduce":
+        other, y2 = "all_to_all (CPU copies)", ep_ops._to_owners(
+            x.cpu(), mesh, caps)
+    else:
+        other, y2 = "all_reduce", ep_ops._to_owners(x, mesh, caps,
+                                                    how="all_reduce")
+    equal = bool(torch.equal(y.cpu(), y2.cpu()))
+    before = ep_ops.STATS["bytes"]
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ep_ops._to_owners(x, mesh, caps)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"form": form, "other": other, "equal": equal,
+            "ms": 1e3 * float(np.median(times)),
+            "bytes": (ep_ops.STATS["bytes"] - before) // 10}
+
+
+def ep_hparams(h, d: int, e: int):
+    """`h` under expert parallelism on a (d, e) mesh."""
+    h = copy.copy(h)
+    h.no_expert_parallel = False
+    h.mesh_shape = [d, e]
+    return h
+
+
+def expert_parallel_phase(counts: dict) -> dict:
+    """Train Building expert-parallel on the card: phase 12 of the module
+    docstring (the 2 gloo ranks). Returns its numbers."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch.profile_eval import building_train_hparams
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
+        tmp = Path(tmp)
+        make_scene(tmp / "scene", seed=0)
+        h = ep_hparams(dp_train_hparams(tmp, DP_BATCH, DP_STEPS, DP_SAVE),
+                       1, DP_RANKS)
+        resumed = copy.copy(h)
+        resumed.exp_name = str(tmp / "resumed")
+        resumed.ckpt_path = str(tmp / "exp" / "0" / "models" / str(DP_SAVE))
+        dropfree = building_train_hparams()
+        dropfree.moe_capacity_factor = float(dropfree.moe_expert_num)
+        dropfree.moe_l_aux_wt = 0.0
+        dropfree.use_sigma_noise = False
+        dropfree.perturb = 0.0
+        per_rank = DP_BATCH // DP_RANKS
+        chunks = (-(-per_rank * h.coarse_samples // h.model_chunk_size)
+                  + -(-per_rank * h.fine_samples // h.model_chunk_size))
+        log(f"[expert_parallel] {DP_RANKS} ranks on one card over gloo, "
+            f"--expert_parallel --mesh_shape 1 {DP_RANKS}: train.main on the"
+            f" synthetic scene, {DP_STEPS} steps of {DP_BATCH} rays, a save "
+            f"at {DP_SAVE} and a resume from it; the drop-free first step; "
+            "the token exchange")
+        torch.cuda.empty_cache()
+        port = free_port()
+        specs = [{"rank": r, "world": DP_RANKS, "port": port,
+                  "backend": "gloo", "train": h, "resume": resumed,
+                  "ep_first": ep_hparams(dropfree, 1, DP_RANKS),
+                  "ep_grad_path": str(tmp / "ep_grad.npy"),
+                  "exchange": True, "out": str(tmp / f"ep{r}.json")}
+                 for r in range(DP_RANKS)]
+        t0 = time.perf_counter()
+        outs = run_workers(specs, tmp)
+        wall = time.perf_counter() - t0
+        trains = [o["train"] for o in outs]
+        n = [t["launches"] for t in trains]
+        hashes = [t["hashes"] for t in trains]
+        log(f"  launches per rank {n} (expected K1, K2 {chunks * DP_STEPS} "
+            f"each); exchanges per rank "
+            f"{[t['exchange'] for t in trains]}; non-expert parameter "
+            f"hashes at the saves {hashes}")
+        if not all(t["step"] == DP_STEPS and l["K1"] == l["K2"]
+                   == chunks * DP_STEPS and l["K3"] == l["K4"] == 0
+                   and t["exchange"]["exchanges"] > 0
+                   for t, l in zip(trains, n)):
+            raise AssertionError("an expert-parallel rank did not run K1 "
+                                 "and K2 on every chunk of every step")
+        if not (hashes[0] == hashes[1]
+                and sorted(map(int, hashes[0])) == [DP_SAVE, DP_STEPS]
+                and all(all(t["finite"]) for t in trains)):
+            raise AssertionError("the ranks' replicated parameters differ "
+                                 "or a metric is not finite")
+        rel = [[abs(a - b) / abs(b) for a, b in zip(
+            o["resume"]["loss"], o["train"]["loss"][DP_SAVE:])]
+            for o in outs]
+        if not all(r_[0] <= 1e-3 and o["resume"]["digests"]
+                   == o["train"]["digests"][DP_SAVE:]
+                   for r_, o in zip(rel, outs)):
+            raise AssertionError("the expert-parallel resume does not "
+                                 "repeat the run")
+        state, step = dp_setup(dropfree, "cuda")
+        m1, g1 = step.loss_and_grads(state, dp_batch("cuda"))
+        l1, l2 = float(m1["all_loss"]), outs[0]["ep_first"]["loss"]
+        cos = cosine(torch.from_numpy(np.load(tmp / "ep_grad.npy")),
+                     flat(g1))
+        del state, step, g1
+        ex = [o["exchange"] for o in outs]
+        log(f"  drop-free first step: all_loss 2 ranks {l2:.6f}, 1 process "
+            f"{l1:.6f} (relative {abs(l2 - l1) / abs(l1):.3e}, limit 1e-3);"
+            f" averaged gradient (experts gathered) cosine {cos:.6f} (limit "
+            f"0.999); local experts {outs[0]['ep_first']['local_experts']}; "
+            f"exchange {ex}; resume loss relative "
+            f"{[[f'{x:.2e}' for x in r_] for r_ in rel]}")
+        if not (abs(l2 - l1) <= 1e-3 * abs(l1) and cos >= 0.999
+                and outs[1]["ep_first"]["loss"] == l2
+                and all(e["equal"] for e in ex)):
+            raise AssertionError("the expert-parallel step disagrees with "
+                                 "one process, or the exchange forms differ")
+    counts["K1 expert-parallel"] = sum(l["K1"] for l in n)
+    counts["K2 expert-parallel"] = sum(l["K2"] for l in n)
+    step_s = [float(np.mean(np.diff(t["t_end"][1:]))) for t in trains]
+    return {"step_s": step_s, "rays_per_s": DP_BATCH / max(step_s),
+            "exchange": ex, "train_exchanges": [t["exchange"]
+                                                for t in trains],
+            "loss_rel": abs(l2 - l1) / abs(l1), "cosine": cos,
+            "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3114,6 +3504,7 @@ def main() -> int:
     rows.update(ragged_kernel_phase(peaks, building))
     wide = wide_kernel_phase(peaks, {**building, "width": 512})
     pts_rows = points_kernel_phase(peaks, building)
+    ep_rows = ep_kernel_phase(peaks, building)
     nodrop_padded_phase(building)
     eval_counts = {}
     rays_per_s = slice_phase(h, eval_counts)
@@ -3128,6 +3519,8 @@ def main() -> int:
     pts_rows["K1R eval_points"] = points_path_kernel(
         peaks, serving.pop("k1r_inputs"))
     dp = data_parallel_phase(counts)
+    orbax = orbax_phase(counts)
+    ep = expert_parallel_phase(counts)
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -3157,7 +3550,9 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": counts[key] + counts.get(f"{key} serving", 0),
+            "launches": counts[key] + counts.get(f"{key} serving", 0)
+            + counts.get(f"{key} orbax orbax", 0)
+            + counts.get(f"{key} orbax msgpack", 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -3188,6 +3583,19 @@ def main() -> int:
             "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[f"{key} data-parallel"]
             + (counts[extra] if extra else 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the expert-parallel path's K1 and K2 (phase 12): a rank's experts
+    # (E_loc 4 of 8) on its expert group's rows, C 8,192
+    e_loc = EP_E_LOCAL[0]
+    for key in ("K1", "K2"):
+        kname, source, replaces = meta[key]
+        r = ep_rows[f"{key} E{e_loc}"]
+        kernels.append({
+            "name": f"{kname} (expert-parallel, E_loc {e_loc}, C {r['c']:,})",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[f"{key} expert-parallel"],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -3237,6 +3645,27 @@ def main() -> int:
         f"K1R {serving['k1r']} launches of {serving['rows_per_call']} rows; "
         f"gates equal to the CPU's {serving['gate_agreement']:.6f}; padded "
         f"eval_points {serving['padded_s']:.2f} s, on {smi}")
+    log(f"[orbax] fixture read seconds orbax {orbax['orbax_read_s']:.3f},"
+        f" msgpack twin {orbax['msgpack_read_s']:.3f}; served rgb equal "
+        f"{orbax['rgb_equal']}, on {smi}")
+    log(f"[expert_parallel] {DP_RANKS} ranks on one card over gloo, mesh "
+        f"(1, {DP_RANKS}): seconds a step per rank "
+        f"{[round(x, 4) for x in ep['step_s']]}, train rays/s through "
+        f"Runner.train {ep['rays_per_s']:.1f} (global, {DP_BATCH} a step; "
+        f"pure data parallel {dp['rays_per_s']:.1f}); exchange of an "
+        f"[8, 4096, 256] bf16 buffer {[round(x['ms'], 3) for x in ep['exchange']]}"
+        f" ms, {ep['exchange'][0]['bytes']} B a rank, form "
+        f"{ep['exchange'][0]['form']} (equal to {ep['exchange'][0]['other']}"
+        f": {ep['exchange'][0]['equal']}); exchanges in the run "
+        f"{ep['train_exchanges']}; drop-free first step all_loss relative "
+        f"{ep['loss_rel']:.3e}, cosine {ep['cosine']:.6f}; phase "
+        f"{ep['wall_s']:.1f} s wall, on {smi}")
+    for key, r in ep_rows.items():
+        log(f"[kernels EP] {key} C{r['c']} (bf16): {r['ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3e} on {smi}")
     log(f"[data_parallel] straddling chunk: {dp['straddle']}; published "
         f"runs at 8 ranks: {dp['arithmetic']}")
     for key in ("K1R eval_points", "K1R 64-bit offsets", "K1 eval_points"):

@@ -21,6 +21,15 @@ convert_torch_ckpt.py`` maps the reference's torch layout to JAX.)
 train-state tree (step, params, optax's Adam and schedule state, optax
 MultiSteps' window, the PRNG key) to and from the port's
 ``trainer.TrainState``; ``checkpoints.py`` reads and writes it.
+
+Under expert parallelism a rank's ExpertMLP parameters are its block of
+experts (``models/experts.localize`` tags them with the mesh). The tree
+stays the whole one: a load keeps the rank's block of each expert leaf
+(``local_tree`` does the same to a tree of numpy arrays), an export
+gathers the blocks from the expert group (a collective: every rank
+exports, in the same order), and ``whole_tree`` joins the ranks' local
+trees. An expert leaf is one under ``experts`` with the experts as its
+leading dimension, as JAX's ``parallel/mesh.py:expert_leaf_spec`` says.
 """
 from __future__ import annotations
 
@@ -31,10 +40,11 @@ import torch
 from torch import nn
 
 from switch_nerf_torch.models.common import Embedding, LayerNorm, TorchLinear
+from switch_nerf_torch.parallel.experts import gather_whole
 
 __all__ = ["load_jax_params", "load_jax_state", "export_jax_params",
-           "export_jax_state", "load_jax_train_state",
-           "export_jax_train_state"]
+           "export_jax_state", "jax_state_shapes", "load_jax_train_state",
+           "export_jax_train_state", "local_tree", "whole_tree"]
 
 
 def _host(val) -> np.ndarray:
@@ -65,6 +75,23 @@ def _torch_name(path: tuple):
     return ".".join(path), False
 
 
+def _local(arr: np.ndarray, p) -> np.ndarray:
+    """The block of a whole expert leaf that parameter `p` holds (an
+    expert-parallel parameter), else `arr`."""
+    mesh = getattr(p, "expert_mesh", None)
+    if mesh is None:
+        return arr
+    lo, hi = mesh.block(arr.shape[0])
+    return arr[lo:hi]
+
+
+def _whole(t: torch.Tensor, p) -> torch.Tensor:
+    """The whole of a tensor shaped like parameter `p`: gathered from the
+    expert group for an expert-parallel parameter."""
+    mesh = getattr(p, "expert_mesh", None)
+    return t if mesh is None else gather_whole([t], mesh)[0]
+
+
 def load_jax_params(module: nn.Module, tree: Mapping) -> None:
     """Copy every leaf of a flax parameter tree into `module`, in place."""
     params = dict(module.named_parameters())
@@ -77,6 +104,7 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> None:
         if transpose:
             arr = arr.T
         p = params[name]
+        arr = _local(arr, p)
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != port "
                              f"{name} {tuple(p.shape)}")
@@ -126,18 +154,22 @@ def _flax_leaves(module: nn.Module) -> List[Tuple[tuple, nn.Parameter]]:
     return out
 
 
-def _to_flax(t: torch.Tensor, path: tuple) -> np.ndarray:
-    """A tensor shaped like the parameter at `path`, in flax layout."""
+def _to_flax(t: torch.Tensor, path: tuple, p=None) -> np.ndarray:
+    """A tensor shaped like the parameter `p` at `path`, in flax layout
+    (whole: gathered when `p` is expert-parallel)."""
+    if p is not None:
+        t = _whole(t.detach(), p)
     arr = t.detach().float().cpu().numpy()
     return np.ascontiguousarray(arr.T if path[-1] == "kernel" else arr)
 
 
 def _from_flax(arr, path: tuple, like: torch.Tensor) -> torch.Tensor:
     """A flax-layout array as a tensor shaped, typed and placed like the
-    parameter `like` at `path`."""
+    parameter `like` at `path` (its block, when expert-parallel)."""
     arr = np.asarray(arr)
     if path[-1] == "kernel":
         arr = arr.T
+    arr = _local(arr, like)
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != port "
                          f"{tuple(like.shape)}")
@@ -159,7 +191,7 @@ def _nest(pairs) -> Dict:
 def export_jax_params(module: nn.Module) -> Dict:
     """The module's parameters as a flax-layout nested dict of fp32 numpy
     arrays (Linear weights transposed back to [in, out])."""
-    return _nest((path, _to_flax(p, path))
+    return _nest((path, _to_flax(p, path, p))
                  for path, p in _flax_leaves(module))
 
 
@@ -170,6 +202,67 @@ def export_jax_state(model: nn.Module, bg_model: Optional[nn.Module]) -> Dict:
     if bg_model is not None:
         tree["bg_nerf"] = export_jax_params(bg_model)
     return tree
+
+
+def _whole_shape(p, path: tuple) -> tuple:
+    shape = tuple(p.shape)
+    mesh = getattr(p, "expert_mesh", None)
+    if mesh is not None:
+        shape = (shape[0] * mesh.expert,) + shape[1:]
+    return shape[::-1] if path[-1] == "kernel" else shape
+
+
+def jax_state_shapes(model: nn.Module, bg_model: Optional[nn.Module]
+                     ) -> Dict:
+    """``export_jax_state``'s tree with every leaf a read-only fp32 array
+    of zeros of the leaf's whole shape, without a collective (the
+    checkpoints' architecture fingerprint)."""
+    tree = {}
+    for key, mod in (("nerf", model), ("bg_nerf", bg_model)):
+        if mod is not None:
+            tree[key] = _nest(
+                (path, np.broadcast_to(np.float32(0), _whole_shape(p, path)))
+                for path, p in _flax_leaves(mod))
+    return tree
+
+
+def _is_expert_leaf(path: tuple, arr, num_experts: int) -> bool:
+    return ("experts" in path[:-1] and np.ndim(arr) >= 1
+            and np.shape(arr)[0] == num_experts)
+
+
+def _map_expert_leaves(tree, fn, num_experts: int, path=()):
+    if isinstance(tree, Mapping):
+        return {k: _map_expert_leaves(v, fn, num_experts, path + (str(k),))
+                for k, v in tree.items()}
+    return fn(tree) if _is_expert_leaf(path, tree, num_experts) else tree
+
+
+def local_tree(tree: Mapping, index: int, size: int, num_experts: int
+               ) -> Dict:
+    """A train-state (or parameter) tree with every expert leaf (its
+    moments and accumulated gradients too) cut to the block of experts
+    that member `index` of an expert axis of `size` holds."""
+    local = num_experts // size
+    return _map_expert_leaves(
+        tree, lambda a: a[index * local:(index + 1) * local], num_experts)
+
+
+def whole_tree(trees: List[Mapping], num_experts: int) -> Dict:
+    """The members' local trees (by expert index) joined into the whole
+    one: expert leaves concatenated along the experts, the rest taken
+    from member 0."""
+    local = num_experts // len(trees)
+
+    def join(path, nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: join(path + (str(k),), [n[k] for n in nodes])
+                    for k in nodes[0]}
+        if _is_expert_leaf(path, nodes[0], local):
+            return (torch.cat(list(nodes)) if torch.is_tensor(nodes[0])
+                    else np.concatenate(nodes))
+        return nodes[0]
+    return join((), list(trees))
 
 
 # ------------------------------------------------------------ train state --
@@ -229,8 +322,8 @@ def export_jax_train_state(train_state, rng) -> Dict:
     adam = {"count": _i32(counts.pop() if counts else 0)}
     for key, moment in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
         adam[key] = _sorted_nest(
-            (path, _to_flax(st[moment], path) if moment in st
-             else np.zeros_like(_to_flax(p, path)))
+            (path, _to_flax(st[moment], path, p) if moment in st
+             else np.zeros(_whole_shape(p, path), np.float32))
             for (path, p), st in zip(leaves, states))
     inner = {"0": adam,
              "1": {"count": _i32(ts.opt_step)} if ts.scheduled_lr else {}}
@@ -239,8 +332,8 @@ def export_jax_train_state(train_state, rng) -> Dict:
             "mini_step": _i32(ts.mini_step),
             "gradient_step": _i32(ts.opt_step),
             "inner_opt_state": inner,
-            "acc_grads": _sorted_nest((path, _to_flax(g, path))
-                                      for (path, _), g
+            "acc_grads": _sorted_nest((path, _to_flax(g, path, p))
+                                      for (path, p), g
                                       in zip(leaves, ts.acc_grads)),
             "skip_state": {}}
     else:

@@ -34,10 +34,17 @@ A data-parallel run holds the same parameters on every rank, so its
 checkpoint is the single-host format above, which the JAX package writes
 for one process driving all its chips: every rank calls ``save_checkpoint``
 (it gathers the generator states), rank 0 writes and the others wait at a
-barrier; every rank reads the same files. The sharded (orbax) format of
-the JAX package's multi-host runs waits for the port's expert parallelism
-(ROADMAP Queue A item 8): reading a ``<step>/orbax`` directory raises
-``NotImplementedError``.
+barrier; every rank reads the same files. Under expert parallelism every
+rank also takes part in gathering the experts and their moments
+(``bridge``), so rank 0 writes the bytes a data-parallel run writes for
+the same state, and a load keeps each rank's block: either run resumes
+from the other's checkpoint.
+
+The JAX package's multi-process runs write the sharded (orbax) format
+instead: ``<step>/orbax`` beside extra.json. It loads through the same
+path: ``orbax_read.read_tree`` gives the tree ``state.msgpack`` would
+hold, read without orbax, tensorstore or zstandard. The port writes
+msgpack only.
 """
 from __future__ import annotations
 
@@ -53,12 +60,10 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from switch_nerf_torch import _msgpack, bridge
-from switch_nerf_torch.parallel import host
+from switch_nerf_torch import _msgpack, bridge, orbax_read
+from switch_nerf_torch.parallel import experts, host
 from switch_nerf_torch.utils.logger import main_log
 
-_ORBAX = ("sharded (orbax) checkpoints wait for the port's expert "
-          "parallelism (ROADMAP Queue A item 8)")
 GENERATOR_KEY = "torch_generator_state"
 GENERATOR_STATES_KEY = "torch_generator_states"
 
@@ -89,8 +94,9 @@ def _param_fingerprint(params: Mapping) -> str:
 
 
 def _state_fingerprint(state) -> str:
-    return _param_fingerprint(bridge.export_jax_state(state.model,
+    return _param_fingerprint(bridge.jax_state_shapes(state.model,
                                                       state.bg_model))
+
 
 
 def _jax_rng(state) -> np.ndarray:
@@ -116,6 +122,9 @@ def save_checkpoint(ckpt_dir, state, dataset_state: Optional[str] = None,
     path = Path(ckpt_dir) / str(step)
     generators = host.all_gather_object(base64.b64encode(
         state.generator.get_state().numpy().tobytes()).decode())
+    # expert parallel: every rank takes part in gathering the experts
+    tree = (bridge.export_jax_train_state(state, _jax_rng(state))
+            if experts.mesh_of(state.parameters()) is not None else None)
     if not host.is_main():
         host.barrier("checkpoint saved")
         return path
@@ -140,7 +149,8 @@ def save_checkpoint(ckpt_dir, state, dataset_state: Optional[str] = None,
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    tree = bridge.export_jax_train_state(state, _jax_rng(state))
+    if tree is None:
+        tree = bridge.export_jax_train_state(state, _jax_rng(state))
     (tmp / "state.msgpack").write_bytes(_msgpack.packb(tree))
     (tmp / "extra.json").write_text(json.dumps(extra))
     if path.exists():
@@ -186,8 +196,6 @@ def load_checkpoint(path, state, restore_rng_states: bool = True
         step_dir = latest_checkpoint(path)
         if step_dir is None:
             raise FileNotFoundError(f"no checkpoint under {path}")
-    if (step_dir / "orbax").exists():
-        raise NotImplementedError(f"{step_dir}: {_ORBAX}")
 
     extra_path = step_dir / "extra.json"
     if extra_path.exists():
@@ -200,7 +208,10 @@ def load_checkpoint(path, state, restore_rng_states: bool = True
                 f"mismatch: ckpt {want[:12]}… vs template {have[:12]}…); "
                 "check the model graph / width / expert-count hparams")
 
-    tree = _msgpack.unpackb((step_dir / "state.msgpack").read_bytes())
+    if (step_dir / "orbax").exists():
+        tree = orbax_read.read_tree(step_dir / "orbax")
+    else:
+        tree = _msgpack.unpackb((step_dir / "state.msgpack").read_bytes())
     bridge.load_jax_train_state(tree, state)
 
     extra = json.loads(extra_path.read_text())

@@ -5,7 +5,9 @@ configs: ``get_nerf`` builds the NeRFMoE or, with --use_mip or
 --nerfmoe_class_name MipNeRFMoE, the MipNeRFMoE (``--use_moe``), or the
 dense NeRF; ``get_bg_nerf`` the dense background NeRF. Weights are drawn
 from a ``torch.Generator`` seeded with ``seed`` (default
-``--random_seed``) on the CPU, then moved to the device.
+``--random_seed``) on the CPU, then moved to the device. Under expert
+parallelism (``parallel.mesh.current()``) the MoE layers then keep this
+rank's block of experts (``models/experts.localize``).
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import torch
 from torch import nn
 
 from switch_nerf_torch import resolve_device
+from switch_nerf_torch.models.experts import localize
 from switch_nerf_torch.models.nerf import NeRF
 from switch_nerf_torch.models.nerf_moe import NeRFMoE
+from switch_nerf_torch.parallel import mesh
 
 __all__ = ["get_nerf", "get_bg_nerf", "eval_dispatch", "use_mip"]
 
@@ -79,8 +83,6 @@ def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
     layer_cfg.setdefault("expert_num", hparams.moe_expert_num)
     # gate noise raises when a train state is built
     # (MoELayer.check_supported)
-    if not getattr(hparams, "no_expert_parallel", True):
-        raise NotImplementedError("expert parallelism waits for a later slice")
     if (hparams.moe_use_residual or hparams.use_load_importance_loss
             or getattr(hparams, "moe_expert_type", "expertmlp") != "expertmlp"):
         raise NotImplementedError(
@@ -144,7 +146,14 @@ def get_nerf(hparams, appearance_count: int, *, device=None,
     else:
         model = _get_dense_nerf(hparams, appearance_count, hparams.layer_dim,
                                 3, gen)
-    return model.to(dev).eval()
+    model = model.to(dev).eval()
+    # expert parallelism: the whole model is drawn (so every rank draws the
+    # data-parallel weights), then each rank keeps its block of experts
+    ep = mesh.current()
+    if (ep is not None and getattr(hparams, "use_moe", False)
+            and not getattr(hparams, "no_expert_parallel", True)):
+        localize(model, ep)
+    return model
 
 
 def get_bg_nerf(hparams, appearance_count: int, *, device=None,

@@ -6,9 +6,13 @@ fp32 gate, ``extract_critical`` (with BPR), the load-balance ``l_aux``,
 fused dispatch+chain branch behind ``SWITCH_NERF_FUSED_DISPATCH=1``) and
 ``_nodrop_path`` (sort by expert, the ragged chain K1R/K2R, inverse
 permutation; no token dropped). The dispatch mode follows ``train`` as
-JAX's follows ``deterministic`` (``moe.py:127``). Expert parallelism,
-residual MoE, gate noise (a training-only draw, off in every published
-command; the JAX layer's normal noise has no flag that sets it) and the
+JAX's follows ``deterministic`` (``moe.py:127``). Under expert
+parallelism the gate routes over all E experts and ``ExpertMLP`` holds
+this rank's E_loc: the padded path exchanges the dispatch buffer with the
+experts' owners around the chain, as JAX does (``moe.py:201-216``), and
+the no-drop path runs the whole model (``models/experts.py``). Residual
+MoE, gate noise (a training-only draw, off in every published command;
+the JAX layer's normal noise has no flag that sets it) and the
 load-importance loss wait for later slices.
 """
 from __future__ import annotations
@@ -148,10 +152,12 @@ class MoELayer(nn.Module):
     def _use_fused_dispatch(self, x: torch.Tensor, dp: DispatchPlan) -> bool:
         """Opt-in (SWITCH_NERF_FUSED_DISPATCH=1), read at each call as the
         JAX package does: top-1, postscore or no_score, at shapes the
-        card's kernel takes (``ops/fused_dispatch.fused_supported``). JAX's
-        other two conditions, ExpertMLP experts and no expert parallelism,
-        always hold in the port."""
+        card's kernel takes (``ops/fused_dispatch.fused_supported``), and
+        no expert parallelism (JAX ``moe.py:236-237``); JAX's ExpertMLP
+        condition always holds in the port."""
         if os.environ.get("SWITCH_NERF_FUSED_DISPATCH", "0") != "1":
+            return False
+        if self.experts.ep is not None:
             return False
         return (self.top_k == 1 and (self.is_postscore or self.no_score)
                 and fused_supported(x.shape, dp.num_experts, dp.capacity,

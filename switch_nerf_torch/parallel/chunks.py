@@ -36,7 +36,9 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["RankGrid", "ChunkShare", "Piece", "plan",
+from switch_nerf_torch.parallel import mesh
+
+__all__ = ["RankGrid", "ChunkShare", "Piece", "plan", "check_lockstep",
            "current_share", "sharing"]
 
 
@@ -112,7 +114,46 @@ def plan(points: int, chunk_size: int, grid: RankGrid
     global chunk grid, and the number of global chunks. Chunks are
     min(chunk_size, global points) long; the last is the remainder. In a
     process group, the subgroups of the pass's shared chunks are made
-    first: every rank calls it for every pass, in the same order."""
+    first: every rank calls it for every pass, in the same order. Under
+    expert parallelism the pass must keep the ranks in lockstep
+    (``check_lockstep``)."""
+    out, spans, n_chunks = _pieces(points, chunk_size, grid)
+    if spans and dist.is_initialized():
+        _make_groups(spans, grid.world)
+    if mesh.current() is not None:
+        check_lockstep(points, chunk_size, grid.world)
+    return out, n_chunks
+
+
+def check_lockstep(points: int, chunk_size: int, world: int) -> None:
+    """Under expert parallelism every MoE call of a pass exchanges tokens
+    with the rank's expert group, so every rank must cut its pass into as
+    many pieces, and a chunk that spans ranks (whose routing is a
+    collective of its holders) must be the same piece of each holder's
+    pass. The published runs keep both (every pass a whole number of
+    chunks a rank). It is arithmetic, so every rank raises alike."""
+    cuts = [_pieces(points, chunk_size, RankGrid(r, world))[0]
+            for r in range(world)]
+    counts = {len(c) for c in cuts}
+    where: Dict[int, set] = {}
+    for c in cuts:
+        for i, piece in enumerate(c):
+            if piece.share is not None:
+                where.setdefault(piece.chunk, set()).add(i)
+    if len(counts) > 1 or any(len(at) > 1 for at in where.values()):
+        raise ValueError(
+            f"expert parallelism: a pass of {points} points a rank cut into "
+            f"{chunk_size}-point chunks gives the ranks "
+            f"{[len(c) for c in cuts]} model calls, with chunks that span "
+            "ranks at different calls; every rank must make the same "
+            "exchanges (choose --model_chunk_size so that each rank's "
+            "points are a whole number of chunks, or one chunk)")
+
+
+def _pieces(points: int, chunk_size: int, grid: RankGrid
+            ) -> Tuple[List[Piece], List[Tuple[int, int]], int]:
+    """plan's arithmetic: this rank's pieces, the spans of the shared
+    chunks and the number of global chunks."""
     total = points * grid.world
     chunk = min(chunk_size, total)
     n_chunks = -(-total // chunk)
@@ -129,9 +170,7 @@ def plan(points: int, chunk_size: int, grid: RankGrid
         share = (ChunkShare(c_hi - c_lo, start - c_lo, span)
                  if span[0] != span[1] else None)
         out.append(Piece(start - lo, stop - lo, k, share))
-    if spans and dist.is_initialized():
-        _make_groups(spans, grid.world)
-    return out, n_chunks
+    return out, spans, n_chunks
 
 
 _SHARE: contextvars.ContextVar[Optional[ChunkShare]] = \

@@ -103,20 +103,22 @@ def barrier(name: str = "") -> None:
         dist.barrier()
 
 
-def broadcast_tensors_(tensors: List[torch.Tensor], src: int = 0) -> None:
-    """Overwrite ``tensors`` with rank ``src``'s, in place: one broadcast
-    of a flat buffer per dtype."""
-    if world_size() == 1:
+def broadcast_tensors_(tensors: List[torch.Tensor], src: int = 0,
+                       group=None) -> None:
+    """Overwrite ``tensors`` with rank ``src``'s (a global rank), in place:
+    one broadcast of a flat buffer per dtype, over ``group`` (None: every
+    process)."""
+    if world_size() == 1 or not tensors:
         return
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.detach().reshape(-1) for t in group])
-        dist.broadcast(flat, src=src)
+    for same in by_dtype.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in same])
+        dist.broadcast(flat, src=src, group=group)
         lo = 0
         with torch.no_grad():
-            for t in group:
+            for t in same:
                 t.copy_(flat[lo:lo + t.numel()].view_as(t))
                 lo += t.numel()
 

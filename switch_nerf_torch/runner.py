@@ -44,7 +44,11 @@ per card: parameters replicated, --batch_size the global batch, each rank
 training on its share (the chunked datasets stride their rows, the other
 loops slice the global batch) and the gradients averaged over the ranks
 (``trainer.TrainStep``); the MoE layers route on the global batch's model
-chunks, as JAX does (``parallel/chunks.py``). Rank 0 picks the
+chunks, as JAX does (``parallel/chunks.py``). With --expert_parallel
+and --mesh_shape D E each rank holds its block of the experts and their
+Adam moments, the padded training passes exchange tokens with the
+experts' owners (``parallel/experts.py``), and every eval runs the whole
+model, its experts gathered from their owners. Rank 0 picks the
 experiment dir and writes the logs, TensorBoard and checkpoints; SIGTERM
 is agreed every 10 steps, so every rank saves at the same step. In eval an
 image belongs to rank ``i % W``, which renders it whole, with the requests
@@ -56,6 +60,7 @@ parameters, and every eval serves a packaged container
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import random
@@ -71,6 +76,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from switch_nerf_torch import bridge
 from switch_nerf_torch import metrics as M
 from switch_nerf_torch import parallel, resolve_device
 from switch_nerf_torch.checkpoints import load_checkpoint, save_checkpoint
@@ -81,13 +87,13 @@ from switch_nerf_torch.datasets.filesystem_dataset import FilesystemDataset
 from switch_nerf_torch.datasets.image_metadata import ImageMetadata
 from switch_nerf_torch.datasets.memory_dataset import MemoryDataset
 from switch_nerf_torch.datasets.ray_utils import get_ray_directions, get_rays
+from switch_nerf_torch.models.experts import gathered, hold_whole
 from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
 from switch_nerf_torch.trainer import (SceneInfo, TrainState,
                                        create_train_state, make_eval_step,
                                        make_train_step,
                                        render_config_from_hparams)
-from switch_nerf_torch.utils.logger import (count_parameters, main_log,
-                                            setup_logger)
+from switch_nerf_torch.utils.logger import main_log, setup_logger
 from switch_nerf_torch.utils.meters import DictAverageMeter, allgather_json
 from switch_nerf_torch.utils.visualize import visualize_scalars
 
@@ -130,6 +136,28 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _whole_model(method: Callable) -> Callable:
+    """Run an eval method ``method(self, state, ...)`` with the whole
+    model: under expert parallelism each rank gathers the experts from
+    their owners first (every rank then renders its own images alone)."""
+    @functools.wraps(method)
+    def run(self, state, *args, **kwargs):
+        with gathered(state.model):
+            return method(self, state, *args, **kwargs)
+    return run
+
+
+def _param_count(state: TrainState) -> int:
+    """The whole model's parameter count (a rank of an expert-parallel
+    run holds part of the experts)."""
+    tree = bridge.jax_state_shapes(state.model, state.bg_model)
+
+    def count(t):
+        return (sum(count(v) for v in t.values()) if isinstance(t, dict)
+                else int(np.prod(t.shape)))
+    return count(tree)
+
+
 class Runner:
     def __init__(self, hparams: Namespace, set_experiment_path: bool = True,
                  *, device=None):
@@ -137,7 +165,9 @@ class Runner:
         self.device = resolve_device(device)
         self.data_type = getattr(hparams, "data_type", "mega_nerf")
         self.rank, self.world = parallel.rank(), parallel.world_size()
-        parallel.check_data_parallel(hparams, self.world)
+        # under expert parallelism the models built below hold this rank's
+        # block of experts (models/model_utils.get_nerf)
+        self.mesh = parallel.setup_mesh(hparams, self.world, self.rank)
 
         np.random.seed(hparams.random_seed)
         random.seed(hparams.random_seed)
@@ -459,8 +489,10 @@ class Runner:
             self.nerf, self.bg_nerf, _ = load_container(
                 h.container_path, device=self.device)
             self._eval_step = None
-            return create_train_state(h, self.nerf, self.bg_nerf,
-                                      device=self.device, for_training=False)
+            state = create_train_state(h, self.nerf, self.bg_nerf,
+                                       device=self.device, for_training=False)
+            hold_whole(state.model)
+            return state
         if h.ckpt_path is None:
             raise ValueError("--ckpt_path (or --container_path) required "
                              "for eval")
@@ -468,6 +500,8 @@ class Runner:
                                    device=self.device, for_training=False)
         state, _ = load_checkpoint(h.ckpt_path, state,
                                    restore_rng_states=False)
+        # an eval runs the whole model: the experts gathered once
+        hold_whole(state.model)
         return state
 
     def _make_render_fn(self, state: TrainState) -> Callable:
@@ -617,6 +651,7 @@ class Runner:
             for k, v in im.items():
                 self.writer.add_scalar(f"{self._agg_key(k)}/{i}", v, step)
 
+    @_whole_model
     def _run_validation(self, state: TrainState,
                         train_index: Optional[int] = None
                         ) -> Dict[str, float]:
@@ -648,6 +683,7 @@ class Runner:
                                           for k, v in means.items()))
         return means
 
+    @_whole_model
     def _run_validation_image(self, state: TrainState) -> Dict[str, float]:
         """Right-half val-image protocol with per-image time/memory and the
         reference file set: images/metrics_{i}.txt + {i}_gt/_pred/_depth
@@ -802,8 +838,9 @@ class Runner:
             state = create_train_state(h, self.nerf, self.bg_nerf,
                                        device=self.device)
             main_log(f"Total parameters number is "
-                     f"{count_parameters(state.parameters()) / 1024 / 1024:.4f}"
+                     f"{_param_count(state) / 1024 / 1024:.4f}"
                      " M")
+            main_log(self._mesh_line())
             dataset_state, discard_index, host_iteration = None, -1, None
             if h.ckpt_path is not None:
                 state, extra = load_checkpoint(h.ckpt_path, state,
@@ -814,8 +851,7 @@ class Runner:
                     discard_index = extra.get("dataset_index", -1)
                     host_iteration = extra.get("host_iteration")
                 main_log(f"Resumed from iteration {state.step}")
-            # the replicas start from rank 0's parameters
-            parallel.broadcast_tensors_(state.parameters())
+            self._broadcast_params(state)
             train_step = make_train_step(
                 h, render_config_from_hparams(h),
                 SceneInfo(self.sphere_center, self.sphere_radius),
@@ -830,6 +866,26 @@ class Runner:
             if isinstance(dataset, _CHUNKED):
                 dataset.close()
             _release_term_latch(term)
+
+    def _mesh_line(self) -> str:
+        if self.mesh is None:
+            return f"mesh (data, expert) = ({self.world}, 1): data parallel"
+        return (f"mesh (data, expert) = ({self.mesh.data}, "
+                f"{self.mesh.expert}): expert parallel, "
+                f"{self.hparams.moe_expert_num // self.mesh.expert} experts "
+                "a rank")
+
+    def _broadcast_params(self, state: TrainState) -> None:
+        """The replicas start from rank 0's parameters; under expert
+        parallelism each block of experts from its owner on data row 0."""
+        params = state.parameters()
+        own = [p for p in params if getattr(p, "expert_mesh", None) is None]
+        parallel.broadcast_tensors_(own)
+        if self.mesh is not None and self.mesh.data > 1:
+            parallel.broadcast_tensors_(
+                [p for p in params
+                 if getattr(p, "expert_mesh", None) is not None],
+                src=self.mesh.e_index, group=self.mesh.data_group)
 
     def _make_dataset(self, dataset_state: Optional[str]):
         h = self.hparams
@@ -1051,7 +1107,7 @@ class Runner:
         try:
             state = create_train_state(h, self.nerf, None, device=self.device)
             main_log(f"Total parameters number is "
-                     f"{count_parameters(state.parameters()) / 1024 / 1024:.4f}"
+                     f"{_param_count(state) / 1024 / 1024:.4f}"
                      " M")
             host_iteration = None
             if h.ckpt_path is not None:
@@ -1065,7 +1121,7 @@ class Runner:
                 mip=self.mip, device=self.device)
             total = h.num_epochs * max(len(self.train_set) // h.batch_size, 1)
             self._feed_size(False)      # raises unless the ranks share B
-            parallel.broadcast_tensors_(state.parameters())
+            self._broadcast_params(state)
             # the batch counter, not state.step, keys the batches: a
             # skipped non-finite step consumes a batch
             it = int(host_iteration) if host_iteration is not None \
@@ -1108,6 +1164,7 @@ class Runner:
         state = self._load_eval_state()
         return self._run_validation_nerf(state, mode="test")
 
+    @_whole_model
     def _run_validation_nerf(self, state: TrainState, mode: str = "val",
                              train_index: int = 0) -> Dict[str, float]:
         """Whole-image PSNR/SSIM/LPIPS of each val or test image, with its
@@ -1444,6 +1501,7 @@ class Runner:
             return out
         return program
 
+    @_whole_model
     def _export_point_clouds(self, state: TrainState, ray_sources
                              ) -> List[Path]:
         """Per-point expert ids from the MoE gate returns -> the
@@ -1533,7 +1591,7 @@ class Runner:
         """Checkpoint sanity: load it and log its parameter count (JAX
         ``runner.py:1670``)."""
         state = self._load_eval_state()
-        n = count_parameters(state.parameters())
+        n = _param_count(state)
         main_log(f"Checkpoint at step {int(state.step)}: {n / 1e6:.3f}M "
                  "params")
         return state

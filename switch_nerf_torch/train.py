@@ -30,6 +30,14 @@ Bay; the MoE layers route on the global batch's model chunks, as JAX's):
         --config_file=configs/switch_nerf/mission_bay.yaml \
         <the flags above> --batch_size=13312
 
+Expert-parallel: each rank holds experts / E of the MoE layers' experts
+and their Adam moments, on a (D, E) mesh of D x E processes, and the
+padded training passes exchange tokens with the experts' owners:
+
+    torchrun --nproc_per_node=8 -m switch_nerf_torch.train \
+        --config_file=configs/switch_nerf/building.yaml <the flags above> \
+        --batch_size=8192 --expert_parallel --mesh_shape 2 4
+
 Runs on ``cuda`` (``cuda:LOCAL_RANK`` under torchrun);
 ``main(hparams, device="cpu")`` runs the plain versions (with torchrun's
 variables set, in a gloo group). Classic-NeRF scenes train through

@@ -30,7 +30,7 @@ from torch import nn
 
 from switch_nerf_torch import resolve_device
 from switch_nerf_torch.models.moe import MoELayer
-from switch_nerf_torch.parallel import chunks, host
+from switch_nerf_torch.parallel import chunks, experts, host
 from switch_nerf_torch.render.rendering import RenderConfig, render_rays
 from switch_nerf_torch.render.rendering_mip import render_rays_mip
 
@@ -323,6 +323,9 @@ class TrainStep:
         # batch, whose model chunks are JAX's (parallel/chunks.py)
         world = host.world_size()
         grid = chunks.RankGrid(host.rank(), world) if world > 1 else None
+        mesh = experts.mesh_of(state.parameters())
+        if mesh is not None:
+            experts.begin_pass()
         with torch.enable_grad():
             if self.mip:
                 results = render_rays_mip(
@@ -338,6 +341,10 @@ class TrainStep:
                     grid=grid)
             metrics = compute_losses(results, rgbs, self.hparams,
                                      mip_or_cascade_coarse=self.mip)
+            if mesh is not None:
+                # every rank of an expert group made the same exchanges,
+                # so the backward's pair up
+                experts.end_pass(mesh)
             params = state.parameters()
             grads = torch.autograd.grad(metrics["all_loss"], params,
                                         allow_unused=True)
@@ -346,7 +353,8 @@ class TrainStep:
         return {k: v.detach() for k, v in metrics.items()}, grads
 
     def average_across_ranks(self, metrics: Dict[str, torch.Tensor],
-                             grads: Optional[List[torch.Tensor]]
+                             grads: Optional[List[torch.Tensor]],
+                             state: Optional[TrainState] = None
                              ) -> Tuple[Dict[str, torch.Tensor],
                                         Optional[List[torch.Tensor]]]:
         """The metrics (and, unless None, the gradients) averaged over the
@@ -355,14 +363,24 @@ class TrainStep:
         equal share of the global batch, so this is the global mean
         gradient. psnr is recomputed from the averaged photo_loss (the
         global batch's MSE), not averaged. Every rank gets the same bits.
-        One process: returned as they are."""
+        One process: returned as they are.
+
+        Under expert parallelism (``state``'s parameters tagged with the
+        mesh) a rank's expert gradients already sum its expert group's
+        tokens (the exchange's backward): they are summed over the data
+        group only, then divided by the world size as well."""
         world = host.world_size()
         if world == 1:
             return metrics, grads
+        meshes = ([getattr(p, "expert_mesh", None)
+                   for p in state.parameters()]
+                  if state is not None and grads is not None
+                  else [None] * len(grads or []))
         keys = [k for k in metrics if k != "psnr"]
         parts = [torch.stack([metrics[k].float() for k in keys])]
         if grads is not None:
-            parts += [g.reshape(-1).float() for g in grads]
+            parts += [g.reshape(-1).float()
+                      for g, m in zip(grads, meshes) if m is None]
         flat = torch.cat(parts)
         dist.all_reduce(flat)
         flat /= world
@@ -370,10 +388,24 @@ class TrainStep:
         if "photo_loss" in out:
             out["psnr"] = _psnr(out["photo_loss"])
         if grads is not None:
-            reduced, lo = [], len(keys)
-            for g in grads:
-                reduced.append(flat[lo:lo + g.numel()].view_as(g).to(g.dtype))
-                lo += g.numel()
+            mesh = next((m for m in meshes if m is not None), None)
+            if mesh is not None:
+                local = torch.cat([g.reshape(-1).float()
+                                   for g, m in zip(grads, meshes)
+                                   if m is not None])
+                if mesh.data > 1:
+                    dist.all_reduce(local, group=mesh.data_group)
+                local /= world
+            reduced, lo, lo_e = [], len(keys), 0
+            for g, m in zip(grads, meshes):
+                if m is None:
+                    reduced.append(flat[lo:lo + g.numel()].view_as(g).to(
+                        g.dtype))
+                    lo += g.numel()
+                else:
+                    reduced.append(local[lo_e:lo_e + g.numel()].view_as(
+                        g).to(g.dtype))
+                    lo_e += g.numel()
             grads = reduced
         return {k: out[k] for k in metrics}, grads
 
@@ -416,7 +448,7 @@ class TrainStep:
         # ranks, and every rank votes on the same averaged metrics, so a
         # non-finite value on one rank skips the step on all of them
         metrics, reduced = self.average_across_ranks(
-            metrics, grads if applies else None)
+            metrics, grads if applies else None, state)
         if applies:
             grads = reduced
         if self.check_finite:

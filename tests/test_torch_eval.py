@@ -119,9 +119,10 @@ def test_entry_points_raise_without_a_card_unless_cpu(setup):
 
 # cv2: the card's machine has no OpenCV (datasets/nerf_data resamples in
 # numpy); nor TensorFlow or protobuf (datasets/tfrecord.py reads the
-# Block-NeRF records itself)
+# Block-NeRF records itself); nor tensorstore or zstandard (ocdbt.py and
+# utils/zstd.py read orbax checkpoints)
 _FORBIDDEN = ("jax", "flax", "optax", "orbax", "cv2", "switch_nerf_tpu",
-              "tensorflow", "google")
+              "tensorflow", "google", "tensorstore", "zstandard")
 
 
 def _imports(path: Path):
@@ -156,7 +157,12 @@ def test_port_imports_no_jax():
             "switch_nerf_torch/eval_ckpt.py",
             "switch_nerf_torch/container.py",
             "switch_nerf_torch/convert_to_container_moe.py",
-            "switch_nerf_torch/convert_lpips_weights.py"} <= names
+            "switch_nerf_torch/convert_lpips_weights.py",
+            "switch_nerf_torch/utils/zstd.py",
+            "switch_nerf_torch/utils/crc32c.py",
+            "switch_nerf_torch/ocdbt.py",
+            "switch_nerf_torch/orbax_read.py",
+            "switch_nerf_torch/parallel/experts.py"} <= names
     bad = [(str(f.relative_to(REPO)), mod) for f in files
            for mod in _imports(f) if mod.split(".")[0] in _FORBIDDEN]
     assert not bad, bad

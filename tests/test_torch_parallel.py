@@ -60,7 +60,7 @@ from switch_nerf_torch import train as ttrain
 from switch_nerf_torch.datasets.block_filesystem_dataset import \
     BlockFilesystemDataset
 from switch_nerf_torch.datasets.filesystem_dataset import FilesystemDataset
-from switch_nerf_torch.parallel import check_data_parallel
+from switch_nerf_torch.parallel import mesh_shape
 from tests.torch_port_helpers import (Ranks, block_runner_hparams,
                                       free_port, make_block_test_scene,
                                       mega_train_hparams, with_val_image)
@@ -526,28 +526,37 @@ def test_meters_merge_by_key(job):
 
 def test_refusals(job, scene):
     """resolve_device in a group; the parallelism the port does not run
-    raises naming ROADMAP Queue A item 8."""
+    raises naming ROADMAP Queue A item 8; a mesh must hold the processes
+    (tests/test_torch_expert_parallel.py runs expert parallelism)."""
     ranks, _ = job
     for r, out in enumerate(ranks.get("refusals")):
         assert out["explicit"] == "cpu"
         assert "none is available" in out["no_cuda"]
         assert "LOCAL_RANK 1" in out["too_few_cards"]
     h = mega_train_hparams(scene, "unused", "memory")
-    for over in ({"mesh_shape": [2, 2]}, {"no_expert_parallel": False},
-                 {"expert_weight_parallel": True},
+    for over in ({"expert_weight_parallel": True},
                  {"shard_optimizer_states": True}):
         g = mega_train_hparams(scene, "unused", "memory")
         for k, v in over.items():
             setattr(g, k, v)
         with pytest.raises(NotImplementedError, match="item 8"):
-            check_data_parallel(g, 1)
+            mesh_shape(g, 1)
+    g = mega_train_hparams(scene, "unused", "memory")
+    g.mesh_shape = [2, 2]
+    with pytest.raises(ValueError, match="number of processes"):
+        mesh_shape(g, 1)
+    g.no_expert_parallel, g.mesh_shape = False, [1, 3]
+    with pytest.raises(ValueError, match="divide --moe_expert_num"):
+        mesh_shape(g, 3)
+    g.mesh_shape = None
+    assert mesh_shape(g, 1) == (1, 1)
     h.mesh_shape = [2]
     with pytest.raises(ValueError, match="number of processes"):
         trunner.Runner(h, set_experiment_path=False, device="cpu")
     h.mesh_shape = [1, 1]
-    assert check_data_parallel(h, 1) == (1, 1)
+    assert mesh_shape(h, 1) == (1, 1)
     h.mesh_shape = None
-    assert check_data_parallel(h, 2) == (2, 1)
+    assert mesh_shape(h, 2) == (2, 1)
 
 
 def test_entry_point_starts_and_ends_its_group(job):

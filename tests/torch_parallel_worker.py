@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel tests (tests/test_torch_parallel.py).
+"""One rank of the port's data- and expert-parallel tests
+(tests/test_torch_parallel*.py, tests/test_torch_expert_parallel.py).
 
     python tests/torch_parallel_worker.py <rank> <world> <job.pkl>
 
@@ -48,12 +49,14 @@ def params_of(state):
     return [p.detach().cpu().numpy().copy() for p in state.parameters()]
 
 
-def train(rank, h, kill=None, poison=None, record=False, drops=False, **_):
+def train(rank, h, kill=None, poison=None, record=False, drops=False,
+          refused=False, **_):
     """train.main on this rank, every train step's (averaged) metrics
     recorded. kill = (rank, step): that rank alone raises SIGTERM from
     inside that step. poison = (rank, call): that rank's loss terms are
     NaN at that call of the step. record: the tensors each step trained
-    on. drops: count the MoE calls' dropped tokens."""
+    on. drops: count the MoE calls' dropped tokens. refused: the run must
+    raise ValueError, whose message is returned."""
     from switch_nerf_torch import runner as trunner
     from switch_nerf_torch import train as ttrain
     metrics, batches, worlds = [], [], []
@@ -90,8 +93,14 @@ def train(rank, h, kill=None, poison=None, record=False, drops=False, **_):
     try:
         with count_drops() as tally:
             state = ttrain.main(h, device="cpu")
+    except ValueError as e:
+        if refused:
+            return {"raised": str(e), "steps": len(metrics)}
+        raise
     finally:
         trunner.make_train_step = real_make
+    if refused:
+        raise AssertionError("the run was not refused")
     return {"metrics": metrics, "batches": batches, "params": params_of(state),
             "step": state.step, "worlds": worlds,
             "drops": tally if drops else None,
@@ -154,8 +163,68 @@ def train_cli(rank, h, port, **kw):
     return out
 
 
+def _ep_mesh(rank, mesh_shape, experts=4):
+    from argparse import Namespace
+
+    from switch_nerf_torch.parallel import mesh as mesh_mod
+    return mesh_mod.setup(Namespace(no_expert_parallel=False,
+                                    mesh_shape=list(mesh_shape),
+                                    moe_expert_num=experts),
+                          parallel.world_size(), rank)
+
+
+def exchange(rank, mesh_shape, **_):
+    """The token exchange's autograd in float64 against a dense reference:
+    every rank of the mesh holds [E, C_r, M] (C_r = 2 + rank, so the
+    members' capacities differ) and the experts are linear maps W[e]; the
+    owners apply their block through parallel/experts.chain. Returns the
+    largest errors of y, dx and the local dW."""
+    from switch_nerf_torch.parallel import experts as ep
+    mesh = _ep_mesh(rank, mesh_shape)
+    e, m = 4, 3
+    w = torch.randn(e, m, m, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(100))
+
+    def draw(r, seed):
+        g = torch.Generator().manual_seed(seed * 1000 + r)
+        return torch.randn(e, 2 + r, m, dtype=torch.float64, generator=g)
+    lo, hi = mesh.block(e)
+    w_local = w[lo:hi].clone().requires_grad_()
+    x = draw(rank, 1).requires_grad_()
+    ep.begin_pass()
+    y = ep.chain(x, lambda z: torch.bmm(z, w_local), mesh)
+    ep.end_pass(mesh)
+    g = draw(rank, 2)
+    (y * g).sum().backward()
+    dw = sum(torch.bmm(draw(r, 1)[lo:hi].transpose(1, 2), draw(r, 2)[lo:hi])
+             for r in mesh.expert_ranks())
+    return {"y": float((y - torch.bmm(x, w)).abs().max()),
+            "dx": float((x.grad - torch.bmm(g, w.transpose(1, 2)))
+                        .abs().max()),
+            "dw": float((w_local.grad - dw).abs().max()),
+            "shape": list(y.shape), "group": mesh.expert_ranks(),
+            "data": mesh.data_ranks(), "form": ep.STATS["form"]}
+
+
+def lockstep(rank, **_):
+    """Rank 0 makes one more expert exchange in its pass than the others:
+    every rank must raise, none may hang."""
+    from switch_nerf_torch.parallel import experts as ep
+    mesh = _ep_mesh(rank, (1, parallel.world_size()))
+    x = torch.zeros(4, 2, 3)
+    ep.begin_pass()
+    try:
+        for _ in range(2 if rank == 0 else 1):
+            ep.chain(x, lambda z: z, mesh)
+        ep.end_pass(mesh)
+    except RuntimeError as e:
+        return {"raised": str(e)}
+    return {"raised": None}
+
+
 SCENARIOS = {"train": train, "eval": evaluate, "meters": meters,
-             "refusals": refusals, "train_cli": train_cli}
+             "refusals": refusals, "train_cli": train_cli,
+             "exchange": exchange, "lockstep": lockstep}
 
 
 def main() -> None:
