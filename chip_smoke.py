@@ -2,8 +2,9 @@
 """Drive the PyTorch port (switch_nerf_torch) on one CUDA card and check it.
 
     python3 chip_smoke.py                # one card: every phase below
-    python3 chip_smoke.py --dp-cards 4   # Building data-parallel on 4 cards
-                                         # of the host against one card
+    python3 chip_smoke.py --dp-cards 4   # Building data-, expert-, weight-
+                                         # and optimizer-state-parallel on
+                                         # 4 cards of the host against one
     python3 chip_smoke.py --points-unsplit   # one eval_points request in
                                          # one model call: its peak memory
                                          # or the card's out-of-memory error
@@ -182,6 +183,24 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      gloo) held equal to the other (all_to_all on CPU copies), its
      milliseconds and bytes. `chip_smoke.py --dp-cards 4` adds NCCL runs
      with --mesh_shape 1 4 and 2 2 beside the pure data-parallel one
+  13. expert weight parallelism and ZeRO-1 at the published Building
+     flags' full width: 2 ranks on the card over gloo, train.main 10
+     steps with a save at 5 and a resume from it, twice: --mesh_shape 2
+     --expert_weight_parallel --shard_optimizer_states, and
+     --expert_parallel --mesh_shape 1 2 --expert_weight_parallel (D = 1:
+     the columns whole, as in JAX). Each against phase 9's pure
+     data-parallel run on the same batches: every step's loss within
+     1e-3, the drop-free first step's all_loss (1e-3) and averaged
+     gradient (cosine >= 0.999) against one process; the ranks'
+     replicated parameters hash-equal at each save; phase 9's step-10
+     checkpoint resumed under the layout with no step left saves it again
+     byte for byte (and the first layout's own checkpoints against phase
+     9's, printed); each rank's parameter and moment shapes and bytes
+     those the layout rules give (`bridge.local_tree`); K1 and K2 on
+     every chunk; the weight gather's and reduce-scatter's form,
+     milliseconds and bytes, and ZeRO-1's slice gather. `--dp-cards 4`
+     adds NCCL runs `4 1` with both flags and `2 2` with
+     --expert_parallel and both flags
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -1139,11 +1158,12 @@ def batch_digest(batch: dict) -> str:
 
 
 def param_hash(state) -> str:
-    """sha1 of the replicated parameters (under expert parallelism a
-    rank's block of experts is its own)."""
+    """sha1 of the replicated parameters (under expert or expert weight
+    parallelism a rank's block of experts is its own)."""
     h = hashlib.sha1()
     for p in state.parameters():
-        if getattr(p, "expert_mesh", None) is None:
+        if (getattr(p, "expert_mesh", None) is None
+                and getattr(p, "weight_mesh", None) is None):
             h.update(p.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -1154,14 +1174,18 @@ def run_training(h, dataset_cls=None, device=None) -> dict:
     whether every metric was finite, and host-clock end times (each step
     ends in a sync: the finite check), chunk write / read / blocked seconds
     of the chunked dataset class (FilesystemDataset unless given),
-    checkpoint save seconds and the parameters' hash at each save, and the
-    K1-K4 launches of the run."""
+    checkpoint save seconds and the parameters' hash at each save, the
+    K1-K4 launches of the run, the weight gathers and reduce-scatters,
+    the peak memory and this rank's parameter and moment shapes
+    (``bridge.local_state``)."""
+    from switch_nerf_torch import bridge
     from switch_nerf_torch import runner as runner_mod
     from switch_nerf_torch import train
     from switch_nerf_torch.datasets.filesystem_dataset import \
         FilesystemDataset
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
     from switch_nerf_torch.parallel import experts as ep_ops
+    from switch_nerf_torch.parallel import weights as wp_ops
 
     dataset_cls = dataset_cls or FilesystemDataset
     rec = {"digests": [], "loss": [], "photo": [], "finite": [], "t_end": [],
@@ -1217,17 +1241,26 @@ def run_training(h, dataset_cls=None, device=None) -> dict:
         expert_kernel.launches = expert_kernel.bwd_launches = 0
         fused_dispatch.launches = fused_dispatch.bwd_launches = 0
         ep_ops.STATS.update(exchanges=0, bytes=0, form=None)
+        wp_ops.STATS.update(gathers=0, gather_bytes=0, reduce_scatters=0,
+                            reduce_scatter_bytes=0, form=None)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state = train.main(h, device=device)
         torch.cuda.synchronize()
         rec["wall_s"] = time.perf_counter() - t0
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
         rec["exchange"] = dict(ep_ops.STATS)
+        rec["weights"] = dict(wp_ops.STATS)
         rec["launches"] = {"K1": expert_kernel.launches,
                            "K2": expert_kernel.bwd_launches,
                            "K3": fused_dispatch.launches,
                            "K4": fused_dispatch.bwd_launches}
     rec["step"] = state.step
     rec["n_params"] = sum(p.numel() for p in state.parameters())
+    rec["local_shapes"] = {
+        kind: {"/".join(path): list(a.shape) for path, a in leaves.items()}
+        for kind, leaves in bridge.local_state(state).items()}
+    rec["optimizer"] = type(state.optimizer).__name__
     return rec
 
 
@@ -2648,12 +2681,16 @@ def dp_worker(spec_path: str) -> int:
         device = None
     out = {"rank": rank, "backend": dist.get_backend()}
     keys = ("loss", "photo", "finite", "t_end", "launches", "step", "wall_s",
-            "hashes", "write_s", "digests", "exchange")
+            "hashes", "write_s", "digests", "exchange", "weights",
+            "peak_bytes", "local_shapes", "optimizer")
     rec = run_training(spec["train"], device=device)
     out["train"] = {k: rec[k] for k in keys}
-    if "resume" in spec:
-        out["resume"] = {k: v for k, v in run_training(
-            spec["resume"], device=device).items() if k in keys}
+    for key in ("resume", "roundtrip"):
+        if key in spec:
+            out[key] = {k: v for k, v in run_training(
+                spec[key], device=device).items() if k in keys}
+    if spec.get("wp_collectives"):
+        out["wp_collectives"] = weight_collectives_check(rec)
 
     # the gradient all-reduce of the trainer: one flat fp32 buffer of the
     # parameters' size, timed alone
@@ -2820,13 +2857,24 @@ def dp_train_hparams(tmp, batch: int, steps: int, save: int):
     return h
 
 
+def state_bytes(rec) -> int:
+    """A rank's bytes of fp32 parameters and Adam moments
+    (``run_training``'s ``local_shapes``)."""
+    return 4 * sum(int(np.prod(x)) for kind in rec["local_shapes"].values()
+                   for x in kind.values())
+
+
 def scaling(cards: int) -> int:
     """``chip_smoke.py --dp-cards N``: the published Building training
     data-parallel over N cards of one host (NCCL, one process a card,
     1,024 rays a card) against one card, on the runner phase's scene: 20
     steps each, then eval_image (no-drop) over the N cards; then the same
     N-card training expert-parallel (--mesh_shape 1 N and 2 N/2), with
-    the token exchange's form check, milliseconds and bytes. Prints seconds
+    the token exchange's form check, milliseconds and bytes; then with
+    --expert_weight_parallel --shard_optimizer_states on N 1 and, with
+    --expert_parallel, on 2 N/2: per-rank state bytes and peak memory,
+    the weight gather's, reduce-scatter's and ZeRO-1 gather's
+    milliseconds and bytes. Prints seconds
     a step per rank, global train rays/s through Runner.train, the NCCL
     gradient all-reduce over N cards, the eval seconds; checks the ranks'
     parameter hashes, finite metrics and K1/K2 launches. Not part of the
@@ -2851,8 +2899,15 @@ def scaling(cards: int) -> int:
             h = dp_train_hparams(tmp, 1024 * n, steps, window)
             h.exp_name = str(tmp / f"exp{n}")
             if n == cards:
-                ep_runs = {f"{d}x{cards // d}": ep_hparams(h, d, cards // d)
+                ep_runs = {f"{d}x{cards // d}":
+                           layout_hparams(h, EP, (d, cards // d))
                            for d in (1, 2) if cards % (2 * d) == 0}
+                both = {"expert_weight_parallel": True,
+                        "shard_optimizer_states": True}
+                wp_runs = {f"{cards}x1": layout_hparams(h, both, (cards, 1))}
+                if cards % 2 == 0:
+                    wp_runs[f"2x{cards // 2}"] = layout_hparams(
+                        h, {**both, **EP}, (2, cards // 2))
             he = building_eval_hparams()
             he.dataset_path = str(tmp / "scene")
             he.ckpt_path = str(tmp / f"exp{n}" / "0" / "models" / str(steps))
@@ -2879,6 +2934,8 @@ def scaling(cards: int) -> int:
             results[n] = {"step_s": step_s, "rays_per_s": 1024 * n
                           / max(step_s), "allreduce": [
                               o["allreduce"] for o in outs],
+                          "state_bytes": [state_bytes(t) for t in trains],
+                          "peak_bytes": [t["peak_bytes"] for t in trains],
                           "eval_s": [o["eval"]["s"] for o in outs],
                           "psnr": outs[0]["eval"]["means"]["psnr"],
                           "wall_s": wall, "ok": ok}
@@ -2909,6 +2966,8 @@ def scaling(cards: int) -> int:
                           for o in outs))
             results[f"ep {tag}"] = {
                 "step_s": step_s, "rays_per_s": 1024 * cards / max(step_s),
+                "state_bytes": [state_bytes(t) for t in trains],
+                "peak_bytes": [t["peak_bytes"] for t in trains],
                 "exchange": [o["exchange"] for o in outs],
                 "train_exchanges": [t["exchange"] for t in trains],
                 "wall_s": wall, "ok": ok}
@@ -2917,19 +2976,64 @@ def scaling(cards: int) -> int:
             if not ok:
                 raise AssertionError(f"the expert-parallel {tag} run failed "
                                      "its checks")
+        for tag, hw in wp_runs.items():
+            hw.exp_name = str(tmp / f"wp{tag}")
+            port = free_port()
+            t0 = time.perf_counter()
+            outs = run_workers([{
+                "rank": r, "world": cards, "local_rank": r, "port": port,
+                "backend": "nccl", "train": hw, "wp_collectives": True,
+                "out": str(tmp / f"wp{tag}_{r}.json")}
+                for r in range(cards)], tmp)
+            wall = time.perf_counter() - t0
+            trains = [o["train"] for o in outs]
+            step_s = [float(np.mean(np.diff(t["t_end"][window:])))
+                      for t in trains]
+            chunks = 24 * steps
+            ok = (len({json.dumps(t["hashes"], sort_keys=True)
+                       for t in trains}) == 1
+                  and all(all(t["finite"]) and t["step"] == steps
+                          and t["launches"]["K1"] == t["launches"]["K2"]
+                          == chunks and t["weights"]["gathers"] == steps
+                          and t["optimizer"] == "ZeroAdam"
+                          for t in trains)
+                  and all(o["backend"] == "nccl" for o in outs))
+            results[f"wp {tag}"] = {
+                "step_s": step_s, "rays_per_s": 1024 * cards / max(step_s),
+                "state_bytes": [state_bytes(t) for t in trains],
+                "peak_bytes": [t["peak_bytes"] for t in trains],
+                "weights_a_step": {
+                    k: trains[0]["weights"][k] / steps for k in
+                    ("gather_bytes", "reduce_scatter_bytes")},
+                "collectives": [o["wp_collectives"] for o in outs],
+                "wall_s": wall, "ok": ok}
+            log(f"[scaling] {cards} cards, --mesh_shape "
+                f"{tag.replace('x', ' ')} --expert_weight_parallel "
+                f"--shard_optimizer_states"
+                f"{'' if hw.no_expert_parallel else ' --expert_parallel'}: "
+                f"{results[f'wp {tag}']} on {smi}")
+            if not ok:
+                raise AssertionError(f"the weight-parallel {tag} run failed "
+                                     "its checks")
     log(f"[scaling] global train rays/s {results[1]['rays_per_s']:.1f} on "
         f"1 card, {results[cards]['rays_per_s']:.1f} on {cards} "
         f"({results[cards]['rays_per_s'] / results[1]['rays_per_s']:.3f}x)"
         + "".join(f"; expert-parallel {k[3:]} "
                   f"{v['rays_per_s']:.1f}" for k, v in results.items()
-                  if str(k).startswith("ep ")))
+                  if str(k).startswith("ep "))
+        + "".join(f"; weight-parallel + ZeRO-1 {k[3:]} "
+                  f"{v['rays_per_s']:.1f}" for k, v in results.items()
+                  if str(k).startswith("wp ")))
     print(json.dumps({"scaling": results}))
     return 0
 
 
-def data_parallel_phase(counts: dict) -> dict:
+def data_parallel_phase(counts: dict, keep) -> dict:
     """Train and serve Building data-parallel: the checks of the module
-    docstring's phase 9. Returns its numbers."""
+    docstring's phase 9. Returns its numbers; its run's checkpoints are
+    copied to `keep`/dp_models (phase 13 holds its layouts against
+    them)."""
+    import shutil
     import tempfile
     from pathlib import Path
 
@@ -3121,6 +3225,9 @@ def data_parallel_phase(counts: dict) -> dict:
                 == nt["launches"]["K2"] == chunks * DP_NCCL_STEPS):
             raise AssertionError("the NCCL run failed its checks")
 
+        shutil.copytree(tmp / "exp" / "0" / "models", keep / "dp_models")
+        shutil.copy(tmp / "grad.npy", keep / "dp_grad.npy")
+
     counts["K1 data-parallel"] = sum(l["K1"] for l in n)
     counts["K2 data-parallel"] = sum(l["K2"] for l in n)
     counts["K1R data-parallel"] = sum(e["K1R"] for e in ev)
@@ -3141,7 +3248,9 @@ def data_parallel_phase(counts: dict) -> dict:
                          "alone_drops_differ": d_alone,
                          "cosine": s_cos,
                          "step_s": [x["step_s"] for x in st]},
-            "arithmetic": chunk_arithmetic()}
+            "arithmetic": chunk_arithmetic(),
+            "loss": trains[0]["loss"],
+            "digests": [t["digests"] for t in trains]}
 
 
 EP_E_LOCAL = (4, 2)           # a rank's experts: 8 over an axis of 2 or 4
@@ -3299,12 +3408,11 @@ def orbax_phase(counts: dict) -> dict:
 
 
 def ep_first_step(spec, rank: int, world: int) -> dict:
-    """The drop-free first step under expert parallelism: this rank's
-    half of the fixed batch; the averaged gradient with the experts'
-    gathered whole (rank 0 saves it)."""
-    from switch_nerf_torch import parallel
+    """The drop-free first step under expert (or expert weight)
+    parallelism: this rank's half of the fixed batch; the averaged
+    gradient with the experts gathered whole (rank 0 saves it)."""
+    from switch_nerf_torch import bridge, parallel
     from switch_nerf_torch.ops import expert_kernel
-    from switch_nerf_torch.parallel import experts as ep_ops
     hp = spec["ep_first"]
     parallel.setup_mesh(hp, world, rank)
     state, step = dp_setup(hp, "cuda:0")
@@ -3314,14 +3422,13 @@ def ep_first_step(spec, rank: int, world: int) -> dict:
     expert_kernel.launches = expert_kernel.bwd_launches = 0
     m, g = step.loss_and_grads(state, batch)
     m, g = step.average_across_ranks(m, g, state)
-    whole = [ep_ops.gather_whole([gi], p.expert_mesh)[0]
-             if getattr(p, "expert_mesh", None) is not None else gi
-             for p, gi in zip(state.parameters(), g)]
+    whole = [bridge._whole(gi, p) for p, gi in zip(state.parameters(), g)]
     if rank == 0:
         np.save(spec["ep_grad_path"], flat(whole).numpy())
     return {"loss": float(m["all_loss"]),
             "local_experts": [tuple(p.shape) for p in state.parameters()
-                              if getattr(p, "expert_mesh", None)
+                              if getattr(p, "expert_mesh", None) is not None
+                              or getattr(p, "weight_mesh", None)
                               is not None][:1],
             "launches": {"K1": expert_kernel.launches,
                          "K2": expert_kernel.bwd_launches}}
@@ -3361,11 +3468,15 @@ def exchange_check() -> dict:
             "bytes": (ep_ops.STATS["bytes"] - before) // 10}
 
 
-def ep_hparams(h, d: int, e: int):
-    """`h` under expert parallelism on a (d, e) mesh."""
+EP = {"no_expert_parallel": False}      # --expert_parallel
+
+
+def layout_hparams(h, flags: dict, mesh_shape):
+    """A copy of `h` with the layout flags on a --mesh_shape."""
     h = copy.copy(h)
-    h.no_expert_parallel = False
-    h.mesh_shape = [d, e]
+    for k, v in flags.items():
+        setattr(h, k, v)
+    h.mesh_shape = list(mesh_shape)
     return h
 
 
@@ -3380,8 +3491,8 @@ def expert_parallel_phase(counts: dict) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as tmp:
         tmp = Path(tmp)
         make_scene(tmp / "scene", seed=0)
-        h = ep_hparams(dp_train_hparams(tmp, DP_BATCH, DP_STEPS, DP_SAVE),
-                       1, DP_RANKS)
+        h = layout_hparams(dp_train_hparams(tmp, DP_BATCH, DP_STEPS,
+                                            DP_SAVE), EP, (1, DP_RANKS))
         resumed = copy.copy(h)
         resumed.exp_name = str(tmp / "resumed")
         resumed.ckpt_path = str(tmp / "exp" / "0" / "models" / str(DP_SAVE))
@@ -3402,7 +3513,7 @@ def expert_parallel_phase(counts: dict) -> dict:
         port = free_port()
         specs = [{"rank": r, "world": DP_RANKS, "port": port,
                   "backend": "gloo", "train": h, "resume": resumed,
-                  "ep_first": ep_hparams(dropfree, 1, DP_RANKS),
+                  "ep_first": layout_hparams(dropfree, EP, (1, DP_RANKS)),
                   "ep_grad_path": str(tmp / "ep_grad.npy"),
                   "exchange": True, "out": str(tmp / f"ep{r}.json")}
                  for r in range(DP_RANKS)]
@@ -3463,6 +3574,312 @@ def expert_parallel_phase(counts: dict) -> dict:
             "wall_s": wall}
 
 
+WP_LAYOUTS = {   # phase 13's runs: (flags, --mesh_shape)
+    "ewp_zero": ({"expert_weight_parallel": True,
+                  "shard_optimizer_states": True}, (DP_RANKS, 1)),
+    "ep_ewp": ({**EP, "expert_weight_parallel": True}, (1, DP_RANKS)),
+}
+
+
+def weight_collectives_check(rec) -> dict:
+    """The current mesh's weight gather and reduce-scatter at this rank's
+    Building expert column blocks (E_loc x 7 layers of fp32 [256, 256 /
+    D] and [1, 256 / D]) and ZeRO-1's gather of the updated slices at
+    the run's slice sizes (the moments cut where the parameters are not):
+    each one's form, milliseconds (median of 10) and the bytes of the
+    whole tensors it makes or splits."""
+    from switch_nerf_torch.parallel import mesh as mesh_mod
+    from switch_nerf_torch.parallel import weights as wp_ops
+    m = mesh_mod.current()
+
+    def ms(fn) -> float:
+        fn()
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(times))
+    out = {}
+    if m.weight_parallel and m.data > 1:
+        e_loc = 8 // (m.expert if m.splits_experts else 1)
+        cols = 256 // m.data
+        shards = [torch.randn(e_loc, rows, cols, device="cuda")
+                  for rows in [256] * 7 + [1] * 7]
+        n = sum(t.numel() for t in shards)
+        grads = torch.randn(m.data, n, device="cuda")
+        out["gather"] = {"form": wp_ops.form(shards[0]),
+                         "ms": ms(lambda: wp_ops.gather(shards, m)),
+                         "bytes": m.data * n * 4}
+        out["reduce_scatter"] = {
+            "ms": ms(lambda: wp_ops._reduce_scatter_flat(
+                grads, m.data_group, m.data, m.d_index)),
+            "bytes": m.data * n * 4}
+    shapes = rec["local_shapes"]
+    n = sum(int(np.prod(mu)) for path, mu in shapes["mu"].items()
+            if mu != shapes["params"][path])
+    if n:
+        flat = torch.randn(n, device="cuda")
+        out["zero_gather"] = {
+            "ms": ms(lambda: wp_ops.all_gather_flat(
+                flat, m.data_group, m.data, m.d_index)),
+            "bytes": m.data * n * 4}
+    return out
+
+
+def checkpoint_diff(a, b) -> dict:
+    """Two step directories' state.msgpack trees leaf by leaf: the
+    leaves that differ, by top key, and the largest difference relative
+    to its leaf's largest entry."""
+    from pathlib import Path
+
+    from switch_nerf_torch import _msgpack, bridge
+    trees = [bridge._flatten(_msgpack.unpackb(
+        (Path(d) / "state.msgpack").read_bytes())) for d in (a, b)]
+    differ, worst, paths = {}, 0.0, []
+    for path, x in trees[0].items():
+        y = trees[1][path]
+        if x.tobytes() != y.tobytes():
+            key = "/".join(path[:3] if path[0] == "opt_state" else path[:1])
+            differ[key] = differ.get(key, 0) + 1
+            scale = float(np.abs(y).max()) or 1.0
+            worst = max(worst, float(np.abs(x.astype(np.float64) - y).max())
+                        / scale)
+            if path[0] == "params":
+                paths.append("/".join(path[1:]))
+    return {"leaves": differ, "of": len(trees[0]), "worst_rel": worst,
+            "params": paths}
+
+
+def adam_slice_check() -> dict:
+    """torch.optim.Adam on the card, per-tensor and foreach kernels: a
+    slice of each leaf with its own moments against the whole leaf's
+    update there (ZeRO-1's premise), 4 steps of seeded gradients; and
+    the two kernels' largest difference."""
+    shapes = [(16, 15), (256, 331), (8, 256, 256), (1, 256)]
+
+    def half(t):
+        return t[:, :t.shape[1] // 2] if t.dim() == 2 else t[:t.shape[0] // 2]
+
+    def run(foreach, sliced):
+        def draw(seed, shape):
+            t = torch.randn(shape, generator=torch.Generator().manual_seed(
+                seed)).cuda()
+            return half(t).contiguous() if sliced else t
+        ps = [draw(i, s_).requires_grad_() for i, s_ in enumerate(shapes)]
+        opt = torch.optim.Adam(ps, lr=5e-4, foreach=foreach)
+        for step in range(4):
+            for i, p in enumerate(ps):
+                p.grad = draw(100 * step + i + 10, shapes[i])
+            opt.step()
+        return [p.detach() if sliced else half(p.detach()) for p in ps]
+    out = {}
+    for name, foreach in (("per_tensor", False), ("foreach", True)):
+        whole, sliced = run(foreach, False), run(foreach, True)
+        out[name] = max(float((a - b).abs().max())
+                        for a, b in zip(whole, sliced))
+    out["kernels_apart"] = max(float((a - b).abs().max()) for a, b in zip(
+        run(False, True), run(True, True)))
+    return out
+
+
+def layout_check(models, h, local_shapes) -> dict:
+    """Each rank's parameter and moment shapes (``local_shapes``, by
+    rank) against what the layout rules give (``bridge.local_tree`` of
+    the run's last checkpoint on h's mesh under its flags): the leaves
+    that differ (none) and each rank's bytes."""
+    from pathlib import Path
+
+    from switch_nerf_torch import _msgpack, bridge
+    from switch_nerf_torch.parallel.mesh import Mesh
+    steps = max(int(p.name) for p in Path(models).iterdir()
+                if p.name.isdigit())
+    tree = _msgpack.unpackb((Path(models) / str(steps) / "state.msgpack")
+                            .read_bytes())
+    d, e = h.mesh_shape
+    bad, rank_bytes = [], []
+    for r, got in enumerate(local_shapes):
+        mesh = Mesh(d, e, r, None, None, None,
+                    expert_parallel=not h.no_expert_parallel,
+                    weight_parallel=h.expert_weight_parallel,
+                    zero=h.shard_optimizer_states)
+        part = bridge.local_tree(tree, mesh, h.moe_expert_num)
+        want = {"params": part["params"], "mu": part["opt_state"]["0"]["mu"],
+                "nu": part["opt_state"]["0"]["nu"]}
+        for kind, leaves in want.items():
+            flat_want = {"/".join(k): list(np.shape(v))
+                         for k, v in bridge._flatten(leaves).items()}
+            bad += [(r, kind, k) for k in set(flat_want) | set(got[kind])
+                    if flat_want.get(k) != got[kind].get(k)]
+        rank_bytes.append(state_bytes({"local_shapes": got}))
+    return {"bad": bad[:4], "state_bytes": rank_bytes}
+
+
+def weight_parallel_phase(counts: dict, dp: dict, keep) -> dict:
+    """Train Building under expert weight parallelism and ZeRO-1 on the
+    card: phase 13 of the module docstring (2 gloo ranks, each layout of
+    WP_LAYOUTS) against phase 9's pure data-parallel run. Returns its
+    numbers."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch.profile_eval import building_train_hparams
+
+    dp_models = keep / "dp_models"
+    adam = adam_slice_check()
+    log(f"[weight_parallel] Adam on a slice against the whole leaf on the "
+        f"card, largest difference: {adam}")
+    dropfree = building_train_hparams()
+    dropfree.moe_capacity_factor = float(dropfree.moe_expert_num)
+    dropfree.moe_l_aux_wt = 0.0
+    dropfree.use_sigma_noise = False
+    dropfree.perturb = 0.0
+    state, step = dp_setup(dropfree, "cuda")
+    drawn = state.generator.get_state()
+    m1, g1 = step.loss_and_grads(state, dp_batch("cuda"))
+    # the same step again, the same draws: which gradients the card does
+    # not repeat bit for bit
+    state.generator.set_state(drawn)
+    _, again = step.loss_and_grads(state, dp_batch("cuda"))
+    names = [n for n, _ in state.model.named_parameters()] + [
+        f"bg.{n}" for n, _ in state.bg_model.named_parameters()]
+    unrepeated = [n for n, a, b in zip(names, g1, again)
+                  if not torch.equal(a, b)]
+    log(f"[weight_parallel] one process's drop-free step twice on the card:"
+        f" gradients not repeated bit for bit {unrepeated}")
+    l1, g1 = float(m1["all_loss"]), flat(g1)
+    del state, step, again
+    results = {"unrepeated": unrepeated}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_wp_") as tmp:
+        tmp = Path(tmp)
+        make_scene(tmp / "scene", seed=0)
+        for tag, (flags, mesh_shape) in WP_LAYOUTS.items():
+            base = dp_train_hparams(tmp, DP_BATCH, DP_STEPS, DP_SAVE)
+            h = layout_hparams(base, flags, mesh_shape)
+            h.exp_name = str(tmp / tag)
+            resumed = copy.copy(h)
+            resumed.exp_name = str(tmp / f"{tag}_resumed")
+            resumed.ckpt_path = str(tmp / tag / "0" / "models"
+                                    / str(DP_SAVE))
+            trip = copy.copy(h)
+            trip.exp_name = str(tmp / f"{tag}_from_dp")
+            trip.ckpt_path = str(dp_models / str(DP_STEPS))
+            per_rank = DP_BATCH // DP_RANKS
+            chunks = (-(-per_rank * h.coarse_samples // h.model_chunk_size)
+                      + -(-per_rank * h.fine_samples // h.model_chunk_size))
+            log(f"[weight_parallel] {DP_RANKS} ranks on one card over "
+                f"gloo, {flags} --mesh_shape {mesh_shape}: train.main "
+                f"{DP_STEPS} steps of {DP_BATCH} rays, a save at {DP_SAVE} "
+                "and a resume; phase 9's checkpoint resumed; the drop-free "
+                "first step; the weight collectives")
+            torch.cuda.empty_cache()
+            port = free_port()
+            specs = [{"rank": r, "world": DP_RANKS, "port": port,
+                      "backend": "gloo", "train": h, "resume": resumed,
+                      "roundtrip": trip, "wp_collectives": True,
+                      "ep_first": layout_hparams(dropfree, flags,
+                                                 mesh_shape),
+                      "ep_grad_path": str(tmp / f"{tag}_grad.npy"),
+                      "out": str(tmp / f"{tag}{r}.json")}
+                     for r in range(DP_RANKS)]
+            t0 = time.perf_counter()
+            outs = run_workers(specs, tmp)
+            wall = time.perf_counter() - t0
+            trains = [o["train"] for o in outs]
+            n = [t["launches"] for t in trains]
+            hashes = [t["hashes"] for t in trains]
+            if not all(t["step"] == DP_STEPS and l["K1"] == l["K2"]
+                       == chunks * DP_STEPS and l["K3"] == l["K4"] == 0
+                       for t, l in zip(trains, n)):
+                raise AssertionError(f"{tag}: a rank did not run K1 and K2 "
+                                     "on every chunk of every step")
+            wp_d = bool(flags.get("expert_weight_parallel")
+                        and mesh_shape[0] > 1)
+            gathers = [t["weights"]["gathers"] for t in trains]
+            if gathers != [DP_STEPS * wp_d] * DP_RANKS:
+                raise AssertionError(f"{tag}: weight gathers {gathers}, not "
+                                     "one a step")
+            if not (hashes[0] == hashes[1]
+                    and sorted(map(int, hashes[0])) == [DP_SAVE, DP_STEPS]
+                    and all(all(t["finite"]) for t in trains)):
+                raise AssertionError(f"{tag}: the ranks' replicated "
+                                     "parameters differ or a metric is "
+                                     "not finite")
+            same_batches = all(t["digests"] == d for t, d in
+                               zip(trains, dp["digests"]))
+            rel = [abs(a - b) / abs(b)
+                   for a, b in zip(trains[0]["loss"], dp["loss"])]
+            resumed_rel = [[abs(a - b) / abs(b) for a, b in zip(
+                o["resume"]["loss"], o["train"]["loss"][DP_SAVE:])]
+                for o in outs]
+            if not (same_batches and max(rel) <= 1e-3 and all(
+                    r_[0] <= 1e-3 and o["resume"]["digests"]
+                    == o["train"]["digests"][DP_SAVE:]
+                    for r_, o in zip(resumed_rel, outs))):
+                raise AssertionError(f"{tag}: the losses differ from pure "
+                                     "data parallelism's, or the resume "
+                                     "does not repeat the run")
+            models = tmp / tag / "0" / "models"
+            trip_bytes = (tmp / f"{tag}_from_dp" / "0" / "models"
+                          / str(DP_STEPS) / "state.msgpack").read_bytes()
+            dp_bytes = (dp_models / str(DP_STEPS) / "state.msgpack"
+                        ).read_bytes()
+            trained_equal = {s_: (models / str(s_) / "state.msgpack")
+                             .read_bytes() == (dp_models / str(s_)
+                                               / "state.msgpack").read_bytes()
+                             for s_ in (DP_SAVE, DP_STEPS)}
+            diff = checkpoint_diff(models / str(DP_STEPS),
+                                   dp_models / str(DP_STEPS))
+            layout = layout_check(models, h,
+                                  [t["local_shapes"] for t in trains])
+            first = [o["ep_first"] for o in outs]
+            grad = np.load(tmp / f"{tag}_grad.npy")
+            cos = cosine(torch.from_numpy(grad), g1)
+            # the same step's averaged gradient in phase 9's 2 ranks
+            grad_apart = int((grad != np.load(keep / "dp_grad.npy")).sum())
+            l2 = first[0]["loss"]
+            coll = [o["wp_collectives"] for o in outs]
+            log(f"  launches per rank {n}; weight gathers "
+                f"{[t['weights'] for t in trains]}; optimizer "
+                f"{trains[0]['optimizer']}; loss relative to pure data "
+                f"parallel per step {[f'{x:.2e}' for x in rel]} (limit "
+                f"1e-3; same batches {same_batches}); resumed "
+                f"{[[f'{x:.2e}' for x in r_] for r_ in resumed_rel]}; "
+                f"checkpoints byte-equal to phase 9's: trained "
+                f"{trained_equal} (step {DP_STEPS}: leaves apart {diff}), "
+                f"phase 9's step {DP_STEPS} resumed and "
+                f"saved {trip_bytes == dp_bytes}; drop-free first step "
+                f"all_loss {l2:.6f}, 1 process {l1:.6f}, cosine {cos:.6f}, "
+                f"averaged gradient entries apart from phase 9's "
+                f"{grad_apart} of {grad.size}; "
+                f"local experts {first[0]['local_experts']}; per-rank "
+                f"state bytes {layout['state_bytes']}, peak "
+                f"{[t['peak_bytes'] for t in trains]} B; collectives "
+                f"{coll}; wall {wall:.1f} s")
+            if not (trip_bytes == dp_bytes and not layout["bad"]
+                    and abs(l2 - l1) <= 1e-3 * abs(l1) and cos >= 0.999
+                    and first[1]["loss"] == l2):
+                raise AssertionError(
+                    f"{tag}: the round trip, the layout {layout['bad']} or "
+                    "the drop-free step disagrees")
+            counts[f"K1 weight-parallel {tag}"] = sum(l["K1"] for l in n)
+            counts[f"K2 weight-parallel {tag}"] = sum(l["K2"] for l in n)
+            step_s = [float(np.mean(np.diff(t["t_end"][1:])))
+                      for t in trains]
+            results[tag] = {
+                "step_s": step_s, "rays_per_s": DP_BATCH / max(step_s),
+                "loss_rel": max(rel), "cosine": cos,
+                "trained_equal": trained_equal, "trained_diff": diff,
+                "grad_apart": grad_apart,
+                "state_bytes": layout["state_bytes"],
+                "peak_bytes": [t["peak_bytes"] for t in trains],
+                "collectives": coll, "wall_s": wall}
+    results["adam_slice"] = adam
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3518,9 +3935,17 @@ def main() -> int:
     serving = serving_phase(counts)
     pts_rows["K1R eval_points"] = points_path_kernel(
         peaks, serving.pop("k1r_inputs"))
-    dp = data_parallel_phase(counts)
-    orbax = orbax_phase(counts)
-    ep = expert_parallel_phase(counts)
+    import shutil
+    import tempfile
+    from pathlib import Path
+    keep = Path(tempfile.mkdtemp(prefix="chip_smoke_keep_"))
+    try:
+        dp = data_parallel_phase(counts, keep)
+        orbax = orbax_phase(counts)
+        ep = expert_parallel_phase(counts)
+        wp = weight_parallel_phase(counts, dp, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -3599,6 +4024,23 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the weight-parallel paths' K1 and K2 (phase 13): whole weights on
+    # Building's per-rank chunks (the same shapes as pure data
+    # parallelism's), and under --expert_parallel a rank's E_loc 4
+    for tag, label, times in (
+            ("ewp_zero", "weight-parallel + ZeRO-1, mesh 2 1",
+             {k: rows[k] for k in ("K1", "K2")}),
+            ("ep_ewp", f"expert + weight-parallel, mesh 1 2, E_loc {e_loc}",
+             {k: ep_rows[f"{k} E{e_loc}"] for k in ("K1", "K2")})):
+        for key, r in times.items():
+            kname, source, replaces = meta[key]
+            kernels.append({
+                "name": f"{kname} ({label})", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": counts[f"{key} weight-parallel {tag}"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # eval_points (phase 10): K1R (no-drop) held and timed at its first
     # call's rows and routing, K1 (--moe_test_batch) at its capacity
     for key, row, count_key in (
@@ -3660,6 +4102,22 @@ def main() -> int:
         f"{ep['train_exchanges']}; drop-free first step all_loss relative "
         f"{ep['loss_rel']:.3e}, cosine {ep['cosine']:.6f}; phase "
         f"{ep['wall_s']:.1f} s wall, on {smi}")
+    log(f"[weight_parallel] Adam on a slice against the whole leaf, "
+        f"largest difference {wp.pop('adam_slice')}; gradients one process "
+        f"does not repeat bit for bit {wp.pop('unrepeated')}, on {smi}")
+    for tag, r in wp.items():
+        log(f"[weight_parallel] {tag} ({WP_LAYOUTS[tag][0]}, --mesh_shape "
+            f"{WP_LAYOUTS[tag][1]}), {DP_RANKS} ranks on one card over gloo:"
+            f" seconds a step per rank {[round(x, 4) for x in r['step_s']]},"
+            f" train rays/s through Runner.train {r['rays_per_s']:.1f} "
+            f"(pure data parallel {dp['rays_per_s']:.1f}); loss relative to "
+            f"pure data parallel at most {r['loss_rel']:.3e}; drop-free "
+            f"cosine {r['cosine']:.6f}; trained checkpoints byte-equal to "
+            f"pure data parallel's {r['trained_equal']} (leaves apart "
+            f"{r['trained_diff']}); per-rank state "
+            f"bytes {r['state_bytes']}, peak {r['peak_bytes']} B; "
+            f"collectives {r['collectives']}; phase {r['wall_s']:.1f} s "
+            f"wall, on {smi}")
     for key, r in ep_rows.items():
         log(f"[kernels EP] {key} C{r['c']} (bf16): {r['ms']:.4f} ms "
             f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "

@@ -23,13 +23,16 @@ MultiSteps' window, the PRNG key) to and from the port's
 ``trainer.TrainState``; ``checkpoints.py`` reads and writes it.
 
 Under expert parallelism a rank's ExpertMLP parameters are its block of
-experts (``models/experts.localize`` tags them with the mesh). The tree
-stays the whole one: a load keeps the rank's block of each expert leaf
-(``local_tree`` does the same to a tree of numpy arrays), an export
-gathers the blocks from the expert group (a collective: every rank
-exports, in the same order), and ``whole_tree`` joins the ranks' local
-trees. An expert leaf is one under ``experts`` with the experts as its
-leading dimension, as JAX's ``parallel/mesh.py:expert_leaf_spec`` says.
+experts (``models/experts.localize`` tags them ``expert_mesh``); under
+expert weight parallelism also their column block of the last dimension
+(tagged ``weight_mesh``); under ZeRO-1 (``parallel/zero.ZeroAdam``) some
+leaves' Adam moments are the rank's slice of their first JAX dimension.
+The tree stays the whole one: a load keeps the rank's part of each leaf
+and of its moments, an export gathers the parts from their groups (a
+collective: every rank exports, in the same order). ``local_tree`` cuts a
+tree of numpy arrays to what JAX's device (d, e) holds under the mesh's
+flags (``parallel/mesh.leaf_spec``), and ``local_state`` gives a port
+rank's own parts in the same layout, without a collective.
 """
 from __future__ import annotations
 
@@ -40,11 +43,14 @@ import torch
 from torch import nn
 
 from switch_nerf_torch.models.common import Embedding, LayerNorm, TorchLinear
+from switch_nerf_torch.parallel import weights, zero
 from switch_nerf_torch.parallel.experts import gather_whole
+from switch_nerf_torch.parallel.mesh import DATA, Mesh
 
 __all__ = ["load_jax_params", "load_jax_state", "export_jax_params",
            "export_jax_state", "jax_state_shapes", "load_jax_train_state",
-           "export_jax_train_state", "local_tree", "whole_tree"]
+           "export_jax_train_state", "local_tree", "local_state",
+           "model_leaves", "zero_dims", "sharded"]
 
 
 def _host(val) -> np.ndarray:
@@ -76,18 +82,27 @@ def _torch_name(path: tuple):
 
 
 def _local(arr: np.ndarray, p) -> np.ndarray:
-    """The block of a whole expert leaf that parameter `p` holds (an
-    expert-parallel parameter), else `arr`."""
+    """The part of a whole leaf (torch layout) that parameter `p` holds:
+    its block of experts (expert-parallel) and its column block of the
+    last dimension (weight-parallel); else `arr`."""
     mesh = getattr(p, "expert_mesh", None)
-    if mesh is None:
-        return arr
-    lo, hi = mesh.block(arr.shape[0])
-    return arr[lo:hi]
+    if mesh is not None:
+        lo, hi = mesh.block(arr.shape[0])
+        arr = arr[lo:hi]
+    mesh = getattr(p, "weight_mesh", None)
+    if mesh is not None:
+        k = arr.shape[-1] // mesh.data
+        arr = arr[..., mesh.d_index * k:(mesh.d_index + 1) * k]
+    return arr
 
 
 def _whole(t: torch.Tensor, p) -> torch.Tensor:
-    """The whole of a tensor shaped like parameter `p`: gathered from the
-    expert group for an expert-parallel parameter."""
+    """The whole of a tensor shaped like parameter `p`: its column blocks
+    gathered from the data group (weight-parallel), then its experts from
+    the expert group (expert-parallel)."""
+    mesh = getattr(p, "weight_mesh", None)
+    if mesh is not None:
+        t = weights.gather([t], mesh)[0]
     mesh = getattr(p, "expert_mesh", None)
     return t if mesh is None else gather_whole([t], mesh)[0]
 
@@ -205,11 +220,15 @@ def export_jax_state(model: nn.Module, bg_model: Optional[nn.Module]) -> Dict:
 
 
 def _whole_shape(p, path: tuple) -> tuple:
-    shape = tuple(p.shape)
+    """The whole leaf's shape, in JAX's layout."""
+    shape = list(p.shape)
     mesh = getattr(p, "expert_mesh", None)
     if mesh is not None:
-        shape = (shape[0] * mesh.expert,) + shape[1:]
-    return shape[::-1] if path[-1] == "kernel" else shape
+        shape[0] *= mesh.expert
+    mesh = getattr(p, "weight_mesh", None)
+    if mesh is not None:
+        shape[-1] *= mesh.data
+    return tuple(shape[::-1] if path[-1] == "kernel" else shape)
 
 
 def jax_state_shapes(model: nn.Module, bg_model: Optional[nn.Module]
@@ -226,56 +245,90 @@ def jax_state_shapes(model: nn.Module, bg_model: Optional[nn.Module]
     return tree
 
 
-def _is_expert_leaf(path: tuple, arr, num_experts: int) -> bool:
-    return ("experts" in path[:-1] and np.ndim(arr) >= 1
-            and np.shape(arr)[0] == num_experts)
-
-
-def _map_expert_leaves(tree, fn, num_experts: int, path=()):
-    if isinstance(tree, Mapping):
-        return {k: _map_expert_leaves(v, fn, num_experts, path + (str(k),))
-                for k, v in tree.items()}
-    return fn(tree) if _is_expert_leaf(path, tree, num_experts) else tree
-
-
-def local_tree(tree: Mapping, index: int, size: int, num_experts: int
-               ) -> Dict:
-    """A train-state (or parameter) tree with every expert leaf (its
-    moments and accumulated gradients too) cut to the block of experts
-    that member `index` of an expert axis of `size` holds."""
-    local = num_experts // size
-    return _map_expert_leaves(
-        tree, lambda a: a[index * local:(index + 1) * local], num_experts)
-
-
-def whole_tree(trees: List[Mapping], num_experts: int) -> Dict:
-    """The members' local trees (by expert index) joined into the whole
-    one: expert leaves concatenated along the experts, the rest taken
-    from member 0."""
-    local = num_experts // len(trees)
-
-    def join(path, nodes):
-        if isinstance(nodes[0], Mapping):
-            return {k: join(path + (str(k),), [n[k] for n in nodes])
-                    for k in nodes[0]}
-        if _is_expert_leaf(path, nodes[0], local):
-            return (torch.cat(list(nodes)) if torch.is_tensor(nodes[0])
-                    else np.concatenate(nodes))
-        return nodes[0]
-    return join((), list(trees))
+def local_tree(tree: Mapping, mesh: Mesh, num_experts: int) -> Dict:
+    """A train-state (or parameter) tree cut to what JAX's device
+    (d, e) of `mesh` holds under its flags: every leaf by
+    ``mesh.spec``, the float leaves under ``opt_state`` (Adam's moments
+    and MultiSteps' accumulated gradients) as moments (ZeRO-1)."""
+    def cut(node, path):
+        if isinstance(node, Mapping):
+            return {k: cut(v, path + (str(k),)) for k, v in node.items()}
+        moment = (path[:1] == ("opt_state",)
+                  and np.issubdtype(np.asarray(node).dtype, np.floating))
+        spec = mesh.spec(path, np.shape(node), num_experts, moment=moment)
+        return mesh.cut(node, spec) if spec else node
+    return cut(tree, ())
 
 
 # ------------------------------------------------------------ train state --
 
-def _state_leaves(train_state) -> List[Tuple[tuple, nn.Parameter]]:
-    """(flax path from the params root, parameter) in the order of
-    ``train_state.parameters()``."""
-    leaves = [(("nerf",) + path, p)
-              for path, p in _flax_leaves(train_state.model)]
-    if train_state.bg_model is not None:
+def model_leaves(model: nn.Module, bg_model: Optional[nn.Module]
+                 ) -> List[Tuple[tuple, nn.Parameter]]:
+    """(flax path from the params root, parameter) in the order of the
+    fg then the bg model's parameters (``TrainState.parameters()``)."""
+    leaves = [(("nerf",) + path, p) for path, p in _flax_leaves(model)]
+    if bg_model is not None:
         leaves += [(("bg_nerf",) + path, p)
-                   for path, p in _flax_leaves(train_state.bg_model)]
+                   for path, p in _flax_leaves(bg_model)]
     return leaves
+
+
+def _state_leaves(train_state) -> List[Tuple[tuple, nn.Parameter]]:
+    return model_leaves(train_state.model, train_state.bg_model)
+
+
+def zero_dims(leaves, mesh: Mesh, num_experts: int) -> List[Optional[int]]:
+    """For each (path, parameter) of ``model_leaves``, the torch
+    dimension ZeRO-1 slices its Adam moments along over the data axis
+    (JAX's dim 0: dim 1 of a Linear weight), or None."""
+    out: List[Optional[int]] = []
+    for path, p in leaves:
+        spec = mesh.spec(path, _whole_shape(p, path), num_experts,
+                         moment=True)
+        cut = spec == (DATA,) and mesh.data > 1
+        out.append((p.dim() - 1 if path[-1] == "kernel" else 0)
+                   if cut else None)
+    return out
+
+
+def sharded(train_state) -> bool:
+    """Whether a rank holds only part of the state (the experts, their
+    columns or Adam's moments): its export is then a collective."""
+    return (isinstance(train_state.optimizer, zero.ZeroAdam)
+            or any(getattr(p, "expert_mesh", None) is not None
+                   or getattr(p, "weight_mesh", None) is not None
+                   for p in train_state.parameters()))
+
+
+def _moment(optimizer, st: Mapping, name: str, path: tuple, p):
+    """A moment of `p` in flax layout, whole (zeros before Adam's first
+    step on it)."""
+    if name not in st:
+        return np.zeros(_whole_shape(p, path), np.float32)
+    t = st[name]
+    if isinstance(optimizer, zero.ZeroAdam):
+        t = optimizer.whole(t, p)
+    return _to_flax(t, path, p)
+
+
+def local_state(train_state) -> Dict[str, Dict[tuple, np.ndarray]]:
+    """This rank's own parts of the parameters and Adam's moments, by
+    flax path, in JAX's layout (kernels transposed), as JAX's device
+    (d, e) holds them; no collective (a moment Adam has not stepped yet
+    is zeros of its part's shape)."""
+    ts = train_state
+    out: Dict[str, Dict[tuple, np.ndarray]] = {"params": {}, "mu": {},
+                                               "nu": {}}
+    for path, p in _state_leaves(ts):
+        key = zero.key_of(ts.optimizer, p)
+        st = ts.optimizer.state.get(key, {})
+        parts = {"params": p,
+                 "mu": st.get("exp_avg", torch.zeros_like(key)),
+                 "nu": st.get("exp_avg_sq", torch.zeros_like(key))}
+        for name, t in parts.items():
+            arr = t.detach().float().cpu().numpy()
+            out[name][path] = arr.T if path[-1] == "kernel" else arr
+    return out
 
 
 def _sorted_tree(tree):
@@ -315,15 +368,15 @@ def export_jax_train_state(train_state, rng) -> Dict:
     """
     ts = train_state
     leaves = _state_leaves(ts)
-    states = [ts.optimizer.state.get(p, {}) for _, p in leaves]
+    opt = ts.optimizer
+    states = [opt.state.get(zero.key_of(opt, p), {}) for _, p in leaves]
     counts = {int(st["step"]) for st in states if "step" in st}
     if len(counts) > 1:
         raise ValueError(f"Adam's parameters disagree on the step: {counts}")
     adam = {"count": _i32(counts.pop() if counts else 0)}
     for key, moment in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
         adam[key] = _sorted_nest(
-            (path, _to_flax(st[moment], path, p) if moment in st
-             else np.zeros(_whole_shape(p, path), np.float32))
+            (path, _moment(opt, st, moment, path, p))
             for (path, p), st in zip(leaves, states))
     inner = {"0": adam,
              "1": {"count": _i32(ts.opt_step)} if ts.scheduled_lr else {}}
@@ -383,11 +436,15 @@ def load_jax_train_state(state_tree: Mapping, train_state) -> None:
 
     load_jax_state(ts.model, ts.bg_model, state_tree["params"])
     count = int(adam["count"])
+    optimizer = ts.optimizer
+    sliced = isinstance(optimizer, zero.ZeroAdam)
     for path, p in leaves:
-        ts.optimizer.state[p] = {
+        moments = [_from_flax(trees[k][path], path, p) for k in ("mu", "nu")]
+        if sliced:
+            moments = [optimizer.mine(t, p).contiguous() for t in moments]
+        optimizer.state[zero.key_of(optimizer, p)] = {
             "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": _from_flax(trees["mu"][path], path, p),
-            "exp_avg_sq": _from_flax(trees["nu"][path], path, p)}
+            "exp_avg": moments[0], "exp_avg_sq": moments[1]}
     ts.step = int(state_tree["step"])
     ts.rng = np.array(state_tree["rng"], np.uint32)
     if multi:

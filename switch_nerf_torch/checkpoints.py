@@ -34,11 +34,12 @@ A data-parallel run holds the same parameters on every rank, so its
 checkpoint is the single-host format above, which the JAX package writes
 for one process driving all its chips: every rank calls ``save_checkpoint``
 (it gathers the generator states), rank 0 writes and the others wait at a
-barrier; every rank reads the same files. Under expert parallelism every
-rank also takes part in gathering the experts and their moments
+barrier; every rank reads the same files. Under expert, expert weight or
+optimizer-state (ZeRO-1) parallelism every rank also takes part in
+gathering the experts, their column blocks and the moments' slices
 (``bridge``), so rank 0 writes the bytes a data-parallel run writes for
-the same state, and a load keeps each rank's block: either run resumes
-from the other's checkpoint.
+the same state, and a load keeps each rank's part: a run resumes from a
+checkpoint of any layout.
 
 The JAX package's multi-process runs write the sharded (orbax) format
 instead: ``<step>/orbax`` beside extra.json. It loads through the same
@@ -61,7 +62,7 @@ import numpy as np
 import torch
 
 from switch_nerf_torch import _msgpack, bridge, orbax_read
-from switch_nerf_torch.parallel import experts, host
+from switch_nerf_torch.parallel import host
 from switch_nerf_torch.utils.logger import main_log
 
 GENERATOR_KEY = "torch_generator_state"
@@ -122,9 +123,10 @@ def save_checkpoint(ckpt_dir, state, dataset_state: Optional[str] = None,
     path = Path(ckpt_dir) / str(step)
     generators = host.all_gather_object(base64.b64encode(
         state.generator.get_state().numpy().tobytes()).decode())
-    # expert parallel: every rank takes part in gathering the experts
+    # a rank holds part of the state (expert, weight or optimizer-state
+    # parallel): every rank takes part in gathering it
     tree = (bridge.export_jax_train_state(state, _jax_rng(state))
-            if experts.mesh_of(state.parameters()) is not None else None)
+            if bridge.sharded(state) else None)
     if not host.is_main():
         host.barrier("checkpoint saved")
         return path

@@ -124,16 +124,19 @@ def get_opts_base() -> argparse.ArgumentParser:
     p.add_argument("--no_expert_parallel", default=True, action="store_true")
     p.add_argument("--shard_optimizer_states", default=False,
                    action="store_true",
-                   help="ZeRO-1-style sharding of optimizer moments over "
-                        "the 'data' mesh axis (GSPMD; numerics-invariant). "
-                        "Expert moments always follow the expert sharding.")
+                   help="ZeRO-1: each rank keeps Adam's moments of the "
+                        "otherwise whole leaves for its slice of their first "
+                        "dimension over the 'data' mesh axis "
+                        "(numerics-invariant). Expert moments always follow "
+                        "the expert sharding.")
     p.add_argument("--expert_weight_parallel", default=False,
                    action="store_true",
                    help="additionally shard expert weight matrices' hidden "
-                        "dim over the 'data' mesh axis (the reference's "
-                        "ZeRO-style zero_gather/PrimAllgather slicing, "
+                        "(output) dim over the 'data' mesh axis, gathered "
+                        "once a training step (the reference's ZeRO-style "
+                        "zero_gather/PrimAllgather slicing, "
                         "tutel_moe_layer_nobatch.py:484-498; use when "
-                        "experts are fewer than chips)")
+                        "experts are fewer than GPUs)")
     p.add_argument("--use_balance_loss", default=True, action="store_true")
     p.add_argument("--no_use_balance_loss", dest="use_balance_loss",
                    default=True, action="store_false")

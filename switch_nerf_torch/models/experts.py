@@ -15,6 +15,13 @@ token exchange (``parallel/experts.chain``: K1 and K2 on
 ``gathered`` (eval) on weights gathered once, otherwise (no-drop
 training) on weights gathered at each call, whose gradients go back to
 their owners (``parallel/experts.WholeExperts``).
+
+Under expert weight parallelism (``localize`` with
+--expert_weight_parallel) each parameter also keeps its column block of
+the last dimension, tagged ``weight_mesh``; a training pass runs inside
+``hold_for_pass``, which gathers the blocks once (``parallel/weights``)
+and every MoE call of the pass takes its weights from that copy, first
+exchanging tokens with the experts' owners under expert parallelism.
 """
 from __future__ import annotations
 
@@ -29,9 +36,11 @@ from switch_nerf_torch.ops.expert_kernel import expert_mlp_chain
 from switch_nerf_torch.ops.fused_dispatch import fused_dispatch_chain
 from switch_nerf_torch.ops.ragged_chain import ragged_chain
 from switch_nerf_torch.parallel import experts as ep_ops
-from switch_nerf_torch.parallel.mesh import Mesh
+from switch_nerf_torch.parallel import weights as wp_ops
+from switch_nerf_torch.parallel.mesh import DATA, EXPERT, Mesh
 
-__all__ = ["ExpertMLP", "localize", "hold_whole", "gathered"]
+__all__ = ["ExpertMLP", "localize", "hold_whole", "gathered",
+           "hold_for_pass"]
 
 
 class ExpertMLP(nn.Module):
@@ -50,12 +59,27 @@ class ExpertMLP(nn.Module):
             self.register_parameter(f"b{i}", uniform_fan_in(
                 (num_experts, 1, m), m, generator, init_factor))
         self.ep: Optional[Mesh] = None                 # set by localize
+        self.wp: Optional[Mesh] = None                 # set by localize
         self.whole: Optional[List[torch.Tensor]] = None  # set by gathered
+        self.held: Optional[List[torch.Tensor]] = None   # hold_for_pass
 
     def _own(self) -> List[torch.Tensor]:
         """This module's parameters: w0..w{L-1}, then b0..b{L-1}."""
         return ([getattr(self, f"w{i}") for i in range(self.layer_num)]
                 + [getattr(self, f"b{i}") for i in range(self.layer_num)])
+
+    def _weights(self) -> List[torch.Tensor]:
+        """This rank's experts with their whole last dimension: under
+        weight parallelism the pass's gathered copy (``hold_for_pass``),
+        else the parameters."""
+        if self.held is not None:
+            return self.held
+        if self.wp is not None:
+            raise RuntimeError(
+                "expert weight parallelism: the experts' column blocks are "
+                "gathered once a training pass; run the pass inside "
+                "models.experts.hold_for_pass (or the eval inside gathered)")
+        return self._own()
 
     def _stack(self, tensors: Sequence[torch.Tensor], dtype: torch.dtype):
         n = self.layer_num
@@ -68,12 +92,12 @@ class ExpertMLP(nn.Module):
         if self.whole is not None:
             return self._stack(self.whole, dtype)
         if self.ep is not None:
-            return self._stack(ep_ops.WholeExperts.apply(self.ep,
-                                                         *self._own()), dtype)
-        return self._stack(self._own(), dtype)
+            return self._stack(ep_ops.WholeExperts.apply(
+                self.ep, *self._weights()), dtype)
+        return self._stack(self._weights(), dtype)
 
     def _local_chain(self, z: torch.Tensor) -> torch.Tensor:
-        ws, bs = self._stack(self._own(), z.dtype)
+        ws, bs = self._stack(self._weights(), z.dtype)
         return expert_mlp_chain(z, ws, bs, self.skips)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,30 +127,51 @@ class ExpertMLP(nn.Module):
 
 
 def localize(model: nn.Module, mesh: Mesh) -> None:
-    """Keep each ExpertMLP's block of experts on this rank of `mesh`, in
-    place: the parameters become their [lo, hi) slices (copies), tagged
-    with the mesh (``p.expert_mesh``)."""
+    """Keep each ExpertMLP's part on this rank of `mesh`, in place, as
+    ``mesh.spec`` lays out its leaves: the block of experts over the
+    expert axis (tagged ``p.expert_mesh``) and, under weight parallelism,
+    the column block of the last dimension over the data axis (tagged
+    ``p.weight_mesh``); the parameters become copies of their parts."""
     for mod in model.modules():
         if not isinstance(mod, ExpertMLP):
             continue
-        lo, hi = mesh.block(mod.num_experts)
+        # every leaf is [E, ..., M]: all of a module's are cut alike
         for name, p in list(mod.named_parameters(recurse=False)):
-            local = nn.Parameter(p.detach()[lo:hi].clone())
-            local.expert_mesh = mesh
-            setattr(mod, name, local)
-        mod.ep = mesh
+            spec = mesh.spec(("experts", name), p.shape, mod.num_experts)
+            experts = EXPERT in spec and mesh.splits_experts
+            columns = bool(spec) and spec[-1] == DATA and mesh.data > 1
+            if experts or columns:
+                local = nn.Parameter(mesh.cut(p.detach(), spec).clone())
+                if experts:
+                    local.expert_mesh = mesh
+                if columns:
+                    local.weight_mesh = mesh
+                setattr(mod, name, local)
+        mod.ep = mesh if experts else None
+        mod.wp = mesh if columns else None
+
+
+def _whole_no_grad(m: ExpertMLP) -> List[torch.Tensor]:
+    """The whole experts of `m`: its column blocks gathered over the data
+    group, then its experts over the expert group."""
+    ts = m._own()
+    if m.wp is not None:
+        ts = wp_ops.gather(ts, m.wp)
+    if m.ep is not None:
+        ts = ep_ops.gather_whole(ts, m.ep)
+    return ts
 
 
 def hold_whole(model: Optional[nn.Module]) -> List[ExpertMLP]:
-    """Gather every expert-parallel ExpertMLP of `model` from its owners
-    (a collective of the expert group) and run it whole from now on;
+    """Gather every expert- or weight-parallel ExpertMLP of `model` from
+    its holders (collectives of its groups) and run it whole from now on;
     returns the modules it gathered (those not whole already)."""
     mods = ([m for m in model.modules() if isinstance(m, ExpertMLP)
-             and m.ep is not None and m.whole is None]
+             and (m.ep is not None or m.wp is not None) and m.whole is None]
             if model is not None else [])
     with torch.no_grad():
         for m in mods:
-            m.whole = ep_ops.gather_whole(m._own(), m.ep)
+            m.whole = _whole_no_grad(m)
     return mods
 
 
@@ -140,3 +185,27 @@ def gathered(model: Optional[nn.Module]) -> Iterator[None]:
     finally:
         for m in mods:
             m.whole = None
+
+
+@contextlib.contextmanager
+def hold_for_pass(*models: Optional[nn.Module]) -> Iterator[None]:
+    """Run one training pass with every weight-parallel ExpertMLP's column
+    blocks gathered once, differentiably (``parallel/weights.
+    GatherWeights``: one gather of all of them now, one reduce-scatter of
+    their gradients in the backward); the copy is dropped on exit. A
+    no-op without weight parallelism."""
+    mods = [m for model in models if model is not None
+            for m in model.modules()
+            if isinstance(m, ExpertMLP) and m.wp is not None]
+    if not mods:
+        yield
+        return
+    whole = iter(wp_ops.GatherWeights.apply(
+        mods[0].wp, *[p for m in mods for p in m._own()]))
+    for m in mods:
+        m.held = [next(whole) for _ in range(2 * m.layer_num)]
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.held = None

@@ -6,8 +6,8 @@ configs: ``get_nerf`` builds the NeRFMoE or, with --use_mip or
 dense NeRF; ``get_bg_nerf`` the dense background NeRF. Weights are drawn
 from a ``torch.Generator`` seeded with ``seed`` (default
 ``--random_seed``) on the CPU, then moved to the device. Under expert
-parallelism (``parallel.mesh.current()``) the MoE layers then keep this
-rank's block of experts (``models/experts.localize``).
+or expert weight parallelism (``parallel.mesh.current()``) the MoE layers
+then keep this rank's part of the experts (``models/experts.localize``).
 """
 from __future__ import annotations
 
@@ -147,12 +147,12 @@ def get_nerf(hparams, appearance_count: int, *, device=None,
         model = _get_dense_nerf(hparams, appearance_count, hparams.layer_dim,
                                 3, gen)
     model = model.to(dev).eval()
-    # expert parallelism: the whole model is drawn (so every rank draws the
-    # data-parallel weights), then each rank keeps its block of experts
-    ep = mesh.current()
-    if (ep is not None and getattr(hparams, "use_moe", False)
-            and not getattr(hparams, "no_expert_parallel", True)):
-        localize(model, ep)
+    # expert (weight) parallelism: the whole model is drawn (so every rank
+    # draws the data-parallel weights), then each rank keeps its part of
+    # the experts
+    on = mesh.current()
+    if on is not None and getattr(hparams, "use_moe", False):
+        localize(model, on)
     return model
 
 

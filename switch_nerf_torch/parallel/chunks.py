@@ -116,11 +116,13 @@ def plan(points: int, chunk_size: int, grid: RankGrid
     process group, the subgroups of the pass's shared chunks are made
     first: every rank calls it for every pass, in the same order. Under
     expert parallelism the pass must keep the ranks in lockstep
-    (``check_lockstep``)."""
+    (``check_lockstep``); expert weight parallelism gathers once a pass,
+    outside the MoE calls, so it needs no lockstep."""
     out, spans, n_chunks = _pieces(points, chunk_size, grid)
     if spans and dist.is_initialized():
         _make_groups(spans, grid.world)
-    if mesh.current() is not None:
+    on = mesh.current()
+    if on is not None and on.splits_experts:
         check_lockstep(points, chunk_size, grid.world)
     return out, n_chunks
 

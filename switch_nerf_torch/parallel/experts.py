@@ -27,8 +27,9 @@ The form of an exchange follows the backend and the tensor's device:
 (bit views summed as integers, so the sum is exact, signs of zeros too)
 for CUDA tensors under gloo, which has no all-to-all on them (several
 ranks on one card). ``gather_whole`` gives the whole ``[E, ...]`` of
-expert tensors the same way: eval and no-drop dispatch run the whole
-model (``models/experts.py``), and rank 0 writes whole checkpoints.
+expert tensors (``weights.all_gather_flat``, whose forms follow the same
+rule): eval and no-drop dispatch run the whole model
+(``models/experts.py``), and rank 0 writes whole checkpoints.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from switch_nerf_torch.parallel.mesh import Mesh
+from switch_nerf_torch.parallel.weights import _padded, all_gather_flat, join
 
 __all__ = ["mesh_of", "form", "chain", "gather_whole", "WholeExperts",
            "begin_pass", "end_pass", "STATS"]
@@ -126,11 +128,6 @@ def _exchange(blocks: List[torch.Tensor], sizes: List[List[int]],
     return [buf[offsets[i][me]:offsets[i][me] + got[i]] for i in range(n)]
 
 
-def _padded(n: int, itemsize: int) -> int:
-    """n elements rounded up to whole 4-byte words."""
-    return n + (-(n * itemsize) % 4) // itemsize
-
-
 def _to_owners(x: torch.Tensor, mesh: Mesh, caps: List[int],
                how: Optional[str] = None) -> torch.Tensor:
     """[E, C_me, M] -> [E_loc, sum C, M] on the owner."""
@@ -191,22 +188,12 @@ def chain(x: torch.Tensor, local_chain: Callable[[torch.Tensor],
 def gather_whole(tensors: Sequence[torch.Tensor], mesh: Mesh
                  ) -> List[torch.Tensor]:
     """Each member's [E_loc, ...] tensors -> the whole [E, ...], exactly
-    (a zero buffer with each member's block, summed as integers). Every
-    member calls it with tensors of the same shapes and dtype."""
-    n, me = mesh.expert, mesh.e_index
+    (``weights.all_gather_flat`` over the expert group). Every member
+    calls it with tensors of the same shapes and dtype."""
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    per = flat.numel()
-    buf = flat.new_zeros(_padded(n * per, flat.element_size()))
-    buf[me * per:(me + 1) * per] = flat
-    dist.all_reduce(buf.view(torch.int32), group=mesh.expert_group)
-    parts = buf[:n * per].view(n, per)
-    out, lo = [], 0
-    for t in tensors:
-        k = t.numel()
-        out.append(parts[:, lo:lo + k].reshape((n * t.shape[0],)
-                                               + tuple(t.shape[1:])))
-        lo += k
-    return out
+    rows = all_gather_flat(flat, mesh.expert_group, mesh.expert,
+                           mesh.e_index)
+    return join(rows, [t.shape for t in tensors], [0] * len(tensors))
 
 
 class WholeExperts(torch.autograd.Function):

@@ -1,50 +1,56 @@
-"""The port's ('data', 'expert') mesh: its sizes and process groups.
+"""The port's ('data', 'expert') mesh: its sizes, its groups and the
+layout of every leaf on it.
 
 JAX builds one mesh of every device, ``np.asarray(devices).reshape(d, e)``
 with axes ('data', 'expert') (``switch_nerf_tpu/parallel/mesh.py:41-60``).
 The port runs one process per card, so rank r sits at d = r // E,
-e = r % E of a (D, E) mesh:
+e = r % E of a (D, E) mesh, and holds what JAX's device (d, e) holds:
 
   * ``--mesh_shape D`` or ``D 1`` (the default: every process on the data
-    axis), or any shape without ``--expert_parallel``, is pure data
+    axis), or any shape without the flags below, is pure data
     parallelism: every rank holds the whole model and the gradients are
-    averaged over the ranks;
+    averaged over the ranks (no ``Mesh``);
   * ``--expert_parallel`` with ``--mesh_shape D E`` (D * E the number of
     processes, E dividing ``--moe_expert_num``) spreads the experts over
     the expert axis: rank r holds experts [e E_loc, (e + 1) E_loc) with
     E_loc = experts / E, and their Adam moments. Its **expert group** is
     the E ranks with its d (the token exchange, ``experts.py``), its
-    **data group** the D ranks with its e (the expert gradients' sum).
+    **data group** the D ranks with its e;
+  * ``--expert_weight_parallel`` also cuts every expert leaf's last (output)
+    dimension over the data axis, where D divides it: rank r holds the
+    d-th of D column blocks (``weights.py`` gathers them once a training
+    pass). A leaf whose last dimension D does not divide stays whole;
+  * ``--shard_optimizer_states`` (ZeRO-1) keeps Adam's moments of every
+    leaf that is otherwise whole, at least 2-D and whose first dimension
+    D divides, for the d-th block of that dimension only
+    (``zero.ZeroAdam``).
+
+``leaf_spec`` is JAX's rule (``expert_leaf_spec`` and
+``opt_state_shardings``, ``switch_nerf_tpu/parallel/mesh.py:72-174``) in
+JAX's leaf layout: flax's [in, out] kernels, so a torch ``Linear.weight``'s
+dimension 0 in JAX is its dimension 1 (``bridge.py`` maps the two).
 
 Every rank creates every group, in one order (``dist.new_group`` asks it),
 when the mesh is set up (``setup``). Under NCCL each expert group also has
-a gloo twin for the exchange's host-side header. ``--expert_weight_parallel``
-and ZeRO-1 (``--shard_optimizer_states``) wait for the next slice.
+a gloo twin for the exchange's host-side header.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch.distributed as dist
 
-__all__ = ["Mesh", "mesh_shape", "setup", "current"]
+__all__ = ["Mesh", "mesh_shape", "setup", "current", "leaf_spec", "DATA",
+           "EXPERT"]
 
-
-def _waits(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} waits for the next slice of the port's parallelism "
-        "(ROADMAP Queue A item 8); the port runs data and expert "
-        "parallelism")
+DATA, EXPERT = "data", "expert"
+Spec = Tuple[Optional[str], ...]
 
 
 def mesh_shape(hparams, world: int) -> Tuple[int, int]:
     """The (data, expert) mesh shape the flags ask for, checked against
-    the process count; raises on the parallelism the port does not run."""
-    if getattr(hparams, "expert_weight_parallel", False):
-        raise _waits("--expert_weight_parallel")
-    if getattr(hparams, "shard_optimizer_states", False):
-        raise _waits("--shard_optimizer_states (ZeRO-1)")
+    the process count."""
     shape = getattr(hparams, "mesh_shape", None)
     if shape is None:
         return world, 1
@@ -63,16 +69,43 @@ def mesh_shape(hparams, world: int) -> Tuple[int, int]:
     return d, e
 
 
+def leaf_spec(path: Sequence[str], shape: Sequence[int], num_experts: int,
+              *, expert_parallel: bool, weight_parallel: bool, data: int,
+              zero: bool = False, moment: bool = False) -> Spec:
+    """JAX's PartitionSpec of a leaf, as a tuple of axis names (None: not
+    cut), in JAX's layout. An expert leaf (a path through ``experts``,
+    the experts leading) is cut on dim 0 over 'expert' under expert
+    parallelism and, under weight parallelism, on its last dim over
+    'data' where D divides it (at least 2-D). A leaf of Adam's state
+    (``moment``) that is still whole under ZeRO-1 (``zero``), at least
+    2-D, with D dividing its dim 0, is cut there over 'data'."""
+    ndim = len(shape)
+    spec: Spec = ()
+    if "experts" in path and ndim >= 1 and shape[0] == num_experts:
+        first = EXPERT if expert_parallel else None
+        if weight_parallel and ndim >= 2 and shape[-1] % data == 0:
+            spec = (first,) + (None,) * (ndim - 2) + (DATA,)
+        elif expert_parallel:
+            spec = (EXPERT,)
+    if (moment and zero and spec == () and ndim >= 2
+            and shape[0] % data == 0):
+        spec = (DATA,)
+    return spec
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place on an expert-parallel (D, E) mesh and its
-    groups (None: the world group)."""
+    """This rank's place on a (D, E) mesh, the layout flags and its groups
+    (None: the world group)."""
     data: int
     expert: int
     rank: int
     expert_group: Any
     data_group: Any
     host_group: Any
+    expert_parallel: bool = True
+    weight_parallel: bool = False
+    zero: bool = False
 
     @property
     def d_index(self) -> int:
@@ -81,6 +114,12 @@ class Mesh:
     @property
     def e_index(self) -> int:
         return self.rank % self.expert
+
+    @property
+    def splits_experts(self) -> bool:
+        """Whether the experts are spread over the ranks (an expert axis
+        longer than 1 under --expert_parallel)."""
+        return self.expert_parallel and self.expert > 1
 
     def expert_ranks(self) -> List[int]:
         """The ranks of this rank's expert group, by e."""
@@ -95,6 +134,33 @@ class Mesh:
         """The experts [lo, hi) this rank holds."""
         local = num_experts // self.expert
         return self.e_index * local, (self.e_index + 1) * local
+
+    def spec(self, path: Sequence[str], shape: Sequence[int],
+             num_experts: int, moment: bool = False) -> Spec:
+        """``leaf_spec`` of a leaf (JAX layout) under this mesh's flags."""
+        return leaf_spec(path, shape, num_experts,
+                         expert_parallel=self.expert_parallel,
+                         weight_parallel=self.weight_parallel,
+                         data=self.data, zero=self.zero, moment=moment)
+
+    def size(self, axis: str) -> int:
+        return self.data if axis == DATA else self.expert
+
+    def index(self, axis: str) -> int:
+        return self.d_index if axis == DATA else self.e_index
+
+    def cut(self, x, spec: Spec):
+        """This rank's block of a whole array or tensor `x` laid out as
+        `spec` says (numpy or torch; a view)."""
+        index = []
+        for n, axis in zip(x.shape, spec):
+            if axis is None:
+                index.append(slice(None))
+            else:
+                k = n // self.size(axis)
+                index.append(slice(self.index(axis) * k,
+                                   (self.index(axis) + 1) * k))
+        return x[tuple(index)]
 
 
 _CURRENT: Optional[Mesh] = None
@@ -124,27 +190,33 @@ def _groups(d: int, e: int) -> Dict:
 
 
 def setup(hparams, world: int, rank: int) -> Optional[Mesh]:
-    """Check the flags (``mesh_shape``) and make the expert-parallel mesh
-    the current one (None, the current one, under data parallelism: the
-    flags have no expert axis longer than 1). Every rank calls it, in a
-    process group when E > 1."""
+    """Check the flags (``mesh_shape``) and make their mesh the current
+    one. None (the current one too) under pure data parallelism: one
+    process, or none of --expert_weight_parallel, --shard_optimizer_states
+    and an expert axis longer than 1 under --expert_parallel. Every rank
+    calls it, in a process group when it makes a mesh."""
     global _CURRENT
     d, e = mesh_shape(hparams, world)
-    if e == 1 or getattr(hparams, "no_expert_parallel", True):
+    ep = not getattr(hparams, "no_expert_parallel", True)
+    wp = bool(getattr(hparams, "expert_weight_parallel", False))
+    zero = bool(getattr(hparams, "shard_optimizer_states", False))
+    if world == 1 or not ((ep and e > 1) or wp or zero):
         _CURRENT = None
         return None
     if not dist.is_initialized():
-        raise RuntimeError(f"--mesh_shape {d} {e}: expert parallelism runs "
-                           "in a process group (torchrun)")
+        raise RuntimeError(f"--mesh_shape {d} {e}: expert, weight and "
+                           "optimizer-state parallelism run in a process "
+                           "group (torchrun)")
     g = _groups(d, e)
     _CURRENT = Mesh(d, e, rank, g["expert"][rank // e],
-                    g["data"][rank % e], g["host"][rank // e])
+                    g["data"][rank % e], g["host"][rank // e],
+                    expert_parallel=ep, weight_parallel=wp, zero=zero)
     return _CURRENT
 
 
 def current() -> Optional[Mesh]:
-    """The expert-parallel mesh of this process's current process group
-    (None: data parallelism)."""
+    """The mesh of this process's current process group (None: pure data
+    parallelism)."""
     if _CURRENT is None or not dist.is_initialized():
         return None
     made = _MADE.get((_CURRENT.data, _CURRENT.expert))

@@ -4,6 +4,7 @@ one Mission Bay train step spends its time on the card.
     python -m switch_nerf_torch.profile_eval [--rays 4096] [--trace DIR]
     python -m switch_nerf_torch.profile_eval --train [--rays 1024]
     python -m switch_nerf_torch.profile_eval --mission_bay [--rays 1664]
+    python -m switch_nerf_torch.profile_eval --state_bytes
 
 Defines the Building workloads that this script and chip_smoke.py drive
 (building.yaml + the production flags, bf16, bg NeRF, 256 + 512 samples,
@@ -19,7 +20,11 @@ step under torch.profiler, and prints its wall time, the summed time of
 the device kernels and their share of the wall time, device time by
 kernel family, and the top kernels. With --steps N, first times N
 unprofiled runs (host clock around work that ends in a synchronize). With
---trace, writes a Chrome trace there.
+--trace, writes a Chrome trace there. --state_bytes needs no card: it
+reckons, from the leaves' shapes on the CPU, each rank's bytes of the
+Building train state's parameters and Adam moments under each layout of
+8 GPUs (``bridge.local_tree``, the rule the layout tests hold against
+JAX's shardings).
 """
 from __future__ import annotations
 
@@ -138,6 +143,42 @@ def _mission_bay_run(n: int):
     return "Mission Bay train step", lambda: step(state, batch)
 
 
+# (label, D, E, --expert_parallel, --expert_weight_parallel,
+#  --shard_optimizer_states): the layouts --state_bytes reckons
+LAYOUTS = (("data parallel", 8, 1, False, False, False),
+           ("weight parallel", 8, 1, False, True, False),
+           ("ZeRO-1", 8, 1, False, False, True),
+           ("weight parallel + ZeRO-1", 8, 1, False, True, True),
+           ("expert parallel", 2, 4, True, False, False),
+           ("expert + weight parallel + ZeRO-1", 2, 4, True, True, True),
+           ("expert parallel", 1, 8, True, False, False),
+           ("expert + weight parallel + ZeRO-1", 1, 8, True, True, True))
+
+
+def state_bytes() -> list:
+    """Each layout's per-rank bytes of the Building train state's fp32
+    parameters and Adam moments (mu, nu), reckoned from shapes on the
+    CPU: (label, D, E, [bytes of each rank])."""
+    from switch_nerf_torch import bridge
+    from switch_nerf_torch.parallel.mesh import Mesh
+    h = building_train_hparams()
+    shapes = bridge.jax_state_shapes(get_nerf(h, 8, device="cpu"),
+                                     get_bg_nerf(h, 8, device="cpu"))
+    tree = {"params": shapes,
+            "opt_state": {"0": {"mu": shapes, "nu": shapes}}}
+    out = []
+    for label, d, e, ep, wp, zero in LAYOUTS:
+        ranks = []
+        for r in range(d * e):
+            part = bridge.local_tree(tree, Mesh(
+                d, e, r, None, None, None, expert_parallel=ep,
+                weight_parallel=wp, zero=zero), h.moe_expert_num)
+            ranks.append(sum(4 * a.size for a in
+                             bridge._flatten(part).values()))
+        out.append((label, d, e, ranks))
+    return out
+
+
 def family(name: str) -> str:
     low = name.lower()
     for fam, keys in FAMILIES:
@@ -158,7 +199,16 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=0,
                     help="unprofiled runs to time before the profiled one")
     ap.add_argument("--trace", type=str, default=None)
+    ap.add_argument("--state_bytes", action="store_true",
+                    help="reckon each rank's train-state bytes under each "
+                    "layout of 8 GPUs on the CPU, and stop")
     args = ap.parse_args(argv)
+    if args.state_bytes:
+        for label, d, e, ranks in state_bytes():
+            print(f"{label}, --mesh_shape {d} {e}: per-rank parameter + "
+                  f"Adam moment bytes {sorted(set(ranks))} (reckoned from "
+                  "shapes on the CPU, not measured)")
+        return 0
 
     if args.mission_bay:
         n = args.rays or 1664

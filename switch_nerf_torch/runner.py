@@ -47,8 +47,11 @@ loops slice the global batch) and the gradients averaged over the ranks
 chunks, as JAX does (``parallel/chunks.py``). With --expert_parallel
 and --mesh_shape D E each rank holds its block of the experts and their
 Adam moments, the padded training passes exchange tokens with the
-experts' owners (``parallel/experts.py``), and every eval runs the whole
-model, its experts gathered from their owners. Rank 0 picks the
+experts' owners (``parallel/experts.py``); --expert_weight_parallel cuts
+the experts' columns over the data axis (``parallel/weights.py``, one
+gather a pass) and --shard_optimizer_states Adam's moments
+(``parallel/zero.py``). Every eval runs the whole model, its experts
+gathered from their holders. Rank 0 picks the
 experiment dir and writes the logs, TensorBoard and checkpoints; SIGTERM
 is agreed every 10 steps, so every rank saves at the same step. In eval an
 image belongs to rank ``i % W``, which renders it whole, with the requests
@@ -870,22 +873,41 @@ class Runner:
     def _mesh_line(self) -> str:
         if self.mesh is None:
             return f"mesh (data, expert) = ({self.world}, 1): data parallel"
-        return (f"mesh (data, expert) = ({self.mesh.data}, "
-                f"{self.mesh.expert}): expert parallel, "
-                f"{self.hparams.moe_expert_num // self.mesh.expert} experts "
-                "a rank")
+        m, h = self.mesh, self.hparams
+        parts = [f"mesh (data, expert) = ({m.data}, {m.expert}):"]
+        if m.splits_experts:
+            parts.append(f"expert parallel, {h.moe_expert_num // m.expert}"
+                         " experts a rank,")
+        else:
+            parts.append("data parallel,")
+        if m.weight_parallel:
+            parts.append(f"expert weights' columns over {m.data} ranks,")
+        if m.zero:
+            parts.append(f"Adam moments (ZeRO-1) over {m.data} ranks,")
+        return " ".join(parts).rstrip(",")
 
     def _broadcast_params(self, state: TrainState) -> None:
-        """The replicas start from rank 0's parameters; under expert
-        parallelism each block of experts from its owner on data row 0."""
+        """The replicas start from one rank's parameters: a whole leaf
+        from rank 0's, a block of experts from its holder on data row 0,
+        a column block of experts from its holder on expert column 0 (a
+        part that both cut is held by one rank)."""
         params = state.parameters()
-        own = [p for p in params if getattr(p, "expert_mesh", None) is None]
-        parallel.broadcast_tensors_(own)
-        if self.mesh is not None and self.mesh.data > 1:
+        cuts = [(getattr(p, "expert_mesh", None) is not None,
+                 getattr(p, "weight_mesh", None) is not None)
+                for p in params]
+        parallel.broadcast_tensors_(
+            [p for p, c in zip(params, cuts) if c == (False, False)])
+        m = self.mesh
+        if m is None:
+            return
+        if m.data > 1:
             parallel.broadcast_tensors_(
-                [p for p in params
-                 if getattr(p, "expert_mesh", None) is not None],
-                src=self.mesh.e_index, group=self.mesh.data_group)
+                [p for p, c in zip(params, cuts) if c == (True, False)],
+                src=m.e_index, group=m.data_group)
+        if m.expert > 1:
+            parallel.broadcast_tensors_(
+                [p for p, c in zip(params, cuts) if c == (False, True)],
+                src=m.d_index * m.expert, group=m.expert_group)
 
     def _make_dataset(self, dataset_state: Optional[str]):
         h = self.hparams

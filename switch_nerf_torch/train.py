@@ -38,6 +38,16 @@ padded training passes exchange tokens with the experts' owners:
         --config_file=configs/switch_nerf/building.yaml <the flags above> \
         --batch_size=8192 --expert_parallel --mesh_shape 2 4
 
+--expert_weight_parallel also cuts each expert's output columns over the
+data axis (gathered once a step), and --shard_optimizer_states keeps Adam's
+moments of the other leaves for a rank's slice (ZeRO-1); either runs under
+pure data parallelism too (--mesh_shape 8):
+
+    torchrun --nproc_per_node=8 -m switch_nerf_torch.train \
+        --config_file=configs/switch_nerf/building.yaml <the flags above> \
+        --batch_size=8192 --mesh_shape 2 4 --expert_parallel \
+        --expert_weight_parallel --shard_optimizer_states
+
 Runs on ``cuda`` (``cuda:LOCAL_RANK`` under torchrun);
 ``main(hparams, device="cpu")`` runs the plain versions (with torchrun's
 variables set, in a gloo group). Classic-NeRF scenes train through

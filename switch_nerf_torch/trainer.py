@@ -28,9 +28,11 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from switch_nerf_torch import resolve_device
+from switch_nerf_torch import bridge, resolve_device
+from switch_nerf_torch.models.experts import hold_for_pass
 from switch_nerf_torch.models.moe import MoELayer
-from switch_nerf_torch.parallel import chunks, experts, host
+from switch_nerf_torch.parallel import chunks, experts, host, mesh
+from switch_nerf_torch.parallel.zero import ZeroAdam
 from switch_nerf_torch.render.rendering import RenderConfig, render_rays
 from switch_nerf_torch.render.rendering_mip import render_rays_mip
 
@@ -153,13 +155,19 @@ def lr_schedule(hparams) -> Callable[[int], float]:
     return lambda t: lr * gamma ** (acc - 1) * (gamma ** acc) ** t
 
 
-def create_optimizer(hparams, params: List[nn.Parameter]
-                     ) -> torch.optim.Adam:
+def create_optimizer(hparams, params: List[nn.Parameter],
+                     zero_dims: Optional[List[Optional[int]]] = None,
+                     on: Optional[mesh.Mesh] = None) -> torch.optim.Adam:
     """Adam(betas (0.9, 0.999), eps 1e-8) over the fg and bg parameters
     together (Adam is per tensor, so one optimizer equals two). The step
-    sets its learning rate from ``lr_schedule`` before every update."""
-    return torch.optim.Adam(params, lr=lr_schedule(hparams)(0),
-                            betas=(0.9, 0.999), eps=1e-8)
+    sets its learning rate from ``lr_schedule`` before every update.
+    ZeRO-1 (`zero_dims`, one entry a parameter, on the mesh `on`): a
+    ``ZeroAdam`` that keeps the moments of the leaves with a dimension
+    for this rank's slice of it."""
+    kw = dict(lr=lr_schedule(hparams)(0), betas=(0.9, 0.999), eps=1e-8)
+    if zero_dims is not None and any(d is not None for d in zero_dims):
+        return ZeroAdam(params, zero_dims, on, **kw)
+    return torch.optim.Adam(params, **kw)
 
 
 def _mse(pred, target):
@@ -222,14 +230,17 @@ class TrainState:
     """Everything one training step reads and updates.
 
     model / bg_model: the fg and bg modules, updated in place
-    optimizer:        Adam over both (``create_optimizer``)
+    optimizer:        Adam over both (``create_optimizer``; ZeRO-1's
+                      ``ZeroAdam`` under --shard_optimizer_states)
     generator:        the device generator every random draw of a step
                       comes from (``render/rendering.py`` gives the order)
     step:             finite micro-steps taken (the JAX state's ``step``)
     opt_step:         optimizer updates applied; indexes ``lr_schedule``
     mini_step:        micro-steps into the current accumulation window
     acc_grads:        the window's running mean gradient, as
-                      ``optax.MultiSteps`` keeps it (acc > 1 only)
+                      ``optax.MultiSteps`` keeps it (acc > 1 only); each
+                      shaped like its parameter (a rank's part under
+                      expert or weight parallelism, whole under ZeRO-1)
     scheduled_lr:     whether the learning rate decays (off with
                       --no_optimizer_schedulers); the JAX optimizer state
                       then holds the schedule's count
@@ -284,11 +295,35 @@ def create_train_state(hparams, model: nn.Module,
     generator = torch.Generator(device=dev).manual_seed(
         hparams.random_seed + host.rank() if seed is None else seed)
     acc = getattr(hparams, "accumulation_steps", 1) or 1
+    # --shard_optimizer_states: which leaves' moments are sliced
+    on = mesh.current()
+    dims = (bridge.zero_dims(bridge.model_leaves(model, bg_model), on,
+                             hparams.moe_expert_num)
+            if on is not None and on.zero else None)
     return TrainState(
         model=model, bg_model=bg_model,
-        optimizer=create_optimizer(hparams, params), generator=generator,
+        optimizer=create_optimizer(hparams, params, dims, on),
+        generator=generator,
         acc_grads=[torch.zeros_like(p) for p in params] if acc > 1 else None,
         scheduled_lr=not getattr(hparams, "no_optimizer_schedulers", False))
+
+
+def _mesh_of(p) -> Optional[mesh.Mesh]:
+    return (getattr(p, "expert_mesh", None)
+            or getattr(p, "weight_mesh", None))
+
+
+def _rest(p) -> str:
+    """The ranks a gradient of parameter `p` is still to be summed over:
+    every one (``world``, a whole leaf), the ``data`` group (an
+    expert-parallel block), the ``expert`` group (a weight-parallel
+    column block, the same on the expert group's ranks without expert
+    parallelism) or none (``""``: both cuts)."""
+    experts_cut = getattr(p, "expert_mesh", None) is not None
+    columns_cut = getattr(p, "weight_mesh", None) is not None
+    if experts_cut:
+        return "" if columns_cut else "data"
+    return "expert" if columns_cut else "world"
 
 
 class TrainStep:
@@ -323,10 +358,12 @@ class TrainStep:
         # batch, whose model chunks are JAX's (parallel/chunks.py)
         world = host.world_size()
         grid = chunks.RankGrid(host.rank(), world) if world > 1 else None
-        mesh = experts.mesh_of(state.parameters())
-        if mesh is not None:
+        ep_mesh = experts.mesh_of(state.parameters())
+        if ep_mesh is not None:
             experts.begin_pass()
-        with torch.enable_grad():
+        # weight parallel: the experts' column blocks gathered once a pass
+        with torch.enable_grad(), hold_for_pass(state.model,
+                                                state.bg_model):
             if self.mip:
                 results = render_rays_mip(
                     make_model_fn(state.model), rays,
@@ -341,10 +378,10 @@ class TrainStep:
                     grid=grid)
             metrics = compute_losses(results, rgbs, self.hparams,
                                      mip_or_cascade_coarse=self.mip)
-            if mesh is not None:
+            if ep_mesh is not None:
                 # every rank of an expert group made the same exchanges,
                 # so the backward's pair up
-                experts.end_pass(mesh)
+                experts.end_pass(ep_mesh)
             params = state.parameters()
             grads = torch.autograd.grad(metrics["all_loss"], params,
                                         allow_unused=True)
@@ -365,22 +402,24 @@ class TrainStep:
         global batch's MSE), not averaged. Every rank gets the same bits.
         One process: returned as they are.
 
-        Under expert parallelism (``state``'s parameters tagged with the
-        mesh) a rank's expert gradients already sum its expert group's
-        tokens (the exchange's backward): they are summed over the data
-        group only, then divided by the world size as well."""
+        A gradient of a part of a leaf (``state``'s parameters tagged by
+        ``models/experts.localize``) is already summed over some ranks:
+        an expert-parallel block's over its expert group's tokens (the
+        exchange's backward), a weight-parallel column block's over the
+        data group (the reduce-scatter of ``parallel/weights``). It is
+        summed over the rest of the ranks only (``_rest``), then divided
+        by the world size as well."""
         world = host.world_size()
         if world == 1:
             return metrics, grads
-        meshes = ([getattr(p, "expert_mesh", None)
-                   for p in state.parameters()]
-                  if state is not None and grads is not None
-                  else [None] * len(grads or []))
+        rest = ([_rest(p) for p in state.parameters()]
+                if state is not None and grads is not None
+                else ["world"] * len(grads or []))
         keys = [k for k in metrics if k != "psnr"]
         parts = [torch.stack([metrics[k].float() for k in keys])]
         if grads is not None:
             parts += [g.reshape(-1).float()
-                      for g, m in zip(grads, meshes) if m is None]
+                      for g, r in zip(grads, rest) if r == "world"]
         flat = torch.cat(parts)
         dist.all_reduce(flat)
         flat /= world
@@ -388,24 +427,26 @@ class TrainStep:
         if "photo_loss" in out:
             out["psnr"] = _psnr(out["photo_loss"])
         if grads is not None:
-            mesh = next((m for m in meshes if m is not None), None)
-            if mesh is not None:
-                local = torch.cat([g.reshape(-1).float()
-                                   for g, m in zip(grads, meshes)
-                                   if m is not None])
-                if mesh.data > 1:
-                    dist.all_reduce(local, group=mesh.data_group)
-                local /= world
-            reduced, lo, lo_e = [], len(keys), 0
-            for g, m in zip(grads, meshes):
-                if m is None:
-                    reduced.append(flat[lo:lo + g.numel()].view_as(g).to(
-                        g.dtype))
-                    lo += g.numel()
-                else:
-                    reduced.append(local[lo_e:lo_e + g.numel()].view_as(
-                        g).to(g.dtype))
-                    lo_e += g.numel()
+            sums, lo = {"world": flat}, {"world": len(keys)}
+            params = state.parameters() if state is not None else []
+            for name in ("data", "expert", ""):
+                mine = [(g, p) for g, p, r in zip(grads, params, rest)
+                        if r == name]
+                if not mine:
+                    continue
+                buf = torch.cat([g.reshape(-1).float() for g, _ in mine])
+                on = _mesh_of(mine[0][1])
+                if name and on.size(name) > 1:
+                    dist.all_reduce(buf, group=(on.data_group
+                                                if name == "data"
+                                                else on.expert_group))
+                buf /= world
+                sums[name], lo[name] = buf, 0
+            reduced = []
+            for g, r in zip(grads, rest):
+                reduced.append(sums[r][lo[r]:lo[r] + g.numel()].view_as(
+                    g).to(g.dtype))
+                lo[r] += g.numel()
             grads = reduced
         return {k: out[k] for k in metrics}, grads
 

@@ -1,6 +1,7 @@
 """Write an orbax checkpoint of a JAX train state and its msgpack twin.
 
-    python tests/make_orbax_fixture.py [--out DIR] [--time-published]
+    python tests/make_orbax_fixture.py [--fixture ep|ewp_zero|all]
+                                       [--out DIR] [--time-published]
 
 The JAX package writes the sharded (orbax) format whenever a run has more
 than one process (``switch_nerf_tpu/checkpoints.py:64-66``). This script
@@ -11,9 +12,15 @@ under ``--expert_parallel --mesh_shape 4 2`` (experts over the 'expert'
 axis), and saves it twice with ``switch_nerf_tpu.checkpoints.
 save_checkpoint``: ``orbax/<step>`` (sharded=True) and ``msgpack/<step>``
 (sharded=False), with ``hparams.json``, the flags the port rebuilds the
-model from. The default output is ``tests/data/orbax_ep_fixture`` (the
-twin gzipped, to keep it under 1 MB), which ``chip_smoke.py`` serves on
-the card. ``write_pair`` is what ``tests/test_torch_orbax.py`` calls.
+model from. It rewrites the committed fixtures, each twin gzipped to
+keep it under 1 MB (``--fixture`` picks one, ``--out`` moves it):
+``tests/data/orbax_ep_fixture`` (``ep``), which ``chip_smoke.py`` serves
+on the card, and ``tests/data/orbax_ewp_zero_fixture`` (``ewp_zero``):
+the same graph at width 32 placed under ``--expert_parallel
+--expert_weight_parallel --shard_optimizer_states --mesh_shape 4 2`` (the
+experts' columns over 'data' too, and the other moments' first dimension
+over 'data', ZeRO-1). ``write_pair`` is what ``tests/test_torch_orbax.py``
+calls.
 
 ``--time-published``: the port's orbax read of a published-width Building
 state (8 x 7 x 256 experts, its moments drawn from the seed) that JAX
@@ -45,30 +52,37 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np  # noqa: E402
 
 FIXTURE = ROOT / "tests" / "data" / "orbax_ep_fixture"
+FIXTURE_EWP_ZERO = ROOT / "tests" / "data" / "orbax_ewp_zero_fixture"
 STEP = 3
 APPEARANCE = 8
 
 
-def fixture_hparams(width: int = 64, experts: int = 2):
+def fixture_hparams(width: int = 64, experts: int = 2,
+                    ewp_zero: bool = False):
     from tests.torch_port_helpers import tiny_building_hparams
     h = tiny_building_hparams(width)
     h.moe_expert_num = h.model["expert_num"] = experts
     h.no_expert_parallel = False
     h.mesh_shape = [4, 2]
+    h.expert_weight_parallel = h.shard_optimizer_states = ewp_zero
     return h
 
 
 def expert_sharded(state, h, mesh_shape=(4, 2)):
     """The state placed as JAX's runner places it under expert
-    parallelism: expert leaves (and their moments) over 'expert'."""
+    parallelism: expert leaves (and their moments) over 'expert', and
+    under h's --expert_weight_parallel / --shard_optimizer_states over
+    'data' too (``Runner._setup_device``)."""
     from switch_nerf_tpu.parallel.mesh import (create_mesh,
                                                opt_state_shardings,
                                                param_shardings)
     mesh = create_mesh(mesh_shape)
     e = h.moe_expert_num
+    wp = getattr(h, "expert_weight_parallel", False)
+    zero = getattr(h, "shard_optimizer_states", False)
     state = state.replace(params=jax.device_put(
-        state.params, param_shardings(state.params, mesh, e, True)))
-    oshard = opt_state_shardings(state.opt_state, mesh, e, True)
+        state.params, param_shardings(state.params, mesh, e, True, wp)))
+    oshard = opt_state_shardings(state.opt_state, mesh, e, True, wp, zero)
     return state.replace(opt_state=jax.tree_util.tree_map(
         lambda x, s: jax.device_put(np.asarray(x), s), state.opt_state,
         oshard))
@@ -154,15 +168,27 @@ def time_published() -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", type=Path, default=FIXTURE)
+    ap.add_argument("--fixture", choices=("ep", "ewp_zero", "all"),
+                    default="all")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="output directory (one fixture)")
     ap.add_argument("--time-published", action="store_true")
     args = ap.parse_args()
+    if args.out and args.fixture == "all":
+        ap.error("--out writes one fixture: give --fixture ep or ewp_zero")
     if args.time_published:
         time_published()
         return 0
-    dirs = write_pair(args.out, fixture_hparams(), gzip_twin=True)
-    size = sum(p.stat().st_size for p in args.out.rglob("*") if p.is_file())
-    print(f"wrote {dirs} ({size} B)")
+    # the EWP + ZeRO-1 fixture at width 32, to stay under 1 MB
+    todo = {"ep": (FIXTURE, fixture_hparams()),
+            "ewp_zero": (FIXTURE_EWP_ZERO,
+                         fixture_hparams(width=32, ewp_zero=True))}
+    for name in (todo if args.fixture == "all" else [args.fixture]):
+        out, h = todo[name]
+        out = args.out or out
+        dirs = write_pair(out, h, gzip_twin=True)
+        size = sum(p.stat().st_size for p in out.rglob("*") if p.is_file())
+        print(f"wrote {dirs} ({size} B)")
     return 0
 
 

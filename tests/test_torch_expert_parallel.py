@@ -27,7 +27,8 @@ global batch:
     each rank's capacity its own, on (1, 2) and (2, 2);
   * a rank that makes one more exchange than its group raises on every
     rank instead of hanging;
-  * ``bridge.local_tree`` / ``whole_tree`` cut and join a JAX tree.
+  * ``bridge.local_tree`` cuts a JAX tree into the expert axis' parts,
+    which join into it again.
 """
 import jax
 import numpy as np
@@ -39,6 +40,7 @@ from switch_nerf_tpu import runner as jrunner
 from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import _msgpack, bridge
+from switch_nerf_torch.parallel.mesh import Mesh
 from tests.test_torch_parallel import (assert_within, published, read_step,
                                        same)
 from tests.torch_port_helpers import (Ranks, mega_hparams, mega_train_hparams,
@@ -228,7 +230,8 @@ def test_lockstep_mismatch_raises(jobs):
 
 def test_local_and_whole_trees(jax_checkpoint):
     tree = _msgpack.unpackb((jax_checkpoint / "state.msgpack").read_bytes())
-    parts = [bridge.local_tree(tree, i, 2, 4) for i in range(2)]
+    parts = [bridge.local_tree(tree, Mesh(1, 2, i, None, None, None), 4)
+             for i in range(2)]
     w0 = tree["params"]["nerf"]["layer_0"]["experts"]["w0"]
     for i, part in enumerate(parts):
         local = part["params"]["nerf"]["layer_0"]["experts"]["w0"]
@@ -237,5 +240,16 @@ def test_local_and_whole_trees(jax_checkpoint):
         assert mu["b1"].shape[0] == 2
         assert part["params"]["nerf"]["layer_xyz"]["fc0"]["kernel"].shape \
             == tree["params"]["nerf"]["layer_xyz"]["fc0"]["kernel"].shape
-    whole = bridge.whole_tree(parts, 4)
+    whole = whole_tree(parts, tree)
     assert _msgpack.packb(whole) == _msgpack.packb(tree)
+
+
+def whole_tree(parts, like):
+    """The expert axis' local trees joined: a leaf cut on the experts
+    (shorter than `like`'s) concatenated, the rest member 0's."""
+    if isinstance(like, dict):
+        return {k: whole_tree([p[k] for p in parts], v)
+                for k, v in like.items()}
+    if np.shape(parts[0]) != np.shape(like):
+        return np.concatenate(parts)
+    return parts[0]

@@ -17,6 +17,13 @@ virtual CPU devices (the experts and their moments over 'expert', as
     the twin (keys in order, every leaf's dtype and bits), and
     ``load_checkpoint`` of either gives bit-equal states;
   * ``eval_image`` on each gives byte-equal metrics;
+  * the same under --expert_weight_parallel and --shard_optimizer_states
+    (the experts' columns and the other moments' first dimension over
+    'data' too): the committed fixture tests/data/orbax_ewp_zero_fixture
+    reads as its twin, and a state of the scene's model JAX wrote so
+    resumes into a 2-rank weight-parallel ZeRO-1 run of the port, each
+    rank holding JAX's device (d, 0) part of it, the run saving the
+    twin's tree again;
   * a truncated or corrupted node or data file raises naming the file;
   * zarr chunks left out as equal to the fill value read as it;
   * (slow) the checkpoint 2 JAX processes write
@@ -36,8 +43,10 @@ from switch_nerf_torch import _msgpack, bridge, ocdbt, orbax_read
 from switch_nerf_torch.checkpoints import load_checkpoint
 from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
 from switch_nerf_torch.trainer import create_train_state
-from tests.make_orbax_fixture import FIXTURE, write_pair
-from tests.torch_port_helpers import mega_hparams, with_val_image
+from switch_nerf_torch.parallel.mesh import Mesh
+from tests.make_orbax_fixture import FIXTURE, FIXTURE_EWP_ZERO, write_pair
+from tests.torch_port_helpers import (Ranks, mega_hparams, mega_train_hparams,
+                                      with_val_image)
 
 ts = pytest.importorskip("tensorstore")
 
@@ -130,27 +139,82 @@ def test_ocdbt_interior_and_version_nodes(tmp_path):
             "versionnode0"} <= seen
 
 
+def same(a, b, path=()):
+    """Two trees with the same keys in order and every leaf's dtype and
+    bits."""
+    if isinstance(b, dict):
+        assert isinstance(a, dict) and list(a) == list(b), path
+        for k in b:
+            same(a[k], b[k], path + (k,))
+    elif torch.is_tensor(b):
+        assert torch.is_tensor(a) and a.dtype == b.dtype, path
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    else:
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        assert a.tobytes() == b.tobytes(), path
+
+
 def test_read_tree_equals_msgpack_twin(pair):
     tree = orbax_read.read_tree(pair["orbax"] / "orbax")
     twin = _msgpack.unpackb((pair["msgpack"] / "state.msgpack").read_bytes())
-
-    def same(a, b, path=()):
-        if isinstance(b, dict):
-            assert isinstance(a, dict) and list(a) == list(b), path
-            for k in b:
-                same(a[k], b[k], path + (k,))
-        elif torch.is_tensor(b):
-            assert torch.is_tensor(a) and a.dtype == b.dtype, path
-            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
-        else:
-            assert a.dtype == b.dtype and a.shape == b.shape, path
-            assert a.tobytes() == b.tobytes(), path
     same(tree, twin)
     assert int(tree["step"]) == 3 and tree["step"].shape == ()
     # the committed fixture (the card's) reads as its gzipped twin
     same(orbax_read.read_tree(FIXTURE / "orbax" / "3" / "orbax"),
          _msgpack.unpackb(gzip.decompress(
              (FIXTURE / "msgpack" / "3" / "state.msgpack.gz").read_bytes())))
+
+
+def test_ewp_zero_fixture_reads_as_its_twin():
+    """The committed fixture JAX wrote with its experts' columns and the
+    moments cut over 'data' too reads as its gzipped twin."""
+    meta = json.loads((FIXTURE_EWP_ZERO / "orbax" / "3" / "orbax"
+                       / "_sharding").read_text())
+    specs = [json.loads(v).get("partition_spec") for v in meta.values()]
+    assert ["expert", None, "data"] in specs and ["data"] in specs
+    same(orbax_read.read_tree(FIXTURE_EWP_ZERO / "orbax" / "3" / "orbax"),
+         _msgpack.unpackb(gzip.decompress(
+             (FIXTURE_EWP_ZERO / "msgpack" / "3" / "state.msgpack.gz")
+             .read_bytes())))
+
+
+def test_ewp_zero_orbax_resumes_into_two_ranks(scene, tmp_path):
+    """A state of the scene's model that JAX wrote under
+    --expert_parallel --expert_weight_parallel --shard_optimizer_states
+    --mesh_shape 4 2 resumes into a 2-rank port run with
+    --expert_weight_parallel --shard_optimizer_states --mesh_shape 2 1:
+    each rank holds JAX's device (d, 0) part of the twin (its experts'
+    column block, its moments' slices), and the run, with no step left,
+    saves the twin's tree."""
+    h = ep_hparams(scene, "unused")
+    h.expert_weight_parallel = h.shard_optimizer_states = True
+    dirs = write_pair(tmp_path / "pair", h, appearance=APPEARANCE)
+    twin = _msgpack.unpackb((dirs["msgpack"] / "state.msgpack").read_bytes())
+    t = mega_train_hparams(scene, tmp_path / "run", "memory")
+    t.ckpt_path, t.train_iterations = str(dirs["orbax"]), 3
+    t.mesh_shape, t.expert_weight_parallel = [2, 1], True
+    t.shard_optimizer_states = True
+    outs = Ranks(tmp_path / "job.pkl", [
+        {"name": "resume", "kind": "train", "layout": True, "h": t}]).get(
+            "resume")
+    for r, out in enumerate(outs):
+        assert out["step"] == 3 and not out["metrics"]
+        assert out["optimizer"] == "ZeroAdam"
+        part = bridge.local_tree(
+            twin, Mesh(2, 1, r, None, None, None, expert_parallel=False,
+                       weight_parallel=True, zero=True), h.moe_expert_num)
+        flat = {"params": dict(bridge._flatten(part["params"])),
+                "mu": dict(bridge._flatten(part["opt_state"]["0"]["mu"])),
+                "nu": dict(bridge._flatten(part["opt_state"]["0"]["nu"]))}
+        for kind, leaves in out["local"].items():
+            assert sorted(leaves) == sorted(flat[kind])
+            for path, local in leaves.items():
+                assert local.tobytes() == flat[kind][path].tobytes(), path
+        w0 = out["local"]["params"][("nerf", "layer_0", "experts", "w0")]
+        assert w0.shape == (4, 16, 8)
+    saved = _msgpack.unpackb((tmp_path / "run" / "0" / "models" / "3"
+                              / "state.msgpack").read_bytes())
+    same(saved, twin)
 
 
 def _port_state(h):

@@ -525,9 +525,11 @@ def test_meters_merge_by_key(job):
 
 
 def test_refusals(job, scene):
-    """resolve_device in a group; the parallelism the port does not run
-    raises naming ROADMAP Queue A item 8; a mesh must hold the processes
-    (tests/test_torch_expert_parallel.py runs expert parallelism)."""
+    """resolve_device in a group; --expert_weight_parallel and
+    --shard_optimizer_states take any mesh the processes fill (tests/
+    test_torch_weight_parallel.py runs them); a mesh must hold the
+    processes (tests/test_torch_expert_parallel.py runs expert
+    parallelism)."""
     ranks, _ = job
     for r, out in enumerate(ranks.get("refusals")):
         assert out["explicit"] == "cpu"
@@ -539,8 +541,11 @@ def test_refusals(job, scene):
         g = mega_train_hparams(scene, "unused", "memory")
         for k, v in over.items():
             setattr(g, k, v)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            mesh_shape(g, 1)
+        assert mesh_shape(g, 1) == (1, 1)
+        g.mesh_shape = [4]
+        assert mesh_shape(g, 4) == (4, 1)
+        g.no_expert_parallel, g.mesh_shape = False, [2, 2]
+        assert mesh_shape(g, 4) == (2, 2)
     g = mega_train_hparams(scene, "unused", "memory")
     g.mesh_shape = [2, 2]
     with pytest.raises(ValueError, match="number of processes"):

@@ -1,5 +1,6 @@
-"""One rank of the port's data- and expert-parallel tests
-(tests/test_torch_parallel*.py, tests/test_torch_expert_parallel.py).
+"""One rank of the port's data-, expert- and weight-parallel tests
+(tests/test_torch_parallel*.py, tests/test_torch_expert_parallel.py,
+tests/test_torch_weight_parallel.py).
 
     python tests/torch_parallel_worker.py <rank> <world> <job.pkl>
 
@@ -50,16 +51,20 @@ def params_of(state):
 
 
 def train(rank, h, kill=None, poison=None, record=False, drops=False,
-          refused=False, **_):
+          refused=False, layout=False, **_):
     """train.main on this rank, every train step's (averaged) metrics
     recorded. kill = (rank, step): that rank alone raises SIGTERM from
     inside that step. poison = (rank, call): that rank's loss terms are
     NaN at that call of the step. record: the tensors each step trained
     on. drops: count the MoE calls' dropped tokens. refused: the run must
-    raise ValueError, whose message is returned."""
+    raise ValueError, whose message is returned. layout: this rank's own
+    parts of the final parameters and moments (``bridge.local_state``),
+    and the weight gathers made."""
     from switch_nerf_torch import runner as trunner
     from switch_nerf_torch import train as ttrain
+    from switch_nerf_torch.parallel import weights
     metrics, batches, worlds = [], [], []
+    before = dict(weights.STATS)
     real_make = trunner.make_train_step
 
     def make(*a, **k):
@@ -101,10 +106,17 @@ def train(rank, h, kill=None, poison=None, record=False, drops=False,
         trunner.make_train_step = real_make
     if refused:
         raise AssertionError("the run was not refused")
-    return {"metrics": metrics, "batches": batches, "params": params_of(state),
-            "step": state.step, "worlds": worlds,
-            "drops": tally if drops else None,
-            "generator": state.generator.get_state().numpy().copy()}
+    out = {"metrics": metrics, "batches": batches,
+           "params": params_of(state), "step": state.step, "worlds": worlds,
+           "drops": tally if drops else None,
+           "generator": state.generator.get_state().numpy().copy()}
+    if layout:
+        from switch_nerf_torch import bridge
+        out["local"] = bridge.local_state(state)
+        out["optimizer"] = type(state.optimizer).__name__
+        out["gathers"] = {k: v - before[k] for k, v in weights.STATS.items()
+                          if isinstance(v, int)}
+    return out
 
 
 def evaluate(rank, h, entry, **_):
@@ -163,13 +175,13 @@ def train_cli(rank, h, port, **kw):
     return out
 
 
-def _ep_mesh(rank, mesh_shape, experts=4):
+def _ep_mesh(rank, mesh_shape, experts=4, **flags):
     from argparse import Namespace
 
     from switch_nerf_torch.parallel import mesh as mesh_mod
     return mesh_mod.setup(Namespace(no_expert_parallel=False,
                                     mesh_shape=list(mesh_shape),
-                                    moe_expert_num=experts),
+                                    moe_expert_num=experts, **flags),
                           parallel.world_size(), rank)
 
 
@@ -206,6 +218,39 @@ def exchange(rank, mesh_shape, **_):
             "data": mesh.data_ranks(), "form": ep.STATS["form"]}
 
 
+def gather(rank, mesh_shape, **_):
+    """The weight gather's autograd in float64 (parallel/weights.
+    GatherWeights) under --expert_weight_parallel with expert parallelism
+    on `mesh_shape`: each rank gives the column blocks of its experts of
+    seeded whole tensors W and weights the gathered tensors by its own
+    G_r; the gathered must be its experts of W, and the blocks' gradient
+    the column block of the sum of the data group's G_r. Returns the
+    largest errors, the shapes and the form."""
+    from switch_nerf_torch.parallel import weights as wp
+    from switch_nerf_torch.parallel.mesh import DATA, EXPERT
+    mesh = _ep_mesh(rank, mesh_shape, expert_weight_parallel=True)
+    shapes = [(4, 6, 8), (4, 1, 8), (4, 5, 4)]
+    block, cols = (EXPERT, None, None), (None, None, DATA)
+
+    def draw(seed, shape):
+        g = torch.Generator().manual_seed(seed)
+        return mesh.cut(torch.randn(*shape, dtype=torch.float64,
+                                    generator=g), block)
+    whole = [draw(i, s) for i, s in enumerate(shapes)]
+    shards = [mesh.cut(w, cols).clone().requires_grad_() for w in whole]
+    got = wp.GatherWeights.apply(mesh, *shards)
+    sum(torch.sum(y * draw(100 * rank + i + 10, s))
+        for i, (y, s) in enumerate(zip(got, shapes))).backward()
+    want = [sum(draw(100 * r + i + 10, s) for r in mesh.data_ranks())
+            for i, s in enumerate(shapes)]
+    return {"y": max(float((y - w).abs().max()) for y, w in zip(got, whole)),
+            "dw": max(float((sh.grad - mesh.cut(w, cols)).abs().max())
+                      for sh, w in zip(shards, want)),
+            "shapes": [list(sh.shape) for sh in shards],
+            "whole": [list(y.shape) for y in got],
+            "form": wp.STATS["form"], "data": mesh.data_ranks()}
+
+
 def lockstep(rank, **_):
     """Rank 0 makes one more expert exchange in its pass than the others:
     every rank must raise, none may hang."""
@@ -224,7 +269,7 @@ def lockstep(rank, **_):
 
 SCENARIOS = {"train": train, "eval": evaluate, "meters": meters,
              "refusals": refusals, "train_cli": train_cli,
-             "exchange": exchange, "lockstep": lockstep}
+             "exchange": exchange, "lockstep": lockstep, "gather": gather}
 
 
 def main() -> None:
