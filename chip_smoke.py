@@ -201,6 +201,37 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      milliseconds and bytes, and ZeRO-1's slice gather. `--dp-cards 4`
      adds NCCL runs `4 1` with both flags and `2 2` with
      --expert_parallel and both flags
+  14. the classic scenes: the Bungee README command's model and flags
+     (bungee.yaml's graph, 4 experts x 7 x 256, external gate with
+     LayerNorm, batch 4096, fp32, 65 + 65 samples, no-drop dispatch)
+     switched to the classic NeRFMoE and renderer, on a synthetic blender
+     scene (transforms_*.json and 800x800 RGBA PNGs, 3 train, 1 val, 1
+     test; --white_bkgd, --scale_factor 4: 200x200) and a synthetic llff
+     scene (poses_bounds.npy and 8 1008x756 JPEGs under images/ with no
+     images_4/, so --llff_factor 4 takes PIL's LANCZOS: 252x189; NDC rays,
+     --llffhold 8). For each: train_nerf_moe for one epoch with one
+     interval checkpoint (K1R and K2R on every chunk of every step, every
+     logged metric finite, photo_loss falling, the checkpoint set), then
+     eval_nerf_moe on the last checkpoint (8,192-ray requests: K1R on every
+     chunk, finite metrics, the summary file), one step's loss and
+     gradients on 256 rays against the CPU (all_loss 1e-4 relative, cosine
+     0.999), and a coarse-only run (--fine_samples 0) on the scene cut
+     further (blender --scale_factor 8, llff --llff_factor 16) with its
+     eval. Then K1R and K2R against their plain versions at the blender
+     run's first chunk's routing and weights, timed. Prints train rays/s,
+     step seconds, max_memory_allocated and eval seconds per image
+  15. an SH model and its octree: the Building flags at published width
+     (8 x 7 x 256, bf16, padded train dispatch, BPR, capacity factor 1.0)
+     with --sh_deg 2 and a 27-wide colour head, trained by train.main on
+     make_scene's scene (--train_scale_factor 4, the memory dataset) for
+     10 steps (K1 and K2 on every chunk), then create_octree_moe on its
+     checkpoint at a depth-8 grid (256^3 points in 32,768-point no-drop
+     calls: K1R bf16 on each; the script's flags but the two alpha
+     thresholds, set at the model's 90th sigma percentile over 262,144 of
+     the grid's points), sigma masking, 8 samples a leaf: the tree loads,
+     SH9, finite leaves, the launches; K1R against its plain version at
+     the first grid call's routing, timed. Prints the extraction seconds,
+     leaves, internal nodes, npz bytes and max_memory_allocated
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -235,6 +266,15 @@ BUNGEE_W, BUNGEE_H = 288, 216  # the Bungee scene's full-size images
 BUNGEE_IMAGES = 17             # llffhold 16 holds out images 0 and 16
 BUNGEE_CKPT, BUNGEE_PRINT = 20, 5   # its run's checkpoint and log interval
 BUNGEE_EVAL_BATCH = 8192       # rays per eval request (one per image)
+BLENDER_SIDE = 800             # the blender scene's RGBA PNGs
+BLENDER_SPLITS = (("train", 3), ("val", 1), ("test", 1))
+LLFF_W, LLFF_H, LLFF_IMAGES = 1008, 756, 8   # llffhold 8 holds out image 0
+CLASSIC_CKPT = {"blender": 20, "llff": 50}   # one interval checkpoint each
+CLASSIC_PRINT = 5              # the classic runs' log interval
+CLASSIC_CHECK_RAYS = 256       # rays of the card vs CPU train step
+CLASSIC_COARSE = {"blender": ["--scale_factor", "8"],   # the coarse-only
+                  "llff": ["--llff_factor", "16"]}      # runs' cut scenes
+OCTREE_STEPS = 10              # the SH model's training steps
 BUNGEE_FLAGS = ["--config_file", "configs/switch_nerf/bungee.yaml",
                 "--batch_size", "4096", "--moe_expert_num", "4", "--no_amp",
                 "--use_moe_external_gate", "--use_gate_input_norm"]
@@ -1870,6 +1910,537 @@ def bungee_phase(counts: dict) -> str:
             f"{counts['K2R'] // steps}; {skew}; eval seconds per image "
             f"{[round(m_['time'], 4) for m_ in metrics]} ({per_image} rays an"
             f" image), psnr {means['psnr']:.4f}, ssim {means['ssim']:.4f}")
+
+
+# ------------------------------------------------ classic-NeRF scenes ----
+def smooth_image(rng, w: int, h: int):
+    """A smooth random RGB PIL image of w x h (bicubic from a 1/16 grid)."""
+    from PIL import Image
+    coarse = rng.uniform(0, 255, (max(h // 16, 2), max(w // 16, 2), 3))
+    return Image.fromarray(coarse.astype(np.uint8)).resize((w, h),
+                                                            Image.BICUBIC)
+
+
+def make_blender_scene(root, seed: int, side: int = BLENDER_SIDE,
+                       splits=BLENDER_SPLITS) -> None:
+    """A synthetic NeRF-synthetic (Blender) scene in `root`:
+    transforms_{train,val,test}.json (lego's camera_angle_x, cameras on the
+    radius-4 sphere looking at the origin) and RGBA PNGs of side x side
+    whose alpha is an opaque disc fading into transparent corners."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    from switch_nerf_torch.datasets.nerf_data.load_blender import \
+        pose_spherical
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side] / max(side - 1, 1) - 0.5
+    alpha = np.clip((0.45 - np.hypot(xx, yy)) * 8.0, 0.0, 1.0)
+    for split, n in splits:
+        (root / split).mkdir(parents=True, exist_ok=True)
+        frames = []
+        for i in range(n):
+            c2w = pose_spherical(rng.uniform(-180, 180), rng.uniform(-60, -10),
+                                 4.0)
+            rgba = np.asarray(smooth_image(rng, side, side)).copy()
+            rgba = np.concatenate(
+                [rgba, (alpha * 255).round().astype(np.uint8)[..., None]], -1)
+            Image.fromarray(rgba).save(root / split / f"r_{i}.png")
+            frames.append({"file_path": f"./{split}/r_{i}",
+                           "rotation": 0.0123,
+                           "transform_matrix": c2w.tolist()})
+        (root / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": 0.6911112070083618, "frames": frames}))
+
+
+def make_llff_scene(root, seed: int, w: int = LLFF_W, h: int = LLFF_H,
+                    n: int = LLFF_IMAGES, spheric: bool = False,
+                    pre_factor=None) -> None:
+    """A synthetic LLFF scene in `root`: poses_bounds.npy (LLFF's [down,
+    right, back] columns, hwf at full size, depth bounds) and n smooth JPEGs
+    of w x h under images/, each 80 % one picture that all the cameras see
+    and 20 % its own. The cameras face forward (-z) within half a unit of
+    each other, or with `spheric` stand on a radius-4 ring looking in;
+    `pre_factor` also writes images_<f>/ at 1/f size (other content)."""
+    from pathlib import Path
+
+    from PIL import Image
+
+    from switch_nerf_torch.datasets.nerf_data.load_blender import \
+        pose_spherical
+    root = Path(root)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    if pre_factor:
+        (root / f"images_{pre_factor}").mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    shared = np.asarray(smooth_image(rng, w, h), np.float32)
+    rows = []
+    for i in range(n):
+        if spheric:
+            c2w = pose_spherical(rng.uniform(-180, 180), rng.uniform(-40, -20),
+                                 4.0)[:3, :4]
+        else:
+            a = rng.uniform(-0.05, 0.05, 3)
+            rot = np.array([[1, -a[2], a[1]], [a[2], 1, -a[0]],
+                            [-a[1], a[0], 1]])
+            u, _, vt = np.linalg.svd(rot)
+            c2w = np.concatenate([u @ vt, np.array(
+                [[rng.uniform(-0.5, 0.5)], [rng.uniform(-0.5, 0.5)],
+                 [rng.uniform(-0.2, 0.2)]])], 1)
+        r, up, back, t = (c2w[:, k] for k in range(4))
+        hwf = np.array([h, w, 0.8 * w])
+        pose = np.stack([-up, r, back, t, hwf], 1)             # [3, 5]
+        near = rng.uniform(1.5, 2.5)
+        rows.append(np.concatenate([pose.reshape(-1),
+                                    [near, near + rng.uniform(8, 12)]]))
+        own = np.asarray(smooth_image(rng, w, h), np.float32)
+        Image.fromarray(np.rint(0.8 * shared + 0.2 * own).astype(np.uint8)
+                        ).save(root / "images" / f"IMG_{i:04d}.jpg",
+                               quality=95)
+        if pre_factor:
+            smooth_image(rng, w // pre_factor, h // pre_factor).save(
+                root / f"images_{pre_factor}" / f"IMG_{i:04d}.png")
+    np.save(root / "poses_bounds.npy", np.stack(rows).astype(np.float64))
+
+
+def classic_hparams(kind: str, scene, exp, *extra):
+    """The Bungee README command's model and flags (bungee.yaml: 4 experts
+    x 7 x 256, 65 + 65 samples, batch 4096, fp32, no-drop dispatch) on a
+    blender (--white_bkgd, --scale_factor 4) or llff (--llff_factor 4, NDC,
+    --llffhold 8) scene, the graph switched to the classic NeRFMoE and
+    renderer."""
+    from switch_nerf_torch.config import get_opts_nerf, parse_args
+    flags = {"blender": ["--white_bkgd", "--scale_factor", "4"],
+             "llff": ["--scale_factor", "1", "--llff_factor", "4",
+                      "--llffhold", "8"]}[kind]
+    h = parse_args(get_opts_nerf(), BUNGEE_FLAGS + [
+        "--dataset_type", kind, "--dataset_path", str(scene),
+        "--exp_name", str(exp)] + flags + list(extra))
+    h.use_mip = False
+    h.nerfmoe_class_name = "NeRFMoE"
+    h.training_step_fn = "_training_step_nerf"
+    return h
+
+
+def ragged_at_inputs(label: str, inputs: dict, peaks, backward: bool
+                     ) -> dict:
+    """K1R (and with `backward` K2R) at the rows an expert and the model
+    weights a path's first no-drop call gave them, on seeded inputs:
+    against their plain versions, then timed with CUDA events beside the
+    bound (fp32: 3 TF32 products a product, the 3xTF32 design's), the
+    plain version and the per-expert addmm chain (its autograd for K2R).
+    Returns {"K1R": row, "K2R": row}."""
+    from switch_nerf_torch.ops import ragged_chain as rc
+
+    counts_host = inputs["counts"]
+    ws, bs, skips, dtype = (inputs["ws"], inputs["bs"], inputs["skips"],
+                            inputs["dtype"])
+    n, m, layers, e = sum(counts_host), ws.shape[-1], ws.shape[0], ws.shape[1]
+    cg = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randn(n, m, generator=cg, device="cuda").to(dtype)
+    counts = torch.tensor(counts_host, dtype=torch.int32, device="cuda")
+    log(f"[kernels {label}] E{e} N{n} M{m} L{layers} {str(dtype)[6:]}, rows "
+        f"an expert {counts_host} (the path's first no-drop call), the "
+        f"model's expert weights")
+    unit = "tf32" if dtype == torch.float32 else dtype
+    mult = 3 if dtype == torch.float32 else 1
+    rows = {}
+    flops = 2 * n * m * m * layers
+    err = check_close("K1R", rc.ragged_chain_fwd(x, counts, ws, bs, skips),
+                      rc.ragged_chain_plain(x, counts, ws, bs, skips))
+    bound_ms, bound_by = chain_bound(mult * flops, nbytes(x, ws, bs) + 4 * e
+                                     + nbytes(x), unit, peaks)
+    t = {"ms": cuda_ms(lambda: rc.ragged_chain_fwd(x, counts, ws, bs, skips),
+                       iters=10, warmup=3),
+         "plain_ms": cuda_ms(lambda: rc.ragged_chain_plain(
+             x, counts, ws, bs, skips), iters=5, warmup=2),
+         "library_ms": cuda_ms(lambda: addmm_ragged(
+             x, counts_host, ws, bs, skips), iters=5, warmup=2)}
+    log(f"  K1R: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"addmm chain per expert {t['library_ms']:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {rate(flops, t['ms'], bound_ms)}")
+    rows["K1R"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                       n=n, **t)
+    if backward:
+        g = torch.randn(n, m, generator=cg, device="cuda").to(dtype)
+        err = check_bwd("K2R", rc.ragged_chain_bwd(x, counts, ws, bs, g,
+                                                   skips),
+                        rc.ragged_chain_bwd_plain(x, counts, ws, bs, g,
+                                                  skips))
+        out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
+        bound_ms, bound_by = chain_bound(
+            2 * mult * flops, nbytes(x, g, ws, bs) + 4 * e + out_bytes, unit,
+            peaks)
+        leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
+        lib_out = addmm_ragged(leaves[0], counts_host, leaves[1], leaves[2],
+                               skips)
+        t = {"ms": cuda_ms(lambda: rc.ragged_chain_bwd(
+                x, counts, ws, bs, g, skips), iters=10, warmup=3),
+             "plain_ms": cuda_ms(lambda: rc.ragged_chain_bwd_plain(
+                 x, counts, ws, bs, g, skips), iters=5, warmup=2),
+             "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                 lib_out, leaves, g, retain_graph=True), iters=5, warmup=2)}
+        del lib_out, leaves
+        log(f"  K2R: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"autograd of the addmm chain {t['library_ms']:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), "
+            f"{rate(2 * flops, t['ms'], bound_ms)}")
+        rows["K2R"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                           bound_by=bound_by, n=n, **t)
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def first_ragged_call(first: dict):
+    """Record the first K1R call's routing and weights (copies: training
+    updates the weights in place) in `first`."""
+    from switch_nerf_torch.ops import ragged_chain as rc
+
+    def make(real):
+        def run(x, counts_, ws, bs, skips):
+            if not first:
+                first.update(counts=counts_.tolist(),
+                             ws=ws.detach().clone(), bs=bs.detach().clone(),
+                             skips=tuple(skips), dtype=x.dtype)
+            return real(x, counts_, ws, bs, skips)
+        return run
+    with wrapped(rc, "ragged_chain_fwd", make):
+        yield
+
+
+def classic_scene(kind: str, tmp, counts: dict, first: dict) -> dict:
+    """One classic scene through its entry points (phase 14): one epoch of
+    train_nerf_moe with an interval checkpoint, eval_nerf_moe on the last
+    checkpoint, one step's loss and gradients against the CPU, and a
+    coarse-only run (--fine_samples 0) on the scene cut further, with its
+    eval. Adds the K1R / K2R launches to counts["K1R classic"] /
+    counts["K2R classic"]."""
+    from switch_nerf_torch import eval_nerf_moe, train_nerf_moe
+    from switch_nerf_torch import runner as runner_mod
+    from switch_nerf_torch.models.model_utils import get_nerf
+    from switch_nerf_torch.ops import expert_kernel
+    from switch_nerf_torch.ops import ragged_chain as rc
+    from switch_nerf_torch.trainer import (create_train_state,
+                                           make_train_step,
+                                           render_config_from_hparams,
+                                           SceneInfo)
+
+    scene = tmp / kind
+    seen, rec = {}, {"photo": [], "t_end": []}
+
+    def capture(real):
+        def run(self):
+            seen["runner"] = self
+            return real(self)
+        return run
+
+    def make_step(real):
+        def make(*a, **k):
+            step = real(*a, **k)
+
+            def run(state, batch):
+                state, met = step(state, batch)
+                rec["photo"].append(float(met["photo_loss"]))
+                rec["t_end"].append(time.perf_counter())
+                return state, met
+            return run
+        return make
+
+    def chunks_of(h, rays):         # model chunks of one request's passes
+        return sum(-(-rays * s // h.model_chunk_size)
+                   for s in (h.coarse_samples, h.fine_samples) if s > 0)
+
+    def train(h):
+        rec["photo"].clear()
+        rec["t_end"].clear()
+        with wrapped(runner_mod, "make_train_step", make_step), \
+                wrapped(runner_mod.Runner, "train_nerf", capture):
+            expert_kernel.launches = expert_kernel.bwd_launches = 0
+            rc.ragged_launches = rc.ragged_bwd_launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state = train_nerf_moe.main(h)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runner = seen.pop("runner")
+        steps = max(len(runner.train_set) // h.batch_size, 1)
+        want = chunks_of(h, h.batch_size) * steps
+        got = (rc.ragged_launches, rc.ragged_bwd_launches)
+        counts["K1R classic"] = counts.get("K1R classic", 0) + got[0]
+        counts["K2R classic"] = counts.get("K2R classic", 0) + got[1]
+        log(f"  train_nerf_moe: {len(runner.train_set)} train rays of "
+            f"{runner.nerf_dataset.W}x{runner.nerf_dataset.H} images, "
+            f"{steps} steps in {wall:.1f} s wall; K1R / K2R {got} (expected "
+            f"{want} each), K1 {expert_kernel.launches}")
+        if not (state.step == steps and got == (want, want)
+                and expert_kernel.launches == 0):
+            raise AssertionError(f"{kind}: train_nerf_moe did not run K1R "
+                                 "and K2R on every chunk of every step")
+        return runner, state, steps, wall, torch.cuda.max_memory_allocated()
+
+    def evaluate(h, ckpt, out_name):
+        he = copy.copy(h)
+        he.exp_name = str(tmp / out_name)
+        he.ckpt_path = str(ckpt)
+        he.image_pixel_batch_size = BUNGEE_EVAL_BATCH
+        rc.ragged_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        means = eval_nerf_moe.main(he)
+        out = tmp / out_name / "0" / "test_images_0"
+        metrics = [read_metrics(p) for p in sorted(out.glob("metrics_*.txt"))
+                   if p.name != "metrics.txt"]
+        if not (metrics and all(np.isfinite(v) for m_ in metrics
+                                for v in m_.values())
+                and "Average test/psnr" in (out / "metrics.txt").read_text()):
+            raise AssertionError(f"{kind} eval: metrics {metrics}")
+        return means, metrics, rc.ragged_launches
+
+    interval = CLASSIC_CKPT[kind]
+    h = classic_hparams(kind, scene, tmp / f"{kind}_exp", "--num_epochs",
+                        "1", "--ckpt_interval", str(interval), "--i_print",
+                        str(CLASSIC_PRINT))
+    log(f"[classic] {kind}: train_nerf_moe with the Bungee README's model "
+        f"on the classic NeRFMoE ({h.moe_expert_num} experts x "
+        f"{h.model['layers']['0']['num']} x {h.model['layers']['0']['out_ch']}"
+        f", {h.coarse_samples} + {h.fine_samples} samples, batch "
+        f"{h.batch_size}, fp32, no-drop)")
+    with first_ragged_call(first):
+        runner, state, steps, wall, peak = train(h)
+    exp = tmp / f"{kind}_exp" / "0"
+    windows = logged_windows(exp / "log.txt")
+    saved = sorted(int(p.name) for p in (exp / "models").iterdir())
+    want = sorted(set(range(interval, steps + 1, interval)) | {steps})
+    first5, last5 = (float(np.mean(rec["photo"][sl]))
+                     for sl in (slice(0, 5), slice(-5, None)))
+    log(f"  photo_loss per step {[round(v, 5) for v in rec['photo']]}: mean "
+        f"of the first 5 {first5:.5f}, of the last 5 {last5:.5f}; "
+        f"checkpoints {saved}")
+    if not (all(np.isfinite(v) for w in windows for v in w.values())
+            and len(windows) == steps // CLASSIC_PRINT and last5 < first5
+            and saved == want):
+        raise AssertionError(f"{kind} training: {windows} {saved}")
+    t = rec["t_end"]
+    step_s = (t[-1] - t[CLASSIC_PRINT - 1]) / (steps - CLASSIC_PRINT)
+    means, metrics, k1r = evaluate(h, exp / "models" / str(steps),
+                                   f"{kind}_eval")
+    per_image = runner.nerf_dataset.H * runner.nerf_dataset.W
+    want_k1r = (len(metrics) * -(-per_image // BUNGEE_EVAL_BATCH)
+                * chunks_of(h, BUNGEE_EVAL_BATCH))
+    counts["K1R classic"] += k1r
+    log(f"  eval_nerf_moe: means {means}; K1R {k1r} (expected {want_k1r})")
+    if k1r != want_k1r:
+        raise AssertionError(f"{kind} eval: K1R launches")
+
+    # one step's loss and gradients on the card against the CPU: the same
+    # seeded weights, the first train batch's CLASSIC_CHECK_RAYS rays, no
+    # perturbation
+    h32 = copy.copy(h)
+    h32.perturb = 0.0
+    batch = runner.train_set.get_batch(0, CLASSIC_CHECK_RAYS)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        model = get_nerf(h32, runner.appearance_count, device=dev, seed=0)
+        st = create_train_state(h32, model, None, device=dev)
+        step = make_train_step(h32, render_config_from_hparams(h32),
+                               SceneInfo(None, None), device=dev)
+        res[dev] = step.loss_and_grads(st, batch)
+    d_loss = abs(float(res["cuda"][0]["all_loss"])
+                 - float(res["cpu"][0]["all_loss"]))
+    ref = abs(float(res["cpu"][0]["all_loss"]))
+    cos = cosine(flat(res["cuda"][1]), flat(res["cpu"][1]))
+    log(f"  card vs CPU train step on {CLASSIC_CHECK_RAYS} rays: |d "
+        f"all_loss| {d_loss:.3e} (limit 1e-4 * {ref:.4f}), gradient cosine "
+        f"{cos:.6f} (limit 0.999)")
+    if not (d_loss <= 1e-4 * ref and cos >= 0.999):
+        raise AssertionError(f"{kind}: the card's train step disagrees with "
+                             "the CPU")
+    del res
+
+    # coarse-only: the classic render without a fine pass
+    hc = classic_hparams(kind, scene, tmp / f"{kind}_coarse", "--num_epochs",
+                         "1", "--fine_samples", "0", "--i_print", "1",
+                         *CLASSIC_COARSE[kind])
+    log(f"  coarse-only run ({' '.join(CLASSIC_COARSE[kind])}, "
+        f"--fine_samples 0):")
+    crunner, cstate, csteps, cwall, _ = train(hc)
+    cmeans, cmetrics, ck1r = evaluate(
+        hc, tmp / f"{kind}_coarse" / "0" / "models" / str(csteps),
+        f"{kind}_coarse_eval")
+    cper = crunner.nerf_dataset.H * crunner.nerf_dataset.W
+    want_k1r = (len(cmetrics) * -(-cper // BUNGEE_EVAL_BATCH)
+                * chunks_of(hc, BUNGEE_EVAL_BATCH))
+    counts["K1R classic"] += ck1r
+    log(f"  coarse-only eval_nerf_moe: means {cmeans}; K1R {ck1r} (expected "
+        f"{want_k1r})")
+    if ck1r != want_k1r:
+        raise AssertionError(f"{kind} coarse-only eval: K1R launches")
+    return {"rays_per_s": h.batch_size / step_s, "step_s": step_s,
+            "steps": steps, "wall_s": wall, "peak": peak,
+            "eval_s": [round(m_["time"], 4) for m_ in metrics],
+            "psnr": means["psnr"], "pixels": per_image,
+            "coarse_eval_s": [round(m_["time"], 4) for m_ in cmetrics],
+            "coarse_steps": csteps}
+
+
+def classic_phase(counts: dict, peaks) -> tuple:
+    """Phase 14: the classic scenes (blender, llff) through train_nerf_moe
+    and eval_nerf_moe at the Bungee graph's full width, on K1R and K2R fp32
+    (no-drop); then K1R and K2R held against their plain versions and timed
+    at the blender run's first chunk's routing and weights. Returns (the
+    summary line, the kernel rows)."""
+    import tempfile
+    from pathlib import Path
+
+    counts["K1R classic"] = counts["K2R classic"] = 0
+    first, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_classic_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        make_blender_scene(tmp / "blender", seed=0, side=BLENDER_SIDE)
+        make_llff_scene(tmp / "llff", seed=1, w=LLFF_W, h=LLFF_H)
+        log(f"[classic] scenes written in {time.perf_counter() - t0:.1f} s: "
+            f"blender {BLENDER_SPLITS} RGBA PNGs of {BLENDER_SIDE}^2, llff "
+            f"{LLFF_IMAGES} JPEGs of {LLFF_W}x{LLFF_H} (no images_4/)")
+        for kind in ("blender", "llff"):
+            out[kind] = classic_scene(kind, tmp, counts, first)
+    rows = ragged_at_inputs("classic chunk", first, peaks, backward=True)
+    line = "; ".join(
+        f"{kind}: train rays/s {r['rays_per_s']:.1f} (steps "
+        f"{CLASSIC_PRINT + 1}-{r['steps']}), step {r['step_s']:.4f} s, "
+        f"{r['steps']} steps in {r['wall_s']:.1f} s wall, "
+        f"max_memory_allocated {r['peak']} B ({r['peak'] / 2 ** 30:.2f} "
+        f"GiB); eval seconds per image {r['eval_s']} ({r['pixels']} rays an "
+        f"image), psnr {r['psnr']:.4f}; coarse-only {r['coarse_steps']} "
+        f"steps, eval seconds per image {r['coarse_eval_s']}"
+        for kind, r in out.items())
+    return line, rows
+
+
+def sh_octree_phase(counts: dict, peaks) -> tuple:
+    """Phase 15: the Building graph at published width with --sh_deg 2 (a
+    27-wide SH colour head) trained on make_scene's scene through
+    train.main (K1 / K2 bf16, padded train dispatch), then
+    create_octree_moe on its checkpoint at a depth-8 grid (K1R bf16,
+    no-drop eval) with the tree checked; K1R held against its plain
+    version at the first grid call's routing. Returns (the summary line,
+    the kernel rows)."""
+    import tempfile
+    from pathlib import Path
+
+    from switch_nerf_torch import create_octree_moe, train
+    from switch_nerf_torch.config import parse_args
+    from switch_nerf_torch.octree import Octree, grid_points
+    from switch_nerf_torch.ops import expert_kernel
+    from switch_nerf_torch.ops import ragged_chain as rc
+    from switch_nerf_torch.profile_eval import building_train_hparams
+
+    first = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_octree_") as tmp:
+        tmp = Path(tmp)
+        make_scene(tmp / "scene", seed=0)
+        h = building_train_hparams()
+        h.sh_deg = 2
+        h.model["layers"]["color"]["out_ch"] = 3 * (h.sh_deg + 1) ** 2
+        h.dataset_path = str(tmp / "scene")
+        h.exp_name = str(tmp / "exp")
+        h.dataset_type = "memory"
+        h.train_scale_factor = 4
+        h.train_iterations = OCTREE_STEPS
+        h.ckpt_interval = OCTREE_STEPS
+        h.i_print = OCTREE_STEPS // 2
+        h.val_interval = OCTREE_STEPS + 1
+        chunks = (-(-h.batch_size * h.coarse_samples // h.model_chunk_size)
+                  + -(-h.batch_size * h.fine_samples // h.model_chunk_size))
+        log(f"[octree] train.main with the Building flags and --sh_deg "
+            f"{h.sh_deg} (colour head {h.model['layers']['color']['out_ch']}"
+            f" wide), {OCTREE_STEPS} steps of {h.batch_size} rays")
+        expert_kernel.launches = expert_kernel.bwd_launches = 0
+        rc.ragged_launches = 0
+        t0 = time.perf_counter()
+        state = train.main(h)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts["K1 sh"] = expert_kernel.launches
+        counts["K2 sh"] = expert_kernel.bwd_launches
+        exp = tmp / "exp" / "0"
+        windows = logged_windows(exp / "log.txt")
+        log(f"  {state.step} steps in {train_s:.1f} s wall; K1 / K2 "
+            f"{counts['K1 sh']} / {counts['K2 sh']} (expected "
+            f"{chunks * OCTREE_STEPS} each), K1R {rc.ragged_launches}; "
+            f"logged {windows}")
+        if not (state.step == OCTREE_STEPS
+                and counts["K1 sh"] == counts["K2 sh"] == chunks * OCTREE_STEPS
+                and all(np.isfinite(v) for w in windows for v in w.values())):
+            raise AssertionError("the SH model's training")
+
+        argv = [a for a in BUILDING_EVAL_FLAGS if a != "--moe_test_batch"]
+        argv += ["--sh_deg", str(h.sh_deg), "--model", json.dumps(h.model),
+                 "--dataset_path", str(tmp / "scene"), "--exp_name",
+                 str(tmp / "octree_exp"), "--ckpt_path",
+                 str(exp / "models" / str(OCTREE_STEPS)),
+                 "--output", str(tmp / "tree.npz")]
+        hx = parse_args(create_octree_moe.get_extraction_opts(), argv)
+        reso = 2 ** hx.init_grid_depth
+        # a 10-step model's densities sit near softplus(-1) everywhere,
+        # below the default thresholds' sigma (1.29 at depth 8): the alpha
+        # thresholds are set at this model's 90th sigma percentile over a
+        # subsample of the grid's points
+        from switch_nerf_torch.runner import Runner
+        probe = Runner(hx, set_experiment_path=False)
+        pstate = probe._load_eval_state()
+        pts = grid_points(probe.sphere_center, probe.sphere_radius, reso)
+        pts = pts[np.random.default_rng(0).choice(
+            len(pts), min(len(pts), 1 << 18), replace=False)]
+        sig = create_octree_moe.make_query(pstate.model, hx, probe.device)(
+            pts)[:, -1]
+        s90 = float(np.quantile(sig, 0.9))
+        alpha = float(1.0 - np.exp(-s90 * (1 - 1e-6) * 2.0 / reso))
+        del probe, pstate
+        hx.alpha_thresh = hx.scale_alpha_thresh = alpha
+        log(f"  sigma over {len(sig)} grid points: quantiles 0/0.5/0.9/1 "
+            f"{np.quantile(sig, [0, 0.5, 0.9, 1]).round(6).tolist()}; "
+            f"--alpha_thresh / --scale_alpha_thresh {alpha:.6e} (sigma "
+            f"{s90:.6f})")
+        torch.cuda.empty_cache()
+        rc.ragged_launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        with first_ragged_call(first):
+            t0 = time.perf_counter()
+            tree = create_octree_moe.main(hx)
+            torch.cuda.synchronize()
+            extract_s = time.perf_counter() - t0
+        counts["K1R octree"] = rc.ragged_launches
+        peak = torch.cuda.max_memory_allocated()
+        loaded = Octree.load(tmp / "tree.npz")
+        n_leaves, n_internal = loaded.data.shape[0], loaded.child.shape[0]
+        npz_bytes = (tmp / "tree.npz").stat().st_size
+        bs = hx.model_chunk_size
+        want = (2 * -(-reso ** 3 // bs)
+                + -(-n_leaves * hx.samples_per_cell // bs))
+        q = loaded.query(np.asarray(loaded.center, np.float32)[None])
+        log(f"  create_octree_moe: {extract_s:.1f} s wall, {n_leaves} leaves,"
+            f" {n_internal} internal nodes, {npz_bytes} B npz, format "
+            f"{loaded.data_format}, max_memory_allocated {peak} B; K1R "
+            f"{counts['K1R octree']} launches (expected {want}: 2 x "
+            f"{reso}^3 grid points and {hx.samples_per_cell} a leaf in "
+            f"{bs}-point calls)")
+        if not (loaded.data_format == f"SH{(h.sh_deg + 1) ** 2}"
+                and loaded.depth == hx.init_grid_depth and n_leaves > 0
+                and loaded.data.shape[1] == 3 * (h.sh_deg + 1) ** 2 + 1
+                and np.isfinite(loaded.data).all() and np.isfinite(q).all()
+                and np.array_equal(loaded.child, tree.child)
+                and counts["K1R octree"] == want):
+            raise AssertionError("the extracted octree")
+    rows = ragged_at_inputs("octree grid call", first, peaks, backward=False)
+    line = (f"SH Building train.main {OCTREE_STEPS} steps in {train_s:.1f} s;"
+            f" create_octree_moe at depth {hx.init_grid_depth} "
+            f"({reso ** 3} grid points, {hx.model_chunk_size}-point calls): "
+            f"{extract_s:.2f} s, {n_leaves} leaves, {n_internal} internal "
+            f"nodes, {npz_bytes} B npz, max_memory_allocated {peak} B "
+            f"({peak / 2 ** 30:.2f} GiB)")
+    return line, rows
 
 
 # --------------------------------------------- Block-NeRF Mission Bay ----
@@ -3946,6 +4517,8 @@ def main() -> int:
         wp = weight_parallel_phase(counts, dp, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+    classic, classic_rows = classic_phase(counts, peaks)
+    octree, octree_rows = sh_octree_phase(counts, peaks)
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -4056,6 +4629,26 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the classic scenes (phase 14): K1R and K2R fp32 at the blender run's
+    # first chunk; the SH model and its octree (phase 15): K1 and K2 bf16
+    # training at Building's shapes (the kernel phase's times), K1R bf16 at
+    # the first grid call
+    for key, r, count_key, label in (
+            ("K1R", classic_rows["K1R"], "K1R classic",
+             f"classic scenes, fp32, N={classic_rows['K1R']['n']:,}"),
+            ("K2R", classic_rows["K2R"], "K2R classic",
+             f"classic scenes, fp32, N={classic_rows['K2R']['n']:,}"),
+            ("K1", rows["K1"], "K1 sh", "SH Building training"),
+            ("K2", rows["K2"], "K2 sh", "SH Building training"),
+            ("K1R", octree_rows["K1R"], "K1R octree",
+             f"octree grid call, bf16, N={octree_rows['K1R']['n']:,}")):
+        kname, source, replaces = meta[key]
+        kernels.append({
+            "name": f"{kname} ({label})", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[count_key],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     log(f"[slice] eval rays/s {rays_per_s:.1f} on {smi}")
     log(f"[train] train rays/s {train['rays_per_s']:.1f}, step "
         f"{train['step_s']:.4f} s, max_memory_allocated "
@@ -4087,6 +4680,16 @@ def main() -> int:
         f"K1R {serving['k1r']} launches of {serving['rows_per_call']} rows; "
         f"gates equal to the CPU's {serving['gate_agreement']:.6f}; padded "
         f"eval_points {serving['padded_s']:.2f} s, on {smi}")
+    log(f"[classic] {classic} on {smi}")
+    log(f"[octree] {octree} on {smi}")
+    for tag, rs in (("classic chunk", classic_rows),
+                    ("octree grid call", octree_rows)):
+        for key, r in rs.items():
+            log(f"[kernels {tag}] {key} N{r['n']}: {r['ms']:.4f} ms "
+                f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain"
+                f" {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                f"max_abs_err {r['max_abs_err']:.3e} on {smi}")
     log(f"[orbax] fixture read seconds orbax {orbax['orbax_read_s']:.3f},"
         f" msgpack twin {orbax['msgpack_read_s']:.3f}; served rgb equal "
         f"{orbax['rgb_equal']}, on {smi}")

@@ -7,7 +7,7 @@ are named, so a flax path maps to a torch parameter name leaf by leaf:
 
     <mods>/kernel [in, out]      -> <mods>.weight [out, in] (transposed)
     <mods>/bias                  -> <mods>.bias
-    <mods>/scale (LayerNorm)     -> <mods>.weight
+    <mods>/scale (Layer/GroupNorm) -> <mods>.weight
     <mods>/embedding             -> <mods>.weight
     <mods>/experts/w{i}, b{i}    -> <mods>.experts.w{i}, b{i} (same layout)
 
@@ -42,7 +42,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from switch_nerf_torch.models.common import Embedding, LayerNorm, TorchLinear
+from switch_nerf_torch.models.common import (Embedding, GroupNorm, LayerNorm,
+                                            TorchLinear)
 from switch_nerf_torch.parallel import weights, zero
 from switch_nerf_torch.parallel.experts import gather_whole
 from switch_nerf_torch.parallel.mesh import DATA, Mesh
@@ -143,6 +144,7 @@ def load_jax_state(model: nn.Module, bg_model: Optional[nn.Module],
 # the flax leaf name of each port parameter, by owning module type
 _LEAVES = {TorchLinear: {"weight": "kernel", "bias": "bias"},
            LayerNorm: {"weight": "scale", "bias": "bias"},
+           GroupNorm: {"weight": "scale", "bias": "bias"},
            Embedding: {"weight": "embedding"}}
 
 

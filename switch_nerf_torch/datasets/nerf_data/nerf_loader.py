@@ -1,13 +1,21 @@
 """``NeRFDataset``: the classic-NeRF data container and its train, val and
 test views.
 
-Port of ``switch_nerf_tpu/datasets/nerf_data/nerf_loader.py:26-246`` for
-the Bungee scenes: every --llffhold-th image is held out for val and test,
-the whole set is shrunk by --scale_factor (the intrinsics with it), rays
-are precomputed per image as [N, H, W, 8] (unit directions, per-ray
-near/far) with mip radii [N, H, W, 1], the train split flattened to rays.
-The llff, blender, LINEMOD and deepvoxels branches wait for ROADMAP Queue A
-item 7.
+Port of ``switch_nerf_tpu/datasets/nerf_data/nerf_loader.py:26-246``:
+
+  * llff: every --llffhold-th image held out for val and test, NDC rays
+    unless --no_ndc (then near/far from the depth bounds);
+  * blender: white_bkgd alpha compositing, near 2 / far 6;
+  * LINEMOD: its own K and near/far; deepvoxels: near/far on the
+    hemisphere of the cameras;
+  * bungee: every --llffhold-th image held out, per-ray near/far from the
+    earth sphere and mip radii [N, H, W, 1].
+
+The whole set is shrunk by --scale_factor with ``area_downsample`` (the
+JAX package's OpenCV INTER_AREA), the intrinsics and the NDC focal with
+it, as the JAX package does. Rays are precomputed per image as
+[N, H, W, 8] (origin, direction, near, far; unit directions unless NDC)
+and the train split flattened to rays.
 """
 from __future__ import annotations
 
@@ -16,47 +24,114 @@ from typing import Dict
 import numpy as np
 
 from switch_nerf_torch.datasets.dataset_utils import EpochPermutationSampler
+from switch_nerf_torch.datasets.nerf_data.load_blender import \
+    load_blender_data
 from switch_nerf_torch.datasets.nerf_data.load_bungee import (
     get_bungee_nearfar_radii, load_bungee_multiscale_data)
+from switch_nerf_torch.datasets.nerf_data.load_deepvoxels import load_dv_data
+from switch_nerf_torch.datasets.nerf_data.load_LINEMOD import \
+    load_LINEMOD_data
+from switch_nerf_torch.datasets.nerf_data.load_llff import load_llff_data
 from switch_nerf_torch.datasets.nerf_data.ray_utils import (area_downsample,
-                                                            get_rays)
+                                                            get_rays,
+                                                            ndc_rays)
+
+
+def _holdout(n: int, hold: int):
+    i_test = np.arange(n)[::hold]
+    return i_test, np.array([i for i in np.arange(n) if i not in i_test])
+
+
+def _composite(images: np.ndarray, white_bkgd: bool) -> np.ndarray:
+    """RGBA -> RGB over white (--white_bkgd) or dropping alpha."""
+    if white_bkgd:
+        return images[..., :3] * images[..., -1:] + (1.0 - images[..., -1:])
+    return images[..., :3]
 
 
 class NeRFDataset:
     def __init__(self, args) -> None:
-        if args.dataset_type != "bungee":
+        self.K = None
+        self.radii = None
+        self.scene_origin = None
+        self.scale_split = None
+        self.scene_scaling_factor = None
+        kind = args.dataset_type
+
+        if kind == "llff":
+            images, poses, bds, render_poses, i_avg = load_llff_data(
+                args.datadir, args.factor, recenter=True, bd_factor=0.75,
+                spherify=args.spherify)
+            hwf = poses[0, :3, -1]
+            poses = poses[:, :3, :4]
+            if args.llffhold > 0:
+                i_test, i_train = _holdout(images.shape[0], args.llffhold)
+            else:           # the view closest to the average pose
+                i_test = [i_avg]
+                i_train = np.array([i for i in range(images.shape[0])
+                                    if i != i_avg])
+            i_val = i_test
+            if args.no_ndc:
+                near = float(np.min(bds)) * 0.9
+                far = float(np.max(bds)) * 1.0
+            else:
+                near, far = 0.0, 1.0
+        elif kind == "blender":
+            images, poses, render_poses, hwf, i_split = load_blender_data(
+                args.datadir, args.half_res, args.testskip)
+            i_train, i_val, i_test = i_split
+            near, far = 2.0, 6.0
+            images = _composite(images, args.white_bkgd)
+        elif kind == "LINEMOD":
+            (images, poses, render_poses, hwf, k, i_split, near,
+             far) = load_LINEMOD_data(args.datadir, args.half_res,
+                                      args.testskip)
+            self.K = np.asarray(k, np.float32)
+            i_train, i_val, i_test = i_split
+            images = _composite(images, args.white_bkgd)
+        elif kind == "deepvoxels":
+            images, poses, render_poses, hwf, i_split = load_dv_data(
+                scene=getattr(args, "shape", "cube"), basedir=args.datadir,
+                testskip=args.testskip)
+            i_train, i_val, i_test = i_split
+            hemi_r = float(np.mean(np.linalg.norm(poses[:, :3, -1],
+                                                  axis=-1)))
+            near, far = hemi_r - 1.0, hemi_r + 1.0
+            poses = poses[:, :3, :4]
+        elif kind == "bungee":
+            (images, poses, scene_scaling_factor, scene_origin,
+             scale_split) = load_bungee_multiscale_data(args.datadir,
+                                                        args.factor)
+            self.scene_origin = scene_origin
+            self.scale_split = scale_split
+            self.scene_scaling_factor = scene_scaling_factor
+            i_test, i_train = _holdout(images.shape[0], args.llffhold)
+            i_val = i_test
+            hwf = poses[0, :3, -1]
+            poses = poses[:, :3, :4]
+            render_poses = poses
+            near, far = 0.0, 1.0   # unused: bungee rays carry their own
+        else:
             raise NotImplementedError(
-                f"the {args.dataset_type!r} classic-NeRF loader waits for the "
-                "port's other workloads (ROADMAP Queue A item 7); the port "
-                "loads bungee scenes")
-        (images, poses, scene_scaling_factor, scene_origin,
-         scale_split) = load_bungee_multiscale_data(args.datadir, args.factor)
-        self.scene_origin = scene_origin
-        self.scale_split = scale_split
-        self.scene_scaling_factor = scene_scaling_factor
-        i_test = np.arange(images.shape[0])[::args.llffhold]
-        i_val = i_test
-        i_train = np.array([i for i in np.arange(int(images.shape[0]))
-                            if i not in i_test])
-        hwf = poses[0, :3, -1]
-        poses = poses[:, :3, :4]
-        near, far = 0.0, 1.0     # unused: bungee rays carry their own bounds
+                f"dataset type {kind!r} not supported")
 
         self.poses = np.asarray(poses, np.float32)
-        self.render_poses = self.poses
+        self.render_poses = np.asarray(render_poses, np.float32)
         self.i_train, self.i_val, self.i_test = i_train, i_val, i_test
         self.near, self.far = near, far
 
         h, w, focal = hwf
         h, w = int(h), int(w)
-        self.K = np.array([[focal, 0, 0.5 * w],
-                           [0, focal, 0.5 * h],
-                           [0, 0, 1]], np.float32)
+        if self.K is None:
+            self.K = np.array([[focal, 0, 0.5 * w],
+                               [0, focal, 0.5 * h],
+                               [0, 0, 1]], np.float32)
         self.H, self.W = h, w
         self.hwf = [h, w, focal]
 
         if getattr(args, "scale_factor", 1) > 1:
-            # intrinsics scaled with the images, as the JAX package does
+            # intrinsics and the NDC focal scaled with the images, as the
+            # JAX package does
             sf = args.scale_factor
             if self.H % sf or self.W % sf:
                 raise ValueError(f"{self.W}x{self.H} images do not divide by "
@@ -70,23 +145,36 @@ class NeRFDataset:
         rays = []
         for p in self.poses:
             rays_o, rays_d = get_rays(self.H, self.W, self.K, p)
-            rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+            if not args.no_ndc:
+                rays_o, rays_d = ndc_rays(self.H, self.W, self.hwf[2], 1.0,
+                                          rays_o, rays_d)
+            else:
+                rays_d = rays_d / np.linalg.norm(rays_d, axis=-1,
+                                                 keepdims=True)
             rays.append(np.concatenate([rays_o, rays_d], -1))
-        rays, radii = get_bungee_nearfar_radii(
-            np.stack(rays, 0), scene_scaling_factor=self.scene_scaling_factor,
-            scene_origin=self.scene_origin,
-            ray_nearfar=args.bungee_ray_nearfar)
-        self.radii = radii.astype(np.float32)                  # [N, H, W, 1]
+        rays = np.stack(rays, 0)                               # [N, H, W, 6]
+
+        if kind == "bungee":
+            rays, radii = get_bungee_nearfar_radii(
+                rays, scene_scaling_factor=self.scene_scaling_factor,
+                scene_origin=self.scene_origin,
+                ray_nearfar=args.bungee_ray_nearfar)
+            self.radii = radii.astype(np.float32)              # [N, H, W, 1]
+        else:
+            ones = np.ones_like(rays[..., :1])
+            rays = np.concatenate([rays, self.near * ones, self.far * ones],
+                                  -1)
         self.rays = rays.astype(np.float32)                    # [N, H, W, 8]
         self.rgbs = self.images
 
         self.rays_train = self.rays[i_train].reshape(-1, 8)
         self.rgbs_train = self.rgbs[i_train].reshape(-1, 3)
-        self.radii_train = self.radii[i_train].reshape(-1, 1)
         self.rays_val, self.rgbs_val = self.rays[i_val], self.rgbs[i_val]
         self.rays_test, self.rgbs_test = self.rays[i_test], self.rgbs[i_test]
-        self.radii_val = self.radii[i_val]
-        self.radii_test = self.radii[i_test]
+        if self.radii is not None:
+            self.radii_train = self.radii[i_train].reshape(-1, 1)
+            self.radii_val = self.radii[i_val]
+            self.radii_test = self.radii[i_test]
         self.args = args
 
     @property
@@ -106,9 +194,11 @@ class NeRFDatasetTrain:
         return self.dataset.rays_train.shape[0]
 
     def __getitem__(self, idx) -> Dict[str, np.ndarray]:
-        return {"rays": self.dataset.rays_train[idx],
-                "rgbs": self.dataset.rgbs_train[idx],
-                "radii": self.dataset.radii_train[idx]}
+        d = self.dataset
+        sample = {"rays": d.rays_train[idx], "rgbs": d.rgbs_train[idx]}
+        if d.is_bungee:
+            sample["radii"] = d.radii_train[idx]
+        return sample
 
     def get_batch(self, global_batch: int, batch_size: int
                   ) -> Dict[str, np.ndarray]:
@@ -132,10 +222,12 @@ class _ImageSplit:
 
     def __getitem__(self, idx) -> Dict[str, np.ndarray]:
         d, sp = self.dataset, self._split
-        return {"rays": getattr(d, f"rays_{sp}")[idx],
-                "rgbs": getattr(d, f"rgbs_{sp}")[idx],
-                "img_i": getattr(d, f"i_{sp}")[idx],
-                "radii": getattr(d, f"radii_{sp}")[idx]}
+        sample = {"rays": getattr(d, f"rays_{sp}")[idx],
+                  "rgbs": getattr(d, f"rgbs_{sp}")[idx],
+                  "img_i": getattr(d, f"i_{sp}")[idx]}
+        if d.is_bungee:
+            sample["radii"] = getattr(d, f"radii_{sp}")[idx]
+        return sample
 
 
 class NeRFDatasetVal(_ImageSplit):

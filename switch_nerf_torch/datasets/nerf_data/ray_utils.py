@@ -1,17 +1,18 @@
 """Classic-NeRF camera rays (OpenGL convention, pixel corners).
 
-Port of ``switch_nerf_tpu/datasets/nerf_data/ray_utils.py:13`` ``get_rays``:
-directions ((i - cx) / fx, -(j - cy) / fy, -1), neither normalized nor
-shifted to pixel centres (unlike the Mega-NeRF rays), rotated by the
-camera, and the origin broadcast. Also the area resample that stands in
-for OpenCV's ``INTER_AREA`` (OpenCV is not among the card machine's
+Port of ``switch_nerf_tpu/datasets/nerf_data/ray_utils.py:13-43``:
+``get_rays`` (directions ((i - cx) / fx, -(j - cy) / fy, -1), neither
+normalized nor shifted to pixel centres, unlike the Mega-NeRF rays,
+rotated by the camera, and the origin broadcast) and ``ndc_rays`` (the NDC
+shift of forward-facing LLFF scenes). Also the area resample that stands
+in for OpenCV's ``INTER_AREA`` (OpenCV is not among the card machine's
 packages).
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["get_rays", "area_downsample"]
+__all__ = ["get_rays", "ndc_rays", "area_downsample"]
 
 
 def get_rays(h: int, w: int, k: np.ndarray, c2w: np.ndarray):
@@ -24,6 +25,28 @@ def get_rays(h: int, w: int, k: np.ndarray, c2w: np.ndarray):
                      -np.ones_like(i)], axis=-1)
     rays_d = np.sum(dirs[..., None, :] * c2w[:3, :3], axis=-1)
     rays_o = np.broadcast_to(c2w[:3, -1], rays_d.shape).copy()
+    return rays_o.astype(np.float32), rays_d.astype(np.float32)
+
+
+def ndc_rays(h: int, w: int, focal: float, near: float,
+             rays_o: np.ndarray, rays_d: np.ndarray):
+    """Shift the ray origins to the near plane and map the rays into NDC
+    space; float32 (rays_o, rays_d)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    o0 = -1.0 / (w / (2.0 * focal)) * rays_o[..., 0] / rays_o[..., 2]
+    o1 = -1.0 / (h / (2.0 * focal)) * rays_o[..., 1] / rays_o[..., 2]
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (w / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2]
+                                       - rays_o[..., 0] / rays_o[..., 2])
+    d1 = -1.0 / (h / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2]
+                                       - rays_o[..., 1] / rays_o[..., 2])
+    d2 = -2.0 * near / rays_o[..., 2]
+
+    rays_o = np.stack([o0, o1, o2], axis=-1)
+    rays_d = np.stack([d0, d1, d2], axis=-1)
     return rays_o.astype(np.float32), rays_d.astype(np.float32)
 
 

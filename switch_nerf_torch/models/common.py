@@ -1,5 +1,6 @@
 """Shared layers: torch-default init, the dtype-following Linear, the
-appearance embedding, LayerNorm with fp32 output, activations.
+appearance embedding, LayerNorm and GroupNorm with fp32 output, dropout,
+activations.
 
 Port of ``switch_nerf_tpu/models/common.py``. Every init draws from an
 explicit ``torch.Generator``: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight
@@ -15,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["uniform_fan_in", "TorchLinear", "Embedding", "LayerNorm",
-           "apply_act"]
+           "GroupNorm", "Dropout", "apply_act"]
 
 
 def uniform_fan_in(shape, fan_in: int, generator: Optional[torch.Generator],
@@ -77,6 +78,45 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over the channels of [S, C] (eps 1e-5, flax's layout:
+    scale and bias per channel), normalized in fp32 and returned in fp32,
+    as LayerNorm."""
+
+    def __init__(self, num_groups: int, features: int):
+        super().__init__(num_groups, features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps)
+
+
+class Dropout(nn.Module):
+    """Train-only dropout as flax's: each entry kept with probability
+    1 - rate and scaled by 1 / (1 - rate), the rest zeroed. The mask is
+    drawn from `generator` on its own device (``keep_mask``)."""
+
+    def __init__(self, rate: float,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.rate = rate
+        self.generator = generator
+
+    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.generator
+        u = torch.rand(x.shape, generator=g,
+                       device=g.device if g is not None else x.device)
+        return (u >= self.rate).to(x.device)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        return torch.where(self.keep_mask(x), x / (1.0 - self.rate),
+                           torch.zeros_like(x))
 
 
 def apply_act(name: str, x: torch.Tensor) -> torch.Tensor:

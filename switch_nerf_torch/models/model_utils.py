@@ -3,7 +3,9 @@
 Port of ``switch_nerf_tpu/models/model_utils.py`` for the non-cascade
 configs: ``get_nerf`` builds the NeRFMoE or, with --use_mip or
 --nerfmoe_class_name MipNeRFMoE, the MipNeRFMoE (``--use_moe``), or the
-dense NeRF; ``get_bg_nerf`` the dense background NeRF. Weights are drawn
+dense NeRF (which, as in JAX, ignores mip: a mip renderer's 6-wide input
+then raises); ``get_bg_nerf`` the dense background NeRF. --sh_deg widens
+the colour heads to its SH coefficients. Weights are drawn
 from a ``torch.Generator`` seeded with ``seed`` (default
 ``--random_seed``) on the CPU, then moved to the device. Under expert
 or expert weight parallelism (``parallel.mesh.current()``) the MoE layers
@@ -53,9 +55,9 @@ def eval_dispatch(hparams) -> str:
 
 
 def _rgb_dim(hparams) -> int:
+    """3, or with --sh_deg the 3 * (deg + 1)^2 SH coefficients."""
     if hparams.sh_deg is not None:
-        raise NotImplementedError(
-            "spherical-harmonics color waits for a later slice of the port")
+        return 3 * (hparams.sh_deg + 1) ** 2
     return 3
 
 
@@ -68,14 +70,9 @@ def use_mip(hparams) -> bool:
 
 
 def _check_supported(hparams) -> None:
-    for flag, on in (("use_cascade", hparams.use_cascade),
-                     ("affine_appearance", hparams.affine_appearance)):
-        if on:
-            raise NotImplementedError(
-                f"--{flag} waits for a later slice of the port")
-    if use_mip(hparams) and not getattr(hparams, "use_moe", False):
+    if hparams.use_cascade:
         raise NotImplementedError(
-            "a dense mip NeRF waits for a later slice of the port")
+            "--use_cascade waits for a later slice of the port")
 
 
 def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
@@ -93,6 +90,7 @@ def _get_nerf_moe(hparams, appearance_count: int, generator) -> nn.Module:
         pos_xyz_dim=hparams.pos_xyz_dim,
         pos_dir_dim=hparams.pos_dir_dim,
         appearance_dim=hparams.appearance_dim,
+        affine_appearance=hparams.affine_appearance,
         appearance_count=appearance_count,
         rgb_dim=_rgb_dim(hparams),
         shifted_softplus_sigma=hparams.shifted_softplus,
@@ -121,6 +119,7 @@ def _get_dense_nerf(hparams, appearance_count: int, layer_dim: int,
         skip_layers=tuple(hparams.skip_layers),
         layer_dim=layer_dim,
         appearance_dim=hparams.appearance_dim,
+        affine_appearance=hparams.affine_appearance,
         appearance_count=appearance_count,
         rgb_dim=_rgb_dim(hparams),
         xyz_dim=xyz_dim,

@@ -1,13 +1,18 @@
 """Config-driven NeRF-MoE layer graph, and its mip variant.
 
 Port of ``switch_nerf_tpu/models/nerf_moe.py:29-274`` with layer types
-mlp / moe / layernorm. ``MipNeRFMoE`` (``use_mip``) takes a 6-wide
-(mean, diagonal covariance) xyz input through ``mip_encode`` in place of
-the 3-wide point through ``freq_encode``; the graph is the same. The YAML "model" dict names the stem ("xyz"), the
-trunk tags 0..N-1, the heads ("sigma", "color"), and the optional external
-gate MLP and gate-input LayerNorm that feed every MoE gate. The walk taps
-sigma at `sigma_tag` (fp32 unless bf16 sigma is asked for), appends viewdir
-PE + appearance embedding at `dir_tag`, and emits rgb at `color_tag`.
+mlp / normmlp / moe / layernorm / groupnorm / dropout (batchnorm raises,
+as in JAX). ``MipNeRFMoE`` (``use_mip``) takes a 6-wide (mean, diagonal
+covariance) xyz input through ``mip_encode`` in place of the 3-wide point
+through ``freq_encode``; the graph is the same. The YAML "model" dict
+names the stem ("xyz"), the trunk tags 0..N-1, the heads ("sigma",
+"color"), and the optional external gate MLP and gate-input LayerNorm that
+feed every MoE gate. The walk taps sigma at `sigma_tag` (fp32 unless bf16
+sigma is asked for; a sigma-only query ends there), appends viewdir PE +
+appearance embedding at `dir_tag`, and emits rgb at `color_tag`. With
+pos_dir_dim 0 the sigma head emits rgb and sigma and the walk ends at the
+tap; with affine_appearance the embedding drives a 3x4 colour transform of
+the rgb head's output instead of joining the trunk.
 """
 from __future__ import annotations
 
@@ -16,8 +21,9 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from switch_nerf_torch.models.common import Embedding, LayerNorm, apply_act
-from switch_nerf_torch.models.mlp import Mlp
+from switch_nerf_torch.models.common import (Dropout, Embedding, GroupNorm,
+                                            LayerNorm, TorchLinear, apply_act)
+from switch_nerf_torch.models.mlp import Mlp, NormMlp
 from switch_nerf_torch.models.moe import MoELayer
 from switch_nerf_torch.ops.encoding import (freq_encode, mip_encode,
                                             shifted_softplus)
@@ -26,6 +32,7 @@ from switch_nerf_torch.ops.encoding import (freq_encode, mip_encode,
 class NeRFMoE(nn.Module):
     def __init__(self, layer_cfg: Dict[str, Any], pos_xyz_dim: int = 12,
                  pos_dir_dim: int = 4, appearance_dim: int = 48,
+                 affine_appearance: bool = False,
                  appearance_count: int = 0, rgb_dim: int = 3,
                  xyz_dim: int = 3, shifted_softplus_sigma: bool = True,
                  use_mip: bool = False,
@@ -43,6 +50,7 @@ class NeRFMoE(nn.Module):
         self.layer_cfg = layer_cfg
         self.pos_xyz_dim, self.pos_dir_dim = pos_xyz_dim, pos_dir_dim
         self.appearance_dim = appearance_dim
+        self.affine_appearance = affine_appearance
         self.rgb_dim, self.xyz_dim = rgb_dim, xyz_dim
         self.use_mip = use_mip
         self.shifted_softplus_sigma = shifted_softplus_sigma
@@ -80,11 +88,27 @@ class NeRFMoE(nn.Module):
                     top_k=cfg.get("k", 1),
                     fp32_gate=cfg.get("fp32_gate", True),
                     gate_dim=self._gate_width or width, **moe_kwargs)
+            elif typ == "normmlp":
+                layer = NormMlp(width, cfg["h_ch"], cfg["out_ch"], cfg["num"],
+                                cfg.get("skips"),
+                                norm_name=cfg.get("norm_name", "none"),
+                                generator=generator)
+                width = cfg["out_ch"]
             elif typ == "layernorm":
                 layer = LayerNorm(width)
-            else:
+            elif typ == "groupnorm":
+                layer = GroupNorm(cfg["group_num"], width)
+            elif typ == "dropout":
+                layer = Dropout(cfg["prob"], generator=generator)
+            elif typ == "batchnorm":
+                # as the JAX package: unused by every published config, and
+                # its running statistics are ill-defined under chunked
+                # inference
                 raise NotImplementedError(
-                    f"layer type {typ!r} waits for a later slice of the port")
+                    "graph-level batchnorm is not supported (unused by all "
+                    "published Switch-NeRF configs)")
+            else:
+                raise NotImplementedError(f"layer type {typ!r}")
             self.add_module(f"layer_{tag}", layer)
             return width
 
@@ -103,9 +127,11 @@ class NeRFMoE(nn.Module):
                                        cfgs["sigma"]["num"],
                                        cfgs["sigma"].get("skips"),
                                        generator=generator)
+                if not has_dir:         # the walk ends at the sigma tap
+                    break
             if tag == str(layer_cfg["dir_tag"]) and has_dir:
                 width += 3 * (1 + 2 * pos_dir_dim)
-                if has_app:
+                if has_app and not affine_appearance:
                     self.embedding_a = Embedding(appearance_count,
                                                  appearance_dim,
                                                  generator=generator)
@@ -116,11 +142,13 @@ class NeRFMoE(nn.Module):
                                        cfgs["color"]["num"],
                                        cfgs["color"].get("skips"),
                                        generator=generator)
+                if affine_appearance and has_app:
+                    self.embedding_a = Embedding(appearance_count,
+                                                 appearance_dim,
+                                                 generator=generator)
+                    self.affine = TorchLinear(appearance_dim, 12,
+                                              generator=generator)
                 break
-        if not has_dir:
-            raise NotImplementedError(
-                "pos_dir_dim == 0 (rgb from the sigma head) waits for a "
-                "later slice of the port")
 
     def _sigma_act(self, sigma: torch.Tensor) -> torch.Tensor:
         return (shifted_softplus(sigma) if self.shifted_softplus_sigma
@@ -128,17 +156,21 @@ class NeRFMoE(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 sigma_noise: Optional[torch.Tensor] = None,
-                train: bool = False) -> Dict[str, Any]:
-        """x: [S, 3 (mip: 6) + 3 (+1 appearance idx)]; sigma_noise: [S, 1]
-        added to the raw sigma before its activation (training only);
-        `train` picks the MoE layers' train dispatch."""
+                train: bool = False, sigma_only: bool = False
+                ) -> Dict[str, Any]:
+        """x: [S, 3 (mip: 6) (+3 viewdir) (+1 appearance idx)]; a
+        sigma-only query passes the xyz columns alone and gets sigma [S, 1]
+        back (with pos_dir_dim 0: rgb and sigma). sigma_noise: [S, 1] added
+        to the raw sigma before its activation (training only); `train`
+        picks the MoE layers' train dispatch and turns dropout on."""
         cfgs = self.layer_cfg["layers"]
         sigma_tag = str(self.layer_cfg["sigma_tag"])
         dir_tag = str(self.layer_cfg["dir_tag"])
         color_tag = str(self.layer_cfg["color_tag"])
         xd = self.xyz_dim * (2 if self.use_mip else 1)
-        has_app = self.appearance_dim > 0
-        expected = xd + 3 + (1 if has_app else 0)
+        has_dir, has_app = self.pos_dir_dim > 0, self.appearance_dim > 0
+        expected = xd + (0 if sigma_only else
+                         (3 if has_dir else 0) + (1 if has_app else 0))
         if x.shape[-1] != expected:
             raise ValueError(f"Unexpected input shape {tuple(x.shape)}: "
                              f"expected last dim {expected}")
@@ -169,24 +201,45 @@ class NeRFMoE(nn.Module):
                 moe_loss.append(l_aux)
                 if self.moe_return_gates:
                     moe_gates.append(gate_extras["gates"])
+            elif cfg["type"] == "dropout":
+                h = layer(h, train=train)
             else:
                 h = layer(h)
             h = apply_act(cfg.get("act", "none"), h)
 
             if tag == sigma_tag:
                 sigma = self.layer_sigma(h.float() if self.sigma_fp32 else h)
+                if not has_dir:
+                    # the sigma head emits rgb (3) and sigma (1)
+                    rgb, sigma = sigma[:, :3], sigma[:, 3:]
+                    if self.rgb_dim == 3:
+                        rgb = torch.sigmoid(rgb)
+                    if sigma_noise is not None:
+                        sigma = sigma + sigma_noise.to(sigma.dtype)
+                    sigma = self._sigma_act(sigma)
+                    outputs = torch.cat([rgb, sigma.to(rgb.dtype)], dim=-1)
+                    break
                 if sigma_noise is not None:
                     sigma = sigma + sigma_noise.to(sigma.dtype)
                 sigma = self._sigma_act(sigma)
-            if tag == dir_tag:
+                if sigma_only:
+                    outputs = sigma
+                    break
+            if tag == dir_tag and has_dir:
                 parts = [h, freq_encode(x[:, xd:xd + 3].to(self.compute_dtype),
                                         self.pos_dir_dim)]
-                if has_app:
+                if has_app and not self.affine_appearance:
                     parts.append(self.embedding_a(x[:, -1].long())
                                  .to(self.compute_dtype))
                 h = torch.cat(parts, dim=-1)
-            if tag == color_tag:
+            if tag == color_tag and has_dir:
                 rgb = self.layer_color(h)
+                if self.affine_appearance and has_app:
+                    a = self.embedding_a(x[:, -1].long()).to(
+                        self.compute_dtype)
+                    affine = self.affine(a).reshape(-1, 3, 4)
+                    rgb = (torch.einsum("sij,sj->si", affine[:, :, :3], rgb)
+                           + affine[:, :, 3])
                 if self.rgb_dim == 3:
                     rgb = torch.sigmoid(rgb)
                 outputs = torch.cat([rgb, sigma.to(rgb.dtype)], dim=-1)

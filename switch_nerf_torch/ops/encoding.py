@@ -1,7 +1,8 @@
-"""Positional encodings and the sigma activation.
+"""Positional encodings, the sigma activation and spherical harmonics.
 
-Port of ``switch_nerf_tpu/ops/encoding.py:22-89`` (freq_bands, freq_encode,
-mip_encode, shifted_softplus). Elementwise ops: no kernel.
+Port of ``switch_nerf_tpu/ops/encoding.py:22-147`` (freq_bands,
+freq_encode, mip_encode, shifted_softplus, eval_sh). Elementwise ops: no
+kernel.
 """
 from __future__ import annotations
 
@@ -9,7 +10,8 @@ import math
 
 import torch
 
-__all__ = ["freq_bands", "freq_encode", "mip_encode", "shifted_softplus"]
+__all__ = ["freq_bands", "freq_encode", "mip_encode", "shifted_softplus",
+           "eval_sh"]
 
 
 def freq_bands(num_freqs: int, logscale: bool = True, base: float = 2.0,
@@ -78,3 +80,65 @@ def shifted_softplus(x: torch.Tensor, beta: float = 1.0,
     by = beta * y
     soft = torch.logaddexp(by, torch.zeros_like(by)) / beta
     return torch.where(by > threshold, y, soft)
+
+
+# spherical harmonics (the PlenOctree convention), degrees 0-4
+_C0 = 0.28209479177387814
+_C1 = 0.4886025119029199
+_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+       -1.0925484305920792, 0.5462742152960396)
+_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+       0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+       -0.5900435899266435)
+_C4 = (2.5033429417967046, -1.7701307697799304, 0.9461746957575601,
+       -0.6690465435572892, 0.10578554691520431, -0.6690465435572892,
+       0.47308734787878004, -1.7701307697799304, 0.6258357354491761)
+
+
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """The spherical harmonics of degree `deg` (0-4) with coefficients sh
+    [..., C, (deg+1)**2] at unit directions dirs [..., 3] -> [..., C],
+    summed in the JAX package's order."""
+    if not 0 <= deg <= 4:
+        raise ValueError(f"SH degree {deg} not in 0..4")
+    if sh.shape[-1] != (deg + 1) ** 2:
+        raise ValueError(f"{sh.shape[-1]} SH coefficients for degree {deg}")
+    result = _C0 * sh[..., 0]
+    if deg == 0:
+        return result
+    x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+    result = (result - _C1 * y * sh[..., 1] + _C1 * z * sh[..., 2]
+              - _C1 * x * sh[..., 3])
+    if deg == 1:
+        return result
+    xx, yy, zz = x * x, y * y, z * z
+    xy, yz, xz = x * y, y * z, x * z
+    result = (result
+              + _C2[0] * xy * sh[..., 4]
+              + _C2[1] * yz * sh[..., 5]
+              + _C2[2] * (2.0 * zz - xx - yy) * sh[..., 6]
+              + _C2[3] * xz * sh[..., 7]
+              + _C2[4] * (xx - yy) * sh[..., 8])
+    if deg == 2:
+        return result
+    result = (result
+              + _C3[0] * y * (3 * xx - yy) * sh[..., 9]
+              + _C3[1] * xy * z * sh[..., 10]
+              + _C3[2] * y * (4 * zz - xx - yy) * sh[..., 11]
+              + _C3[3] * z * (2 * zz - 3 * xx - 3 * yy) * sh[..., 12]
+              + _C3[4] * x * (4 * zz - xx - yy) * sh[..., 13]
+              + _C3[5] * z * (xx - yy) * sh[..., 14]
+              + _C3[6] * x * (xx - 3 * yy) * sh[..., 15])
+    if deg == 3:
+        return result
+    return (result
+            + _C4[0] * xy * (xx - yy) * sh[..., 16]
+            + _C4[1] * yz * (3 * xx - yy) * sh[..., 17]
+            + _C4[2] * xy * (7 * zz - 1) * sh[..., 18]
+            + _C4[3] * yz * (7 * zz - 3) * sh[..., 19]
+            + _C4[4] * (zz * (35 * zz - 30) + 3) * sh[..., 20]
+            + _C4[5] * xz * (7 * zz - 3) * sh[..., 21]
+            + _C4[6] * (xx - yy) * (7 * zz - 1) * sh[..., 22]
+            + _C4[7] * xz * (xx - 3 * yy) * sh[..., 23]
+            + _C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy))
+            * sh[..., 24])

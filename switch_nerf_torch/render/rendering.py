@@ -1,10 +1,16 @@
 """Classic (Mega-NeRF-style) ray rendering: coarse/fine hierarchical
 sampling with foreground/background (inverted-sphere) composition.
 
-Port of ``switch_nerf_tpu/render/rendering.py:98-574`` (non-cascade). The
-JAX ``lax.scan`` over model chunks is a Python loop here, and there is no
-rematerialisation: at the published batch the saved activations fit the
-card's memory, and remat changes no value.
+Port of ``switch_nerf_tpu/render/rendering.py:98-574`` (non-cascade),
+with the coarse-only render (fine_samples 0: the coarse samples
+composited, no fine pass), the per-sample introspection outputs
+(return_pts / return_pts_rgb / return_pts_alpha / return_sigma /
+return_alpha, of the coarse pass) and the SH colour step (sh_deg: the model
+emits 3 x (deg+1)^2 coefficients a sample, evaluated at the ray direction
+and squashed by a sigmoid). The JAX ``lax.scan`` over model chunks is a
+Python loop here, and there is no rematerialisation: at the published
+batch the saved activations fit the card's memory, and remat changes no
+value.
 
 Training (``train=True``) adds the stratified jitter of the fg and bg
 depths, random fine samples, per-chunk sigma noise and, with
@@ -20,7 +26,8 @@ from ONE ``torch.Generator`` on the rays' device, drawn in program order:
   foreground pass: the same five draws at [N, coarse] and [N, fine].
 
 A draw is skipped when its feature is off (perturb 0, no sigma noise, no
-random background). The JAX package splits one key per site instead, so
+random background); without fine samples draws 3 and 4 go and draw 5 is
+the coarse composite's. The JAX package splits one key per site instead, so
 the two frameworks draw different numbers: tests inject the same draws or
 switch the noise off.
 
@@ -35,6 +42,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from switch_nerf_torch.ops.encoding import eval_sh
 from switch_nerf_torch.ops.sorting import sort_with_payloads
 from switch_nerf_torch.ops.volume import (
     depth2pts_outside, expand_and_perturb_z_vals, intersect_sphere,
@@ -57,9 +65,15 @@ class RenderConfig:
     use_random_background_color: bool = False  # train only
     use_sigma_noise: bool = False              # train only
     sigma_noise_std: float = 1.0
+    sh_deg: Optional[int] = None               # spherical-harmonics colour
     rgb_padding: Optional[float] = None        # mip only
     weights_resample_padding: float = 0.01     # mip only
     stop_level_grad: bool = True               # mip only
+    return_pts: bool = False                   # per-sample xyz (coarse)
+    return_pts_rgb: bool = False               # per-sample rgb (coarse)
+    return_pts_alpha: bool = False             # per-sample alpha (coarse)
+    return_sigma: bool = False                 # per-sample sigma (coarse)
+    return_alpha: bool = False                 # the same alpha, its own key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,8 +174,23 @@ def _inference(model_fn: ModelFn, xyz: torch.Tensor, z_vals: torch.Tensor,
     n, s, _ = xyz.shape
     pts = _build_points(xyz, rays_d, image_indices, cfg.pos_dir_dim)
     out, moe_loss = run_model_chunked(model_fn, pts, cfg, mode)
-    out = out.reshape(n, s, -1)
-    return out[..., :3], out[..., 3], z_vals, depth_real, moe_loss
+    rgbs, sigmas = split_outputs(out.reshape(n, s, -1), rays_d, cfg)
+    return rgbs, sigmas, z_vals, depth_real, moe_loss
+
+
+def split_outputs(out: torch.Tensor, rays_d: torch.Tensor,
+                  cfg: RenderConfig):
+    """A model's outputs [N, S, C] -> (rgbs [N, S, 3], sigmas [N, S]); with
+    sh_deg the SH coefficients evaluated at the ray directions [N, 1, 3]
+    and squashed by a sigmoid."""
+    if cfg.sh_deg is None:
+        return out[..., :3], out[..., 3]
+    k = (cfg.sh_deg + 1) ** 2
+    n, s = out.shape[:2]
+    coeffs = out[..., :3 * k].reshape(n, s, 3, k)
+    rgbs = torch.sigmoid(eval_sh(cfg.sh_deg, coeffs,
+                                 rays_d.expand(n, s, 3)))
+    return rgbs, out[..., 3 * k]
 
 
 def _composite(rgbs, sigmas, z_vals, last_delta, cfg: RenderConfig,
@@ -202,10 +231,8 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
     dict (rgb_fine / depth_fine / depth_variance_fine / gate_loss_* / bg_*
     / fg_* ...). `generator` feeds every training draw (module docstring).
     `grid`: the rays are this rank's share of a data-parallel step's
-    global batch (``run_model_chunked``).
-
-    Needs fine samples (cfg.fine_samples > 0): the coarse-only render
-    waits for a later slice."""
+    global batch (``run_model_chunked``). Without fine samples the coarse
+    pass is composited into rgb_coarse / depth_coarse / ..."""
     mode = _Pass(train, generator, grid)
     perturb = cfg.perturb if train else 0.0
     n_rays = rays.shape[0]
@@ -238,53 +265,79 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
     # ---------------- foreground coarse ------------------------------------
     z_steps = torch.linspace(0.0, 1.0, cfg.coarse_samples, dtype=rays.dtype,
                              device=rays.device)
-    z_vals = near * (1 - z_steps) + far * z_steps
+    # near (1 - s) + far s and o + d z with their last product and sum in
+    # one rounding (a fused multiply-add), as XLA computes them: the top PE
+    # frequencies turn a last-bit difference in a point into gradient noise
+    z_vals = torch.addcmul(near * (1 - z_steps), far, z_steps)
     z_vals = expand_and_perturb_z_vals(z_vals, perturb, generator)
-    xyz_coarse = rays_o3 + rays_d3 * z_vals[..., None]
+    xyz_coarse = torch.addcmul(rays_o3, rays_d3, z_vals[..., None])
     rgbs_c, sigmas_c, zv_c, _, moe_loss_c = _inference(
         model_fn, xyz_coarse, z_vals, rays_d3, image_indices, cfg, mode,
         flip=False, depth_real=None)
     results["gate_loss_coarse"] = moe_loss_c.reshape(-1)
 
-    vr_c = _composite(rgbs_c, sigmas_c, zv_c,
-                      _adjust_last_delta(last_delta, zv_c), cfg, mode,
-                      flip=False, composite_rgb=False)
-    z_mid = 0.5 * (zv_c[:, :-1] + zv_c[:, 1:])
-    fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1].detach(),
-                        cfg.fine_samples, det=perturb == 0,
-                        generator=generator)
-    xyz_fine = rays_o3 + rays_d3 * fine_z[..., None]
-    rgbs_f, sigmas_f, zv_f, _, moe_loss_f = _inference(
-        model_fn, xyz_fine, fine_z, rays_d3, image_indices, cfg, mode,
-        flip=False, depth_real=None)
-    results["gate_loss_fine"] = moe_loss_f.reshape(-1)
+    # per-sample introspection outputs of the coarse pass
+    if cfg.return_pts:
+        results["pts_coarse"] = xyz_coarse
+    if cfg.return_pts_rgb:
+        results["pts_rgb_coarse"] = rgbs_c
+    if cfg.return_sigma:
+        results["sigma_coarse"] = sigmas_c
+    if cfg.return_pts_alpha or cfg.return_alpha:
+        deltas_c = torch.cat([zv_c[..., 1:] - zv_c[..., :-1],
+                              _adjust_last_delta(last_delta, zv_c)], dim=-1)
+        alphas_c = 1.0 - torch.exp(-deltas_c * sigmas_c)
+        if cfg.return_pts_alpha:
+            results["pts_alpha_coarse"] = alphas_c
+        if cfg.return_alpha:
+            results["alpha_coarse"] = alphas_c
 
-    # merge coarse + fine raw samples before compositing
-    z_all, rgb_all, sig_all = _sort_merge(
-        torch.cat([zv_f, zv_c], dim=-1),
-        torch.cat([rgbs_f, rgbs_c], dim=-2),
-        torch.cat([sigmas_f, sigmas_c], dim=-1))
-    # reference quirk kept for parity: the fine last-delta adjustment
-    # subtracts max(FINE z) only, though the composite runs on the merged
-    # array whose max is the coarse far bound
-    vr_f = _composite(rgb_all, sig_all, z_all,
-                      _adjust_last_delta(last_delta, fine_z), cfg, mode,
-                      flip=False, get_depth=get_depth or has_bg,
-                      get_depth_variance=get_depth_variance)
-    results["rgb_fine"] = vr_f.rgb
+    typ = "fine" if cfg.fine_samples > 0 else "coarse"
+    if typ == "coarse":
+        vr = _composite(rgbs_c, sigmas_c, zv_c,
+                        _adjust_last_delta(last_delta, zv_c), cfg, mode,
+                        flip=False, get_depth=get_depth,
+                        get_depth_variance=get_depth_variance)
+    else:
+        vr_c = _composite(rgbs_c, sigmas_c, zv_c,
+                          _adjust_last_delta(last_delta, zv_c), cfg, mode,
+                          flip=False, composite_rgb=False)
+        z_mid = 0.5 * (zv_c[:, :-1] + zv_c[:, 1:])
+        fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1].detach(),
+                            cfg.fine_samples, det=perturb == 0,
+                            generator=generator)
+        xyz_fine = torch.addcmul(rays_o3, rays_d3, fine_z[..., None])
+        rgbs_f, sigmas_f, zv_f, _, moe_loss_f = _inference(
+            model_fn, xyz_fine, fine_z, rays_d3, image_indices, cfg, mode,
+            flip=False, depth_real=None)
+        results["gate_loss_fine"] = moe_loss_f.reshape(-1)
+
+        # merge coarse + fine raw samples before compositing
+        z_all, rgb_all, sig_all = _sort_merge(
+            torch.cat([zv_f, zv_c], dim=-1),
+            torch.cat([rgbs_f, rgbs_c], dim=-2),
+            torch.cat([sigmas_f, sigmas_c], dim=-1))
+        # reference quirk kept for parity: the fine last-delta adjustment
+        # subtracts max(FINE z) only, though the composite runs on the
+        # merged array whose max is the coarse far bound
+        vr = _composite(rgb_all, sig_all, z_all,
+                        _adjust_last_delta(last_delta, fine_z), cfg, mode,
+                        flip=False, get_depth=get_depth or has_bg,
+                        get_depth_variance=get_depth_variance)
+    results[f"rgb_{typ}"] = vr.rgb
     if get_depth:
-        results["depth_fine"] = vr_f.depth
+        results[f"depth_{typ}"] = vr.depth
     if get_depth_variance:
-        results["depth_variance_fine"] = vr_f.depth_variance
+        results[f"depth_variance_{typ}"] = vr.depth_variance
     if has_bg:
-        results["bg_lambda_fine"] = vr_f.bg_lambda
+        results[f"bg_lambda_{typ}"] = vr.bg_lambda
 
     # ---------------- fg/bg composition ------------------------------------
     if has_bg:
         m = bg_mask.to(rays.dtype)
-        bl = results["bg_lambda_fine"]
+        bl = results[f"bg_lambda_{typ}"]
         for key in ("rgb", "depth"):
-            rk = f"{key}_fine"
+            rk = f"{key}_{typ}"
             if rk not in results or rk not in bg:
                 continue
             val = results[rk]
@@ -297,7 +350,8 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
                 results[f"bg_{rk}"] = add
             results[rk] = val + add
         for t in ("fine", "coarse"):
-            results[f"bg_gate_loss_{t}"] = bg[f"gate_loss_{t}"]
+            if f"gate_loss_{t}" in bg:
+                results[f"bg_gate_loss_{t}"] = bg[f"gate_loss_{t}"]
     return results
 
 
@@ -305,8 +359,8 @@ def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
                        cfg: RenderConfig, mode: _Pass, sphere_center,
                        sphere_radius, get_depth):
     """Inverted-sphere background pass over ALL rays (the caller masks the
-    composition), with half the coarse and half the fine samples, ordered
-    far->near."""
+    composition), with half the coarse and half the fine samples (none:
+    the coarse composite), ordered far->near."""
     if cfg.bg_model_chunk_size:
         cfg = dataclasses.replace(cfg,
                                   model_chunk_size=cfg.bg_model_chunk_size)
@@ -326,6 +380,14 @@ def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
         bg_model_fn, bg_pts, bg_z, rays_d3, image_indices, cfg, mode,
         flip=True, depth_real=depth_real)
     results["gate_loss_coarse"] = moe_loss_c.reshape(-1)
+
+    if cfg.fine_samples <= 0:
+        vr = _composite(rgbs_c, sigmas_c, zv_c, last_delta, cfg, mode,
+                        flip=True, depth_real=dr_c, get_depth=get_depth)
+        results["rgb_coarse"] = vr.rgb
+        if get_depth:
+            results["depth_coarse"] = vr.depth
+        return results
 
     vr_c = _composite(rgbs_c, sigmas_c, zv_c, last_delta, cfg, mode,
                       flip=True, composite_rgb=False, depth_real=dr_c)

@@ -4,9 +4,9 @@ Port of ``switch_nerf_tpu/render/rendering_mip.py:31-210``:
 ``mip_cast_rays`` (a conical frustum's mean and diagonal covariance per
 sample interval), ``sorted_piecewise_constant_pdf`` (resampling from the
 blurred coarse weights), ``_mip_inference`` and ``render_rays_mip``
-(coarse pass, blurred-weight fine pass, rgb padding, compositing at the
-interval midpoints). z_vals carry S + 1 interval edges; the model sees S
-frustum means.
+(coarse pass, blurred-weight fine pass, the SH colour step with --sh_deg,
+rgb padding, compositing at the interval midpoints). z_vals carry S + 1
+interval edges; the model sees S frustum means.
 
 As in the JAX package, eval is deterministic on purpose: fine resampling
 and the random background colour draw only in training (the reference
@@ -36,7 +36,8 @@ from switch_nerf_torch.ops.volume import (expand_and_perturb_z_vals,
                                           volume_render)
 from switch_nerf_torch.parallel import chunks
 from switch_nerf_torch.render.rendering import (ModelFn, RenderConfig, _Pass,
-                                                run_model_chunked)
+                                                run_model_chunked,
+                                                split_outputs)
 
 FLOAT_EPS = float(torch.finfo(torch.float32).eps)
 
@@ -137,8 +138,7 @@ def _mip_inference(model_fn: ModelFn, means, cov_diags, z_edges, rays_d,
                      .expand(n, s, 1).reshape(n * s, 1))
     out, moe_loss = run_model_chunked(model_fn, torch.cat(parts, dim=-1),
                                       cfg, mode)
-    out = out.reshape(n, s, -1)
-    rgbs, sigmas = out[..., :3], out[..., 3]
+    rgbs, sigmas = split_outputs(out.reshape(n, s, -1), rays_d, cfg)
     if cfg.rgb_padding is not None:
         rgbs = rgbs * (1 + 2 * cfg.rgb_padding) - cfg.rgb_padding
 

@@ -22,11 +22,12 @@ Port of the Mega-NeRF and classic-NeRF sides of
     and writes the JAX package's file set: experiment_path/metrics.txt,
     images/metrics_{i}.txt with the gt/pred/depth panel crops (+ _bg/_fg
     sets with the background NeRF) and val_images/{i}.jpg triptychs,
-  * trains and serves a classic-NeRF (Bungee) scene with --data_type nerf
-    (``train_nerf``, ``eval_nerf``): rays and mip radii from
-    ``datasets/nerf_data``, the mip renderer, epoch batches from a
-    per-epoch permutation, interval and SIGTERM checkpoints with exact
-    resume, and full-image PSNR/SSIM/LPIPS of the test split,
+  * trains and serves a classic-NeRF scene (llff, blender, LINEMOD,
+    deepvoxels; Bungee with mip radii) with --data_type nerf
+    (``train_nerf``, ``eval_nerf``): rays from ``datasets/nerf_data``, the
+    classic or the mip renderer, epoch batches from a per-epoch
+    permutation, interval and SIGTERM checkpoints with exact resume, and
+    full-image PSNR/SSIM/LPIPS of the test split,
   * trains and serves a Block-NeRF (Waymo Mission Bay) scene with
     --data_type block_nerf: ``train`` on the chunked
     ``BlockFilesystemDataset`` (GZIP tfrecords read without TensorFlow)
@@ -401,8 +402,9 @@ class Runner:
         self.mip = True
 
     def _init_nerf(self, set_experiment_path: bool):
-        """A classic-NeRF scene (the Bungee loader; the others raise): all
-        rays in host memory, no background model, no scene sphere."""
+        """A classic-NeRF scene (llff, blender, LINEMOD, deepvoxels or
+        Bungee, ``datasets/nerf_data``): all rays in host memory (with mip
+        radii for Bungee), no background model, no scene sphere."""
         from switch_nerf_torch.datasets.nerf_data import (
             NeRFDataset, NeRFDatasetTest, NeRFDatasetTrain, NeRFDatasetVal)
         h = self.hparams

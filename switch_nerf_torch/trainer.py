@@ -1,7 +1,8 @@
 """Training and evaluation steps of the port.
 
 Port of ``switch_nerf_tpu/trainer.py`` for the non-cascade configs, classic
-and mip (``mip=True``: ``render/rendering_mip.py``, with the coarse loss):
+(coarse-only with --fine_samples 0) and mip (``mip=True``:
+``render/rendering_mip.py``, with the coarse loss):
 ``SceneInfo``, ``render_config_from_hparams``, ``make_model_fn``,
 ``make_eval_step`` (the serving path), and the training core:
 ``create_optimizer`` (Adam with the per-step exponential LR),
@@ -50,16 +51,9 @@ class SceneInfo:
 
 
 def render_config_from_hparams(hparams) -> RenderConfig:
-    for flag in ("use_cascade", "return_pts", "return_pts_rgb",
-                 "return_pts_alpha", "return_sigma", "return_alpha"):
-        if getattr(hparams, flag, False):
-            raise NotImplementedError(
-                f"--{flag} waits for a later slice of the port")
-    if hparams.sh_deg is not None:
-        raise NotImplementedError("--sh_deg waits for a later slice")
-    if hparams.fine_samples <= 0 and not hparams.use_mip:
+    if getattr(hparams, "use_cascade", False):
         raise NotImplementedError(
-            "coarse-only classic rendering waits for a later slice")
+            "--use_cascade waits for a later slice of the port")
     return RenderConfig(
         coarse_samples=hparams.coarse_samples,
         fine_samples=hparams.fine_samples,
@@ -71,9 +65,13 @@ def render_config_from_hparams(hparams) -> RenderConfig:
         use_random_background_color=hparams.use_random_background_color,
         use_sigma_noise=hparams.use_sigma_noise,
         sigma_noise_std=hparams.sigma_noise_std,
+        sh_deg=hparams.sh_deg,
         rgb_padding=hparams.rgb_padding if hparams.use_mip else None,
         weights_resample_padding=hparams.weights_resample_padding,
-        stop_level_grad=hparams.stop_level_grad)
+        stop_level_grad=hparams.stop_level_grad,
+        **{k: getattr(hparams, k, False) for k in (
+            "return_pts", "return_pts_rgb", "return_pts_alpha",
+            "return_sigma", "return_alpha")})
 
 
 def make_model_fn(model: nn.Module) -> Callable:

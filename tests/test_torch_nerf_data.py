@@ -9,8 +9,6 @@ order), uint8 images exactly. Rays, near/far and radii agree to 1e-6 (the
 same float32 arithmetic); the splits, and the train batches for a seed,
 are equal.
 """
-import argparse
-
 import cv2
 import numpy as np
 import pytest
@@ -103,11 +101,3 @@ def test_bungee_views_and_batches_match_jax(datasets):
         assert sorted(a) == sorted(b) == ["radii", "rays", "rgbs"]
         for k in a:
             np.testing.assert_allclose(a[k], b[k], rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("kind", ["llff", "blender", "LINEMOD",
-                                  "deepvoxels"])
-def test_other_classic_loaders_wait_for_item_7(kind):
-    args = argparse.Namespace(dataset_type=kind)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tnd.NeRFDataset(args)
