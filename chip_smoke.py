@@ -232,6 +232,29 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      SH9, finite leaves, the launches; K1R against its plain version at
      the first grid call's routing, timed. Prints the extraction seconds,
      leaves, internal nodes, npz bytes and max_memory_allocated
+  16. the rest of the MoE model surface at Building's published width (8
+     x 7 x 256, skip 3, external gate with LayerNorm, BPR, capacity
+     factor 1.0, bf16, bg NeRF, 256 + 512 samples): nine variants, each 5
+     train steps on a fixed 1,024-ray batch and one 4,096-ray eval request
+     through make_train_step / make_eval_step, every metric finite, the
+     chain kernels launched at each variant's shape (counted by shape),
+     and one step's loss and gradients on 256 rays (64 + 128 samples)
+     on the card against the CPU in fp32 (gate noise injected: all_loss
+     1e-4 relative, cosine 0.999): --use_cascade; --gate_noise 1.0 with the
+     load-importance loss, the balance loss and the gate logits; k: 2
+     padded and no-drop; --moe_use_residual; --moe_expert_type ffn at
+     h_ch 256 (the L2 chain, padded and no-drop) and 512 (batched
+     products); --bg_use_cfg --bg_use_moe. Then Runner.train (train.main)
+     with --use_cascade and a dropout layer on make_scene's scene, 10
+     steps and a resume from step 5: without the appearance embedding the
+     resumed checkpoint byte-equal to the uninterrupted one, with it
+     every leaf but the embedding's (F.embedding's CUDA backward) and the
+     generator states equal. Then K1 / K2 at the residual expert's E1
+     C32,768, top-2's E8 C8,192 and ffn's E8 C4,096 L2, and K1R / K2R at
+     the first no-drop call of top-2 (65,536 rows) and of ffn (L2),
+     against their plain versions (K2 / K2R twice, bit-identical), timed
+     beside bound, plain and library. Prints each variant's step seconds
+     and eval seconds
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit; before that, the `kernels` JSON line.
 """
@@ -1012,8 +1035,7 @@ def checkpoint_round_trip(h, ckpt_dir) -> dict:
     save_s = time.perf_counter() - t0
 
     fresh = create_train_state(h, get_nerf(h, n_images, seed=20),
-                               get_bg_nerf(h, n_images, seed=21),
-                               for_training=False)
+                               get_bg_nerf(h, n_images, seed=21))
     t0 = time.perf_counter()
     _, extra = checkpoints.load_checkpoint(ckpt_dir, fresh,
                                            restore_rng_states=False)
@@ -2441,6 +2463,428 @@ def sh_octree_phase(counts: dict, peaks) -> tuple:
             f"nodes, {npz_bytes} B npz, max_memory_allocated {peak} B "
             f"({peak / 2 ** 30:.2f} GiB)")
     return line, rows
+
+
+# ------------------------------------------------- the model surface ----
+SURFACE_STEPS = 5              # fixed-batch train steps of each variant
+SURFACE_CHECK_RAYS = 256       # rays of each variant's card vs CPU step,
+SURFACE_CHECK_SAMPLES = (64, 128)   # at these coarse + fine samples (the
+# CPU's fp32 step at 256 + 512 took 5-17 s a variant, PR 15)
+SURFACE_EVAL_RAYS = 4096       # rays of each variant's eval request
+SURFACE_RUN_STEPS, SURFACE_RESUME = 10, 5   # the cascade runner's schedule
+# phase 16's variants of the Building model: (what they switch on, the
+# padded kernel shape of their MoE layer (E, C, L) or the ragged one
+# ("N", N, L), K1 launches of a train step at it)
+SURFACE_VARIANTS = {
+    "cascade": ("--use_cascade", ("K1", 8, 4096, 7), 32),
+    "noise": ("--gate_noise 1.0 --use_load_importance_loss "
+              "--compute_balance_loss --moe_return_gate_logits",
+              ("K1", 8, 4096, 7), 24),
+    "top2_padded": ("k: 2, padded dispatch", ("K1", 8, 8192, 7), 24),
+    "top2_nodrop": ("k: 2, no-drop dispatch", ("K1R", 8, 65536, 7), 24),
+    "residual": ("--moe_use_residual", ("K1", 1, 32768, 7), 24),
+    "ffn256": ("--moe_expert_type ffn, h_ch 256 (H = M)",
+               ("K1", 8, 4096, 2), 24),
+    "ffn256_nodrop": ("--moe_expert_type ffn, h_ch 256, no-drop dispatch",
+                      ("K1R", 8, 32768, 2), 24),
+    "ffn512": ("--moe_expert_type ffn, h_ch 512 (batched products)", None,
+               0),
+    "bg_moe": ("--bg_use_cfg --bg_use_moe (--model_bg: Building's trunk "
+               "on a 4-D stem)", ("K1", 8, 4096, 7), 36),
+}
+
+
+def surface_hparams(name: str):
+    """building_train_hparams with one phase-16 variant switched on."""
+    from switch_nerf_torch.profile_eval import building_train_hparams
+
+    h = building_train_hparams()
+    moe = h.model["layers"]["0"]
+    if name == "cascade":
+        h.use_cascade = True
+    elif name == "noise":
+        h.gate_noise = 1.0
+        h.use_load_importance_loss = h.compute_balance_loss = True
+        h.moe_return_gate_logits = True
+    elif name.startswith("top2"):
+        moe["k"] = 2
+    elif name == "residual":
+        h.moe_use_residual = True
+    elif name.startswith("ffn"):
+        h.moe_expert_type = "ffn"
+        moe["h_ch"] = 512 if name == "ffn512" else 256
+    elif name == "bg_moe":
+        h.bg_use_cfg = h.bg_use_moe = True
+        h.model_bg = copy.deepcopy(h.model)
+        h.model_bg["layers"]["xyz"]["in_ch"] = 4 * (1 + 2 * h.pos_xyz_dim)
+    if name.endswith("nodrop"):
+        h.moe_train_batch = False
+        h.moe_test_batch = name.startswith("top2")
+    return h
+
+
+@contextlib.contextmanager
+def launches_by_shape(tally: dict):
+    """Count each chain kernel's calls on the card by shape in `tally`:
+    (K1 | K2, E, C, L) for the padded chain and (K1R | K2R, E, N, L) for
+    the ragged one (the wrappers' own counters still count launches)."""
+    from switch_nerf_torch.ops import expert_kernel as ek
+    from switch_nerf_torch.ops import ragged_chain as rc
+
+    def counting(kind):
+        def make(real):
+            def run(x, *a, **k):
+                if x.device.type == "cuda":
+                    ws = a[0] if kind in ("K1", "K2") else a[1]
+                    key = (kind, ws.shape[1], x.shape[-2 if kind in (
+                        "K1", "K2") else 0], ws.shape[0])
+                    tally[key] = tally.get(key, 0) + 1
+                return real(x, *a, **k)
+            return run
+        return make
+    with contextlib.ExitStack() as stack:
+        for owner, name, kind in ((ek, "expert_mlp_chain_fwd", "K1"),
+                                  (ek, "expert_mlp_chain_bwd", "K2"),
+                                  (rc, "ragged_chain_fwd", "K1R"),
+                                  (rc, "ragged_chain_bwd", "K2R")):
+            stack.enter_context(wrapped(owner, name, counting(kind)))
+        yield
+
+
+@contextlib.contextmanager
+def injected_gate_noise(seed: int):
+    """Every MoE layer's gate noise drawn from one CPU generator seeded
+    with `seed`, then moved to the logits' device: a card run and a CPU
+    run making the same calls take the same draws."""
+    from switch_nerf_torch.models import moe as tmoe
+    gen = torch.Generator().manual_seed(seed)
+
+    def make(real):
+        def noise(self, logits, generator):
+            return torch.randn(logits.shape, generator=gen).to(
+                logits.device, logits.dtype)
+        return noise
+    with wrapped(tmoe.MoELayer, "noise", make):
+        yield
+
+
+def surface_variant(name: str, tally: dict, first: dict) -> dict:
+    """One phase-16 variant: SURFACE_STEPS train steps on a fixed 1,024-ray
+    batch and one 4,096-ray eval request through make_train_step /
+    make_eval_step (every metric finite, the kernels at their shapes), and
+    one step's loss and gradients on SURFACE_CHECK_RAYS rays at
+    SURFACE_CHECK_SAMPLES on the card against the CPU in fp32 (no
+    perturbation or sigma noise, gate noise injected): all_loss within
+    1e-4 relative, gradient cosine >= 0.999."""
+    from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+    from switch_nerf_torch.profile_eval import SCENE, ray_batch
+    from switch_nerf_torch.trainer import (
+        create_train_state, make_eval_step, make_train_step,
+        render_config_from_hparams)
+
+    def setup(hp, device):
+        state = create_train_state(
+            hp, get_nerf(hp, 8, device=device, seed=0),
+            get_bg_nerf(hp, 8, device=device, seed=1), device=device)
+        return state, make_train_step(hp, render_config_from_hparams(hp),
+                                      SCENE, device=device)
+
+    t_start = time.perf_counter()
+    h = surface_hparams(name)
+    what, key, per_step = SURFACE_VARIANTS[name]
+    log(f"[surface] {name}: {what}")
+    state, step = setup(h, "cuda")
+    batch = ray_batch(h.batch_size, 0, "cuda", rgbs=True)
+    mine = {}
+    times = []
+    with launches_by_shape(mine), first_ragged_call(first):
+        for i in range(SURFACE_STEPS):
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            bad = [k for k, v in met.items() if not bool(torch.isfinite(v))]
+            if bad or float(met["finite"]) != 1.0:
+                raise AssertionError(f"{name} step {i + 1}: non-finite {bad}")
+        train_tally = dict(mine)
+        ev = make_eval_step(state.model, state.bg_model, h,
+                            render_config_from_hparams(h), SCENE)
+        req = ray_batch(SURFACE_EVAL_RAYS, 1, "cuda")
+        ev(req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ev(req)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    for k, v in mine.items():
+        tally[k] = tally.get(k, 0) + v
+    check_finite(res, SURFACE_EVAL_RAYS)
+    want_keys = {"rgb_fine"} | ({"rgb_coarse"} if h.use_cascade else set())
+    if not want_keys <= set(res):
+        raise AssertionError(f"{name}: eval results lack {want_keys}")
+    if key is not None:
+        bwd = ("K2",) + key[1:] if key[0] == "K1" else ("K2R",) + key[1:]
+        got = (train_tally.get(key, 0), train_tally.get(bwd, 0))
+        if got != (per_step * SURFACE_STEPS,) * 2:
+            raise AssertionError(f"{name}: launches at {key} / {bwd} {got}, "
+                                 f"expected {per_step * SURFACE_STEPS} each")
+    extra = {k: round(float(v), 6) for k, v in met.items()}
+    log(f"  step seconds {[round(t, 4) for t in times]}; eval request "
+        f"{eval_s:.4f} s; launches by shape {mine}; last metrics {extra}")
+    del state, step, ev, res
+    torch.cuda.empty_cache()
+
+    h32 = copy.copy(h)
+    h32.amp = False
+    h32.perturb = 0.0
+    h32.use_sigma_noise = False
+    h32.coarse_samples, h32.fine_samples = SURFACE_CHECK_SAMPLES
+    sub = {k: v[:SURFACE_CHECK_RAYS] for k, v in batch.items()}
+    out = []
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        st, stp = setup(h32, dev)
+        with injected_gate_noise(7):
+            out.append(stp.loss_and_grads(st, {k: v.to(dev)
+                                               for k, v in sub.items()}))
+        del st, stp
+    (met_g, grads_g), (met_c, grads_c) = out
+    d_loss = abs(float(met_g["all_loss"]) - float(met_c["all_loss"]))
+    cos = cosine(flat(grads_g), flat(grads_c))
+    log(f"  card fp32 vs CPU fp32 on {SURFACE_CHECK_RAYS} rays: |d all_loss|"
+        f" {d_loss:.3e} (limit 1e-4 * {float(met_c['all_loss']):.4f}), "
+        f"gradient cosine {cos:.6f} (limit 0.999), at "
+        f"{SURFACE_CHECK_SAMPLES} samples; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (d_loss <= 1e-4 * abs(float(met_c["all_loss"])) and cos >= 0.999):
+        raise AssertionError(f"{name}: the card's step disagrees with the "
+                             "CPU's")
+    del out, grads_g, grads_c
+    torch.cuda.empty_cache()
+    log(f"  variant {time.perf_counter() - t_start:.1f} s wall")
+    return {"step_s": times, "mean_s": sum(times[1:]) / (len(times) - 1),
+            "eval_s": eval_s, "loss_rel": d_loss / abs(float(
+                met_c["all_loss"])), "cosine": cos}
+
+
+def dropout_graph(model: dict, rate: float) -> dict:
+    """The Building graph with a dropout layer between the MoE layer and
+    the dir tag."""
+    g = copy.deepcopy(model)
+    lay = g["layers"]
+    lay["3"] = lay.pop("2")
+    lay["2"] = lay.pop("1")
+    lay["1"] = {"type": "dropout", "prob": rate, "act": "none"}
+    g.update(layer_num_main=4, dir_tag=2, color_tag=3)
+    return g
+
+
+def surface_runner(tmp, tally: dict) -> dict:
+    """Runner.train (train.main) with --use_cascade and a dropout layer
+    on make_scene's scene: SURFACE_RUN_STEPS steps with a checkpoint every
+    SURFACE_RESUME, then a run resumed from step SURFACE_RESUME; the
+    dropout masks come from the checkpointed step generator. Without the
+    appearance embedding (--appearance_dim 0) the resumed run's last
+    checkpoint equals the uninterrupted run's byte for byte; with the
+    published 48 every leaf does but the embedding's and its Adam
+    moments (F.embedding's CUDA backward sums in no fixed order: PERF.md
+    §6, PR 13), which stay within 1e-5 of their leaf's largest entry, and
+    the generator states are equal."""
+    import json as _json
+
+    from switch_nerf_torch import train
+    from switch_nerf_torch.profile_eval import building_train_hparams
+
+    make_scene(tmp / "scene", seed=0)
+
+    def hp(exp, **over):
+        h = building_train_hparams()
+        h.use_cascade = True
+        h.model = dropout_graph(h.model, 0.1)
+        h.dataset_path = str(tmp / "scene")
+        h.exp_name = str(tmp / exp)
+        h.dataset_type = "memory"
+        h.train_scale_factor = 4
+        h.train_iterations = SURFACE_RUN_STEPS
+        h.ckpt_interval = SURFACE_RESUME
+        h.i_print = SURFACE_RESUME
+        h.val_interval = SURFACE_RUN_STEPS + 1
+        for k, v in over.items():
+            setattr(h, k, v)
+        return h
+
+    mine, out = {}, {}
+    steps = SURFACE_RUN_STEPS + SURFACE_RUN_STEPS - SURFACE_RESUME
+    last = str(SURFACE_RUN_STEPS)
+    for tag, app in (("published", 48), ("no_appearance", 0)):
+        with launches_by_shape(mine):
+            t0 = time.perf_counter()
+            a = train.main(hp(f"{tag}_a", appearance_dim=app))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            models = tmp / f"{tag}_a" / "0" / "models"
+            b = train.main(hp(f"{tag}_b", appearance_dim=app,
+                              ckpt_path=str(models / str(SURFACE_RESUME))))
+            torch.cuda.synchronize()
+        resumed = tmp / f"{tag}_b" / "0" / "models"
+        same = ((models / last / "state.msgpack").read_bytes()
+                == (resumed / last / "state.msgpack").read_bytes())
+        diff = checkpoint_diff(models / last, resumed / last)
+        gens = [_json.loads((d / last / "extra.json").read_text())
+                ["torch_generator_state"] for d in (models, resumed)]
+        windows = logged_windows(tmp / f"{tag}_a" / "0" / "log.txt")
+        log(f"[surface] Runner.train --use_cascade with dropout, "
+            f"--appearance_dim {app}: {a.step} steps in {wall:.1f} s wall, "
+            f"resumed from {SURFACE_RESUME} to {b.step}; step {last} "
+            f"checkpoints byte-equal {same} (leaves apart {diff}); "
+            f"generator states equal {gens[0] == gens[1]}; logged {windows}")
+        only_embedding = all("embedding_a" in k for k in diff["params"])
+        if not (a.step == b.step == SURFACE_RUN_STEPS and gens[0] == gens[1]
+                and all(np.isfinite(v) for w in windows for v in w.values())
+                and any("coarse_loss" in w for w in windows)
+                and (same if app == 0 else
+                     only_embedding and diff["worst_rel"] <= 1e-5)):
+            raise AssertionError(f"the cascade runner with dropout ({tag})")
+        out[tag] = {"wall_s": wall, "byte_equal": same, "diff": diff}
+    for k, v in mine.items():
+        tally[k] = tally.get(k, 0) + v
+    k1 = mine.get(("K1", 8, 4096, 7), 0)
+    log(f"  K1 / K2 at E8 C4096 {k1} / {mine.get(('K2', 8, 4096, 7))} "
+        f"(expected {2 * 32 * steps} each)")
+    if not k1 == mine.get(("K2", 8, 4096, 7)) == 2 * 32 * steps:
+        raise AssertionError("the cascade runner's launches")
+    return out
+
+
+def padded_rows(label: str, e: int, c: int, layers: int, skips, peaks
+                ) -> dict:
+    """K1 and K2 at [E, C, M256] bf16 with L layers against their plain
+    versions (K2 twice, bit-identical), timed against bound, plain and
+    library (one baddbmm a layer, its autograd), K2's passes profiled."""
+    from switch_nerf_torch.ops import expert_kernel
+
+    m, dtype = 256, torch.bfloat16
+    gen = torch.Generator().manual_seed(16 + e + layers)
+    log(f"[kernels surface] {label}: K1, K2 at E{e} C{c} M{m} L{layers} "
+        f"skips {tuple(skips)} bf16")
+    ws, bs = chain_weights(e, m, layers, dtype, gen)
+    x = torch.randn(e, c, m, generator=gen).to("cuda", dtype)
+    g = torch.randn(e, c, m, generator=gen).to("cuda", dtype)
+    err1 = check_close(f"K1 {label}",
+                       expert_kernel.expert_mlp_chain(x, ws, bs, skips),
+                       expert_kernel.expert_mlp_chain_plain(x, ws, bs, skips))
+    err2 = check_bwd(f"K2 {label}",
+                     expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips),
+                     expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, g,
+                                                              skips))
+    check_deterministic(f"K2 {label}", lambda: expert_kernel
+                        .expert_mlp_chain_bwd(x, ws, bs, g, skips))
+    flops = 2 * e * c * m * m * layers
+    bound_ms, bound_by = chain_bound(flops, nbytes(x, ws, bs) + nbytes(x),
+                                     dtype, peaks)
+    rows = {"K1": dict(
+        max_abs_err=err1, bound_ms=bound_ms, bound_by=bound_by, e=e, c=c,
+        layers=layers,
+        ms=cuda_ms(lambda: expert_kernel.expert_mlp_chain(x, ws, bs, skips),
+                   iters=20),
+        plain_ms=cuda_ms(lambda: expert_kernel.expert_mlp_chain_plain(
+            x, ws, bs, skips), iters=10),
+        library_ms=cuda_ms(lambda: bmm_chain(x, ws, bs, skips), iters=10))}
+    out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
+    b_ms, b_by = chain_bound(2 * flops, nbytes(x, g, ws, bs) + out_bytes,
+                             dtype, peaks)
+    leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
+    lib_out = bmm_chain(*leaves, skips)
+    rows["K2"] = dict(
+        max_abs_err=err2, bound_ms=b_ms, bound_by=b_by, e=e, c=c,
+        layers=layers,
+        ms=cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd(
+            x, ws, bs, g, skips), iters=10),
+        plain_ms=cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd_plain(
+            x, ws, bs, g, skips), iters=5),
+        library_ms=autograd_ms(lib_out, leaves, g))
+    del lib_out, leaves
+    passes = device_ms_by_kernel(
+        lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips),
+        {"pass 1": "chain_bwd_sm90", "pass 2": "chain_dw_sm90"})
+    rows["K2"]["passes"] = passes
+    for key, r in rows.items():
+        log(f"  {key} {label}: kernel {r['ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3e}")
+    log(f"  K2 {label} profiled pass 1 {passes['pass 1']:.4f} ms, pass 2 "
+        f"(dW) {passes['pass 2']:.4f} ms")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def model_surface_phase(counts: dict, peaks) -> tuple:
+    """Phase 16: the rest of the MoE model surface at Building's published
+    width, each variant through the train and eval steps
+    (surface_variant), the cascade runner with dropout and its resume
+    (surface_runner), and the chain kernels at the variants' new shapes
+    against their plain versions: K1 / K2 at the residual expert's
+    E1 C32768, top-2's E8 C8192 and ffn's E8 C4096 L2; K1R / K2R at the
+    first no-drop call of top-2 (65,536 rows) and of ffn (L2). Returns
+    (the summary lines, the kernel rows, the launches by shape)."""
+    import tempfile
+    from pathlib import Path
+
+    tally: dict = {}
+    firsts = {}
+    results = {}
+    t0 = time.perf_counter()
+    for name in SURFACE_VARIANTS:
+        first = {}
+        results[name] = surface_variant(name, tally, first)
+        if name.endswith("nodrop"):
+            firsts[name] = first
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_surface_") as tmp:
+        runner = surface_runner(Path(tmp), tally)
+    log(f"[surface] variants and runner {time.perf_counter() - t0:.1f} s "
+        "wall")
+    skips = (3,)
+    rows = {}
+    for label, e, c, layers, sk in (("residual E1", 1, 32768, 7, skips),
+                                    ("top-2 E8", 8, 8192, 7, skips),
+                                    ("ffn L2", 8, 4096, 2, ())):
+        for key, r in padded_rows(label, e, c, layers, sk, peaks).items():
+            rows[f"{key} {label}"] = r
+    for name, label in (("top2_nodrop", "top-2 no-drop"),
+                        ("ffn256_nodrop", "ffn no-drop L2")):
+        first = firsts[name]
+        got = ragged_at_inputs(f"surface {label}", first, peaks,
+                               backward=True)
+        n = sum(first["counts"])
+        xg = torch.Generator(device="cuda").manual_seed(9)
+        m = first["ws"].shape[-1]
+        x = torch.randn(n, m, generator=xg, device="cuda").to(first["dtype"])
+        g = torch.randn(n, m, generator=xg, device="cuda").to(first["dtype"])
+        cnt = torch.tensor(first["counts"], dtype=torch.int32, device="cuda")
+        from switch_nerf_torch.ops import ragged_chain as rc
+        check_deterministic(f"K2R {label}", lambda: rc.ragged_chain_bwd(
+            x, cnt, first["ws"], first["bs"], g, first["skips"]))
+        for key, r in got.items():
+            rows[f"{key} {label}"] = dict(r, layers=first["ws"].shape[0])
+    counts["surface"] = tally
+    phase_s = time.perf_counter() - t0
+    lines = [f"phase 16 {phase_s:.1f} s wall"]
+    for name, r in results.items():
+        lines.append(
+            f"{name} ({SURFACE_VARIANTS[name][0]}): step seconds "
+            f"{[round(t, 4) for t in r['step_s']]} (mean of the last "
+            f"{SURFACE_STEPS - 1} {r['mean_s']:.4f}), eval request "
+            f"{r['eval_s']:.4f} s for {SURFACE_EVAL_RAYS} rays, card vs CPU "
+            f"all_loss relative {r['loss_rel']:.3e}, cosine {r['cosine']:.6f}")
+    for tag, r in runner.items():
+        lines.append(f"cascade runner with dropout ({tag}): "
+                     f"{r['wall_s']:.1f} s for {SURFACE_RUN_STEPS} steps, "
+                     f"resumed checkpoint byte-equal {r['byte_equal']}, "
+                     f"leaves apart {r['diff']['leaves']} (worst "
+                     f"{r['diff']['worst_rel']:.3e} of the leaf)")
+    return lines, rows, tally
 
 
 # --------------------------------------------- Block-NeRF Mission Bay ----
@@ -3933,8 +4377,7 @@ def orbax_phase(counts: dict) -> dict:
                                ("msgpack", twin)):
             model = get_nerf(h, 8, device="cuda")
             bg = get_bg_nerf(h, 8, device="cuda")
-            state = create_train_state(h, model, bg, device="cuda",
-                                       for_training=False)
+            state = create_train_state(h, model, bg, device="cuda")
             t0 = time.perf_counter()
             load_checkpoint(step_dir, state, restore_rng_states=False)
             out[f"{name}_read_s"] = time.perf_counter() - t0
@@ -4519,6 +4962,7 @@ def main() -> int:
         shutil.rmtree(keep, ignore_errors=True)
     classic, classic_rows = classic_phase(counts, peaks)
     octree, octree_rows = sh_octree_phase(counts, peaks)
+    surface, surface_rows, surface_tally = model_surface_phase(counts, peaks)
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -4649,6 +5093,51 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the model surface (phase 16): the chain kernels at the variants' new
+    # shapes (their launches in phase 16 at each shape), and K1 / K2 at
+    # Building's shape under the cascade, gate noise, the MoE background
+    # and the cascade runner (the kernel phase's times)
+    for key, row, shape, label in (
+            ("K1", "K1 residual E1", (1, 32768, 7),
+             "residual expert, E1 C32,768"),
+            ("K2", "K2 residual E1", (1, 32768, 7),
+             "residual expert, E1 C32,768"),
+            ("K1", "K1 top-2 E8", (8, 8192, 7), "top-2, E8 C8,192"),
+            ("K2", "K2 top-2 E8", (8, 8192, 7), "top-2, E8 C8,192"),
+            ("K1", "K1 ffn L2", (8, 4096, 2), "ffn H = M, E8 C4,096 L2"),
+            ("K2", "K2 ffn L2", (8, 4096, 2), "ffn H = M, E8 C4,096 L2"),
+            ("K1R", "K1R top-2 no-drop", (8, 65536, 7),
+             "top-2 no-drop, N=65,536"),
+            ("K2R", "K2R top-2 no-drop", (8, 65536, 7),
+             "top-2 no-drop, N=65,536"),
+            ("K1R", "K1R ffn no-drop L2", (8, 32768, 2),
+             "ffn H = M no-drop, N=32,768 L2"),
+            ("K2R", "K2R ffn no-drop L2", (8, 32768, 2),
+             "ffn H = M no-drop, N=32,768 L2"),
+            ("K1", "K1", (8, 4096, 7),
+             "model surface at Building's shape, E8 C4,096"),
+            ("K2", "K2", (8, 4096, 7),
+             "model surface at Building's shape, E8 C4,096")):
+        kname, source, replaces = meta[key]
+        r = surface_rows.get(row, rows.get(row))
+        kernels.append({
+            "name": f"{kname} ({label})", "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": surface_tally.get((key,) + shape, 0),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if not kernels[-1]["launches"]:
+            raise AssertionError(f"phase 16 launched {key} at {shape} no "
+                                 "time")
+    for line in surface:
+        log(f"[surface] {line} on {smi}")
+    for key, r in surface_rows.items():
+        log(f"[kernels surface] {key} (bf16): {r['ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3e} on {smi}")
     log(f"[slice] eval rays/s {rays_per_s:.1f} on {smi}")
     log(f"[train] train rays/s {train['rays_per_s']:.1f}, step "
         f"{train['step_s']:.4f} s, max_memory_allocated "

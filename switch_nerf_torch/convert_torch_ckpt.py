@@ -178,7 +178,7 @@ def main(hparams=None, device=None):
     iteration = int(ckpt.get("iteration", 0))
     runner = Runner(hparams, set_experiment_path=False, device=device)
     state = create_train_state(hparams, runner.nerf, runner.bg_nerf,
-                               device=runner.device, for_training=False)
+                               device=runner.device)
 
     sd = _strip_module(_to_np(ckpt["model_state_dict"]))
     load_converted(runner.nerf, convert_nerf_moe_state_dict(sd)

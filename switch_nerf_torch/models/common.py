@@ -96,27 +96,29 @@ class GroupNorm(nn.GroupNorm):
 class Dropout(nn.Module):
     """Train-only dropout as flax's: each entry kept with probability
     1 - rate and scaled by 1 / (1 - rate), the rest zeroed. The mask is
-    drawn from `generator` on its own device (``keep_mask``)."""
+    drawn on x's device from the generator the caller passes (a training
+    step's, checkpointed with it, so a resumed run draws the masks an
+    uninterrupted one draws), through ``keep_mask`` (a hook the parity
+    tests replace with JAX's mask)."""
 
-    def __init__(self, rate: float,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
-        self.generator = generator
 
-    def keep_mask(self, x: torch.Tensor) -> torch.Tensor:
-        g = self.generator
-        u = torch.rand(x.shape, generator=g,
-                       device=g.device if g is not None else x.device)
-        return (u >= self.rate).to(x.device)
+    def keep_mask(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        return u >= self.rate
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not train or self.rate == 0.0:
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        return torch.where(self.keep_mask(x), x / (1.0 - self.rate),
-                           torch.zeros_like(x))
+        return torch.where(self.keep_mask(x, generator),
+                           x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 def apply_act(name: str, x: torch.Tensor) -> torch.Tensor:

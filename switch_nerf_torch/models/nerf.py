@@ -70,14 +70,16 @@ class NeRF(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 sigma_noise: Optional[torch.Tensor] = None,
-                train: bool = False, sigma_only: bool = False
+                train: bool = False, sigma_only: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """x: [S, xyz_dim (+3 viewdir) (+1 appearance idx)] -> [S, rgb_dim+1];
         a sigma-only query passes the xyz columns alone -> sigma [S, 1].
 
         sigma_noise: [S, 1] added to the raw sigma before its activation
-        (training only). `train` is part of the models' common contract;
-        the dense NeRF computes the same either way."""
+        (training only). `train` and `generator` are part of the models'
+        common contract; the dense NeRF draws nothing and computes the
+        same either way."""
         xd = self.xyz_dim
         has_dir, has_app = self.pos_dir_dim > 0, self.appearance_dim > 0
         expected = xd + (0 if sigma_only else

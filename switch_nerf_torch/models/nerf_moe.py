@@ -12,7 +12,10 @@ sigma is asked for; a sigma-only query ends there), appends viewdir PE +
 appearance embedding at `dir_tag`, and emits rgb at `color_tag`. With
 pos_dir_dim 0 the sigma head emits rgb and sigma and the walk ends at the
 tap; with affine_appearance the embedding drives a 3x4 colour transform of
-the rgb head's output instead of joining the trunk.
+the rgb head's output instead of joining the trunk. The MoE layers take
+the layer's k (top-k routing) and h_ch (the ffn experts' hidden width)
+and the model's MoE flags; with --moe_return_gate_logits the extras carry
+each MoE layer's gate logits (``moe_gate_logits``).
 """
 from __future__ import annotations
 
@@ -42,6 +45,11 @@ class NeRFMoE(nn.Module):
                  use_moe_external_gate: bool = False,
                  use_gate_input_norm: bool = False,
                  moe_return_gates: bool = False, gate_noise: float = -1.0,
+                 use_load_importance_loss: bool = False,
+                 compute_balance_loss: bool = False,
+                 moe_use_residual: bool = False,
+                 moe_return_gate_logits: bool = False,
+                 moe_expert_type: str = "expertmlp",
                  train_dispatch: str = "padded", eval_dispatch: str = "padded",
                  sigma_fp32: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
@@ -57,14 +65,19 @@ class NeRFMoE(nn.Module):
         self.use_moe_external_gate = use_moe_external_gate
         self.use_gate_input_norm = use_gate_input_norm
         self.moe_return_gates = moe_return_gates
+        self.moe_return_gate_logits = moe_return_gate_logits
         self.sigma_fp32, self.compute_dtype = sigma_fp32, compute_dtype
         moe_kwargs = dict(
             capacity_factor=moe_capacity_factor,
             batch_prioritized_routing=batch_prioritized_routing,
             no_score=dispatcher_no_score, is_postscore=is_postscore,
             return_gates=moe_return_gates, gate_noise=gate_noise,
+            use_load_importance_loss=use_load_importance_loss,
+            compute_balance_loss=compute_balance_loss,
+            use_residual=moe_use_residual,
+            return_gate_logits=moe_return_gate_logits,
             train_dispatch=train_dispatch, eval_dispatch=eval_dispatch,
-            generator=generator)
+            expert_type=moe_expert_type, generator=generator)
         cfgs = layer_cfg["layers"]
         has_dir, has_app = pos_dir_dim > 0, appearance_dim > 0
 
@@ -87,7 +100,8 @@ class NeRFMoE(nn.Module):
                     init_factor=cfg.get("init_factor", 1.0),
                     top_k=cfg.get("k", 1),
                     fp32_gate=cfg.get("fp32_gate", True),
-                    gate_dim=self._gate_width or width, **moe_kwargs)
+                    gate_dim=self._gate_width or width,
+                    ffn_hidden_size=cfg.get("h_ch", 0), **moe_kwargs)
             elif typ == "normmlp":
                 layer = NormMlp(width, cfg["h_ch"], cfg["out_ch"], cfg["num"],
                                 cfg.get("skips"),
@@ -99,7 +113,7 @@ class NeRFMoE(nn.Module):
             elif typ == "groupnorm":
                 layer = GroupNorm(cfg["group_num"], width)
             elif typ == "dropout":
-                layer = Dropout(cfg["prob"], generator=generator)
+                layer = Dropout(cfg["prob"])
             elif typ == "batchnorm":
                 # as the JAX package: unused by every published config, and
                 # its running statistics are ill-defined under chunked
@@ -156,13 +170,16 @@ class NeRFMoE(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 sigma_noise: Optional[torch.Tensor] = None,
-                train: bool = False, sigma_only: bool = False
+                train: bool = False, sigma_only: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, Any]:
         """x: [S, 3 (mip: 6) (+3 viewdir) (+1 appearance idx)]; a
         sigma-only query passes the xyz columns alone and gets sigma [S, 1]
         back (with pos_dir_dim 0: rgb and sigma). sigma_noise: [S, 1] added
         to the raw sigma before its activation (training only); `train`
-        picks the MoE layers' train dispatch and turns dropout on."""
+        picks the MoE layers' train dispatch and turns dropout and gate
+        noise on, whose draws come from `generator`, layer by layer in the
+        walk's order."""
         cfgs = self.layer_cfg["layers"]
         sigma_tag = str(self.layer_cfg["sigma_tag"])
         dir_tag = str(self.layer_cfg["dir_tag"])
@@ -189,7 +206,7 @@ class NeRFMoE(nn.Module):
             if self.use_gate_input_norm:
                 gate_feat = self.layer_gate_input_norm(gate_feat)
 
-        moe_loss, moe_gates = [], []
+        moe_loss, moe_gates, moe_gate_logits = [], [], []
         outputs = sigma = None
         for i in range(self.layer_cfg["layer_num_main"]):
             tag = str(i)
@@ -197,12 +214,15 @@ class NeRFMoE(nn.Module):
             layer = getattr(self, f"layer_{tag}")
             if cfg["type"] == "moe":
                 h, l_aux, gate_extras = layer(h, gate_input=gate_feat,
-                                              train=train)
+                                              train=train,
+                                              generator=generator)
                 moe_loss.append(l_aux)
                 if self.moe_return_gates:
                     moe_gates.append(gate_extras["gates"])
+                if self.moe_return_gate_logits:
+                    moe_gate_logits.append(gate_extras["gate_logits"])
             elif cfg["type"] == "dropout":
-                h = layer(h, train=train)
+                h = layer(h, train=train, generator=generator)
             else:
                 h = layer(h)
             h = apply_act(cfg.get("act", "none"), h)
@@ -248,6 +268,8 @@ class NeRFMoE(nn.Module):
         extras = {}
         if self.moe_return_gates:
             extras["moe_gates"] = moe_gates
+        if self.moe_return_gate_logits and moe_gate_logits:
+            extras["moe_gate_logits"] = moe_gate_logits
         if moe_loss:
             extras["moe_loss"] = torch.stack(moe_loss)
         return {"outputs": outputs, "extras": extras}

@@ -1,18 +1,22 @@
-"""Top-1 switch routing: locations, capacity, load-balance loss.
+"""Top-k switch routing: locations, capacity, auxiliary losses.
 
-Port of ``switch_nerf_tpu/ops/routing.py:33-197`` for top-1 gates, with or
-without batch-prioritized routing (BPR). Integer plans are bit-equal to the
-JAX package's.
+Port of ``switch_nerf_tpu/ops/routing.py:33-197``: top-k gates (ties to
+the lower expert, as ``jax.lax.top_k``), with or without batch-prioritized
+routing (BPR), the load-balance loss and the load-importance loss of
+--use_load_importance_loss. Integer plans are bit-equal to the JAX
+package's.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
 __all__ = [
     "cumsum_sub_one", "compute_sorted_location", "load_balance",
-    "compute_capacity", "extract_critical", "RoutingPlan",
+    "load_importance_loss", "compute_capacity", "extract_critical",
+    "RoutingPlan",
 ]
 
 
@@ -59,6 +63,43 @@ def load_balance(gates: torch.Tensor, mask1: torch.Tensor,
     return torch.sum(me * ce) * (num_global_experts / float(s * s))
 
 
+def _norm_cdf(x: torch.Tensor, sigma: float) -> torch.Tensor:
+    return 0.5 * (1.0 + torch.erf(x / (sigma * math.sqrt(2.0))))
+
+
+def load_importance_loss(scores_wo_noise: torch.Tensor,
+                         topk_logits: torch.Tensor, num_global_experts: int,
+                         gate_noise: float, share=None) -> torch.Tensor:
+    """(importance + load) / 2 from "Scaling Vision with Sparse MoE", as
+    the JAX package computes it: each term var(ddof=1) / (mean^2 + 1e-10)
+    of a per-expert sum, the load a normal CDF with sigma = gate_noise / E
+    of the noise-free gates less the last top-k logit. gate_noise must be
+    positive.
+
+    share (a ``parallel.chunks.ChunkShare``): the tokens are this rank's
+    part of a chunk that spans ranks. The per-expert sums are the chunk's
+    (``share.sum``) and the loss is this rank's term of the chunk's, its
+    holders' count-th, so the terms and their gradients add up to the
+    chunk's, as ``extract_critical``'s l_aux does."""
+    if gate_noise <= 0:
+        raise ValueError(
+            "use_load_importance_loss requires --gate_noise > 0 "
+            f"(got {gate_noise})")
+    scores = scores_wo_noise.float()
+    threshold = topk_logits[:, -1:].float()
+    sums = torch.stack([
+        scores.sum(dim=0),
+        _norm_cdf(scores - threshold,
+                  gate_noise / num_global_experts).sum(dim=0)])
+    if share is not None:
+        sums = share.sum(sums)
+    imp, load = sums[0], sums[1]
+    l_imp = imp.var() / (imp.mean() ** 2 + 1e-10)
+    l_load = load.var() / (load.mean() ** 2 + 1e-10)
+    loss = (l_imp + l_load) / 2.0
+    return loss if share is None else loss / share.holders
+
+
 def compute_capacity(num_tokens: int, num_experts: int, top_k: int,
                      capacity_factor: float) -> int:
     """capacity = top_k * int(cf * ceil(S / E)); cf <= 0 resolves statically
@@ -74,12 +115,14 @@ def compute_capacity(num_tokens: int, num_experts: int, top_k: int,
 
 
 class RoutingPlan(NamedTuple):
-    """Routing decision for one MoE call (K = 1).
+    """Routing decision for one MoE call.
 
-    indices:   [K, S] int32   expert id per token
+    indices:   [K, S] int32   expert id per token per k
     locations: [K, S] int32   position in the expert queue (>= capacity: dropped)
-    gates:     [K, S] f32     gate score per token
-    expert_counts: [E] int32  tokens assigned per expert (pre-drop)
+    gates:     [K, S] f32     gate score per token per k (renormalised over
+                              k when K > 1)
+    expert_counts: [E] int32  tokens assigned per expert (pre-drop, summed
+                              over k)
     capacity:  int            per-expert slot count
     """
     indices: torch.Tensor
@@ -89,58 +132,78 @@ class RoutingPlan(NamedTuple):
     capacity: int
 
 
+def _top_k(gates: torch.Tensor, k: int):
+    """([S, k] values, [S, k] indices) in descending order, ties to the
+    lower index (``jax.lax.top_k``; a stable descending sort keeps equal
+    gates in index order)."""
+    if k == 1:
+        idx = torch.argmax(gates, dim=1, keepdim=True)
+        return torch.gather(gates, 1, idx), idx
+    vals, idx = torch.sort(gates, dim=1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
 def extract_critical(gates: torch.Tensor, top_k: int,
                      capacity_factor: float = 1.0,
                      batch_prioritized_routing: bool = False,
                      num_experts: Optional[int] = None, share=None):
-    """Top-1 routing decision + load-balance loss.
+    """Top-k routing decision + load-balance loss.
 
     gates: [S, E] softmax probabilities (fp32). Returns (RoutingPlan, l_aux).
-    argmax ties resolve to the first index, as in JAX.
+    The k-th choice's locations follow every token's earlier choices
+    (offset by their counts), the counts sum over k, and with K > 1 the
+    gates are renormalised over k (clamped at float32's eps), as in JAX.
+    l_aux is the top-1 load balance.
 
     share (a ``parallel.chunks.ChunkShare``): these S tokens are this
     rank's part of a chunk of ``share.total`` tokens that spans ranks. The
-    holders exchange every token's expert and gate value, so each routes
-    the whole chunk as JAX does (capacity from its token count, the
+    holders exchange every token's K experts and top gate value, so each
+    routes the whole chunk as JAX does (capacity from its token count, the
     batch-prioritized order over all of it) and keeps its own tokens'
     locations. l_aux is this rank's term of the chunk's: its own gates'
     sums against the chunk's counts over the chunk's S^2, so the holders'
     terms (and their gradients) add up to the chunk's.
     """
-    if top_k != 1:
-        raise NotImplementedError("the port routes top-1 only (k > 1 waits)")
     s, e = gates.shape
     num_experts = num_experts or e
-    topk_idx = torch.argmax(gates, dim=1, keepdim=True)            # [S, 1]
-    topk_vals = torch.gather(gates, 1, topk_idx)                   # [S, 1]
-    indices = topk_idx.t().to(torch.int32)                         # [1, S]
-    mask = torch.nn.functional.one_hot(indices[0].long(), e).to(torch.int32)
-    gates_k = topk_vals.t().float()                                # [1, S]
+    k = min(top_k, e)
+    topk_vals, topk_idx = _top_k(gates, k)                         # [S, K]
+    indices = topk_idx.t().to(torch.int32)                         # [K, S]
+    gates_k = topk_vals.t().float()                                # [K, S]
+    one_hot = torch.nn.functional.one_hot
 
     if share is None:
-        total, lo, mask_all = s, 0, mask
-        importance = -torch.max(gates, dim=1).values
-        l_aux = load_balance(gates, mask, num_experts)
+        total, lo, idx_all = s, 0, indices.long()
+        importance = -gates_k[0]
     else:
         total, lo = share.total, share.offset
-        both = share.gather(torch.stack([indices[0].float(),
-                                         gates_k[0].detach()]))    # [2, T]
-        mask_all = torch.nn.functional.one_hot(both[0].long(), e).to(
-            torch.int32)
-        importance = -both[1]
-        me = torch.sum(gates.float(), dim=0)
-        ce = torch.sum(mask_all.float(), dim=0)
-        l_aux = torch.sum(me * ce) * (num_experts / float(total * total))
+        both = share.gather(torch.cat([indices.float(),
+                                       gates_k[:1].detach()]))     # [K+1, T]
+        idx_all = both[:k].long()
+        importance = -both[k]
+    masks = one_hot(idx_all, e).to(torch.int32)                    # [K, T, E]
+    me = torch.sum(gates.float(), dim=0)
+    ce = torch.sum(masks[0].float(), dim=0)
+    l_aux = torch.sum(me * ce) * (num_experts / float(total * total))
 
-    if batch_prioritized_routing:
-        loc = compute_sorted_location(mask_all, importance)
-    else:
-        loc = cumsum_sub_one(mask_all)
-    locations = torch.sum(loc * mask_all, dim=1).to(torch.int32)
-    locations = locations[lo:lo + s][None]
-    counts = torch.sum(mask, dim=0).to(torch.int32)
+    # the k-th choices queue behind every token's earlier choices
+    locations = []
+    for j in range(k):
+        if batch_prioritized_routing:
+            loc = compute_sorted_location(masks[j], importance)
+        else:
+            loc = cumsum_sub_one(masks[j])
+        if j:
+            loc = loc + torch.sum(masks[:j], dim=(0, 1))[None]
+        locations.append(torch.sum(loc * masks[j], dim=1).to(torch.int32))
+    locations = torch.stack(locations)[:, lo:lo + s]
+    own = masks if share is None else one_hot(indices.long(), e)
+    counts = torch.sum(own, dim=(0, 1)).to(torch.int32)
+    if k > 1:
+        gates_k = gates_k / torch.clamp(
+            torch.sum(gates_k, dim=0), min=torch.finfo(torch.float32).eps)
 
-    capacity = compute_capacity(total, num_experts, top_k, capacity_factor)
+    capacity = compute_capacity(total, num_experts, k, capacity_factor)
     plan = RoutingPlan(indices=indices, locations=locations, gates=gates_k,
                        expert_counts=counts, capacity=capacity)
     return plan, l_aux

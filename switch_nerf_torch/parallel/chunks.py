@@ -19,7 +19,9 @@ on the same grid (``plan``):
     expert and gate value with the other holders (one ``all_reduce(SUM)``
     of a zero buffer of the chunk's length that each fills at its own
     offsets), so every holder takes the same routing decision and keeps
-    its own tokens' slots (``ops/routing.extract_critical``).
+    its own tokens' slots (``ops/routing.extract_critical``); a
+    load-importance loss sums its per-expert terms over the holders
+    (``ChunkShare.sum``, an ``all_reduce`` whose backward is another).
 
 Device collectives stay ``all_reduce``, which gloo also runs on CUDA
 tensors. A chunk spanning a subset of the ranks reduces over a subgroup;
@@ -69,6 +71,32 @@ class ChunkShare:
         buf[..., self.offset:self.offset + n] = local
         dist.all_reduce(buf, group=_group(self.ranks))
         return buf
+
+    @property
+    def holders(self) -> int:
+        return self.ranks[1] - self.ranks[0] + 1
+
+    def sum(self, local: torch.Tensor) -> torch.Tensor:
+        """This rank's partial sums summed over the holders,
+        differentiably: the backward sums the holders' gradients, so a
+        term f(sum) / holders on each holder gives each partial sum the
+        gradient of f."""
+        return _SumOverHolders.apply(local, self)
+
+
+class _SumOverHolders(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, local, share):
+        ctx.group = _group(share.ranks)
+        out = local.clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,12 @@
 """Classic (Mega-NeRF-style) ray rendering: coarse/fine hierarchical
 sampling with foreground/background (inverted-sphere) composition.
 
-Port of ``switch_nerf_tpu/render/rendering.py:98-574`` (non-cascade),
-with the coarse-only render (fine_samples 0: the coarse samples
-composited, no fine pass), the per-sample introspection outputs
+Port of ``switch_nerf_tpu/render/rendering.py:98-574``, with the
+coarse-only render (fine_samples 0: the coarse samples composited, no
+fine pass), the cascade (--use_cascade: the coarse pass composited into
+rgb_coarse, the fine pass on the fine model at the sorted union of the
+coarse and fine depths, composited alone, fg and bg; the fg/bg
+composition covers both levels), the per-sample introspection outputs
 (return_pts / return_pts_rgb / return_pts_alpha / return_sigma /
 return_alpha, of the coarse pass) and the SH colour step (sh_deg: the model
 emits 3 x (deg+1)^2 coefficients a sample, evaluated at the ray direction
@@ -19,20 +22,25 @@ from ONE ``torch.Generator`` on the rays' device, drawn in program order:
 
   background pass (when there is a bg model):
     1. jitter of the bg depths        U[0,1) [N, coarse/2]
-    2. each coarse chunk's sigma noise N(0,1) [chunk, 1], chunk order
-    3. the fine queries               U[0,1) [N, fine/2]
-    4. each fine chunk's sigma noise
-    5. the fine composite's background colour U[0,1) [3]
-  foreground pass: the same five draws at [N, coarse] and [N, fine].
+    2. each coarse chunk's sigma noise N(0,1) [chunk, 1], then the
+       model's own draws on that chunk (each MoE layer's gate noise and
+       each dropout mask, in the layer walk's order), chunk order
+    3. (cascade) the coarse composite's background colour U[0,1) [3]
+    4. the fine queries               U[0,1) [N, fine/2]
+    5. each fine chunk's sigma noise and model draws, as 2
+    6. the fine composite's background colour U[0,1) [3]
+  foreground pass: the same six draws at [N, coarse] and [N, fine].
 
 A draw is skipped when its feature is off (perturb 0, no sigma noise, no
-random background); without fine samples draws 3 and 4 go and draw 5 is
-the coarse composite's. The JAX package splits one key per site instead, so
-the two frameworks draw different numbers: tests inject the same draws or
-switch the noise off.
+gate noise or dropout, no random background); without fine samples draws
+3 to 5 go and draw 6 is the coarse composite's. The JAX package splits one
+key per site instead, so the two frameworks draw different numbers: tests
+inject the same draws or switch the noise off. The generator is a
+training step's, checkpointed with the run, so a resumed run draws what
+an uninterrupted one draws.
 
 The `model_fn` contract:
-    model_fn(points [P, D], sigma_noise [P, 1] | None, train) ->
+    model_fn(points [P, D], sigma_noise [P, 1] | None, train, generator) ->
         (outputs [P, 4], moe_loss [L] fp32)   # L == 0 for dense models
 """
 from __future__ import annotations
@@ -61,6 +69,7 @@ class RenderConfig:
     model_chunk_size: int = 131072
     bg_model_chunk_size: Optional[int] = None  # dense bg pass chunk size
     pos_dir_dim: int = 4
+    use_cascade: bool = False                  # coarse/fine model pair
     white_bkgd: bool = False
     use_random_background_color: bool = False  # train only
     use_sigma_noise: bool = False              # train only
@@ -121,7 +130,8 @@ def run_model_chunked(model_fn: ModelFn, points: torch.Tensor,
                 (pts.shape[0], 1), generator=mode.generator,
                 dtype=torch.float32, device=pts.device)
         with chunks.sharing(piece.share):
-            out, moe_loss = model_fn(pts, sigma_noise, mode.train)
+            out, moe_loss = model_fn(pts, sigma_noise, mode.train,
+                                     mode.generator)
         outs.append(out)
         losses.append(moe_loss)
     moe_loss = torch.stack(losses)
@@ -225,14 +235,20 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
                 get_bg_fg_rgb: bool = False, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 get_depth_variance: bool = False,
-                grid: Optional[chunks.RankGrid] = None
+                grid: Optional[chunks.RankGrid] = None,
+                model_fn_fine: Optional[ModelFn] = None,
+                bg_model_fn_fine: Optional[ModelFn] = None
                 ) -> Dict[str, torch.Tensor]:
     """rays: [N, 8] = [o, d, near, far]. Returns the JAX package's results
     dict (rgb_fine / depth_fine / depth_variance_fine / gate_loss_* / bg_*
     / fg_* ...). `generator` feeds every training draw (module docstring).
     `grid`: the rays are this rank's share of a data-parallel step's
     global batch (``run_model_chunked``). Without fine samples the coarse
-    pass is composited into rgb_coarse / depth_coarse / ..."""
+    pass is composited into rgb_coarse / depth_coarse / ...
+    model_fn_fine / bg_model_fn_fine: a cascade's fine level
+    (``trainer.make_model_fn_pair``); default the same model."""
+    model_fn_fine = model_fn_fine or model_fn
+    bg_model_fn_fine = bg_model_fn_fine or bg_model_fn
     mode = _Pass(train, generator, grid)
     perturb = cfg.perturb if train else 0.0
     n_rays = rays.shape[0]
@@ -258,9 +274,9 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
 
     bg = {}
     if has_bg:
-        bg = _render_background(bg_model_fn, rays_o3, rays_d3, image_indices,
-                                cfg, mode, sphere_center, sphere_radius,
-                                get_depth)
+        bg = _render_background((bg_model_fn, bg_model_fn_fine), rays_o3,
+                                rays_d3, image_indices, cfg, mode,
+                                sphere_center, sphere_radius, get_depth)
 
     # ---------------- foreground coarse ------------------------------------
     z_steps = torch.linspace(0.0, 1.0, cfg.coarse_samples, dtype=rays.dtype,
@@ -301,22 +317,33 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
     else:
         vr_c = _composite(rgbs_c, sigmas_c, zv_c,
                           _adjust_last_delta(last_delta, zv_c), cfg, mode,
-                          flip=False, composite_rgb=False)
+                          flip=False, composite_rgb=cfg.use_cascade)
+        if cfg.use_cascade:
+            results["rgb_coarse"] = vr_c.rgb
+            if has_bg:
+                results["bg_lambda_coarse"] = vr_c.bg_lambda
         z_mid = 0.5 * (zv_c[:, :-1] + zv_c[:, 1:])
         fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1].detach(),
                             cfg.fine_samples, det=perturb == 0,
                             generator=generator)
+        if cfg.use_cascade:
+            fine_z = torch.sort(torch.cat([zv_c, fine_z], dim=-1),
+                                dim=-1).values
         xyz_fine = torch.addcmul(rays_o3, rays_d3, fine_z[..., None])
         rgbs_f, sigmas_f, zv_f, _, moe_loss_f = _inference(
-            model_fn, xyz_fine, fine_z, rays_d3, image_indices, cfg, mode,
-            flip=False, depth_real=None)
+            model_fn_fine, xyz_fine, fine_z, rays_d3, image_indices, cfg,
+            mode, flip=False, depth_real=None)
         results["gate_loss_fine"] = moe_loss_f.reshape(-1)
 
-        # merge coarse + fine raw samples before compositing
-        z_all, rgb_all, sig_all = _sort_merge(
-            torch.cat([zv_f, zv_c], dim=-1),
-            torch.cat([rgbs_f, rgbs_c], dim=-2),
-            torch.cat([sigmas_f, sigmas_c], dim=-1))
+        if cfg.use_cascade:
+            # the fine level's samples alone: they include the coarse z
+            z_all, rgb_all, sig_all = zv_f, rgbs_f, sigmas_f
+        else:
+            # merge coarse + fine raw samples before compositing
+            z_all, rgb_all, sig_all = _sort_merge(
+                torch.cat([zv_f, zv_c], dim=-1),
+                torch.cat([rgbs_f, rgbs_c], dim=-2),
+                torch.cat([sigmas_f, sigmas_c], dim=-1))
         # reference quirk kept for parity: the fine last-delta adjustment
         # subtracts max(FINE z) only, though the composite runs on the
         # merged array whose max is the coarse far bound
@@ -335,32 +362,37 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
     # ---------------- fg/bg composition ------------------------------------
     if has_bg:
         m = bg_mask.to(rays.dtype)
-        bl = results[f"bg_lambda_{typ}"]
-        for key in ("rgb", "depth"):
-            rk = f"{key}_{typ}"
-            if rk not in results or rk not in bg:
-                continue
-            val = results[rk]
-            if val.dim() == 1:
-                add = bg[rk] * (bl * m)
-            else:
-                add = bg[rk] * bl[:, None] * m[:, None]
-            if get_bg_fg_rgb:
-                results[f"fg_{rk}"] = val
-                results[f"bg_{rk}"] = add
-            results[rk] = val + add
+        types = [typ] + (["coarse"] if cfg.use_cascade and typ == "fine"
+                         else [])
+        for t in types:
+            bl = results[f"bg_lambda_{t}"]
+            for key in ("rgb", "depth"):
+                rk = f"{key}_{t}"
+                if rk not in results or rk not in bg:
+                    continue
+                val = results[rk]
+                if val.dim() == 1:
+                    add = bg[rk] * (bl * m)
+                else:
+                    add = bg[rk] * bl[:, None] * m[:, None]
+                if get_bg_fg_rgb:
+                    results[f"fg_{rk}"] = val
+                    results[f"bg_{rk}"] = add
+                results[rk] = val + add
         for t in ("fine", "coarse"):
             if f"gate_loss_{t}" in bg:
                 results[f"bg_gate_loss_{t}"] = bg[f"gate_loss_{t}"]
     return results
 
 
-def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
+def _render_background(bg_model_fns, rays_o3, rays_d3, image_indices,
                        cfg: RenderConfig, mode: _Pass, sphere_center,
                        sphere_radius, get_depth):
     """Inverted-sphere background pass over ALL rays (the caller masks the
     composition), with half the coarse and half the fine samples (none:
-    the coarse composite), ordered far->near."""
+    the coarse composite), ordered far->near. bg_model_fns: the (coarse,
+    fine) model functions."""
+    bg_model_fn, bg_model_fn_fine = bg_model_fns
     if cfg.bg_model_chunk_size:
         cfg = dataclasses.replace(cfg,
                                   model_chunk_size=cfg.bg_model_chunk_size)
@@ -390,7 +422,10 @@ def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
         return results
 
     vr_c = _composite(rgbs_c, sigmas_c, zv_c, last_delta, cfg, mode,
-                      flip=True, composite_rgb=False, depth_real=dr_c)
+                      flip=True, composite_rgb=cfg.use_cascade,
+                      depth_real=dr_c)
+    if cfg.use_cascade:
+        results["rgb_coarse"] = vr_c.rgb
     # zv_c comes back flipped (descending inverse depth). As in the JAX
     # package (and the reference it follows), the ASCENDING mids of the
     # original bg z pair with the flipped-order weights.
@@ -398,22 +433,29 @@ def _render_background(bg_model_fn: ModelFn, rays_o3, rays_d3, image_indices,
     fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1].detach(),
                         cfg.fine_samples // 2, det=perturb == 0,
                         generator=mode.generator)
-    # ascending order for depth2pts_outside (random draws come unsorted)
+    # ascending order for depth2pts_outside (random draws come unsorted;
+    # a cascade's fine level takes the union with the coarse depths)
+    if cfg.use_cascade:
+        fine_z = torch.cat([zv_c, fine_z], dim=-1)
     fine_z_asc = torch.sort(fine_z, dim=-1).values
     bg_pts_f, depth_real_f = depth2pts_outside(
         rays_o3, rays_d3, fine_z_asc, sphere_center, sphere_radius)
     rgbs_f, sigmas_f, zv_f, dr_f, moe_loss_f = _inference(
-        bg_model_fn, bg_pts_f, fine_z_asc, rays_d3, image_indices, cfg, mode,
-        flip=True, depth_real=depth_real_f)
+        bg_model_fn_fine, bg_pts_f, fine_z_asc, rays_d3, image_indices, cfg,
+        mode, flip=True, depth_real=depth_real_f)
     results["gate_loss_fine"] = moe_loss_f.reshape(-1)
 
-    # merge coarse + fine (descending z ordering -> sort on -z)
-    z_neg, rgb_all, sig_all, dr_all = _sort_merge(
-        -torch.cat([zv_f, zv_c], dim=-1),
-        torch.cat([rgbs_f, rgbs_c], dim=-2),
-        torch.cat([sigmas_f, sigmas_c], dim=-1),
-        torch.cat([dr_f, dr_c], dim=-1))
-    vr_f = _composite(rgb_all, sig_all, -z_neg, last_delta, cfg, mode,
+    if cfg.use_cascade:
+        z_all, rgb_all, sig_all, dr_all = zv_f, rgbs_f, sigmas_f, dr_f
+    else:
+        # merge coarse + fine (descending z ordering -> sort on -z)
+        z_neg, rgb_all, sig_all, dr_all = _sort_merge(
+            -torch.cat([zv_f, zv_c], dim=-1),
+            torch.cat([rgbs_f, rgbs_c], dim=-2),
+            torch.cat([sigmas_f, sigmas_c], dim=-1),
+            torch.cat([dr_f, dr_c], dim=-1))
+        z_all = -z_neg
+    vr_f = _composite(rgb_all, sig_all, z_all, last_delta, cfg, mode,
                       flip=True, depth_real=dr_all, get_depth=get_depth)
     results["rgb_fine"] = vr_f.rgb
     if get_depth:

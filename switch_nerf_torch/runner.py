@@ -146,7 +146,7 @@ def _whole_model(method: Callable) -> Callable:
     their owners first (every rank then renders its own images alone)."""
     @functools.wraps(method)
     def run(self, state, *args, **kwargs):
-        with gathered(state.model):
+        with gathered(state.model, state.bg_model):
             return method(self, state, *args, **kwargs)
     return run
 
@@ -495,18 +495,18 @@ class Runner:
                 h.container_path, device=self.device)
             self._eval_step = None
             state = create_train_state(h, self.nerf, self.bg_nerf,
-                                       device=self.device, for_training=False)
-            hold_whole(state.model)
+                                       device=self.device)
+            hold_whole(state.model, state.bg_model)
             return state
         if h.ckpt_path is None:
             raise ValueError("--ckpt_path (or --container_path) required "
                              "for eval")
         state = create_train_state(h, self.nerf, self.bg_nerf,
-                                   device=self.device, for_training=False)
+                                   device=self.device)
         state, _ = load_checkpoint(h.ckpt_path, state,
                                    restore_rng_states=False)
         # an eval runs the whole model: the experts gathered once
-        hold_whole(state.model)
+        hold_whole(state.model, state.bg_model)
         return state
 
     def _make_render_fn(self, state: TrainState) -> Callable:

@@ -1,10 +1,11 @@
 """Training and evaluation steps of the port.
 
-Port of ``switch_nerf_tpu/trainer.py`` for the non-cascade configs, classic
-(coarse-only with --fine_samples 0) and mip (``mip=True``:
-``render/rendering_mip.py``, with the coarse loss):
-``SceneInfo``, ``render_config_from_hparams``, ``make_model_fn``,
-``make_eval_step`` (the serving path), and the training core:
+Port of ``switch_nerf_tpu/trainer.py``, classic (coarse-only with
+--fine_samples 0), cascade (--use_cascade: a coarse and a fine model, the
+coarse loss) and mip (``mip=True``: ``render/rendering_mip.py``, with the
+coarse loss): ``SceneInfo``, ``render_config_from_hparams``,
+``make_model_fn`` / ``make_model_fn_pair``, ``make_eval_step`` (the
+serving path), and the training core:
 ``create_optimizer`` (Adam with the per-step exponential LR),
 ``compute_losses``, ``TrainState`` / ``create_train_state`` and
 ``make_train_step`` with gradient accumulation and the finite check.
@@ -30,17 +31,17 @@ import torch.distributed as dist
 from torch import nn
 
 from switch_nerf_torch import bridge, resolve_device
+from switch_nerf_torch.models.cascade import Cascade
 from switch_nerf_torch.models.experts import hold_for_pass
-from switch_nerf_torch.models.moe import MoELayer
 from switch_nerf_torch.parallel import chunks, experts, host, mesh
 from switch_nerf_torch.parallel.zero import ZeroAdam
 from switch_nerf_torch.render.rendering import RenderConfig, render_rays
 from switch_nerf_torch.render.rendering_mip import render_rays_mip
 
 __all__ = ["SceneInfo", "render_config_from_hparams", "make_model_fn",
-           "make_eval_step", "lr_schedule", "create_optimizer",
-           "compute_losses", "TrainState", "create_train_state",
-           "make_train_step"]
+           "make_model_fn_pair", "make_eval_step", "lr_schedule",
+           "create_optimizer", "compute_losses", "TrainState",
+           "create_train_state", "make_train_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +52,6 @@ class SceneInfo:
 
 
 def render_config_from_hparams(hparams) -> RenderConfig:
-    if getattr(hparams, "use_cascade", False):
-        raise NotImplementedError(
-            "--use_cascade waits for a later slice of the port")
     return RenderConfig(
         coarse_samples=hparams.coarse_samples,
         fine_samples=hparams.fine_samples,
@@ -61,6 +59,7 @@ def render_config_from_hparams(hparams) -> RenderConfig:
         model_chunk_size=hparams.model_chunk_size,
         bg_model_chunk_size=getattr(hparams, "bg_model_chunk_size", None),
         pos_dir_dim=hparams.pos_dir_dim,
+        use_cascade=getattr(hparams, "use_cascade", False),
         white_bkgd=hparams.white_bkgd,
         use_random_background_color=hparams.use_random_background_color,
         use_sigma_noise=hparams.use_sigma_noise,
@@ -74,12 +73,18 @@ def render_config_from_hparams(hparams) -> RenderConfig:
             "return_sigma", "return_alpha")})
 
 
-def make_model_fn(model: nn.Module) -> Callable:
+def make_model_fn(model: nn.Module,
+                  use_coarse: Optional[bool] = None) -> Callable:
     """Adapt a module to the renderer's contract:
-    model_fn(points [P, D], sigma_noise [P, 1] | None, train) ->
-    (outputs [P, 4], moe_loss [L])."""
-    def model_fn(pts, sigma_noise=None, train=False):
-        out = model(pts, sigma_noise=sigma_noise, train=train)
+    model_fn(points [P, D], sigma_noise [P, 1] | None, train, generator) ->
+    (outputs [P, 4], moe_loss [L]). The model's training draws (dropout,
+    gate noise) come from `generator`. use_coarse selects the level of a
+    ``Cascade``."""
+    kwargs = {} if use_coarse is None else {"use_coarse": use_coarse}
+
+    def model_fn(pts, sigma_noise=None, train=False, generator=None):
+        out = model(pts, sigma_noise=sigma_noise, train=train,
+                    generator=generator, **kwargs)
         if isinstance(out, dict):
             moe = out["extras"].get("moe_loss")
             if moe is None:
@@ -87,6 +92,18 @@ def make_model_fn(model: nn.Module) -> Callable:
             return out["outputs"], moe
         return out, pts.new_zeros((0,))
     return model_fn
+
+
+def make_model_fn_pair(model: Optional[nn.Module]
+                       ) -> Tuple[Optional[Callable], Optional[Callable]]:
+    """(coarse model_fn, fine model_fn or None): the fine one differs only
+    for a ``Cascade`` (JAX ``trainer.py:138-148``)."""
+    if model is None:
+        return None, None
+    if isinstance(model, Cascade):
+        return (make_model_fn(model, use_coarse=True),
+                make_model_fn(model, use_coarse=False))
+    return make_model_fn(model), None
 
 
 def _as_tensor(v, device) -> Optional[torch.Tensor]:
@@ -110,14 +127,15 @@ def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
     batch: {"rays": [N, 8] (o, d, near, far), optional "image_indices": [N],
     with ``mip`` "radii": [N, 1]}, numpy arrays or tensors. The models must
     already live on the device. ``mip`` renders with ``render_rays_mip``
-    (no background model), deterministically.
+    (no background model; a cascade's coarse level, as in JAX),
+    deterministically.
     """
     dev = resolve_device(device)
     _check_on(dev, model=model, bg_model=bg_model)
     center = _as_tensor(scene.sphere_center, dev)
     radius = _as_tensor(scene.sphere_radius, dev)
-    model_fn = make_model_fn(model)
-    bg_fn = make_model_fn(bg_model) if bg_model is not None else None
+    model_fn, model_fn_fine = make_model_fn_pair(model)
+    bg_fn, bg_fn_fine = make_model_fn_pair(bg_model)
 
     @torch.no_grad()
     def eval_step(batch) -> Dict[str, torch.Tensor]:
@@ -131,7 +149,8 @@ def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
         return render_rays(model_fn, bg_fn, rays, image_indices, render_cfg,
                            center, radius, get_depth=True,
                            # fg/bg decomposition for the eval viz protocol
-                           get_bg_fg_rgb=True)
+                           get_bg_fg_rgb=True, model_fn_fine=model_fn_fine,
+                           bg_model_fn_fine=bg_fn_fine)
     return eval_step
 
 
@@ -264,27 +283,16 @@ class TrainState:
         return params
 
 
-def _check_trainable(model: nn.Module) -> None:
-    for m in model.modules():
-        if isinstance(m, MoELayer):
-            m.check_supported(train=True)
-
-
 def create_train_state(hparams, model: nn.Module,
                        bg_model: Optional[nn.Module], *, device=None,
-                       seed: Optional[int] = None,
-                       for_training: bool = True) -> TrainState:
+                       seed: Optional[int] = None) -> TrainState:
     """The optimizer over the models' parameters (with a zero accumulation
     window when --accumulation_steps > 1) and a generator on ``device``
     (default ``cuda``) seeded with ``seed`` (default --random_seed plus the
-    process's rank).
-    Raises if the model needs what the port does not train yet (no-drop
-    dispatch, gate noise), unless ``for_training`` is False: the state
-    that eval loads a checkpoint into."""
+    process's rank): the state a training step updates, and the one
+    eval loads a checkpoint into."""
     dev = resolve_device(device)
     _check_on(dev, model=model, bg_model=bg_model)
-    if for_training:
-        _check_trainable(model)
     params = list(model.parameters())
     if bg_model is not None:
         params += list(bg_model.parameters())
@@ -350,8 +358,8 @@ class TrainStep:
         rgbs = _as_tensor(batch["rgbs"], dev)
         image_indices = (_as_tensor(batch.get("image_indices"), dev)
                          if self.hparams.appearance_dim > 0 else None)
-        bg_fn = (make_model_fn(state.bg_model)
-                 if state.bg_model is not None else None)
+        model_fn, model_fn_fine = make_model_fn_pair(state.model)
+        bg_fn, bg_fn_fine = make_model_fn_pair(state.bg_model)
         # data parallel: the rays are this rank's share of the global
         # batch, whose model chunks are JAX's (parallel/chunks.py)
         world = host.world_size()
@@ -363,19 +371,22 @@ class TrainStep:
         with torch.enable_grad(), hold_for_pass(state.model,
                                                 state.bg_model):
             if self.mip:
+                # a cascade's coarse level only, as in JAX
                 results = render_rays_mip(
-                    make_model_fn(state.model), rays,
+                    model_fn, rays,
                     _as_tensor(batch["radii"], dev), image_indices,
                     self.render_cfg, train=True, generator=state.generator,
                     get_depth_variance=True, grid=grid)
             else:
                 results = render_rays(
-                    make_model_fn(state.model), bg_fn, rays, image_indices,
+                    model_fn, bg_fn, rays, image_indices,
                     self.render_cfg, self.center, self.radius, train=True,
                     generator=state.generator, get_depth_variance=True,
-                    grid=grid)
-            metrics = compute_losses(results, rgbs, self.hparams,
-                                     mip_or_cascade_coarse=self.mip)
+                    grid=grid, model_fn_fine=model_fn_fine,
+                    bg_model_fn_fine=bg_fn_fine)
+            metrics = compute_losses(
+                results, rgbs, self.hparams,
+                mip_or_cascade_coarse=self.mip or self.render_cfg.use_cascade)
             if ep_mesh is not None:
                 # every rank of an expert group made the same exchanges,
                 # so the backward's pair up

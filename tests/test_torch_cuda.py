@@ -608,3 +608,40 @@ def test_wide_float32_kernels_refuse(cuda):
                                         device=cuda), ws, bs)):
         with pytest.raises(ValueError, match="Queue B"):
             call()
+
+
+SURFACE = {
+    "top2_padded": dict(top_k=2),
+    "top2_nodrop": dict(top_k=2, train_dispatch="nodrop"),
+    "residual": dict(use_residual=True),
+    "ffn_square": dict(expert_type="ffn", ffn_hidden_size=128),
+    "ffn_wide": dict(expert_type="ffn", ffn_hidden_size=256),
+}
+
+
+@pytest.mark.parametrize("case", list(SURFACE))
+def test_moe_surface_on_the_card_matches_the_cpu(cuda, case):
+    """Top-2 (padded: K1/K2 at C = 2 cf S / E; no-drop: K1R/K2R over 2 S
+    rows), the residual expert (K1/K2 at E = 1), ffn at H == M (the L2
+    chain kernels) and H != M (batched products) in fp32: the layer on the
+    card against the same layer on the CPU (the plain versions), output
+    and every gradient within 1e-4 of the largest entry."""
+    e, m, s = 4, 128, 3000
+    kw = dict(model_dim=m, num_experts=e, layer_num=3, skips=(1,),
+              batch_prioritized_routing=True, **SURFACE[case])
+    cpu_layer = MoELayer(generator=torch.Generator().manual_seed(3), **kw)
+    card_layer = MoELayer(**kw).to(cuda)
+    card_layer.load_state_dict(cpu_layer.state_dict())
+    g = torch.Generator().manual_seed(4)
+    x0 = torch.randn(s, m, generator=g)
+    gy = torch.randn(s, m, generator=g)
+    got = []
+    for layer, dev in ((card_layer, cuda), (cpu_layer, "cpu")):
+        x = x0.to(dev).requires_grad_(True)
+        y, l_aux, _ = layer(x, train=True)
+        params = [x] + list(layer.parameters())
+        grads = torch.autograd.grad((y * gy.to(dev)).sum() + l_aux, params)
+        got.append([y.detach().cpu()] + [t.cpu() for t in grads])
+    for a, b in zip(*got):
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-4 * max(scale, 1e-6)

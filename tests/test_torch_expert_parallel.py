@@ -18,6 +18,9 @@ global batch:
     of each rank's pass: every rank raises before its first step;
   * no-drop training (the whole model gathered at each call, its
     gradients reduced to the owners) against data parallelism;
+  * top-2 routing over ffn experts (H == M: the L = 2 chain) with a
+    residual expert (replicated), on (1, 2) against data parallelism
+    (1e-6) and JAX's one-process Runner.train (1e-5);
   * checkpoints: the expert-parallel save of a state loaded from a
     data-parallel checkpoint is that checkpoint byte for byte, and the
     other way round (resumes across the layouts are exact);
@@ -65,6 +68,14 @@ def jax_checkpoint(scene, tmp_path_factory):
     return root / "0"
 
 
+def top2_ffn(h):
+    """Top-2 routing over ffn experts (H = M) with a residual expert."""
+    h.model["layers"]["0"]["k"] = 2
+    h.moe_expert_type = "ffn"
+    h.moe_use_residual = True
+    return h
+
+
 def expert_parallel(h, d, e):
     h.no_expert_parallel = False
     h.mesh_shape = [d, e]
@@ -76,6 +87,12 @@ def jobs(scene, jax_checkpoint, tmp_path_factory):
     """The 2-rank and 4-rank scenarios, started at once; JAX's
     expert-parallel Runner.train runs meanwhile."""
     tmp = tmp_path_factory.mktemp("ep")
+    # a JAX step-0 checkpoint of the top-2 ffn residual model
+    hf = top2_ffn(mega_train_hparams(scene, "unused", "memory"))
+    jckpt.save_checkpoint(tmp / "ckpt_top2", jtrainer.create_train_state(
+        jax.random.PRNGKey(0), hf, jmu.get_nerf(hf, 6),
+        jmu.get_bg_nerf(hf, 6)))
+    top2_ckpt = tmp / "ckpt_top2" / "0"
 
     def hp(name, mesh=None, ckpt=jax_checkpoint, **over):
         h = published(mega_train_hparams(scene, tmp / name, "memory"))
@@ -102,6 +119,10 @@ def jobs(scene, jax_checkpoint, tmp_path_factory):
          "h": hp("dp_nodrop", moe_train_batch=False)},
         {"name": "ep_nodrop", **train,
          "h": hp("ep_nodrop", (1, 2), moe_train_batch=False)},
+        {"name": "dp_top2_ffn", **train,
+         "h": top2_ffn(hp("dp_top2_ffn", ckpt=top2_ckpt))},
+        {"name": "ep_top2_ffn", **train,
+         "h": top2_ffn(hp("ep_top2_ffn", (1, 2), ckpt=top2_ckpt))},
         {"name": "ep_from_dp", "kind": "train",
          "h": hp("ep_from_dp", (1, 2), ckpt=models("dp"))},
         {"name": "dp_from_ep", "kind": "train",
@@ -124,6 +145,7 @@ def jobs(scene, jax_checkpoint, tmp_path_factory):
     with pytest.MonkeyPatch.context() as m:
         m.setattr(native, "get_lib", lambda: None)
         jrunner.Runner(hj).train()
+        jrunner.Runner(top2_ffn(hp("jax_top2_ffn", ckpt=top2_ckpt))).train()
     return ranks, tmp
 
 
@@ -164,6 +186,24 @@ def test_trains_as_data_parallel_and_jax(mesh, jobs):
     print(f"mesh {mesh}: vs data parallel {w_dp:.2e}, vs JAX (4, 2) "
           f"{w_jax:.2e} of the leaf's largest entry; dropped {drops[0]} of "
           f"{drops[1]}")
+
+
+def test_top2_ffn_trains_as_data_parallel_and_jax(jobs):
+    """Top-2 ffn experts with a replicated residual expert, on (1, 2):
+    within 1e-6 of data parallelism and 1e-5 of JAX's one-process
+    Runner.train (the chunk spans both ranks: each routes it whole, K
+    experts a token)."""
+    ranks, tmp = jobs
+    outs, refs = ranks[2].get("ep_top2_ffn"), ranks[2].get("dp_top2_ffn")
+    assert_ranks_agree(outs)
+    got, _ = read_step(tmp / "ep_top2_ffn" / "0" / "models", STEPS)
+    assert got[("params", "nerf", "layer_0", "experts", "w1")].shape == (
+        4, 16, 16)
+    assert got[("params", "nerf", "layer_0", "residual_expert",
+                "w0")].shape == (1, 16, 16)
+    compare(tmp, "ep_top2_ffn", "dp_top2_ffn", outs, refs, 1e-6)
+    want, _ = read_step(tmp / "jax_top2_ffn" / "0" / "models", STEPS)
+    assert_within(got, want, 1e-5)
 
 
 def test_chunks_out_of_lockstep_raise_on_every_rank(jobs):

@@ -114,11 +114,12 @@ def test_nerf_moe_and_bg_forwards_with_sigma_noise_match_jax(models):
 @pytest.mark.parametrize("flag,value", [
     ("moe_train_batch", False), ("gate_noise", 1.0)])
 def test_training_what_the_port_lacks_raises(models, flag, value):
-    """Gate noise waits for a later slice: the model builds (eval is
-    unaffected), the train state and a train-mode forward raise. No-drop
-    train dispatch (no --moe_train_batch) is ported: its train state builds
-    and its train-mode forward equals the no-drop eval forward (no noise,
-    so the two modes route and compute alike)."""
+    """What earlier slices lacked now trains. No-drop train dispatch (no
+    --moe_train_batch): its train state builds and its train-mode forward
+    equals the no-drop eval forward (no noise, so the two modes route and
+    compute alike). Gate noise: the train state builds, a train-mode
+    forward differs from the eval forward, and two draws from the same
+    generator state are equal."""
     from switch_nerf_torch import trainer as ttrainer
     h = models[0]
     hx = type(h)(**vars(h))
@@ -127,8 +128,9 @@ def test_training_what_the_port_lacks_raises(models, flag, value):
     pts = torch.from_numpy(_points(64, 3, seed=9))
     with torch.no_grad():
         out = tm(pts)["outputs"]                  # eval still runs
+    assert torch.isfinite(out).all()
+    state = ttrainer.create_train_state(hx, tm, None, device="cpu")
     if flag == "moe_train_batch":
-        ttrainer.create_train_state(hx, tm, None, device="cpu")
         hx.moe_test_batch = False
         nodrop_eval = tmu.get_nerf(hx, 8, device="cpu")
         nodrop_eval.load_state_dict(tm.state_dict())
@@ -136,9 +138,14 @@ def test_training_what_the_port_lacks_raises(models, flag, value):
             train_out = tm(pts, train=True)["outputs"]
             eval_out = nodrop_eval(pts)["outputs"]
         assert torch.equal(train_out, eval_out)
-        assert torch.isfinite(out).all()
         return
-    with pytest.raises(NotImplementedError):
-        ttrainer.create_train_state(hx, tm, None, device="cpu")
-    with pytest.raises(NotImplementedError), torch.no_grad():
-        tm(pts, train=True)
+    g = state.generator
+    saved = g.get_state()
+    with torch.no_grad():
+        first = tm(pts, train=True, generator=g)
+        g.set_state(saved)
+        again = tm(pts, train=True, generator=g)
+    assert not torch.equal(first["outputs"], out)
+    assert torch.equal(first["outputs"], again["outputs"])
+    assert torch.equal(first["extras"]["moe_loss"],
+                       again["extras"]["moe_loss"])

@@ -220,8 +220,7 @@ def test_ewp_zero_orbax_resumes_into_two_ranks(scene, tmp_path):
 def _port_state(h):
     model = get_nerf(h, APPEARANCE, device="cpu")
     bg = get_bg_nerf(h, APPEARANCE, device="cpu")
-    return create_train_state(h, model, bg, device="cpu",
-                              for_training=False)
+    return create_train_state(h, model, bg, device="cpu")
 
 
 def test_load_checkpoint_orbax_equals_msgpack(pair, scene):

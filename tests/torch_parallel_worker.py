@@ -51,7 +51,7 @@ def params_of(state):
 
 
 def train(rank, h, kill=None, poison=None, record=False, drops=False,
-          refused=False, layout=False, **_):
+          refused=False, layout=False, quiet_noise=False, **_):
     """train.main on this rank, every train step's (averaged) metrics
     recorded. kill = (rank, step): that rank alone raises SIGTERM from
     inside that step. poison = (rank, call): that rank's loss terms are
@@ -59,7 +59,8 @@ def train(rank, h, kill=None, poison=None, record=False, drops=False,
     on. drops: count the MoE calls' dropped tokens. refused: the run must
     raise ValueError, whose message is returned. layout: this rank's own
     parts of the final parameters and moments (``bridge.local_state``),
-    and the weight gathers made."""
+    and the weight gathers made. quiet_noise: the MoE layers' gate noise
+    draws are zeros (the JAX side of the test draws zeros too)."""
     from switch_nerf_torch import runner as trunner
     from switch_nerf_torch import train as ttrain
     from switch_nerf_torch.parallel import weights
@@ -94,7 +95,11 @@ def train(rank, h, kill=None, poison=None, record=False, drops=False,
             return state, m
         return run
 
+    from switch_nerf_torch.models import moe as tmoe
+    real_noise = tmoe.MoELayer.noise
     trunner.make_train_step = make
+    if quiet_noise:
+        tmoe.MoELayer.noise = lambda self, logits, g: torch.zeros_like(logits)
     try:
         with count_drops() as tally:
             state = ttrain.main(h, device="cpu")
@@ -104,6 +109,7 @@ def train(rank, h, kill=None, poison=None, record=False, drops=False,
         raise
     finally:
         trunner.make_train_step = real_make
+        tmoe.MoELayer.noise = real_noise
     if refused:
         raise AssertionError("the run was not refused")
     out = {"metrics": metrics, "batches": batches,

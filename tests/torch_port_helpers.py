@@ -388,3 +388,37 @@ def write_reference_pt(h, appearance_count, path, seed=0, iteration=7):
         params[part] = out
     torch.save(ckpt, path)
     return params
+
+
+def checkpoint_bytes_both_ways(h, root, appearance_count=8, bg=True):
+    """A JAX step-0 train state of h's models, written by the JAX package,
+    loaded into the port's models (every leaf must find its parameter) and
+    written again by the port; then the port's checkpoint restored by the
+    JAX package. Returns (JAX's state.msgpack bytes, the port's, the JAX
+    tree the port's checkpoint restores to, the JAX state's tree)."""
+    from flax import serialization
+
+    from switch_nerf_tpu import checkpoints as jckpt
+    from switch_nerf_tpu import trainer as jtrainer
+    from switch_nerf_tpu.models import model_utils as jmu
+    from switch_nerf_torch import checkpoints as tckpt
+    from switch_nerf_torch import trainer as ttrainer
+    from switch_nerf_torch.models import model_utils as tmu
+
+    jm = jmu.get_nerf(h, appearance_count)
+    jbg = jmu.get_bg_nerf(h, appearance_count) if bg else None
+    jstate = jtrainer.create_train_state(jax.random.PRNGKey(0), h, jm, jbg)
+    jckpt.save_checkpoint(root / "jax", jstate)
+    tm = tmu.get_nerf(h, appearance_count, device="cpu", seed=5)
+    tbg = (tmu.get_bg_nerf(h, appearance_count, device="cpu", seed=6)
+           if bg else None)
+    ts = ttrainer.create_train_state(h, tm, tbg, device="cpu")
+    tckpt.load_checkpoint(root / "jax", ts, restore_rng_states=False)
+    out = tckpt.save_checkpoint(root / "port", ts)
+    template = jtrainer.create_train_state(jax.random.PRNGKey(1), h, jm, jbg)
+    restored, _ = jckpt.load_checkpoint(root / "port", template)
+    want = (root / "jax" / "0" / "state.msgpack").read_bytes()
+    got = (out / "state.msgpack").read_bytes()
+    return (want, got,
+            serialization.to_state_dict(jax.device_get(restored.params)),
+            serialization.to_state_dict(jax.device_get(jstate.params)))
