@@ -34,12 +34,15 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      same inputs (bit-identical) and the empty expert's dW and db exactly
      0; the fp32 kernels' error against a float64 run of the plain chain
      at most 4x the plain fp32 chain's
-  2a. the chain kernels at Mission Bay's width, M = 512 bf16 (E8 L7
-     skips (3,), one 32,768-point chunk): K1 and K2 (C = 4,096; K2 twice,
-     bit-identical) and K1R (skewed and balanced counts) against their
-     plain versions, timed beside the bound, the plain version and the
-     library call; K3, K4 and K2R at the same width checked and timed the
-     same way
+  2a. the chain kernels at Mission Bay's width, M = 512 (E8 L7 skips
+     (3,), one 32,768-point chunk), bf16 and fp32: K1 and K2 (C = 4,096;
+     K2 twice, bit-identical) and K1R (skewed and balanced counts) against
+     their plain versions, timed beside the bound, the plain version and
+     the library call; K3, K4 (twice, bit-identical) and K2R at the same
+     width checked and timed the same way; in fp32 K1-K4 on the CUDA
+     cores, K1R / K2R in 3xTF32 (four column passes a layer) as the
+     ragged phase holds them: K2R twice, the error against float64 at most
+     4x the plain chain's
   2c. K1R's 64-bit row offsets: one launch over one published
      eval_points request's rows, N = 65,536 x 256 = 16,777,216 (M256 bf16
      E8 L7, balanced counts; 4.3e9 elements an activation), against its
@@ -63,7 +66,15 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      Adam) through make_train_step on one fixed 1024-ray batch: a warm-up
      and 20 timed steps with K1 and K2 launched 24 times per step, a CPU
      fp32 cross-check of one step's loss and gradients on 64 rays, and one
-     step with SWITCH_NERF_FUSED_DISPATCH=1 (K3/K4)
+     step with SWITCH_NERF_FUSED_DISPATCH=1 (K3/K4); the appearance
+     embedding's fixed-order backward launched on the steps
+  4a. the embedding: one Building train step's gradients twice (a fresh
+     state from the same seeds over shifted allocations) with
+     F.embedding's backward and with the port's: for each, whether the
+     gradient arriving at the embedding's output, the table's gradient and
+     every other leaf repeat bit for bit (the port's must); then its kernel
+     against its plain version (bit for bit) and timed beside
+     F.embedding's backward on a 32,768-row chunk over a 1,920-row table
   5. runner: serve a trained scene end to end. A synthetic Mega-NeRF scene
      (6 train + 2 val 1024x768 JPEGs from a seed) in a temp directory; a
      port train state from seeds after one train step, written with
@@ -114,8 +125,16 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      eval_image_blocknerf on the final checkpoint (no --moe_test_batch:
      no-drop dispatch, K1R on every chunk; one 6,144-ray request an
      image): finite masked and unmasked metrics, the per-image files and
-     records, the 'Average val/...' summary. Prints train rays/s, step
-     seconds, max_memory_allocated, eval seconds per image
+     records, the 'Average val/...' summary. Then the same with --no_amp
+     (fp32) on the scene with one validation image: 10 steps with a
+     checkpoint at step 5, K1 and K2 fp32 at M = 512 on every chunk (52
+     each a step, counted by kernel, shape and dtype), a resume from step
+     5 whose step-10 checkpoint is byte-equal to the uninterrupted run's,
+     eval_image_blocknerf with K1R fp32 on every chunk. Then the fp32 step
+     on 256 rays (64 + 128 samples) on the card against the CPU (all_loss
+     1e-4 relative, cosine 0.999), padded (K1 / K2), in the fused mode (K3
+     / K4) and no-drop (K1R / K2R). Prints train rays/s, step seconds,
+     max_memory_allocated, eval seconds per image
   9. data parallel: the port's training and serving in a process group
      (parallel/), 2 ranks on the one card over gloo (NCCL refuses two
      ranks on one card; gloo runs the all_reduce and broadcast the port
@@ -246,10 +265,9 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      h_ch 256 (the L2 chain, padded and no-drop) and 512 (batched
      products); --bg_use_cfg --bg_use_moe. Then Runner.train (train.main)
      with --use_cascade and a dropout layer on make_scene's scene, 10
-     steps and a resume from step 5: without the appearance embedding the
-     resumed checkpoint byte-equal to the uninterrupted one, with it
-     every leaf but the embedding's (F.embedding's CUDA backward) and the
-     generator states equal. Then K1 / K2 at the residual expert's E1
+     steps and a resume from step 5, with and without the appearance
+     embedding: the resumed checkpoint byte-equal to the uninterrupted
+     one and the generator states equal. Then K1 / K2 at the residual expert's E1
      C32,768, top-2's E8 C8,192 and ffn's E8 C4,096 L2, and K1R / K2R at
      the first no-drop call of top-2 (65,536 rows) and of ffn (L2),
      against their plain versions (K2 / K2R twice, bit-identical), timed
@@ -688,9 +706,11 @@ def bwd_kernel_phase(peaks, building):
 def build_report() -> None:
     """Each library's HGMMA (wgmma) instruction count from `cuobjdump
     -sass` and its spill bytes from ptxas's -v report beside it. Every
-    library holds a bf16 wgmma kernel, so a count of 0 fails the run; the
+    chain library holds a bf16 wgmma kernel, so a count of 0 fails the run
+    (the embedding's backward runs on the CUDA cores and has none); the
     ragged libraries' fp32 kernels run wgmma on TF32 operands, so a count
-    of 0 TF32 HGMMAs there fails too, as does a spill in a 3xTF32 kernel."""
+    of 0 TF32 HGMMAs there fails too, as does a spill in a 3xTF32 kernel.
+    Then each M = 512 kernel's registers and spill bytes."""
     import re
     from pathlib import Path
     from switch_nerf_torch.ops import _build
@@ -721,7 +741,7 @@ def build_report() -> None:
                                   capture_output=True, text=True,
                                   timeout=120, check=True).stdout
             hgmma = sass.count("HGMMA")
-            if hgmma == 0:
+            if hgmma == 0 and name != "embedding_bwd":
                 raise AssertionError(f"lib{name}: no HGMMA instruction")
             if name.startswith("ragged"):
                 tf32 = sum("TF32" in ln for ln in sass.splitlines()
@@ -736,6 +756,28 @@ def build_report() -> None:
             f"{spills if text else 'not measured (no report)'}"
             f"{f' in {spilling}' if spilling else ''}, registers "
             f"per kernel {sorted(set(regs))}")
+        for fn, regs_, st, ld in wide_kernels(text):
+            log(f"    {fn}: {regs_} registers, {int(st) + int(ld)} bytes "
+                "spilled")
+
+
+def wide_kernels(text: str) -> list:
+    """(kernel<M, ...>, registers, spill store bytes, spill load bytes) of
+    each M = 512 instantiation in a ptxas -v report."""
+    import re
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        fn = block.split("'", 1)[0]
+        if "ILi512E" not in fn:
+            continue
+        name = re.sub(r"^.*?\d(chain_[a-z0-9_]*?(?:kernel|sm90|tf32))"
+                      r"ILi(\d+)E(?:Li(\d+)E)?.*$", r"\1<\2,\3>", fn)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        out.append((name, regs.group(1) if regs else "?",
+                    *(spill.groups() if spill else ("0", "0"))))
+    return out
 
 
 def check_finite(res: dict, n: int) -> None:
@@ -862,7 +904,7 @@ def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
 def train_phase(counts):
     """The published Building train step at full width on the card."""
     from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
-    from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+    from switch_nerf_torch.ops import embedding, expert_kernel, fused_dispatch
     from switch_nerf_torch.profile_eval import (
         SCENE, building_train_hparams, ray_batch)
     from switch_nerf_torch.trainer import (
@@ -889,6 +931,7 @@ def train_phase(counts):
 
     expert_kernel.launches = expert_kernel.bwd_launches = 0
     fused_dispatch.launches = fused_dispatch.bwd_launches = 0
+    embedding.launches = 0
     times, photo = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -901,6 +944,7 @@ def train_phase(counts):
         photo.append(float(met["photo_loss"]))
     counts["K1"] = expert_kernel.launches
     counts["K2"] = expert_kernel.bwd_launches
+    counts["embedding"] = embedding.launches
     k3, k4 = fused_dispatch.launches, fused_dispatch.bwd_launches
     peak = torch.cuda.max_memory_allocated()
     rays_per_s = h.batch_size * TRAIN_STEPS / sum(times)
@@ -909,9 +953,10 @@ def train_phase(counts):
         f"{photo[-1]:.6f}; last metrics "
         f"{ {k: round(float(v), 6) for k, v in met.items()} }")
     log(f"  launches: K1 {counts['K1']}, K2 {counts['K2']} (expected "
-        f"{chunks * TRAIN_STEPS} each), K3 {k3}, K4 {k4}")
+        f"{chunks * TRAIN_STEPS} each), K3 {k3}, K4 {k4}, the embedding's "
+        f"backward {counts['embedding']}")
     if not (counts["K1"] == counts["K2"] == chunks * TRAIN_STEPS
-            and k3 == k4 == 0):
+            and k3 == k4 == 0 and counts["embedding"] > 0):
         raise AssertionError("the train path did not run K1 and K2 once "
                              "per fg chunk")
     if not photo[-1] < photo[0]:
@@ -1493,7 +1538,7 @@ def f64_errors(x, counts, ws, bs, g, skips) -> dict:
     return out
 
 
-def ragged_kernel_phase(peaks, shapes):
+def ragged_kernel_phase(peaks, shapes, cases=None):
     """K1R and K2R vs their plain versions at the shapes of the no-drop
     paths (one 32,768-point model chunk): fp32 at Bungee's (E4, the
     training path) and bf16 at Building's (E8, an eval without
@@ -1501,13 +1546,15 @@ def ragged_kernel_phase(peaks, shapes):
     ones (timed); K2R deterministic and an empty expert's dW and db exactly
     zero; each step's device time by kernel name (torch.profiler); the fp32
     kernels' error against float64 beside the plain fp32 chain's. Returns
-    the rows of both shapes (skewed counts)."""
+    the rows of both shapes (skewed counts; K1R also balanced). `cases`:
+    other (label, dtype, experts) at shapes' width."""
     from switch_nerf_torch.ops import ragged_chain as rc
 
     gen = torch.Generator().manual_seed(2)
     rows = {}
-    for label, dtype, e in (("Bungee", torch.float32, shapes["bungee_e"]),
-                            ("Building", torch.bfloat16, shapes["experts"])):
+    for label, dtype, e in cases or (
+            ("Bungee", torch.float32, shapes["bungee_e"]),
+            ("Building", torch.bfloat16, shapes["experts"])):
         n, m = RAGGED_N, shapes["width"]
         layers, skips = shapes["layers"], shapes["skips"]
         dt = str(dtype)[6:]
@@ -1587,9 +1634,9 @@ def ragged_kernel_phase(peaks, shapes):
                 f"({bound_by}){core}, {rate(flops_f, t['ms'], bound_ms)}; "
                 f"profiled {', '.join(f'{k} {v:.4f}' for k, v in steps.items())}"
                 " ms")
-            if kind == "skewed":
-                rows[f"K1R {label}"] = dict(max_abs_err=err, bound_ms=bound_ms,
-                                            bound_by=bound_by, **t)
+            rows[f"K1R {label}" + (" balanced" if kind == "balanced"
+                                   else "")] = dict(
+                max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by, **t)
 
             bound_ms, bound_by = bounds["K2R"]
             leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
@@ -1613,11 +1660,11 @@ def ragged_kernel_phase(peaks, shapes):
                 f"({bound_by}){core}, {rate(flops_b, t['ms'], bound_ms)} (the "
                 f"gradient's products); profiled "
                 f"{', '.join(f'{k} {v:.4f}' for k, v in steps.items())} ms")
-            rows[f"K2R {label} {kind}"] = t
+            rows[f"K2R {label} {kind}"] = dict(max_abs_err=err_b,
+                                               bound_ms=bound_ms,
+                                               bound_by=bound_by, **t)
             if kind == "skewed":
-                rows[f"K2R {label}"] = dict(max_abs_err=err_b,
-                                            bound_ms=bound_ms,
-                                            bound_by=bound_by, **t)
+                rows[f"K2R {label}"] = rows[f"K2R {label} {kind}"]
         ratio = (rows[f"K2R {label} skewed"]["ms"]
                  / rows[f"K2R {label} balanced"]["ms"])
         log(f"  K2R {dt}: skewed / balanced time {ratio:.3f}")
@@ -2524,10 +2571,11 @@ def surface_hparams(name: str):
 
 
 @contextlib.contextmanager
-def launches_by_shape(tally: dict):
+def launches_by_shape(tally: dict, detail: bool = False):
     """Count each chain kernel's calls on the card by shape in `tally`:
     (K1 | K2, E, C, L) for the padded chain and (K1R | K2R, E, N, L) for
-    the ragged one (the wrappers' own counters still count launches)."""
+    the ragged one, with `detail` also M and the dtype (the wrappers' own
+    counters still count launches)."""
     from switch_nerf_torch.ops import expert_kernel as ek
     from switch_nerf_torch.ops import ragged_chain as rc
 
@@ -2538,6 +2586,8 @@ def launches_by_shape(tally: dict):
                     ws = a[0] if kind in ("K1", "K2") else a[1]
                     key = (kind, ws.shape[1], x.shape[-2 if kind in (
                         "K1", "K2") else 0], ws.shape[0])
+                    if detail:
+                        key += (x.shape[-1], str(x.dtype)[6:])
                     tally[key] = tally.get(key, 0) + 1
                 return real(x, *a, **k)
             return run
@@ -2683,12 +2733,10 @@ def surface_runner(tmp, tally: dict) -> dict:
     """Runner.train (train.main) with --use_cascade and a dropout layer
     on make_scene's scene: SURFACE_RUN_STEPS steps with a checkpoint every
     SURFACE_RESUME, then a run resumed from step SURFACE_RESUME; the
-    dropout masks come from the checkpointed step generator. Without the
-    appearance embedding (--appearance_dim 0) the resumed run's last
-    checkpoint equals the uninterrupted run's byte for byte; with the
-    published 48 every leaf does but the embedding's and its Adam
-    moments (F.embedding's CUDA backward sums in no fixed order: PERF.md
-    §6, PR 13), which stay within 1e-5 of their leaf's largest entry, and
+    dropout masks come from the checkpointed step generator. With the
+    published appearance embedding (--appearance_dim 48; its backward sums
+    in a fixed order, ops/embedding.py) and without it (0), the resumed
+    run's last checkpoint equals the uninterrupted run's byte for byte and
     the generator states are equal."""
     import json as _json
 
@@ -2738,12 +2786,9 @@ def surface_runner(tmp, tally: dict) -> dict:
             f"resumed from {SURFACE_RESUME} to {b.step}; step {last} "
             f"checkpoints byte-equal {same} (leaves apart {diff}); "
             f"generator states equal {gens[0] == gens[1]}; logged {windows}")
-        only_embedding = all("embedding_a" in k for k in diff["params"])
         if not (a.step == b.step == SURFACE_RUN_STEPS and gens[0] == gens[1]
                 and all(np.isfinite(v) for w in windows for v in w.values())
-                and any("coarse_loss" in w for w in windows)
-                and (same if app == 0 else
-                     only_embedding and diff["worst_rel"] <= 1e-5)):
+                and any("coarse_loss" in w for w in windows) and same):
             raise AssertionError(f"the cascade runner with dropout ({tag})")
         out[tag] = {"wall_s": wall, "byte_equal": same, "diff": diff}
     for k, v in mine.items():
@@ -2957,32 +3002,34 @@ def make_block_scene(root, seed: int, w: int = MB_W, h: int = MB_H,
             "val_images": val_images}
 
 
-def wide_kernel_phase(peaks, shapes):
-    """The chain kernels at Mission Bay's width (M = 512, bf16: 64-row
-    tiles, each consumer warpgroup on half the columns) against their plain
-    versions at one 32,768-point model chunk, E8 L7 skips (3,): K1 and K2
-    (padded dispatch, C = 4,096; K2 twice, bit-identical) and K1R (no-drop,
-    skewed and balanced counts), timed beside the bound, the plain version
-    and the library call; K3, K4 and K2R (skewed counts) at the same width
-    checked and timed the same way (no path runs them at this width yet:
-    K3/K4 with SWITCH_NERF_FUSED_DISPATCH=1, K2R in no-drop training).
-    Returns the rows."""
+def wide_kernel_phase(peaks, shapes, dtype=torch.bfloat16):
+    """The chain kernels at Mission Bay's width (M = 512) against their
+    plain versions at one 32,768-point model chunk, E8 L7 skips (3,): K1
+    and K2 (padded dispatch, C = 4,096; K2 twice, bit-identical), K3 and
+    K4 (the fused mode's; K4 twice) and K1R / K2R (no-drop, skewed and
+    balanced counts), timed beside the bound, the plain version and the
+    library call. bf16: 64-row tiles, each consumer warpgroup on half the
+    columns (the Mission Bay run; K3, K4 and K2R run in no path at this
+    width). fp32 (the --no_amp run, K1 / K2 training and K1R serving): K1-K4
+    on the CUDA cores, K1R / K2R in 3xTF32 with four column passes a layer,
+    through ragged_kernel_phase (K2R twice, the error against float64 at
+    most 4x the plain chain's). Returns the rows."""
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
     from switch_nerf_torch.ops import ragged_chain as rc
 
     e, m = shapes["experts"], shapes["width"]
     layers, skips, n = shapes["layers"], shapes["skips"], shapes["chunk"]
     c = n // e
-    dtype = torch.bfloat16
-    gen = torch.Generator().manual_seed(9)
+    dt = str(dtype)[6:]
+    gen = torch.Generator().manual_seed(9 if dtype == torch.bfloat16 else 10)
     rows = {}
     ws, bs = chain_weights(e, m, layers, dtype, gen)
     x = torch.randn(e, c, m, generator=gen).to("cuda", dtype)
     g = torch.randn(e, c, m, generator=gen).to("cuda", dtype)
     flops = 2 * e * c * m * m * layers
     log(f"[kernels M512] K1/K2 expert chain: E{e} C{c} M{m} L{layers} "
-        f"skips{skips} bf16")
-    err = check_close("K1 bf16 M512", expert_kernel.expert_mlp_chain(
+        f"skips{skips} {dt}")
+    err = check_close(f"K1 {dt} M512", expert_kernel.expert_mlp_chain(
         x, ws, bs, skips), expert_kernel.expert_mlp_chain_plain(x, ws, bs,
                                                                 skips))
     bound_ms, bound_by = chain_bound(flops, nbytes(x, ws, bs) + nbytes(x),
@@ -2993,17 +3040,17 @@ def wide_kernel_phase(peaks, shapes):
              x, ws, bs, skips), iters=20),
          "library_ms": cuda_ms(lambda: bmm_chain(x, ws, bs, skips),
                                iters=20)}
-    log(f"  K1 bf16 M512: kernel {t['ms']:.4f} ms, plain "
+    log(f"  K1 {dt} M512: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, baddbmm chain {t['library_ms']:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}), "
         f"{rate(flops, t['ms'], bound_ms)}")
     rows["K1"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
                       **t)
 
-    err = check_bwd("K2 bf16 M512", expert_kernel.expert_mlp_chain_bwd(
+    err = check_bwd(f"K2 {dt} M512", expert_kernel.expert_mlp_chain_bwd(
         x, ws, bs, g, skips), expert_kernel.expert_mlp_chain_bwd_plain(
             x, ws, bs, g, skips))
-    check_deterministic("K2 bf16 M512", lambda: expert_kernel
+    check_deterministic(f"K2 {dt} M512", lambda: expert_kernel
                         .expert_mlp_chain_bwd(x, ws, bs, g, skips))
     bound_ms, bound_by = chain_bound(
         2 * flops, nbytes(x, g, ws, bs) + nbytes(x)
@@ -3018,8 +3065,8 @@ def wide_kernel_phase(peaks, shapes):
     del lib_out, leaves
     passes = device_ms_by_kernel(
         lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips),
-        {"pass 1": "chain_bwd_sm90", "pass 2": "chain_dw_sm90"})
-    log(f"  K2 bf16 M512: kernel {t['ms']:.4f} ms, plain "
+        {"pass 1": "chain_bwd", "pass 2": "chain_dw"})
+    log(f"  K2 {dt} M512: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, autograd of the baddbmm chain "
         f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
         f"{rate(2 * flops, t['ms'], bound_ms)} (the gradient's products); "
@@ -3031,7 +3078,7 @@ def wide_kernel_phase(peaks, shapes):
 
     tokens_ext, stt, n_drop, n_empty = skewed_slot_map(n, e, m, dtype, gen)
     err = check_close(
-        f"K3 bf16 M512 ({n_drop} dropped, {n_empty} empty slots)",
+        f"K3 {dt} M512 ({n_drop} dropped, {n_empty} empty slots)",
         fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws, bs,
                                                 skips),
         fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws, bs,
@@ -3047,17 +3094,20 @@ def wide_kernel_phase(peaks, shapes):
          "library_ms": cuda_ms(lambda: bmm_chain(
              tokens_ext.index_select(0, stt_long).view(e, c, m), ws, bs,
              skips), iters=20)}
-    log(f"  K3 bf16 M512: kernel {t['ms']:.4f} ms, plain "
+    log(f"  K3 {dt} M512: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, index_select + baddbmm chain "
         f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
         f"{rate(flops, t['ms'], bound_ms)}")
     rows["K3"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
                       **t)
 
-    err = check_bwd("K4 bf16 M512", fused_dispatch.fused_dispatch_chain_bwd(
+    err = check_bwd(f"K4 {dt} M512", fused_dispatch.fused_dispatch_chain_bwd(
         tokens_ext, stt, ws, bs, g, skips),
         fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt, ws,
                                                       bs, g, skips))
+    check_deterministic(f"K4 {dt} M512", lambda: fused_dispatch
+                        .fused_dispatch_chain_bwd(tokens_ext, stt, ws, bs, g,
+                                                  skips))
     kept_rows = int((stt < n).sum())            # the token rows read
     bound_ms, bound_by = chain_bound(
         2 * flops, kept_rows * m * tokens_ext.element_size()
@@ -3074,12 +3124,17 @@ def wide_kernel_phase(peaks, shapes):
                              iters=10, warmup=3),
          "library_ms": autograd_ms(lib_out, leaves, g)}
     del lib_out, leaves, tokens_ext, stt, stt_long
-    log(f"  K4 bf16 M512: kernel {t['ms']:.4f} ms, plain "
+    log(f"  K4 {dt} M512: kernel {t['ms']:.4f} ms, plain "
         f"{t['plain_ms']:.4f} ms, autograd of index_select + baddbmm chain "
         f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
         f"{rate(2 * flops, t['ms'], bound_ms)}")
     rows["K4"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
                       **t)
+    if dtype == torch.float32:
+        del x, g, ws, bs
+        rows.update(ragged_kernel_phase(peaks, shapes,
+                                        [("Mission Bay", dtype, e)]))
+        return rows
 
     xr = x.reshape(n, m)
     gr = g.reshape(n, m)
@@ -3133,15 +3188,141 @@ def wide_kernel_phase(peaks, shapes):
     return rows
 
 
+EMB_TABLE = 1920        # rows of the timed embedding: one per train image
+EMB_RAYS = 64           # rays of its 32,768-row chunk (512 samples each)
+
+
+def embedding_phase(peaks) -> dict:
+    """The appearance embedding's backward. Where a card run's resume
+    stopped repeating: one Building train step's gradients (a fresh state
+    from the same seeds, the same batch and generator seed, twice, the
+    second over shifted allocations), with F.embedding's backward and with
+    the port's fixed-order one; for each, whether the gradient arriving at
+    the embedding's output, the table's gradient and every other leaf's
+    repeat bit for bit. The port's must. Then the kernel against its plain
+    version (bit for bit) and timed beside F.embedding's backward
+    (aten.embedding_dense_backward, the library call) on a 32,768-row chunk
+    of 64 rays x 512 samples over Building's 1,920-row table. Returns the
+    row."""
+    import torch.nn.functional as F
+
+    from switch_nerf_torch.models import common
+    from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+    from switch_nerf_torch.ops import embedding
+    from switch_nerf_torch.profile_eval import (
+        SCENE, building_train_hparams, ray_batch)
+    from switch_nerf_torch.trainer import (
+        create_train_state, make_train_step, render_config_from_hparams)
+
+    h = building_train_hparams()
+    step = make_train_step(h, render_config_from_hparams(h), SCENE,
+                           device="cuda")
+    batch = ray_batch(h.batch_size, 0, "cuda", rgbs=True)
+
+    def grads_of(lookup, shift):
+        state = create_train_state(
+            h, get_nerf(h, 8, device="cuda", seed=0),
+            get_bg_nerf(h, 8, device="cuda", seed=1), device="cuda")
+        table = state.model.embedding_a.weight
+        arriving = []
+
+        def hook(mod, inp, out):
+            if out.requires_grad:
+                out.register_hook(lambda g: arriving.append(g.clone()))
+        handle = state.model.embedding_a.register_forward_hook(hook)
+        pad = torch.empty(shift, device="cuda")    # other addresses
+        saved, common.embedding = common.embedding, lookup
+        try:
+            state.generator.manual_seed(7)
+            _, grads = step.loss_and_grads(state, batch)
+        finally:
+            common.embedding = saved
+            handle.remove()
+        at = [i for i, p_ in enumerate(state.parameters()) if p_ is table][0]
+        torch.cuda.synchronize()
+        del pad, state
+        return arriving, grads[at], grads[:at] + grads[at + 1:]
+
+    repeat = {}
+    for label, lookup in (("F.embedding", F.embedding),
+                          ("fixed order", embedding.embedding)):
+        a, b = grads_of(lookup, 1), grads_of(lookup, 3 << 20)
+        repeat[label] = {
+            "arriving": len(a[0]) == len(b[0]) and all(
+                torch.equal(x, y) for x, y in zip(a[0], b[0])),
+            "table": torch.equal(a[1], b[1]),
+            "other leaves apart": sum(not torch.equal(x, y)
+                                      for x, y in zip(a[2], b[2]))}
+        log(f"[embedding] Building train step twice, {label}: gradient at "
+            f"the embedding's output repeats {repeat[label]['arriving']} "
+            f"({len(a[0])} chunks), table gradient repeats "
+            f"{repeat[label]['table']}, other leaves apart "
+            f"{repeat[label]['other leaves apart']} of {len(a[2])}")
+        del a, b
+    mine = repeat["fixed order"]
+    if not (mine["arriving"] and mine["table"]
+            and mine["other leaves apart"] == 0):
+        raise AssertionError(f"the train step does not repeat: {repeat}")
+
+    gen = torch.Generator().manual_seed(11)
+    feats, rows_ = h.appearance_dim, EMB_RAYS * 512
+    idx = torch.randint(0, EMB_TABLE, (EMB_RAYS,), generator=gen) \
+        .repeat_interleave(512).cuda()
+    g = torch.randn(rows_, feats, generator=gen).cuda()
+    got = embedding.embedding_bwd(idx, g, EMB_TABLE)
+    want = embedding.embedding_bwd_plain(idx, g, EMB_TABLE)
+    if not torch.equal(got, want):
+        raise AssertionError("the embedding kernel disagrees with its plain "
+                             "version")
+    lib = torch.ops.aten.embedding_dense_backward(g, idx, EMB_TABLE, -1,
+                                                  False)
+    err = (lib - want).abs().max().item()
+    bound_ms, bound_by = chain_bound(rows_ * feats, nbytes(g, idx, want),
+                                     torch.float32, peaks)
+    t = {"ms": cuda_ms(lambda: embedding.embedding_bwd(idx, g, EMB_TABLE)),
+         "plain_ms": cuda_ms(lambda: embedding.embedding_bwd_plain(
+             idx, g, EMB_TABLE), iters=10, warmup=3),
+         "library_ms": cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(
+             g, idx, EMB_TABLE, -1, False))}
+    sort_ms = cuda_ms(lambda: torch.sort(idx, stable=True))
+    log(f"[embedding] backward on {rows_} rows ({EMB_RAYS} rays x 512 "
+        f"samples) over a {EMB_TABLE} x {feats} table: kernel bit-equal to "
+        f"its plain version; fixed order {t['ms']:.4f} ms (its stable sort "
+        f"{sort_ms:.4f} ms), F.embedding's backward {t['library_ms']:.4f} "
+        f"ms (max |difference| {err:.3e}), plain (CPU) {t['plain_ms']:.4f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
+                repeat=repeat, **t)
+
+
+MB32_STEPS, MB32_CKPT = 10, 5  # the --no_amp run's schedule
+MB32_RECORDS = (("train_0000.tfrecord", 3), ("train_0001.tfrecord", 3),
+                ("validation_0000.tfrecord", 1))   # one eval image
+MB_CHECK_RAYS = 256            # rays of the fp32 card vs CPU step, at
+MB_CHECK_SAMPLES = (64, 128)   # these coarse + fine samples
+
+
 def mission_bay_phase(counts: dict) -> str:
     """Train and serve Block-NeRF Mission Bay end to end through its two
     entry points, with the README's flags at full width, on a synthetic
-    scene: train.main for MB_STEPS steps (K1 and K2 on every model chunk
-    of every step, an interval checkpoint, finite metrics, a falling
-    photo_loss), a resume from the interval checkpoint that replays the
-    batches and repeats the step's loss, then eval_image_blocknerf.main on
-    the val records (K1R on every chunk: no --moe_test_batch, so no-drop
-    dispatch; finite metrics, the JAX package's file set)."""
+    scene, in bf16 and (--no_amp) in fp32: train.main (K1 and K2 on every
+    model chunk of every step, an interval checkpoint, finite metrics, a
+    falling photo_loss), a resume from the interval checkpoint that replays
+    the batches and repeats the step's loss (fp32: its last checkpoint
+    byte-equal to the uninterrupted run's), then eval_image_blocknerf.main
+    on the val records (K1R on every chunk: no --moe_test_batch, so no-drop
+    dispatch; finite metrics, the JAX package's file set); then the fp32
+    step on the card against the CPU."""
+    bf16 = mission_bay_run(counts, "", MB_STEPS, MB_CKPT, MB_RECORDS)
+    fp32 = mission_bay_run(counts, " fp32", MB32_STEPS, MB32_CKPT,
+                           MB32_RECORDS)
+    return f"{bf16}; --no_amp: {fp32}; {mission_bay_cpu_check(counts)}"
+
+
+def mission_bay_run(counts: dict, tag: str, steps: int, ckpt: int,
+                    records) -> str:
+    """One Mission Bay run (tag " fp32": --no_amp) on make_block_scene's
+    scene; counts gets "K1 / K2 / K1R Mission Bay<tag>"."""
     import tempfile
     from pathlib import Path
 
@@ -3151,47 +3332,55 @@ def mission_bay_phase(counts: dict) -> str:
         BlockFilesystemDataset
     from switch_nerf_torch.ops import expert_kernel, ragged_chain
 
+    amp = not tag
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mission_bay_") as tmp:
         tmp = Path(tmp)
-        scene = make_block_scene(tmp / "scene", seed=0)
+        scene = make_block_scene(tmp / "scene", seed=0, records=records)
         lists = ["--dataset_path", str(tmp / "scene"),
                  "--block_train_list_path", str(scene["train"]),
                  "--block_val_list_path", str(scene["val"]),
                  "--block_image_hash_id_map_path", str(scene["id_map"])]
-        h = parse_args(get_opts(), MB_FLAGS + lists + [
+        flags = MB_FLAGS + lists + ([] if amp else ["--no_amp"])
+        h = parse_args(get_opts(), flags + [
             "--exp_name", str(tmp / "exp"), "--dataset_type", "filesystem",
             "--chunk_paths", str(tmp / "chunks"), "--num_chunks",
-            str(MB_CHUNKS), "--train_iterations", str(MB_STEPS),
-            "--ckpt_interval", str(MB_CKPT), "--i_print", str(MB_PRINT)])
+            str(MB_CHUNKS), "--train_iterations", str(steps),
+            "--ckpt_interval", str(ckpt), "--i_print", str(MB_PRINT)])
         moe = h.model["layers"]["0"]
+        dt = "bfloat16" if h.amp else "float32"
 
         def chunks_of(rays):      # model chunks of one request, both passes
             return (-(-rays * (h.coarse_samples - 1) // h.model_chunk_size)
                     + -(-rays * (h.fine_samples - 1) // h.model_chunk_size))
         chunks = chunks_of(h.batch_size)
-        log(f"[mission_bay] train.main on a synthetic scene: "
-            f"{sum(n for _, n in MB_RECORDS)} {MB_W}x{MB_H} images in "
-            f"{len(MB_RECORDS)} GZIP tfrecords, {MB_CHUNKS} chunks, "
-            f"{MB_STEPS} steps of {h.batch_size} rays, {h.moe_expert_num} "
+        log(f"[mission_bay{tag}] train.main on a synthetic scene: "
+            f"{sum(n for _, n in records)} {MB_W}x{MB_H} images in "
+            f"{len(records)} GZIP tfrecords, {MB_CHUNKS} chunks, "
+            f"{steps} steps of {h.batch_size} rays, {h.moe_expert_num} "
             f"experts x {moe['num']} x {moe['out_ch']}, {h.coarse_samples} + "
-            f"{h.fine_samples} samples, {'bf16' if h.amp else 'fp32'}, "
-            f"appearance_dim {h.appearance_dim}")
-        torch.cuda.reset_peak_memory_stats()
+            f"{h.fine_samples} samples, {dt}, appearance_dim "
+            f"{h.appearance_dim}")
         ragged_chain.ragged_launches = ragged_chain.ragged_bwd_launches = 0
-        first = run_training(h, BlockFilesystemDataset)
+        shapes = {}
+        with launches_by_shape(shapes, detail=True):
+            first = run_training(h, BlockFilesystemDataset)
         k1r = ragged_chain.ragged_launches + ragged_chain.ragged_bwd_launches
-        peak = torch.cuda.max_memory_allocated()
-        counts["K1 Mission Bay"] = first["launches"]["K1"]
-        counts["K2 Mission Bay"] = first["launches"]["K2"]
+        peak = first["peak_bytes"]
+        counts[f"K1 Mission Bay{tag}"] = first["launches"]["K1"]
+        counts[f"K2 Mission Bay{tag}"] = first["launches"]["K2"]
         exp = tmp / "exp" / "0"
         n = first["launches"]
+        want = {(k, h.moe_expert_num, h.model_chunk_size // h.moe_expert_num,
+                 moe["num"], moe["out_ch"], dt): chunks * steps
+                for k in ("K1", "K2")}
         log(f"  launches: {n}, K1R/K2R {k1r} (expected K1, K2 "
-            f"{chunks * MB_STEPS} each, {chunks} a step)")
-        if not (first["step"] == MB_STEPS and k1r == 0
-                and n["K1"] == n["K2"] == chunks * MB_STEPS
-                and n["K3"] == n["K4"] == 0):
-            raise AssertionError("Mission Bay training did not run K1 and K2 "
-                                 "on every chunk of every step")
+            f"{chunks * steps} each, {chunks} a step); by (kernel, E, C, L, "
+            f"M, dtype) {shapes}")
+        if not (first["step"] == steps and k1r == 0
+                and n["K1"] == n["K2"] == chunks * steps
+                and n["K3"] == n["K4"] == 0 and shapes == want):
+            raise AssertionError(f"Mission Bay{tag} training did not run K1 "
+                                 "and K2 on every chunk of every step")
         windows = logged_windows(exp / "log.txt")
         saved = sorted(int(p.name) for p in (exp / "models").iterdir())
         loss = first["loss"]
@@ -3200,39 +3389,46 @@ def mission_bay_phase(counts: dict) -> str:
         log(f"  photo_loss per step {[round(v, 5) for v in first['photo']]}:"
             f" mean of the first 5 {firsts:.5f}, of the last 5 {lasts:.5f}; "
             f"checkpoints {saved}; chunk write {first['write_s'][0]:.2f} s")
-        if not (len(windows) == MB_STEPS // MB_PRINT
+        if not (len(windows) == steps // MB_PRINT
                 and all(np.isfinite(v) for w in windows for v in w.values())
-                and lasts < firsts and saved == [MB_CKPT, MB_STEPS]):
-            raise AssertionError(f"Mission Bay training: {windows} {saved}")
+                and lasts < firsts and saved == [ckpt, steps]):
+            raise AssertionError(f"Mission Bay{tag} training: {windows} "
+                                 f"{saved}")
 
         resumed = copy.copy(h)
         resumed.exp_name = str(tmp / "resumed")
-        resumed.ckpt_path = str(exp / "models" / str(MB_CKPT))
+        resumed.ckpt_path = str(exp / "models" / str(ckpt))
         second = run_training(resumed, BlockFilesystemDataset)
-        same = second["digests"] == first["digests"][MB_CKPT:]
+        same = second["digests"] == first["digests"][ckpt:]
         rel = [abs(a - b) / abs(b) for a, b in
-               zip(second["loss"], loss[MB_CKPT:])]
-        log(f"  resumed from step {MB_CKPT}: {len(second['digests'])} "
+               zip(second["loss"], loss[ckpt:])]
+        last = Path(str(steps)) / "state.msgpack"
+        equal = ((exp / "models" / last).read_bytes() == (
+            tmp / "resumed" / "0" / "models" / last).read_bytes())
+        log(f"  resumed from step {ckpt}: {len(second['digests'])} "
             f"batches, hashes equal to the first run's {same}; loss relative"
             f" difference first step {rel[0]:.3e} (limit 1e-3), largest "
-            f"{max(rel):.3e}")
-        if not (same and second["step"] == MB_STEPS and rel[0] <= 1e-3):
-            raise AssertionError("the resumed Mission Bay run does not "
-                                 "replay the run")
+            f"{max(rel):.3e}; step {steps} checkpoints byte-equal {equal}")
+        if not (same and second["step"] == steps and rel[0] <= 1e-3
+                and (equal or amp)):
+            raise AssertionError(f"the resumed Mission Bay{tag} run does not"
+                                 " replay the run")
         t = first["t_end"]
-        step_s = (t[-1] - t[MB_PRINT - 1]) / (MB_STEPS - MB_PRINT)
+        step_s = (t[-1] - t[MB_PRINT - 1]) / (steps - MB_PRINT)
 
         bs = MB_W * MB_H                  # one request an image
-        he = parse_args(get_opts(), MB_FLAGS + lists + [
+        he = parse_args(get_opts(), flags + [
             "--exp_name", str(tmp / "eval"), "--ckpt_path",
-            str(exp / "models" / str(MB_STEPS)),
+            str(exp / "models" / str(steps)),
             "--image_pixel_batch_size", str(bs)])
         expert_kernel.launches = ragged_chain.ragged_launches = 0
         torch.cuda.reset_peak_memory_stats()
+        shapes = {}
         t0 = time.perf_counter()
-        means = eval_image_blocknerf.main(he)
+        with launches_by_shape(shapes, detail=True):
+            means = eval_image_blocknerf.main(he)
         eval_s = time.perf_counter() - t0
-        counts["K1R Mission Bay"] = ragged_chain.ragged_launches
+        counts[f"K1R Mission Bay{tag}"] = ragged_chain.ragged_launches
         eval_k1 = expert_kernel.launches
         eval_peak = torch.cuda.max_memory_allocated()
         base = tmp / "eval"
@@ -3251,29 +3447,107 @@ def mission_bay_phase(counts: dict) -> str:
                               ("images", "metrics_{}.txt")))
         summary = (base / "0" / "metrics.txt").read_text()
         log(f"  eval_image_blocknerf: means {means}; K1R "
-            f"{counts['K1R Mission Bay']} launches (expected {want_k1r}), K1 "
-            f"{eval_k1}; images {hashes}")
+            f"{counts[f'K1R Mission Bay{tag}']} launches (expected "
+            f"{want_k1r}), K1 {eval_k1}; by (kernel, E, N, L, M, dtype) "
+            f"{shapes}; images {hashes}")
         if not (len(hashes) == scene["val_images"] and files_ok
                 and all(np.isfinite(v) for m_ in per_image
                         for v in m_.values())
                 and {"psnr_mask", "ssim_mask"} <= set(per_image[0])
-                and counts["K1R Mission Bay"] == want_k1r and eval_k1 == 0
-                and "Average val/psnr_mask: " in summary):
-            raise AssertionError("Mission Bay eval: metrics, files or "
+                and counts[f"K1R Mission Bay{tag}"] == want_k1r
+                and eval_k1 == 0 and "Average val/psnr_mask: " in summary
+                and all(k[4:] == (moe["out_ch"], dt) for k in shapes)):
+            raise AssertionError(f"Mission Bay{tag} eval: metrics, files or "
                                  "launches")
     return (f"train rays/s {h.batch_size / step_s:.1f} (steps "
-            f"{MB_PRINT + 1}-{MB_STEPS}), step {step_s:.4f} s, {MB_STEPS} "
+            f"{MB_PRINT + 1}-{steps}), step {step_s:.4f} s, {steps} "
             f"steps in {first['wall_s']:.1f} s wall (chunk write "
             f"{first['write_s'][0]:.2f} s), max_memory_allocated {peak} B "
             f"({peak / 2 ** 30:.2f} GiB); K1 / K2 launches per step "
-            f"{counts['K1 Mission Bay'] // MB_STEPS} / "
-            f"{counts['K2 Mission Bay'] // MB_STEPS}; resumed loss max rel "
-            f"diff {max(rel):.3e}; eval {eval_s:.1f} s for "
-            f"{len(hashes)} {MB_W}x{MB_H} images "
+            f"{counts[f'K1 Mission Bay{tag}'] // steps} / "
+            f"{counts[f'K2 Mission Bay{tag}'] // steps}; resumed loss max rel "
+            f"diff {max(rel):.3e}, checkpoint byte-equal {equal}; eval "
+            f"{eval_s:.1f} s for {len(hashes)} {MB_W}x{MB_H} images "
             f"({[round(m_['time'], 4) for m_ in per_image]} s render), "
-            f"K1R {counts['K1R Mission Bay'] // len(hashes)} an image, "
+            f"K1R {counts[f'K1R Mission Bay{tag}'] // len(hashes)} an image, "
             f"max_memory_allocated {eval_peak / 2 ** 30:.2f} GiB, psnr "
             f"{means['psnr']:.4f}, psnr_mask {means['psnr_mask']:.4f}")
+
+
+def mission_bay_cpu_check(counts: dict) -> str:
+    """The fp32 (--no_amp) Mission Bay train step at full width on the card
+    against the same seeded model on the CPU (the plain versions):
+    MB_CHECK_RAYS rays at MB_CHECK_SAMPLES, no perturbation or noise;
+    all_loss within 1e-4 relative, the gradient's cosine >= 0.999. Padded
+    (K1 / K2 fp32 at M = 512), the fused mode (SWITCH_NERF_FUSED_DISPATCH=1:
+    K3 / K4) against the same CPU step, and no-drop training (no
+    --moe_train_batch: K1R / K2R) against the CPU's no-drop step; counts
+    gets each mode's launches."""
+    from switch_nerf_torch.models.model_utils import get_nerf
+    from switch_nerf_torch.ops import expert_kernel, fused_dispatch
+    from switch_nerf_torch.ops import ragged_chain as rc
+    from switch_nerf_torch.profile_eval import (mission_bay_train_hparams,
+                                                ray_batch)
+    from switch_nerf_torch.trainer import (
+        SceneInfo, create_train_state, make_train_step,
+        render_config_from_hparams)
+
+    batch = ray_batch(MB_CHECK_RAYS, 0, "cpu", rgbs=True)
+    batch["rays"][:, 6:] = torch.tensor([1.0, 10.0])
+    batch["radii"] = torch.full((MB_CHECK_RAYS, 1), 1e-3)
+
+    def loss_and_grads(h, device):
+        state = create_train_state(h, get_nerf(h, 8, device=device, seed=0),
+                                   None, device=device)
+        step = make_train_step(h, render_config_from_hparams(h),
+                               SceneInfo(None, None), mip=True,
+                               device=device)
+        return step.loss_and_grads(
+            state, {k: v.to(device) for k, v in batch.items()})
+
+    lines = []
+    for mode in ("padded", "fused", "no-drop"):
+        h = mission_bay_train_hparams()
+        h.amp = False
+        h.perturb = 0.0
+        h.use_sigma_noise = False
+        h.coarse_samples, h.fine_samples = MB_CHECK_SAMPLES
+        h.moe_train_batch = mode != "no-drop"
+        if mode != "fused":
+            met_c, grads_c = loss_and_grads(h, "cpu")
+        expert_kernel.launches = expert_kernel.bwd_launches = 0
+        fused_dispatch.launches = fused_dispatch.bwd_launches = 0
+        rc.ragged_launches = rc.ragged_bwd_launches = 0
+        if mode == "fused":
+            os.environ["SWITCH_NERF_FUSED_DISPATCH"] = "1"
+        try:
+            met_g, grads_g = loss_and_grads(h, "cuda")
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("SWITCH_NERF_FUSED_DISPATCH", None)
+        n = {"K1": expert_kernel.launches, "K2": expert_kernel.bwd_launches,
+             "K3": fused_dispatch.launches, "K4": fused_dispatch.bwd_launches,
+             "K1R": rc.ragged_launches, "K2R": rc.ragged_bwd_launches}
+        used = {"padded": ("K1", "K2"), "fused": ("K3", "K4"),
+                "no-drop": ("K1R", "K2R")}[mode]
+        for k in used:
+            counts[f"{k} Mission Bay fp32 {mode}"] = n[k]
+        loss_c = float(met_c["all_loss"])
+        d_loss = abs(float(met_g["all_loss"]) - loss_c)
+        cos = cosine(flat(grads_g), flat(grads_c))
+        lines.append(
+            f"{mode} |d all_loss| {d_loss:.3e} (limit 1e-4 * {loss_c:.4f}), "
+            f"gradient cosine {cos:.6f} (limit 0.999), launches {n}")
+        log(f"  fp32 card vs CPU train step, {mode}, on {MB_CHECK_RAYS} "
+            f"rays ({MB_CHECK_SAMPLES[0]} + {MB_CHECK_SAMPLES[1]} samples):"
+            f" {lines[-1]}")
+        if not (d_loss <= 1e-4 * abs(loss_c) and cos >= 0.999
+                and all(n[k] > 0 for k in used)
+                and sum(n.values()) == sum(n[k] for k in used)):
+            raise AssertionError(f"the fp32 Mission Bay step ({mode}) on the "
+                                 "card disagrees with the CPU")
+        del grads_g
+    return "fp32 card vs CPU: " + "; ".join(lines)
 
 
 # ------------------------------------------- serving what users have ----
@@ -4934,6 +5208,8 @@ def main() -> int:
     building["bungee_e"] = 4            # bungee.yaml with --moe_expert_num 4
     rows.update(ragged_kernel_phase(peaks, building))
     wide = wide_kernel_phase(peaks, {**building, "width": 512})
+    wide32 = wide_kernel_phase(peaks, {**building, "width": 512},
+                               torch.float32)
     pts_rows = points_kernel_phase(peaks, building)
     ep_rows = ep_kernel_phase(peaks, building)
     nodrop_padded_phase(building)
@@ -4942,6 +5218,7 @@ def main() -> int:
     log(f"[slice] eval launches per {N_REQUESTS} requests: {eval_counts}")
     counts = {}                   # the train path's (main path's) launches
     train = train_phase(counts)
+    emb = embedding_phase(peaks)
     runner = runner_phase()
     train_runner = train_runner_phase(train["rays_per_s"])
     bungee = bungee_phase(counts)
@@ -5011,6 +5288,36 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the --no_amp Mission Bay path's kernels, fp32 at M = 512: K1 and K2
+    # training and K1R serving; K3 / K4 in its fused mode and K2R in
+    # no-drop training (the card vs CPU steps)
+    for key, row, count_keys in (
+            ("K1", "K1", ("K1 Mission Bay fp32", "K1 Mission Bay fp32 padded")),
+            ("K2", "K2", ("K2 Mission Bay fp32", "K2 Mission Bay fp32 padded")),
+            ("K3", "K3", ("K3 Mission Bay fp32 fused",)),
+            ("K4", "K4", ("K4 Mission Bay fp32 fused",)),
+            ("K1R", "K1R Mission Bay", ("K1R Mission Bay fp32",
+                                        "K1R Mission Bay fp32 no-drop")),
+            ("K2R", "K2R Mission Bay", ("K2R Mission Bay fp32 no-drop",))):
+        kname, source, replaces = meta[key]
+        r = wide32[row]
+        kernels.append({
+            "name": f"{kname} (fp32 M512, Mission Bay --no_amp)",
+            "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(counts[k] for k in count_keys),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # the appearance embedding's fixed-order backward (no TPU kernel: JAX's
+    # one-hot matmul gradient), on the Building train path
+    kernels.append({
+        "name": "embedding_bwd", "route": "cuda",
+        "source": "switch_nerf_torch/csrc/embedding_bwd.cu",
+        "replaces": "switch_nerf_tpu/models/common.py:76",
+        "launches": counts["embedding"], "max_abs_err": emb["max_abs_err"],
+        "ms": emb["ms"], "plain_ms": emb["plain_ms"],
+        "bound_ms": emb["bound_ms"], "bound_by": emb["bound_by"],
+        "library_ms": emb["library_ms"]})
     # the data-parallel path's kernels at Building's shapes (every rank's
     # launches: K1 and K2 training, with the step whose chunks span the
     # ranks, and K1R serving); the times are the kernel phase's at the same
@@ -5231,6 +5538,16 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']:.3e} on {smi}")
+    for key, r in wide32.items():
+        log(f"[kernels M512] {key} (fp32): {r['ms']:.4f} ms "
+            f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['max_abs_err']:.3e} on {smi}")
+    log(f"[embedding] repeats {emb['repeat']}; backward {emb['ms']:.4f} ms "
+        f"against F.embedding's {emb['library_ms']:.4f} ms, plain "
+        f"{emb['plain_ms']:.4f} ms, bound {emb['bound_ms']:.4f} ms "
+        f"({emb['bound_by']}) on {smi}")
     for key, r in wide.items():
         log(f"[kernels M512] {key} (bf16): {r['ms']:.4f} ms "
             f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "

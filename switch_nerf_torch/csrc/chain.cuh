@@ -20,6 +20,12 @@
 // only ~3 decimal digits and misses the fp32 tolerance. The split-precision
 // product of chain_tf32.cuh (3xTF32: hi*hi + hi*lo + lo*hi) keeps error
 // near fp32's; K1R/K2R use it, K1-K4's fp32 stays here.
+//
+// Widths 64-512, one design: a CTA's 32 rows, their skip input and one
+// 32-row W tile take (2 * 32 + 32) * (M + 4) * 4 bytes of shared memory,
+// 198,144 B at M = 512 (Mission Bay's trunk under --no_amp), under the
+// H100's 232,448 B a block; each thread keeps 4 rows x M/32 columns of
+// accumulators, 64 at M = 512.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -200,8 +206,8 @@ int launch_width(const float* src, const int* idx, int n_src, const float* ws,
 
 // fp32 only. Returns a cudaError_t code (0 = launched). src is x [E, C, M],
 // with kGather the token rows [n_src, M] that idx [E * C] names. Widths
-// other than 64/128/256 are refused with cudaErrorInvalidValue; the Python
-// wrappers check first.
+// other than 64/128/256/512 are refused with cudaErrorInvalidValue; the
+// Python wrappers check first.
 template <int SRC>
 int launch_chain(int device, const void* src, const int* idx, int n_src,
                  const void* ws, const void* bs, void* out, int E, int C,
@@ -223,6 +229,9 @@ int launch_chain(int device, const void* src, const int* idx, int n_src,
                                     skip_mask, s);
     case 256:
       return launch_width<256, SRC>(x, idx, n_src, w, b, y, E, C, L,
+                                    skip_mask, s);
+    case 512:
+      return launch_width<512, SRC>(x, idx, n_src, w, b, y, E, C, L,
                                     skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -29,6 +29,12 @@
 // H_l and G_l are the operands the TPU kernel's dot_general contracts. fp32
 // runs on the CUDA cores: a single TF32 product misses the fp32 tolerance
 // (chain_tf32.cuh's 3xTF32 product, which K1R/K2R use, does not).
+//
+// Widths 64-512: pass 1's shared memory is (2 * 32 * (M + 4) + M * 33) * 4
+// bytes, 199,680 B at M = 512; pass 2 has (M / 64)^2 tiles a (layer,
+// expert), 64 at M = 512, each summing its rows in ascending order. The
+// workspaces are in device memory, so the depth is the wrapper's limit
+// (32 layers) at every width.
 #pragma once
 
 #include "chain.cuh"
@@ -271,6 +277,9 @@ int launch_chain_bwd(int device, const void* src, const int* idx, int n_src,
                                         dw, db, E, C, L, skip_mask, s);
     case 256:
       return launch_bwd_width<256, SRC>(x, idx, n_src, w, b, gy, dxf, hs, gs,
+                                        dw, db, E, C, L, skip_mask, s);
+    case 512:
+      return launch_bwd_width<512, SRC>(x, idx, n_src, w, b, gy, dxf, hs, gs,
                                         dw, db, E, C, L, skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;

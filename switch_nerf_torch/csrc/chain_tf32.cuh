@@ -58,6 +58,29 @@
 // elements of dx (the registers hold acc, a stage's accumulator and the A
 // fragments); nothing else is read back from device memory.
 //
+// Width 512 (Mission Bay's trunk under --no_amp). The M = 256 layout does
+// not fit: the 64-row fp32 tile is 132,096 B and the W ring 131,072 B,
+// over the 232,448 B a block has; each consumer's M/2 = 256 columns would
+// need 128 accumulators a thread, 128 more for the stage's fresh sum and
+// 128 for xin, over the 232-register budget. So at M = 512 each layer runs
+// in four passes of 128 columns (TCfg::kPasses): in pass p both consumer
+// warpgroups produce columns 128p .. 128p + 127, 64 each (m64n64k8), over
+// the whole k = 0 .. 511 of h. A stage holds 16 k of 128 columns (16 KB)
+// and the ring four of them (64 KB): ring + tile = 196 KB, + 4 KB of ReLU
+// masks a layer in the backward (223 KB at L = 7; bwd_max_layers 9).
+// h may be rewritten only after every pass has read it whole, so the
+// earlier passes' results wait: in the forward in registers (4 x 32 a
+// thread), with the skip input out of the registers, in the thread's own
+// elements of out (x until the first skip layer), as the backward keeps
+// gxin in dx; in the backward's recompute in hsave's layer l + 1 (written
+// there anyway) and in its sweep in the tile's block of gsave's layer
+// l - 1 (written there only later), each read back by the thread that
+// wrote it. Two passes of 256 columns (32 KB stages, two of them) held
+// 2 x 64 accumulators and spilled ~2 KB a thread in both kernels, and so
+// did the held accumulators of the backward's sweep at 128 columns; the
+// layout above spills nothing. Pass 2 and the reduction are width-generic
+// (128 x 128 dW tiles). PERF.md has the times.
+//
 // Backward pass 2 (chain_dw_tf32): dW_l = H_l^T G_l over rows. One CTA per
 // (128 x 128 dW tile, chunk of kChunkRows rows, layer) (rows.cuh): A = H_l^T
 // from registers (TMA-loaded H tiles, split per thread), B = G_l^T hi / lo
@@ -179,20 +202,26 @@ struct WgmmaTf32<256> {
   }
 };
 // ------------------------------------------------- shared layout ----
+// A pass: the output columns the two consumer warpgroups produce in one
+// sweep over k (every column up to M = 256; a quarter of them at M = 512).
 template <int M>
 struct TCfg {
-  static constexpr int kNW = M / 2;                  // columns per consumer
+  static constexpr int kPassN = M <= 256 ? M : 128;  // columns of a pass
+  static constexpr int kPasses = M / kPassN;         // 4 at M = 512
+  static constexpr int kNW = kPassN / 2;             // a consumer's, a pass
   static constexpr int kAcc = kNW / 2;               // fp32 a thread
   static constexpr int kLd = M + 4;                  // h row stride, floats
   static constexpr int kHBytes = kRows * kLd * 4;
-  static constexpr int kHalfBytes = M * kStageK * 4;  // hi or lo of a stage
+  static constexpr int kHalfBytes = kPassN * kStageK * 4;  // hi or lo
   static constexpr int kStageBytes = 2 * kHalfBytes;
-  static constexpr int kStages = kRingBytes / kStageBytes < kMaxStages
-                                     ? kRingBytes / kStageBytes
+  static constexpr int kRing = kPasses == 1 ? kRingBytes : 65536;
+  static constexpr int kStages = kRing / kStageBytes < kMaxStages
+                                     ? kRing / kStageBytes
                                      : kMaxStages;
   static constexpr int kKChunks = M / kStageK;
-  static constexpr int kMaskLayer = kRows * M / 32;  // bits [row][column]
-  static constexpr int kCols = M / 32;  // a recompute thread's columns
+  static constexpr int kMaskWords = M / 32;          // mask words a row
+  static constexpr int kMaskLayer = kRows * kMaskWords;  // bits [row][col]
+  static constexpr int kCols = kPassN / 32;  // a recompute thread's, a pass
 };
 
 // Offsets inside the (1024-aligned) dynamic shared memory of a chain CTA.
@@ -210,7 +239,8 @@ struct TSmem {
 };
 
 // The most layers the backward's pass 1 takes on this device (its shared
-// memory holds L - 1 layers of ReLU masks: 17 at M = 256 on an H100).
+// memory holds L - 1 layers of ReLU masks: 17 at M = 256, 9 at M = 512 on
+// an H100).
 template <int M>
 inline int max_layers(int device) {
   int limit = 0;
@@ -230,6 +260,8 @@ inline int bwd_max_layers(int device, int M) {
       return max_layers<128>(device);
     case 256:
       return max_layers<256>(device);
+    case 512:
+      return max_layers<512>(device);
     default:
       return 0;
   }
@@ -272,21 +304,23 @@ tf32_split_weights(const float* __restrict__ w, float* __restrict__ wsplit,
 
 // ----------------------------------------------------------- producer ----
 // Stream k chunk kc (16 k) of the split weights of block z (sel * L*E +
-// l * E + e; lo at z + L*E) into the next ring stage: hi then lo, each
-// M rows of 64 bytes. Waits for the stage to be free, which a fresh ring's
-// first kStages stages are.
+// l * E + e; lo at z + L*E), rows n0 .. n0 + kPassN (one pass's output
+// columns), into the next ring stage: hi then lo, each kPassN rows of 64
+// bytes. Waits for the stage to be free, which a fresh ring's first
+// kStages stages are.
 template <int M>
 __device__ __forceinline__ void produce_w(const CUtensorMap* w_map,
                                           uint8_t* ring, uint64_t* full,
                                           uint64_t* empty, int z, int LE,
-                                          int kc, int& stage,
+                                          int kc, int n0, int& stage,
                                           uint32_t& phase) {
   using C = TCfg<M>;
   mbar_wait(&empty[stage], phase ^ 1);
   mbar_expect_tx(&full[stage], C::kStageBytes);
   uint8_t* dst = ring + stage * C::kStageBytes;
-  tma_load(dst, w_map, &full[stage], kc * kStageK, 0, z);
-  tma_load(dst + C::kHalfBytes, w_map, &full[stage], kc * kStageK, 0, z + LE);
+  tma_load(dst, w_map, &full[stage], kc * kStageK, n0, z);
+  tma_load(dst + C::kHalfBytes, w_map, &full[stage], kc * kStageK, n0,
+           z + LE);
   if (++stage == C::kStages) {
     stage = 0;
     phase ^= 1;
@@ -311,13 +345,14 @@ __device__ __forceinline__ void copy_rows_in(float* h, const float* x,
 }
 
 // ----------------------------------------------------------- consumer ----
-// Accumulator element (4j + 2half + i) of consumer thread t of warpgroup cw
-// sits at row 16*warp + lane/4 + 8*half of the tile and column
-// cw * M/2 + 8j + 2*(lane%4) + i.
+// Accumulator element (4j + 2half + i) of consumer thread t sits at row
+// 16*warp + lane/4 + 8*half of the tile and column col0 + 8j +
+// 2*(lane%4) + i, where col0 = p * kPassN + cw * kNW is the first column
+// of warpgroup cw in pass p.
 
-// acc = h @ B for one layer over this warpgroup's M/2 output columns: A is
-// the whole 64-row tile h (fp32, split in registers), B the split weights
-// streamed through the ring. One stage = two k8 steps of three products.
+// acc = h @ B for one layer over this warpgroup's kNW output columns of a
+// pass: A is the whole 64-row tile h (fp32, split in registers), B the
+// split weights of the pass's columns streamed through the ring. One stage = two k8 steps of three products.
 // The tensor cores add each k8 block into the accumulator with truncation
 // (on an H100, chaining all 96 products of a layer into one accumulator
 // left several times the plain fp32 chain's error against float64), so
@@ -380,14 +415,14 @@ template <int M>
 __device__ __forceinline__ void fwd_epilogue(float (&acc)[TCfg<M>::kAcc],
                                              float (&xin)[TCfg<M>::kAcc],
                                              float* h, const float* bias,
-                                             bool skip, bool last, int cw,
+                                             bool skip, bool last, int col0,
                                              int t) {
   using C = TCfg<M>;
   const int lane = t & 31;
   const int r0 = (t >> 5) * 16 + (lane >> 2);
 #pragma unroll
   for (int j = 0; j < C::kNW / 8; ++j) {
-    const int c = cw * C::kNW + 8 * j + 2 * (lane & 3);
+    const int c = col0 + 8 * j + 2 * (lane & 3);
     const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias + c));
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -414,13 +449,13 @@ __device__ __forceinline__ void fwd_epilogue(float (&acc)[TCfg<M>::kAcc],
   }
 }
 
-// Move this thread's elements between v and rows base + row0 .. of a
-// [., M] array: LOAD zero-fills rows at or past `count`, a store skips
-// them (count = kRows: every row of the tile).
+// Move this thread's elements (columns from col0) between v and rows
+// base + row0 .. of a [., M] array: LOAD zero-fills rows at or past
+// `count`, a store skips them (count = kRows: every row of the tile).
 template <int M, bool LOAD>
 __device__ __forceinline__ void move_rows(float (&v)[TCfg<M>::kAcc],
                                           float* mem, long long base,
-                                          int row0, int count, int cw,
+                                          int row0, int count, int col0,
                                           int t) {
   using C = TCfg<M>;
   const int lane = t & 31;
@@ -429,7 +464,7 @@ __device__ __forceinline__ void move_rows(float (&v)[TCfg<M>::kAcc],
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;
     const bool in = row0 + r < count;
-    float* row = mem + (base + row0 + r) * M + cw * C::kNW + 2 * (lane & 3);
+    float* row = mem + (base + row0 + r) * M + col0 + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < C::kNW / 8; ++j) {
       const int i = 4 * j + 2 * half;
@@ -445,10 +480,10 @@ __device__ __forceinline__ void move_rows(float (&v)[TCfg<M>::kAcc],
   }
 }
 
-// This thread's elements of h -> v.
+// This thread's elements of h (columns from col0) -> v.
 template <int M>
 __device__ __forceinline__ void read_tile(float (&v)[TCfg<M>::kAcc],
-                                          const float* h, int cw, int t) {
+                                          const float* h, int col0, int t) {
   using C = TCfg<M>;
   const int lane = t & 31;
   const int r0 = (t >> 5) * 16 + (lane >> 2);
@@ -457,10 +492,36 @@ __device__ __forceinline__ void read_tile(float (&v)[TCfg<M>::kAcc],
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const float2 f = *reinterpret_cast<const float2*>(
-          h + (r0 + 8 * half) * C::kLd + cw * C::kNW + 8 * j + 2 * (lane & 3));
+          h + (r0 + 8 * half) * C::kLd + col0 + 8 * j + 2 * (lane & 3));
       v[4 * j + 2 * half] = f.x;
       v[4 * j + 2 * half + 1] = f.y;
     }
+}
+
+// Move this thread's elements (columns from col0) between v and the tile's
+// block of a [M, ws_rows] workspace layer (element (r, c) at c * ws_rows +
+// ws_row0 + r): where the sweep's earlier passes wait at M = 512.
+template <int M, bool LOAD>
+__device__ __forceinline__ void move_held(float (&v)[TCfg<M>::kAcc],
+                                          float* layer, long long ws_rows,
+                                          long long ws_row0, int col0,
+                                          int t) {
+  using C = TCfg<M>;
+  const int lane = t & 31;
+  const long long r0 = ws_row0 + (t >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < C::kNW / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float* at = layer + (long long)(col0 + 8 * j + 2 * (lane & 3) + q) *
+                                ws_rows + r0 + 8 * half;
+        if (LOAD)
+          v[4 * j + 2 * half + q] = *at;
+        else
+          *at = v[4 * j + 2 * half + q];
+      }
 }
 
 // The tile's G_l (in h) -> gsave's hi and lo layers [M, ws_rows], columns
@@ -522,14 +583,16 @@ chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
   __syncthreads();
 
   if (threadIdx.x < kWg) {  // producer
+    constexpr int K = C::kKChunks;
     const int t = threadIdx.x;
     int stage = 0;
     uint32_t phase = 0;
-    auto load_w = [&](int j) {  // W stage j: layer j / kKChunks
-      produce_w<M>(&w_map, ring, full, empty, (j / C::kKChunks) * E + e, LE,
-                   j % C::kKChunks, stage, phase);
+    auto load_w = [&](int j) {  // W stage j: layer, pass, k chunk
+      produce_w<M>(&w_map, ring, full, empty, (j / (C::kPasses * K)) * E + e,
+                   LE, j % K, (j / K) % C::kPasses * C::kPassN, stage,
+                   phase);
     };
-    const int n_w = L * C::kKChunks;
+    const int n_w = L * C::kPasses * K;
     copy_rows_in<M>(h, x, er, row0, t);
     int j = 0;
     if (t == 0)  // a fresh ring: these do not block
@@ -543,21 +606,45 @@ chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
     regs_inc<kConsumerRegs>();
     const int cw = threadIdx.x / kWg - 1;
     const int t = threadIdx.x % kWg;
-    float acc[C::kAcc], xin[C::kAcc];
+    // one pass: the skip input in registers; two: in this thread's own
+    // elements of out (x itself until the first skip layer)
+    float acc[C::kPasses][C::kAcc], xin[C::kPasses == 1 ? C::kAcc : 1];
+    bool xin_in_out = false;
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(x_full, 0);
-    read_tile<M>(xin, h, cw, t);
+    if constexpr (C::kPasses == 1) read_tile<M>(xin, h, cw * C::kNW, t);
     for (int l = 0; l < L; ++l) {
       const bool last = l == L - 1;
-      tf32_product<M>(acc, h, smem_u32(ring), full, empty, stage, phase, cw,
-                      t);
+      const bool skip = (skip_mask >> l) & 1u;
+#pragma unroll
+      for (int p = 0; p < C::kPasses; ++p)
+        tf32_product<M>(acc[p], h, smem_u32(ring), full, empty, stage,
+                        phase, cw, t);
       named_sync(1, 2 * kWg);  // every read of h is done
-      fwd_epilogue<M>(acc, xin, h, bs + ((size_t)l * E + e) * M,
-                      (skip_mask >> l) & 1u, last, cw, t);
+      const float* bias = bs + ((size_t)l * E + e) * M;
+#pragma unroll
+      for (int p = 0; p < C::kPasses; ++p) {
+        const int col0 = p * C::kPassN + cw * C::kNW;
+        if constexpr (C::kPasses == 1) {
+          fwd_epilogue<M>(acc[p], xin, h, bias, skip, last, col0, t);
+        } else {
+          float xp[C::kAcc];
+          if (skip)
+            move_rows<M, true>(xp, xin_in_out ? out : const_cast<float*>(x),
+                               er.base, row0, er.count, col0, t);
+          fwd_epilogue<M>(acc[p], xp, h, bias, skip, last, col0, t);
+          if (skip && !last)
+            move_rows<M, false>(xp, out, er.base, row0, er.count, col0, t);
+        }
+      }
+      if (skip) xin_in_out = true;
       if (!last) named_sync(1, 2 * kWg);  // h holds layer l + 1's input
     }
-    move_rows<M, false>(acc, out, er.base, row0, er.count, cw, t);
+#pragma unroll
+    for (int p = 0; p < C::kPasses; ++p)
+      move_rows<M, false>(acc[p], out, er.base, row0, er.count,
+                          p * C::kPassN + cw * C::kNW, t);
   }
 }
 
@@ -576,24 +663,25 @@ chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
 // rows it may take another order, and a mask can differ there.)
 //
 // Consumer thread ct (0..255) of the recompute owns rows 8 * (ct / 32) ..
-// + 7 and columns ct % 32 + 32 j of the tile. W_l streams through the
-// ring as it is stored (16 k rows a stage, 32-column boxes of 128-byte
-// rows, no swizzle).
+// + 7 and, in pass p, columns p * kPassN + ct % 32 + 32 j of the tile. W_l
+// streams through the ring as it is stored (16 k rows of one pass's
+// columns a stage, 32-column boxes of 128-byte rows, no swizzle).
 
-// The exact W_l rows of k chunk kc of block z into the next ring stage.
+// The exact W_l rows of k chunk kc of block z, columns n0 .. n0 + kPassN,
+// into the next ring stage.
 template <int M>
 __device__ __forceinline__ void produce_w_exact(const CUtensorMap* w32_map,
                                                 uint8_t* ring, uint64_t* full,
                                                 uint64_t* empty, int z,
-                                                int kc, int& stage,
+                                                int kc, int n0, int& stage,
                                                 uint32_t& phase) {
   using C = TCfg<M>;
   mbar_wait(&empty[stage], phase ^ 1);
   mbar_expect_tx(&full[stage], C::kHalfBytes);
   uint8_t* dst = ring + stage * C::kStageBytes;
 #pragma unroll
-  for (int p = 0; p < M / 32; ++p)
-    tma_load(dst + p * kStageK * 128, w32_map, &full[stage], 32 * p,
+  for (int p = 0; p < C::kCols; ++p)
+    tma_load(dst + p * kStageK * 128, w32_map, &full[stage], n0 + 32 * p,
              kc * kStageK, z);
   if (++stage == C::kStages) {
     stage = 0;
@@ -648,35 +736,110 @@ __device__ __forceinline__ void f32_product(
   }
 }
 
-// The recompute's epilogue of layer l (never the last): z = acc + b_l,
-// at a skip layer z += xin, then ReLU; z -> h, -> hsave's layer l + 1
-// (rows ws_row0 ..) and the mask bits (z > 0) of each (row, 32 columns)
-// by a warp ballot -> mask [64][M / 32]. xin is the hsave layer this
-// thread wrote its skip input to (H_0, or the output of the last skip
-// layer): read back by the thread that wrote it, so the registers hold
-// only acc.
+// The recompute's epilogue of layer l (never the last) for the columns
+// of one pass (from col0): z = acc + b_l, at a skip layer z += xin, then
+// ReLU; z -> h (unless h is null), -> hsave's layer l + 1 (rows
+// ws_row0 ..) and the mask bits
+// (z > 0) of each (row, 32 columns) by a warp ballot -> mask [64][M / 32].
+// xin is the hsave layer this thread wrote its skip input to (H_0, or the
+// output of the last skip layer): read back by the thread that wrote it,
+// so the registers hold only acc.
 template <int M>
 __device__ __forceinline__ void f32_epilogue(
     float (&acc)[8][TCfg<M>::kCols], float* h, const float* bias,
-    const float* xin, float* hsave_l, uint32_t* mask, int ct) {
+    const float* xin, float* hsave_l, uint32_t* mask, int col0, int ct) {
   using C = TCfg<M>;
   constexpr int J = TCfg<M>::kCols;
   const int lane = ct & 31, r0 = (ct >> 5) * 8;
 #pragma unroll
   for (int j = 0; j < J; ++j) {
-    const int c = lane + 32 * j;
+    const int c = col0 + lane + 32 * j;
     const float b = __ldg(bias + c);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       float z = acc[i][j] + b;
       if (xin != nullptr) z += xin[(long long)(r0 + i) * M + c];
       z = fmaxf(z, 0.0f);
-      h[(r0 + i) * C::kLd + c] = z;
+      if (h != nullptr) h[(r0 + i) * C::kLd + c] = z;
       hsave_l[(long long)(r0 + i) * M + c] = z;
       const uint32_t bits = __ballot_sync(0xffffffffu, z > 0.0f);
-      if (lane == 0) mask[(r0 + i) * J + j] = bits;
+      if (lane == 0) mask[(r0 + i) * C::kMaskWords + col0 / 32 + j] = bits;
     }
   }
+}
+
+// The sweep's step of layer l on this thread's elements of one pass
+// (columns from col0), in the plain backward's order: g (+ gxin at a skip
+// layer), times the ReLU mask of H_{l+1} unless last; gxin = g at a skip
+// layer (in dx; zero until the first skip layer); G_l -> h.
+template <int M>
+__device__ __forceinline__ void sweep_stage(
+    const float (&v)[TCfg<M>::kAcc], float* h, const uint32_t* mask,
+    float* dx, long long base, int row0, int count, int col0, bool last,
+    bool skip, bool gxin_in_dx, int t) {
+  using C = TCfg<M>;
+  const int lane = t & 31;
+  const int r0 = (t >> 5) * 16 + (lane >> 2);
+  float gxin[C::kAcc];
+  if (skip) {
+    if (gxin_in_dx) {
+      move_rows<M, true>(gxin, dx, base, row0, count, col0, t);
+    } else {
+#pragma unroll
+      for (int i = 0; i < C::kAcc; ++i) gxin[i] = 0.0f;
+    }
+  }
+  // this thread's mask words: rows r0 and r0 + 8, its kNW columns
+  uint32_t mw[2][C::kNW / 32];
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int w = 0; w < C::kNW / 32; ++w)
+      mw[half][w] =
+          last ? ~0u : mask[(r0 + 8 * half) * C::kMaskWords + col0 / 32 + w];
+#pragma unroll
+  for (int j2 = 0; j2 < C::kNW / 8; ++j2) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = 4 * j2 + 2 * half;
+      const int r = r0 + 8 * half;
+      const int c = col0 + 8 * j2 + 2 * (lane & 3);
+      float g0 = v[i], g1 = v[i + 1];
+      if (skip) {
+        g0 += gxin[i];
+        g1 += gxin[i + 1];
+      }
+      // g * (H_{l+1} > 0): columns c, c + 1 are bits 8 (j2 % 4) + 2 q
+      // (+ 1) of word j2 / 4
+      const uint32_t bits =
+          mw[half][j2 / 4] >> (8 * (j2 & 3) + 2 * (lane & 3));
+      if (!(bits & 1u)) g0 = 0.0f;
+      if (!(bits & 2u)) g1 = 0.0f;
+      if (skip) {
+        gxin[i] = g0;
+        gxin[i + 1] = g1;
+      }
+      *reinterpret_cast<float2*>(h + r * C::kLd + c) = make_float2(g0, g1);
+    }
+  }
+  if (skip) move_rows<M, false>(gxin, dx, base, row0, count, col0, t);
+}
+
+// dx = gh + gxin (gxin in dx once a skip layer has passed) for this
+// thread's elements of one pass.
+template <int M>
+__device__ __forceinline__ void finish_dx(float (&acc)[TCfg<M>::kAcc],
+                                          float* dx, long long base,
+                                          int row0, int count, int col0,
+                                          bool gxin_in_dx, int t) {
+  using C = TCfg<M>;
+  if (gxin_in_dx) {
+    float gxin[C::kAcc];
+    move_rows<M, true>(gxin, dx, base, row0, count, col0, t);
+#pragma unroll
+    for (int i = 0; i < C::kAcc; ++i) acc[i] += gxin[i];
+  }
+  move_rows<M, false>(acc, dx, base, row0, count, col0, t);
 }
 
 // w_map: the split W_l (hi, lo) [2, L*E, M, M] for the sweep; w32_map: W
@@ -720,23 +883,26 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
 
   if (threadIdx.x < kWg) {  // producer
     // W_0 .. W_{L-2} as stored for the recompute, then the split
-    // W_{L-1} .. W_0 for the sweep
+    // W_{L-1} .. W_0 for the sweep; each layer pass by pass
     constexpr int K = C::kKChunks;
-    const int n_fwd = (L - 1) * K;
+    constexpr int PK = C::kPasses * K;  // stages a layer
+    const int n_fwd = (L - 1) * PK;
     const int t = threadIdx.x;
     int stage = 0;
     uint32_t phase = 0;
     auto load_w = [&](int j) {
       if (j < n_fwd) {
-        produce_w_exact<M>(&w32_map, ring, full, empty, (j / K) * E + e,
-                           j % K, stage, phase);
+        produce_w_exact<M>(&w32_map, ring, full, empty, (j / PK) * E + e,
+                           j % K, (j / K) % C::kPasses * C::kPassN, stage,
+                           phase);
       } else {
         const int r = j - n_fwd;
-        produce_w<M>(&w_map, ring, full, empty, (L - 1 - r / K) * E + e, LE,
-                     r % K, stage, phase);
+        produce_w<M>(&w_map, ring, full, empty, (L - 1 - r / PK) * E + e,
+                     LE, r % K, (r / K) % C::kPasses * C::kPassN, stage,
+                     phase);
       }
     };
-    const int n_w = n_fwd + L * K;
+    const int n_w = n_fwd + L * PK;
     copy_rows_in<M>(h, x, er, row0, t);
     int j = 0;
     if (t == 0)
@@ -763,7 +929,7 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
       const int lane = ct & 31, r0 = (ct >> 5) * 8;
       float acc[8][J];
 #pragma unroll
-      for (int j2 = 0; j2 < J; ++j2)
+      for (int j2 = 0; j2 < C::kMaskWords; ++j2)
 #pragma unroll
         for (int i = 0; i < 8; ++i)  // H_0
           hsave[(ws_row0 + r0 + i) * M + lane + 32 * j2] =
@@ -771,93 +937,97 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
       int xin_layer = 0;  // the hsave layer holding the skip input
       for (int l = 0; l < L - 1; ++l) {
         const bool skip = (skip_mask >> l) & 1u;
-        f32_product<M>(acc, h, ring, full, empty, stage, phase, ct);
-        named_sync(1, 2 * kWg);  // every read of h is done
-        f32_epilogue<M>(acc, h, bs + ((size_t)l * E + e) * M,
-                        skip ? hsave + (xin_layer * ws_rows + ws_row0) * M
-                             : nullptr,
-                        hsave + ((l + 1) * ws_rows + ws_row0) * M,
-                        masks + l * C::kMaskLayer, ct);
+        float* next = hsave + ((l + 1) * ws_rows + ws_row0) * M;
+        // each pass's results go to hsave (and the masks) at once; h, which
+        // every pass reads whole, takes them after the last pass, the
+        // earlier passes' read back by the thread that wrote them
+#pragma unroll
+        for (int p = 0; p < C::kPasses; ++p) {
+          const bool final_pass = p == C::kPasses - 1;
+          f32_product<M>(acc, h, ring, full, empty, stage, phase, ct);
+          if (final_pass) named_sync(1, 2 * kWg);  // every read of h done
+          f32_epilogue<M>(acc, final_pass ? h : nullptr,
+                          bs + ((size_t)l * E + e) * M,
+                          skip ? hsave + (xin_layer * ws_rows + ws_row0) * M
+                               : nullptr,
+                          next, masks + l * C::kMaskLayer, p * C::kPassN, ct);
+        }
+        for (int p = 0; p < C::kPasses - 1; ++p)
+#pragma unroll
+          for (int j2 = 0; j2 < J; ++j2)
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int c = p * C::kPassN + lane + 32 * j2;
+              h[(r0 + i) * C::kLd + c] = next[(long long)(r0 + i) * M + c];
+            }
         if (skip) xin_layer = l + 1;
         named_sync(1, 2 * kWg);
       }
     }
 
-    // reverse sweep: g (zero past the expert's rows) in acc. gxin, zero
-    // until the first skip layer, is kept in this thread's elements of dx
-    // (written and read back by the same thread) rather than in registers:
-    // acc, a stage's fresh accumulator and the A fragments fill them.
+    // reverse sweep, a pass's columns at a time. The gradient coming into
+    // layer l is g at the last layer (zero past the expert's rows), else
+    // layer l + 1's products, in registers (acc). With more than one pass
+    // (M = 512) acc holds only the last pass's: the earlier passes' wait in
+    // the tile's block of gsave's hi layer l (which this sweep writes only
+    // later, at layer l), read back by the thread that wrote them. gxin,
+    // zero until the first skip layer, is kept in this thread's elements
+    // of dx (written and read back by the same thread) rather than in
+    // registers: acc, a stage's fresh accumulator and the A fragments fill
+    // them.
     float acc[C::kAcc];
-    move_rows<M, true>(acc, const_cast<float*>(g), base, row0, er.count,
-                       cw, t);
+    if constexpr (C::kPasses == 1)
+      move_rows<M, true>(acc, const_cast<float*>(g), base, row0, er.count,
+                         cw * C::kNW, t);
     bool gxin_in_dx = false;
-    const int lane = t & 31;
-    const int r0 = (t >> 5) * 16 + (lane >> 2);
     for (int l = L - 1; l >= 0; --l) {
       const bool last = l == L - 1;
       const bool skip = (skip_mask >> l) & 1u;
       const uint32_t* mask = masks + l * C::kMaskLayer;
-      float gxin[C::kAcc];
-      if (skip) {
-        if (gxin_in_dx) {
-          move_rows<M, true>(gxin, dx, base, row0, er.count, cw, t);
+#pragma unroll 1
+      for (int p = 0; p < C::kPasses; ++p) {
+        const int col0 = p * C::kPassN + cw * C::kNW;
+        if constexpr (C::kPasses == 1) {
+          sweep_stage<M>(acc, h, mask, dx, base, row0, er.count, col0, last,
+                         skip, gxin_in_dx, t);
         } else {
+          float v[C::kAcc];
+          if (last) {
+            move_rows<M, true>(v, const_cast<float*>(g), base, row0,
+                               er.count, col0, t);
+          } else if (p < C::kPasses - 1) {
+            move_held<M, true>(v, gsave + (long long)l * M * ws_rows,
+                               ws_rows, ws_row0, col0, t);
+          } else {
 #pragma unroll
-          for (int i = 0; i < C::kAcc; ++i) gxin[i] = 0.0f;
+            for (int i = 0; i < C::kAcc; ++i) v[i] = acc[i];
+          }
+          sweep_stage<M>(v, h, mask, dx, base, row0, er.count, col0, last,
+                         skip, gxin_in_dx, t);
         }
       }
-      // this thread's mask words: rows r0 and r0 + 8, its M/2 columns
-      uint32_t mw[2][C::kNW / 32];
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int w = 0; w < C::kNW / 32; ++w)
-          mw[half][w] =
-              last ? ~0u : mask[(r0 + 8 * half) * J + cw * C::kNW / 32 + w];
-#pragma unroll
-      for (int j2 = 0; j2 < C::kNW / 8; ++j2) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int i = 4 * j2 + 2 * half;
-          const int r = r0 + 8 * half;
-          const int c = cw * C::kNW + 8 * j2 + 2 * (lane & 3);
-          float g0 = acc[i], g1 = acc[i + 1];
-          if (skip) {
-            g0 += gxin[i];
-            g1 += gxin[i + 1];
-          }
-          // g * (H_{l+1} > 0): columns c, c + 1 are bits 8 (j2 % 4) + 2 q
-          // (+ 1) of word j2 / 4
-          const uint32_t bits =
-              mw[half][j2 / 4] >> (8 * (j2 & 3) + 2 * (lane & 3));
-          if (!(bits & 1u)) g0 = 0.0f;
-          if (!(bits & 2u)) g1 = 0.0f;
-          if (skip) {
-            gxin[i] = g0;
-            gxin[i + 1] = g1;
-          }
-          *reinterpret_cast<float2*>(h + r * C::kLd + c) = make_float2(g0, g1);
-        }
-      }
-      if (skip) {
-        move_rows<M, false>(gxin, dx, base, row0, er.count, cw, t);
-        gxin_in_dx = true;
-      }
+      if (skip) gxin_in_dx = true;
       named_sync(1, 2 * kWg);  // h holds G_l
       store_g_transposed<M>(h, gsave + (long long)l * M * ws_rows,
                             gsave + (long long)(L + l) * M * ws_rows, ws_rows,
                             ws_row0, cw, t);
-      tf32_product<M>(acc, h, smem_u32(ring), full, empty, stage, phase, cw,
-                      t);
+#pragma unroll 1
+      for (int p = 0; p < C::kPasses; ++p) {
+        tf32_product<M>(acc, h, smem_u32(ring), full, empty, stage, phase,
+                        cw, t);
+        if constexpr (C::kPasses > 1) {
+          const int col0 = p * C::kPassN + cw * C::kNW;
+          if (l == 0)
+            finish_dx<M>(acc, dx, base, row0, er.count, col0, gxin_in_dx, t);
+          else if (p < C::kPasses - 1)
+            move_held<M, false>(acc, gsave + (long long)(l - 1) * M * ws_rows,
+                                ws_rows, ws_row0, col0, t);
+        }
+      }
       named_sync(1, 2 * kWg);  // every read of h is done
     }
-    if (gxin_in_dx) {  // dx = gh + gxin
-      float gxin[C::kAcc];
-      move_rows<M, true>(gxin, dx, base, row0, er.count, cw, t);
-#pragma unroll
-      for (int i = 0; i < C::kAcc; ++i) acc[i] += gxin[i];
-    }
-    move_rows<M, false>(acc, dx, base, row0, er.count, cw, t);
+    if constexpr (C::kPasses == 1)
+      finish_dx<M>(acc, dx, base, row0, er.count, cw * C::kNW, gxin_in_dx, t);
   }
 }
 
@@ -1030,14 +1200,16 @@ chain_dw_tf32(const __grid_constant__ CUtensorMap h_map,
 
 // ------------------------------------------------------------- host ----
 // The split weights (tf32_split_weights) and a tensor map over them:
-// [2 * L*E, M, M] fp32, boxes of 16 k x M rows with the 64-byte swizzle.
-inline int split_weights(CUtensorMap* w_map, const float* ws, float* wsplit,
-                         int M, int LE, bool as_stored, cudaStream_t stream) {
+// [2 * L*E, M, M] fp32, boxes of 16 k x one pass's kPassN rows with the
+// 64-byte swizzle.
+template <int M>
+int split_weights(CUtensorMap* w_map, const float* ws, float* wsplit, int LE,
+                  bool as_stored, cudaStream_t stream) {
   tf32_split_weights<<<dim3(M / 32, M / 32, LE), dim3(32, 8), 0, stream>>>(
       ws, wsplit, LE, M, as_stored ? 1 : 0);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return make_map(w_map, wsplit, M, M, 2LL * LE, kStageK, M,
+  return make_map(w_map, wsplit, M, M, 2LL * LE, kStageK, TCfg<M>::kPassN,
                   CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
@@ -1046,7 +1218,7 @@ int launch_fwd_width(const float* x, const int* counts, const float* ws,
                      const float* bs, float* wsplit, float* out, int E, int N,
                      int L, unsigned skip_mask, cudaStream_t stream) {
   CUtensorMap w_map;
-  int rc = split_weights(&w_map, ws, wsplit, M, L * E, false, stream);
+  int rc = split_weights<M>(&w_map, ws, wsplit, L * E, false, stream);
   if (rc != 0) return rc;
   const int smem = TSmem<M>(L, false).bytes;
   auto kern = chain_fwd_tf32<M>;
@@ -1066,7 +1238,7 @@ int launch_bwd_width(const float* x, const int* counts, const float* ws,
                      unsigned skip_mask, cudaStream_t stream) {
   const long long ws_rows = ragged_ws_rows(N, E);
   CUtensorMap w_map, w32_map, h_map, g_map;
-  int rc = split_weights(&w_map, ws, wsplit, M, L * E, true, stream);
+  int rc = split_weights<M>(&w_map, ws, wsplit, L * E, true, stream);
   if (rc != 0) return rc;
   if ((rc = make_map(&w32_map, ws, M, M, (long long)L * E, 32, kStageK,
                      CU_TENSOR_MAP_SWIZZLE_NONE,
@@ -1108,8 +1280,9 @@ int launch_bwd_width(const float* x, const int* counts, const float* ws,
 
 // Returns a cudaError_t code (0 = launched). x, out [N, M] fp32 sorted by
 // expert, counts [E] int32 on the device, ws [L, E, M, M], bs [L, E, 1, M];
-// wsplit a workspace of 2 * L*E*M*M floats. Widths other than 64/128/256
-// are refused with cudaErrorInvalidValue; the Python wrappers check first.
+// wsplit a workspace of 2 * L*E*M*M floats. Widths other than
+// 64/128/256/512 are refused with cudaErrorInvalidValue; the Python
+// wrappers check first.
 inline int launch_chain_fwd(int device, const void* x, const int* counts,
                             const void* ws, const void* bs, void* wsplit,
                             void* out, int E, int N, int M, int L,
@@ -1132,6 +1305,9 @@ inline int launch_chain_fwd(int device, const void* x, const int* counts,
                                    skip_mask, s);
     case 256:
       return launch_fwd_width<256>(xf, counts, w, b, wsp, y, E, N, L,
+                                   skip_mask, s);
+    case 512:
+      return launch_fwd_width<512>(xf, counts, w, b, wsp, y, E, N, L,
                                    skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -1170,6 +1346,9 @@ inline int launch_chain_bwd(int device, const void* x, const int* counts,
                                    db, dwp, dbp, E, N, L, skip_mask, s);
     case 256:
       return launch_bwd_width<256>(xf, counts, w, b, gy, dxf, hs, gs, wsp, dw,
+                                   db, dwp, dbp, E, N, L, skip_mask, s);
+    case 512:
+      return launch_bwd_width<512>(xf, counts, w, b, gy, dxf, hs, gs, wsp, dw,
                                    db, dwp, dbp, E, N, L, skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from switch_nerf_torch.ops.embedding import embedding
+
 __all__ = ["uniform_fan_in", "TorchLinear", "Embedding", "LayerNorm",
            "GroupNorm", "Dropout", "apply_act"]
 
@@ -52,11 +54,14 @@ class TorchLinear(nn.Module):
 
 class Embedding(nn.Module):
     """Appearance table (``OneHotEmbed``): a row gather gives the same
-    values as the JAX package's one-hot matmul. ``F.embedding``, not
-    ``weight[idx]``: a chunk's 32768 indices hit a handful of rows, and the
-    backward of an index op (an index_put accumulate) took 2.7 ms per chunk
-    on the H100, 46 % of a Building train step's device time (PERF.md §6),
-    where the embedding backward's segment sums take a fraction of that."""
+    values as the JAX package's one-hot matmul. Its backward
+    (``ops/embedding.py``) sorts the indices stably and sums each table
+    row's gradient rows in ascending order, the same bits on every run (on
+    the card a hand-written kernel), so a resumed run repeats an
+    uninterrupted one as JAX's does. Not ``weight[idx]``: a chunk's 32768
+    indices hit a handful of rows, and the backward of an index op (an
+    index_put accumulate) took 2.7 ms per chunk on the H100, 46 % of a
+    Building train step's device time (PERF.md §6)."""
 
     def __init__(self, num_embeddings: int, features: int,
                  generator: Optional[torch.Generator] = None):
@@ -65,7 +70,7 @@ class Embedding(nn.Module):
             torch.empty(num_embeddings, features).normal_(generator=generator))
 
     def forward(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.embedding(idx, self.weight)
+        return embedding(idx, self.weight)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -21,7 +21,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("expert_chain", "fused_dispatch", "expert_chain_bwd",
-           "fused_dispatch_bwd", "ragged_chain", "ragged_chain_bwd")
+           "fused_dispatch_bwd", "ragged_chain", "ragged_chain_bwd",
+           "embedding_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

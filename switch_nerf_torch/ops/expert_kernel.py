@@ -30,10 +30,12 @@ deterministic, no atomics. The bf16 pass 1 holds L - 1 layers of masks in
 shared memory, so on an H100 it takes up to 8 layers at M = 256 and 7 at
 M = 512 (``bwd_max_layers``); more raise.
 
-Widths: bf16 takes M = 64, 128, 256 and 512 (Mission Bay's trunk; there
-a CTA owns 64 rows and each consumer warpgroup half the columns, since
-wgmma's widest product is 256 columns); the fp32 kernels stop at 256, and
-M = 512 in fp32 raises (ROADMAP Queue B, "M = 512 still to do").
+Widths: M = 64, 128, 256 and 512 (Mission Bay's trunk) in both dtypes.
+In bf16 a CTA owns 64 rows at M = 512 and each consumer warpgroup half
+the columns, since wgmma's widest product is 256 columns. The fp32 CUDA-core
+kernels keep one design at every width (a 32-row tile, its skip input and a
+W tile in 198,144 B of shared memory at M = 512, ``csrc/chain.cuh``), and
+their backward takes up to 32 layers at each.
 
 ``expert_mlp_chain`` is differentiable through ``ExpertChainFn`` (forward
 K1, backward K2). A CPU tensor takes the plain PyTorch versions; a CUDA
@@ -52,8 +54,7 @@ __all__ = ["expert_mlp_chain", "expert_mlp_chain_plain",
            "expert_mlp_chain_bwd", "expert_mlp_chain_bwd_plain",
            "ExpertChainFn", "KERNEL_WIDTHS"]
 
-KERNEL_WIDTHS = (64, 128, 256, 512)   # model widths of the bf16 kernels
-FP32_WIDTHS = (64, 128, 256)           # and of the fp32 ones
+KERNEL_WIDTHS = (64, 128, 256, 512)   # model widths of the kernels
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel launches since the caller last set them to 0 (read by chip_smoke.py)
@@ -145,10 +146,6 @@ def check_chain_weights(ws: torch.Tensor, bs: torch.Tensor, dtype,
                          f"{tuple(bs.shape)} are not [L,E,M,M] / [L,E,1,M]")
     if m not in KERNEL_WIDTHS:
         raise ValueError(f"kernel widths are {KERNEL_WIDTHS}, got M={m}")
-    if dtype == torch.float32 and m not in FP32_WIDTHS:
-        raise ValueError(f"the float32 kernels take widths {FP32_WIDTHS}, got "
-                         f"M={m}: M = 512 in float32 waits for ROADMAP Queue "
-                         "B (M = 512 still to do)")
     if not 1 <= layers <= 32:
         raise ValueError(f"kernel takes 1..32 layers, got {layers}")
     for name, t in (("ws", ws), ("bs", bs)):

@@ -15,7 +15,9 @@ counts and exits when its block starts past them; the grid is sized from
 N, so the forward has no host sync and no shape that depends on the data.
 Rows come in by a cp.async copy and leave by stores that stop at the
 expert's last row. bf16 runs K1's wgmma + TMA design; fp32 (Bungee's
-training path) runs on the tensor cores in split precision, 3xTF32
+training path, Mission Bay's --no_amp serving at M = 512, where each layer
+runs in four passes of 128 output columns) runs on the tensor cores in
+split precision, 3xTF32
 (``csrc/chain_tf32.cuh``: each operand split into tf32 hi + lo, three
 products hi*hi + hi*lo + lo*hi per step, error near fp32's; one TF32
 product would miss the fp32 limit), after a step that writes the split

@@ -1,7 +1,7 @@
 """The port's Hopper kernels against their plain PyTorch versions, on the card,
-forward (K1, K3, K1R) and backward (K2, K4, K2R), the gradients of a
-training forward on the card, and the no-drop MoE layer (K1R/K2R) against
-the padded one (K1/K2) at a capacity that drops nothing. The edge cases (C across the tile edge, one expert,
+forward (K1, K3, K1R) and backward (K2, K4, K2R, the embedding's), the
+gradients of a training forward on the card, and the no-drop MoE layer
+(K1R/K2R) against the padded one (K1/K2) at a capacity that drops nothing. The edge cases (C across the tile edge, one expert,
 views at an offset, the layer limit, determinism) run for K1/K2 ("chain")
 and for K3/K4 ("fused", over a slot map with empty slots), which share one
 mainloop and differ in how the input tile arrives.
@@ -464,9 +464,13 @@ def test_ragged_fp32_kernels_error_against_float64(cuda):
     kernels' largest error against a float64 run of the plain chain is at
     most 4x the plain fp32 chain's own: split precision keeps fp32's
     accuracy (one TF32 product would not)."""
-    counts, skips = [0, 301, 2900, 895], (3,)
-    x, cnt, ws, bs, gy = _ragged_case(counts, 256, 7, torch.float32, cuda,
-                                      seed=41)
+    _ragged_error_against_float64([0, 301, 2900, 895], 256, cuda, seed=41)
+
+
+def _ragged_error_against_float64(counts, m, cuda, seed):
+    skips = (3,)
+    x, cnt, ws, bs, gy = _ragged_case(counts, m, 7, torch.float32, cuda,
+                                      seed=seed)
     wide = [t.double().requires_grad_() for t in (x, ws, bs)]
     ref = ragged_chain.ragged_chain_plain(wide[0], cnt, wide[1], wide[2],
                                           skips)
@@ -598,16 +602,66 @@ def test_wide_ragged_chain_kernels_match_plain(cuda, counts):
 
 
 def test_wide_float32_kernels_refuse(cuda):
-    """fp32 at M = 512 is not built: every wrapper raises, naming the
-    ROADMAP queue."""
-    x, ws, bs, gy = _chain_case(2, 40, 512, 2, torch.float32, cuda, seed=3)
-    for call in (lambda: expert_kernel.expert_mlp_chain(x, ws, bs),
-                 lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy),
-                 lambda: ragged_chain.ragged_chain_fwd(
-                     x[0], torch.tensor([30, 10], dtype=torch.int32,
-                                        device=cuda), ws, bs)):
-        with pytest.raises(ValueError, match="Queue B"):
-            call()
+    """fp32 at M = 512 (Mission Bay under --no_amp), once refused by every
+    wrapper: K1/K2 and K3/K4 (CUDA cores) and K1R/K2R (3xTF32, four column
+    passes a layer) now take it and match their plain versions at
+    Mission Bay's depth (7 layers, skip 3); K2, K4 and K2R repeat bit for
+    bit; the backward limits are 32 layers (K2, K4) and 9 (K2R)."""
+    f32 = torch.float32
+    for c in (1, 33, 200):
+        _check_case("chain", 2, c, 512, 7, f32, cuda, seed=c, skips=(3,))
+        _check_case("fused", 2, c, 512, 7, f32, cuda, seed=c + 1,
+                    skips=(3,))
+    _check_ragged([0, 200, 37, 1500, 129], 512, 7, (3,), f32, cuda, seed=5)
+    _check_ragged([64, 0, 63, 65, _CHUNK_ROWS + 1], 512, 7, (3,), f32, cuda,
+                  seed=6)
+    assert expert_kernel.bwd_max_layers(cuda, 512, f32) == 32
+    x, ws, bs, gy = _chain_case(3, 300, 512, 7, f32, cuda, seed=7)
+    tokens_ext, stt = _fused_case(x, 9)
+    xr, cnt, wr, br, gr = _ragged_case([700, 0, 3000, 397], 512, 7, f32,
+                                       cuda, seed=8)
+    for call in (
+            lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,)),
+            lambda: fused_dispatch.fused_dispatch_chain_bwd(
+                tokens_ext, stt, ws, bs, gy, (3,)),
+            lambda: ragged_chain.ragged_chain_bwd(xr, cnt, wr, br, gr,
+                                                  (3,))):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+    w10, b10 = _chain_weights(4, 512, 10, f32, cuda, seed=0)
+    ragged_chain.ragged_chain_bwd(xr, cnt, w10[:9], b10[:9], gr, (3,))
+    with pytest.raises(ValueError, match="up to 9 layers"):
+        ragged_chain.ragged_chain_bwd(xr, cnt, w10, b10, gr, (3,))
+
+
+def test_wide_ragged_fp32_kernels_error_against_float64(cuda):
+    """At Mission Bay's fp32 layer (M512 L7 skip 3, E8, skewed counts) the
+    four-pass 3xTF32 kernels' largest error against a float64 run is at most
+    4x the plain fp32 chain's, as at M = 256."""
+    _ragged_error_against_float64(
+        [0, 301, 2900, 895, 0, 1, 4000, 97], 512, cuda, seed=43)
+
+
+def test_embedding_bwd_kernel_matches_plain_bit_for_bit(cuda):
+    """The embedding backward's kernel and its plain version (a CPU
+    index_add_) give the same bits: a 32,768-row chunk over a handful of
+    Building-sized table rows, rows past 64-row tiles, an index no row
+    names, and one row."""
+    from switch_nerf_torch.ops import embedding
+    g = torch.Generator().manual_seed(3)
+    for rows, num, feats in ((32768, 1920, 48), (777, 9, 48), (1, 4, 5),
+                             (5000, 3, 300)):
+        idx = torch.randint(0, num, (rows,), generator=g)
+        idx[: rows // 3] = num // 2            # one table row takes many
+        gy = torch.randn(rows, feats, generator=g) * 10
+        before = embedding.launches
+        got = embedding.embedding_bwd(idx.to(cuda), gy.to(cuda), num)
+        torch.cuda.synchronize()
+        assert embedding.launches == before + 1
+        want = embedding.embedding_bwd_plain(idx, gy, num)
+        assert torch.equal(got.cpu(), want), (rows, num, feats)
 
 
 SURFACE = {

@@ -140,6 +140,7 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"switch_nerf_torch/ops/ragged_chain.py",
+            "switch_nerf_torch/ops/embedding.py",
             "switch_nerf_torch/render/rendering_mip.py",
             "switch_nerf_torch/datasets/nerf_data/load_bungee.py",
             "switch_nerf_torch/train_nerf_moe.py",

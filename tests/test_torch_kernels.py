@@ -28,17 +28,27 @@ from switch_nerf_torch.ops import expert_kernel, fused_dispatch
 
 
 def _chain_inputs(e, c, m, layers, seed):
+    """x ~ N(0, 1); W and b ~ N(0, 0.1) at M = 128, N(0, 0.1 sqrt(128 / M))
+    wider, so every width keeps activations of the same order."""
     rng = np.random.default_rng(seed)
+    scale = 0.1 * min(1.0, (128 / m) ** 0.5)
     return (rng.normal(0, 1, (e, c, m)).astype(np.float32),
-            rng.normal(0, 0.1, (layers, e, m, m)).astype(np.float32),
-            rng.normal(0, 0.1, (layers, e, 1, m)).astype(np.float32))
+            rng.normal(0, scale, (layers, e, m, m)).astype(np.float32),
+            rng.normal(0, scale, (layers, e, 1, m)).astype(np.float32))
 
 
-# the shapes of tests/test_expert_kernel.py
-@pytest.mark.parametrize("layers,skips", [
-    (1, ()), (3, (1,)), (4, (1, 3)), (3, (2,))])
-def test_chain_plain_matches_pallas_fp32(layers, skips):
-    x, ws, bs = _chain_inputs(2, 64, 128, layers, seed=layers * 10 + len(skips))
+# the shapes of tests/test_expert_kernel.py (M = 128), and Mission Bay's
+# width, which the fp32 kernels take since the M = 512 slice
+CHAIN_CASES = [pytest.param(1, (), 128, id="1-skips0"),
+               pytest.param(3, (1,), 128, id="3-skips1"),
+               pytest.param(4, (1, 3), 128, id="4-skips2"),
+               pytest.param(3, (2,), 128, id="3-skips3"),
+               pytest.param(3, (1,), 512, id="3-skips1-m512")]
+
+
+@pytest.mark.parametrize("layers,skips,m", CHAIN_CASES)
+def test_chain_plain_matches_pallas_fp32(layers, skips, m):
+    x, ws, bs = _chain_inputs(2, 64, m, layers, seed=layers * 10 + len(skips))
     ref = jchain(jnp.asarray(x), jnp.asarray(ws), jnp.asarray(bs),
                  skips=skips, interpret=True)
     out = expert_kernel.expert_mlp_chain(*map(torch.from_numpy, (x, ws, bs)),
@@ -162,15 +172,12 @@ def _close(out, ref, tol, rel=False, err_msg=""):
     assert err <= tol * scale, (err_msg, err, tol * scale)
 
 
-CHAIN_CASES = [(1, ()), (3, (1,)), (4, (1, 3)), (3, (2,))]
-
-
-@pytest.mark.parametrize("layers,skips", CHAIN_CASES)
-def test_chain_bwd_plain_matches_pallas_fp32(layers, skips):
+@pytest.mark.parametrize("layers,skips,m", CHAIN_CASES)
+def test_chain_bwd_plain_matches_pallas_fp32(layers, skips, m):
     """expert_mlp_chain_bwd_plain vs the Pallas _bwd_call (interpret), and
     the port's autograd (ExpertChainFn) vs jax.vjp of the custom-VJP chain:
     dx and db to 1e-5, dW to 1e-5 of max |dW|."""
-    x, ws, bs = _chain_inputs(2, 64, 128, layers, seed=layers * 10 + 1)
+    x, ws, bs = _chain_inputs(2, 64, m, layers, seed=layers * 10 + 1)
     g = np.random.default_rng(layers).normal(size=x.shape).astype(np.float32)
     jdx, jdw, jdb = jek._bwd_call(*map(jnp.asarray, (x, ws, bs, g)), skips,
                                   interpret=True)
@@ -263,15 +270,19 @@ def _fused_case(e=4, cap=32, s=100, m=128, layers=3, seed=5):
     return tokens, stt, ws, bs, slot, kept
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_plain_matches_pallas_at_main_path_structure(dtype):
-    """The oracle K3/K4 are held to on the card, at M=256, L=7, skips (3,):
-    the plain fused forward and backward vs the Pallas _fwd_call/_bwd_call
-    (interpret) on a slot map with dropped tokens and empty slots, weights
-    at the init scale M^-0.5. JAX's tokens are padded to a multiple of 8
-    rows. fp32 to 1e-5 of max |ref|, bf16 to 2e-2 of max |ref|."""
+@pytest.mark.parametrize("dtype,m", [
+    pytest.param(torch.float32, 256, id="dtype0"),
+    pytest.param(torch.bfloat16, 256, id="dtype1"),
+    pytest.param(torch.float32, 512, id="dtype0-m512")])
+def test_fused_plain_matches_pallas_at_main_path_structure(dtype, m):
+    """The oracle K3/K4 are held to on the card, at M=256 (and fp32 at
+    Mission Bay's 512), L=7, skips (3,): the plain fused forward and
+    backward vs the Pallas _fwd_call/_bwd_call (interpret) on a slot map
+    with dropped tokens and empty slots, weights at the init scale M^-0.5.
+    JAX's tokens are padded to a multiple of 8 rows. fp32 to 1e-5 of
+    max |ref|, bf16 to 2e-2 of max |ref|."""
     skips = (3,)
-    tokens, stt, _, _, _, _ = _fused_case(m=256, layers=7, seed=23)
+    tokens, stt, _, _, _, _ = _fused_case(m=m, layers=7, seed=23)
     s, m = tokens.shape
     e, layers = 4, 7
     cap = stt.size // e

@@ -87,9 +87,18 @@ def test_ragged_chain_plain_matches_jax_at_bungee_structure():
     ``ExpertMLP.ragged`` forward and ``jax.grad`` at the structure of
     Bungee's MoE layer: M = 256, L = 7, skip 3, E = 4, fp32, skewed counts
     with an empty expert."""
-    m, e, layers, skips = 256, 4, 7, (3,)
-    counts = [0, 37, 301, 90]
-    rng = np.random.default_rng(8)
+    _ragged_plain_vs_jax(256, (3,), [0, 37, 301, 90], seed=8)
+
+
+def test_ragged_chain_plain_matches_jax_at_mission_bay_width():
+    """The same at Mission Bay's trunk in fp32 (--no_amp): M = 512, L = 7,
+    skip 3, E = 8, skewed counts with empty experts."""
+    _ragged_plain_vs_jax(512, (3,), [0, 37, 140, 0, 9, 64, 1, 21], seed=9)
+
+
+def _ragged_plain_vs_jax(m, skips, counts, seed):
+    e, layers = len(counts), 7
+    rng = np.random.default_rng(seed)
     n = sum(counts)
     x = rng.normal(0, 1, (n, m)).astype(np.float32)
     g = rng.normal(0, 1, (n, m)).astype(np.float32)
@@ -124,7 +133,8 @@ def test_ragged_chain_plain_matches_jax_at_bungee_structure():
                err_msg=f"w{i}")
         _close(db[i], jgp["params"][f"b{i}"], 1e-5, rel=True,
                err_msg=f"b{i}")
-    assert not dw[:, 0].any() and not db[:, 0].any()
+    empty = [i for i, c in enumerate(counts) if c == 0]
+    assert not dw[:, empty].any() and not db[:, empty].any()
 
 
 @pytest.mark.parametrize("layers,skips", [(1, ()), (4, (1, 3)), (3, (0,))])

@@ -6,8 +6,9 @@ lo = rna_tf32(a - hi) (``cvt.rna.tf32.f32``: round to nearest on the 13 low
 mantissa bits, ties away from zero) and sum hi*hi' + hi*lo' + lo*hi' in fp32
 (the tensor cores multiply tf32 values exactly and accumulate in fp32).
 Here that arithmetic runs in torch, at the structure of Bungee's expert
-layer (M = 256, L = 7, skip 3), forward and backward, against the port's
-plain fp32 chain and a float64 run:
+layer (M = 256, L = 7, skip 3) and at Mission Bay's width (M = 512: K = 512
+per product, the fp32 Mission Bay kernels' depth), forward and backward,
+against the port's plain fp32 chain and a float64 run:
 
 - the 3-product chain stays within the kernels' fp32 limit (1e-4) of the
   plain fp32 chain, and within 4x of the plain chain's own error against
@@ -87,19 +88,18 @@ def _chain_bwd(x, ws, bs, g, mm):
     return gh + gxin, torch.stack(dws), torch.stack(dbs)
 
 
-@pytest.fixture(scope="module")
-def case():
+def _make_case(m, seed):
     """Inputs and weights from a seed (the card tests' uniform init), the
     plain fp32 chain's outputs (the port's plain versions) and a float64
     run's, each as [out, dx, dW, db]."""
-    rng = np.random.default_rng(0)
-    bound = M ** -0.5
-    ws = torch.from_numpy(rng.uniform(-bound, bound, (LAYERS, M, M))
+    rng = np.random.default_rng(seed)
+    bound = m ** -0.5
+    ws = torch.from_numpy(rng.uniform(-bound, bound, (LAYERS, m, m))
                           .astype(np.float32))
-    bs = torch.from_numpy(rng.uniform(-bound, bound, (LAYERS, 1, M))
+    bs = torch.from_numpy(rng.uniform(-bound, bound, (LAYERS, 1, m))
                           .astype(np.float32))
-    x = torch.from_numpy(rng.normal(0, 1, (ROWS, M)).astype(np.float32))
-    g = torch.from_numpy(rng.normal(0, 1, (ROWS, M)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(0, 1, (ROWS, m)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (ROWS, m)).astype(np.float32))
     plain = [expert_mlp_chain_plain(x[None], ws[:, None], bs[:, None],
                                     SKIPS)[0]]
     dx, dw, db = expert_mlp_chain_bwd_plain(x[None], ws[:, None],
@@ -109,6 +109,16 @@ def case():
     ref = [_chain(*wide[:3], torch.matmul)[0]]
     ref += list(_chain_bwd(*wide, torch.matmul))
     return (x, ws, bs, g), plain, ref
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _make_case(M, seed=0)
+
+
+@pytest.fixture(scope="module")
+def case512():
+    return _make_case(512, seed=5)
 
 
 def _run(args, mm):
@@ -142,6 +152,19 @@ def test_three_product_chain_keeps_fp32_accuracy(case):
     """3xTF32 forward and backward: within 1e-4 of the plain fp32 chain
     (dW and db relative to their largest entry, as the card's checks), and
     within 4x of the plain chain's error against float64."""
+    _check_three_products(case)
+
+
+def test_three_product_chain_keeps_fp32_accuracy_at_width_512(case512):
+    """The same at M = 512 (twice the products summed in each output)."""
+    _check_three_products(case512)
+
+
+def test_single_tf32_product_misses_the_fp32_limit_at_width_512(case512):
+    _check_single_product(case512)
+
+
+def _check_three_products(case):
     args, plain, ref = case
     out = _run(args, mm_3xtf32)
     for name, o, p, rel in zip(("out", "dx", "dW", "db"), out, plain,
@@ -157,6 +180,10 @@ def test_single_tf32_product_misses_the_fp32_limit(case):
     """One TF32 product per step (~11 bits) is off by more than the fp32
     limit already in the forward, and far more than 4x the plain chain's
     error against float64."""
+    _check_single_product(case)
+
+
+def _check_single_product(case):
     args, plain, ref = case
     out = _run(args, mm_tf32)
     assert (out[0] - plain[0]).abs().max().item() > FP32_TOL

@@ -66,9 +66,56 @@ def test_decodes_what_zstandard_writes(family):
         == data + data[:100]
 
 
+_OCDBT_MAGICS = (bytes.fromhex("0cdb3a2a"), bytes.fromhex("0cdb20de"))
+
+
+def _ocdbt_entries(raw: bytes, path) -> list:
+    """(compression, body, where) of every manifest or B-tree node in an
+    OCDBT file. A data file holds entries back to back, nodes and values
+    alike; an entry is laid out as magic (4 bytes), its total length (8,
+    little-endian), the version and compression varints, the body, and the
+    CRC32C of all that (4 bytes). Each offset where a magic starts and
+    whose length and CRC32C check out is an entry."""
+    from switch_nerf_torch.utils.crc32c import crc32c
+
+    def varint(entry, pos):
+        value, shift = 0, 0
+        while True:
+            byte = entry[pos]
+            value |= (byte & 0x7F) << shift
+            pos += 1
+            if not byte & 0x80:
+                return value, pos
+            shift += 7
+
+    out, starts = [], []
+    for magic in _OCDBT_MAGICS:
+        i = raw.find(magic)
+        while i >= 0:
+            starts.append(i)
+            i = raw.find(magic, i + 1)
+    for off in sorted(starts):
+        length = int.from_bytes(raw[off + 4:off + 12], "little")
+        if not 18 <= length <= len(raw) - off:
+            continue
+        entry = raw[off:off + length]
+        if crc32c(entry[:-4]) != int.from_bytes(entry[-4:], "little"):
+            continue
+        where = (f"{path} at byte {off} (first 22 bytes "
+                 f"{entry[:22].hex()})")
+        version, pos = varint(entry, 12)
+        compression, pos = varint(entry, pos) if version == 0 else (None, pos)
+        assert version == 0 and compression in (0, 1), where
+        out.append((off, compression, entry[pos:-4], where))
+    return out
+
+
 def test_every_frame_of_an_orbax_checkpoint(tmp_path):
     """Every OCDBT manifest and node body, and every zarr chunk value of a
-    JAX orbax checkpoint, as zstandard decodes it."""
+    JAX orbax checkpoint, as zstandard decodes it. Each body is found
+    through its entry's header (a data file may hold several entries, so
+    no fixed offset from the file's ends); an uncompressed body is the
+    node's bytes as they are."""
     import json
 
     import tensorstore as ts
@@ -79,10 +126,18 @@ def test_every_frame_of_an_orbax_checkpoint(tmp_path):
     n = 0
     for path in [p for p in root.rglob("*") if p.is_file()]:
         raw = path.read_bytes()
-        if raw[:4] in (bytes.fromhex("0cdb3a2a"), bytes.fromhex("0cdb20de")):
-            body = raw[14:-4]
-            assert Z.decompress(body) == d.decompressobj().decompress(body)
-            n += 1
+        entries = _ocdbt_entries(raw, path)
+        if raw[:4] in _OCDBT_MAGICS:
+            assert entries and entries[0][0] == 0, \
+                f"{path}: no entry at byte 0 (first 22 bytes {raw[:22].hex()})"
+        for _, compression, body, where in entries:
+            if compression == 1:
+                try:
+                    got = Z.decompress(body)
+                except Z.ZstdError as e:
+                    raise AssertionError(f"{where}: {e}") from e
+                assert got == d.decompressobj().decompress(body), where
+                n += 1
     store = ts.KvStore.open(f"file://{root}/|ocdbt:").result()
     for key in store.list().result():
         value = store[key]
