@@ -15,15 +15,19 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      switch_nerf_torch/csrc (one nvcc per source, all started together),
      and report each library's HGMMA (wgmma) instructions (cuobjdump,
      where the toolkit has it; none is a failure, nor none on TF32 in the
-     ragged libraries) and ptxas's spill bytes (a spill in a 3xTF32
-     kernel is a failure)
+     libraries of K2, K4, K1R and K2R) and ptxas's spill bytes (a spill in
+     a 3xTF32 kernel is a failure)
   2. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, with CUDA-event timings beside its bound,
      achieved TFLOP/s and share of the bound, and one library call's time
      (K1/K3 forward, K2/K4 backward); K2 and K4 twice on the same inputs
      (bit-identical), K2's two passes timed by torch.profiler, and the
      K3 / K1 and K4 / K2 time ratios (what the row gather costs on the
-     same mainloop); then K1R and K2R, the ragged chain of no-drop
+     same mainloop); fp32 K2 and K4 (Building under --no_amp: 3xTF32)
+     twice bit-identical, against float64 (at most 4x the plain chain's
+     error) and timed beside both bounds (3xTF32, CUDA cores) with each
+     step's device time (prep, pass 1 and K2's recompute alone, pass 2,
+     reduction); then K1R and K2R, the ragged chain of no-drop
      dispatch, against their plain versions at one 32,768-point chunk,
      fp32 at Bungee's shape (E4) and bf16 at Building's (E8), over skewed
      counts (an empty expert, a count off the row blocks, one expert with
@@ -39,10 +43,11 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      K2 twice, bit-identical) and K1R (skewed and balanced counts) against
      their plain versions, timed beside the bound, the plain version and
      the library call; K3, K4 (twice, bit-identical) and K2R at the same
-     width checked and timed the same way; in fp32 K1-K4 on the CUDA
-     cores, K1R / K2R in 3xTF32 (four column passes a layer) as the
-     ragged phase holds them: K2R twice, the error against float64 at most
-     4x the plain chain's
+     width checked and timed the same way; in fp32 K1 / K3 on the CUDA
+     cores, K2 / K4 and K1R / K2R in 3xTF32 (four column passes a layer):
+     K2 / K4 as phase 2 holds fp32 K2 / K4, K1R / K2R as the ragged phase
+     holds them (K2R twice, the error against float64 at most 4x the plain
+     chain's)
   2c. K1R's 64-bit row offsets: one launch over one published
      eval_points request's rows, N = 65,536 x 256 = 16,777,216 (M256 bf16
      E8 L7, balanced counts; 4.3e9 elements an activation), against its
@@ -445,8 +450,11 @@ def rate(flops: float, ms: float, bound_ms: float) -> str:
 
 
 def device_ms_by_kernel(fn, keys: dict, iters: int = 10) -> dict:
-    """Mean device ms per call of fn() in the kernels whose names contain
-    each of keys' values (torch.profiler over `iters` calls)."""
+    """Mean device ms per launch of the kernel whose name contains each of
+    keys' values, launched once per call of fn() (torch.profiler over
+    `iters` calls). The mean is over the launches the trace holds: a trace
+    can miss some of a run's kernels (a card run read 1 of 5), so dividing
+    by `iters` would under-read."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -454,12 +462,14 @@ def device_ms_by_kernel(fn, keys: dict, iters: int = 10) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out = {label: 0.0 for label in keys}
+    total = {label: 0.0 for label in keys}
+    count = {label: 0 for label in keys}
     for ev in prof.key_averages():
         for label, key in keys.items():
             if key in ev.key:
-                out[label] += ev.self_device_time_total / 1e3 / iters
-    return out
+                total[label] += ev.self_device_time_total / 1e3
+                count[label] += ev.count
+    return {label: total[label] / max(count[label], 1) for label in keys}
 
 
 def nbytes(*ts) -> int:
@@ -599,6 +609,69 @@ def autograd_ms(out, inputs, g) -> float:
                                                retain_graph=True))
 
 
+# the fp32 backwards' steps (K2, K4, K2R: csrc/chain_tf32.cuh) by kernel name
+TF32_BWD_STEPS = {"prep": "tf32_split_weights", "pass 1": "chain_bwd_tf32",
+                  "pass 2": "chain_dw_tf32", "reduction": "reduce_partials"}
+
+
+def bwd_f64_check(name: str, xd, ws, bs, g, skips, kernel, plain) -> None:
+    """A padded fp32 backward (kernel(), plain(): (dx, dW, db) at the rows
+    xd [E, C, M] the chain reads) against a float64 autograd run of the
+    plain chain: each output's largest error relative to the float64
+    output's largest entry, the kernel's at most 4x the plain fp32
+    backward's."""
+    from switch_nerf_torch.ops import expert_kernel
+    wide = [t.double().requires_grad_() for t in (xd, ws, bs)]
+    refs = torch.autograd.grad(
+        expert_kernel.expert_mlp_chain_plain(*wide, skips), wide, g.double())
+    del wide
+    errs = {who: [((o.double() - r).abs().max() / r.abs().max()).item()
+                  for o, r in zip(fn(), refs)]
+            for who, fn in (("kernel", kernel), ("plain", plain))}
+    log(f"  {name} error against a float64 run (dx, dW, db; relative to its "
+        f"largest entry): kernel {['%.3e' % v for v in errs['kernel']]}, "
+        f"plain fp32 {['%.3e' % v for v in errs['plain']]}")
+    if not all(k <= 4 * p for k, p in zip(errs["kernel"], errs["plain"])):
+        raise AssertionError(f"{name}: error against float64 exceeds 4x the "
+                             "plain chain's")
+
+
+def fp32_bwd_row(name: str, err: float, call, plain, leaves, g, skips,
+                 flops: float, nb: int, peaks, recompute=None) -> dict:
+    """Time a padded fp32 backward (K2, K4: 3xTF32 on chain_tf32.cuh)
+    beside its plain version and the autograd of the baddbmm chain over
+    `leaves` (x, ws, bs). Its bound follows K2R's: 3 TF32 products per
+    product of the gradient (flops) on the tensor cores, the recompute
+    being the kernel's own choice; the CUDA-core bound is printed beside
+    it. The profiled split: each step's device time, and with `recompute`
+    (pass 1 stopped after the recompute) the recompute alone and the rest
+    of pass 1 (the sweep)."""
+    bound_ms, bound_by = chain_bound(3 * flops, nb, "tf32", peaks)
+    core_ms = chain_bound(flops, nb, torch.float32, peaks)[0]
+    leaves = [t.clone().requires_grad_() for t in leaves]
+    lib_out = bmm_chain(*leaves, skips)
+    t = {"ms": cuda_ms(call, iters=20),
+         "plain_ms": cuda_ms(plain, iters=10, warmup=3),
+         "library_ms": autograd_ms(lib_out, leaves, g)}
+    del lib_out, leaves
+    steps = device_ms_by_kernel(call, TF32_BWD_STEPS, iters=5)
+    split = ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+    if recompute is not None:
+        r = device_ms_by_kernel(recompute, {"r": "chain_bwd_tf32"},
+                                iters=5)["r"]
+        steps["recompute"] = r
+        split += (f" (pass 1: the recompute alone {r:.4f}, the rest "
+                  f"{steps['pass 1'] - r:.4f})")
+    log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"autograd of the baddbmm chain {t['library_ms']:.4f} ms "
+        f"({t['ms'] / t['library_ms']:.3f}x), bound {bound_ms:.4f} ms "
+        f"(3xTF32 {bound_by}), CUDA-core bound {core_ms:.4f} ms, "
+        f"{rate(flops, t['ms'], bound_ms)} (the gradient's products); "
+        f"profiled {split} ms")
+    return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                core_bound_ms=core_ms, steps=steps, **t)
+
+
 def bwd_kernel_phase(peaks, building):
     """K2 and K4 vs their plain backwards at the train path's shapes."""
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
@@ -627,6 +700,23 @@ def bwd_kernel_phase(peaks, building):
                                                            skips),
                         expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, g,
                                                                  skips))
+        if dtype == torch.float32:
+            # Building under --no_amp: fp32 K2 in 3xTF32
+            def call2():
+                return expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips)
+
+            def plain2():
+                return expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, g,
+                                                                skips)
+            check_deterministic("K2 float32", call2)
+            bwd_f64_check("K2 float32", x, ws, bs, g, skips, call2, plain2)
+            rows["K2 fp32"] = fp32_bwd_row(
+                f"K2 float32 C{cc}", err, call2, plain2, (x, ws, bs), g,
+                skips, 4 * e * cc * m * m * layers,
+                nbytes(x, g, ws, bs) + nbytes(x)
+                + 4 * (ws.numel() + bs.numel()), peaks,
+                recompute=lambda: expert_kernel.expert_mlp_chain_bwd_recompute(
+                    x, ws, bs, g, skips))
         if dtype == torch.bfloat16 and cc == c:
             check_deterministic("K2 bf16", lambda: expert_kernel
                                 .expert_mlp_chain_bwd(x, ws, bs, g, skips))
@@ -669,6 +759,10 @@ def bwd_kernel_phase(peaks, building):
                                                     g, skips),
             fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt,
                                                           ws, bs, g, skips))
+        if dtype == torch.float32:
+            rows["K4 fp32"] = fused_fp32_bwd(
+                "K4 float32", err, tokens_ext, stt, ws, bs, g, skips, s,
+                peaks)
         if dtype == torch.bfloat16:
             check_deterministic("K4 bf16", lambda: fused_dispatch
                                 .fused_dispatch_chain_bwd(tokens_ext, stt, ws,
@@ -703,14 +797,44 @@ def bwd_kernel_phase(peaks, building):
     return rows
 
 
+# the libraries whose fp32 kernels run wgmma on TF32 operands (3xTF32)
+TF32_LIBS = ("ragged_chain", "ragged_chain_bwd", "expert_chain_bwd",
+             "fused_dispatch_bwd")
+
+
+def fused_fp32_bwd(name: str, err: float, tokens_ext, stt, ws, bs, g,
+                   skips, s: int, peaks) -> dict:
+    """fp32 K4 on a slot map over s tokens: twice bit-identical, against
+    float64, timed (fp32_bwd_row; the gathered rows read once)."""
+    from switch_nerf_torch.ops import fused_dispatch
+    e, c, m = g.shape
+
+    def call():
+        return fused_dispatch.fused_dispatch_chain_bwd(tokens_ext, stt, ws,
+                                                       bs, g, skips)
+
+    def plain():
+        return fused_dispatch.fused_dispatch_chain_bwd_plain(
+            tokens_ext, stt, ws, bs, g, skips)
+    check_deterministic(name, call)
+    xg = tokens_ext.index_select(0, stt.long()).view(e, c, m)
+    bwd_f64_check(name, xg, ws, bs, g, skips, call, plain)
+    kept_rows = int((stt < s).sum())            # the token rows read
+    nb = (kept_rows * m * tokens_ext.element_size() + nbytes(stt, g, ws, bs)
+          + nbytes(g) + 4 * (ws.numel() + bs.numel()))
+    return fp32_bwd_row(name, err, call, plain, (xg, ws, bs), g, skips,
+                        4 * e * c * m * m * ws.shape[0], nb, peaks)
+
+
 def build_report() -> None:
     """Each library's HGMMA (wgmma) instruction count from `cuobjdump
     -sass` and its spill bytes from ptxas's -v report beside it. Every
     chain library holds a bf16 wgmma kernel, so a count of 0 fails the run
     (the embedding's backward runs on the CUDA cores and has none); the
-    ragged libraries' fp32 kernels run wgmma on TF32 operands, so a count
-    of 0 TF32 HGMMAs there fails too, as does a spill in a 3xTF32 kernel.
-    Then each M = 512 kernel's registers and spill bytes."""
+    fp32 kernels of TF32_LIBS (K1R, K2R, K2, K4) run wgmma on TF32
+    operands, so a count of 0 TF32 HGMMAs there fails too, as does a spill
+    in a 3xTF32 kernel. Then each M = 512 kernel's registers and spill
+    bytes."""
     import re
     from pathlib import Path
     from switch_nerf_torch.ops import _build
@@ -743,7 +867,7 @@ def build_report() -> None:
             hgmma = sass.count("HGMMA")
             if hgmma == 0 and name != "embedding_bwd":
                 raise AssertionError(f"lib{name}: no HGMMA instruction")
-            if name.startswith("ragged"):
+            if name in TF32_LIBS:
                 tf32 = sum("TF32" in ln for ln in sass.splitlines()
                            if "HGMMA" in ln)
                 if tf32 == 0:
@@ -1567,9 +1691,7 @@ def ragged_kernel_phase(peaks, shapes, cases=None):
                          "reduction": "reduce_partials"}
         else:
             steps_fwd = {"prep": "tf32_split_weights", "K1R": "chain_fwd_tf32"}
-            steps_bwd = {"prep": "tf32_split_weights",
-                         "pass 1": "chain_bwd_tf32", "pass 2": "chain_dw_tf32",
-                         "reduction": "reduce_partials"}
+            steps_bwd = TF32_BWD_STEPS
         flops_f, flops_b = 2 * n * m * m * layers, 4 * n * m * m * layers
         out_bytes = nbytes(x) + 4 * (ws.numel() + bs.numel())
         bounds = {}
@@ -3010,10 +3132,12 @@ def wide_kernel_phase(peaks, shapes, dtype=torch.bfloat16):
     balanced counts), timed beside the bound, the plain version and the
     library call. bf16: 64-row tiles, each consumer warpgroup on half the
     columns (the Mission Bay run; K3, K4 and K2R run in no path at this
-    width). fp32 (the --no_amp run, K1 / K2 training and K1R serving): K1-K4
-    on the CUDA cores, K1R / K2R in 3xTF32 with four column passes a layer,
-    through ragged_kernel_phase (K2R twice, the error against float64 at
-    most 4x the plain chain's). Returns the rows."""
+    width). fp32 (the --no_amp run, K1 / K2 training and K1R serving): K1
+    / K3 on the CUDA cores; K2 / K4 in 3xTF32 (fp32_bwd_row: against
+    float64, the profiled split, both bounds); K1R / K2R in 3xTF32 with
+    four column passes a layer, through ragged_kernel_phase (K2R twice, the
+    error against float64 at most 4x the plain chain's). Returns the
+    rows."""
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
     from switch_nerf_torch.ops import ragged_chain as rc
 
@@ -3052,29 +3176,47 @@ def wide_kernel_phase(peaks, shapes, dtype=torch.bfloat16):
             x, ws, bs, g, skips))
     check_deterministic(f"K2 {dt} M512", lambda: expert_kernel
                         .expert_mlp_chain_bwd(x, ws, bs, g, skips))
-    bound_ms, bound_by = chain_bound(
-        2 * flops, nbytes(x, g, ws, bs) + nbytes(x)
-        + 4 * (ws.numel() + bs.numel()), dtype, peaks)
-    leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
-    lib_out = bmm_chain(*leaves, skips)
-    t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd(
-             x, ws, bs, g, skips), iters=20),
-         "plain_ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd_plain(
-             x, ws, bs, g, skips), iters=10, warmup=3),
-         "library_ms": autograd_ms(lib_out, leaves, g)}
-    del lib_out, leaves
-    passes = device_ms_by_kernel(
-        lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips),
-        {"pass 1": "chain_bwd", "pass 2": "chain_dw"})
-    log(f"  K2 {dt} M512: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, autograd of the baddbmm chain "
-        f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"{rate(2 * flops, t['ms'], bound_ms)} (the gradient's products); "
-        f"profiled pass 1 {passes['pass 1']:.4f} ms, pass 2 "
-        f"{passes['pass 2']:.4f} ms; bwd_max_layers "
-        f"{expert_kernel.bwd_max_layers(x.device, m, dtype)}")
-    rows["K2"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                      **t)
+    nb = (nbytes(x, g, ws, bs) + nbytes(x)
+          + 4 * (ws.numel() + bs.numel()))
+    if dtype == torch.float32:      # 3xTF32 (chain_tf32.cuh, kInPlace)
+        def call2():
+            return expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips)
+
+        def plain2():
+            return expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, g,
+                                                            skips)
+        bwd_f64_check(f"K2 {dt} M512", x, ws, bs, g, skips, call2, plain2)
+        rows["K2"] = fp32_bwd_row(
+            f"K2 {dt} M512", err, call2, plain2, (x, ws, bs), g, skips,
+            2 * flops, nb, peaks,
+            recompute=lambda: expert_kernel.expert_mlp_chain_bwd_recompute(
+                x, ws, bs, g, skips))
+        log(f"  K2 {dt} M512: bwd_max_layers "
+            f"{expert_kernel.bwd_max_layers(x.device, m, dtype)}")
+    else:
+        bound_ms, bound_by = chain_bound(2 * flops, nb, dtype, peaks)
+        leaves = [t_.clone().requires_grad_() for t_ in (x, ws, bs)]
+        lib_out = bmm_chain(*leaves, skips)
+        t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_bwd(
+                 x, ws, bs, g, skips), iters=20),
+             "plain_ms": cuda_ms(lambda: expert_kernel
+                                 .expert_mlp_chain_bwd_plain(
+                                     x, ws, bs, g, skips),
+                                 iters=10, warmup=3),
+             "library_ms": autograd_ms(lib_out, leaves, g)}
+        del lib_out, leaves
+        passes = device_ms_by_kernel(
+            lambda: expert_kernel.expert_mlp_chain_bwd(x, ws, bs, g, skips),
+            {"pass 1": "chain_bwd", "pass 2": "chain_dw"})
+        log(f"  K2 {dt} M512: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, autograd of the baddbmm chain "
+            f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{rate(2 * flops, t['ms'], bound_ms)} (the gradient's products); "
+            f"profiled pass 1 {passes['pass 1']:.4f} ms, pass 2 "
+            f"{passes['pass 2']:.4f} ms; bwd_max_layers "
+            f"{expert_kernel.bwd_max_layers(x.device, m, dtype)}")
+        rows["K2"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                          bound_by=bound_by, **t)
 
     tokens_ext, stt, n_drop, n_empty = skewed_slot_map(n, e, m, dtype, gen)
     err = check_close(
@@ -3105,31 +3247,37 @@ def wide_kernel_phase(peaks, shapes, dtype=torch.bfloat16):
         tokens_ext, stt, ws, bs, g, skips),
         fused_dispatch.fused_dispatch_chain_bwd_plain(tokens_ext, stt, ws,
                                                       bs, g, skips))
-    check_deterministic(f"K4 {dt} M512", lambda: fused_dispatch
-                        .fused_dispatch_chain_bwd(tokens_ext, stt, ws, bs, g,
-                                                  skips))
-    kept_rows = int((stt < n).sum())            # the token rows read
-    bound_ms, bound_by = chain_bound(
-        2 * flops, kept_rows * m * tokens_ext.element_size()
-        + nbytes(stt, g, ws, bs) + nbytes(g) + 4 * (ws.numel() + bs.numel()),
-        dtype, peaks)
-    leaves = [t_.clone().requires_grad_() for t_ in (
-        tokens_ext.index_select(0, stt_long).view(e, c, m), ws, bs)]
-    lib_out = bmm_chain(*leaves, skips)
-    t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_bwd(
-             tokens_ext, stt, ws, bs, g, skips), iters=20),
-         "plain_ms": cuda_ms(lambda: fused_dispatch
-                             .fused_dispatch_chain_bwd_plain(
-                                 tokens_ext, stt, ws, bs, g, skips),
-                             iters=10, warmup=3),
-         "library_ms": autograd_ms(lib_out, leaves, g)}
-    del lib_out, leaves, tokens_ext, stt, stt_long
-    log(f"  K4 {dt} M512: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, autograd of index_select + baddbmm chain "
-        f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"{rate(2 * flops, t['ms'], bound_ms)}")
-    rows["K4"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                      **t)
+    if dtype == torch.float32:      # 3xTF32 (chain_tf32.cuh, kGather)
+        rows["K4"] = fused_fp32_bwd(f"K4 {dt} M512", err, tokens_ext, stt, ws,
+                                    bs, g, skips, n, peaks)
+    else:
+        check_deterministic(f"K4 {dt} M512", lambda: fused_dispatch
+                            .fused_dispatch_chain_bwd(tokens_ext, stt, ws, bs,
+                                                      g, skips))
+        kept_rows = int((stt < n).sum())            # the token rows read
+        bound_ms, bound_by = chain_bound(
+            2 * flops, kept_rows * m * tokens_ext.element_size()
+            + nbytes(stt, g, ws, bs) + nbytes(g)
+            + 4 * (ws.numel() + bs.numel()), dtype, peaks)
+        leaves = [t_.clone().requires_grad_() for t_ in (
+            tokens_ext.index_select(0, stt_long).view(e, c, m), ws, bs)]
+        lib_out = bmm_chain(*leaves, skips)
+        t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_bwd(
+                 tokens_ext, stt, ws, bs, g, skips), iters=20),
+             "plain_ms": cuda_ms(lambda: fused_dispatch
+                                 .fused_dispatch_chain_bwd_plain(
+                                     tokens_ext, stt, ws, bs, g, skips),
+                                 iters=10, warmup=3),
+             "library_ms": autograd_ms(lib_out, leaves, g)}
+        del lib_out, leaves
+        log(f"  K4 {dt} M512: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, autograd of index_select + baddbmm "
+            f"chain {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), "
+            f"{rate(2 * flops, t['ms'], bound_ms)}")
+        rows["K4"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                          bound_by=bound_by, **t)
+    del tokens_ext, stt, stt_long
     if dtype == torch.float32:
         del x, g, ws, bs
         rows.update(ragged_kernel_phase(peaks, shapes,
@@ -3313,16 +3461,20 @@ def mission_bay_phase(counts: dict) -> str:
     on the val records (K1R on every chunk: no --moe_test_batch, so no-drop
     dispatch; finite metrics, the JAX package's file set); then the fp32
     step on the card against the CPU."""
-    bf16 = mission_bay_run(counts, "", MB_STEPS, MB_CKPT, MB_RECORDS)
-    fp32 = mission_bay_run(counts, " fp32", MB32_STEPS, MB32_CKPT,
-                           MB32_RECORDS)
-    return f"{bf16}; --no_amp: {fp32}; {mission_bay_cpu_check(counts)}"
+    bf16, bf16_step, bf16_peak = mission_bay_run(counts, "", MB_STEPS,
+                                                 MB_CKPT, MB_RECORDS)
+    fp32, fp32_step, fp32_peak = mission_bay_run(counts, " fp32", MB32_STEPS,
+                                                 MB32_CKPT, MB32_RECORDS)
+    return (f"{bf16}; --no_amp: {fp32}; fp32 / bf16 in this call: step "
+            f"{fp32_step / bf16_step:.3f}x, peak {fp32_peak / bf16_peak:.3f}x;"
+            f" {mission_bay_cpu_check(counts)}")
 
 
 def mission_bay_run(counts: dict, tag: str, steps: int, ckpt: int,
-                    records) -> str:
+                    records) -> tuple:
     """One Mission Bay run (tag " fp32": --no_amp) on make_block_scene's
-    scene; counts gets "K1 / K2 / K1R Mission Bay<tag>"."""
+    scene; counts gets "K1 / K2 / K1R Mission Bay<tag>". Returns its
+    summary, step seconds and training peak bytes."""
     import tempfile
     from pathlib import Path
 
@@ -3471,7 +3623,8 @@ def mission_bay_run(counts: dict, tag: str, steps: int, ckpt: int,
             f"({[round(m_['time'], 4) for m_ in per_image]} s render), "
             f"K1R {counts[f'K1R Mission Bay{tag}'] // len(hashes)} an image, "
             f"max_memory_allocated {eval_peak / 2 ** 30:.2f} GiB, psnr "
-            f"{means['psnr']:.4f}, psnr_mask {means['psnr_mask']:.4f}")
+            f"{means['psnr']:.4f}, psnr_mask {means['psnr_mask']:.4f}",
+            step_s, peak)
 
 
 def mission_bay_cpu_check(counts: dict) -> str:

@@ -1,10 +1,9 @@
 // Per-expert L-layer MLP chain, fp32 forward, for Hopper (sm_90a).
 //
 // Shared by expert_chain.cu (rows read in place: x [E, C, M]) and
-// fused_dispatch.cu (rows gathered through a slot->token map; rows.cuh),
-// and by the fp32 backward (chain_bwd.cuh), which reruns the forward to
-// recompute the activation stack. bf16 runs the wgmma design of
-// chain_sm90.cuh instead; the ragged K1R's fp32 runs chain_tf32.cuh. One
+// fused_dispatch.cu (rows gathered through a slot->token map; rows.cuh).
+// bf16 runs the wgmma design of chain_sm90.cuh instead; the ragged K1R's
+// fp32 and every fp32 backward (K2, K4, K2R) run chain_tf32.cuh. One
 // CTA owns one (expert, row block). The block's activations and its skip input `xin` stay in shared memory
 // across all L layers, so activations touch device memory once in and
 // once out; W_l is streamed through shared memory in tiles of kKTile rows.
@@ -19,7 +18,7 @@
 // fp32 runs on the CUDA cores with fp32 FMAs: a single TF32 product keeps
 // only ~3 decimal digits and misses the fp32 tolerance. The split-precision
 // product of chain_tf32.cuh (3xTF32: hi*hi + hi*lo + lo*hi) keeps error
-// near fp32's; K1R/K2R use it, K1-K4's fp32 stays here.
+// near fp32's; K1R and the backwards use it, K1/K3's fp32 stays here.
 //
 // Widths 64-512, one design: a CTA's 32 rows, their skip input and one
 // 32-row W tile take (2 * 32 + 32) * (M + 4) * 4 bytes of shared memory,
@@ -65,17 +64,14 @@ struct F32Layout {
 
 // The forward of one (expert, row block) in shared memory: loads the block's
 // rows (zeros past the expert's last row) into h and xin and runs the L
-// layers in place; h ends as the block's output. With `saved` set, each
-// layer's input H_l is also written to the workspace saved [L, ws_rows, M]
-// (the expert's rows only) before the layer runs: the backward's recompute
-// (chain_bwd.cuh). The caller has checked r0 < er.count. Thread (ty, tx)
-// owns rows 4ty..4ty+3 and columns tx + 32j.
+// layers in place; h ends as the block's output. The caller has checked
+// r0 < er.count. Thread (ty, tx) owns rows 4ty..4ty+3 and columns tx + 32j.
 template <int M, int SRC>
 __device__ __forceinline__ void chain_f32_forward(
     const float* __restrict__ src, const int* __restrict__ idx, int n_src,
     const float* __restrict__ ws, const float* __restrict__ bs, int E,
     const ExpertRows& er, int L, unsigned skip_mask, float* h, float* xin,
-    float* wt, float* __restrict__ saved, long long ws_rows) {
+    float* wt) {
   constexpr int LD = F32Layout<M>::LD;
   constexpr int RV = M / 4;      // 16-byte vectors per row
   constexpr int CN = M / 32;     // columns per thread (strided by 32)
@@ -98,15 +94,6 @@ __device__ __forceinline__ void chain_f32_forward(
   }
 
   for (int l = 0; l < L; ++l) {
-    if (saved != nullptr) {
-      __syncthreads();  // h holds layer l's input
-      float* dst = saved + ((size_t)l * ws_rows + er.ws + r0) * M;
-      for (int i = tid; i < rows * RV; i += kThreads) {
-        const int r = i / RV, v = i % RV;
-        reinterpret_cast<float4*>(dst + (size_t)r * M)[v] =
-            reinterpret_cast<const float4*>(h + r * LD)[v];
-      }
-    }
     const float* w = ws + ((size_t)l * E + e) * M * M;
     const float* b = bs + ((size_t)l * E + e) * M;
     float acc[4][CN];
@@ -177,7 +164,7 @@ chain_f32_kernel(const float* __restrict__ src, const int* __restrict__ idx,
   const ExpertRows er = expert_rows<SRC>(idx, blockIdx.y, C);
   const int r0 = blockIdx.x * kRowsF32;
   chain_f32_forward<M, SRC>(src, idx, n_src, ws, bs, E, er, L, skip_mask, h,
-                            xin, wt, nullptr, 0);
+                            xin, wt);
   __syncthreads();
 
   const int rows = min(kRowsF32, er.count - r0);

@@ -1,13 +1,18 @@
-// Per-expert L-layer MLP chain over expert-sorted rows, fp32, for Hopper
-// (sm_90a): the fp32 K1R (ragged_chain.cu) and K2R (ragged_chain_bwd.cu)
-// on the tensor cores in split precision ("3xTF32").
+// Per-expert L-layer MLP chain, fp32, for Hopper (sm_90a), on the tensor
+// cores in split precision ("3xTF32"): the fp32 K1R (ragged_chain.cu,
+// expert-sorted rows) and every fp32 backward, K2R (ragged_chain_bwd.cu),
+// K2 (expert_chain_bwd.cu, rows in place) and K4 (fused_dispatch_bwd.cu,
+// rows gathered through the slot->token map).
 //
 // Replaces the fp32 case of the JAX package's ExpertMLP.ragged
 // (switch_nerf_tpu/models/experts.py:79, one jax.lax.ragged_dot per layer)
-// and of its autograd: Bungee's training path (--no_amp). One 32,768-row
-// chunk at E4 M256 L7 is 2*N*M^2*L = 30.1 GFLOP forward and 60.1 GFLOP for
-// the gradient's products, against ~75 MB of rows, W and gradients: bound
-// by operations. On the CUDA cores (67 TFLOP/s) that is 0.449 / 0.898 ms.
+// and of its autograd: Bungee's training path (--no_amp); and in fp32 the
+// Pallas _bwd_kernel of switch_nerf_tpu/ops/expert_kernel.py (K2) and
+// ops/fused_dispatch.py (K4): Building and Mission Bay under --no_amp.
+// One 32,768-row chunk at E4 M256 L7 is 2*N*M^2*L = 30.1 GFLOP forward
+// and 60.1 GFLOP for the gradient's products, against ~75 MB of rows, W
+// and gradients: bound by operations. On the CUDA cores (67 TFLOP/s)
+// that is 0.449 / 0.898 ms.
 // A single TF32 product keeps ~11 bits and misses the fp32 limit (1e-4
 // against the plain chain). Split each operand a into hi = rna_tf32(a) and
 // lo = rna_tf32(a - hi) and sum hi*hi' + hi*lo' + lo*hi' (lo*lo' ~ 2^-22
@@ -58,6 +63,16 @@
 // elements of dx (the registers hold acc, a stage's accumulator and the A
 // fragments); nothing else is read back from device memory.
 //
+// Every row source (rows.cuh) runs this pass. In place (K2) and gathered
+// (K4: the producer's cp.async copy reads the token rows the slot map
+// names) the layout is padded [E, C, M]: expert e's workspace segment
+// starts at e * padded_seg_rows(C), C rounded up to whole 64-row tiles, so
+// a tile's rows past C stay in its own segment (zero gradients there, as
+// past a ragged expert's rows). Their ReLU masks stay bits in shared
+// memory up to bwd_max_layers, as K2R's; deeper chains read each layer's
+// mask back from hsave's H_{l+1} > 0 (the same bit: H_{l+1} is the ReLU's
+// output, skip input added first), so they take 32 layers at every width.
+//
 // Width 512 (Mission Bay's trunk under --no_amp). The M = 256 layout does
 // not fit: the 64-row fp32 tile is 132,096 B and the W ring 131,072 B,
 // over the 232,448 B a block has; each consumer's M/2 = 256 columns would
@@ -82,13 +97,17 @@
 // (128 x 128 dW tiles). PERF.md has the times.
 //
 // Backward pass 2 (chain_dw_tf32): dW_l = H_l^T G_l over rows. One CTA per
-// (128 x 128 dW tile, chunk of kChunkRows rows, layer) (rows.cuh): A = H_l^T
+// (128 x 128 dW tile, chunk of kChunkRows rows, layer) (rows.cuh: the
+// ragged chunks from the counts, the padded layout's E x ceil(C / 2048)
+// from C: 16 x 16 x 7 = 1,792 CTAs at E8 C4096 M512 L7): A = H_l^T
 // from registers (TMA-loaded H tiles, split per thread), B = G_l^T hi / lo
 // by TMA; db = the column sums of G_l (hi + lo) from the same stages.
 // Partial sums per chunk, then reduce_partials (rows.cuh) in ascending
 // chunk order: no atomics, the same bits on every run, exact zeros for an
 // expert with no rows.
 #pragma once
+
+#include <type_traits>
 
 #include "chain_sm90.cuh"
 
@@ -104,6 +123,7 @@ constexpr int kRingBytes = 131072;      // the W ring
 constexpr int kMaxStages = 8;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
+static_assert(kRows == kPadSegRows, "padded workspace segments: whole tiles");
 
 // ------------------------------------------------------------- split ----
 __device__ __forceinline__ uint32_t rna_tf32(float a) {
@@ -221,7 +241,15 @@ struct TCfg {
   static constexpr int kKChunks = M / kStageK;
   static constexpr int kMaskWords = M / 32;          // mask words a row
   static constexpr int kMaskLayer = kRows * kMaskWords;  // bits [row][col]
-  static constexpr int kCols = kPassN / 32;  // a recompute thread's, a pass
+  // the backward's recompute (CUDA cores): kRPassN output columns a pass;
+  // a consumer thread takes 8 rows by kRCols columns, kRGroups groups of
+  // kRVec adjacent ones (one vector load of W a group and k)
+  static constexpr int kRPassN = M < 256 ? M : 256;
+  static constexpr int kRPasses = M / kRPassN;       // 2 at M = 512
+  static constexpr int kRCols = kRPassN / 32;
+  static constexpr int kRVec = kRCols < 4 ? kRCols : 4;
+  static constexpr int kRGroups = kRCols / kRVec;
+  static_assert(kRPassN * kStageK * 4 <= kStageBytes, "a pass fits a stage");
 };
 
 // Offsets inside the (1024-aligned) dynamic shared memory of a chain CTA.
@@ -238,9 +266,10 @@ struct TSmem {
   }
 };
 
-// The most layers the backward's pass 1 takes on this device (its shared
-// memory holds L - 1 layers of ReLU masks: 17 at M = 256, 9 at M = 512 on
-// an H100).
+// The most layers whose ReLU masks (L - 1 layers of bits) fit the
+// backward's pass 1 shared memory on this device: 17 at M = 256, 9 at
+// M = 512 on an H100. K2R's depth limit; in place and gathered launches
+// read deeper chains' masks back from hsave.
 template <int M>
 inline int max_layers(int device) {
   int limit = 0;
@@ -327,11 +356,14 @@ __device__ __forceinline__ void produce_w(const CUtensorMap* w_map,
   }
 }
 
-// Rows [row0, row0 + 64) of expert er's rows of x [N, M] into h (row
-// stride kLd) by cp.async, by producer thread t; zeros past the expert's
-// last row (from a valid address).
-template <int M>
+// Rows [row0, row0 + 64) of expert er's rows into h (row stride kLd) by
+// cp.async, by producer thread t; zeros past the expert's last row (from a
+// valid address). Row r of the expert is x's row er.base + r, or with
+// kGather the token row idx[er.base + r] of x [n_src, M]: an index out of
+// range stops the kernel (device-side assert).
+template <int M, int SRC>
 __device__ __forceinline__ void copy_rows_in(float* h, const float* x,
+                                             const int* idx, int n_src,
                                              const ExpertRows& er, int row0,
                                              int t) {
   constexpr int kChunks = M / 4;  // 16-byte chunks a row
@@ -339,7 +371,12 @@ __device__ __forceinline__ void copy_rows_in(float* h, const float* x,
   for (int i = t; i < kRows * kChunks; i += kWg) {
     const int r = i / kChunks, ch = i % kChunks;
     const bool in = row0 + r < er.count;
-    const float* src = in ? x + (er.base + row0 + r) * M + ch * 4 : x;
+    long long row = er.base + row0 + r;
+    if (SRC == kGather && in) {
+      row = idx[row];
+      if (row < 0 || row >= n_src) __trap();
+    }
+    const float* src = in ? x + row * M + ch * 4 : x;
     cp_async16(smem_u32(h + r * TCfg<M>::kLd + ch * 4), src, in ? 16u : 0u);
   }
 }
@@ -593,7 +630,7 @@ chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
                    phase);
     };
     const int n_w = L * C::kPasses * K;
-    copy_rows_in<M>(h, x, er, row0, t);
+    copy_rows_in<M, kRagged>(h, x, nullptr, 0, er, row0, t);
     int j = 0;
     if (t == 0)  // a fresh ring: these do not block
       for (; j < n_w && j < C::kStages; ++j) load_w(j);
@@ -663,11 +700,38 @@ chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
 // rows it may take another order, and a mask can differ there.)
 //
 // Consumer thread ct (0..255) of the recompute owns rows 8 * (ct / 32) ..
-// + 7 and, in pass p, columns p * kPassN + ct % 32 + 32 j of the tile. W_l
-// streams through the ring as it is stored (16 k rows of one pass's
-// columns a stage, 32-column boxes of 128-byte rows, no swizzle).
+// + 7 and, in pass p, the columns p * kRPassN + 32 kRVec g + kRVec lane + q
+// (g < kRGroups, q < kRVec; lane = ct % 32) of the tile: each k a warp
+// reads its 8 rows of h by broadcast loads (a float4 covers 4 k) and each
+// thread its columns of W by kRGroups vector loads, each warp-wide load
+// conflict-free (at M >= 256: 64 FMAs a thread per 2 16-byte loads of W,
+// where one column a load gave 32 FMAs per 4). A thread tile of 8 x 16
+// (one pass at M = 512) ran slower on an H100: its 128 accumulators leave
+// too few registers to keep the loads in flight. W_l streams through the
+// ring as it is stored (16 k rows of one pass's columns a stage, 32-column
+// boxes of 128-byte rows, no swizzle).
 
-// The exact W_l rows of k chunk kc of block z, columns n0 .. n0 + kPassN,
+// kRVec (2 or 4) adjacent floats, and component q of them.
+template <int V>
+using FVec = typename std::conditional<V == 4, float4, float2>::type;
+
+__device__ __forceinline__ float comp(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float comp(const float2& v, int q) {
+  return q == 0 ? v.x : v.y;
+}
+
+template <int V>
+__device__ __forceinline__ FVec<V> fvec(const float (&z)[V]) {
+  if constexpr (V == 4)
+    return make_float4(z[0], z[1], z[2], z[3]);
+  else
+    return make_float2(z[0], z[1]);
+}
+
+// The exact W_l rows of k chunk kc of block z, columns n0 .. n0 + kRPassN,
 // into the next ring stage.
 template <int M>
 __device__ __forceinline__ void produce_w_exact(const CUtensorMap* w32_map,
@@ -677,10 +741,10 @@ __device__ __forceinline__ void produce_w_exact(const CUtensorMap* w32_map,
                                                 uint32_t& phase) {
   using C = TCfg<M>;
   mbar_wait(&empty[stage], phase ^ 1);
-  mbar_expect_tx(&full[stage], C::kHalfBytes);
+  mbar_expect_tx(&full[stage], C::kRPassN * kStageK * 4);
   uint8_t* dst = ring + stage * C::kStageBytes;
 #pragma unroll
-  for (int p = 0; p < C::kCols; ++p)
+  for (int p = 0; p < C::kRPassN / 32; ++p)
     tma_load(dst + p * kStageK * 128, w32_map, &full[stage], n0 + 32 * p,
              kc * kStageK, z);
   if (++stage == C::kStages) {
@@ -689,25 +753,28 @@ __device__ __forceinline__ void produce_w_exact(const CUtensorMap* w32_map,
   }
 }
 
-// acc = h @ W_l on the CUDA cores (see above).
+// acc = h @ W_l over one pass's columns on the CUDA cores (see above):
+// every output one FMA chain over k = 0 .. M-1 in order.
 template <int M>
 __device__ __forceinline__ void f32_product(
-    float (&acc)[8][TCfg<M>::kCols], const float* h, const uint8_t* ring,
+    float (&acc)[8][TCfg<M>::kRCols], const float* h, const uint8_t* ring,
     uint64_t* full, uint64_t* empty, int& stage, uint32_t& phase, int ct) {
   using C = TCfg<M>;
-  constexpr int J = TCfg<M>::kCols;
+  constexpr int V = C::kRVec, G = C::kRGroups;
   const int lane = ct & 31;
   const float* hrow = h + (ct >> 5) * 8 * C::kLd;
+  // this thread's first column in a stage (boxes of 32 columns x 16 k)
+  const int woff = lane * V / 32 * (kStageK * 32) + lane * V % 32;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < J; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < V * G; ++j) acc[i][j] = 0.0f;
 #pragma unroll 1
   for (int kc = 0; kc < C::kKChunks; ++kc) {
     mbar_wait(&full[stage], phase);
     const float* w =
-        reinterpret_cast<const float*>(ring + stage * C::kStageBytes) + lane;
-#pragma unroll 1
+        reinterpret_cast<const float*>(ring + stage * C::kStageBytes) + woff;
+#pragma unroll
     for (int k4 = 0; k4 < kStageK; k4 += 4) {
       float4 a[8];  // rows 8w .. + 7, k4 .. k4 + 3 (broadcast loads)
 #pragma unroll
@@ -716,15 +783,19 @@ __device__ __forceinline__ void f32_product(
                                                 kc * kStageK + k4);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        float b[J];
+        FVec<V> b[G];
 #pragma unroll
-        for (int j = 0; j < J; ++j) b[j] = w[j * kStageK * 32 + (k4 + u) * 32];
+        for (int g = 0; g < G; ++g)
+          b[g] = *reinterpret_cast<const FVec<V>*>(
+              w + g * V * (kStageK * 32) + (k4 + u) * 32);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const float av = u == 0 ? a[i].x : u == 1 ? a[i].y
-                         : u == 2 ? a[i].z : a[i].w;
+          const float av = comp(a[i], u);
 #pragma unroll
-          for (int j = 0; j < J; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int q = 0; q < V; ++q)
+              acc[i][g * V + q] = fmaf(av, comp(b[g], q), acc[i][g * V + q]);
         }
       }
     }
@@ -739,31 +810,50 @@ __device__ __forceinline__ void f32_product(
 // The recompute's epilogue of layer l (never the last) for the columns
 // of one pass (from col0): z = acc + b_l, at a skip layer z += xin, then
 // ReLU; z -> h (unless h is null), -> hsave's layer l + 1 (rows
-// ws_row0 ..) and the mask bits
-// (z > 0) of each (row, 32 columns) by a warp ballot -> mask [64][M / 32].
-// xin is the hsave layer this thread wrote its skip input to (H_0, or the
-// output of the last skip layer): read back by the thread that wrote it,
-// so the registers hold only acc.
-template <int M>
+// ws_row0 ..) and, with kBits, the mask bits (z > 0) of each (row, 32
+// columns) -> mask [64][M / 32], each word ORed over the 32 / kRVec lanes
+// that hold its columns. xin is the hsave layer this thread wrote its skip
+// input to (H_0, or the output of the last skip layer): read back by the
+// thread that wrote it, so the registers hold only acc.
+template <int M, bool kBits>
 __device__ __forceinline__ void f32_epilogue(
-    float (&acc)[8][TCfg<M>::kCols], float* h, const float* bias,
+    float (&acc)[8][TCfg<M>::kRCols], float* h, const float* bias,
     const float* xin, float* hsave_l, uint32_t* mask, int col0, int ct) {
   using C = TCfg<M>;
-  constexpr int J = TCfg<M>::kCols;
+  constexpr int V = C::kRVec, G = C::kRGroups;
   const int lane = ct & 31, r0 = (ct >> 5) * 8;
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int c = col0 + lane + 32 * j;
-    const float b = __ldg(bias + c);
+  for (int g = 0; g < G; ++g) {
+    const int c = col0 + g * 32 * V + lane * V;
+    float b[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) b[q] = __ldg(bias + c + q);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      float z = acc[i][j] + b;
-      if (xin != nullptr) z += xin[(long long)(r0 + i) * M + c];
-      z = fmaxf(z, 0.0f);
-      if (h != nullptr) h[(r0 + i) * C::kLd + c] = z;
-      hsave_l[(long long)(r0 + i) * M + c] = z;
-      const uint32_t bits = __ballot_sync(0xffffffffu, z > 0.0f);
-      if (lane == 0) mask[(r0 + i) * C::kMaskWords + col0 / 32 + j] = bits;
+      const long long row = (long long)(r0 + i) * M;
+      FVec<V> xv{};
+      if (xin != nullptr)
+        xv = *reinterpret_cast<const FVec<V>*>(xin + row + c);
+      float z[V];
+      uint32_t bits = 0;
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        z[q] = acc[i][g * V + q] + b[q];
+        if (xin != nullptr) z[q] += comp(xv, q);
+        z[q] = fmaxf(z[q], 0.0f);
+        bits |= (z[q] > 0.0f ? 1u : 0u) << q;
+      }
+      const FVec<V> out = fvec<V>(z);
+      if (h != nullptr)
+        *reinterpret_cast<FVec<V>*>(h + (r0 + i) * C::kLd + c) = out;
+      *reinterpret_cast<FVec<V>*>(hsave_l + row + c) = out;
+      if constexpr (kBits) {
+        bits <<= c % 32;
+#pragma unroll
+        for (int s = 1; s < 32 / V; s <<= 1)
+          bits |= __shfl_xor_sync(0xffffffffu, bits, s);
+        if (c % 32 == 0) mask[(r0 + i) * C::kMaskWords + c / 32] = bits;
+      }
     }
   }
 }
@@ -771,12 +861,15 @@ __device__ __forceinline__ void f32_epilogue(
 // The sweep's step of layer l on this thread's elements of one pass
 // (columns from col0), in the plain backward's order: g (+ gxin at a skip
 // layer), times the ReLU mask of H_{l+1} unless last; gxin = g at a skip
-// layer (in dx; zero until the first skip layer); G_l -> h.
-template <int M>
+// layer (in dx; zero until the first skip layer); G_l -> h. The mask: with
+// kBits the recompute's bits in shared memory (mask), else H_{l+1} > 0 read
+// from hsave's layer l + 1 (hnext, at the tile's first row): the same bit,
+// since H_{l+1} is the ReLU's output.
+template <int M, bool kBits>
 __device__ __forceinline__ void sweep_stage(
     const float (&v)[TCfg<M>::kAcc], float* h, const uint32_t* mask,
-    float* dx, long long base, int row0, int count, int col0, bool last,
-    bool skip, bool gxin_in_dx, int t) {
+    const float* hnext, float* dx, long long base, int row0, int count,
+    int col0, bool last, bool skip, bool gxin_in_dx, int t) {
   using C = TCfg<M>;
   const int lane = t & 31;
   const int r0 = (t >> 5) * 16 + (lane >> 2);
@@ -789,14 +882,31 @@ __device__ __forceinline__ void sweep_stage(
       for (int i = 0; i < C::kAcc; ++i) gxin[i] = 0.0f;
     }
   }
-  // this thread's mask words: rows r0 and r0 + 8, its kNW columns
+  // this thread's mask words: rows r0 and r0 + 8, its kNW columns (bit
+  // c - col0 - 32 w of word w: column c)
   uint32_t mw[2][C::kNW / 32];
 #pragma unroll
   for (int half = 0; half < 2; ++half)
 #pragma unroll
-    for (int w = 0; w < C::kNW / 32; ++w)
-      mw[half][w] =
-          last ? ~0u : mask[(r0 + 8 * half) * C::kMaskWords + col0 / 32 + w];
+    for (int w = 0; w < C::kNW / 32; ++w) {
+      if constexpr (kBits) {
+        mw[half][w] =
+            last ? ~0u : mask[(r0 + 8 * half) * C::kMaskWords + col0 / 32 + w];
+      } else if (last) {
+        mw[half][w] = ~0u;
+      } else {  // this thread's 8 columns of the word, 2 at a time
+        uint32_t bits = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int sh = 8 * j + 2 * (lane & 3);
+          const float2 hn = *reinterpret_cast<const float2*>(
+              hnext + (long long)(r0 + 8 * half) * M + col0 + 32 * w + sh);
+          bits |= (hn.x > 0.0f ? 1u : 0u) << sh;
+          bits |= (hn.y > 0.0f ? 2u : 0u) << sh;
+        }
+        mw[half][w] = bits;
+      }
+    }
 #pragma unroll
   for (int j2 = 0; j2 < C::kNW / 8; ++j2) {
 #pragma unroll
@@ -844,21 +954,32 @@ __device__ __forceinline__ void finish_dx(float (&acc)[TCfg<M>::kAcc],
 
 // w_map: the split W_l (hi, lo) [2, L*E, M, M] for the sweep; w32_map: W
 // [L*E, M, M] itself for the recompute; hsave [L, ws_rows, M]; gsave
-// [2, L, M, ws_rows] (G_l^T hi, lo).
-template <int M>
+// [2, L, M, ws_rows] (G_l^T hi, lo). The rows (rows.cuh): kRagged x [N, M]
+// sorted by expert with idx the counts [E]; in place x [E, cap, M]; kGather
+// the token rows x [n_src, M] that idx [E * cap] names. g and dx are
+// [N, M] (kRagged) or [E, cap, M]. The ReLU masks: with kBits the
+// recompute keeps them as bits in shared memory (L - 1 layers of them:
+// bwd_max_layers, K2R's depth limit); without, the sweep reads
+// H_{l+1} > 0 back from hsave, so in place and gathered launches take 32
+// layers at every width (bits up to bwd_max_layers, hsave past it).
+// kSweep false stops after the recompute: its time alone, for
+// chip_smoke.py's profiled split (nothing reads its outputs).
+template <int M, int SRC, bool kBits, bool kSweep>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
                const __grid_constant__ CUtensorMap w32_map,
-               const float* __restrict__ x, const int* __restrict__ counts,
-               const float* __restrict__ bs, const float* __restrict__ g,
+               const float* __restrict__ x, const int* __restrict__ idx,
+               int n_src, const float* __restrict__ bs,
+               const float* __restrict__ g,
                float* dx, float* hsave,  // written, then read back
-               float* __restrict__ gsave, long long ws_rows, int E, int L,
-               unsigned skip_mask) {
+               float* __restrict__ gsave, long long ws_rows, int E, int cap,
+               int L, unsigned skip_mask) {
   using C = TCfg<M>;
-  constexpr int J = TCfg<M>::kCols;
+  constexpr int V = C::kRVec;
+  static_assert(kBits || SRC != kRagged, "ragged rows keep mask bits");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  const TSmem<M> lay(L, true);
+  const TSmem<M> lay(L, kBits);
   uint8_t* ring = smem + lay.ring;
   float* h = reinterpret_cast<float*>(smem + lay.h);
   uint32_t* masks = reinterpret_cast<uint32_t*>(smem + lay.mask);
@@ -868,7 +989,8 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
 
   const int e = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
-  const ExpertRows er = expert_rows<kRagged>(counts, e, 0);
+  ExpertRows er = expert_rows<SRC>(idx, e, cap);
+  if (SRC != kRagged) er.ws = e * padded_seg_rows(cap);
   if (row0 >= er.count) return;  // past its rows
   const int LE = L * E;
   if (threadIdx.x == 0) {
@@ -885,15 +1007,16 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
     // W_0 .. W_{L-2} as stored for the recompute, then the split
     // W_{L-1} .. W_0 for the sweep; each layer pass by pass
     constexpr int K = C::kKChunks;
-    constexpr int PK = C::kPasses * K;  // stages a layer
-    const int n_fwd = (L - 1) * PK;
+    constexpr int PK = C::kPasses * K;    // the sweep's stages a layer
+    constexpr int RK = C::kRPasses * K;   // the recompute's
+    const int n_fwd = (L - 1) * RK;
     const int t = threadIdx.x;
     int stage = 0;
     uint32_t phase = 0;
     auto load_w = [&](int j) {
       if (j < n_fwd) {
-        produce_w_exact<M>(&w32_map, ring, full, empty, (j / PK) * E + e,
-                           j % K, (j / K) % C::kPasses * C::kPassN, stage,
+        produce_w_exact<M>(&w32_map, ring, full, empty, (j / RK) * E + e,
+                           j % K, (j / K) % C::kRPasses * C::kRPassN, stage,
                            phase);
       } else {
         const int r = j - n_fwd;
@@ -902,8 +1025,8 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
                      phase);
       }
     };
-    const int n_w = n_fwd + L * PK;
-    copy_rows_in<M>(h, x, er, row0, t);
+    const int n_w = n_fwd + (kSweep ? L * PK : 0);
+    copy_rows_in<M, SRC>(h, x, idx, n_src, er, row0, t);
     int j = 0;
     if (t == 0)
       for (; j < n_w && j < C::kStages; ++j) load_w(j);
@@ -925,9 +1048,9 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
     uint32_t phase = 0;
     mbar_wait(x_full, 0);
 
-    {  // recompute: H_l -> hsave, masks of layers 0..L-2 -> shared memory
+    {  // recompute: H_l -> hsave (kRagged: masks of layers 0..L-2 -> bits)
       const int lane = ct & 31, r0 = (ct >> 5) * 8;
-      float acc[8][J];
+      float acc[8][C::kRCols];
 #pragma unroll
       for (int j2 = 0; j2 < C::kMaskWords; ++j2)
 #pragma unroll
@@ -942,28 +1065,33 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
         // every pass reads whole, takes them after the last pass, the
         // earlier passes' read back by the thread that wrote them
 #pragma unroll
-        for (int p = 0; p < C::kPasses; ++p) {
-          const bool final_pass = p == C::kPasses - 1;
+        for (int p = 0; p < C::kRPasses; ++p) {
+          const bool final_pass = p == C::kRPasses - 1;
           f32_product<M>(acc, h, ring, full, empty, stage, phase, ct);
           if (final_pass) named_sync(1, 2 * kWg);  // every read of h done
-          f32_epilogue<M>(acc, final_pass ? h : nullptr,
-                          bs + ((size_t)l * E + e) * M,
-                          skip ? hsave + (xin_layer * ws_rows + ws_row0) * M
-                               : nullptr,
-                          next, masks + l * C::kMaskLayer, p * C::kPassN, ct);
+          f32_epilogue<M, kBits>(
+              acc, final_pass ? h : nullptr, bs + ((size_t)l * E + e) * M,
+              skip ? hsave + (xin_layer * ws_rows + ws_row0) * M : nullptr,
+              next, masks + l * C::kMaskLayer, p * C::kRPassN, ct);
         }
-        for (int p = 0; p < C::kPasses - 1; ++p)
+        for (int p = 0; p < C::kRPasses - 1; ++p)
 #pragma unroll
-          for (int j2 = 0; j2 < J; ++j2)
+          for (int g = 0; g < C::kRGroups; ++g)
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
-              const int c = p * C::kPassN + lane + 32 * j2;
-              h[(r0 + i) * C::kLd + c] = next[(long long)(r0 + i) * M + c];
+              const int c = p * C::kRPassN + g * 32 * V + lane * V;
+              *reinterpret_cast<FVec<V>*>(h + (r0 + i) * C::kLd + c) =
+                  *reinterpret_cast<const FVec<V>*>(
+                      next + (long long)(r0 + i) * M + c);
             }
         if (skip) xin_layer = l + 1;
         named_sync(1, 2 * kWg);
       }
     }
+    if constexpr (!kSweep) return;
+    // with one layer nothing above synchronised after the copy of H_0,
+    // which reads h: the sweep rewrites h
+    if (L == 1) named_sync(1, 2 * kWg);
 
     // reverse sweep, a pass's columns at a time. The gradient coming into
     // layer l is g at the last layer (zero past the expert's rows), else
@@ -984,12 +1112,14 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
       const bool last = l == L - 1;
       const bool skip = (skip_mask >> l) & 1u;
       const uint32_t* mask = masks + l * C::kMaskLayer;
+      const float* hnext =
+          kBits || last ? nullptr : hsave + ((l + 1) * ws_rows + ws_row0) * M;
 #pragma unroll 1
       for (int p = 0; p < C::kPasses; ++p) {
         const int col0 = p * C::kPassN + cw * C::kNW;
         if constexpr (C::kPasses == 1) {
-          sweep_stage<M>(acc, h, mask, dx, base, row0, er.count, col0, last,
-                         skip, gxin_in_dx, t);
+          sweep_stage<M, kBits>(acc, h, mask, hnext, dx, base, row0, er.count,
+                                col0, last, skip, gxin_in_dx, t);
         } else {
           float v[C::kAcc];
           if (last) {
@@ -1002,8 +1132,8 @@ chain_bwd_tf32(const __grid_constant__ CUtensorMap w_map,
 #pragma unroll
             for (int i = 0; i < C::kAcc; ++i) v[i] = acc[i];
           }
-          sweep_stage<M>(v, h, mask, dx, base, row0, er.count, col0, last,
-                         skip, gxin_in_dx, t);
+          sweep_stage<M, kBits>(v, h, mask, hnext, dx, base, row0, er.count,
+                                col0, last, skip, gxin_in_dx, t);
         }
       }
       if (skip) gxin_in_dx = true;
@@ -1068,20 +1198,21 @@ __device__ __forceinline__ uint32_t g_at(int n, int r) {
 // as tf32_product. h_map: hsave [L, ws_rows, M], boxes 32 x 32; g_map:
 // gsave [2L, M, ws_rows], boxes of 32 rows x kTN columns; both with the
 // 128-byte swizzle. dwp / dbp: the partials [L, chunks, M, M] /
-// [L, chunks, M] (rows.cuh).
-template <int M>
+// [L, chunks, M] (rows.cuh). The chunks: kRagged's from the counts [E] on
+// the device, the padded layout's (in place, gathered) from cap.
+template <int M, int SRC>
 __global__ void __launch_bounds__(DwTf32<M>::kThreads, 1)
 chain_dw_tf32(const __grid_constant__ CUtensorMap h_map,
               const __grid_constant__ CUtensorMap g_map,
               float* __restrict__ dwp, float* __restrict__ dbp,
-              const int* __restrict__ counts, int E) {
+              const int* __restrict__ counts, int E, int cap) {
   using D = DwTf32<M>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ring = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + D::kStages *
                                                D::kStageBytes);
   uint64_t* empty = full + D::kStages;
-  const ChunkRows cr = chunk_rows(counts, E, blockIdx.y);
+  const ChunkRows cr = chunk_rows<SRC>(counts, E, cap, blockIdx.y);
   if (cr.e < 0) return;  // past the last chunk
   const int m0 = blockIdx.x / (M / D::kTN) * D::kTM;
   const int n0 = blockIdx.x % (M / D::kTN) * D::kTN;
@@ -1230,13 +1361,34 @@ int launch_fwd_width(const float* x, const int* counts, const float* ws,
   return (int)cudaGetLastError();
 }
 
-template <int M>
-int launch_bwd_width(const float* x, const int* counts, const float* ws,
-                     const float* bs, const float* g, float* dx, float* hsave,
-                     float* gsave, float* wsplit, float* dw, float* db,
-                     float* dwp, float* dbp, int E, int N, int L,
-                     unsigned skip_mask, cudaStream_t stream) {
-  const long long ws_rows = ragged_ws_rows(N, E);
+// Pass 1 with the masks as bits (kBits) or read back from hsave.
+template <int M, int SRC, bool kBits, bool kSweep>
+int launch_pass1(const CUtensorMap& w_map, const CUtensorMap& w32_map,
+                 const float* x, const int* idx, int n_src, const float* bs,
+                 const float* g, float* dx, float* hsave, float* gsave,
+                 long long ws_rows, int E, int rows, int L,
+                 unsigned skip_mask, cudaStream_t stream) {
+  const int smem = TSmem<M>(L, kBits).bytes;
+  auto kern = chain_bwd_tf32<M, SRC, kBits, kSweep>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3((rows + kRows - 1) / kRows, E), kThreads, smem, stream>>>(
+      w_map, w32_map, x, idx, n_src, bs, g, dx, hsave, gsave, ws_rows, E,
+      rows, L, skip_mask);
+  return (int)cudaGetLastError();
+}
+
+// rows: N with kRagged, else the capacity C. bits: the masks of L - 1
+// layers fit pass 1's shared memory (always so with kRagged).
+template <int M, int SRC, bool kSweep>
+int launch_bwd_width(const float* x, const int* idx, int n_src,
+                     const float* ws, const float* bs, const float* g,
+                     float* dx, float* hsave, float* gsave, float* wsplit,
+                     float* dw, float* db, float* dwp, float* dbp, int E,
+                     int rows, int L, unsigned skip_mask, bool bits,
+                     cudaStream_t stream) {
+  const long long ws_rows = bwd_ws_rows<SRC>(rows, E);
   CUtensorMap w_map, w32_map, h_map, g_map;
   int rc = split_weights<M>(&w_map, ws, wsplit, L * E, true, stream);
   if (rc != 0) return rc;
@@ -1253,29 +1405,33 @@ int launch_bwd_width(const float* x, const int* counts, const float* ws,
                      CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) != 0)
     return rc;
 
-  const int smem = TSmem<M>(L, true).bytes;
-  auto kern = chain_bwd_tf32<M>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((N + kRows - 1) / kRows, E), kThreads, smem, stream>>>(
-      w_map, w32_map, x, counts, bs, g, dx, hsave, gsave, ws_rows, E, L,
-      skip_mask);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if constexpr (SRC == kRagged)
+    rc = launch_pass1<M, SRC, true, kSweep>(w_map, w32_map, x, idx, n_src, bs,
+                                            g, dx, hsave, gsave, ws_rows, E,
+                                            rows, L, skip_mask, stream);
+  else if (bits)
+    rc = launch_pass1<M, SRC, true, kSweep>(w_map, w32_map, x, idx, n_src, bs,
+                                            g, dx, hsave, gsave, ws_rows, E,
+                                            rows, L, skip_mask, stream);
+  else
+    rc = launch_pass1<M, SRC, false, kSweep>(w_map, w32_map, x, idx, n_src,
+                                             bs, g, dx, hsave, gsave, ws_rows,
+                                             E, rows, L, skip_mask, stream);
+  if (rc != 0) return rc;
+  if constexpr (!kSweep) return 0;
 
   using D = DwTf32<M>;
-  auto kern2 = chain_dw_tf32<M>;
-  err = cudaFuncSetAttribute(
+  auto kern2 = chain_dw_tf32<M, SRC>;
+  cudaError_t err = cudaFuncSetAttribute(
       kern2, cudaFuncAttributeMaxDynamicSharedMemorySize, D::kBytes);
   if (err != cudaSuccess) return (int)err;
-  const int chunks = ragged_chunks(N, E);
+  const int chunks = bwd_chunks<SRC>(rows, E);
   kern2<<<dim3((M / D::kTM) * (M / D::kTN), chunks, L), D::kThreads, D::kBytes,
-            stream>>>(h_map, g_map, dwp, dbp, counts, E);
+            stream>>>(h_map, g_map, dwp, dbp, idx, E, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return launch_reduce_partials(dwp, dbp, counts, dw, db, E, M, L, chunks,
-                                stream);
+  return launch_reduce_partials<SRC>(dwp, dbp, idx, dw, db, E, M, L, chunks,
+                                     stream, rows);
 }
 
 // Returns a cudaError_t code (0 = launched). x, out [N, M] fp32 sorted by
@@ -1314,20 +1470,28 @@ inline int launch_chain_fwd(int device, const void* x, const int* counts,
   }
 }
 
-// The backward: g, dx [N, M]; hsave [L, ragged_ws_rows(N, E), M] and
-// gsave [2, L, M, ragged_ws_rows(N, E)] fp32 workspaces; wsplit 2 * L*E*M*M
-// floats; dw [L, E, M, M], db [L, E, 1, M]; dwp / dbp the partials
-// [L, ragged_chunks(N, E), M, M] / [L, ragged_chunks(N, E), M].
-inline int launch_chain_bwd(int device, const void* x, const int* counts,
-                            const void* ws, const void* bs, const void* g,
-                            void* dx, void* hsave, void* gsave, void* wsplit,
-                            float* dw, float* db, float* dwp, float* dbp,
-                            int E, int N, int M, int L, unsigned skip_mask,
-                            void* stream) {
+// The backward. Rows as chain_bwd_tf32's (rows: N with kRagged, else the
+// capacity C); hsave [L, bwd_ws_rows, M] and gsave [2, L, M, bwd_ws_rows]
+// fp32 workspaces; wsplit 2 * L*E*M*M floats; dw [L, E, M, M], db
+// [L, E, 1, M]; dwp / dbp the partials [L, bwd_chunks, M, M] /
+// [L, bwd_chunks, M] (rows.cuh). kSweep false: pass 1's recompute alone
+// (chain_bwd_tf32).
+template <int SRC, bool kSweep = true>
+inline int launch_chain_bwd(int device, const void* x, const int* idx,
+                            int n_src, const void* ws, const void* bs,
+                            const void* g, void* dx, void* hsave, void* gsave,
+                            void* wsplit, float* dw, float* db, float* dwp,
+                            float* dbp, int E, int rows, int M, int L,
+                            unsigned skip_mask, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (E <= 0 || N <= 0 || L < 1 || L > bwd_max_layers(device, M))
+  // the depth whose masks fit pass 1's shared memory as bits: K2R's limit;
+  // in place and gathered, deeper chains read them back from hsave
+  const int bit_layers = bwd_max_layers(device, M);
+  const int limit = SRC == kRagged ? bit_layers : 32;
+  if (E <= 0 || rows <= 0 || L < 1 || L > limit)
     return (int)cudaErrorInvalidValue;
+  const bool bits = L <= bit_layers;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* w = static_cast<const float*>(ws);
@@ -1339,17 +1503,21 @@ inline int launch_chain_bwd(int device, const void* x, const int* counts,
   float* wsp = static_cast<float*>(wsplit);
   switch (M) {
     case 64:
-      return launch_bwd_width<64>(xf, counts, w, b, gy, dxf, hs, gs, wsp, dw,
-                                  db, dwp, dbp, E, N, L, skip_mask, s);
+      return launch_bwd_width<64, SRC, kSweep>(
+          xf, idx, n_src, w, b, gy, dxf, hs, gs, wsp, dw, db, dwp, dbp, E,
+          rows, L, skip_mask, bits, s);
     case 128:
-      return launch_bwd_width<128>(xf, counts, w, b, gy, dxf, hs, gs, wsp, dw,
-                                   db, dwp, dbp, E, N, L, skip_mask, s);
+      return launch_bwd_width<128, SRC, kSweep>(
+          xf, idx, n_src, w, b, gy, dxf, hs, gs, wsp, dw, db, dwp, dbp, E,
+          rows, L, skip_mask, bits, s);
     case 256:
-      return launch_bwd_width<256>(xf, counts, w, b, gy, dxf, hs, gs, wsp, dw,
-                                   db, dwp, dbp, E, N, L, skip_mask, s);
+      return launch_bwd_width<256, SRC, kSweep>(
+          xf, idx, n_src, w, b, gy, dxf, hs, gs, wsp, dw, db, dwp, dbp, E,
+          rows, L, skip_mask, bits, s);
     case 512:
-      return launch_bwd_width<512>(xf, counts, w, b, gy, dxf, hs, gs, wsp, dw,
-                                   db, dwp, dbp, E, N, L, skip_mask, s);
+      return launch_bwd_width<512, SRC, kSweep>(
+          xf, idx, n_src, w, b, gy, dxf, hs, gs, wsp, dw, db, dwp, dbp, E,
+          rows, L, skip_mask, bits, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

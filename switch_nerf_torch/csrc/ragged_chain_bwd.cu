@@ -33,9 +33,9 @@ extern "C" int ragged_chain_bwd(int device, const void* x, const int* counts,
     return sm90::launch_chain_bwd<kRagged>(device, x, counts, N, ws, bs, g,
                                            dx, hsave, gsave, dw, db, dwp, dbp,
                                            E, N, M, L, skip_mask, stream);
-  return tf32::launch_chain_bwd(device, x, counts, ws, bs, g, dx, hsave,
-                                gsave, wsplit, dw, db, dwp, dbp, E, N, M, L,
-                                skip_mask, stream);
+  return tf32::launch_chain_bwd<kRagged>(device, x, counts, N, ws, bs, g, dx,
+                                         hsave, gsave, wsplit, dw, db, dwp,
+                                         dbp, E, N, M, L, skip_mask, stream);
 }
 
 // Rows per workspace layer (rows.cuh), so the caller allocates what the

@@ -1,6 +1,7 @@
-// Where the rows of a chain launch come from, shared by the fp32 (chain.cuh,
-// chain_bwd.cuh: kInPlace, kGather; chain_tf32.cuh: kRagged) and bf16
-// (chain_sm90.cuh, chain_bwd_sm90.cuh) templates.
+// Where the rows of a chain launch come from, shared by the fp32 (chain.cuh:
+// K1/K3's kInPlace, kGather; chain_tf32.cuh: K1R's kRagged, and the
+// backward's all three) and bf16 (chain_sm90.cuh, chain_bwd_sm90.cuh)
+// templates.
 //
 //   kInPlace (K1, K2): x [E, C, M]; expert e owns rows e*C .. e*C + C - 1.
 //   kGather  (K3, K4): the dispatched layout [E, C, M] again, but row
@@ -13,11 +14,13 @@
 //
 // The backward's workspaces (each layer's input H_l and post-mask gradient
 // G_l) keep one segment per expert. In place and gathered, segment e is
-// rows e*C .. of a layer of E*C rows. Ragged, segment e starts at
-// sum(ceil(counts[:e] / kSegRows) * kSegRows), so every tile of an expert
-// (128 rows; 64 at M = 512) has whole rows of its own in the workspace,
-// and a layer holds ragged_ws_rows(N, E) rows, a bound that needs no
-// counts.
+// rows e*C .. of a layer of E*C rows in bf16 (TMA stores clip at C), and
+// rows e * padded_seg_rows(C) .. in fp32 (chain_tf32.cuh: C rounded up to
+// whole 64-row tiles, since its threads store whole tiles). Ragged,
+// segment e starts at sum(ceil(counts[:e] / kSegRows) * kSegRows), so
+// every tile of an expert (128 rows; 64 at M = 512) has whole rows of its
+// own in the workspace, and a layer holds ragged_ws_rows(N, E) rows, a
+// bound that needs no counts.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,11 +28,17 @@
 enum RowSource : int { kInPlace = 0, kGather = 1, kRagged = 2 };
 
 constexpr int kSegRows = 128;  // ragged workspace segments: whole bf16 tiles
+constexpr int kPadSegRows = 64;  // fp32 padded segments: whole fp32 tiles
 
 // Rows per workspace layer of a ragged launch: sum_e ceil(c_e / 128) <=
 // ceil(N / 128) + E tiles, whatever the counts.
 __host__ __device__ inline long long ragged_ws_rows(long long N, int E) {
   return ((N + kSegRows - 1) / kSegRows + E) * kSegRows;
+}
+
+// Rows of one expert's segment in the fp32 padded workspaces.
+__host__ __device__ inline long long padded_seg_rows(int C) {
+  return (long long)(C + kPadSegRows - 1) / kPadSegRows * kPadSegRows;
 }
 
 // The rows of expert e: the first row in x / out / g / dx, how many, and the
@@ -71,6 +80,25 @@ __host__ __device__ inline int ragged_chunks(long long N, int E) {
   return (int)((N + kChunkRows - 1) / kChunkRows) + E;
 }
 
+// The padded layout's (in place, gathered) chunks: ceil(C / kChunkRows) an
+// expert, E of them a layer, from the capacity alone.
+__host__ __device__ inline int padded_chunks(int C) {
+  return (C + kChunkRows - 1) / kChunkRows;
+}
+
+// A fp32 backward launch's workspace rows a layer and dW chunks (rows: N
+// with kRagged, else the capacity C): what the wrappers allocate.
+template <int SRC>
+__host__ __device__ inline long long bwd_ws_rows(int rows, int E) {
+  return SRC == kRagged ? ragged_ws_rows(rows, E)
+                        : E * padded_seg_rows(rows);
+}
+
+template <int SRC>
+__host__ __device__ inline int bwd_chunks(int rows, int E) {
+  return SRC == kRagged ? ragged_chunks(rows, E) : E * padded_chunks(rows);
+}
+
 // Chunk c: its expert (-1 past the last chunk), its first row in the
 // expert's workspace segment's layer (ws) and its row count (<= kChunkRows).
 struct ChunkRows {
@@ -95,22 +123,46 @@ __device__ __forceinline__ ChunkRows chunk_rows(const int* counts, int E,
   return {-1, 0, 0};
 }
 
-// The partial sums of K2R's dW pass: dwp [L, chunks, M, M] and
-// dbp [L, chunks, M] fp32, chunk c's sums of its expert's rows. Summed here
-// per expert in ascending chunk order into dw [L, E, M, M] and db
-// [L, E, 1, M] (exact zeros for an expert with no rows): no atomics, the
-// same bits on every run. One thread per 4 consecutive dW entries of one
-// (layer, expert); the CTAs of blockIdx.x == 0 also sum db. Reads the
-// partials once (<= 44 MB at E8 M256 L7), ~15-30 us.
+// The same for any row source: kRagged's above, the padded layout's from C
+// (chunk c is chunk c % padded_chunks(C) of expert c / padded_chunks(C)).
+template <int SRC>
+__device__ __forceinline__ ChunkRows chunk_rows(const int* counts, int E,
+                                                int C, int c) {
+  if constexpr (SRC == kRagged) {
+    return chunk_rows(counts, E, c);
+  } else {
+    const int k = padded_chunks(C);
+    const int e = c / k, r0 = c % k * kChunkRows;
+    return {e, e * padded_seg_rows(C) + r0,
+            C - r0 < kChunkRows ? C - r0 : kChunkRows};
+  }
+}
+
+// The partial sums of K2R's (and fp32 K2/K4's) dW pass: dwp
+// [L, chunks, M, M] and dbp [L, chunks, M] fp32, chunk c's sums of its
+// expert's rows. Summed here per expert in ascending chunk order into dw
+// [L, E, M, M] and db [L, E, 1, M] (exact zeros for an expert with no
+// rows): no atomics, the same bits on every run. One thread per 4
+// consecutive dW entries of one (layer, expert); the CTAs of
+// blockIdx.x == 0 also sum db. Reads the partials once (<= 44 MB at E8
+// M256 L7), ~15-30 us. An expert's chunks: kRagged's from the counts, the
+// padded layout's from C.
+template <int SRC>
 __global__ void reduce_partials(const float* __restrict__ dwp,
                                 const float* __restrict__ dbp,
                                 const int* __restrict__ counts,
                                 float* __restrict__ dw, float* __restrict__ db,
-                                int E, int M, int chunks) {
+                                int E, int M, int chunks, int C) {
   const int e = blockIdx.y, l = blockIdx.z;
-  int first = 0;
-  for (int i = 0; i < e; ++i) first += (counts[i] + kChunkRows - 1) / kChunkRows;
-  const int n = (counts[e] + kChunkRows - 1) / kChunkRows;
+  int first = 0, n;
+  if constexpr (SRC == kRagged) {
+    for (int i = 0; i < e; ++i)
+      first += (counts[i] + kChunkRows - 1) / kChunkRows;
+    n = (counts[e] + kChunkRows - 1) / kChunkRows;
+  } else {
+    n = padded_chunks(C);
+    first = e * n;
+  }
   const long long mm = (long long)M * M;
   const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (v * 4 < mm) {
@@ -132,14 +184,15 @@ __global__ void reduce_partials(const float* __restrict__ dwp,
   }
 }
 
+template <int SRC = kRagged>
 inline int launch_reduce_partials(const float* dwp, const float* dbp,
                                   const int* counts, float* dw, float* db,
                                   int E, int M, int L, int chunks,
-                                  cudaStream_t stream) {
+                                  cudaStream_t stream, int C = 0) {
   constexpr int kThreads = 256;
   const dim3 grid((unsigned)(((long long)M * M / 4 + kThreads - 1) / kThreads),
                   E, L);
-  reduce_partials<<<grid, kThreads, 0, stream>>>(dwp, dbp, counts, dw, db, E,
-                                                 M, chunks);
+  reduce_partials<SRC><<<grid, kThreads, 0, stream>>>(dwp, dbp, counts, dw,
+                                                      db, E, M, chunks, C);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,7 @@ cores (TF32 would miss the fp32 tolerance).
 
 K2 replaces ``_bwd_call`` (the Pallas ``_bwd_kernel``); source
 ``csrc/expert_chain_bwd.cu`` on ``csrc/chain_bwd_sm90.cuh`` (bf16) and
-``csrc/chain_bwd.cuh`` (fp32). The gradient needs the dx and dW products,
+``csrc/chain_tf32.cuh`` (fp32). The gradient needs the dx and dW products,
 4*E*C*M^2*L = 60.1 GFLOP at the Building shape against ~65 MB of x, g, dx
 and fp32 dW: bound by tensor-core operations (the recompute is the kernel's
 own choice and not in the bound). The TPU kernel adds each C block's dW
@@ -28,14 +28,25 @@ in shared memory; a second pass forms dW = H_l^T G_l and db with fp32
 accumulators over all C inside one CTA per 128 x min(M, 256) output tile:
 deterministic, no atomics. The bf16 pass 1 holds L - 1 layers of masks in
 shared memory, so on an H100 it takes up to 8 layers at M = 256 and 7 at
-M = 512 (``bwd_max_layers``); more raise.
+M = 512 (``bwd_max_layers``); more raise. fp32 runs K2R's design on the
+tensor cores in split precision, 3xTF32 (``csrc/chain_tf32.cuh`` with the
+in-place row source): 64-row tiles whose recompute runs on the CUDA cores
+in the plain chain's summation order, so the ReLU masks are the plain
+version's bit for bit; the reverse sweep and the dW pass in 3xTF32 (three
+TF32 products per product, error near fp32's; one TF32 product would miss
+the fp32 limit); dW over 2,048-row chunks of each expert, whose partial
+sums a last step adds in ascending order (deterministic, no atomics). Its
+masks are read back from the recomputed activations in device memory, so
+it takes 32 layers at every width. Its workspaces (``bwd_buffers``) are
+allocated here.
 
 Widths: M = 64, 128, 256 and 512 (Mission Bay's trunk) in both dtypes.
 In bf16 a CTA owns 64 rows at M = 512 and each consumer warpgroup half
-the columns, since wgmma's widest product is 256 columns. The fp32 CUDA-core
-kernels keep one design at every width (a 32-row tile, its skip input and a
-W tile in 198,144 B of shared memory at M = 512, ``csrc/chain.cuh``), and
-their backward takes up to 32 layers at each.
+the columns, since wgmma's widest product is 256 columns. The fp32
+forward's CUDA-core kernel keeps one design at every width (a 32-row tile,
+its skip input and a W tile in 198,144 B of shared memory at M = 512,
+``csrc/chain.cuh``); the fp32 backward runs each layer in four passes of
+128 output columns at M = 512 (``TCfg::kPasses``).
 
 ``expert_mlp_chain`` is differentiable through ``ExpertChainFn`` (forward
 K1, backward K2). A CPU tensor takes the plain PyTorch versions; a CUDA
@@ -180,14 +191,35 @@ def raise_on_error(rc: int, error_string) -> None:
             f"CUDA kernel launch failed: {error_string(rc).decode()} ({rc})")
 
 
-def bwd_buffers(layers: int, e: int, c: int, m: int, dtype, device):
-    """K2/K4's allocations: the H and G workspaces [L, E, C, M] in the
-    input dtype, dW [L, E, M, M] and db [L, E, 1, M] in fp32."""
-    work = (layers, e, c, m)
-    return (torch.empty(work, dtype=dtype, device=device),
-            torch.empty(work, dtype=dtype, device=device),
-            torch.empty((layers, e, m, m), dtype=torch.float32, device=device),
-            torch.empty((layers, e, 1, m), dtype=torch.float32, device=device))
+def bwd_buffers(lib, name: str, layers: int, e: int, c: int, m: int, dtype,
+                device):
+    """K2/K4's allocations, in the order of the C entry points: the H and G
+    workspaces, the split weights and the dW pass's partial sums (fp32
+    only, else None), then dW [L, E, M, M] and db [L, E, 1, M] in fp32.
+    bf16: H and G [L, E, C, M]. fp32 (``csrc/chain_tf32.cuh``): H
+    [L, ws_rows, M] and G_l^T as tf32 hi and lo [2, L, M, ws_rows], ws_rows
+    = E x C rounded up to whole 64-row tiles (``<name>_ws_rows``); W split
+    likewise [2, L*E, M, M]; the partials [L, chunks, M, M] and
+    [L, chunks, M], chunks = E x ceil(C / 2048) (``<name>_chunks``)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    dw = torch.empty((layers, e, m, m), **f32)
+    db = torch.empty((layers, e, 1, m), **f32)
+    if dtype == torch.bfloat16:
+        work = (layers, e, c, m)
+        return (torch.empty(work, dtype=dtype, device=device),
+                torch.empty(work, dtype=dtype, device=device), None, None,
+                None, dw, db)
+    rows = getattr(lib, f"{name}_ws_rows")(e, c)
+    chunks = getattr(lib, f"{name}_chunks")(e, c)
+    return (torch.empty((layers, rows, m), **f32),
+            torch.empty((2, layers, m, rows), **f32),
+            torch.empty((2, layers * e, m, m), **f32),
+            torch.empty((layers, chunks, m, m), **f32),
+            torch.empty((layers, chunks, m), **f32), dw, db)
+
+
+def pointers(tensors) -> list:
+    return [None if t is None else t.data_ptr() for t in tensors]
 
 
 _PROTOTYPES = {
@@ -197,9 +229,14 @@ _PROTOTYPES = {
     "expert_chain_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _BWD_PROTOTYPES = {
-    "expert_chain_bwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 9
+    "expert_chain_bwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 12
                          + [ctypes.c_int] * 4
                          + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
+    "expert_chain_bwd_recompute": (
+        ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 12
+        + [ctypes.c_int] * 4 + [ctypes.c_uint, ctypes.c_void_p]),
+    "expert_chain_bwd_ws_rows": (ctypes.c_longlong, [ctypes.c_int] * 2),
+    "expert_chain_bwd_chunks": (ctypes.c_int, [ctypes.c_int] * 2),
     "expert_chain_bwd_max_layers": (ctypes.c_int, [ctypes.c_int] * 3),
     "expert_chain_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -262,17 +299,41 @@ def expert_mlp_chain_bwd(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
         raise ValueError(f"the {x.dtype} backward kernel at M={m} takes up "
                          f"to {limit} layers, got {layers}")
     dx = torch.empty_like(x)
-    hsave, gsave, dw, db = bwd_buffers(layers, e, c, m, x.dtype, x.device)
     lib = _build.load("expert_chain_bwd", _BWD_PROTOTYPES)
+    bufs = bwd_buffers(lib, "expert_chain_bwd", layers, e, c, m, x.dtype,
+                       x.device)
     rc = lib.expert_chain_bwd(
         x.device.index, x.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), hsave.data_ptr(), gsave.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), e, c, m, layers,
+        g.data_ptr(), dx.data_ptr(), *pointers(bufs), e, c, m, layers,
         skip_mask(skips, layers), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(rc, lib.expert_chain_bwd_error_string)
     bwd_launches += 1
-    return dx, dw, db
+    return dx, bufs[-2], bufs[-1]
+
+
+def expert_mlp_chain_bwd_recompute(x: torch.Tensor, ws: torch.Tensor,
+                                   bs: torch.Tensor, g: torch.Tensor,
+                                   skips: Sequence[int] = ()) -> None:
+    """fp32 K2's weight split and pass 1 stopped after its recompute, on
+    the card: the recompute's time alone, for chip_smoke.py's profiled
+    split of K2. Returns nothing (its outputs are no gradient) and counts
+    no launch."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError("the recompute alone runs fp32 on the card")
+    _check_x(x, ws, bs)
+    check_like(g, x, "g")
+    e, c, m = x.shape
+    layers = ws.shape[0]
+    lib = _build.load("expert_chain_bwd", _BWD_PROTOTYPES)
+    bufs = bwd_buffers(lib, "expert_chain_bwd", layers, e, c, m, x.dtype,
+                       x.device)
+    rc = lib.expert_chain_bwd_recompute(
+        x.device.index, x.data_ptr(), ws.data_ptr(), bs.data_ptr(),
+        g.data_ptr(), torch.empty_like(x).data_ptr(), *pointers(bufs), e, c,
+        m, layers, skip_mask(skips, layers),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    raise_on_error(rc, lib.expert_chain_bwd_error_string)
 
 
 class ExpertChainFn(torch.autograd.Function):

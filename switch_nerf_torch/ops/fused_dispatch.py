@@ -6,7 +6,8 @@ K3 replaces ``switch_nerf_tpu/ops/fused_dispatch.py:_fwd_call`` (the Pallas
 ``csrc/fused_dispatch.cu`` on ``csrc/chain_sm90.cuh`` (bf16) and
 ``csrc/chain.cuh`` (fp32). K4 replaces ``_bwd_call`` (the Pallas
 ``_bwd_kernel``); source ``csrc/fused_dispatch_bwd.cu`` on
-``csrc/chain_bwd_sm90.cuh`` (bf16) and ``csrc/chain_bwd.cuh`` (fp32).
+``csrc/chain_bwd_sm90.cuh`` (bf16) and ``csrc/chain_tf32.cuh`` (fp32: K2's
+3xTF32 design, its producer gathering the token rows by ``cp.async``).
 
 K3 computes chain(dispatch(tokens)) without the [E, C, M] dispatch buffer:
 each CTA loads its own slot->token indices and reads the token rows
@@ -23,7 +24,7 @@ gather rows, so the producer warpgroup copies each 128-row tile's token
 rows with ``cp.async`` (one 16-byte chunk a lane) into the swizzled layout
 that wgmma reads, zero-filling rows past C, and everything after the input
 tile is K1's and K2's. K4 inherits K2's layer limit (bf16 at M = 256 on an
-H100: 8). The TPU kernel's 8-row-aligned mask-select gather has no
+H100: 8; fp32: 32). The TPU kernel's 8-row-aligned mask-select gather has no
 counterpart on the card: any row address is a legal load here.
 
 ``fused_dispatch_chain`` is differentiable through ``FusedDispatchFn``. A
@@ -40,8 +41,8 @@ import torch
 from switch_nerf_torch.ops import _build
 from switch_nerf_torch.ops.expert_kernel import (
     KERNEL_WIDTHS, bwd_buffers, check_chain_weights, check_like, check_rows,
-    expert_mlp_chain_bwd_plain, expert_mlp_chain_plain, raise_on_error,
-    skip_mask)
+    expert_mlp_chain_bwd_plain, expert_mlp_chain_plain, pointers,
+    raise_on_error, skip_mask)
 
 __all__ = ["fused_dispatch_chain", "fused_dispatch_chain_plain",
            "fused_dispatch_chain_bwd", "fused_dispatch_chain_bwd_plain",
@@ -113,9 +114,11 @@ _PROTOTYPES = {
 _BWD_PROTOTYPES = {
     "fused_dispatch_bwd": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        + [ctypes.c_void_p] * 8
+        + [ctypes.c_void_p] * 11
         + [ctypes.c_int] * 4
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
+    "fused_dispatch_bwd_ws_rows": (ctypes.c_longlong, [ctypes.c_int] * 2),
+    "fused_dispatch_bwd_chunks": (ctypes.c_int, [ctypes.c_int] * 2),
     "fused_dispatch_bwd_max_layers": (ctypes.c_int, [ctypes.c_int] * 3),
     "fused_dispatch_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -193,17 +196,16 @@ def fused_dispatch_chain_bwd(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
     if layers > limit:
         raise ValueError(f"the {tokens_ext.dtype} backward kernel at M={m} "
                          f"takes up to {limit} layers, got {layers}")
-    hsave, gsave, dw, db = bwd_buffers(layers, e, c, m, tokens_ext.dtype,
-                                       tokens_ext.device)
+    bufs = bwd_buffers(lib, "fused_dispatch_bwd", layers, e, c, m,
+                       tokens_ext.dtype, tokens_ext.device)
     rc = lib.fused_dispatch_bwd(
         tokens_ext.device.index, tokens_ext.data_ptr(), stt_eff.data_ptr(),
         s_ext, ws.data_ptr(), bs.data_ptr(), g.data_ptr(), dxd.data_ptr(),
-        hsave.data_ptr(), gsave.data_ptr(), dw.data_ptr(), db.data_ptr(), e,
-        c, m, layers, skip_mask(skips, layers), is_bf16,
+        *pointers(bufs), e, c, m, layers, skip_mask(skips, layers), is_bf16,
         torch.cuda.current_stream(tokens_ext.device).cuda_stream)
     raise_on_error(rc, lib.fused_dispatch_bwd_error_string)
     bwd_launches += 1
-    return dxd, dw, db
+    return dxd, bufs[-2], bufs[-1]
 
 
 class FusedDispatchFn(torch.autograd.Function):

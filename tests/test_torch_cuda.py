@@ -603,7 +603,7 @@ def test_wide_ragged_chain_kernels_match_plain(cuda, counts):
 
 def test_wide_float32_kernels_refuse(cuda):
     """fp32 at M = 512 (Mission Bay under --no_amp), once refused by every
-    wrapper: K1/K2 and K3/K4 (CUDA cores) and K1R/K2R (3xTF32, four column
+    wrapper: K1/K3 (CUDA cores) and K2/K4, K1R/K2R (3xTF32, four column
     passes a layer) now take it and match their plain versions at
     Mission Bay's depth (7 layers, skip 3); K2, K4 and K2R repeat bit for
     bit; the backward limits are 32 layers (K2, K4) and 9 (K2R)."""
@@ -699,3 +699,112 @@ def test_moe_surface_on_the_card_matches_the_cpu(cuda, case):
     for a, b in zip(*got):
         scale = b.abs().max().item()
         assert (a - b).abs().max().item() <= 1e-4 * max(scale, 1e-6)
+
+
+# ------------------------------------------------- fp32 K2/K4, 3xTF32 ----
+# fp32 K2 and K4 run K2R's design (csrc/chain_tf32.cuh, kInPlace / kGather):
+# 64-row tiles, the dW pass over 2,048-row chunks of each expert, the masks
+# read back from the recompute's hsave (so 32 layers at every width).
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("m", [64, 128, 256, 512])
+@pytest.mark.parametrize("c", [1, 63, 64, 65, _CHUNK_ROWS - 1, _CHUNK_ROWS,
+                               _CHUNK_ROWS + 1])
+def test_fp32_bwd_kernels_across_the_tile_and_chunk_edges(cuda, c, m,
+                                                          kernels):
+    """fp32 K1/K2 and K3/K4 where C ends inside, at and past a 64-row tile
+    and a 2,048-row dW chunk: rows past C stay in the expert's own
+    workspace segment, and its chunks' partial sums reduce in order."""
+    _check_case(kernels, 2, c, m, 3, torch.float32, cuda, seed=c + m,
+                skips=(1,))
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("m", [256, 512])
+def test_fp32_bwd_kernels_single_expert_and_edge_skips(cuda, m, kernels):
+    """One expert over two dW chunks, and skips at the first and the last
+    layer (the last layer's skip input and no mask)."""
+    _check_case(kernels, 1, _CHUNK_ROWS + 300, m, 4, torch.float32, cuda,
+                seed=m + 51, skips=(2,))
+    _check_case(kernels, 3, 200, m, 4, torch.float32, cuda, seed=m + 52,
+                skips=(0, 3))
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+def test_fp32_bwd_kernels_take_32_layers_at_width_512(cuda, kernels):
+    """The ReLU masks stay bits in shared memory up to K2R's depth (9
+    layers at M = 512) and are read back from hsave past it: 9, 10 and 32
+    layers match the plain versions, and the fp32 limit stays 32 (33
+    raise)."""
+    assert expert_kernel.bwd_max_layers(cuda, 512, torch.float32) == 32
+    for layers, skips in ((9, (3,)), (10, (3, 9)), (32, (3, 17, 31))):
+        _check_case(kernels, 2, 130, 512, layers, torch.float32, cuda,
+                    seed=61 + layers, skips=skips)
+    x, ws, bs, gy = _chain_case(2, 130, 512, 1, torch.float32, cuda, seed=62)
+    w33, b33 = _chain_weights(2, 512, 33, torch.float32, cuda, seed=0)
+    with pytest.raises(ValueError):
+        if kernels == "chain":
+            expert_kernel.expert_mlp_chain_bwd(x, w33, b33, gy)
+        else:
+            tokens_ext, stt = _fused_case(x, 63)
+            fused_dispatch.fused_dispatch_chain_bwd(tokens_ext, stt, w33, b33,
+                                                    gy)
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("m", [256, 512])
+def test_fp32_bwd_kernels_are_deterministic(cuda, m, kernels):
+    """dx, dW and db bit-identical over two launches (fixed-order sums and
+    chunk reduction, no atomics), over outputs allocated on NaN bytes."""
+    x, ws, bs, gy = _chain_case(4, 3000, m, 7, torch.float32, cuda,
+                                seed=m + 71)
+    if kernels == "chain":
+        def run():
+            return expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, (3,))
+    else:
+        tokens_ext, stt = _fused_case(x, m + 72)
+
+        def run():
+            return fused_dispatch.fused_dispatch_chain_bwd(
+                tokens_ext, stt, ws, bs, gy, (3,))
+    _dirty_allocator(cuda)
+    first = run()
+    _dirty_allocator(cuda)
+    second = run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("m", [256, 512])
+def test_fp32_bwd_kernels_error_against_float64(cuda, m, kernels):
+    """At Building's and Mission Bay's fp32 layer shape (L7 skip 3, E4
+    C3000) the 3xTF32 K2/K4's largest error against a float64 run of the
+    plain chain (autograd) is at most 4x the plain fp32 backward's, as for
+    K2R."""
+    skips = (3,)
+    x, ws, bs, gy = _chain_case(4, 3000, m, 7, torch.float32, cuda,
+                                seed=m + 81)
+    if kernels == "chain":
+        xd = x
+        kernel = expert_kernel.expert_mlp_chain_bwd(x, ws, bs, gy, skips)
+        plain = expert_kernel.expert_mlp_chain_bwd_plain(x, ws, bs, gy,
+                                                         skips)
+    else:
+        tokens_ext, stt = _fused_case(x, m + 82)
+        xd = tokens_ext[stt.long()].view(x.shape)       # the dispatched rows
+        kernel = fused_dispatch.fused_dispatch_chain_bwd(tokens_ext, stt, ws,
+                                                         bs, gy, skips)
+        plain = fused_dispatch.fused_dispatch_chain_bwd_plain(
+            tokens_ext, stt, ws, bs, gy, skips)
+    wide = [t.double().requires_grad_() for t in (xd, ws, bs)]
+    ref = expert_kernel.expert_mlp_chain_plain(*wide, skips)
+    ref = torch.autograd.grad(ref, wide, gy.double())
+
+    def errs(out):
+        return [((o.double() - w).abs().max() / w.abs().max()).item()
+                for o, w in zip(out, ref)]
+    for name, k, p in zip(("dx", "dW", "db"), errs(kernel), errs(plain)):
+        assert k <= 4 * p, (name, k, p)
