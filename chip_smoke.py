@@ -15,7 +15,7 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      switch_nerf_torch/csrc (one nvcc per source, all started together),
      and report each library's HGMMA (wgmma) instructions (cuobjdump,
      where the toolkit has it; none is a failure, nor none on TF32 in the
-     libraries of K2, K4, K1R and K2R) and ptxas's spill bytes (a spill in
+     libraries of K1-K4, K1R and K2R) and ptxas's spill bytes (a spill in
      a 3xTF32 kernel is a failure)
   2. kernels: each kernel against its plain PyTorch version on the card at
      the main path's shapes, with CUDA-event timings beside its bound,
@@ -23,12 +23,12 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      (K1/K3 forward, K2/K4 backward); K2 and K4 twice on the same inputs
      (bit-identical), K2's two passes timed by torch.profiler, and the
      K3 / K1 and K4 / K2 time ratios (what the row gather costs on the
-     same mainloop); fp32 K2 and K4 (Building under --no_amp: 3xTF32)
+     same mainloop); fp32 K1-K4 (Building under --no_amp: 3xTF32)
      twice bit-identical, against float64 (at most 4x the plain chain's
-     error) and timed beside both bounds (3xTF32, CUDA cores) with each
-     step's device time (prep, pass 1 and K2's recompute alone, pass 2,
-     reduction); then K1R and K2R, the ragged chain of no-drop
-     dispatch, against their plain versions at one 32,768-point chunk,
+     error) and timed beside both bounds (3xTF32, CUDA cores), the
+     backwards with each step's device time (prep, pass 1 and K2's
+     recompute alone, pass 2, reduction); then K1R and K2R, the ragged
+     chain of no-drop dispatch, against their plain versions at one 32,768-point chunk,
      fp32 at Bungee's shape (E4) and bf16 at Building's (E8), over skewed
      counts (an empty expert, a count off the row blocks, one expert with
      most rows) and balanced ones: times beside the bound (fp32: the
@@ -43,11 +43,10 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      K2 twice, bit-identical) and K1R (skewed and balanced counts) against
      their plain versions, timed beside the bound, the plain version and
      the library call; K3, K4 (twice, bit-identical) and K2R at the same
-     width checked and timed the same way; in fp32 K1 / K3 on the CUDA
-     cores, K2 / K4 and K1R / K2R in 3xTF32 (four column passes a layer):
-     K2 / K4 as phase 2 holds fp32 K2 / K4, K1R / K2R as the ragged phase
-     holds them (K2R twice, the error against float64 at most 4x the plain
-     chain's)
+     width checked and timed the same way; in fp32 every kernel in 3xTF32
+     (four column passes a layer): K1-K4 as phase 2 holds them in fp32,
+     K1R / K2R as the ragged phase holds them (K2R twice, the error
+     against float64 at most 4x the plain chain's)
   2c. K1R's 64-bit row offsets: one launch over one published
      eval_points request's rows, N = 65,536 x 256 = 16,777,216 (M256 bf16
      E8 L7, balanced counts; 4.3e9 elements an activation), against its
@@ -516,6 +515,15 @@ def kernel_phase(peaks, building):
                           expert_kernel.expert_mlp_chain(x, ws, bs, skips),
                           expert_kernel.expert_mlp_chain_plain(x, ws, bs,
                                                                skips))
+        if dtype == torch.float32:
+            # Building under --no_amp: fp32 K1 in 3xTF32
+            rows["K1 fp32"] = fp32_fwd_row(
+                f"K1 float32 C{cc}", err,
+                lambda: expert_kernel.expert_mlp_chain_fwd(x, ws, bs, skips),
+                lambda: expert_kernel.expert_mlp_chain_plain(x, ws, bs,
+                                                             skips),
+                lambda: bmm_chain(x, ws, bs, skips), x, ws, bs, skips,
+                nbytes(x, ws, bs) + nbytes(x), peaks)
         if dtype == torch.bfloat16 and cc == c:
             flops = 2 * e * cc * m * m * layers
             bound_ms, bound_by = chain_bound(
@@ -544,6 +552,9 @@ def kernel_phase(peaks, building):
                                                     skips),
             fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws, bs,
                                                       skips))
+        if dtype == torch.float32:
+            rows["K3 fp32"] = fused_fp32_fwd("K3 float32", err, tokens_ext,
+                                             stt, ws, bs, skips, peaks)
         if dtype == torch.bfloat16:
             flops = 2 * e * c * m * m * layers
             out_bytes = e * c * m * tokens_ext.element_size()
@@ -672,6 +683,47 @@ def fp32_bwd_row(name: str, err: float, call, plain, leaves, g, skips,
                 core_bound_ms=core_ms, steps=steps, **t)
 
 
+def fp32_fwd_row(name: str, err: float, call, plain, library, xd, ws, bs,
+                 skips, nb: int, peaks) -> dict:
+    """A padded fp32 forward (K1, K3: 3xTF32 on chain_tf32.cuh; call(),
+    plain(), library() its kernel, plain version and baddbmm chain, xd
+    [E, C, M] the rows the chain reads): twice bit-identical, its error
+    against a float64 run of the plain chain (relative to the float64
+    output's largest entry) at most 4x the plain fp32 chain's, and timed
+    beside both bounds (3 TF32 products per product on the tensor cores,
+    the CUDA cores' beside it; nb the bytes moved)."""
+    from switch_nerf_torch.ops import expert_kernel
+    first, again = call(), call()
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError(f"{name} differs between two launches")
+    ref = expert_kernel.expert_mlp_chain_plain(xd.double(), ws.double(),
+                                               bs.double(), skips)
+    errs = {who: ((out.double() - ref).abs().max() / ref.abs().max()).item()
+            for who, out in (("kernel", first), ("plain", plain()))}
+    del first, again, ref
+    log(f"  {name}: bit-identical across two launches; error against a "
+        f"float64 run (relative to its largest entry): kernel "
+        f"{errs['kernel']:.3e}, plain fp32 {errs['plain']:.3e}")
+    if not errs["kernel"] <= 4 * errs["plain"]:
+        raise AssertionError(f"{name}: error against float64 exceeds 4x the "
+                             "plain chain's")
+    e, c, m = xd.shape
+    flops = 2 * e * c * m * m * ws.shape[0]
+    bound_ms, bound_by = chain_bound(3 * flops, nb, "tf32", peaks)
+    core_ms = chain_bound(flops, nb, torch.float32, peaks)[0]
+    t = {"ms": cuda_ms(call, iters=20),
+         "plain_ms": cuda_ms(plain, iters=10, warmup=3),
+         "library_ms": cuda_ms(library, iters=20)}
+    log(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+        f"baddbmm chain {t['library_ms']:.4f} ms "
+        f"({t['ms'] / t['library_ms']:.3f}x), bound {bound_ms:.4f} ms "
+        f"(3xTF32 {bound_by}), CUDA-core bound {core_ms:.4f} ms, "
+        f"{rate(flops, t['ms'], bound_ms)}")
+    return dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                core_bound_ms=core_ms, **t)
+
+
 def bwd_kernel_phase(peaks, building):
     """K2 and K4 vs their plain backwards at the train path's shapes."""
     from switch_nerf_torch.ops import expert_kernel, fused_dispatch
@@ -798,8 +850,30 @@ def bwd_kernel_phase(peaks, building):
 
 
 # the libraries whose fp32 kernels run wgmma on TF32 operands (3xTF32)
-TF32_LIBS = ("ragged_chain", "ragged_chain_bwd", "expert_chain_bwd",
-             "fused_dispatch_bwd")
+TF32_LIBS = ("expert_chain", "fused_dispatch", "ragged_chain",
+             "ragged_chain_bwd", "expert_chain_bwd", "fused_dispatch_bwd")
+
+
+def fused_fp32_fwd(name: str, err: float, tokens_ext, stt, ws, bs, skips,
+                   peaks) -> dict:
+    """fp32 K3 on a slot map (fp32_fwd_row; the token rows the map names
+    read once, the library chain behind an index_select)."""
+    from switch_nerf_torch.ops import fused_dispatch
+    e, m = ws.shape[1], ws.shape[-1]
+    c = stt.numel() // e
+    stt_long = stt.long()
+    xg = tokens_ext.index_select(0, stt_long).view(e, c, m)
+    kept_rows = int((stt < tokens_ext.shape[0] - 1).sum())
+    nb = (kept_rows * m * tokens_ext.element_size() + nbytes(stt, ws, bs)
+          + nbytes(xg))
+    return fp32_fwd_row(
+        name, err,
+        lambda: fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws,
+                                                        bs, skips),
+        lambda: fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws,
+                                                          bs, skips),
+        lambda: bmm_chain(tokens_ext.index_select(0, stt_long).view(e, c, m),
+                          ws, bs, skips), xg, ws, bs, skips, nb, peaks)
 
 
 def fused_fp32_bwd(name: str, err: float, tokens_ext, stt, ws, bs, g,
@@ -831,7 +905,7 @@ def build_report() -> None:
     -sass` and its spill bytes from ptxas's -v report beside it. Every
     chain library holds a bf16 wgmma kernel, so a count of 0 fails the run
     (the embedding's backward runs on the CUDA cores and has none); the
-    fp32 kernels of TF32_LIBS (K1R, K2R, K2, K4) run wgmma on TF32
+    fp32 kernels of TF32_LIBS (K1-K4, K1R, K2R) run wgmma on TF32
     operands, so a count of 0 TF32 HGMMAs there fails too, as does a spill
     in a 3xTF32 kernel. Then each M = 512 kernel's registers and spill
     bytes."""
@@ -3133,8 +3207,9 @@ def wide_kernel_phase(peaks, shapes, dtype=torch.bfloat16):
     library call. bf16: 64-row tiles, each consumer warpgroup on half the
     columns (the Mission Bay run; K3, K4 and K2R run in no path at this
     width). fp32 (the --no_amp run, K1 / K2 training and K1R serving): K1
-    / K3 on the CUDA cores; K2 / K4 in 3xTF32 (fp32_bwd_row: against
-    float64, the profiled split, both bounds); K1R / K2R in 3xTF32 with
+    / K3 in 3xTF32 (fp32_fwd_row: twice bit-identical, against float64,
+    both bounds); K2 / K4 in 3xTF32 (fp32_bwd_row: against float64, the
+    profiled split, both bounds); K1R / K2R in 3xTF32 with
     four column passes a layer, through ragged_kernel_phase (K2R twice, the
     error against float64 at most 4x the plain chain's). Returns the
     rows."""
@@ -3156,20 +3231,28 @@ def wide_kernel_phase(peaks, shapes, dtype=torch.bfloat16):
     err = check_close(f"K1 {dt} M512", expert_kernel.expert_mlp_chain(
         x, ws, bs, skips), expert_kernel.expert_mlp_chain_plain(x, ws, bs,
                                                                 skips))
-    bound_ms, bound_by = chain_bound(flops, nbytes(x, ws, bs) + nbytes(x),
-                                     dtype, peaks)
-    t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain(
-             x, ws, bs, skips)),
-         "plain_ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_plain(
-             x, ws, bs, skips), iters=20),
-         "library_ms": cuda_ms(lambda: bmm_chain(x, ws, bs, skips),
-                               iters=20)}
-    log(f"  K1 {dt} M512: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, baddbmm chain {t['library_ms']:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}), "
-        f"{rate(flops, t['ms'], bound_ms)}")
-    rows["K1"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                      **t)
+    if dtype == torch.float32:      # 3xTF32 (chain_tf32.cuh, kInPlace)
+        rows["K1"] = fp32_fwd_row(
+            f"K1 {dt} M512", err,
+            lambda: expert_kernel.expert_mlp_chain_fwd(x, ws, bs, skips),
+            lambda: expert_kernel.expert_mlp_chain_plain(x, ws, bs, skips),
+            lambda: bmm_chain(x, ws, bs, skips), x, ws, bs, skips,
+            nbytes(x, ws, bs) + nbytes(x), peaks)
+    else:
+        bound_ms, bound_by = chain_bound(flops, nbytes(x, ws, bs) + nbytes(x),
+                                         dtype, peaks)
+        t = {"ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain(
+                 x, ws, bs, skips)),
+             "plain_ms": cuda_ms(lambda: expert_kernel.expert_mlp_chain_plain(
+                 x, ws, bs, skips), iters=20),
+             "library_ms": cuda_ms(lambda: bmm_chain(x, ws, bs, skips),
+                                   iters=20)}
+        log(f"  K1 {dt} M512: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, baddbmm chain {t['library_ms']:.4f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{rate(flops, t['ms'], bound_ms)}")
+        rows["K1"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                          bound_by=bound_by, **t)
 
     err = check_bwd(f"K2 {dt} M512", expert_kernel.expert_mlp_chain_bwd(
         x, ws, bs, g, skips), expert_kernel.expert_mlp_chain_bwd_plain(
@@ -3226,22 +3309,28 @@ def wide_kernel_phase(peaks, shapes, dtype=torch.bfloat16):
         fused_dispatch.fused_dispatch_chain_plain(tokens_ext, stt, ws, bs,
                                                   skips))
     stt_long = stt.long()
-    bound_ms, bound_by = chain_bound(
-        flops, nbytes(tokens_ext, stt, ws, bs)
-        + e * c * m * tokens_ext.element_size(), dtype, peaks)
-    t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_fwd(
-             tokens_ext, stt, ws, bs, skips), iters=20),
-         "plain_ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_plain(
-             tokens_ext, stt, ws, bs, skips), iters=10, warmup=3),
-         "library_ms": cuda_ms(lambda: bmm_chain(
-             tokens_ext.index_select(0, stt_long).view(e, c, m), ws, bs,
-             skips), iters=20)}
-    log(f"  K3 {dt} M512: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, index_select + baddbmm chain "
-        f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-        f"{rate(flops, t['ms'], bound_ms)}")
-    rows["K3"] = dict(max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                      **t)
+    if dtype == torch.float32:      # 3xTF32 (chain_tf32.cuh, kGather)
+        rows["K3"] = fused_fp32_fwd(f"K3 {dt} M512", err, tokens_ext, stt,
+                                    ws, bs, skips, peaks)
+    else:
+        bound_ms, bound_by = chain_bound(
+            flops, nbytes(tokens_ext, stt, ws, bs)
+            + e * c * m * tokens_ext.element_size(), dtype, peaks)
+        t = {"ms": cuda_ms(lambda: fused_dispatch.fused_dispatch_chain_fwd(
+                 tokens_ext, stt, ws, bs, skips), iters=20),
+             "plain_ms": cuda_ms(lambda: fused_dispatch
+                                 .fused_dispatch_chain_plain(
+                                     tokens_ext, stt, ws, bs, skips),
+                                 iters=10, warmup=3),
+             "library_ms": cuda_ms(lambda: bmm_chain(
+                 tokens_ext.index_select(0, stt_long).view(e, c, m), ws, bs,
+                 skips), iters=20)}
+        log(f"  K3 {dt} M512: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, index_select + baddbmm chain "
+            f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {rate(flops, t['ms'], bound_ms)}")
+        rows["K3"] = dict(max_abs_err=err, bound_ms=bound_ms,
+                          bound_by=bound_by, **t)
 
     err = check_bwd(f"K4 {dt} M512", fused_dispatch.fused_dispatch_chain_bwd(
         tokens_ext, stt, ws, bs, g, skips),
@@ -5691,11 +5780,18 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']:.3e} on {smi}")
-    for key, r in wide32.items():
-        log(f"[kernels M512] {key} (fp32): {r['ms']:.4f} ms "
+    fp32_rows = [(f"[kernels M{building['width']}]", key, rows[key])
+                 for key in ("K1 fp32", "K2 fp32", "K3 fp32", "K4 fp32")]
+    fp32_rows += [("[kernels M512]", f"{key} fp32", r)
+                  for key, r in wide32.items()]
+    for tag, key, r in fp32_rows:
+        core = (f", CUDA-core bound {r['core_bound_ms']:.4f} ms"
+                if "core_bound_ms" in r else "")
+        log(f"{tag} {key}: {r['ms']:.4f} ms "
             f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+            f"({r['ms'] / r['library_ms']:.3f}x), bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}){core}, max_abs_err "
             f"{r['max_abs_err']:.3e} on {smi}")
     log(f"[embedding] repeats {emb['repeat']}; backward {emb['ms']:.4f} ms "
         f"against F.embedding's {emb['library_ms']:.4f} ms, plain "

@@ -1,14 +1,16 @@
 // Per-expert L-layer MLP chain, fp32, for Hopper (sm_90a), on the tensor
-// cores in split precision ("3xTF32"): the fp32 K1R (ragged_chain.cu,
-// expert-sorted rows) and every fp32 backward, K2R (ragged_chain_bwd.cu),
-// K2 (expert_chain_bwd.cu, rows in place) and K4 (fused_dispatch_bwd.cu,
-// rows gathered through the slot->token map).
+// cores in split precision ("3xTF32"): every fp32 chain kernel. The
+// forward, K1 (expert_chain.cu, rows in place), K3 (fused_dispatch.cu,
+// rows gathered through the slot->token map) and K1R (ragged_chain.cu,
+// expert-sorted rows); the backward, K2 (expert_chain_bwd.cu), K4
+// (fused_dispatch_bwd.cu) and K2R (ragged_chain_bwd.cu). Both are
+// templated on the row source (rows.cuh).
 //
-// Replaces the fp32 case of the JAX package's ExpertMLP.ragged
-// (switch_nerf_tpu/models/experts.py:79, one jax.lax.ragged_dot per layer)
-// and of its autograd: Bungee's training path (--no_amp); and in fp32 the
-// Pallas _bwd_kernel of switch_nerf_tpu/ops/expert_kernel.py (K2) and
-// ops/fused_dispatch.py (K4): Building and Mission Bay under --no_amp.
+// Replaces the fp32 case of the Pallas _fwd_kernel and _bwd_kernel of
+// switch_nerf_tpu/ops/expert_kernel.py (K1, K2) and ops/fused_dispatch.py
+// (K3, K4): Building and Mission Bay under --no_amp; and of the JAX
+// package's ExpertMLP.ragged (switch_nerf_tpu/models/experts.py:79, one
+// jax.lax.ragged_dot per layer) and its autograd: Bungee's training path.
 // One 32,768-row chunk at E4 M256 L7 is 2*N*M^2*L = 30.1 GFLOP forward
 // and 60.1 GFLOP for the gradient's products, against ~75 MB of rows, W
 // and gradients: bound by operations. On the CUDA cores (67 TFLOP/s)
@@ -35,17 +37,20 @@
 //    them through an mbarrier ring of TMA loads (16 k a stage, hi and lo,
 //    64-byte swizzle), running ahead across layers.
 //
-// Forward (chain_fwd_tf32, K1R): one CTA
-// owns 64 rows of one expert. fp32 doubles shared memory, so 128 rows with
+// Forward (chain_fwd_tf32: K1, K3, K1R): one CTA owns 64 rows of one
+// expert. fp32 doubles shared memory, so 128 rows with
 // h and xin (2 x 128 KB) do not fit in 227 KB: the CTA holds the 64-row
 // tile h in shared memory (fp32, row stride M + 4 floats: the A-fragment
 // loads are free of bank conflicts) and two consumer warpgroups each
 // produce half of the output columns (m64n{M/2}k8), so each thread keeps
 // its skip input xin in registers beside its accumulators. Budget at
 // M = 256: W ring 4 x 32 KB + h 65 KB (+ ReLU masks, 2 KB a layer, in the
-// backward) = 194 KB (211 KB at L = 7). Rows come in by a cp.async copy zero-filled past the
-// expert's last row and leave by stores that stop there. Per layer, in the
-// plain chain's order: z = h W_l + b_l, skip: z += xin, xin = z; ReLU
+// backward) = 194 KB (211 KB at L = 7). Rows come in by a cp.async copy
+// (K3's and K4's: the token rows the slot map names) zero-filled past the
+// expert's last row and leave by stores that stop there. K1's, K3's and
+// K4's grid is (ceil(C / 64), E), K1R's and K2R's (ceil(N / 64), E), a CTA
+// past its expert's rows exiting at once. Per layer, in the plain chain's
+// order: z = h W_l + b_l, skip: z += xin, xin = z; ReLU
 // unless last; the two warpgroups meet at a named barrier before and after
 // rewriting h.
 //
@@ -86,8 +91,10 @@
 // h may be rewritten only after every pass has read it whole, so the
 // earlier passes' results wait: in the forward in registers (4 x 32 a
 // thread), with the skip input out of the registers, in the thread's own
-// elements of out (x until the first skip layer), as the backward keeps
-// gxin in dx; in the backward's recompute in hsave's layer l + 1 (written
+// elements of out (x until the first skip layer; K3's x is the token
+// array, so K3 writes the gathered tile to out once after the load), as
+// the backward keeps gxin in dx; in the backward's recompute in hsave's
+// layer l + 1 (written
 // there anyway) and in its sweep in the tile's block of gsave's layer
 // l - 1 (written there only later), each read back by the thread that
 // wrote it. Two passes of 256 columns (32 KB stages, two of them) held
@@ -585,15 +592,18 @@ __device__ __forceinline__ void store_g_transposed(const float* h, float* ghi,
   }
 }
 
-// ---------------------------------------------------------------- K1R ----
-// x, out [N, M] sorted by expert; counts [E] on the device; w_map over the
-// split weights [2, L*E, M, M] (W_l^T hi, lo).
-template <int M>
+// ------------------------------------------------------- K1, K3, K1R ----
+// w_map over the split weights [2, L*E, M, M] (W_l^T hi, lo). The rows
+// (rows.cuh): kRagged x, out [N, M] sorted by expert with idx the counts
+// [E]; in place x, out [E, cap, M]; kGather the token rows x [n_src, M]
+// that idx [E * cap] names, out [E, cap, M].
+template <int M, int SRC>
 __global__ void __launch_bounds__(kThreads, 1)
 chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
-               const float* __restrict__ x, const int* __restrict__ counts,
-               const float* __restrict__ bs, float* __restrict__ out, int E,
-               int L, unsigned skip_mask) {
+               const float* __restrict__ x, const int* __restrict__ idx,
+               int n_src, const float* __restrict__ bs,
+               float* __restrict__ out, int E, int cap, int L,
+               unsigned skip_mask) {
   using C = TCfg<M>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
@@ -606,7 +616,7 @@ chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
 
   const int e = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
-  const ExpertRows er = expert_rows<kRagged>(counts, e, 0);
+  const ExpertRows er = expert_rows<SRC>(idx, e, cap);
   if (row0 >= er.count) return;  // past its rows
   const int LE = L * E;
   if (threadIdx.x == 0) {
@@ -630,7 +640,7 @@ chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
                    phase);
     };
     const int n_w = L * C::kPasses * K;
-    copy_rows_in<M, kRagged>(h, x, nullptr, 0, er, row0, t);
+    copy_rows_in<M, SRC>(h, x, idx, n_src, er, row0, t);
     int j = 0;
     if (t == 0)  // a fresh ring: these do not block
       for (; j < n_w && j < C::kStages; ++j) load_w(j);
@@ -643,14 +653,25 @@ chain_fwd_tf32(const __grid_constant__ CUtensorMap w_map,
     regs_inc<kConsumerRegs>();
     const int cw = threadIdx.x / kWg - 1;
     const int t = threadIdx.x % kWg;
-    // one pass: the skip input in registers; two: in this thread's own
-    // elements of out (x itself until the first skip layer)
+    // one pass: the skip input in registers; more: in this thread's own
+    // elements of out, and until the first skip layer in x's (in place,
+    // ragged) or, gathered, in out's, where it is written after the load
     float acc[C::kPasses][C::kAcc], xin[C::kPasses == 1 ? C::kAcc : 1];
-    bool xin_in_out = false;
+    bool xin_in_out = SRC == kGather;
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(x_full, 0);
-    if constexpr (C::kPasses == 1) read_tile<M>(xin, h, cw * C::kNW, t);
+    if constexpr (C::kPasses == 1) {
+      read_tile<M>(xin, h, cw * C::kNW, t);
+    } else if (SRC == kGather && skip_mask != 0) {
+#pragma unroll
+      for (int p = 0; p < C::kPasses; ++p) {
+        const int col0 = p * C::kPassN + cw * C::kNW;
+        float xp[C::kAcc];
+        read_tile<M>(xp, h, col0, t);
+        move_rows<M, false>(xp, out, er.base, row0, er.count, col0, t);
+      }
+    }
     for (int l = 0; l < L; ++l) {
       const bool last = l == L - 1;
       const bool skip = (skip_mask >> l) & 1u;
@@ -1344,20 +1365,22 @@ int split_weights(CUtensorMap* w_map, const float* ws, float* wsplit, int LE,
                   CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_DATA_TYPE_FLOAT32);
 }
 
-template <int M>
-int launch_fwd_width(const float* x, const int* counts, const float* ws,
-                     const float* bs, float* wsplit, float* out, int E, int N,
-                     int L, unsigned skip_mask, cudaStream_t stream) {
+// rows: N with kRagged, else the capacity C.
+template <int M, int SRC>
+int launch_fwd_width(const float* x, const int* idx, int n_src,
+                     const float* ws, const float* bs, float* wsplit,
+                     float* out, int E, int rows, int L, unsigned skip_mask,
+                     cudaStream_t stream) {
   CUtensorMap w_map;
   int rc = split_weights<M>(&w_map, ws, wsplit, L * E, false, stream);
   if (rc != 0) return rc;
   const int smem = TSmem<M>(L, false).bytes;
-  auto kern = chain_fwd_tf32<M>;
+  auto kern = chain_fwd_tf32<M, SRC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3((N + kRows - 1) / kRows, E), kThreads, smem, stream>>>(
-      w_map, x, counts, bs, out, E, L, skip_mask);
+  kern<<<dim3((rows + kRows - 1) / kRows, E), kThreads, smem, stream>>>(
+      w_map, x, idx, n_src, bs, out, E, rows, L, skip_mask);
   return (int)cudaGetLastError();
 }
 
@@ -1434,18 +1457,19 @@ int launch_bwd_width(const float* x, const int* idx, int n_src,
                                      stream, rows);
 }
 
-// Returns a cudaError_t code (0 = launched). x, out [N, M] fp32 sorted by
-// expert, counts [E] int32 on the device, ws [L, E, M, M], bs [L, E, 1, M];
-// wsplit a workspace of 2 * L*E*M*M floats. Widths other than
-// 64/128/256/512 are refused with cudaErrorInvalidValue; the Python
-// wrappers check first.
-inline int launch_chain_fwd(int device, const void* x, const int* counts,
-                            const void* ws, const void* bs, void* wsplit,
-                            void* out, int E, int N, int M, int L,
-                            unsigned skip_mask, void* stream) {
+// The forward. Returns a cudaError_t code (0 = launched). Rows as
+// chain_fwd_tf32's (rows: N with kRagged, else the capacity C), fp32;
+// ws [L, E, M, M], bs [L, E, 1, M]; wsplit a workspace of 2 * L*E*M*M
+// floats. Widths other than 64/128/256/512 are refused with
+// cudaErrorInvalidValue; the Python wrappers check first.
+template <int SRC>
+inline int launch_chain_fwd(int device, const void* x, const int* idx,
+                            int n_src, const void* ws, const void* bs,
+                            void* wsplit, void* out, int E, int rows, int M,
+                            int L, unsigned skip_mask, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (E <= 0 || N <= 0) return 0;
+  if (E <= 0 || rows <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* w = static_cast<const float*>(ws);
@@ -1454,17 +1478,17 @@ inline int launch_chain_fwd(int device, const void* x, const int* counts,
   float* y = static_cast<float*>(out);
   switch (M) {
     case 64:
-      return launch_fwd_width<64>(xf, counts, w, b, wsp, y, E, N, L,
-                                  skip_mask, s);
+      return launch_fwd_width<64, SRC>(xf, idx, n_src, w, b, wsp, y, E, rows,
+                                       L, skip_mask, s);
     case 128:
-      return launch_fwd_width<128>(xf, counts, w, b, wsp, y, E, N, L,
-                                   skip_mask, s);
+      return launch_fwd_width<128, SRC>(xf, idx, n_src, w, b, wsp, y, E,
+                                        rows, L, skip_mask, s);
     case 256:
-      return launch_fwd_width<256>(xf, counts, w, b, wsp, y, E, N, L,
-                                   skip_mask, s);
+      return launch_fwd_width<256, SRC>(xf, idx, n_src, w, b, wsp, y, E,
+                                        rows, L, skip_mask, s);
     case 512:
-      return launch_fwd_width<512>(xf, counts, w, b, wsp, y, E, N, L,
-                                   skip_mask, s);
+      return launch_fwd_width<512, SRC>(xf, idx, n_src, w, b, wsp, y, E,
+                                        rows, L, skip_mask, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -22,8 +22,8 @@ extern "C" int ragged_chain_fwd(int device, const void* x, const int* counts,
   if (is_bf16)
     return sm90::launch_chain_fwd<kRagged>(device, x, counts, N, ws, bs, out,
                                            E, N, M, L, skip_mask, stream);
-  return tf32::launch_chain_fwd(device, x, counts, ws, bs, wsplit, out, E, N,
-                                M, L, skip_mask, stream);
+  return tf32::launch_chain_fwd<kRagged>(device, x, counts, 0, ws, bs, wsplit,
+                                         out, E, N, M, L, skip_mask, stream);
 }
 
 extern "C" const char* ragged_chain_error_string(int code) {

@@ -1,7 +1,6 @@
-// Where the rows of a chain launch come from, shared by the fp32 (chain.cuh:
-// K1/K3's kInPlace, kGather; chain_tf32.cuh: K1R's kRagged, and the
-// backward's all three) and bf16 (chain_sm90.cuh, chain_bwd_sm90.cuh)
-// templates.
+// Where the rows of a chain launch come from, shared by the fp32
+// (chain_tf32.cuh, forward and backward) and bf16 (chain_sm90.cuh,
+// chain_bwd_sm90.cuh) templates.
 //
 //   kInPlace (K1, K2): x [E, C, M]; expert e owns rows e*C .. e*C + C - 1.
 //   kGather  (K3, K4): the dispatched layout [E, C, M] again, but row

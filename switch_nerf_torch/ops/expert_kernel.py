@@ -2,7 +2,7 @@
 
 K1 replaces ``switch_nerf_tpu/ops/expert_kernel.py:_fwd_call`` (the Pallas
 ``_fwd_kernel``); source ``csrc/expert_chain.cu`` on ``csrc/chain_sm90.cuh``
-(bf16) and ``csrc/chain.cuh`` (fp32). What bounds it on the card: at the
+(bf16) and ``csrc/chain_tf32.cuh`` (fp32). What bounds it on the card: at the
 Building shape (E8 C4096 M256 L7, bf16) one launch does 2*E*C*M^2*L = 30.1
 GFLOP against ~41 MB of x, W and out, ~730 FLOP per byte, far above the
 H100's ~295 FLOP/B ridge: it is bound by tensor-core operations. The bf16
@@ -11,8 +11,13 @@ memory across all L layers (device memory sees x once and out once), feeds
 the tensor cores with wgmma from two consumer warpgroups of 64 rows each,
 and has one producer warp stream W through a ring of TMA loads that runs
 ahead across layers; input and output move by TMA over [E, C, M] tensor
-maps that zero-fill and clip the ragged C edge. fp32 runs on the CUDA
-cores (TF32 would miss the fp32 tolerance).
+maps that zero-fill and clip the ragged C edge. fp32 runs K1R's design on
+the tensor cores in split precision, 3xTF32 (``csrc/chain_tf32.cuh`` with
+the in-place row source): each operand split into tf32 hi + lo, three TF32
+products hi*hi + hi*lo + lo*hi per product, each 16-k stage summed apart
+and added in fp32 (error near fp32's; one TF32 product would miss the fp32
+limit), on 64-row tiles, after a step that writes the split weights into a
+workspace (``split_workspace``) allocated here.
 
 K2 replaces ``_bwd_call`` (the Pallas ``_bwd_kernel``); source
 ``csrc/expert_chain_bwd.cu`` on ``csrc/chain_bwd_sm90.cuh`` (bf16) and
@@ -42,11 +47,9 @@ allocated here.
 
 Widths: M = 64, 128, 256 and 512 (Mission Bay's trunk) in both dtypes.
 In bf16 a CTA owns 64 rows at M = 512 and each consumer warpgroup half
-the columns, since wgmma's widest product is 256 columns. The fp32
-forward's CUDA-core kernel keeps one design at every width (a 32-row tile,
-its skip input and a W tile in 198,144 B of shared memory at M = 512,
-``csrc/chain.cuh``); the fp32 backward runs each layer in four passes of
-128 output columns at M = 512 (``TCfg::kPasses``).
+the columns, since wgmma's widest product is 256 columns. In fp32 the
+forward and the backward run each layer in four passes of 128 output
+columns at M = 512 (``TCfg::kPasses``).
 
 ``expert_mlp_chain`` is differentiable through ``ExpertChainFn`` (forward
 K1, backward K2). A CPU tensor takes the plain PyTorch versions; a CUDA
@@ -218,12 +221,22 @@ def bwd_buffers(lib, name: str, layers: int, e: int, c: int, m: int, dtype,
             torch.empty((layers, chunks, m), **f32), dw, db)
 
 
+def split_workspace(ws: torch.Tensor):
+    """The fp32 forwards' workspace (K1, K3, K1R: ``wsplit``), the split
+    weights W_l^T as tf32 hi and lo [2, L*E, M, M]; None in bf16."""
+    if ws.dtype == torch.bfloat16:
+        return None
+    layers, e, m = ws.shape[0], ws.shape[1], ws.shape[-1]
+    return torch.empty((2, layers * e, m, m), dtype=torch.float32,
+                       device=ws.device)
+
+
 def pointers(tensors) -> list:
     return [None if t is None else t.data_ptr() for t in tensors]
 
 
 _PROTOTYPES = {
-    "expert_chain_fwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 4
+    "expert_chain_fwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 5
                          + [ctypes.c_int] * 4
                          + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
     "expert_chain_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -260,11 +273,12 @@ def expert_mlp_chain_fwd(x: torch.Tensor, ws: torch.Tensor, bs: torch.Tensor,
     e, c, m = x.shape
     layers = ws.shape[0]
     out = torch.empty_like(x)
+    wsplit = split_workspace(ws)
     lib = _build.load("expert_chain", _PROTOTYPES)
     rc = lib.expert_chain_fwd(
         x.device.index, x.data_ptr(), ws.data_ptr(), bs.data_ptr(),
-        out.data_ptr(), e, c, m, layers, skip_mask(skips, layers),
-        int(x.dtype == torch.bfloat16),
+        *pointers([wsplit]), out.data_ptr(), e, c, m, layers,
+        skip_mask(skips, layers), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream(x.device).cuda_stream)
     raise_on_error(rc, lib.expert_chain_error_string)
     launches += 1

@@ -4,10 +4,11 @@ forward and backward.
 K3 replaces ``switch_nerf_tpu/ops/fused_dispatch.py:_fwd_call`` (the Pallas
 ``_fwd_kernel``, ``_gather_block`` and ``_chain_fwd_from``); source
 ``csrc/fused_dispatch.cu`` on ``csrc/chain_sm90.cuh`` (bf16) and
-``csrc/chain.cuh`` (fp32). K4 replaces ``_bwd_call`` (the Pallas
+``csrc/chain_tf32.cuh`` (fp32: K1's 3xTF32 design, its producer gathering
+the token rows by ``cp.async``). K4 replaces ``_bwd_call`` (the Pallas
 ``_bwd_kernel``); source ``csrc/fused_dispatch_bwd.cu`` on
 ``csrc/chain_bwd_sm90.cuh`` (bf16) and ``csrc/chain_tf32.cuh`` (fp32: K2's
-3xTF32 design, its producer gathering the token rows by ``cp.async``).
+3xTF32 design, with the same gather).
 
 K3 computes chain(dispatch(tokens)) without the [E, C, M] dispatch buffer:
 each CTA loads its own slot->token indices and reads the token rows
@@ -42,7 +43,7 @@ from switch_nerf_torch.ops import _build
 from switch_nerf_torch.ops.expert_kernel import (
     KERNEL_WIDTHS, bwd_buffers, check_chain_weights, check_like, check_rows,
     expert_mlp_chain_bwd_plain, expert_mlp_chain_plain, pointers,
-    raise_on_error, skip_mask)
+    raise_on_error, skip_mask, split_workspace)
 
 __all__ = ["fused_dispatch_chain", "fused_dispatch_chain_plain",
            "fused_dispatch_chain_bwd", "fused_dispatch_chain_bwd_plain",
@@ -105,9 +106,8 @@ def fused_dispatch_chain_bwd_plain(tokens_ext: torch.Tensor,
 
 _PROTOTYPES = {
     "fused_dispatch_fwd": (ctypes.c_int, [
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        + [ctypes.c_int] * 4
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]),
     "fused_dispatch_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -161,11 +161,13 @@ def fused_dispatch_chain_fwd(tokens_ext: torch.Tensor, stt_eff: torch.Tensor,
     layers, e = ws.shape[0], ws.shape[1]
     out = torch.empty((e, c, m), dtype=tokens_ext.dtype,
                       device=tokens_ext.device)
+    wsplit = split_workspace(ws)
     lib = _build.load("fused_dispatch", _PROTOTYPES)
     rc = lib.fused_dispatch_fwd(
         tokens_ext.device.index, tokens_ext.data_ptr(), stt_eff.data_ptr(),
-        s_ext, ws.data_ptr(), bs.data_ptr(), out.data_ptr(), e, c, m, layers,
-        skip_mask(skips, layers), int(tokens_ext.dtype == torch.bfloat16),
+        s_ext, ws.data_ptr(), bs.data_ptr(), *pointers([wsplit]),
+        out.data_ptr(), e, c, m, layers, skip_mask(skips, layers),
+        int(tokens_ext.dtype == torch.bfloat16),
         torch.cuda.current_stream(tokens_ext.device).cuda_stream)
     raise_on_error(rc, lib.fused_dispatch_error_string)
     launches += 1

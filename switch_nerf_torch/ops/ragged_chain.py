@@ -52,7 +52,8 @@ import torch
 from switch_nerf_torch.ops import _build
 from switch_nerf_torch.ops.expert_kernel import (
     check_chain_weights, check_like, check_rows, expert_mlp_chain_bwd_plain,
-    expert_mlp_chain_plain, raise_on_error, skip_mask)
+    expert_mlp_chain_plain, pointers, raise_on_error, skip_mask,
+    split_workspace)
 
 __all__ = ["ragged_chain", "ragged_chain_plain", "ragged_chain_bwd_plain",
            "ragged_chain_fwd", "ragged_chain_bwd", "RaggedChainFn"]
@@ -159,16 +160,12 @@ def ragged_chain_fwd(x: torch.Tensor, counts: torch.Tensor, ws: torch.Tensor,
     out = torch.empty_like(x)
     if n == 0:
         return out
-    bf16 = x.dtype == torch.bfloat16
-    # fp32: the split weights (W_l^T as tf32 hi and lo)
-    wsplit = None if bf16 else torch.empty((2, layers * e, m, m),
-                                           dtype=torch.float32,
-                                           device=x.device)
+    wsplit = split_workspace(ws)
     lib = _build.load("ragged_chain", _PROTOTYPES)
     rc = lib.ragged_chain_fwd(
         x.device.index, x.data_ptr(), counts.data_ptr(), ws.data_ptr(),
-        bs.data_ptr(), None if bf16 else wsplit.data_ptr(), out.data_ptr(),
-        e, n, m, layers, skip_mask(skips, layers), int(bf16), _stream(x))
+        bs.data_ptr(), *pointers([wsplit]), out.data_ptr(), e, n, m, layers,
+        skip_mask(skips, layers), int(x.dtype == torch.bfloat16), _stream(x))
     raise_on_error(rc, lib.ragged_chain_error_string)
     ragged_launches += 1
     return out

@@ -48,7 +48,7 @@ REPO = Path(__file__).resolve().parent.parent
 # kernel-name substrings -> family (first match wins)
 FAMILIES = (
     ("K2/K4 chain backward", ("chain_bwd_", "chain_dw_")),
-    ("K1/K3 chain kernel", ("chain_fwd_sm90", "chain_f32_kernel")),
+    ("K1/K3 chain kernel", ("chain_fwd_sm90", "chain_fwd_tf32")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_")),
     ("sort", ("sort", "radix")),
     ("gather / scatter / index", ("index", "gather", "scatter")),

@@ -603,8 +603,8 @@ def test_wide_ragged_chain_kernels_match_plain(cuda, counts):
 
 def test_wide_float32_kernels_refuse(cuda):
     """fp32 at M = 512 (Mission Bay under --no_amp), once refused by every
-    wrapper: K1/K3 (CUDA cores) and K2/K4, K1R/K2R (3xTF32, four column
-    passes a layer) now take it and match their plain versions at
+    wrapper: K1-K4 and K1R/K2R (3xTF32, four column passes a layer) now
+    take it and match their plain versions at
     Mission Bay's depth (7 layers, skip 3); K2, K4 and K2R repeat bit for
     bit; the backward limits are 32 layers (K2, K4) and 9 (K2R)."""
     f32 = torch.float32
@@ -808,3 +808,125 @@ def test_fp32_bwd_kernels_error_against_float64(cuda, m, kernels):
                 for o, w in zip(out, ref)]
     for name, k, p in zip(("dx", "dW", "db"), errs(kernel), errs(plain)):
         assert k <= 4 * p, (name, k, p)
+
+
+# ------------------------------------------------- fp32 K1/K3, 3xTF32 ----
+# fp32 K1 and K3 run K1R's forward (csrc/chain_tf32.cuh chain_fwd_tf32,
+# kInPlace / kGather): 64-row tiles, a partial last tile zero-filled on load
+# and clipped on store; at M = 512 four passes of 128 columns a layer, the
+# skip input held in out (K3: the gathered tile written there first).
+
+def _fwd_pair(kernels, x, ws, bs, skips, seed):
+    """(kernel launch, plain version) of K1 ("chain") or K3 ("fused", the
+    E*C rows as tokens over a slot map with empty slots) on x [E, C, M]."""
+    if kernels == "chain":
+        return (lambda: expert_kernel.expert_mlp_chain_fwd(x, ws, bs, skips),
+                lambda: expert_kernel.expert_mlp_chain_plain(x, ws, bs,
+                                                             skips))
+    tokens_ext, stt = _fused_case(x, seed)
+    return (lambda: fused_dispatch.fused_dispatch_chain_fwd(
+                tokens_ext, stt, ws, bs, skips),
+            lambda: fused_dispatch.fused_dispatch_chain_plain(
+                tokens_ext, stt, ws, bs, skips))
+
+
+def _check_fp32_fwd(kernels, e, c, m, layers, skips, device, seed):
+    """fp32 K1 / K3 launched once (over NaN-filled memory) against its
+    plain version."""
+    x, ws, bs, _ = _chain_case(e, c, m, layers, torch.float32, device, seed)
+    run, plain = _fwd_pair(kernels, x, ws, bs, skips, seed + 2)
+    mod = expert_kernel if kernels == "chain" else fused_dispatch
+    before = mod.launches
+    _dirty_allocator(device)
+    out = run()
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    _assert_close(out, plain(), torch.float32)
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("m", [64, 128, 256, 512])
+@pytest.mark.parametrize("c", [1, 63, 64, 65, 200])
+def test_fp32_fwd_kernels_across_the_tile_edge(cuda, c, m, kernels):
+    """fp32 K1 and K3 where C ends inside, at and past a 64-row tile."""
+    _check_fp32_fwd(kernels, 2, c, m, 7, (3,), cuda, seed=c + m + 101)
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("m", [64, 128, 256, 512])
+def test_fp32_fwd_kernels_single_expert_and_edge_skips(cuda, m, kernels):
+    """One expert over several tiles, and skips at the first and the last
+    layer (the last layer's skip input, no ReLU after it)."""
+    _check_fp32_fwd(kernels, 1, 300, m, 4, (2,), cuda, seed=m + 111)
+    _check_fp32_fwd(kernels, 3, 200, m, 4, (0, 3), cuda, seed=m + 112)
+
+
+@pytest.mark.parametrize("skips", [(), (0,), (2, 5), (1, 4, 6)])
+def test_fp32_gathered_fwd_skip_input_at_width_512(cuda, skips):
+    """K3 at M = 512 holds the skip input in out, where it writes the
+    gathered tile before layer 0: skip layers after layer 0, over a slot
+    map that permutes the tokens (every slot's row is another token's, so
+    a skip input read from the token array at the slot's own row would
+    show), with empty slots and C off the tile edge."""
+    e, c, m = 3, 150, 512
+    x, ws, bs, _ = _chain_case(e, c, m, 7, torch.float32, cuda, seed=121)
+    tokens_ext = torch.cat([x.reshape(-1, m), x.new_zeros((1, m))])
+    g = torch.Generator().manual_seed(122)
+    perm = torch.randperm(e * c, generator=g)
+    stt = torch.empty_like(perm)
+    stt[perm] = perm.roll(1)                # one cycle: no slot keeps its row
+    stt[torch.rand(e * c, generator=g) < 0.2] = e * c
+    stt = stt.to(cuda, torch.int32)
+    assert not bool((stt == torch.arange(e * c, device=cuda)).any())
+    before = fused_dispatch.launches
+    out = fused_dispatch.fused_dispatch_chain_fwd(tokens_ext, stt, ws, bs,
+                                                  skips)
+    torch.cuda.synchronize()
+    assert fused_dispatch.launches == before + 1
+    _assert_close(out, fused_dispatch.fused_dispatch_chain_plain(
+        tokens_ext, stt, ws, bs, skips), torch.float32)
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("m", [256, 512])
+def test_fp32_fwd_kernels_are_deterministic(cuda, m, kernels):
+    """Two launches on the same inputs give the same bits (over NaN-filled
+    memory), and the 3xTF32 forward is what ran."""
+    from torch.profiler import ProfilerActivity, profile
+    x, ws, bs, _ = _chain_case(4, 3000, m, 7, torch.float32, cuda,
+                               seed=m + 131)
+    run, _ = _fwd_pair(kernels, x, ws, bs, (3,), m + 132)
+    _dirty_allocator(cuda)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        first = run()
+        torch.cuda.synchronize()
+    _dirty_allocator(cuda)
+    second = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert bool(torch.isfinite(first).all())
+    names = [ev.key for ev in prof.key_averages()]
+    assert any("chain_fwd_tf32" in n for n in names), names
+
+
+@pytest.mark.parametrize("kernels", KERNELS)
+@pytest.mark.parametrize("m", [256, 512])
+def test_fp32_fwd_kernels_error_against_float64(cuda, m, kernels):
+    """At Building's and Mission Bay's fp32 layer shape (L7 skip 3, E4
+    C3000) the 3xTF32 K1/K3's largest error against a float64 run of the
+    plain chain is at most 4x the plain fp32 chain's, as for K1R."""
+    x, ws, bs, _ = _chain_case(4, 3000, m, 7, torch.float32, cuda,
+                               seed=m + 141)
+    run, plain = _fwd_pair(kernels, x, ws, bs, (3,), m + 142)
+    if kernels == "chain":
+        xd = x
+    else:
+        tokens_ext, stt = _fused_case(x, m + 142)
+        xd = tokens_ext[stt.long()].view(x.shape)       # the dispatched rows
+    ref = expert_kernel.expert_mlp_chain_plain(xd.double(), ws.double(),
+                                               bs.double(), (3,))
+
+    def err(out):
+        return ((out.double() - ref).abs().max() / ref.abs().max()).item()
+    k, p = err(run()), err(plain())
+    assert k <= 4 * p, (k, p)
