@@ -67,8 +67,9 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      SWITCH_NERF_FUSED_DISPATCH=1
   4. train: the published Building training step at the same width
      (padded train dispatch, sigma noise, perturb 1.0, l_aux weight 5e-4,
-     Adam) through make_train_step on one fixed 1024-ray batch: a warm-up
-     and 20 timed steps with K1 and K2 launched 24 times per step, a CPU
+     Adam, --remat) through make_train_step on one fixed 1024-ray batch: a
+     warm-up and 10 timed steps with K1 launched 48 times per step (the
+     forward and the recompute of 24 chunks) and K2 24 times, a CPU
      fp32 cross-check of one step's loss and gradients on 64 rays, and one
      step with SWITCH_NERF_FUSED_DISPATCH=1 (K3/K4); the appearance
      embedding's fixed-order backward launched on the steps
@@ -79,6 +80,17 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      every other leaf repeat bit for bit (the port's must); then its kernel
      against its plain version (bit for bit) and timed beside
      F.embedding's backward on a 32,768-row chunk over a 1,920-row table
+  4b. remat: --remat (the default) against --no_remat, each from fresh
+     states and generators made from the same seeds: the Building bf16
+     step (1,024 rays), the Mission Bay step (1,664 rays) in bf16 and in
+     fp32 (--no_amp): a pass's gradients, metrics and generator state
+     byte-equal both ways, K1 launched twice a chunk with remat and K2
+     once, then a warm-up and 2 timed steps each way with the peak
+     memory. Prints the peaks, step seconds and K1 / K2 launches each
+     way. Phase 9's workers add its straddling step (98,304-point chunks
+     over 2 gloo ranks on the card) both ways, byte-equal on each rank
+     and routed over the same shared pieces: its recompute runs on the
+     autograd engine's device thread
   5. runner: serve a trained scene end to end. A synthetic Mega-NeRF scene
      (6 train + 2 val 1024x768 JPEGs from a seed) in a temp directory; a
      port train state from seeds after one train step, written with
@@ -93,8 +105,8 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      (the train phase's) on the chunked filesystem dataset: 256x192 train
      images (--train_scale_factor 4) written into 10 chunks, 40 steps of
      1,024 rays (across a chunk boundary), a checkpoint every 20 steps, a
-     log line every 10, no validation. K1 and K2 launched 24 times per
-     step, every logged metric finite, step directories 20 and 40, and the
+     log line every 10, no validation. K1 launched 48 times per step
+     (remat) and K2 24 times, every logged metric finite, step directories 20 and 40, and the
      cursor, counters and generator state in step 20's extra.json; then a
      second run resumed from step 20 to 40 feeds the same batches (equal
      hashes) and its first loss equals the first run's to 1e-3. Prints the
@@ -107,7 +119,8 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      scene of 17 288x216 PNGs (scale factor 3: 96x72; images 0 and 16 held
      out) in a temp directory; train_nerf_moe for one epoch (25 steps), a
      checkpoint at step 20 and at the end, a log line every 5 steps: K1R
-     and K2R launched on every chunk of every step, every logged metric
+     launched twice (remat) and K2R once on every chunk of every step,
+     every logged metric
      finite, photo_loss falling, and the largest expert's share of each
      chunk's rows (min, median, max); then eval_nerf_moe on the final
      checkpoint (8,192-ray requests): K1R on every chunk, finite metrics,
@@ -122,8 +135,8 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      validation record's 2 images carry moving-object masks and train on
      their left halves) in a temp directory; train.main on the chunked
      Block-NeRF dataset (2 chunks) for 15 steps, a checkpoint at step 10
-     and at the end: K1 and K2 launched on every model chunk of every step
-     (52 each a step), no K1R/K2R, every logged metric finite, photo_loss
+     and at the end: K1 launched twice (remat) and K2 once on every model
+     chunk of every step (104 and 52 a step), no K1R/K2R, every logged metric finite, photo_loss
      falling; a resume from step 10 replays the batches (equal hashes) and
      its first loss equals the first run's to 1e-3; then
      eval_image_blocknerf on the final checkpoint (no --moe_test_batch:
@@ -131,8 +144,8 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      image): finite masked and unmasked metrics, the per-image files and
      records, the 'Average val/...' summary. Then the same with --no_amp
      (fp32) on the scene with one validation image: 10 steps with a
-     checkpoint at step 5, K1 and K2 fp32 at M = 512 on every chunk (52
-     each a step, counted by kernel, shape and dtype), a resume from step
+     checkpoint at step 5, K1 and K2 fp32 at M = 512 on every chunk (104
+     and 52 a step, counted by kernel, shape and dtype), a resume from step
      5 whose step-10 checkpoint is byte-equal to the uninterrupted run's,
      eval_image_blocknerf with K1R fp32 on every chunk. Then the fp32 step
      on 256 rays (64 + 128 samples) on the card against the CPU (all_loss
@@ -142,22 +155,23 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
   9. data parallel: the port's training and serving in a process group
      (parallel/), 2 ranks on the one card over gloo (NCCL refuses two
      ranks on one card; gloo runs the all_reduce and broadcast the port
-     uses on CUDA tensors), each a `chip_smoke.py --dp-worker` process:
+     uses on CUDA tensors), each a `chip_smoke.py --dp-worker` process
+     that phases 12 and 13 reuse (one start for the three phases):
      train.main on the runner phase's scene with the published Building
      flags at full width, a global batch of 2,048 rays (1,024 a rank, a
-     card's share of the published 8,192 over 8), 10 steps with a save at
-     5, the chunks written by both ranks: K1 and K2 on every chunk of
-     every step on every rank, the ranks' parameter hashes equal at each
-     save, every metric finite, the ranks' batches different; a resume
-     from step 5 replays each rank's batches and its first loss equals the
+     card's share of the published 8,192 over 8), 3 steps with a save at
+     2, the chunks written by both ranks: K1 (twice, remat) and K2 on
+     every chunk of every step on every rank, the ranks' parameter hashes
+     equal at each save, every metric finite, the ranks' batches
+     different; a resume from step 2 replays each rank's batches and its first loss equals the
      run's to 1e-3; the drop-free first step (capacity factor 8, l_aux 0,
-     no noise, perturb 0) on a fixed 2,048-ray batch, each rank its half,
+     no noise, perturb 0) on a fixed 512-ray batch, each rank its half,
      against one process on the whole batch: all_loss within 1e-3
      relative, the averaged gradient's cosine >= 0.999; eval_image (no
      --moe_test_batch: K1R) on the final checkpoint in 2 ranks against one
-     process: the same file set, PSNR and SSIM means within 1e-4; then one
-     rank with torchrun's variables, whose group init_distributed starts
-     over NCCL, trains 5 steps. The published routing (capacity factor
+     process: the same file set, PSNR and SSIM means within 1e-4; beside
+     those checks one rank with torchrun's variables, whose group
+     init_distributed starts over NCCL, trains 5 steps. The published routing (capacity factor
      1.0, BPR, l_aux 5e-4; no noise, perturb 0) with 98,304-point chunks,
      so chunks span the two ranks (parallel/chunks.py): each rank's half of
      a fixed 2,048-ray batch against one process on the whole batch: the
@@ -198,7 +212,7 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      expert axis x 4,096, bf16) against their plain versions (K2 twice,
      bit-identical), timed against bound, plain and library; then 2 ranks
      on the card over gloo with --expert_parallel --mesh_shape 1 2:
-     train.main 10 steps with a save at 5 and a resume from it (K1, K2 on
+     train.main 3 steps with a save at 2 and a resume from it (K1, K2 on
      every chunk; the ranks' non-expert parameters hash-equal at each
      save), the drop-free first step against one process (all_loss 1e-3,
      the averaged gradient's cosine >= 0.999), and the token exchange:
@@ -207,15 +221,15 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      milliseconds and bytes. `chip_smoke.py --dp-cards 4` adds NCCL runs
      with --mesh_shape 1 4 and 2 2 beside the pure data-parallel one
   13. expert weight parallelism and ZeRO-1 at the published Building
-     flags' full width: 2 ranks on the card over gloo, train.main 10
-     steps with a save at 5 and a resume from it, twice: --mesh_shape 2
+     flags' full width: 2 ranks on the card over gloo, train.main 3
+     steps with a save at 2 and a resume from it, twice: --mesh_shape 2
      --expert_weight_parallel --shard_optimizer_states, and
      --expert_parallel --mesh_shape 1 2 --expert_weight_parallel (D = 1:
      the columns whole, as in JAX). Each against phase 9's pure
      data-parallel run on the same batches: every step's loss within
      1e-3, the drop-free first step's all_loss (1e-3) and averaged
      gradient (cosine >= 0.999) against one process; the ranks'
-     replicated parameters hash-equal at each save; phase 9's step-10
+     replicated parameters hash-equal at each save; phase 9's last
      checkpoint resumed under the layout with no step left saves it again
      byte for byte (and the first layout's own checkpoints against phase
      9's, printed); each rank's parameter and moment shapes and bytes
@@ -257,7 +271,7 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      leaves, internal nodes, npz bytes and max_memory_allocated
   16. the rest of the MoE model surface at Building's published width (8
      x 7 x 256, skip 3, external gate with LayerNorm, BPR, capacity
-     factor 1.0, bf16, bg NeRF, 256 + 512 samples): nine variants, each 5
+     factor 1.0, bf16, bg NeRF, 256 + 512 samples): nine variants, each 3
      train steps on a fixed 1,024-ray batch and one 4,096-ray eval request
      through make_train_step / make_eval_step, every metric finite, the
      chain kernels launched at each variant's shape (counted by shape),
@@ -298,7 +312,11 @@ import torch
 N_RAYS = 4096          # rays per eval request
 N_REQUESTS = 3
 CHECK_RAYS = 256       # rays of the CPU fp32 eval cross-check
-TRAIN_STEPS = 20       # timed train steps on the 1024-ray batch
+TRAIN_STEPS = 10       # timed train steps on the 1024-ray batch
+# --remat (on by default, as in JAX): each training chunk's forward kernel
+# (K1, K3, K1R) runs twice a step, in the forward and in the backward's
+# recompute; its backward kernel once
+REMAT_FWD = 2
 TRAIN_CHECK_RAYS = 64  # rays of the CPU fp32 train cross-check
 SCENE_W, SCENE_H = 1024, 768   # the runner scene's full-size images
 SCENE_TRAIN, SCENE_VAL = 6, 2  # its images (8 appearance rows)
@@ -346,6 +364,8 @@ REF_ITERATION = 1234           # the reference .pt's iteration
 STRADDLE_CHUNK = 3 * 32768     # a model chunk that spans the 2 ranks
 BF16_REL_TOL = 2e-2    # max |kernel - plain| <= this * max |plain| in bf16
 FP32_TOL = 1e-4        # max |kernel - plain| in fp32
+WATCHDOG_S = 1100      # stacks to stderr if the one-card run is still going
+WORKER_TIMEOUT_S = 420   # a one-card phase's 2-rank workers, each spawn
 
 # Published dense peaks (NVIDIA H100 data sheet): tensor-core bf16 and
 # TF32, fp32 on the CUDA cores, and device-memory bandwidth, per H100 form
@@ -370,12 +390,19 @@ def card_peaks(name: str) -> dict:
     return PEAKS["SXM"]
 
 
+TIMED = {"calls": 0, "s": 0.0}   # cuda_ms's calls and wall seconds
+
+
 def cuda_ms(fn, iters: int = 50, warmup: int = 10,
-            warm_s: float = 0.5) -> float:
+            warm_s: float = 0.1) -> float:
     """Mean device time of fn() in ms, from CUDA events after a warm-up of
-    at least `warmup` calls and `warm_s` seconds (an idle card, as after
-    the build, runs its first kernels at lower clocks)."""
+    at least `warmup` calls and `warm_s` seconds; the run's first timing
+    warms up for a second at least (an idle card, as after the build,
+    runs its first kernels at lower clocks)."""
     t0 = time.perf_counter()
+    if not TIMED["calls"]:
+        warm_s = max(warm_s, 1.0)
+    TIMED["calls"] += 1
     n = 0
     while n < warmup or time.perf_counter() - t0 < warm_s:
         fn()
@@ -390,6 +417,7 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 10,
         fn()
     end.record()
     end.synchronize()
+    TIMED["s"] += time.perf_counter() - t0
     return start.elapsed_time(end) / iters
 
 
@@ -915,6 +943,23 @@ def build_report() -> None:
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")  # nvcc's toolkit
     if not cuobjdump.exists():
         cuobjdump = None
+    # every library's disassembly at once, one cuobjdump each
+    dumps = {}
+    if cuobjdump is not None:
+        procs = {name: subprocess.Popen(
+            [cuobjdump, "-sass", str(_build.library_path(name))],
+            stdout=subprocess.PIPE, text=True) for name in _build.SOURCES}
+        try:
+            for name, proc in procs.items():
+                dumps[name] = proc.communicate(timeout=120)[0]
+                if proc.returncode:
+                    raise AssertionError(f"cuobjdump -sass lib{name} "
+                                         f"exited {proc.returncode}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     for name in _build.SOURCES:
         lib = _build.library_path(name)
         report = lib.with_suffix(".log")
@@ -935,9 +980,7 @@ def build_report() -> None:
         if cuobjdump is None:
             hgmma = "not measured (no cuobjdump)"
         else:
-            sass = subprocess.run([cuobjdump, "-sass", str(lib)],
-                                  capture_output=True, text=True,
-                                  timeout=120, check=True).stdout
+            sass = dumps[name]
             hgmma = sass.count("HGMMA")
             if hgmma == 0 and name != "embedding_bwd":
                 raise AssertionError(f"lib{name}: no HGMMA instruction")
@@ -1151,12 +1194,14 @@ def train_phase(counts):
         f"{photo[-1]:.6f}; last metrics "
         f"{ {k: round(float(v), 6) for k, v in met.items()} }")
     log(f"  launches: K1 {counts['K1']}, K2 {counts['K2']} (expected "
-        f"{chunks * TRAIN_STEPS} each), K3 {k3}, K4 {k4}, the embedding's "
-        f"backward {counts['embedding']}")
-    if not (counts["K1"] == counts["K2"] == chunks * TRAIN_STEPS
+        f"{REMAT_FWD * chunks * TRAIN_STEPS} and {chunks * TRAIN_STEPS}: "
+        f"remat), K3 {k3}, K4 {k4}, the embedding's backward "
+        f"{counts['embedding']}")
+    if not (counts["K1"] == REMAT_FWD * counts["K2"]
+            and counts["K2"] == chunks * TRAIN_STEPS
             and k3 == k4 == 0 and counts["embedding"] > 0):
-        raise AssertionError("the train path did not run K1 and K2 once "
-                             "per fg chunk")
+        raise AssertionError("the train path did not run K1 twice and K2 "
+                             "once per fg chunk")
     if not photo[-1] < photo[0]:
         raise AssertionError("photo_loss did not fall over the steps")
     log(f"  train rays/s {rays_per_s:.1f}, mean step "
@@ -1440,14 +1485,18 @@ def wrapped(owner, name: str, make):
 @contextlib.contextmanager
 def drop_masks():
     """Each MoE routing call's dropped tokens (location >= capacity) in
-    the block, a bool array a call in call order, on the host."""
+    the block, a bool array a call in call order, on the host (the
+    forward's calls: a remat recompute replays the same plan)."""
+    from switch_nerf_torch import remat
     from switch_nerf_torch.models import moe as tmoe
     masks = []
 
     def make(real):
         def run(*a, **k):
             plan, l_aux = real(*a, **k)
-            masks.append((plan.locations[0] >= plan.capacity).cpu().numpy())
+            if not remat.recomputing():
+                masks.append((plan.locations[0] >= plan.capacity)
+                              .cpu().numpy())
             return plan, l_aux
         return run
     with wrapped(tmoe, "extract_critical", make):
@@ -1611,9 +1660,11 @@ def train_runner_phase(fixed_rays_per_s: float) -> str:
         peak = torch.cuda.max_memory_allocated()
         exp = Path(h.exp_name) / "0"
         n = first["launches"]
-        log(f"  launches: {n} (expected K1, K2 {chunks * RUN_STEPS} each)")
+        log(f"  launches: {n} (expected K1 {REMAT_FWD * chunks * RUN_STEPS}"
+            f", K2 {chunks * RUN_STEPS}: remat)")
         if not (first["step"] == RUN_STEPS
-                and n["K1"] == n["K2"] == chunks * RUN_STEPS
+                and n["K1"] == REMAT_FWD * n["K2"]
+                and n["K2"] == chunks * RUN_STEPS
                 and n["K3"] == n["K4"] == 0):
             raise AssertionError("Runner.train did not run K1 and K2 once "
                                  "per fg chunk of every step")
@@ -2055,7 +2106,7 @@ def bungee_phase(counts: dict) -> str:
     import tempfile
     from pathlib import Path
 
-    from switch_nerf_torch import eval_nerf_moe, train_nerf_moe
+    from switch_nerf_torch import eval_nerf_moe, remat, train_nerf_moe
     from switch_nerf_torch import runner as runner_mod
     from switch_nerf_torch.config import get_opts_nerf, parse_args
     from switch_nerf_torch.ops import expert_kernel, ragged_chain
@@ -2100,7 +2151,8 @@ def bungee_phase(counts: dict) -> str:
 
         def keep_counts(real):
             def run(x, cnt, *a, **k):
-                routed.append(cnt.clone())
+                if not remat.recomputing():
+                    routed.append(cnt.clone())
                 return real(x, cnt, *a, **k)
             return run
 
@@ -2126,9 +2178,11 @@ def bungee_phase(counts: dict) -> str:
         log(f"  routing: {skew}")
         exp = tmp / "exp" / "0"
         log(f"  launches: K1R {counts['K1R']}, K2R {counts['K2R']} (expected "
-            f"{chunks * steps} each, {chunks} a step), K1 {k1}")
+            f"{REMAT_FWD * chunks * steps} and {chunks * steps}: remat, "
+            f"{chunks} chunks a step), K1 {k1}")
         if not (state.step == steps and k1 == 0
-                and counts["K1R"] == counts["K2R"] == chunks * steps):
+                and counts["K1R"] == REMAT_FWD * counts["K2R"]
+                and counts["K2R"] == chunks * steps):
             raise AssertionError("train_nerf_moe did not run K1R and K2R "
                                  "on every chunk of every step")
         windows = logged_windows(exp / "log.txt")
@@ -2438,8 +2492,9 @@ def classic_scene(kind: str, tmp, counts: dict, first: dict) -> dict:
         log(f"  train_nerf_moe: {len(runner.train_set)} train rays of "
             f"{runner.nerf_dataset.W}x{runner.nerf_dataset.H} images, "
             f"{steps} steps in {wall:.1f} s wall; K1R / K2R {got} (expected "
-            f"{want} each), K1 {expert_kernel.launches}")
-        if not (state.step == steps and got == (want, want)
+            f"{(REMAT_FWD * want, want)}: remat), K1 "
+            f"{expert_kernel.launches}")
+        if not (state.step == steps and got == (REMAT_FWD * want, want)
                 and expert_kernel.launches == 0):
             raise AssertionError(f"{kind}: train_nerf_moe did not run K1R "
                                  "and K2R on every chunk of every step")
@@ -2633,10 +2688,11 @@ def sh_octree_phase(counts: dict, peaks) -> tuple:
         windows = logged_windows(exp / "log.txt")
         log(f"  {state.step} steps in {train_s:.1f} s wall; K1 / K2 "
             f"{counts['K1 sh']} / {counts['K2 sh']} (expected "
-            f"{chunks * OCTREE_STEPS} each), K1R {rc.ragged_launches}; "
-            f"logged {windows}")
+            f"{REMAT_FWD * chunks * OCTREE_STEPS} / {chunks * OCTREE_STEPS}: "
+            f"remat), K1R {rc.ragged_launches}; logged {windows}")
         if not (state.step == OCTREE_STEPS
-                and counts["K1 sh"] == counts["K2 sh"] == chunks * OCTREE_STEPS
+                and counts["K1 sh"] == REMAT_FWD * counts["K2 sh"]
+                and counts["K2 sh"] == chunks * OCTREE_STEPS
                 and all(np.isfinite(v) for w in windows for v in w.values())):
             raise AssertionError("the SH model's training")
 
@@ -2709,7 +2765,7 @@ def sh_octree_phase(counts: dict, peaks) -> tuple:
 
 
 # ------------------------------------------------- the model surface ----
-SURFACE_STEPS = 5              # fixed-batch train steps of each variant
+SURFACE_STEPS = 3              # fixed-batch train steps of each variant
 SURFACE_CHECK_RAYS = 256       # rays of each variant's card vs CPU step,
 SURFACE_CHECK_SAMPLES = (64, 128)   # at these coarse + fine samples (the
 # CPU's fp32 step at 256 + 512 took 5-17 s a variant, PR 15)
@@ -2871,9 +2927,11 @@ def surface_variant(name: str, tally: dict, first: dict) -> dict:
     if key is not None:
         bwd = ("K2",) + key[1:] if key[0] == "K1" else ("K2R",) + key[1:]
         got = (train_tally.get(key, 0), train_tally.get(bwd, 0))
-        if got != (per_step * SURFACE_STEPS,) * 2:
+        want = (REMAT_FWD * per_step * SURFACE_STEPS,
+                per_step * SURFACE_STEPS)
+        if got != want:
             raise AssertionError(f"{name}: launches at {key} / {bwd} {got}, "
-                                 f"expected {per_step * SURFACE_STEPS} each")
+                                 f"expected {want} (remat)")
     extra = {k: round(float(v), 6) for k, v in met.items()}
     log(f"  step seconds {[round(t, 4) for t in times]}; eval request "
         f"{eval_s:.4f} s; launches by shape {mine}; last metrics {extra}")
@@ -2991,8 +3049,10 @@ def surface_runner(tmp, tally: dict) -> dict:
         tally[k] = tally.get(k, 0) + v
     k1 = mine.get(("K1", 8, 4096, 7), 0)
     log(f"  K1 / K2 at E8 C4096 {k1} / {mine.get(('K2', 8, 4096, 7))} "
-        f"(expected {2 * 32 * steps} each)")
-    if not k1 == mine.get(("K2", 8, 4096, 7)) == 2 * 32 * steps:
+        f"(expected {REMAT_FWD * 2 * 32 * steps} / {2 * 32 * steps}: "
+        "remat)")
+    if not (k1 == REMAT_FWD * mine.get(("K2", 8, 4096, 7))
+            == REMAT_FWD * 2 * 32 * steps):
         raise AssertionError("the cascade runner's launches")
     return out
 
@@ -3612,13 +3672,15 @@ def mission_bay_run(counts: dict, tag: str, steps: int, ckpt: int,
         exp = tmp / "exp" / "0"
         n = first["launches"]
         want = {(k, h.moe_expert_num, h.model_chunk_size // h.moe_expert_num,
-                 moe["num"], moe["out_ch"], dt): chunks * steps
-                for k in ("K1", "K2")}
-        log(f"  launches: {n}, K1R/K2R {k1r} (expected K1, K2 "
-            f"{chunks * steps} each, {chunks} a step); by (kernel, E, C, L, "
-            f"M, dtype) {shapes}")
+                 moe["num"], moe["out_ch"], dt): chunks * steps * r
+                for k, r in (("K1", REMAT_FWD), ("K2", 1))}
+        log(f"  launches: {n}, K1R/K2R {k1r} (expected K1 "
+            f"{REMAT_FWD * chunks * steps}, K2 {chunks * steps}: remat, "
+            f"{chunks} chunks a step); by (kernel, E, C, L, M, dtype) "
+            f"{shapes}")
         if not (first["step"] == steps and k1r == 0
-                and n["K1"] == n["K2"] == chunks * steps
+                and n["K1"] == REMAT_FWD * n["K2"]
+                and n["K2"] == chunks * steps
                 and n["K3"] == n["K4"] == 0 and shapes == want):
             raise AssertionError(f"Mission Bay{tag} training did not run K1 "
                                  "and K2 on every chunk of every step")
@@ -4166,10 +4228,140 @@ def chunk_arithmetic() -> dict:
     return out
 
 
+# ------------------------------------------------------------ remat ----
+REMAT_STEPS = 2                # timed steps each way, after a warm-up
+
+
+def remat_step(label: str, h, setup, batch) -> dict:
+    """One train configuration with --remat and with --no_remat, each
+    from a fresh state made from the same seeds: the first pass's
+    gradients (sha1 of their bytes), metrics and generator state after it,
+    and its K1 / K2 launches; then REMAT_STEPS timed steps after a
+    warm-up, with the peak memory over them."""
+    from switch_nerf_torch.ops import expert_kernel
+
+    got = {}
+    for on in (True, False):
+        hp = copy.copy(h)
+        hp.remat = on
+        state, step = setup(hp)
+        state.generator.manual_seed(7)
+        expert_kernel.launches = expert_kernel.bwd_launches = 0
+        m, g = step.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+        k1, k2 = expert_kernel.launches, expert_kernel.bwd_launches
+        row = {"grads": hashlib.sha1(flat(g).numpy().tobytes()).hexdigest(),
+               "metrics": {k: float(v) for k, v in m.items()},
+               "generator": hashlib.sha1(state.generator.get_state()
+                                         .numpy().tobytes()).hexdigest(),
+               "K1": k1, "K2": k2}
+        del g
+        step(state, batch)                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if float(met["finite"]) != 1.0:
+                raise AssertionError(f"{label}: a non-finite step")
+        row.update(step_s=times, peak_bytes=torch.cuda.max_memory_allocated())
+        got["on" if on else "off"] = row
+        del state, step
+        torch.cuda.empty_cache()
+    on, off = got["on"], got["off"]
+    same = {k: on[k] == off[k] for k in ("grads", "metrics", "generator")}
+    log(f"[remat] {label}: gradients, metrics and generator byte-equal "
+        f"{same}; peak {on['peak_bytes']} B with remat, {off['peak_bytes']} "
+        f"B without ({on['peak_bytes'] / 2 ** 30:.2f} / "
+        f"{off['peak_bytes'] / 2 ** 30:.2f} GiB); step seconds "
+        f"{[round(t, 4) for t in on['step_s']]} with, "
+        f"{[round(t, 4) for t in off['step_s']]} without; K1 / K2 a pass "
+        f"{on['K1']} / {on['K2']} with, {off['K1']} / {off['K2']} without")
+    if not (all(same.values()) and on["K2"] == off["K2"] == off["K1"] > 0
+            and on["K1"] == REMAT_FWD * off["K1"]):
+        raise AssertionError(f"{label}: --remat changed the step or its "
+                             f"launches: {same}, {on}, {off}")
+    return got
+
+
+def remat_phase() -> dict:
+    """--remat (the default) against --no_remat on the card: the Building
+    bf16 step at published width (1,024 rays), the Mission Bay step
+    (1,664 rays) in bf16 and fp32 (--no_amp), each byte-equal both ways,
+    with its peak memory, step seconds and K1 / K2 launches each way.
+    Phase 9's workers take the straddling step both ways
+    (``remat_straddle``, ``remat_straddle_check``)."""
+    from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
+    from switch_nerf_torch.profile_eval import (
+        SCENE, building_train_hparams, mission_bay_train_hparams, ray_batch)
+    from switch_nerf_torch.trainer import (
+        SceneInfo, create_train_state, make_train_step,
+        render_config_from_hparams)
+
+    t_start = time.perf_counter()
+
+    def building(hp):
+        state = create_train_state(
+            hp, get_nerf(hp, 8, seed=0), get_bg_nerf(hp, 8, seed=1))
+        return state, make_train_step(hp, render_config_from_hparams(hp),
+                                      SCENE)
+
+    def mission_bay(hp):
+        state = create_train_state(hp, get_nerf(hp, 8, seed=0), None)
+        return state, make_train_step(hp, render_config_from_hparams(hp),
+                                      SceneInfo(None, None), mip=True)
+
+    h = building_train_hparams()
+    out = {"Building bf16": remat_step(
+        "Building bf16, 1,024 rays", h, building,
+        ray_batch(h.batch_size, 0, "cuda", rgbs=True))}
+    hm = mission_bay_train_hparams()
+    mb = ray_batch(hm.batch_size, 0, "cuda", rgbs=True)
+    mb["rays"][:, 6:] = torch.tensor([1.0, 10.0], device="cuda")
+    mb["radii"] = torch.full((hm.batch_size, 1), 1e-3, device="cuda")
+    out["Mission Bay bf16"] = remat_step("Mission Bay bf16, 1,664 rays", hm,
+                                         mission_bay, mb)
+    hm32 = copy.copy(hm)
+    hm32.amp = False
+    out["Mission Bay fp32"] = remat_step(
+        "Mission Bay fp32 (--no_amp), 1,664 rays", hm32, mission_bay, mb)
+    out["wall_s"] = time.perf_counter() - t_start
+    log(f"[remat] phase {out['wall_s']:.1f} s wall")
+    return out
+
+
+def remat_straddle_check(outs) -> list:
+    """Phase 9's workers' straddling step (98,304-point chunks that span
+    the 2 gloo ranks on this card) with and without remat: byte-equal on
+    each rank, the same pieces shared. Its recompute runs on the autograd
+    engine's device thread, which the CPU tests never use, and must route
+    as the forward did."""
+    ranks = [o["remat"] for o in outs]
+    same = [{k: r["on"][k] == r["off"][k]
+             for k in ("grads", "metrics", "generator")} for r in ranks]
+    launches = [(r["on"]["K1"], r["on"]["K2"], r["off"]["K1"],
+                 r["off"]["K2"]) for r in ranks]
+    log(f"[remat] {DP_RANKS} gloo ranks on one card, {STRADDLE_CHUNK}-point "
+        f"chunks that span them: shared pieces a pass "
+        f"{ranks[0]['on']['shared']}; gradients, metrics and generator "
+        f"byte-equal with and without remat, per rank {same}; K1 / K2 per "
+        f"rank with, then without {launches}")
+    if not all(all(x.values()) and r["on"]["shared"] == r["off"]["shared"]
+               and sum(r["on"]["shared"]) > 0
+               and r["on"]["K1"] == REMAT_FWD * r["off"]["K1"]
+               for x, r in zip(same, ranks)):
+        raise AssertionError("the straddling step changed under --remat")
+    return ranks
+
+
 # ------------------------------------------- data parallel: 2 ranks ----
 DP_RANKS = 2
 DP_BATCH = 2048               # global: 1,024 a rank, 8,192's share of a card
-DP_STEPS, DP_SAVE = 10, 5     # the 2-rank run's schedule
+DROPFREE_BATCH = 512          # the drop-free first step's rays (global)
+DP_STEPS, DP_SAVE = 3, 2      # the 2-rank run's schedule
 DP_NCCL_STEPS = 5             # the one-rank NCCL run's
 
 
@@ -4181,19 +4373,20 @@ def free_port() -> int:
 
 
 def dp_worker(spec_path: str) -> int:
-    """One rank of the data-parallel phase (``chip_smoke.py --dp-worker
+    """One rank of the multi-process phases (``chip_smoke.py --dp-worker
     SPEC``): join the group the spec names (gloo over tcp, several ranks on
     card 0; or NCCL through parallel.init_distributed from torchrun's
-    variables), then train.main through run_training, a resume, the timed
-    gradient all-reduce, the drop-free first step's averaged gradient and
-    eval_image, as the spec asks; the results go to the spec's JSON file."""
+    variables), then run the spec's job (``worker_job``) and write its
+    results to the spec's JSON file. A spec with a ``pool`` directory
+    keeps the process and its group for the jobs that follow: the parent
+    writes each one there (``WorkerPool``), the last one ``quit``."""
+    import faulthandler
     import pickle
     from pathlib import Path
 
     import torch.distributed as dist
 
-    from switch_nerf_torch import eval_image, parallel
-    from switch_nerf_torch.ops import expert_kernel, ragged_chain
+    from switch_nerf_torch import parallel
 
     spec = pickle.loads(Path(spec_path).read_bytes())
     rank, world = spec["rank"], spec["world"]
@@ -4210,12 +4403,57 @@ def dp_worker(spec_path: str) -> int:
     else:
         parallel.init_distributed(world_size=world)
         device = None
+    job = 0
+    while not spec.get("quit"):
+        if spec.get("idle"):
+            # no job yet: what every job needs first (the port's modules,
+            # the card's context and its matmul library)
+            from switch_nerf_torch import eval_image, train  # noqa: F401
+            x = torch.ones(64, 64, device="cuda")
+            (x @ x).sum().item()
+        else:
+            # a job still going near its parent's deadline prints stacks
+            faulthandler.dump_traceback_later(max(spec["timeout"] - 20, 1))
+            out = worker_job(spec, rank, world, device)
+            parallel.barrier("dp worker done")
+            done = Path(spec["out"] + ".tmp")
+            done.write_text(json.dumps(out))
+            done.replace(spec["out"])       # whole, for a parent that polls
+            faulthandler.cancel_dump_traceback_later()
+        if "pool" not in spec:
+            break
+        job += 1
+        nxt = Path(spec["pool"]) / f"job{job}_rank{rank}.pkl"
+        parent = os.getppid()
+        while not nxt.exists():
+            if os.getppid() != parent:      # the parent is gone
+                return 1
+            time.sleep(0.05)
+        spec = pickle.loads(nxt.read_bytes())
+        torch.cuda.empty_cache()
+    parallel.destroy()
+    return 0
+
+
+def worker_job(spec, rank: int, world: int, device) -> dict:
+    """One job of a worker (``dp_worker``): train.main through
+    run_training, a resume, the timed gradient all-reduce, the drop-free
+    first step's averaged gradient, the straddling steps, the expert
+    exchange and eval_image, as the spec asks. Returns the results."""
+    import torch.distributed as dist
+
+    from switch_nerf_torch import eval_image, parallel
+    from switch_nerf_torch.ops import expert_kernel, ragged_chain
+
     out = {"rank": rank, "backend": dist.get_backend()}
     keys = ("loss", "photo", "finite", "t_end", "launches", "step", "wall_s",
             "hashes", "write_s", "digests", "exchange", "weights",
             "peak_bytes", "local_shapes", "optimizer")
-    rec = run_training(spec["train"], device=device)
-    out["train"] = {k: rec[k] for k in keys}
+    if "remat" in spec:
+        out["remat"] = remat_straddle(spec["remat"], rank, world)
+    if "train" in spec:
+        rec = run_training(spec["train"], device=device)
+        out["train"] = {k: rec[k] for k in keys}
     for key in ("resume", "roundtrip"):
         if key in spec:
             out[key] = {k: v for k, v in run_training(
@@ -4223,28 +4461,29 @@ def dp_worker(spec_path: str) -> int:
     if spec.get("wp_collectives"):
         out["wp_collectives"] = weight_collectives_check(rec)
 
-    # the gradient all-reduce of the trainer: one flat fp32 buffer of the
-    # parameters' size, timed alone
-    buf = torch.ones(rec["n_params"], device="cuda")
-    for _ in range(3):
-        dist.all_reduce(buf)
-    times = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dist.all_reduce(buf)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    out["allreduce"] = {"bytes": buf.numel() * 4,
-                        "ms": 1e3 * float(np.median(times))}
-    del buf
+    if "train" in spec:
+        # the gradient all-reduce of the trainer: one flat fp32 buffer of
+        # the parameters' size, timed alone
+        buf = torch.ones(rec["n_params"], device="cuda")
+        for _ in range(3):
+            dist.all_reduce(buf)
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["allreduce"] = {"bytes": buf.numel() * 4,
+                            "ms": 1e3 * float(np.median(times))}
+        del buf
 
     if "dropfree" in spec:
         hp = spec["dropfree"]
         state, step = dp_setup(hp, "cuda:0")
-        share = DP_BATCH // world
+        share = DROPFREE_BATCH // world
         batch = {k: v[rank * share:(rank + 1) * share]
-                 for k, v in dp_batch("cuda:0").items()}
+                 for k, v in dp_batch("cuda:0", DROPFREE_BATCH).items()}
         m, g = step.loss_and_grads(state, batch)
         m, g = step.average_across_ranks(m, g)
         out["dropfree_loss"] = float(m["all_loss"])
@@ -4318,10 +4557,49 @@ def dp_worker(spec_path: str) -> int:
         out["eval"] = {"means": means, "s": time.perf_counter() - t0,
                        "K1R": ragged_chain.ragged_launches,
                        "K1": expert_kernel.launches}
-    parallel.barrier("dp worker done")
-    Path(spec["out"]).write_text(json.dumps(out))
-    parallel.destroy()
-    return 0
+    return out
+
+
+def remat_straddle(hp, rank: int, world: int) -> dict:
+    """This rank's half of the fixed batch through `hp` (model chunks that
+    span the ranks) with --remat and with --no_remat, each from a fresh
+    state and generator made from the same seeds: the sha1 of the
+    gradients' bytes, the metrics, the generator's state after the pass,
+    the pieces each pass shared with the other rank, and K1 / K2's
+    launches. The recompute runs on the autograd engine's device thread,
+    which a CPU run does not use."""
+    from switch_nerf_torch.ops import expert_kernel
+    from switch_nerf_torch.parallel import chunks
+
+    share = DP_BATCH // world
+    batch = {k: v[rank * share:(rank + 1) * share]
+             for k, v in dp_batch("cuda:0").items()}
+    out = {}
+    for on in (True, False):
+        h = copy.copy(hp)
+        h.remat = on
+        state, step = dp_setup(h, "cuda:0")
+        shared = []
+
+        def tally(real):
+            def plan(*a, **k):
+                cut = real(*a, **k)
+                shared.append(sum(p.share is not None for p in cut[0]))
+                return cut
+            return plan
+        expert_kernel.launches = expert_kernel.bwd_launches = 0
+        with wrapped(chunks, "plan", tally):
+            m, g = step.loss_and_grads(state, batch)
+        torch.cuda.synchronize()
+        out["on" if on else "off"] = {
+            "grads": hashlib.sha1(flat(g).numpy().tobytes()).hexdigest(),
+            "metrics": {k: float(v) for k, v in m.items()},
+            "generator": hashlib.sha1(
+                state.generator.get_state().numpy().tobytes()).hexdigest(),
+            "shared": shared, "K1": expert_kernel.launches,
+            "K2": expert_kernel.bwd_launches}
+        del state, step, g
+    return out
 
 
 def dp_setup(hp, device):
@@ -4339,34 +4617,123 @@ def dp_setup(hp, device):
                                   device=device)
 
 
-def dp_batch(device) -> dict:
+def dp_batch(device, n: int = DP_BATCH) -> dict:
     from switch_nerf_torch.profile_eval import ray_batch
-    return ray_batch(DP_BATCH, 0, device, rgbs=True)
+    return ray_batch(n, 0, device, rgbs=True)
 
 
-def run_workers(specs, tmp, timeout: float = 900.0) -> list:
-    """Start one ``--dp-worker`` process per spec, all at once; wait for
-    every one (and kill them all if one hangs); their JSON results."""
+def start_workers(specs, tmp, timeout: float = WORKER_TIMEOUT_S) -> list:
+    """Start one ``--dp-worker`` process per spec, all at once; returns
+    [(process, spec)] for ``wait_workers``."""
     import pickle
-    paths = []
+    started = []
     for i, spec in enumerate(specs):
-        paths.append(tmp / f"spec_{spec['backend']}_{i}.pkl")
-        paths[-1].write_bytes(pickle.dumps(spec))
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--dp-worker", str(p)]) for p in paths]
+        spec = {**spec, "timeout": timeout}
+        path = tmp / f"spec_{spec['backend']}_{i}.pkl"
+        path.write_bytes(pickle.dumps(spec))
+        started.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker",
+             str(path)]), spec))
+    return started
+
+
+def kill_workers(started) -> None:
+    """Kill what is left of ``start_workers``'s processes."""
+    for p, _ in started:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def wait_workers(started) -> list:
+    """Wait for every process of ``start_workers`` (and kill them all if
+    one hangs past its spec's timeout); their JSON results."""
+    procs = [p for p, _ in started]
     try:
-        deadline = time.time() + timeout
+        deadline = time.time() + started[0][1]["timeout"]
         for p in procs:
             p.wait(timeout=max(deadline - time.time(), 1.0))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        kill_workers(started)
     if any(p.returncode for p in procs):
         raise AssertionError(f"data-parallel workers exited "
                              f"{[p.returncode for p in procs]}")
-    return [json.loads(open(s["out"]).read()) for s in specs]
+    return [json.loads(open(s["out"]).read()) for _, s in started]
+
+
+def run_workers(specs, tmp, timeout: float = WORKER_TIMEOUT_S) -> list:
+    """``start_workers`` then ``wait_workers``."""
+    return wait_workers(start_workers(specs, tmp, timeout))
+
+
+class WorkerPool:
+    """The 2 gloo ranks of phases 9, 12 and 13, started once (``start``):
+    ``run`` hands each rank its job's spec as a file in `root` that the
+    rank waits for, and waits for the results, so the processes start
+    (Python, torch, the card) once for every job, not once a job.
+    ``close`` ends them."""
+
+    def __init__(self, root):
+        from pathlib import Path
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.started, self.job = None, 0
+
+    def _hand(self, spec) -> None:
+        import pickle
+        path = self.root / f"job{self.job}_rank{spec['rank']}.pkl"
+        part = path.with_name(path.name + ".tmp")
+        part.write_bytes(pickle.dumps(spec))
+        part.replace(path)          # whole, for a rank that polls
+
+    def start(self, world: int) -> None:
+        """Start `world` gloo ranks now, each with no job yet: it joins
+        the group, loads the port and touches the card, then waits."""
+        port = free_port()
+        self.started = start_workers(
+            [{"rank": r, "world": world, "port": port, "backend": "gloo",
+              "pool": str(self.root), "idle": True} for r in range(world)],
+            self.root)
+
+    def run(self, specs, timeout: float = WORKER_TIMEOUT_S) -> list:
+        from pathlib import Path
+        specs = [{**s, "pool": str(self.root), "timeout": timeout}
+                 for s in specs]
+        self.job += 1
+        for spec in specs:
+            self._hand(spec)
+        deadline = time.time() + timeout
+        try:
+            while not all(Path(s["out"]).exists() for s in specs):
+                codes = [p.poll() for p, _ in self.started]
+                if any(c is not None for c in codes):
+                    raise AssertionError(f"data-parallel workers exited "
+                                         f"{codes}")
+                if time.time() > deadline:
+                    raise AssertionError(f"data-parallel workers still "
+                                         f"running after {timeout} s")
+                time.sleep(0.1)
+        except BaseException:
+            self.close(wait_s=0.0)
+            raise
+        return [json.loads(Path(s["out"]).read_text()) for s in specs]
+
+    def close(self, wait_s: float = 60.0) -> None:
+        """Hand each rank ``quit``, wait up to `wait_s`; kill what is
+        left."""
+        if self.started is None:
+            return
+        self.job += 1
+        for _, spec in self.started:
+            self._hand({"rank": spec["rank"], "quit": True})
+        try:
+            for p, _ in self.started:
+                p.wait(timeout=max(wait_s, 0.01))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            kill_workers(self.started)
+            self.started = None
 
 
 def dp_train_hparams(tmp, batch: int, steps: int, save: int):
@@ -4450,7 +4817,7 @@ def scaling(cards: int) -> int:
                 "rank": r, "world": n, "local_rank": r, "port": port,
                 "backend": "nccl", "train": h, "eval": he,
                 "out": str(tmp / f"scale{n}_{r}.json")} for r in range(n)],
-                tmp)
+                tmp, timeout=900.0)
             wall = time.perf_counter() - t0
             trains = [o["train"] for o in outs]
             step_s = [float(np.mean(np.diff(t["t_end"][window:])))
@@ -4459,8 +4826,9 @@ def scaling(cards: int) -> int:
             ok = (len({json.dumps(t["hashes"], sort_keys=True)
                        for t in trains}) == 1
                   and all(all(t["finite"]) and t["step"] == steps
-                          and t["launches"]["K1"] == t["launches"]["K2"]
-                          == chunks for t in trains)
+                          and t["launches"]["K1"] == REMAT_FWD
+                          * t["launches"]["K2"] == REMAT_FWD * chunks
+                          for t in trains)
                   and all(o["backend"] == "nccl" for o in outs))
             results[n] = {"step_s": step_s, "rays_per_s": 1024 * n
                           / max(step_s), "allreduce": [
@@ -4481,7 +4849,7 @@ def scaling(cards: int) -> int:
                 "rank": r, "world": cards, "local_rank": r, "port": port,
                 "backend": "nccl", "train": he_, "exchange": True,
                 "out": str(tmp / f"ep{tag}_{r}.json")}
-                for r in range(cards)], tmp)
+                for r in range(cards)], tmp, timeout=900.0)
             wall = time.perf_counter() - t0
             trains = [o["train"] for o in outs]
             step_s = [float(np.mean(np.diff(t["t_end"][window:])))
@@ -4490,8 +4858,9 @@ def scaling(cards: int) -> int:
             ok = (len({json.dumps(t["hashes"], sort_keys=True)
                        for t in trains}) == 1
                   and all(all(t["finite"]) and t["step"] == steps
-                          and t["launches"]["K1"] == t["launches"]["K2"]
-                          == chunks and t["exchange"]["exchanges"] > 0
+                          and t["launches"]["K1"] == REMAT_FWD
+                          * t["launches"]["K2"] == REMAT_FWD * chunks
+                          and t["exchange"]["exchanges"] > 0
                           for t in trains)
                   and all(o["backend"] == "nccl" and o["exchange"]["equal"]
                           for o in outs))
@@ -4515,7 +4884,7 @@ def scaling(cards: int) -> int:
                 "rank": r, "world": cards, "local_rank": r, "port": port,
                 "backend": "nccl", "train": hw, "wp_collectives": True,
                 "out": str(tmp / f"wp{tag}_{r}.json")}
-                for r in range(cards)], tmp)
+                for r in range(cards)], tmp, timeout=900.0)
             wall = time.perf_counter() - t0
             trains = [o["train"] for o in outs]
             step_s = [float(np.mean(np.diff(t["t_end"][window:])))
@@ -4524,8 +4893,9 @@ def scaling(cards: int) -> int:
             ok = (len({json.dumps(t["hashes"], sort_keys=True)
                        for t in trains}) == 1
                   and all(all(t["finite"]) and t["step"] == steps
-                          and t["launches"]["K1"] == t["launches"]["K2"]
-                          == chunks and t["weights"]["gathers"] == steps
+                          and t["launches"]["K1"] == REMAT_FWD
+                          * t["launches"]["K2"] == REMAT_FWD * chunks
+                          and t["weights"]["gathers"] == steps
                           and t["optimizer"] == "ZeroAdam"
                           for t in trains)
                   and all(o["backend"] == "nccl" for o in outs))
@@ -4559,7 +4929,7 @@ def scaling(cards: int) -> int:
     return 0
 
 
-def data_parallel_phase(counts: dict, keep) -> dict:
+def data_parallel_phase(counts: dict, keep, pool) -> dict:
     """Train and serve Building data-parallel: the checks of the module
     docstring's phase 9. Returns its numbers; its run's checkpoints are
     copied to `keep`/dp_models (phase 13 holds its layouts against
@@ -4572,7 +4942,8 @@ def data_parallel_phase(counts: dict, keep) -> dict:
     from switch_nerf_torch.profile_eval import (building_eval_hparams,
                                                 building_train_hparams)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp, \
+            contextlib.ExitStack() as stack:
         tmp = Path(tmp)
         make_scene(tmp / "scene", seed=0)
         h = dp_train_hparams(tmp, DP_BATCH, DP_STEPS, DP_SAVE)
@@ -4588,6 +4959,8 @@ def data_parallel_phase(counts: dict, keep) -> dict:
         straddle.use_sigma_noise = False
         straddle.perturb = 0.0
         straddle.model_chunk_size = STRADDLE_CHUNK
+        remat_straddle_hp = building_train_hparams()    # noise, perturb on
+        remat_straddle_hp.model_chunk_size = STRADDLE_CHUNK
         he = building_eval_hparams()
         he.dataset_path = str(tmp / "scene")
         he.ckpt_path = str(tmp / "exp" / "0" / "models" / str(DP_STEPS))
@@ -4611,18 +4984,34 @@ def data_parallel_phase(counts: dict, keep) -> dict:
                   "straddle": straddle,
                   "straddle_grad_path": str(tmp / "straddle_grad.npy"),
                   "straddle_drops": str(tmp / "drops"),
+                  "remat": remat_straddle_hp,
                   "out": str(tmp / f"rank{r}.json")}
                  for r in range(DP_RANKS)]
         t0 = time.perf_counter()
-        outs = run_workers(specs, tmp)
+        outs = pool.run(specs)
         wall = time.perf_counter() - t0
+        remat_straddle_check(outs)
+
+        # one rank with torchrun's variables: init_distributed takes NCCL;
+        # it starts now and runs beside the checks below
+        hn = copy.copy(h)
+        hn.exp_name = str(tmp / "nccl")
+        hn.batch_size = per_rank
+        hn.train_iterations = DP_NCCL_STEPS
+        hn.ckpt_interval = DP_NCCL_STEPS
+        hn.val_interval = DP_NCCL_STEPS + 1
+        nccl_run = start_workers([{"rank": 0, "world": 1, "port": free_port(),
+                                   "backend": "nccl", "train": hn,
+                                   "out": str(tmp / "nccl.json")}], tmp)
+        stack.callback(kill_workers, nccl_run)
 
         trains = [o["train"] for o in outs]
         n = [t["launches"] for t in trains]
-        log(f"  launches per rank {n} (expected K1, K2 {chunks * DP_STEPS} "
-            f"each: {chunks} a step at {per_rank} rays)")
-        if not all(t["step"] == DP_STEPS and l["K1"] == l["K2"]
-                   == chunks * DP_STEPS and l["K3"] == l["K4"] == 0
+        log(f"  launches per rank {n} (expected K1 "
+            f"{REMAT_FWD * chunks * DP_STEPS}, K2 {chunks * DP_STEPS}: "
+            f"remat, {chunks} chunks a step at {per_rank} rays)")
+        if not all(t["step"] == DP_STEPS and l["K1"] == REMAT_FWD * l["K2"]
+                   == REMAT_FWD * chunks * DP_STEPS and l["K3"] == l["K4"] == 0
                    for t, l in zip(trains, n)):
             raise AssertionError("a rank did not run K1 and K2 on every "
                                  "chunk of every step")
@@ -4650,13 +5039,14 @@ def data_parallel_phase(counts: dict, keep) -> dict:
 
         # the drop-free first step against one process on the whole batch
         state, step = dp_setup(dropfree, "cuda")
-        m1, g1 = step.loss_and_grads(state, dp_batch("cuda"))
+        m1, g1 = step.loss_and_grads(state, dp_batch("cuda", DROPFREE_BATCH))
         l1, l2 = float(m1["all_loss"]), outs[0]["dropfree_loss"]
         cos = cosine(torch.from_numpy(np.load(tmp / "grad.npy")), flat(g1))
         del state, step, g1
-        log(f"  drop-free first step: all_loss 2 ranks {l2:.6f}, 1 process "
-            f"{l1:.6f} (relative {abs(l2 - l1) / abs(l1):.3e}, limit 1e-3); "
-            f"averaged gradient cosine {cos:.6f} (limit 0.999)")
+        log(f"  drop-free first step ({DROPFREE_BATCH} rays): all_loss 2 "
+            f"ranks {l2:.6f}, 1 process {l1:.6f} (relative "
+            f"{abs(l2 - l1) / abs(l1):.3e}, limit 1e-3); averaged gradient "
+            f"cosine {cos:.6f} (limit 0.999)")
         if not (abs(l2 - l1) <= 1e-3 * abs(l1) and cos >= 0.999
                 and outs[1]["dropfree_loss"] == l2):
             raise AssertionError("the 2-rank step disagrees with one "
@@ -4739,21 +5129,14 @@ def data_parallel_phase(counts: dict, keep) -> dict:
             raise AssertionError("the 2-rank eval differs from one "
                                  "process's")
 
-        # one rank with torchrun's variables: init_distributed takes NCCL
-        hn = copy.copy(h)
-        hn.exp_name = str(tmp / "nccl")
-        hn.batch_size = per_rank
-        hn.train_iterations = DP_NCCL_STEPS
-        hn.ckpt_interval = DP_NCCL_STEPS
-        (nccl,) = run_workers([{"rank": 0, "world": 1, "port": free_port(),
-                                "backend": "nccl", "train": hn,
-                                "out": str(tmp / "nccl.json")}], tmp)
+        (nccl,) = wait_workers(nccl_run)
         nt = nccl["train"]
         log(f"  one rank over {nccl['backend']}: {nt['step']} steps, "
             f"launches {nt['launches']}, all-reduce {nccl['allreduce']}")
         if not (nccl["backend"] == "nccl" and nt["step"] == DP_NCCL_STEPS
                 and all(nt["finite"]) and nt["launches"]["K1"]
-                == nt["launches"]["K2"] == chunks * DP_NCCL_STEPS):
+                == REMAT_FWD * nt["launches"]["K2"]
+                == REMAT_FWD * chunks * DP_NCCL_STEPS):
             raise AssertionError("the NCCL run failed its checks")
 
         shutil.copytree(tmp / "exp" / "0" / "models", keep / "dp_models")
@@ -4946,9 +5329,9 @@ def ep_first_step(spec, rank: int, world: int) -> dict:
     hp = spec["ep_first"]
     parallel.setup_mesh(hp, world, rank)
     state, step = dp_setup(hp, "cuda:0")
-    share = DP_BATCH // world
+    share = DROPFREE_BATCH // world
     batch = {k: v[rank * share:(rank + 1) * share]
-             for k, v in dp_batch("cuda:0").items()}
+             for k, v in dp_batch("cuda:0", DROPFREE_BATCH).items()}
     expert_kernel.launches = expert_kernel.bwd_launches = 0
     m, g = step.loss_and_grads(state, batch)
     m, g = step.average_across_ranks(m, g, state)
@@ -5010,7 +5393,7 @@ def layout_hparams(h, flags: dict, mesh_shape):
     return h
 
 
-def expert_parallel_phase(counts: dict) -> dict:
+def expert_parallel_phase(counts: dict, pool) -> dict:
     """Train Building expert-parallel on the card: phase 12 of the module
     docstring (the 2 gloo ranks). Returns its numbers."""
     import tempfile
@@ -5048,17 +5431,18 @@ def expert_parallel_phase(counts: dict) -> dict:
                   "exchange": True, "out": str(tmp / f"ep{r}.json")}
                  for r in range(DP_RANKS)]
         t0 = time.perf_counter()
-        outs = run_workers(specs, tmp)
+        outs = pool.run(specs)
         wall = time.perf_counter() - t0
         trains = [o["train"] for o in outs]
         n = [t["launches"] for t in trains]
         hashes = [t["hashes"] for t in trains]
-        log(f"  launches per rank {n} (expected K1, K2 {chunks * DP_STEPS} "
-            f"each); exchanges per rank "
+        log(f"  launches per rank {n} (expected K1 "
+            f"{REMAT_FWD * chunks * DP_STEPS}, K2 {chunks * DP_STEPS}: "
+            f"remat); exchanges per rank "
             f"{[t['exchange'] for t in trains]}; non-expert parameter "
             f"hashes at the saves {hashes}")
-        if not all(t["step"] == DP_STEPS and l["K1"] == l["K2"]
-                   == chunks * DP_STEPS and l["K3"] == l["K4"] == 0
+        if not all(t["step"] == DP_STEPS and l["K1"] == REMAT_FWD * l["K2"]
+                   == REMAT_FWD * chunks * DP_STEPS and l["K3"] == l["K4"] == 0
                    and t["exchange"]["exchanges"] > 0
                    for t, l in zip(trains, n)):
             raise AssertionError("an expert-parallel rank did not run K1 "
@@ -5077,7 +5461,7 @@ def expert_parallel_phase(counts: dict) -> dict:
             raise AssertionError("the expert-parallel resume does not "
                                  "repeat the run")
         state, step = dp_setup(dropfree, "cuda")
-        m1, g1 = step.loss_and_grads(state, dp_batch("cuda"))
+        m1, g1 = step.loss_and_grads(state, dp_batch("cuda", DROPFREE_BATCH))
         l1, l2 = float(m1["all_loss"]), outs[0]["ep_first"]["loss"]
         cos = cosine(torch.from_numpy(np.load(tmp / "ep_grad.npy")),
                      flat(g1))
@@ -5247,7 +5631,7 @@ def layout_check(models, h, local_shapes) -> dict:
     return {"bad": bad[:4], "state_bytes": rank_bytes}
 
 
-def weight_parallel_phase(counts: dict, dp: dict, keep) -> dict:
+def weight_parallel_phase(counts: dict, dp: dict, keep, pool) -> dict:
     """Train Building under expert weight parallelism and ZeRO-1 on the
     card: phase 13 of the module docstring (2 gloo ranks, each layout of
     WP_LAYOUTS) against phase 9's pure data-parallel run. Returns its
@@ -5268,11 +5652,11 @@ def weight_parallel_phase(counts: dict, dp: dict, keep) -> dict:
     dropfree.perturb = 0.0
     state, step = dp_setup(dropfree, "cuda")
     drawn = state.generator.get_state()
-    m1, g1 = step.loss_and_grads(state, dp_batch("cuda"))
+    m1, g1 = step.loss_and_grads(state, dp_batch("cuda", DROPFREE_BATCH))
     # the same step again, the same draws: which gradients the card does
     # not repeat bit for bit
     state.generator.set_state(drawn)
-    _, again = step.loss_and_grads(state, dp_batch("cuda"))
+    _, again = step.loss_and_grads(state, dp_batch("cuda", DROPFREE_BATCH))
     names = [n for n, _ in state.model.named_parameters()] + [
         f"bg.{n}" for n, _ in state.bg_model.named_parameters()]
     unrepeated = [n for n, a, b in zip(names, g1, again)
@@ -5315,13 +5699,15 @@ def weight_parallel_phase(counts: dict, dp: dict, keep) -> dict:
                       "out": str(tmp / f"{tag}{r}.json")}
                      for r in range(DP_RANKS)]
             t0 = time.perf_counter()
-            outs = run_workers(specs, tmp)
+            outs = pool.run(specs)
             wall = time.perf_counter() - t0
             trains = [o["train"] for o in outs]
             n = [t["launches"] for t in trains]
             hashes = [t["hashes"] for t in trains]
-            if not all(t["step"] == DP_STEPS and l["K1"] == l["K2"]
-                       == chunks * DP_STEPS and l["K3"] == l["K4"] == 0
+            if not all(t["step"] == DP_STEPS
+                       and l["K1"] == REMAT_FWD * l["K2"]
+                       == REMAT_FWD * chunks * DP_STEPS
+                       and l["K3"] == l["K4"] == 0
                        for t, l in zip(trains, n)):
                 raise AssertionError(f"{tag}: a rank did not run K1 and K2 "
                                      "on every chunk of every step")
@@ -5422,6 +5808,10 @@ def main() -> int:
         from switch_nerf_torch.ops import _build
         _build.build()
         return points_unsplit()
+    import faulthandler
+    # a run still going after WATCHDOG_S prints every thread's stack to
+    # stderr and goes on: where a slow or stuck run is
+    faulthandler.dump_traceback_later(WATCHDOG_S)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -5434,10 +5824,37 @@ def main() -> int:
 
     from switch_nerf_torch.ops import _build
     t0 = time.perf_counter()
+    phase_s, mark = {}, [t0]
+
+    def done(name: str) -> None:
+        """Wall seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - mark[0], 1)
+        mark[0] = now
+        log(f"[phases] {name}: {phase_s[name]} s wall")
     built = _build.build()
     log(f"[build] {time.perf_counter() - t0:.1f} s wall; per source "
         f"{ {k: round(v, 1) for k, v in built.items()} }")
-    build_report()
+    # phases 9, 12 and 13's 2 ranks start now, beside the phases before
+    # them, and wait for their jobs
+    import shutil
+    import tempfile
+    pool = WorkerPool(tempfile.mkdtemp(prefix="chip_smoke_pool_"))
+    pool.start(DP_RANKS)
+    try:
+        build_report()
+        done("build")
+        return run_phases(smi, name, peaks, done, phase_s, pool)
+    finally:
+        pool.close()
+        shutil.rmtree(pool.root, ignore_errors=True)
+
+
+def run_phases(smi: str, name: str, peaks: dict, done, phase_s: dict,
+               pool) -> int:
+    """Phases 2-16 of the one-card run (the module docstring), then the
+    kernels line, the card line and the last line."""
+    import faulthandler
 
     from switch_nerf_torch.profile_eval import building_eval_hparams
     h = building_eval_hparams()
@@ -5455,33 +5872,46 @@ def main() -> int:
     pts_rows = points_kernel_phase(peaks, building)
     ep_rows = ep_kernel_phase(peaks, building)
     nodrop_padded_phase(building)
+    done("kernels")
     eval_counts = {}
     rays_per_s = slice_phase(h, eval_counts)
     log(f"[slice] eval launches per {N_REQUESTS} requests: {eval_counts}")
     counts = {}                   # the train path's (main path's) launches
     train = train_phase(counts)
     emb = embedding_phase(peaks)
+    done("slice, train, embedding")
+    remat = remat_phase()
+    done("remat")
     runner = runner_phase()
     train_runner = train_runner_phase(train["rays_per_s"])
     bungee = bungee_phase(counts)
+    done("runner, train runner, bungee")
     mission_bay = mission_bay_phase(counts)
+    done("mission bay")
     serving = serving_phase(counts)
     pts_rows["K1R eval_points"] = points_path_kernel(
         peaks, serving.pop("k1r_inputs"))
+    done("serving")
     import shutil
     import tempfile
     from pathlib import Path
     keep = Path(tempfile.mkdtemp(prefix="chip_smoke_keep_"))
     try:
-        dp = data_parallel_phase(counts, keep)
+        dp = data_parallel_phase(counts, keep, pool)
+        done("data parallel")
         orbax = orbax_phase(counts)
-        ep = expert_parallel_phase(counts)
-        wp = weight_parallel_phase(counts, dp, keep)
+        ep = expert_parallel_phase(counts, pool)
+        done("orbax, expert parallel")
+        wp = weight_parallel_phase(counts, dp, keep, pool)
+        done("weight parallel")
     finally:
+        pool.close()
         shutil.rmtree(keep, ignore_errors=True)
     classic, classic_rows = classic_phase(counts, peaks)
     octree, octree_rows = sh_octree_phase(counts, peaks)
+    done("classic, octree")
     surface, surface_rows, surface_tally = model_surface_phase(counts, peaks)
+    done("model surface")
 
     meta = {
         "K1": ("expert_chain", "switch_nerf_torch/csrc/expert_chain.cu",
@@ -5803,6 +6233,19 @@ def main() -> int:
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err "
             f"{r['max_abs_err']:.3e} on {smi}")
+    for label, r in remat.items():
+        if label in ("straddle", "wall_s"):
+            continue
+        on, off = r["on"], r["off"]
+        log(f"[remat] {label}: peak {on['peak_bytes']} B with --remat, "
+            f"{off['peak_bytes']} B with --no_remat; step seconds (median "
+            f"of {REMAT_STEPS}) {float(np.median(on['step_s'])):.4f} with, "
+            f"{float(np.median(off['step_s'])):.4f} without; K1 / K2 a step "
+            f"{on['K1']} / {on['K2']} with, {off['K1']} / {off['K2']} "
+            f"without; byte-equal gradients on {smi}")
+    faulthandler.cancel_dump_traceback_later()
+    log(f"[phases] wall seconds {phase_s}; cuda_ms {TIMED['calls']} "
+        f"calls, {TIMED['s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     # the script drives one card

@@ -437,7 +437,8 @@ class FilesystemDataset:
             for marker in chunk_dir.glob(pattern):
                 marker.unlink()
         (chunk_dir / ".chunks_ready").unlink(missing_ok=True)
-        (chunk_dir / _MANIFEST).write_text(json.dumps(
+        # atomic: the other processes poll for it and read it whole
+        _atomic_write(chunk_dir / _MANIFEST, json.dumps(
             self._manifest(num_chunks, scale_factor)))
 
 

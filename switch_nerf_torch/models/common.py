@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from switch_nerf_torch import remat
 from switch_nerf_torch.ops.embedding import embedding
 
 __all__ = ["uniform_fan_in", "TorchLinear", "Embedding", "LayerNorm",
@@ -122,7 +123,8 @@ class Dropout(nn.Module):
             return x
         if self.rate >= 1.0:
             return torch.zeros_like(x)
-        return torch.where(self.keep_mask(x, generator),
+        # the mask is kept across the remat boundary (remat.py)
+        return torch.where(remat.keep(self.keep_mask, x, generator),
                            x / (1.0 - self.rate), torch.zeros_like(x))
 
 

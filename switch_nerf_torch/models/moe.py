@@ -23,6 +23,13 @@ with the experts' owners around the chain, as JAX does
 Gate noise is drawn from the generator the caller passes (a training
 step's: ``render/rendering.py`` gives the order of its draws), through
 ``noise`` (a hook the parity tests replace with JAX's draw).
+
+Under --remat (``remat.py``) a recompute of the layer takes the gate
+noise, the routing plan and the padded path's dispatch buffer (or, fused,
+the plan alone) as the forward made them, and runs the rest again: the
+gate, the gather of the gates at the kept experts, the expert chain and
+the combine. The no-drop path keeps nothing of its own, as in JAX: its
+sort by expert, ragged chain and inverse permutation run again.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from switch_nerf_torch import remat
 from switch_nerf_torch.models.common import TorchLinear
 from switch_nerf_torch.models.experts import ExpertMLP, FFNExperts
 from switch_nerf_torch.ops.dispatch import (
@@ -113,8 +121,9 @@ class MoELayer(nn.Module):
         logits = self.wg(gin.float() if self.fp32_gate else gin)
         noisy = logits
         if self.gate_noise > 0 and train:
-            noisy = logits + self.gate_noise * self.noise(logits,
-                                                          generator) / e
+            # the draw is kept across the remat boundary (remat.py)
+            noisy = logits + self.gate_noise * remat.keep(
+                self.noise, logits, generator) / e
         gates = torch.softmax(noisy.float(), dim=1)
         # a data-parallel chunk that spans ranks routes over all of its
         # tokens (parallel/chunks.py); None: over these

@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from switch_nerf_torch import remat
 from switch_nerf_torch.models.common import (Dropout, Embedding, GroupNorm,
                                             LayerNorm, TorchLinear, apply_act)
 from switch_nerf_torch.models.mlp import Mlp, NormMlp
@@ -164,6 +165,14 @@ class NeRFMoE(nn.Module):
                                               generator=generator)
                 break
 
+    def _gate_features(self, h: torch.Tensor) -> torch.Tensor:
+        cfgs = self.layer_cfg["layers"]
+        gate_feat = apply_act(cfgs["moe_external_gate"].get("act", "none"),
+                              self.layer_moe_external_gate(h))
+        if self.use_gate_input_norm:
+            gate_feat = self.layer_gate_input_norm(gate_feat)
+        return gate_feat
+
     def _sigma_act(self, sigma: torch.Tensor) -> torch.Tensor:
         return (shifted_softplus(sigma) if self.shifted_softplus_sigma
                 else torch.relu(sigma))
@@ -201,10 +210,11 @@ class NeRFMoE(nn.Module):
 
         gate_feat = None
         if self.use_moe_external_gate:
-            gate_feat = apply_act(cfgs["moe_external_gate"].get("act", "none"),
-                                  self.layer_moe_external_gate(h))
-            if self.use_gate_input_norm:
-                gate_feat = self.layer_gate_input_norm(gate_feat)
+            # named for the remat save set (off by default; A/B with
+            # SWITCH_NERF_REMAT_SAVE=+gate_feat): it feeds every MoE
+            # layer's gate
+            gate_feat = remat.keep(self._gate_features, h,
+                                   name="gate_feat")
 
         moe_loss, moe_gates, moe_gate_logits = [], [], []
         outputs = sigma = None

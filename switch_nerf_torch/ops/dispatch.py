@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from switch_nerf_torch import remat
 from switch_nerf_torch.ops.routing import RoutingPlan
 
 __all__ = [
@@ -44,14 +45,26 @@ class DispatchPlan(NamedTuple):
 
 
 def build_dispatch_plan(plan: RoutingPlan, num_experts: int) -> DispatchPlan:
-    k, s = plan.indices.shape
+    """The slot maps of `plan`; kept across the remat boundary as
+    ``moe_plan`` (``remat.py``), the gates as the plan has them."""
     cap = int(plan.capacity)
-    ec = num_experts * cap
-    dev = plan.indices.device
+    slot, kept, slot_to_token, filled = remat.keep(
+        _slot_maps, plan.indices, plan.locations, cap, num_experts,
+        name="moe_plan")
+    return DispatchPlan(slot=slot, kept=kept, slot_to_token=slot_to_token,
+                        filled=filled, gates=plan.gates,
+                        num_experts=num_experts, capacity=cap)
 
-    kept = plan.locations < cap                                    # [K, S]
-    slot = torch.where(kept, plan.indices.long() * cap + plan.locations.long(),
-                       torch.full_like(plan.indices, ec, dtype=torch.long))
+
+def _slot_maps(indices: torch.Tensor, locations: torch.Tensor, cap: int,
+               num_experts: int):
+    k, s = indices.shape
+    ec = num_experts * cap
+    dev = indices.device
+
+    kept = locations < cap                                         # [K, S]
+    slot = torch.where(kept, indices.long() * cap + locations.long(),
+                       torch.full_like(indices, ec, dtype=torch.long))
     # scatter over ec + 1 entries, then cut the last: every dropped token
     # writes the spare entry ec (JAX's mode="drop" target), so only kept
     # slots survive. Kept slots are unique, so the scatter is exact.
@@ -62,9 +75,7 @@ def build_dispatch_plan(plan: RoutingPlan, num_experts: int) -> DispatchPlan:
     filled = slot_to_token < s
     slot_to_token = torch.where(filled, slot_to_token,
                                 torch.zeros_like(slot_to_token))
-    return DispatchPlan(slot=slot, kept=kept, slot_to_token=slot_to_token,
-                        filled=filled, gates=plan.gates,
-                        num_experts=num_experts, capacity=cap)
+    return slot, kept, slot_to_token, filled
 
 
 def dispatch(tokens: torch.Tensor, dp: DispatchPlan, *,
@@ -101,20 +112,28 @@ def _row_dot(a: torch.Tensor, b: torch.Tensor, kept: torch.Tensor):
     return torch.einsum("ksm,sm->ks", a.float(), b.float()) * kept
 
 
+def _gather_slots(tokens, gates, stt, filled, prescore) -> torch.Tensor:
+    """[E*C, M]: each slot's token row (K summed), zero where empty."""
+    out = None
+    for k in range(stt.shape[0]):
+        src = tokens
+        if prescore:
+            # the gate multiplies on the token side before the gather
+            src = tokens * gates[k, :, None].to(tokens.dtype)
+        g = src[stt[k]] * filled[k][:, None].to(tokens.dtype)
+        out = g if out is None else out + g
+    return out
+
+
 class _DispatchFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tokens, gates, slot, kept, stt, filled, prescore):
         ctx.prescore = prescore
         ctx.save_for_backward(tokens, gates, slot, kept)
-        out = None
-        for k in range(stt.shape[0]):
-            src = tokens
-            if prescore:
-                # the gate multiplies on the token side before the gather
-                src = tokens * gates[k, :, None].to(tokens.dtype)
-            g = src[stt[k]] * filled[k][:, None].to(tokens.dtype)
-            out = g if out is None else out + g
-        return out                                               # [E*C, M]
+        # kept across the remat boundary (remat.py): a recompute returns
+        # the forward's buffer, and the backward stays the scatter
+        return remat.keep(_gather_slots, tokens, gates, stt, filled,
+                          prescore, name="moe_dispatched")     # [E*C, M]
 
     @staticmethod
     def backward(ctx, g):

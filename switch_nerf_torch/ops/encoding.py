@@ -2,13 +2,16 @@
 
 Port of ``switch_nerf_tpu/ops/encoding.py:22-147`` (freq_bands,
 freq_encode, mip_encode, shifted_softplus, eval_sh). Elementwise ops: no
-kernel.
+kernel. The encodings are JAX's ``pe_out``, kept across the remat
+boundary when the save set holds it (``remat.py``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from switch_nerf_torch import remat
 
 __all__ = ["freq_bands", "freq_encode", "mip_encode", "shifted_softplus",
            "eval_sh"]
@@ -37,6 +40,12 @@ def freq_encode(x: torch.Tensor, num_freqs: int,
     """
     if num_freqs == 0:
         return x
+    # kept across the remat boundary as pe_out (remat.py)
+    return remat.keep(_freq_encode, x, num_freqs, logscale, name="pe_out")
+
+
+def _freq_encode(x: torch.Tensor, num_freqs: int,
+                 logscale: bool) -> torch.Tensor:
     d = x.shape[-1]
     bands = freq_bands(num_freqs, logscale, device=x.device).to(x.dtype)
     phase = torch.tensor([0.0, 0.5 * math.pi], dtype=x.dtype,
@@ -55,10 +64,16 @@ def mip_encode(mean_cov: torch.Tensor, num_freqs: int, logscale: bool = True,
     mean, then per frequency f_k the [sin, cos] of f_k * mean attenuated by
     exp(-0.5 * 4^k * var), with freq_encode's single sin(a + phase).
     """
-    d = input_dims
-    mean, var = mean_cov[..., :d], mean_cov[..., d:2 * d]
     if num_freqs == 0:
-        return mean
+        return mean_cov[..., :input_dims]
+    # kept across the remat boundary as pe_out (remat.py)
+    return remat.keep(_mip_encode, mean_cov, num_freqs, logscale,
+                      input_dims, name="pe_out")
+
+
+def _mip_encode(mean_cov: torch.Tensor, num_freqs: int, logscale: bool,
+                d: int) -> torch.Tensor:
+    mean, var = mean_cov[..., :d], mean_cov[..., d:2 * d]
     fy = freq_bands(num_freqs, logscale, device=mean.device).to(mean.dtype)
     fw = freq_bands(num_freqs, logscale, base=4.0,
                     device=mean.device).to(mean.dtype)

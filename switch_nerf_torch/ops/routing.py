@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from switch_nerf_torch import remat
+
 __all__ = [
     "cumsum_sub_one", "compute_sorted_location", "load_balance",
     "load_importance_loss", "compute_capacity", "extract_critical",
@@ -132,15 +134,65 @@ class RoutingPlan(NamedTuple):
     capacity: int
 
 
-def _top_k(gates: torch.Tensor, k: int):
-    """([S, k] values, [S, k] indices) in descending order, ties to the
-    lower index (``jax.lax.top_k``; a stable descending sort keeps equal
-    gates in index order)."""
+class _Route(NamedTuple):
+    """extract_critical's integer decision (no gradient): the plan's
+    indices, locations and counts, the top-1 expert counts over the chunk
+    (``ce``, fp32), the chunk's token count and the capacity."""
+    indices: torch.Tensor
+    locations: torch.Tensor
+    expert_counts: torch.Tensor
+    ce: torch.Tensor
+    total: int
+    capacity: int
+
+
+def _top_k(gates: torch.Tensor, k: int) -> torch.Tensor:
+    """[S, k] indices of the k largest gates in descending order, ties to
+    the lower index (``jax.lax.top_k``; a stable descending sort keeps
+    equal gates in index order)."""
     if k == 1:
-        idx = torch.argmax(gates, dim=1, keepdim=True)
-        return torch.gather(gates, 1, idx), idx
-    vals, idx = torch.sort(gates, dim=1, descending=True, stable=True)
-    return vals[:, :k], idx[:, :k]
+        return torch.argmax(gates, dim=1, keepdim=True)
+    return torch.sort(gates, dim=1, descending=True, stable=True).indices[
+        :, :k]
+
+
+def _route(gates: torch.Tensor, k: int, capacity_factor: float,
+           batch_prioritized_routing: bool, num_experts: int,
+           share) -> _Route:
+    """The routing decision of `gates` [S, E] (detached): every step of
+    extract_critical that carries no gradient, the collective of a shared
+    chunk included."""
+    s, e = gates.shape
+    indices = _top_k(gates, k).t().to(torch.int32)                 # [K, S]
+    top = torch.gather(gates, 1, indices[:1].t().long()).t()      # [1, S]
+    one_hot = torch.nn.functional.one_hot
+
+    if share is None:
+        total, lo, idx_all = s, 0, indices.long()
+        importance = -top[0]
+    else:
+        total, lo = share.total, share.offset
+        both = share.gather(torch.cat([indices.float(), top]))     # [K+1, T]
+        idx_all = both[:k].long()
+        importance = -both[k]
+    masks = one_hot(idx_all, e).to(torch.int32)                    # [K, T, E]
+    ce = torch.sum(masks[0].float(), dim=0)
+
+    # the k-th choices queue behind every token's earlier choices
+    locations = []
+    for j in range(k):
+        if batch_prioritized_routing:
+            loc = compute_sorted_location(masks[j], importance)
+        else:
+            loc = cumsum_sub_one(masks[j])
+        if j:
+            loc = loc + torch.sum(masks[:j], dim=(0, 1))[None]
+        locations.append(torch.sum(loc * masks[j], dim=1).to(torch.int32))
+    locations = torch.stack(locations)[:, lo:lo + s]
+    own = masks if share is None else one_hot(indices.long(), e)
+    counts = torch.sum(own, dim=(0, 1)).to(torch.int32)
+    capacity = compute_capacity(total, num_experts, k, capacity_factor)
+    return _Route(indices, locations, counts, ce, total, capacity)
 
 
 def extract_critical(gates: torch.Tensor, top_k: int,
@@ -163,47 +215,25 @@ def extract_critical(gates: torch.Tensor, top_k: int,
     locations. l_aux is this rank's term of the chunk's: its own gates'
     sums against the chunk's counts over the chunk's S^2, so the holders'
     terms (and their gradients) add up to the chunk's.
+
+    The integer decision (``_route``) is kept across the remat boundary
+    as ``moe_plan`` (``remat.py``): a recompute takes it as the forward
+    made it and only gathers the gates at its experts again.
     """
     s, e = gates.shape
     num_experts = num_experts or e
     k = min(top_k, e)
-    topk_vals, topk_idx = _top_k(gates, k)                         # [S, K]
-    indices = topk_idx.t().to(torch.int32)                         # [K, S]
-    gates_k = topk_vals.t().float()                                # [K, S]
-    one_hot = torch.nn.functional.one_hot
-
-    if share is None:
-        total, lo, idx_all = s, 0, indices.long()
-        importance = -gates_k[0]
-    else:
-        total, lo = share.total, share.offset
-        both = share.gather(torch.cat([indices.float(),
-                                       gates_k[:1].detach()]))     # [K+1, T]
-        idx_all = both[:k].long()
-        importance = -both[k]
-    masks = one_hot(idx_all, e).to(torch.int32)                    # [K, T, E]
+    route = remat.keep(_route, gates.detach(), k, capacity_factor,
+                       batch_prioritized_routing, num_experts, share,
+                       name="moe_plan")
+    gates_k = torch.gather(gates, 1, route.indices.t().long()).t().float()
     me = torch.sum(gates.float(), dim=0)
-    ce = torch.sum(masks[0].float(), dim=0)
-    l_aux = torch.sum(me * ce) * (num_experts / float(total * total))
-
-    # the k-th choices queue behind every token's earlier choices
-    locations = []
-    for j in range(k):
-        if batch_prioritized_routing:
-            loc = compute_sorted_location(masks[j], importance)
-        else:
-            loc = cumsum_sub_one(masks[j])
-        if j:
-            loc = loc + torch.sum(masks[:j], dim=(0, 1))[None]
-        locations.append(torch.sum(loc * masks[j], dim=1).to(torch.int32))
-    locations = torch.stack(locations)[:, lo:lo + s]
-    own = masks if share is None else one_hot(indices.long(), e)
-    counts = torch.sum(own, dim=(0, 1)).to(torch.int32)
+    l_aux = torch.sum(me * route.ce) * (
+        num_experts / float(route.total * route.total))
     if k > 1:
         gates_k = gates_k / torch.clamp(
             torch.sum(gates_k, dim=0), min=torch.finfo(torch.float32).eps)
-
-    capacity = compute_capacity(total, num_experts, k, capacity_factor)
-    plan = RoutingPlan(indices=indices, locations=locations, gates=gates_k,
-                       expert_counts=counts, capacity=capacity)
+    plan = RoutingPlan(indices=route.indices, locations=route.locations,
+                       gates=gates_k, expert_counts=route.expert_counts,
+                       capacity=route.capacity)
     return plan, l_aux

@@ -23,6 +23,13 @@ on the same grid (``plan``):
     load-importance loss sums its per-expert terms over the holders
     (``ChunkShare.sum``, an ``all_reduce`` whose backward is another).
 
+Under --remat (``remat.py``) a recompute of a piece takes the routing
+exchange's result (part of the kept routing plan) and the loss's sum as
+the forward made them, so it makes no collective of its share; the
+renderer hands the piece's share to the call, whose recompute may run on
+the autograd engine's device thread, which does not see ``sharing``'s
+context of the forward.
+
 Device collectives stay ``all_reduce``, which gloo also runs on CUDA
 tensors. A chunk spanning a subset of the ranks reduces over a subgroup;
 every rank creates the subgroups of a pass, in the same order, before it
@@ -38,6 +45,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from switch_nerf_torch import remat
 from switch_nerf_torch.parallel import mesh
 
 __all__ = ["RankGrid", "ChunkShare", "Piece", "plan", "check_lockstep",
@@ -84,13 +92,18 @@ class ChunkShare:
         return _SumOverHolders.apply(local, self)
 
 
+def _summed(local: torch.Tensor, group) -> torch.Tensor:
+    out = local.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
 class _SumOverHolders(torch.autograd.Function):
     @staticmethod
     def forward(ctx, local, share):
         ctx.group = _group(share.ranks)
-        out = local.clone()
-        dist.all_reduce(out, group=ctx.group)
-        return out
+        # kept across the remat boundary: a recompute exchanges nothing
+        return remat.keep(_summed, local, ctx.group)
 
     @staticmethod
     def backward(ctx, g):

@@ -21,6 +21,12 @@ and its call number, so a member that makes another number of calls than
 its group raises on every member instead of hanging (``end_pass`` closes
 a pass).
 
+Under --remat (``remat.py``) the backward recomputes each chunk, and
+with it the exchanges of its MoE calls and its whole-expert gathers
+(every rank recomputes the same chunks in the same order, so they pair
+up); the recompute takes each call's header as the forward made it, so
+``_SEQ`` and ``end_pass``'s check see the forward's calls only.
+
 The form of an exchange follows the backend and the tensor's device:
 ``all_to_all_single`` under NCCL and for CPU tensors under gloo;
 ``all_reduce`` of a zero buffer in which each member fills its own blocks
@@ -38,6 +44,7 @@ from typing import Callable, Iterable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from switch_nerf_torch import remat
 from switch_nerf_torch.parallel.mesh import Mesh
 from switch_nerf_torch.parallel.weights import _padded, all_gather_flat, join
 
@@ -180,7 +187,9 @@ def chain(x: torch.Tensor, local_chain: Callable[[torch.Tensor],
     """[E, C, M] dispatch buffer -> [E, C, M] expert outputs, the experts
     run by their owners: exchange, ``local_chain`` on [E_loc, sum C, M],
     reverse exchange."""
-    caps = _header(mesh, _CALL, x.shape[1])
+    # a remat recompute (remat.py) takes the forward's header: the pass
+    # was closed by end_pass, and the check has been made
+    caps = remat.keep(_header, mesh, _CALL, x.shape[1])
     z = _ToOwners.apply(x, mesh, caps)
     return _FromOwners.apply(local_chain(z), mesh, caps)
 
@@ -203,7 +212,7 @@ class WholeExperts(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mesh, *local):
-        _header(mesh, _GATHER, 0)
+        remat.keep(_header, mesh, _GATHER, 0)
         ctx.mesh, ctx.rows = mesh, [t.shape[0] for t in local]
         return tuple(gather_whole(local, mesh))
 

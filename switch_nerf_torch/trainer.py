@@ -68,6 +68,8 @@ def render_config_from_hparams(hparams) -> RenderConfig:
         rgb_padding=hparams.rgb_padding if hparams.use_mip else None,
         weights_resample_padding=hparams.weights_resample_padding,
         stop_level_grad=hparams.stop_level_grad,
+        use_mip=getattr(hparams, "use_mip", False),
+        remat_chunks=getattr(hparams, "remat", True),
         **{k: getattr(hparams, k, False) for k in (
             "return_pts", "return_pts_rgb", "return_pts_alpha",
             "return_sigma", "return_alpha")})

@@ -29,7 +29,6 @@ import pytest
 import torch
 
 from switch_nerf_tpu import checkpoints as jckpt
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_tpu.ops import expert_kernel as jek
 from switch_nerf_torch import bridge
@@ -42,7 +41,7 @@ from switch_nerf_torch.datasets import tfrecord as T
 from switch_nerf_torch.models import model_utils as tmu
 from switch_nerf_torch.ops import expert_kernel
 from tests.torch_port_helpers import (BLOCK_RECORDS, block_runner_hparams,
-                                      make_block_test_scene,
+                                      jax_train_state, make_block_test_scene,
                                       mission_bay_hparams)
 
 
@@ -323,8 +322,7 @@ def mission_bay_jax():
     h = mission_bay_hparams()
     assert h.appearance_dim == 48 and h.model["layers"]["0"]["out_ch"] == 512
     jm = jmu.get_nerf(h, 5)
-    return h, jm, jtrainer.create_train_state(jax.random.PRNGKey(1), h, jm,
-                                              None)
+    return h, jm, jax_train_state(jax.random.PRNGKey(1), h, jm, None)
 
 
 def test_mip_nerf_moe_with_appearance_at_width_512_matches_jax(
@@ -398,7 +396,7 @@ def test_mission_bay_checkpoint_crosses_both_ways(mission_bay_jax, tmp_path):
     out = tckpt.save_checkpoint(tmp_path / "port", ts)
     restored, _ = jckpt.load_checkpoint(
         tmp_path / "port",
-        jtrainer.create_train_state(jax.random.PRNGKey(2), h, jm, None))
+        jax_train_state(jax.random.PRNGKey(2), h, jm, None))
     assert (out / "state.msgpack").read_bytes() == \
         (tmp_path / "jax" / "0" / "state.msgpack").read_bytes()
     jax.tree_util.tree_map(np.testing.assert_array_equal,

@@ -31,12 +31,14 @@ import pytest
 import torch
 
 from switch_nerf_tpu import checkpoints as jckpt
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import _msgpack
 from switch_nerf_torch import eval_image_blocknerf as teval
 from switch_nerf_torch import train as ttrain
-from tests.torch_port_helpers import block_runner_hparams, make_block_test_scene
+from tests.torch_port_helpers import (block_runner_hparams, jax_train_state,
+                                      make_block_test_scene)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -58,7 +60,7 @@ def jax_checkpoint(scene, tmp_path_factory):
     ids = json.loads(scene["id_map"].read_text())
     rows = 1 + max(v if isinstance(v, int) else max(v.values())
                    for v in ids.values())
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, rows), None)
     root = tmp_path_factory.mktemp("mb_ckpt0")
     jckpt.save_checkpoint(root, state)

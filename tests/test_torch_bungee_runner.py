@@ -33,12 +33,14 @@ import torch
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import runner as jrunner
 from switch_nerf_tpu import train_nerf_moe as jtrain
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import _msgpack
 from switch_nerf_torch import eval_nerf_moe as teval
 from switch_nerf_torch import train_nerf_moe as ttrain
-from tests.torch_port_helpers import make_bungee_scene, tiny_bungee_hparams
+from tests.torch_port_helpers import (jax_train_state, make_bungee_scene,
+                                      tiny_bungee_hparams)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 N_IMAGES = 17
 
@@ -51,7 +53,7 @@ def scene(tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_checkpoint(scene, tmp_path_factory):
     h = tiny_bungee_hparams(scene, "unused")
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, N_IMAGES), None)
     root = tmp_path_factory.mktemp("ckpt0")
     jckpt.save_checkpoint(root, state)

@@ -46,9 +46,11 @@ from switch_nerf_torch.models.cascade import Cascade
 from tests.test_torch_classic_runner import classic_hparams
 from tests.test_torch_train_runner import read_step
 from tests.torch_port_helpers import (checkpoint_bytes_both_ways, jax_params,
+                                      jax_template, jax_train_state,
                                       make_mega_scene, mega_train_hparams,
-                                      ray_batch, tiny_building_hparams,
-                                      to_jax)
+                                      ray_batch, tiny_building_hparams, to_jax)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 SCENE = (np.zeros(3, np.float32), np.ones(3, np.float32))
 STEPS = 3
@@ -112,7 +114,9 @@ def test_levels_match_jax(bridged):
     h0.fine_samples = 0
     t0 = tmu.get_nerf(h0, 8, device="cpu")
     assert t0.fine is None
-    p0, np0 = jax_params(h0, jmu.get_nerf(h0, 8), None)
+    np0 = jax.tree_util.tree_map(
+        lambda s: np.zeros(s.shape, s.dtype),
+        jax_template(h0, jmu.get_nerf(h0, 8), None).params)
     assert sorted(np0["nerf"]) == ["coarse"]
     bridge.load_jax_params(t0, np0["nerf"])
 
@@ -163,7 +167,7 @@ def test_runner_train_matches_jax(tmp_path):
     h.use_cascade = True
     h.train_iterations = STEPS
     h.ckpt_interval = STEPS
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 5), jmu.get_bg_nerf(h, 5))
     jckpt.save_checkpoint(tmp_path / "ckpt0", state)
     h.ckpt_path = str(tmp_path / "ckpt0" / "0")
@@ -194,7 +198,7 @@ def test_runner_train_nerf_and_eval_match_jax(tmp_path):
     make_blender_scene(tmp_path / "blender", 0, side=32)
     h = classic_hparams("blender", tmp_path / "blender", tmp_path / "j")
     h.use_cascade = True
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 5), None)
     jckpt.save_checkpoint(tmp_path / "ckpt0", state)
     h.ckpt_path = str(tmp_path / "ckpt0" / "0")
@@ -225,9 +229,8 @@ def test_runner_train_nerf_and_eval_match_jax(tmp_path):
         state.model, None, he, ttrainer.render_config_from_hparams(he),
         ttrainer.SceneInfo(None, None), device="cpu")(batch)["rgb_fine"]
     jm = jmu.get_nerf(he, 5)
-    template = jtrainer.create_train_state(jax.random.PRNGKey(1), he, jm,
-                                           None)
-    jstate, _ = jckpt.load_checkpoint(he.ckpt_path, template)
+    jstate, _ = jckpt.load_checkpoint(he.ckpt_path,
+                                      jax_template(he, jm, None))
     want = jax.jit(jtrainer.make_eval_step(
         jm, None, he, jtrainer.render_config_from_hparams(he),
         jtrainer.SceneInfo(None, None)))(jstate.params,

@@ -26,7 +26,8 @@ from switch_nerf_torch import _msgpack, bridge
 from switch_nerf_torch import checkpoints as tckpt
 from switch_nerf_torch import trainer as ttrainer
 from switch_nerf_torch.models import model_utils as tmu
-from tests.torch_port_helpers import ray_batch, tiny_building_hparams, to_jax
+from tests.torch_port_helpers import (jax_train_state, ray_batch,
+                                      tiny_building_hparams, to_jax)
 
 SCENE = (np.zeros(3, np.float32), np.ones(3, np.float32))
 LAYOUTS = {"adam": (1, False), "multisteps": (2, False),
@@ -83,7 +84,7 @@ def jax_stepped(request, tmp_path_factory):
     acc, no_sched = LAYOUTS[request.param]
     h = hparams(acc, no_sched)
     jm, jbg = jmu.get_nerf(h, 8), jmu.get_bg_nerf(h, 8)
-    state = jtrainer.create_train_state(jax.random.PRNGKey(0), h, jm, jbg)
+    state = jax_train_state(jax.random.PRNGKey(0), h, jm, jbg)
     step = jax.jit(jtrainer.make_train_step(
         jm, jbg, h, jtrainer.render_config_from_hparams(h),
         jtrainer.SceneInfo(*map(jnp.asarray, SCENE))))
@@ -161,7 +162,7 @@ def test_port_checkpoint_loads_into_jax(jax_stepped, tmp_path):
     out = tckpt.save_checkpoint(tmp_path, ts, dataset_state="9")
     assert out == tmp_path / str(ts.step)
 
-    template = jtrainer.create_train_state(jax.random.PRNGKey(1), h, jm, jbg)
+    template = jax_train_state(jax.random.PRNGKey(1), h, jm, jbg)
     restored, extra = jckpt.load_checkpoint(tmp_path, template)
     want = bridge.export_jax_train_state(ts, ts.rng)
     assert_trees_equal(host_tree(restored), want)

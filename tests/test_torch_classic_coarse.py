@@ -27,6 +27,9 @@ from switch_nerf_torch.models import model_utils as tmu
 from tests.test_torch_bungee_runner import assert_states_close, read_step
 from tests.test_torch_classic_runner import (SCENES, classic_hparams,
                                              scenes)  # noqa: F401
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_train_state
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 
 def test_coarse_only_matches_jax(scenes, tmp_path):
@@ -35,7 +38,7 @@ def test_coarse_only_matches_jax(scenes, tmp_path):
     h = classic_hparams(kind, scenes / kind, "unused")
     h.fine_samples = 0
     h.coarse_samples = 17
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(1), h, jmu.get_nerf(h, SCENES[kind]), None)
     jckpt.save_checkpoint(tmp_path / "c0", state)
     h.ckpt_path = str(tmp_path / "c0" / "0")
@@ -69,8 +72,7 @@ def test_return_outputs_match_jax(scenes):
     for fine in (9, 0):
         h.fine_samples = fine
         jm = jmu.get_nerf(h, 9)
-        state = jtrainer.create_train_state(jax.random.PRNGKey(3), h, jm,
-                                            None)
+        state = jax_train_state(jax.random.PRNGKey(3), h, jm, None)
         tm = tmu.get_nerf(h, 9, device="cpu")
         bridge.load_jax_state(tm, None,
                               jax.tree_util.tree_map(np.asarray,

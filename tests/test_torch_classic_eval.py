@@ -13,6 +13,8 @@ from switch_nerf_torch import eval_nerf_moe as teval
 from tests.test_torch_bungee_runner import files, keys
 from tests.test_torch_classic_runner import (checkpoints,  # noqa: F401
                                              classic_hparams, scenes)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 
 @pytest.mark.parametrize("kind", ["blender", "llff"])

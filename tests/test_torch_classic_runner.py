@@ -28,11 +28,12 @@ import pytest
 from chip_smoke import make_blender_scene, make_llff_scene
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import train_nerf_moe as jtrain
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import train_nerf_moe as ttrain
 from tests.test_torch_bungee_runner import assert_states_close, read_step
-from tests.torch_port_helpers import tiny_bungee_hparams
+from tests.torch_port_helpers import jax_train_state, tiny_bungee_hparams
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 SCENES = {"blender": 5, "llff": 9}      # images in each scene
 
@@ -76,7 +77,7 @@ def checkpoints(scenes, tmp_path_factory):
     out = {}
     for kind in SCENES:
         h = classic_hparams(kind, scenes / kind, "unused")
-        state = jtrainer.create_train_state(
+        state = jax_train_state(
             jax.random.PRNGKey(0), h, jmu.get_nerf(h, SCENES[kind]), None)
         root = tmp_path_factory.mktemp(f"ckpt_{kind}")
         jckpt.save_checkpoint(root, state)

@@ -33,7 +33,6 @@ from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import container as jcontainer
 from switch_nerf_tpu import lpips_jax
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_torch import _msgpack
 from switch_nerf_torch import container as tcontainer
 from switch_nerf_torch import convert_lpips_weights as tlpips_script
@@ -44,8 +43,10 @@ from switch_nerf_torch import eval_image as teval_image
 from switch_nerf_torch import lpips_torch
 from switch_nerf_torch import runner as trunner
 from tests.test_torch_runner import assert_metrics_close
-from tests.torch_port_helpers import (make_mega_scene, mega_hparams,
-                                      write_reference_pt)
+from tests.torch_port_helpers import (jax_train_state, make_mega_scene,
+                                      mega_hparams, write_reference_pt)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 ITERATION = 7
 
@@ -169,7 +170,7 @@ def _points(count, n=96, seed=5):
 
 def _jax_state(h, count, ckpt):
     from switch_nerf_tpu.models import model_utils as jmu
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, count),
         jmu.get_bg_nerf(h, count))
     return jckpt.load_checkpoint(ckpt, state, restore_rng_states=False)[0]

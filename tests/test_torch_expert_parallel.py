@@ -40,14 +40,15 @@ import pytest
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import native
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import _msgpack, bridge
 from switch_nerf_torch.parallel.mesh import Mesh
 from tests.test_torch_parallel import (assert_within, published, read_step,
                                        same)
-from tests.torch_port_helpers import (Ranks, mega_hparams, mega_train_hparams,
-                                      with_val_image)
+from tests.torch_port_helpers import (Ranks, jax_train_state, mega_hparams,
+                                      mega_train_hparams, with_val_image)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 STEPS = 3
 MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
@@ -61,7 +62,7 @@ def scene(tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_checkpoint(scene, tmp_path_factory):
     h = mega_train_hparams(scene, "unused", "memory")
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 6), jmu.get_bg_nerf(h, 6))
     root = tmp_path_factory.mktemp("ckpt0")
     jckpt.save_checkpoint(root, state)
@@ -89,7 +90,7 @@ def jobs(scene, jax_checkpoint, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ep")
     # a JAX step-0 checkpoint of the top-2 ffn residual model
     hf = top2_ffn(mega_train_hparams(scene, "unused", "memory"))
-    jckpt.save_checkpoint(tmp / "ckpt_top2", jtrainer.create_train_state(
+    jckpt.save_checkpoint(tmp / "ckpt_top2", jax_train_state(
         jax.random.PRNGKey(0), hf, jmu.get_nerf(hf, 6),
         jmu.get_bg_nerf(hf, 6)))
     top2_ckpt = tmp / "ckpt_top2" / "0"

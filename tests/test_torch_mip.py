@@ -27,7 +27,7 @@ from switch_nerf_torch import trainer as ttrainer
 from switch_nerf_torch.models import model_utils as tmu
 from switch_nerf_torch.ops import encoding as tenc
 from switch_nerf_torch.render import rendering_mip as tmip
-from tests.torch_port_helpers import tiny_bungee_hparams
+from tests.torch_port_helpers import jax_train_state, tiny_bungee_hparams
 
 N_IMAGES = 17
 
@@ -99,8 +99,7 @@ def models(tmp_path_factory):
     """The tiny Bungee MipNeRFMoE from JAX's init, bridged into the port."""
     h = tiny_bungee_hparams(tmp_path_factory.mktemp("unused"), "unused")
     jm = jmu.get_nerf(h, N_IMAGES)
-    params = jtrainer.create_train_state(jax.random.PRNGKey(0), h, jm,
-                                         None).params
+    params = jax_train_state(jax.random.PRNGKey(0), h, jm, None).params
     tm = tmu.get_nerf(h, N_IMAGES, device="cpu")
     bridge.load_jax_params(tm, jax.tree_util.tree_map(np.asarray,
                                                       params["nerf"]))

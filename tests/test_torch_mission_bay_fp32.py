@@ -24,7 +24,8 @@ from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import bridge
 from switch_nerf_torch import trainer as ttrainer
 from switch_nerf_torch.models import model_utils as tmu
-from tests.torch_port_helpers import mission_bay_hparams, to_jax
+from tests.torch_port_helpers import (jax_train_state, mission_bay_hparams,
+                                      to_jax)
 
 IDS, RAYS = 5, 64
 
@@ -57,7 +58,7 @@ def test_fp32_train_steps_at_width_512_match_jax():
     assert h.appearance_dim == 48 and not h.bg_nerf
     cfg = jtrainer.render_config_from_hparams(h)
     jm = jmu.get_nerf(h, IDS)
-    jstate = jtrainer.create_train_state(jax.random.PRNGKey(1), h, jm, None)
+    jstate = jax_train_state(jax.random.PRNGKey(1), h, jm, None)
     jstep = jax.jit(jtrainer.make_train_step(
         jm, None, h, cfg, jtrainer.SceneInfo(None, None), mip=True))
 

@@ -21,13 +21,13 @@ import pytest
 
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import octree as jo
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.config import parse_args as jparse_args
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import octree as to
 from switch_nerf_torch.config import parse_args
 from switch_nerf_torch.create_octree_moe import get_extraction_opts, main
-from tests.torch_port_helpers import make_mega_scene, tiny_building_hparams
+from tests.torch_port_helpers import (jax_train_state, make_mega_scene,
+                                      tiny_building_hparams)
 
 
 def _payload(cells):
@@ -116,7 +116,7 @@ def test_create_octree_matches_jax_script(kind, tmp_path):
     argv = COMMON + (DENSE if kind == "dense" else moe_flags()) + [
         "--dataset_path", str(scene), "--exp_name", str(tmp_path / "exp")]
     jh = jparse_args(jopts(), argv + ["--output", "unused"])
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(4), jh, jmu.get_nerf(jh, 5), None)
     jckpt.save_checkpoint(tmp_path / "ckpt", state)
     argv += ["--ckpt_path", str(tmp_path / "ckpt" / "0")]

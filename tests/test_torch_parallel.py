@@ -51,7 +51,6 @@ import torch
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import native
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.datasets import filesystem_dataset as jfs
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import _msgpack
@@ -61,10 +60,12 @@ from switch_nerf_torch.datasets.block_filesystem_dataset import \
     BlockFilesystemDataset
 from switch_nerf_torch.datasets.filesystem_dataset import FilesystemDataset
 from switch_nerf_torch.parallel import mesh_shape
-from tests.torch_port_helpers import (Ranks, block_runner_hparams,
-                                      free_port, make_block_test_scene,
+from tests.torch_port_helpers import (Ranks, block_runner_hparams, free_port,
+                                      jax_train_state, make_block_test_scene,
                                       mega_train_hparams, with_val_image)
 from tests.torch_parallel_worker import train as train_on_rank
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 WORLD = 2
 STEPS = 3
@@ -80,7 +81,7 @@ def scene(tmp_path_factory):
 def jax_checkpoint(scene, tmp_path_factory):
     """A JAX step-0 checkpoint of the scene's model (6 appearance rows)."""
     h = mega_train_hparams(scene, "unused", "memory")
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 6), jmu.get_bg_nerf(h, 6))
     root = tmp_path_factory.mktemp("ckpt0")
     jckpt.save_checkpoint(root, state)

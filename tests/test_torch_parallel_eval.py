@@ -20,14 +20,15 @@ import pytest
 
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import eval as teval
 from switch_nerf_torch import eval_image as teval_image
 from switch_nerf_torch import eval_image_blocknerf as teval_block
 from tests.torch_port_helpers import (Ranks, block_runner_hparams,
-                                      make_block_test_scene, mega_hparams,
-                                      with_val_image)
+                                      jax_train_state, make_block_test_scene,
+                                      mega_hparams, with_val_image)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 TOL = {"psnr": 1e-4, "psnr_mask": 1e-4, "ssim": 1e-5, "ssim_mask": 1e-5}
 
@@ -58,7 +59,7 @@ def files(base):
 def mega(tmp_path_factory):
     scene = with_val_image(tmp_path_factory.mktemp("mega"))
     h = mega_hparams(scene, "unused")
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 6), jmu.get_bg_nerf(h, 6))
     root = tmp_path_factory.mktemp("mega_ckpt")
     jckpt.save_checkpoint(root, state)
@@ -72,7 +73,7 @@ def block(tmp_path_factory):
     ids = json.loads(scene["id_map"].read_text())
     rows = 1 + max(v if isinstance(v, int) else max(v.values())
                    for v in ids.values())
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, rows), None)
     root = tmp_path_factory.mktemp("mb_ckpt")
     jckpt.save_checkpoint(root, state)

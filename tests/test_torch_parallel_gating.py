@@ -24,12 +24,13 @@ import pytest
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import native
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from tests.test_torch_parallel import (assert_ranks_equal, assert_within,
                                        published, read_step)
-from tests.torch_port_helpers import Ranks, make_mega_scene, \
-    mega_train_hparams
+from tests.torch_port_helpers import (Ranks, jax_train_state, make_mega_scene,
+                                      mega_train_hparams)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 STEPS = 3
 
@@ -46,7 +47,7 @@ def hparams(scene, exp):
 def test_load_importance_over_a_shared_chunk_matches_jax(tmp_path):
     scene = make_mega_scene(tmp_path / "scene")
     h = hparams(scene, "unused")
-    jckpt.save_checkpoint(tmp_path / "ckpt0", jtrainer.create_train_state(
+    jckpt.save_checkpoint(tmp_path / "ckpt0", jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 5), jmu.get_bg_nerf(h, 5)))
     ckpt = str(tmp_path / "ckpt0" / "0")
     ht = hparams(scene, tmp_path / "port")

@@ -27,11 +27,10 @@ import numpy as np
 import pytest
 
 from switch_nerf_tpu import checkpoints as jckpt
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from tests.test_torch_parallel import assert_routes_as_jax, published
-from tests.torch_port_helpers import (Ranks, mega_train_hparams,
-                                      with_val_image)
+from tests.torch_port_helpers import (Ranks, jax_train_state,
+                                      mega_train_hparams, with_val_image)
 
 STEPS = 3
 CASES = {"inside": (2, 64, 64), "mixed": (2, 96, 64)}
@@ -45,7 +44,7 @@ def scene(tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_checkpoint(scene, tmp_path_factory):
     h = mega_train_hparams(scene, "unused", "memory")
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 6), jmu.get_bg_nerf(h, 6))
     root = tmp_path_factory.mktemp("ckpt0")
     jckpt.save_checkpoint(root, state)

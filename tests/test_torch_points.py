@@ -34,7 +34,6 @@ import torch
 from scripts import merge_points as jmerge
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_tpu.utils import ply as jply
 from switch_nerf_torch import bridge
@@ -44,8 +43,10 @@ from switch_nerf_torch import merge_points as tmerge
 from switch_nerf_torch import runner as trunner
 from switch_nerf_torch.models import model_utils as tmu
 from switch_nerf_torch.utils import ply as tply
-from tests.torch_port_helpers import (Ranks, mega_hparams, with_val_image,
-                                      write_reference_pt)
+from tests.torch_port_helpers import (Ranks, jax_train_state, mega_hparams,
+                                      with_val_image, write_reference_pt)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -197,8 +198,8 @@ def test_gate_returns_match_jax(mode, scene, checkpoint):
     h = hp(scene, "unused", moe_return_gates=True,
            moe_test_batch=mode == "padded")
     jnerf = jmu.get_nerf(h, count)
-    state = jtrainer.create_train_state(jax.random.PRNGKey(0), h, jnerf,
-                                        jmu.get_bg_nerf(h, count))
+    state = jax_train_state(jax.random.PRNGKey(0), h, jnerf,
+                            jmu.get_bg_nerf(h, count))
     params = jckpt.load_checkpoint(ckpt, state,
                                    restore_rng_states=False)[0].params
     model = tmu.get_nerf(h, count, device="cpu")

@@ -19,6 +19,8 @@ from switch_nerf_torch import eval_points as teval_points
 from tests.test_torch_points import assert_same_clouds
 from tests.torch_port_helpers import (make_bungee_scene, tiny_bungee_hparams,
                                       write_reference_pt)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 N_IMAGES = 17
 

@@ -21,16 +21,17 @@ import torch
 
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import eval as teval
 from switch_nerf_torch import eval_image as teval_image
 from switch_nerf_torch import runner as trunner
 from switch_nerf_torch.datasets import ray_utils as tray
 from switch_nerf_tpu.datasets import ray_utils as jray
-from tests.torch_port_helpers import (block_runner_hparams, make_block_test_scene,
-                                      make_mega_scene)
+from tests.torch_port_helpers import (block_runner_hparams, jax_train_state,
+                                      make_block_test_scene, make_mega_scene)
 from tests.torch_port_helpers import mega_hparams as hparams
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +43,7 @@ def mega_dataset(tmp_path_factory):
 def checkpoint(mega_dataset, tmp_path_factory):
     """A JAX checkpoint of the scene's model (5 appearance rows)."""
     h = hparams(mega_dataset, "unused")
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 5), jmu.get_bg_nerf(h, 5))
     root = tmp_path_factory.mktemp("ckpt")
     jckpt.save_checkpoint(root, state)

@@ -27,7 +27,8 @@ from switch_nerf_torch import bridge
 from switch_nerf_torch import trainer as ttrainer
 from switch_nerf_torch.models import model_utils as tmu
 from switch_nerf_torch.ops import expert_kernel, fused_dispatch
-from tests.torch_port_helpers import ray_batch, tiny_building_hparams, to_jax
+from tests.torch_port_helpers import (jax_train_state, ray_batch,
+                                      tiny_building_hparams, to_jax)
 
 SCENE = (np.zeros(3, np.float32), np.ones(3, np.float32))
 
@@ -58,7 +59,7 @@ def port_state(h, np_params, device="cpu", seed=None):
 
 def jax_setup(h):
     jm, jbg = jmu.get_nerf(h, 8), jmu.get_bg_nerf(h, 8)
-    state = jtrainer.create_train_state(jax.random.PRNGKey(0), h, jm, jbg)
+    state = jax_train_state(jax.random.PRNGKey(0), h, jm, jbg)
     step = jax.jit(jtrainer.make_train_step(
         jm, jbg, h, jtrainer.render_config_from_hparams(h),
         jtrainer.SceneInfo(*map(jnp.asarray, SCENE))))

@@ -22,14 +22,15 @@ import torch
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import native
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_torch import _msgpack
 from switch_nerf_torch import runner as trunner
 from switch_nerf_torch import train as ttrain
 from switch_nerf_torch.models import moe as tmoe
-from tests.torch_port_helpers import make_mega_scene
+from tests.torch_port_helpers import jax_train_state, make_mega_scene
 from tests.torch_port_helpers import mega_train_hparams as train_hparams
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 STEPS, CKPT = 6, 3
 
@@ -43,7 +44,7 @@ def mega_dataset(tmp_path_factory):
 def jax_checkpoint(mega_dataset, tmp_path_factory):
     """A JAX step-0 checkpoint of the scene's model (5 appearance rows)."""
     h = train_hparams(mega_dataset, "unused", "memory")
-    state = jtrainer.create_train_state(
+    state = jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 5), jmu.get_bg_nerf(h, 5))
     root = tmp_path_factory.mktemp("ckpt0")
     jckpt.save_checkpoint(root, state)

@@ -40,15 +40,16 @@ from jax.sharding import NamedSharding
 from switch_nerf_tpu import checkpoints as jckpt
 from switch_nerf_tpu import native
 from switch_nerf_tpu import runner as jrunner
-from switch_nerf_tpu import trainer as jtrainer
 from switch_nerf_tpu.models import model_utils as jmu
 from switch_nerf_tpu.parallel import mesh as jmesh
 from switch_nerf_torch import _msgpack, bridge
 from switch_nerf_torch.parallel.mesh import Mesh, leaf_spec
 from tests.test_torch_parallel import (assert_within, published, read_step,
                                        same)
-from tests.torch_port_helpers import (Ranks, mega_hparams, mega_train_hparams,
-                                      with_val_image)
+from tests.torch_port_helpers import (Ranks, jax_train_state, mega_hparams,
+                                      mega_train_hparams, with_val_image)
+# autouse: the JAX runners' template states from shapes
+from tests.torch_port_helpers import jax_runners_from_shapes  # noqa: F401
 
 STEPS = 3
 # name: (mesh, expert parallel, weight parallel, ZeRO-1), its data-parallel
@@ -67,7 +68,7 @@ def scene(tmp_path_factory):
 
 
 def jax_state(h):
-    return jtrainer.create_train_state(
+    return jax_train_state(
         jax.random.PRNGKey(0), h, jmu.get_nerf(h, 6), jmu.get_bg_nerf(h, 6))
 
 

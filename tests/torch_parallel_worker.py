@@ -29,15 +29,18 @@ from switch_nerf_torch import parallel  # noqa: E402
 
 @contextlib.contextmanager
 def count_drops():
-    """[dropped, routed] tokens of every MoE routing call in the block."""
+    """[dropped, routed] tokens of every MoE routing call in the block
+    (the forward's: a remat recompute replays the same plan)."""
+    from switch_nerf_torch import remat
     from switch_nerf_torch.models import moe as tmoe
     real = tmoe.extract_critical
     tally = [0, 0]
 
     def run(gates, *a, **k):
         plan, l_aux = real(gates, *a, **k)
-        tally[0] += int((plan.locations >= plan.capacity).sum())
-        tally[1] += plan.locations.numel()
+        if not remat.recomputing():
+            tally[0] += int((plan.locations >= plan.capacity).sum())
+            tally[1] += plan.locations.numel()
         return plan, l_aux
     tmoe.extract_critical = run
     try:

@@ -45,10 +45,50 @@ def tiny_building_hparams(width=16):
     return h
 
 
-def jax_params(h, model, bg_model, seed=0):
+def jax_train_state(key, h, model, bg_model):
+    """JAX's ``create_train_state`` as one jitted program, in about half
+    the wall time of its op-by-op run, which compiles each initialiser's
+    ops one by one. Both packages' tests load its values, whatever they
+    are; at the tiny Building and Bungee configs they equal the op-by-op
+    run's bit for bit."""
     from switch_nerf_tpu.trainer import create_train_state
-    state = create_train_state(jax.random.PRNGKey(seed), h, model, bg_model)
+    return jax.jit(lambda k: create_train_state(k, h, model, bg_model))(key)
+
+
+def jax_params(h, model, bg_model, seed=0):
+    state = jax_train_state(jax.random.PRNGKey(seed), h, model, bg_model)
     return state.params, jax.tree_util.tree_map(np.asarray, state.params)
+
+
+def jax_template(h, model, bg_model, seed=1):
+    """The JAX train state of h's models as shapes and dtypes only
+    (``jax.eval_shape``: nothing is initialised or compiled), the template
+    a JAX checkpoint restores into or whose tree a test reads."""
+    from switch_nerf_tpu.trainer import create_train_state
+    return jax.eval_shape(
+        lambda key: create_train_state(key, h, model, bg_model),
+        jax.random.PRNGKey(seed))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_runners_from_shapes():
+    """Autouse in each test module that imports it: the JAX runners made
+    there build their train state from shapes alone (``jax.eval_shape`` of
+    ``create_train_state``). Every runner of those modules loads a
+    checkpoint over that state, so its initial values are never read;
+    initialising them op by op compiles each op again for every runner (a
+    runner's mesh keeps them out of JAX's op cache), seconds a runner. A
+    runner without --ckpt_path fails on the shapes."""
+    from switch_nerf_tpu import runner as jrunner
+    real = jrunner.create_train_state
+
+    def shaped(rng, *args, **kwargs):
+        return jax.eval_shape(lambda key: real(key, *args, **kwargs), rng)
+    jrunner.create_train_state = shaped
+    try:
+        yield
+    finally:
+        jrunner.create_train_state = real
 
 
 def ray_batch(n, seed=0, n_images=8):
@@ -357,11 +397,10 @@ def write_reference_pt(h, appearance_count, path, seed=0, iteration=7):
     hparams' models with random weights drawn from `seed`: the DDP
     ``module.`` prefix on the foreground's names, the dense background
     NeRF as bg_model_state_dict. Returns the JAX params tree it holds."""
-    from switch_nerf_tpu.trainer import create_train_state
     from switch_nerf_tpu.models import model_utils as jmu
     bg = jmu.get_bg_nerf(h, appearance_count) if h.bg_nerf else None
-    state = create_train_state(jax.random.PRNGKey(0), h,
-                               jmu.get_nerf(h, appearance_count), bg)
+    state = jax_train_state(jax.random.PRNGKey(0), h,
+                            jmu.get_nerf(h, appearance_count), bg)
     rng = np.random.default_rng(seed)
     params, ckpt = {}, {"iteration": iteration}
     for part, key, prefix, moe in (
@@ -399,7 +438,6 @@ def checkpoint_bytes_both_ways(h, root, appearance_count=8, bg=True):
     from flax import serialization
 
     from switch_nerf_tpu import checkpoints as jckpt
-    from switch_nerf_tpu import trainer as jtrainer
     from switch_nerf_tpu.models import model_utils as jmu
     from switch_nerf_torch import checkpoints as tckpt
     from switch_nerf_torch import trainer as ttrainer
@@ -407,7 +445,7 @@ def checkpoint_bytes_both_ways(h, root, appearance_count=8, bg=True):
 
     jm = jmu.get_nerf(h, appearance_count)
     jbg = jmu.get_bg_nerf(h, appearance_count) if bg else None
-    jstate = jtrainer.create_train_state(jax.random.PRNGKey(0), h, jm, jbg)
+    jstate = jax_train_state(jax.random.PRNGKey(0), h, jm, jbg)
     jckpt.save_checkpoint(root / "jax", jstate)
     tm = tmu.get_nerf(h, appearance_count, device="cpu", seed=5)
     tbg = (tmu.get_bg_nerf(h, appearance_count, device="cpu", seed=6)
@@ -415,8 +453,8 @@ def checkpoint_bytes_both_ways(h, root, appearance_count=8, bg=True):
     ts = ttrainer.create_train_state(h, tm, tbg, device="cpu")
     tckpt.load_checkpoint(root / "jax", ts, restore_rng_states=False)
     out = tckpt.save_checkpoint(root / "port", ts)
-    template = jtrainer.create_train_state(jax.random.PRNGKey(1), h, jm, jbg)
-    restored, _ = jckpt.load_checkpoint(root / "port", template)
+    restored, _ = jckpt.load_checkpoint(root / "port",
+                                        jax_template(h, jm, jbg))
     want = (root / "jax" / "0" / "state.msgpack").read_bytes()
     got = (out / "state.msgpack").read_bytes()
     return (want, got,
