@@ -77,9 +77,14 @@ Phases, each fatal (an exception ends the run with a non-zero exit):
      state from the same seeds over shifted allocations) with
      F.embedding's backward and with the port's: for each, whether the
      gradient arriving at the embedding's output, the table's gradient and
-     every other leaf repeat bit for bit (the port's must); then its kernel
+     every other leaf repeat bit for bit (the port's must); then its
+     two-launch kernel (a grouping pass and a sum pass, no library sort)
      against its plain version (bit for bit) and timed beside
-     F.embedding's backward on a 32,768-row chunk over a 1,920-row table
+     F.embedding's backward on a 32,768-row chunk of 64 rays x 512
+     samples over a 1,920-row table, on the same chunk with one index for
+     every row, over a 65,536-row table, unsorted and with two indices in
+     turn, with the device kernels a call (at most two, none a sort) from
+     torch.profiler
   4b. remat: --remat (the default) against --no_remat, each from fresh
      states and generators made from the same seeds: the Building bf16
      step (1,024 rays), the Mission Bay step (1,664 rays) in bf16 and in
@@ -3485,11 +3490,7 @@ def wide_kernel_phase(peaks, shapes, dtype=torch.bfloat16):
     return rows
 
 
-EMB_TABLE = 1920        # rows of the timed embedding: one per train image
-EMB_RAYS = 64           # rays of its 32,768-row chunk (512 samples each)
-
-
-def embedding_phase(peaks) -> dict:
+def embedding_phase(peaks, smi: str) -> dict:
     """The appearance embedding's backward. Where a card run's resume
     stopped repeating: one Building train step's gradients (a fresh state
     from the same seeds, the same batch and generator seed, twice, the
@@ -3497,17 +3498,22 @@ def embedding_phase(peaks) -> dict:
     the port's fixed-order one; for each, whether the gradient arriving at
     the embedding's output, the table's gradient and every other leaf's
     repeat bit for bit. The port's must. Then the kernel against its plain
-    version (bit for bit) and timed beside F.embedding's backward
-    (aten.embedding_dense_backward, the library call) on a 32,768-row chunk
-    of 64 rays x 512 samples over Building's 1,920-row table. Returns the
-    row."""
+    version (bit for bit) on profile_eval.EMB_CASES (a 32,768-row chunk of
+    64 rays x 512 samples over Building's 1,920-row table; one index for
+    every row; a 65,536-row table; the chunk unsorted; two indices in
+    turn), each timed beside F.embedding's
+    backward (aten.embedding_dense_backward, the library call), with its
+    device kernels a call and their device ms from torch.profiler (at most
+    two, none a sort). Returns the chunk's row, the other cases under
+    "cases"."""
     import torch.nn.functional as F
 
     from switch_nerf_torch.models import common
     from switch_nerf_torch.models.model_utils import get_bg_nerf, get_nerf
     from switch_nerf_torch.ops import embedding
     from switch_nerf_torch.profile_eval import (
-        SCENE, building_train_hparams, ray_batch)
+        EMB_CASES, SCENE, building_train_hparams, device_kernels,
+        embedding_case, ray_batch)
     from switch_nerf_torch.trainer import (
         create_train_state, make_train_step, render_config_from_hparams)
 
@@ -3561,35 +3567,48 @@ def embedding_phase(peaks) -> dict:
             and mine["other leaves apart"] == 0):
         raise AssertionError(f"the train step does not repeat: {repeat}")
 
-    gen = torch.Generator().manual_seed(11)
-    feats, rows_ = h.appearance_dim, EMB_RAYS * 512
-    idx = torch.randint(0, EMB_TABLE, (EMB_RAYS,), generator=gen) \
-        .repeat_interleave(512).cuda()
-    g = torch.randn(rows_, feats, generator=gen).cuda()
-    got = embedding.embedding_bwd(idx, g, EMB_TABLE)
-    want = embedding.embedding_bwd_plain(idx, g, EMB_TABLE)
-    if not torch.equal(got, want):
-        raise AssertionError("the embedding kernel disagrees with its plain "
-                             "version")
-    lib = torch.ops.aten.embedding_dense_backward(g, idx, EMB_TABLE, -1,
-                                                  False)
-    err = (lib - want).abs().max().item()
-    bound_ms, bound_by = chain_bound(rows_ * feats, nbytes(g, idx, want),
-                                     torch.float32, peaks)
-    t = {"ms": cuda_ms(lambda: embedding.embedding_bwd(idx, g, EMB_TABLE)),
-         "plain_ms": cuda_ms(lambda: embedding.embedding_bwd_plain(
-             idx, g, EMB_TABLE), iters=10, warmup=3),
-         "library_ms": cuda_ms(lambda: torch.ops.aten.embedding_dense_backward(
-             g, idx, EMB_TABLE, -1, False))}
-    sort_ms = cuda_ms(lambda: torch.sort(idx, stable=True))
-    log(f"[embedding] backward on {rows_} rows ({EMB_RAYS} rays x 512 "
-        f"samples) over a {EMB_TABLE} x {feats} table: kernel bit-equal to "
-        f"its plain version; fixed order {t['ms']:.4f} ms (its stable sort "
-        f"{sort_ms:.4f} ms), F.embedding's backward {t['library_ms']:.4f} "
-        f"ms (max |difference| {err:.3e}), plain (CPU) {t['plain_ms']:.4f} "
-        f"ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
-                repeat=repeat, **t)
+    rows = {}
+    for case in EMB_CASES:
+        idx, g, num = embedding_case(case)
+
+        def call():
+            return embedding.embedding_bwd(idx, g, num)
+        got, again = call(), call()
+        want = embedding.embedding_bwd_plain(idx, g, num)
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"the embedding kernel ({case}) disagrees "
+                                 "with its plain version or itself")
+        kernels, device_ms, by_kernel = device_kernels(call)
+        if kernels > 2 or any("sort" in n.lower() or "radix" in n.lower()
+                              for n in by_kernel):
+            raise AssertionError(f"the embedding backward ({case}) ran "
+                                 f"{kernels} kernels a call: {by_kernel}")
+
+        def library():
+            return torch.ops.aten.embedding_dense_backward(g, idx, num, -1,
+                                                           False)
+        err = (library() - want).abs().max().item()
+        bound_ms, bound_by = chain_bound(g.numel(), nbytes(g, idx, want),
+                                         torch.float32, peaks)
+        t = {"ms": cuda_ms(call),
+             "plain_ms": cuda_ms(lambda: embedding.embedding_bwd_plain(
+                 idx, g, num), iters=10, warmup=3),
+             "library_ms": cuda_ms(library)}
+        runs = int((idx[1:] != idx[:-1]).sum()) + 1
+        rows[case] = dict(max_abs_err=0.0, bound_ms=bound_ms,
+                          bound_by=bound_by, runs=runs, kernels_a_call=kernels,
+                          device_ms=device_ms, by_kernel=by_kernel, card=smi,
+                          **t)
+        log(f"[embedding] backward, {case}: {g.shape[0]} rows in {runs} "
+            f"runs over a {num} x {g.shape[1]} table: "
+            f"kernel bit-equal to its plain version and to itself; "
+            f"{t['ms']:.4f} ms a call, {kernels:g} device kernels a call "
+            f"({device_ms:.4f} ms in them: "
+            f"{', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())}"
+            f"), F.embedding's backward {t['library_ms']:.4f} ms (max "
+            f"|difference| {err:.3e}), plain (CPU) {t['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); {smi}")
+    return dict(rows.pop("runs"), repeat=repeat, cases=rows)
 
 
 MB32_STEPS, MB32_CKPT = 10, 5  # the --no_amp run's schedule
@@ -5878,7 +5897,7 @@ def run_phases(smi: str, name: str, peaks: dict, done, phase_s: dict,
     log(f"[slice] eval launches per {N_REQUESTS} requests: {eval_counts}")
     counts = {}                   # the train path's (main path's) launches
     train = train_phase(counts)
-    emb = embedding_phase(peaks)
+    emb = embedding_phase(peaks, smi)
     done("slice, train, embedding")
     remat = remat_phase()
     done("remat")
@@ -6223,10 +6242,13 @@ def run_phases(smi: str, name: str, peaks: dict, done, phase_s: dict,
             f"({r['ms'] / r['library_ms']:.3f}x), bound {r['bound_ms']:.4f} "
             f"ms ({r['bound_by']}){core}, max_abs_err "
             f"{r['max_abs_err']:.3e} on {smi}")
-    log(f"[embedding] repeats {emb['repeat']}; backward {emb['ms']:.4f} ms "
-        f"against F.embedding's {emb['library_ms']:.4f} ms, plain "
-        f"{emb['plain_ms']:.4f} ms, bound {emb['bound_ms']:.4f} ms "
-        f"({emb['bound_by']}) on {smi}")
+    log(f"[embedding] repeats {emb['repeat']}")
+    for case, r in [("runs", emb)] + list(emb["cases"].items()):
+        log(f"[embedding] backward, {case}: {r['ms']:.4f} ms "
+            f"({r['kernels_a_call']:g} device kernels a call, "
+            f"{r['device_ms']:.4f} ms in them) against F.embedding's "
+            f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) on {smi}")
     for key, r in wide.items():
         log(f"[kernels M512] {key} (bf16): {r['ms']:.4f} ms "
             f"({100 * r['bound_ms'] / r['ms']:.1f} % of the bound), plain "

@@ -56,10 +56,10 @@ class TorchLinear(nn.Module):
 class Embedding(nn.Module):
     """Appearance table (``OneHotEmbed``): a row gather gives the same
     values as the JAX package's one-hot matmul. Its backward
-    (``ops/embedding.py``) sorts the indices stably and sums each table
-    row's gradient rows in ascending order, the same bits on every run (on
-    the card a hand-written kernel), so a resumed run repeats an
-    uninterrupted one as JAX's does. Not ``weight[idx]``: a chunk's 32768
+    (``ops/embedding.py``) sums each table row's gradient rows in ascending
+    row order, the same bits on every run (on the card two hand-written
+    kernels: a grouping pass over the index range, then the sum), so a
+    resumed run repeats an uninterrupted one as JAX's does. Not ``weight[idx]``: a chunk's 32768
     indices hit a handful of rows, and the backward of an index op (an
     index_put accumulate) took 2.7 ms per chunk on the H100, 46 % of a
     Building train step's device time (PERF.md §6)."""

@@ -4,15 +4,18 @@ The forward is a row gather (``F.embedding``). The backward sums each table
 row's gradient rows in ascending row order in fp32, so every run gives the
 same bits and a resumed training run on the card repeats an uninterrupted
 one (the JAX package's one-hot matmul gradient is as repeatable; no TPU
-kernel stands behind it). On a CUDA tensor the sum is the hand-written
-kernel of ``csrc/embedding_bwd.cu`` after a stable sort of the indices; on
-a CPU tensor it is the plain version, a CPU ``index_add_``, which adds the
-rows one after another in ascending order. The kernel sums in the same
-order and gives the plain version's bits.
+kernel stands behind it). On a CUDA tensor the sum is the hand-written code
+of ``csrc/embedding_bwd.cu``: two launches and no library kernel, a
+grouping pass that knows the key range [0, num) and a sum pass that streams
+each index's rows in ascending order. On a CPU tensor it is the plain
+version, a CPU ``index_add_``, which adds the rows one after another in
+ascending order. The kernel sums in the same order and gives the plain
+version's bits.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -27,9 +30,13 @@ __all__ = ["embedding", "embedding_bwd", "embedding_bwd_plain",
 launches = 0
 
 _PROTOTYPES = {
-    "embedding_bwd": (ctypes.c_int, [ctypes.c_int] + [ctypes.c_void_p] * 4
+    "embedding_bwd": (ctypes.c_int, [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_longlong]
+                      + [ctypes.c_void_p] * 3
                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p]),
+    "embedding_bwd_workspace_bytes": (ctypes.c_longlong,
+                                      [ctypes.c_longlong, ctypes.c_int]),
     "embedding_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -45,33 +52,49 @@ def embedding_bwd_plain(idx: torch.Tensor, g: torch.Tensor,
     return out.to(g.device)
 
 
+@functools.lru_cache(maxsize=64)
+def _workspace_bytes(lib, rows: int, num: int) -> int:
+    return lib.embedding_bwd_workspace_bytes(rows, num)
+
+
 def embedding_bwd(idx: torch.Tensor, g: torch.Tensor,
                   num: int) -> torch.Tensor:
     """The kernel (or, for a CPU tensor, the plain version): dW [num, F]
     fp32 of the lookup at indices idx (any shape) for the gradient g
-    [..., F]."""
+    [..., F]. The kernel reads fp32 rows at any row stride (a slice of a
+    concatenation's gradient as it comes) and int64 indices; g of another
+    type or layout, and other index types, are converted first."""
     global launches
-    if g.device.type == "cpu":
+    dev = g.device
+    if dev.type == "cpu":
         return embedding_bwd_plain(idx, g, num)
-    if g.device.type != "cuda" or idx.device != g.device:
-        raise ValueError(f"g on {g.device}, indices on {idx.device}")
+    if dev.type != "cuda" or idx.device != dev:
+        raise ValueError(f"g on {dev}, indices on {idx.device}")
+    # the main path's g [S, F] and idx [S] pass as they are: the call's
+    # host work shows in a chunk's time (PERF.md §6)
     feats = g.shape[-1]
-    g2 = g.reshape(-1, feats).float().contiguous()
-    flat = idx.reshape(-1).long()
+    g2 = g if g.dim() == 2 else g.reshape(-1, feats)
+    if g2.dtype != torch.float32 or g2.stride(-1) != 1:
+        g2 = g2.float().contiguous()
+    flat = idx if idx.dim() == 1 else idx.reshape(-1)
+    if flat.dtype != torch.int64 or not flat.is_contiguous():
+        flat = flat.long().contiguous()
     if flat.numel() != g2.shape[0]:
         raise ValueError(f"{flat.numel()} indices for {g2.shape[0]} "
                          "gradient rows")
     if not 0 < feats <= 8192:
         raise ValueError(f"the kernel takes 1..8192 features, got {feats}")
-    sorted_idx, perm = torch.sort(flat, stable=True)
-    dw = torch.empty((num, feats), dtype=torch.float32, device=g.device)
+    dw = torch.empty((num, feats), dtype=torch.float32, device=dev)
     if num == 0:
         return dw
     lib = _build.load("embedding_bwd", _PROTOTYPES)
+    rows = g2.shape[0]
+    ws = torch.empty(_workspace_bytes(lib, rows, num), dtype=torch.uint8,
+                     device=dev)
     rc = lib.embedding_bwd(
-        g.device.index, g2.data_ptr(), sorted_idx.data_ptr(),
-        perm.data_ptr(), dw.data_ptr(), g2.shape[0], num, feats,
-        torch.cuda.current_stream(g.device).cuda_stream)
+        dev.index, g2.data_ptr(), g2.stride(0), flat.data_ptr(),
+        dw.data_ptr(), ws.data_ptr(), rows, num, feats,
+        torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error(rc, lib.embedding_bwd_error_string)
     launches += 1
     return dw

@@ -5,6 +5,7 @@ one Mission Bay train step spends its time on the card.
     python -m switch_nerf_torch.profile_eval --train [--rays 1024]
     python -m switch_nerf_torch.profile_eval --mission_bay [--rays 1664]
     python -m switch_nerf_torch.profile_eval --state_bytes
+    python -m switch_nerf_torch.profile_eval --embedding
 
 Defines the Building workloads that this script and chip_smoke.py drive
 (building.yaml + the production flags, bf16, bg NeRF, 256 + 512 samples,
@@ -24,7 +25,14 @@ unprofiled runs (host clock around work that ends in a synchronize). With
 reckons, from the leaves' shapes on the CPU, each rank's bytes of the
 Building train state's parameters and Adam moments under each layout of
 8 GPUs (``bridge.local_tree``, the rule the layout tests hold against
-JAX's shardings).
+JAX's shardings). --embedding times the appearance embedding's backward
+(``ops/embedding.embedding_bwd``) on EMB_CASES: CUDA events a call, the
+device kernels a call and their device ms (torch.profiler), whether it
+gives its plain version's bits, and F.embedding's backward on the same
+inputs. Run as a file with another checkout first on PYTHONPATH, it
+times that checkout's package with this script:
+
+    PYTHONPATH=OTHER python switch_nerf_torch/profile_eval.py --embedding
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ FAMILIES = (
     ("K2/K4 chain backward", ("chain_bwd_", "chain_dw_")),
     ("K1/K3 chain kernel", ("chain_fwd_sm90", "chain_fwd_tf32")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_")),
+    ("embedding backward", ("embedding_bwd",)),
     ("sort", ("sort", "radix")),
     ("gather / scatter / index", ("index", "gather", "scatter")),
     ("reduction / scan", ("reduce", "scan", "cumsum", "cumprod")),
@@ -143,6 +152,101 @@ def _mission_bay_run(n: int):
     return "Mission Bay train step", lambda: step(state, batch)
 
 
+# the embedding backward's inputs: phase 4a's chunk of chip_smoke.py (64
+# rays x 512 samples, a random table row a ray, F 48) over Building's
+# 1,920-row table ("runs"), the same over a 65,536-row table ("wide
+# table"), one table row for every row ("one index"), the chunk's rows in
+# a random order ("unsorted") and two table rows in turn ("alternating"):
+# in the last two nearly every row is a run of its own
+EMB_RAYS, EMB_SAMPLES, EMB_FEATS = 64, 512, 48
+EMB_CASES = {"runs": 1920, "one index": 1920, "wide table": 65536,
+             "unsorted": 1920, "alternating": 1920}
+
+
+def embedding_case(case: str, seed: int = 11):
+    """(indices [32768] int64, gradient [32768, 48] fp32, table rows) on
+    the card for one of EMB_CASES."""
+    num = EMB_CASES[case]
+    gen = torch.Generator().manual_seed(seed)
+    rays = torch.randint(0, num, (EMB_RAYS,), generator=gen)
+    if case == "one index":
+        rays[:] = rays[0]
+    idx = rays.repeat_interleave(EMB_SAMPLES)
+    g = torch.randn(idx.numel(), EMB_FEATS, generator=gen)
+    if case == "unsorted":
+        idx = idx[torch.randperm(idx.numel(), generator=gen)]
+    elif case == "alternating":
+        idx = torch.arange(idx.numel()) % 2 * (num // 2)
+    return idx.cuda(), g.cuda(), num
+
+
+def kernel_label(name: str) -> str:
+    """A kernel's name without its namespace, template arguments and
+    parameters."""
+    name = name.split("(anonymous namespace)::")[-1]
+    return name.split("<")[0].split("(")[0].replace("void ", "")[:60]
+
+
+def device_kernels(fn, iters: int = 20):
+    """(device kernels a call, their device ms a call, {kernel_label: its
+    device ms a call}) over `iters` calls of fn() under torch.profiler. A
+    trace can miss launches, so the counts are a floor."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kernel = {}
+    for e in kernels:
+        label = kernel_label(e.key)
+        by_kernel[label] = (by_kernel.get(label, 0.0)
+                            + e.self_device_time_total / 1e3 / iters)
+    return (sum(e.count for e in kernels) / iters, sum(by_kernel.values()),
+            by_kernel)
+
+
+def event_ms(fn, iters: int = 50, warmup: int = 10) -> float:
+    """Mean ms a call of fn() from CUDA events, after a warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def embedding_times() -> dict:
+    """{case: {ms, device_ms, kernels, by_kernel, library_ms, bit_equal}} of
+    embedding_bwd on each of EMB_CASES (library: F.embedding's backward,
+    aten.embedding_dense_backward)."""
+    from switch_nerf_torch.ops import embedding
+    out = {}
+    for case in EMB_CASES:
+        idx, g, num = embedding_case(case)
+
+        def call():
+            return embedding.embedding_bwd(idx, g, num)
+        same = torch.equal(call().cpu(),
+                           embedding.embedding_bwd_plain(idx, g, num).cpu())
+        kernels, device_ms, by_kernel = device_kernels(call)
+        out[case] = {
+            "ms": event_ms(call), "device_ms": device_ms,
+            "kernels": kernels, "by_kernel": by_kernel,
+            "library_ms": event_ms(
+                lambda: torch.ops.aten.embedding_dense_backward(
+                    g, idx, num, -1, False)),
+            "bit_equal": same}
+    return out
+
+
 # (label, D, E, --expert_parallel, --expert_weight_parallel,
 #  --shard_optimizer_states): the layouts --state_bytes reckons
 LAYOUTS = (("data parallel", 8, 1, False, False, False),
@@ -199,6 +303,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=0,
                     help="unprofiled runs to time before the profiled one")
     ap.add_argument("--trace", type=str, default=None)
+    ap.add_argument("--embedding", action="store_true",
+                    help="time the embedding's backward on EMB_CASES, and "
+                    "stop")
     ap.add_argument("--state_bytes", action="store_true",
                     help="reckon each rank's train-state bytes under each "
                     "layout of 8 GPUs on the CPU, and stop")
@@ -208,6 +315,19 @@ def main(argv=None) -> int:
             print(f"{label}, --mesh_shape {d} {e}: per-rank parameter + "
                   f"Adam moment bytes {sorted(set(ranks))} (reckoned from "
                   "shapes on the CPU, not measured)")
+        return 0
+    if args.embedding:
+        rows = embedding_times()
+        for case, r in rows.items():
+            print(f"embedding backward, {case} ({EMB_CASES[case]} table "
+                  f"rows): {r['ms']:.4f} ms a call (events), "
+                  f"{r['kernels']:g} device kernels a call, "
+                  f"{r['device_ms']:.4f} ms in them, F.embedding's backward "
+                  f"{r['library_ms']:.4f} ms, bit-equal to the plain "
+                  f"version {r['bit_equal']}; device ms a call by kernel "
+                  f"{r['by_kernel']}")
+        print(json.dumps({"embedding": rows,
+                          "device": torch.cuda.get_device_name(0)}))
         return 0
 
     if args.mission_bay:

@@ -644,24 +644,88 @@ def test_wide_ragged_fp32_kernels_error_against_float64(cuda):
         [0, 301, 2900, 895, 0, 1, 4000, 97], 512, cuda, seed=43)
 
 
-def test_embedding_bwd_kernel_matches_plain_bit_for_bit(cuda):
-    """The embedding backward's kernel and its plain version (a CPU
-    index_add_) give the same bits: a 32,768-row chunk over a handful of
-    Building-sized table rows, rows past 64-row tiles, an index no row
-    names, and one row."""
-    from switch_nerf_torch.ops import embedding
-    g = torch.Generator().manual_seed(3)
-    for rows, num, feats in ((32768, 1920, 48), (777, 9, 48), (1, 4, 5),
-                             (5000, 3, 300)):
+def _embedding_case(layout, rows, num, feats, seed):
+    """Indices [rows] int64 in one of EMBEDDING_CASES' layouts and a
+    gradient [rows, feats] (a slice of a wider tensor for "strided", at a
+    4-byte offset for "offset"), on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    if layout in ("runs", "strided", "offset", "wide table"):
+        # a chunk of rays of 512 samples each, a random table row a ray
+        idx = torch.randint(0, num, (-(-rows // 512),), generator=g)
+        idx = idx.repeat_interleave(512)[:rows]
+    elif layout == "unsorted":
         idx = torch.randint(0, num, (rows,), generator=g)
         idx[: rows // 3] = num // 2            # one table row takes many
-        gy = torch.randn(rows, feats, generator=g) * 10
+        idx = idx[torch.randperm(rows, generator=g)]
+    elif layout == "one index":
+        idx = torch.full((rows,), num // 3, dtype=torch.long)
+    elif layout == "alternating":               # every row its own run
+        idx = torch.arange(rows) % 2 * (num - 1) // 2 + 1
+    elif layout == "ends":
+        idx = torch.randint(0, 2, (rows,), generator=g) * (num - 1)
+    else:
+        raise ValueError(layout)
+    pad = {"strided": (0, 16), "offset": (1, 2)}.get(layout, (0, 0))
+    wide = torch.randn(rows, feats + pad[1], generator=g) * 10
+    return idx, wide[:, pad[0]:pad[0] + feats]
+
+
+# (layout, rows, table rows, features): chip_smoke.py's 4a chunk (64 rays x
+# 512 samples over Building's table), other orders, counts past shared
+# memory (65,536 table rows), F from 1 to 8,192, one row and none
+EMBEDDING_CASES = [
+    ("runs", 32768, 1920, 48), ("unsorted", 32768, 1920, 48),
+    ("one index", 32768, 1920, 48), ("alternating", 32768, 1920, 48),
+    ("ends", 32768, 1920, 48), ("wide table", 32768, 65536, 48),
+    ("runs", 32768, 1920, 1), ("runs", 32768, 1920, 5),
+    ("runs", 32768, 1920, 300), ("runs", 4096, 1920, 8192),
+    ("strided", 32768, 1920, 48), ("offset", 32768, 1920, 48),
+    ("unsorted", 777, 9, 48), ("runs", 1, 4, 5), ("runs", 0, 4, 5),
+    ("unsorted", 5000, 3, 300)]
+
+
+@pytest.mark.parametrize("layout,rows,num,feats", EMBEDDING_CASES)
+def test_embedding_bwd_kernel_matches_plain_bit_for_bit(cuda, layout, rows,
+                                                        num, feats):
+    """The embedding backward's kernel and its plain version (a CPU
+    index_add_) give the same bits, and two calls (over NaN-filled memory)
+    give the same bits, one launch counted a call; the table rows no index
+    names come out 0."""
+    from switch_nerf_torch.ops import embedding
+    idx, gy = _embedding_case(layout, rows, num, feats, seed=rows + feats)
+    want = embedding.embedding_bwd_plain(idx, gy, num)
+    got = []
+    for _ in range(2):
+        _dirty_allocator(cuda)
         before = embedding.launches
-        got = embedding.embedding_bwd(idx.to(cuda), gy.to(cuda), num)
+        got.append(embedding.embedding_bwd(idx.to(cuda), gy.to(cuda), num))
         torch.cuda.synchronize()
         assert embedding.launches == before + 1
-        want = embedding.embedding_bwd_plain(idx, gy, num)
-        assert torch.equal(got.cpu(), want), (rows, num, feats)
+    assert got[0].shape == (num, feats)
+    assert torch.equal(got[0].cpu(), want), (layout, rows, num, feats)
+    assert torch.equal(got[0], got[1])
+
+
+def test_embedding_bwd_runs_two_kernels_and_no_sort(cuda):
+    """At chip_smoke.py's 4a chunk a call runs at most two device kernels,
+    none of them a library sort (the grouping pass is hand-written)."""
+    from torch.profiler import ProfilerActivity, profile
+    from switch_nerf_torch.ops import embedding
+    idx, gy = _embedding_case("runs", 32768, 1920, 48, seed=5)
+    idx, gy = idx.to(cuda), gy.contiguous().to(cuda)
+    embedding.embedding_bwd(idx, gy, 1920)             # build and load
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        embedding.embedding_bwd(idx, gy, 1920)
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    names = [ev.key for ev in kernels]
+    assert 0 < sum(ev.count for ev in kernels) <= 2, names
+    assert not any("sort" in n.lower() or "radix" in n.lower()
+                   for n in names), names
+    assert any("embedding_bwd_group" in n for n in names), names
+    assert any("embedding_bwd_sum" in n for n in names), names
 
 
 SURFACE = {

@@ -69,6 +69,40 @@ def test_plain_backward_is_the_ascending_loop_sum(rows, num, feats):
     assert not got[num:].any()
 
 
+def _layout(layout, rows, num, seed):
+    """Indices in an order the kernel's grouping pass must handle: runs of
+    a ray's 64 samples shuffled row by row ("unsorted"), or two table rows
+    in turn, every row its own run ("alternating")."""
+    rng = np.random.default_rng(seed)
+    if layout == "unsorted":
+        return rng.permutation(np.repeat(rng.integers(0, num, rows // 64),
+                                         64))
+    return np.arange(rows) % 2 * (num - 1)
+
+
+@pytest.mark.parametrize("layout", ["unsorted", "alternating"])
+def test_plain_backward_in_any_row_order(layout):
+    """The plain version on unsorted and alternating indices: within 1e-6
+    of JAX's one-hot gradient (relative to its largest entry) and bit for
+    bit the ascending loop sum."""
+    rows, num, feats = 4096, 33, 48
+    idx = _layout(layout, rows, num, seed=rows + len(layout))
+    _, g, table = _case(rows, num, feats, seed=len(layout))
+    emb = OneHotEmbed(num, feats)
+    params = {"params": {"embedding": jnp.asarray(table)}}
+    _, vjp = jax.vjp(lambda p: emb.apply(p, jnp.asarray(idx)), params)
+    (ref,) = vjp(jnp.asarray(g))
+    ref = np.asarray(ref["params"]["embedding"])
+
+    module = Embedding(num, feats)
+    with torch.no_grad():
+        module.weight.copy_(torch.from_numpy(table))
+    module(torch.from_numpy(idx)).backward(torch.from_numpy(g))
+    got = module.weight.grad.numpy()
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+    np.testing.assert_array_equal(got, _loop_sum(idx, g, num))
+
+
 def test_backward_through_autograd_is_the_plain_version():
     """EmbeddingFn's gradient (indices of any shape, the weight a leaf that
     also takes other gradient) equals the plain version's sum plus the
