@@ -142,9 +142,10 @@ def get_opts_base() -> argparse.ArgumentParser:
                    default=True, action="store_false")
     p.add_argument("--i_print", type=int, default=100)
     p.add_argument("--profile_trace_step", type=int, default=None,
-                   help="capture a 3-step jax.profiler trace starting at "
-                        "this iteration into <exp>/profile (view with "
-                        "TensorBoard or tools/profile_step.py's parser)")
+                   help="trace 3 steps from this iteration with "
+                        "torch.profiler (host, CUDA kernels and the "
+                        "program's snerf.* spans) into a Chrome trace under "
+                        "<exp>/profile")
     p.add_argument("--find_unused_parameters", default=False,
                    action="store_true")
     p.add_argument("--moe_use_residual", default=False, action="store_true")

@@ -50,6 +50,7 @@ from switch_nerf_torch.ops.routing import (extract_critical,
                                            load_importance_loss)
 from switch_nerf_torch.ops.sorting import sort_with_payloads
 from switch_nerf_torch.parallel.chunks import current_share
+from switch_nerf_torch.utils.spans import span
 
 
 class MoELayer(nn.Module):
@@ -118,30 +119,32 @@ class MoELayer(nn.Module):
         """
         e = self.num_experts
         gin = gate_input if gate_input is not None else x
-        logits = self.wg(gin.float() if self.fp32_gate else gin)
-        noisy = logits
-        if self.gate_noise > 0 and train:
-            # the draw is kept across the remat boundary (remat.py)
-            noisy = logits + self.gate_noise * remat.keep(
-                self.noise, logits, generator) / e
-        gates = torch.softmax(noisy.float(), dim=1)
+        with span("moe.gate"):
+            logits = self.wg(gin.float() if self.fp32_gate else gin)
+            noisy = logits
+            if self.gate_noise > 0 and train:
+                # the draw is kept across the remat boundary (remat.py)
+                noisy = logits + self.gate_noise * remat.keep(
+                    self.noise, logits, generator) / e
+            gates = torch.softmax(noisy.float(), dim=1)
         # a data-parallel chunk that spans ranks routes over all of its
         # tokens (parallel/chunks.py); None: over these
         share = current_share()
-        plan, l_aux = extract_critical(gates, self.top_k,
-                                       self.capacity_factor,
-                                       self.batch_prioritized_routing,
-                                       share=share)
         extras = {}
-        if self.use_load_importance_loss:
-            balance = l_aux
-            topk_logits = torch.gather(noisy.float(), 1,
-                                       plan.indices.t().long())
-            l_aux = load_importance_loss(torch.softmax(logits.float(), dim=1),
-                                         topk_logits, e, self.gate_noise,
-                                         share=share)
-            if self.compute_balance_loss:
-                extras["balance_loss"] = balance
+        with span("moe.route"):
+            plan, l_aux = extract_critical(gates, self.top_k,
+                                           self.capacity_factor,
+                                           self.batch_prioritized_routing,
+                                           share=share)
+            if self.use_load_importance_loss:
+                balance = l_aux
+                topk_logits = torch.gather(noisy.float(), 1,
+                                           plan.indices.t().long())
+                l_aux = load_importance_loss(
+                    torch.softmax(logits.float(), dim=1), topk_logits, e,
+                    self.gate_noise, share=share)
+                if self.compute_balance_loss:
+                    extras["balance_loss"] = balance
         mode = self.train_dispatch if train else self.eval_dispatch
         if mode == "nodrop":
             y = self._nodrop_path(x, plan)
@@ -149,7 +152,8 @@ class MoELayer(nn.Module):
             y = self._padded_path(x, plan)
         y = y.to(x.dtype)
         if self.use_residual:
-            res = self.residual_expert(x[None])[0]
+            with span("moe.experts"):
+                res = self.residual_expert(x[None])[0]
             coef = torch.softmax(self.coefficient(x.float()), dim=-1).to(
                 x.dtype)
             y = y * coef[..., 0:1] + res * coef[..., 1:]
@@ -160,27 +164,34 @@ class MoELayer(nn.Module):
         return y, l_aux, extras
 
     def _padded_path(self, x: torch.Tensor, plan) -> torch.Tensor:
-        dp = build_dispatch_plan(plan, self.num_experts)
-        if self._use_fused_dispatch(x, dp):
-            # fold the dispatch gather into the chain kernel: the [E, C, M]
-            # buffer is never built; empty slots read the appended zero row
-            # The JAX package pads to a multiple of 8 rows for Mosaic's
-            # aligned loads; the card's kernels load any row, so one row.
-            s, m = x.shape
-            tokens_ext = torch.cat([x, x.new_zeros((1, m))], dim=0)
-            ec = dp.num_experts * dp.capacity
-            slot_ext = torch.cat([dp.slot[0], dp.slot.new_full((1,), ec)])
-            kept_ext = torch.cat([dp.kept[0], dp.kept.new_zeros((1,))])
-            expert_out = self.experts.fused_dispatch(
-                tokens_ext,
-                fused_slot_map(dp.slot_to_token[0], dp.filled[0], s),
-                slot_ext, kept_ext)
-        else:
-            expert_out = self.experts(dispatch(
-                x, dp, is_postscore=self.is_postscore,
-                no_score=self.no_score))                           # [E, C, M]
-        return combine(expert_out, dp, is_postscore=self.is_postscore,
-                       no_score=self.no_score)
+        with span("moe.dispatch"):
+            dp = build_dispatch_plan(plan, self.num_experts)
+            fused = self._use_fused_dispatch(x, dp)
+            if fused:
+                # fold the dispatch gather into the chain kernel: the
+                # [E, C, M] buffer is never built; empty slots read the
+                # appended zero row. The JAX package pads to a multiple of
+                # 8 rows for Mosaic's aligned loads; the card's kernels
+                # load any row, so one row.
+                s, m = x.shape
+                tokens_ext = torch.cat([x, x.new_zeros((1, m))], dim=0)
+                ec = dp.num_experts * dp.capacity
+                slot_ext = torch.cat([dp.slot[0],
+                                      dp.slot.new_full((1,), ec)])
+                kept_ext = torch.cat([dp.kept[0], dp.kept.new_zeros((1,))])
+                stt_eff = fused_slot_map(dp.slot_to_token[0], dp.filled[0], s)
+            else:
+                dispatched = dispatch(x, dp, is_postscore=self.is_postscore,
+                                      no_score=self.no_score)      # [E, C, M]
+        with span("moe.experts"):
+            if fused:
+                expert_out = self.experts.fused_dispatch(
+                    tokens_ext, stt_eff, slot_ext, kept_ext)
+            else:
+                expert_out = self.experts(dispatched)
+        with span("moe.combine"):
+            return combine(expert_out, dp, is_postscore=self.is_postscore,
+                           no_score=self.no_score)
 
     def _nodrop_path(self, x: torch.Tensor, plan) -> torch.Tensor:
         """Sort by expert + the ragged chain; no token dropped (JAX
@@ -191,21 +202,24 @@ class MoELayer(nn.Module):
         gate multiply and the sum over k. The counts stay on the device:
         no host sync. Gradients flow through the gathers."""
         k, s = plan.indices.shape
-        flat_expert = plan.indices.reshape(-1).to(torch.int32)
-        gates_flat = plan.gates.reshape(-1).float()
-        iota = torch.arange(k * s, dtype=torch.int32, device=x.device)
-        row_expert, order, sorted_gates = sort_with_payloads(
-            flat_expert, iota, gates_flat)
-        row_token = (order % s).long()
-        xs = x[row_token]                                          # [K*S, M]
-        if not (self.is_postscore or self.no_score):
-            xs = xs * sorted_gates[:, None].to(xs.dtype)
-        ys = self.experts.ragged(xs, plan.expert_counts, row_expert)
-        _, inv = sort_with_payloads(order, iota)
-        rows = ys[inv.long()].float().reshape(k, s, -1)
-        if self.no_score or not self.is_postscore:
-            return rows.sum(dim=0)
-        return torch.sum(rows * plan.gates[..., None], dim=0)
+        with span("moe.dispatch"):
+            flat_expert = plan.indices.reshape(-1).to(torch.int32)
+            gates_flat = plan.gates.reshape(-1).float()
+            iota = torch.arange(k * s, dtype=torch.int32, device=x.device)
+            row_expert, order, sorted_gates = sort_with_payloads(
+                flat_expert, iota, gates_flat)
+            row_token = (order % s).long()
+            xs = x[row_token]                                      # [K*S, M]
+            if not (self.is_postscore or self.no_score):
+                xs = xs * sorted_gates[:, None].to(xs.dtype)
+        with span("moe.experts"):
+            ys = self.experts.ragged(xs, plan.expert_counts, row_expert)
+        with span("moe.combine"):
+            _, inv = sort_with_payloads(order, iota)
+            rows = ys[inv.long()].float().reshape(k, s, -1)
+            if self.no_score or not self.is_postscore:
+                return rows.sum(dim=0)
+            return torch.sum(rows * plan.gates[..., None], dim=0)
 
     def _use_fused_dispatch(self, x: torch.Tensor, dp: DispatchPlan) -> bool:
         """Opt-in (SWITCH_NERF_FUSED_DISPATCH=1), read at each call as the

@@ -31,6 +31,7 @@ from switch_nerf_torch.models.mlp import Mlp, NormMlp
 from switch_nerf_torch.models.moe import MoELayer
 from switch_nerf_torch.ops.encoding import (freq_encode, mip_encode,
                                             shifted_softplus)
+from switch_nerf_torch.utils.spans import spanned
 
 
 class NeRFMoE(nn.Module):
@@ -165,6 +166,7 @@ class NeRFMoE(nn.Module):
                                               generator=generator)
                 break
 
+    @spanned("moe.gate")
     def _gate_features(self, h: torch.Tensor) -> torch.Tensor:
         cfgs = self.layer_cfg["layers"]
         gate_feat = apply_act(cfgs["moe_external_gate"].get("act", "none"),

@@ -17,6 +17,7 @@ import torch
 
 from switch_nerf_torch import remat
 from switch_nerf_torch.ops.routing import RoutingPlan
+from switch_nerf_torch.utils.spans import spanned
 
 __all__ = [
     "DispatchPlan", "build_dispatch_plan", "dispatch", "combine",
@@ -136,6 +137,7 @@ class _DispatchFn(torch.autograd.Function):
                           prescore, name="moe_dispatched")     # [E*C, M]
 
     @staticmethod
+    @spanned("moe.dispatch_bwd")
     def backward(ctx, g):
         tokens, gates, slot, kept = ctx.saved_tensors
         rows = _gather_rows(g, slot)                             # [K, S, M]
@@ -163,6 +165,7 @@ class _CombineFn(torch.autograd.Function):
         return torch.sum(rows.float() * scale[..., None], dim=0)
 
     @staticmethod
+    @spanned("moe.combine_bwd")
     def backward(ctx, d_y):
         flat, gates, slot, kept, stt, filled = ctx.saved_tensors
         # gather d_y by slot->token in the expert dtype, the gate multiplied

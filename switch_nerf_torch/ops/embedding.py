@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from switch_nerf_torch.ops import _build
 from switch_nerf_torch.ops.expert_kernel import raise_on_error
+from switch_nerf_torch.utils.spans import spanned
 
 __all__ = ["embedding", "embedding_bwd", "embedding_bwd_plain",
            "EmbeddingFn"]
@@ -111,6 +112,7 @@ class EmbeddingFn(torch.autograd.Function):
         return F.embedding(idx, weight)
 
     @staticmethod
+    @spanned("model.embedding_bwd")
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         return None, embedding_bwd(idx, g, ctx.num).to(ctx.weight_dtype)

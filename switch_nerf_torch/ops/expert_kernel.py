@@ -63,6 +63,7 @@ from typing import Sequence, Tuple
 import torch
 
 from switch_nerf_torch.ops import _build
+from switch_nerf_torch.utils.spans import spanned
 
 __all__ = ["expert_mlp_chain", "expert_mlp_chain_plain",
            "expert_mlp_chain_bwd", "expert_mlp_chain_bwd_plain",
@@ -362,6 +363,7 @@ class ExpertChainFn(torch.autograd.Function):
         return expert_mlp_chain_fwd(x, ws, bs, skips)
 
     @staticmethod
+    @spanned("moe.experts_bwd")
     def backward(ctx, g):
         x, ws, bs = ctx.saved_tensors
         dx, dw, db = expert_mlp_chain_bwd(x, ws, bs, g.contiguous(),

@@ -44,6 +44,7 @@ from switch_nerf_torch.ops.expert_kernel import (
     KERNEL_WIDTHS, bwd_buffers, check_chain_weights, check_like, check_rows,
     expert_mlp_chain_bwd_plain, expert_mlp_chain_plain, pointers,
     raise_on_error, skip_mask, split_workspace)
+from switch_nerf_torch.utils.spans import spanned
 
 __all__ = ["fused_dispatch_chain", "fused_dispatch_chain_plain",
            "fused_dispatch_chain_bwd", "fused_dispatch_chain_bwd_plain",
@@ -224,6 +225,7 @@ class FusedDispatchFn(torch.autograd.Function):
         return fused_dispatch_chain_fwd(tokens_ext, stt_eff, ws, bs, skips)
 
     @staticmethod
+    @spanned("moe.experts_bwd")
     def backward(ctx, g):
         tokens_ext, stt_eff, ws, bs, slot, kept = ctx.saved_tensors
         dxd, dw, db = fused_dispatch_chain_bwd(tokens_ext, stt_eff, ws, bs,

@@ -54,6 +54,7 @@ from switch_nerf_torch.ops.expert_kernel import (
     check_chain_weights, check_like, check_rows, expert_mlp_chain_bwd_plain,
     expert_mlp_chain_plain, pointers, raise_on_error, skip_mask,
     split_workspace)
+from switch_nerf_torch.utils.spans import spanned
 
 __all__ = ["ragged_chain", "ragged_chain_plain", "ragged_chain_bwd_plain",
            "ragged_chain_fwd", "ragged_chain_bwd", "RaggedChainFn"]
@@ -229,6 +230,7 @@ class RaggedChainFn(torch.autograd.Function):
         return ragged_chain_fwd(x, counts, ws, bs, skips)
 
     @staticmethod
+    @spanned("moe.experts_bwd")
     def backward(ctx, g):
         x, counts, ws, bs = ctx.saved_tensors
         dx, dw, db = ragged_chain_bwd(x, counts, ws, bs, g.contiguous(),

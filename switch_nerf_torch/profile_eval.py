@@ -18,8 +18,9 @@ Mission Bay train step (mission_bay.yaml + the README's flags: 8 experts x
 dispatch, 1,664 rays) on rays from inside the unit sphere with near 1, far
 10 and mip radii 1e-3. Runs one warm-up, then one request or
 step under torch.profiler, and prints its wall time, the summed time of
-the device kernels and their share of the wall time, device time by
-kernel family, and the top kernels. With --steps N, first times N
+the device kernels, device time by kernel family, and the top kernels
+(the program's ``snerf.*`` spans, ``utils/spans.py``, are in the trace
+and counted as no kernel). With --steps N, first times N
 unprofiled runs (host clock around work that ends in a synchronize). With
 --trace, writes a Chrome trace there. --state_bytes needs no card: it
 reckons, from the leaves' shapes on the CPU, each rank's bytes of the
@@ -198,7 +199,8 @@ def device_kernels(fn, iters: int = 20):
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     by_kernel = {}
     for e in kernels:
         label = kernel_label(e.key)
@@ -362,7 +364,8 @@ def main(argv=None) -> int:
             Path(args.trace) / f"{what.replace(' ', '_')}.json"))
 
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     by_family = {}
@@ -371,8 +374,7 @@ def main(argv=None) -> int:
         f[0] += e.self_device_time_total / 1e3
         f[1] += e.count
     print(f"{what}: {n} rays, wall {wall * 1e3:.1f} ms, device kernels "
-          f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / (wall * 1e3):.1f}"
-          f"% busy), {launches} kernel launches")
+          f"{device_us / 1e3:.1f} ms, {launches} kernel launches")
     for fam, (ms, cnt) in sorted(by_family.items(), key=lambda kv: -kv[1][0]):
         print(f"  {fam:28s} {ms:9.2f} ms  {cnt:7d} launches")
     print("top kernels by device time:")

@@ -62,6 +62,8 @@ from typing import Any, Callable, FrozenSet, Iterator, List, Optional
 import torch
 import torch.utils.checkpoint
 
+from switch_nerf_torch.utils.spans import span
+
 __all__ = ["save_names", "keep", "recomputing", "checkpoint", "STATS",
            "reset_stats"]
 
@@ -184,9 +186,14 @@ def checkpoint(fn: Callable[..., Any], names: FrozenSet[str], *args):
                                 for t in _tensors(args))
 
     def run(*a):
-        if tape.recorded:
-            tape.cursor = 0
-            STATS["recomputes"] += 1
+        if not tape.recorded:
+            return taped(a)
+        tape.cursor = 0
+        STATS["recomputes"] += 1
+        with span("remat.recompute"):
+            return taped(a)
+
+    def taped(a):
         token = _TAPE.set(tape)
         try:
             return fn(*a)

@@ -61,6 +61,7 @@ from switch_nerf_torch.ops.volume import (
     depth2pts_outside, expand_and_perturb_z_vals, intersect_sphere,
     sample_pdf, volume_render)
 from switch_nerf_torch.parallel import chunks
+from switch_nerf_torch.utils.spans import span, spanned
 
 ModelFn = Callable[[torch.Tensor, Optional[torch.Tensor], bool],
                    Tuple[torch.Tensor, torch.Tensor]]
@@ -149,7 +150,7 @@ def run_model_chunked(model_fn: ModelFn, points: torch.Tensor,
                 dtype=torch.float32, device=pts.device)
 
         def call(pts, sigma_noise, share=piece.share):
-            with chunks.sharing(share):
+            with span("model.call"), chunks.sharing(share):
                 return model_fn(pts, sigma_noise, mode.train, mode.generator)
         if names is None:
             out, moe_loss = call(pts, sigma_noise)
@@ -250,6 +251,7 @@ def _adjust_last_delta(ld: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return ld - diff[:, None]
 
 
+@spanned("render.rays")
 def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
                 rays: torch.Tensor, image_indices: Optional[torch.Tensor],
                 cfg: RenderConfig, sphere_center: Optional[torch.Tensor],
@@ -302,78 +304,83 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
                                 sphere_center, sphere_radius, get_depth)
 
     # ---------------- foreground coarse ------------------------------------
-    z_steps = torch.linspace(0.0, 1.0, cfg.coarse_samples, dtype=rays.dtype,
-                             device=rays.device)
-    # near (1 - s) + far s and o + d z with their last product and sum in
-    # one rounding (a fused multiply-add), as XLA computes them: the top PE
-    # frequencies turn a last-bit difference in a point into gradient noise
-    z_vals = torch.addcmul(near * (1 - z_steps), far, z_steps)
-    z_vals = expand_and_perturb_z_vals(z_vals, perturb, generator)
-    xyz_coarse = torch.addcmul(rays_o3, rays_d3, z_vals[..., None])
-    rgbs_c, sigmas_c, zv_c, _, moe_loss_c = _inference(
-        model_fn, xyz_coarse, z_vals, rays_d3, image_indices, cfg, mode,
-        flip=False, depth_real=None)
-    results["gate_loss_coarse"] = moe_loss_c.reshape(-1)
-
-    # per-sample introspection outputs of the coarse pass
-    if cfg.return_pts:
-        results["pts_coarse"] = xyz_coarse
-    if cfg.return_pts_rgb:
-        results["pts_rgb_coarse"] = rgbs_c
-    if cfg.return_sigma:
-        results["sigma_coarse"] = sigmas_c
-    if cfg.return_pts_alpha or cfg.return_alpha:
-        deltas_c = torch.cat([zv_c[..., 1:] - zv_c[..., :-1],
-                              _adjust_last_delta(last_delta, zv_c)], dim=-1)
-        alphas_c = 1.0 - torch.exp(-deltas_c * sigmas_c)
-        if cfg.return_pts_alpha:
-            results["pts_alpha_coarse"] = alphas_c
-        if cfg.return_alpha:
-            results["alpha_coarse"] = alphas_c
-
     typ = "fine" if cfg.fine_samples > 0 else "coarse"
-    if typ == "coarse":
-        vr = _composite(rgbs_c, sigmas_c, zv_c,
-                        _adjust_last_delta(last_delta, zv_c), cfg, mode,
-                        flip=False, get_depth=get_depth,
-                        get_depth_variance=get_depth_variance)
-    else:
-        vr_c = _composite(rgbs_c, sigmas_c, zv_c,
-                          _adjust_last_delta(last_delta, zv_c), cfg, mode,
-                          flip=False, composite_rgb=cfg.use_cascade)
-        if cfg.use_cascade:
-            results["rgb_coarse"] = vr_c.rgb
-            if has_bg:
-                results["bg_lambda_coarse"] = vr_c.bg_lambda
-        z_mid = 0.5 * (zv_c[:, :-1] + zv_c[:, 1:])
-        fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1].detach(),
-                            cfg.fine_samples, det=perturb == 0,
-                            generator=generator)
-        if cfg.use_cascade:
-            fine_z = torch.sort(torch.cat([zv_c, fine_z], dim=-1),
-                                dim=-1).values
-        xyz_fine = torch.addcmul(rays_o3, rays_d3, fine_z[..., None])
-        rgbs_f, sigmas_f, zv_f, _, moe_loss_f = _inference(
-            model_fn_fine, xyz_fine, fine_z, rays_d3, image_indices, cfg,
-            mode, flip=False, depth_real=None)
-        results["gate_loss_fine"] = moe_loss_f.reshape(-1)
+    with span("render.coarse"):
+        z_steps = torch.linspace(0.0, 1.0, cfg.coarse_samples,
+                                 dtype=rays.dtype, device=rays.device)
+        # near (1 - s) + far s and o + d z with their last product and sum
+        # in one rounding (a fused multiply-add), as XLA computes them: the
+        # top PE frequencies turn a last-bit difference in a point into
+        # gradient noise
+        z_vals = torch.addcmul(near * (1 - z_steps), far, z_steps)
+        z_vals = expand_and_perturb_z_vals(z_vals, perturb, generator)
+        xyz_coarse = torch.addcmul(rays_o3, rays_d3, z_vals[..., None])
+        rgbs_c, sigmas_c, zv_c, _, moe_loss_c = _inference(
+            model_fn, xyz_coarse, z_vals, rays_d3, image_indices, cfg, mode,
+            flip=False, depth_real=None)
+        results["gate_loss_coarse"] = moe_loss_c.reshape(-1)
 
-        if cfg.use_cascade:
-            # the fine level's samples alone: they include the coarse z
-            z_all, rgb_all, sig_all = zv_f, rgbs_f, sigmas_f
+        # per-sample introspection outputs of the coarse pass
+        if cfg.return_pts:
+            results["pts_coarse"] = xyz_coarse
+        if cfg.return_pts_rgb:
+            results["pts_rgb_coarse"] = rgbs_c
+        if cfg.return_sigma:
+            results["sigma_coarse"] = sigmas_c
+        if cfg.return_pts_alpha or cfg.return_alpha:
+            deltas_c = torch.cat([zv_c[..., 1:] - zv_c[..., :-1],
+                                  _adjust_last_delta(last_delta, zv_c)],
+                                 dim=-1)
+            alphas_c = 1.0 - torch.exp(-deltas_c * sigmas_c)
+            if cfg.return_pts_alpha:
+                results["pts_alpha_coarse"] = alphas_c
+            if cfg.return_alpha:
+                results["alpha_coarse"] = alphas_c
+
+        if typ == "coarse":
+            vr = _composite(rgbs_c, sigmas_c, zv_c,
+                            _adjust_last_delta(last_delta, zv_c), cfg, mode,
+                            flip=False, get_depth=get_depth,
+                            get_depth_variance=get_depth_variance)
         else:
-            # merge coarse + fine raw samples before compositing
-            z_all, rgb_all, sig_all = _sort_merge(
-                torch.cat([zv_f, zv_c], dim=-1),
-                torch.cat([rgbs_f, rgbs_c], dim=-2),
-                torch.cat([sigmas_f, sigmas_c], dim=-1))
-        # reference quirk kept for parity: the fine last-delta adjustment
-        # subtracts max(FINE z) only, though the composite runs on the
-        # merged array whose max is the coarse far bound
-        vr = _composite(rgb_all, sig_all, z_all,
-                        _adjust_last_delta(last_delta, fine_z), cfg, mode,
-                        flip=False, get_depth=get_depth or has_bg,
-                        get_depth_variance=get_depth_variance)
+            vr_c = _composite(rgbs_c, sigmas_c, zv_c,
+                              _adjust_last_delta(last_delta, zv_c), cfg,
+                              mode, flip=False, composite_rgb=cfg.use_cascade)
+            if cfg.use_cascade:
+                results["rgb_coarse"] = vr_c.rgb
+                if has_bg:
+                    results["bg_lambda_coarse"] = vr_c.bg_lambda
+    if typ == "fine":
+        with span("render.fine"):
+            z_mid = 0.5 * (zv_c[:, :-1] + zv_c[:, 1:])
+            fine_z = sample_pdf(z_mid, vr_c.weights[:, 1:-1].detach(),
+                                cfg.fine_samples, det=perturb == 0,
+                                generator=generator)
+            if cfg.use_cascade:
+                fine_z = torch.sort(torch.cat([zv_c, fine_z], dim=-1),
+                                    dim=-1).values
+            xyz_fine = torch.addcmul(rays_o3, rays_d3, fine_z[..., None])
+            rgbs_f, sigmas_f, zv_f, _, moe_loss_f = _inference(
+                model_fn_fine, xyz_fine, fine_z, rays_d3, image_indices, cfg,
+                mode, flip=False, depth_real=None)
+            results["gate_loss_fine"] = moe_loss_f.reshape(-1)
+
+            if cfg.use_cascade:
+                # the fine level's samples alone: they include the coarse z
+                z_all, rgb_all, sig_all = zv_f, rgbs_f, sigmas_f
+            else:
+                # merge coarse + fine raw samples before compositing
+                z_all, rgb_all, sig_all = _sort_merge(
+                    torch.cat([zv_f, zv_c], dim=-1),
+                    torch.cat([rgbs_f, rgbs_c], dim=-2),
+                    torch.cat([sigmas_f, sigmas_c], dim=-1))
+            # reference quirk kept for parity: the fine last-delta
+            # adjustment subtracts max(FINE z) only, though the composite
+            # runs on the merged array whose max is the coarse far bound
+            vr = _composite(rgb_all, sig_all, z_all,
+                            _adjust_last_delta(last_delta, fine_z), cfg,
+                            mode, flip=False, get_depth=get_depth or has_bg,
+                            get_depth_variance=get_depth_variance)
     results[f"rgb_{typ}"] = vr.rgb
     if get_depth:
         results[f"depth_{typ}"] = vr.depth
@@ -408,6 +415,7 @@ def render_rays(model_fn: ModelFn, bg_model_fn: Optional[ModelFn],
     return results
 
 
+@spanned("render.bg")
 def _render_background(bg_model_fns, rays_o3, rays_d3, image_indices,
                        cfg: RenderConfig, mode: _Pass, sphere_center,
                        sphere_radius, get_depth):

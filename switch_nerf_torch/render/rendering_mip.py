@@ -38,6 +38,7 @@ from switch_nerf_torch.parallel import chunks
 from switch_nerf_torch.render.rendering import (ModelFn, RenderConfig, _Pass,
                                                 run_model_chunked,
                                                 split_outputs)
+from switch_nerf_torch.utils.spans import spanned
 
 FLOAT_EPS = float(torch.finfo(torch.float32).eps)
 
@@ -154,6 +155,7 @@ def _mip_inference(model_fn: ModelFn, means, cov_diags, z_edges, rays_d,
     return vr, moe_loss
 
 
+@spanned("render.rays")
 def render_rays_mip(model_fn: ModelFn, rays: torch.Tensor,
                     radii: torch.Tensor,
                     image_indices: Optional[torch.Tensor],

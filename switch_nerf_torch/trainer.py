@@ -37,6 +37,7 @@ from switch_nerf_torch.parallel import chunks, experts, host, mesh
 from switch_nerf_torch.parallel.zero import ZeroAdam
 from switch_nerf_torch.render.rendering import RenderConfig, render_rays
 from switch_nerf_torch.render.rendering_mip import render_rays_mip
+from switch_nerf_torch.utils.spans import span, spanned
 
 __all__ = ["SceneInfo", "render_config_from_hparams", "make_model_fn",
            "make_model_fn_pair", "make_eval_step", "lr_schedule",
@@ -140,6 +141,7 @@ def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
     bg_fn, bg_fn_fine = make_model_fn_pair(bg_model)
 
     @torch.no_grad()
+    @spanned("eval.step")
     def eval_step(batch) -> Dict[str, torch.Tensor]:
         rays = _as_tensor(batch["rays"], dev)
         image_indices = (_as_tensor(batch.get("image_indices"), dev)
@@ -372,30 +374,35 @@ class TrainStep:
         # weight parallel: the experts' column blocks gathered once a pass
         with torch.enable_grad(), hold_for_pass(state.model,
                                                 state.bg_model):
-            if self.mip:
-                # a cascade's coarse level only, as in JAX
-                results = render_rays_mip(
-                    model_fn, rays,
-                    _as_tensor(batch["radii"], dev), image_indices,
-                    self.render_cfg, train=True, generator=state.generator,
-                    get_depth_variance=True, grid=grid)
-            else:
-                results = render_rays(
-                    model_fn, bg_fn, rays, image_indices,
-                    self.render_cfg, self.center, self.radius, train=True,
-                    generator=state.generator, get_depth_variance=True,
-                    grid=grid, model_fn_fine=model_fn_fine,
-                    bg_model_fn_fine=bg_fn_fine)
-            metrics = compute_losses(
-                results, rgbs, self.hparams,
-                mip_or_cascade_coarse=self.mip or self.render_cfg.use_cascade)
+            with span("train.forward"):
+                if self.mip:
+                    # a cascade's coarse level only, as in JAX
+                    results = render_rays_mip(
+                        model_fn, rays,
+                        _as_tensor(batch["radii"], dev), image_indices,
+                        self.render_cfg, train=True,
+                        generator=state.generator, get_depth_variance=True,
+                        grid=grid)
+                else:
+                    results = render_rays(
+                        model_fn, bg_fn, rays, image_indices,
+                        self.render_cfg, self.center, self.radius,
+                        train=True, generator=state.generator,
+                        get_depth_variance=True, grid=grid,
+                        model_fn_fine=model_fn_fine,
+                        bg_model_fn_fine=bg_fn_fine)
+                metrics = compute_losses(
+                    results, rgbs, self.hparams,
+                    mip_or_cascade_coarse=(self.mip
+                                           or self.render_cfg.use_cascade))
             if ep_mesh is not None:
                 # every rank of an expert group made the same exchanges,
                 # so the backward's pair up
                 experts.end_pass(ep_mesh)
             params = state.parameters()
-            grads = torch.autograd.grad(metrics["all_loss"], params,
-                                        allow_unused=True)
+            with span("train.backward"):
+                grads = torch.autograd.grad(metrics["all_loss"], params,
+                                            allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         return {k: v.detach() for k, v in metrics.items()}, grads
@@ -423,6 +430,11 @@ class TrainStep:
         world = host.world_size()
         if world == 1:
             return metrics, grads
+        with span("train.allreduce"):
+            return self._average(metrics, grads, state, world)
+
+    def _average(self, metrics, grads, state, world):
+        """``average_across_ranks`` over more than one process."""
         rest = ([_rest(p) for p in state.parameters()]
                 if state is not None and grads is not None
                 else ["world"] * len(grads or []))
@@ -461,6 +473,7 @@ class TrainStep:
             grads = reduced
         return {k: out[k] for k in metrics}, grads
 
+    @spanned("train.adam")
     def _apply(self, state: TrainState, grads: List[torch.Tensor],
                applies: bool) -> None:
         """Adam on grads (at the micro-step that ``applies``, with acc > 1
@@ -489,6 +502,11 @@ class TrainStep:
 
     def __call__(self, state: TrainState, batch
                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        with span("train.step", str(state.step)):
+            return self._step(state, batch)
+
+    def _step(self, state: TrainState, batch
+              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         metrics, grads = self.loss_and_grads(state, batch)
         applies = state.mini_step == self.acc - 1
         if self.acc > 1 and applies:
@@ -508,9 +526,10 @@ class TrainStep:
             # fit, excluded), leaving parameters, optimizer, schedule and
             # step alone, and discard the accumulation window, as the JAX
             # step's lax.cond and _reset_multisteps do
-            finite = bool(torch.stack(
-                [torch.isfinite(v).all() for k, v in metrics.items()
-                 if k != "psnr"]).all())
+            with span("train.finite"):
+                finite = bool(torch.stack(
+                    [torch.isfinite(v).all() for k, v in metrics.items()
+                     if k != "psnr"]).all())
             metrics["finite"] = torch.tensor(float(finite),
                                              device=self.device)
             if not finite:
