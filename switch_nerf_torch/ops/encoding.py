@@ -7,6 +7,7 @@ boundary when the save set holds it (``remat.py``).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,6 +30,14 @@ def freq_bands(num_freqs: int, logscale: bool = True, base: float = 2.0,
                           device=device)
 
 
+@functools.lru_cache(maxsize=16)
+def _phase(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[0, pi/2] in `dtype` on `device`, made once: a copy from the host
+    at each call waits for the device, and cannot be captured in a CUDA
+    graph (``graphs.py``)."""
+    return torch.tensor([0.0, 0.5 * math.pi], dtype=dtype, device=device)
+
+
 def freq_encode(x: torch.Tensor, num_freqs: int,
                 logscale: bool = True) -> torch.Tensor:
     """(x, sin(f0 x), cos(f0 x), sin(f1 x), cos(f1 x), ...).
@@ -48,8 +57,7 @@ def _freq_encode(x: torch.Tensor, num_freqs: int,
                  logscale: bool) -> torch.Tensor:
     d = x.shape[-1]
     bands = freq_bands(num_freqs, logscale, device=x.device).to(x.dtype)
-    phase = torch.tensor([0.0, 0.5 * math.pi], dtype=x.dtype,
-                         device=x.device)                        # [2]
+    phase = _phase(x.dtype, x.device)                            # [2]
     angles = (x[..., None, None, :] * bands[:, None, None]
               + phase[:, None])                                  # [.., F, 2, D]
     sc = torch.sin(angles.reshape(*x.shape[:-1], 2 * num_freqs * d))
@@ -77,8 +85,7 @@ def _mip_encode(mean_cov: torch.Tensor, num_freqs: int, logscale: bool,
     fy = freq_bands(num_freqs, logscale, device=mean.device).to(mean.dtype)
     fw = freq_bands(num_freqs, logscale, base=4.0,
                     device=mean.device).to(mean.dtype)
-    phase = torch.tensor([0.0, 0.5 * math.pi], dtype=mean.dtype,
-                         device=mean.device)
+    phase = _phase(mean.dtype, mean.device)
     angles = (mean[..., None, None, :] * fy[:, None, None]
               + phase[:, None])                                # [.., F, 2, D]
     atten = torch.exp(-0.5 * var[..., None, None, :] * fw[:, None, None])

@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from switch_nerf_torch import bridge, resolve_device
+from switch_nerf_torch import bridge, graphs, resolve_device
 from switch_nerf_torch.models.cascade import Cascade
 from switch_nerf_torch.models.experts import hold_for_pass
 from switch_nerf_torch.parallel import chunks, experts, host, mesh
@@ -132,13 +132,36 @@ def make_eval_step(model: nn.Module, bg_model: Optional[nn.Module], hparams,
     already live on the device. ``mip`` renders with ``render_rays_mip``
     (no background model; a cascade's coarse level, as in JAX),
     deterministically.
+
+    Each model function (foreground, background, a cascade's fine level)
+    is a ``graphs.GraphedModelFn``: on a CUDA device a call of a whole
+    chunk (``render_cfg.model_chunk_size``, the background's
+    ``bg_model_chunk_size``) is captured as a CUDA graph at its second
+    call and replayed from then on, unless the model has MoE experts under
+    expert or weight parallelism or ffn experts with a hidden width other
+    than the model's; every other call runs eagerly. The key of a graph
+    is the points' shape, dtype and device, the opt-in fused dispatch and
+    the storage of the model's parameters and buffers: weights updated in
+    place are what a replay reads, weights moved to new storage are
+    captured anew. Outputs are cloned out of the graph. The step's graphs
+    share one memory pool, about one chunk call's intermediates, held for
+    the step's life (``graphs.py``).
     """
     dev = resolve_device(device)
     _check_on(dev, model=model, bg_model=bg_model)
     center = _as_tensor(scene.sphere_center, dev)
     radius = _as_tensor(scene.sphere_radius, dev)
-    model_fn, model_fn_fine = make_model_fn_pair(model)
-    bg_fn, bg_fn_fine = make_model_fn_pair(bg_model)
+    pool = graphs.GraphPool()
+
+    def graphed(fns, module, rows):
+        return tuple(None if f is None
+                     else graphs.GraphedModelFn(f, module, rows, pool)
+                     for f in fns)
+    model_fn, model_fn_fine = graphed(make_model_fn_pair(model), model,
+                                      render_cfg.model_chunk_size)
+    bg_fn, bg_fn_fine = graphed(
+        make_model_fn_pair(bg_model), bg_model,
+        render_cfg.bg_model_chunk_size or render_cfg.model_chunk_size)
 
     @torch.no_grad()
     @spanned("eval.step")

@@ -20,6 +20,8 @@ The spans (``name``: what it covers):
   render.bg, .coarse,    the classic renderer's background pass, its
   render.fine            coarse and its fine section
   model.call             one model chunk call (its recompute too)
+  model.graph            a model call replayed from a CUDA graph
+  model.graph_capture    a model call's capture (``graphs.py``)
   model.embedding_bwd    the appearance embedding's backward
   moe.gate               gate logits, noise, softmax; the external gate
   moe.route              the routing plan and the auxiliary loss
